@@ -1,0 +1,118 @@
+"""Batch inference: the MF-ViT CA forward over a paired manifest, writing
+predictions as JSON (the port of ``mfvit_tpu/cli/infer.py``, CA fusion and
+bf16/fp32 weights).
+
+    python -m mfvit_tpu_torch.cli.infer -a vit_small \\
+        --checkpoint serving.pt --manifest paired.txt -b 256 \\
+        [--report-throughput] [--device cuda]
+
+The checkpoint is a ``mfvit_tpu_torch.exp.checkpoint.save_serving`` file.
+The output JSON holds ``predictions``, ``logits`` and ``n``, and with
+``--report-throughput`` also ``pairs_per_sec`` (device-resident batch) and
+``pairs_per_sec_e2e`` (the whole run, host decode included). Label metrics
+come with the port of ``train/metrics.py`` (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from mfvit_tpu_torch.cli import common
+from mfvit_tpu_torch.data import device_aug
+from mfvit_tpu_torch.exp import checkpoint as ckpt_mod
+from mfvit_tpu_torch.models import fusion as fusion_mod
+from mfvit_tpu_torch.nn import vit as vit_mod
+from mfvit_tpu_torch.train import steps as steps_mod
+
+FLAVORS = ("data", "Train_Mix")  # the CXR and enhanced normalisations
+THROUGHPUT_ITERS = 10  # timed forwards behind --report-throughput
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("mfvit-torch-infer")
+    common.add_common_args(p)
+    p.add_argument("--checkpoint", required=True,
+                   help="serving checkpoint {'cxr','enh','fus'} "
+                        "(exp.checkpoint.save_serving)")
+    p.add_argument("--manifest", required=True, help="paired manifest file")
+    p.add_argument("--output", default="predictions.json")
+    p.add_argument("--fusion-heads", type=int, default=3)
+    p.add_argument("--cross-attn-depth", type=int, default=1)
+    p.add_argument("--multi-scale-enc-depth", type=int, default=1)
+    p.add_argument("--num-classes", type=int, default=3)
+    p.add_argument("--report-throughput", action="store_true")
+    p.set_defaults(batch_size=256)
+    return p
+
+
+def load_models(args, cfg, device) -> dict:
+    ck = ckpt_mod.load_serving(args.checkpoint)
+    models = {
+        "cxr": vit_mod.ViT(cfg, args.num_classes),
+        "enh": vit_mod.ViT(cfg, args.num_classes),
+        "fus": fusion_mod.Fusion(
+            args.num_classes, cfg.dim, args.fusion_heads,
+            args.cross_attn_depth, args.multi_scale_enc_depth),
+    }
+    for k, m in models.items():
+        m.load_state_dict(ck[k], strict=True)
+        m.to(device).eval()
+    return models
+
+
+def prepare(batch, device, dtype) -> list:
+    """A loader batch's CXR and enhanced uint8 canvases -> normalised
+    images on ``device``."""
+    return [device_aug.augment_batch(torch.from_numpy(b).to(device),
+                                     img_type=flavor, out_dtype=dtype)
+            for b, flavor in zip(batch[:2], FLAVORS)]
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    device = common.resolve_device(args.device)
+    cfg = common.get_vit_arch(args)
+    dt = common.compute_dtype(args)
+    models = load_models(args, cfg, device)
+    fwd3 = steps_mod.make_fusion_forward(compute_dtype=dt)
+
+    def forward(xc, xe):
+        fused, lc, le = fwd3(models, xc, xe)
+        return fused + lc + le
+
+    loader = common.make_paired_eval_loader(args, args.manifest)
+    n_total = len(loader.ds)
+    t0 = time.perf_counter()
+    logits = np.concatenate([forward(*prepare(b, device, dt)).cpu().numpy()
+                             for b in loader])[:n_total]
+    wall = time.perf_counter() - t0
+
+    out = {
+        "predictions": logits.argmax(-1).tolist(),
+        "logits": logits.tolist(),
+        "n": int(len(logits)),
+    }
+    if args.report_throughput:
+        out["pairs_per_sec_e2e"] = len(logits) / wall
+        # forward throughput on one device-resident batch, the logits
+        # fetched to the host every iteration
+        xc0, xe0 = prepare(next(iter(loader)), device, dt)
+        forward(xc0, xe0).cpu()  # warm
+        t0 = time.perf_counter()
+        for _ in range(THROUGHPUT_ITERS):
+            forward(xc0, xe0).cpu()
+        out["pairs_per_sec"] = (xc0.shape[0] * THROUGHPUT_ITERS
+                                / (time.perf_counter() - t0))
+    with open(args.output, "w") as f:
+        json.dump(out, f)
+    print(json.dumps({k: v for k, v in out.items()
+                      if k not in ("predictions", "logits")}))
+    return out
+
+
+if __name__ == "__main__":
+    main()

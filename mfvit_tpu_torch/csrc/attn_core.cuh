@@ -1,0 +1,203 @@
+// attn_core: the multi-head self-attention core of K1
+// (mfvit_tpu/ops/fused_attn.py::fused_attention_block, _kernel :28), between
+// its qkv GEMM and its proj GEMM (both gemm_ln.cuh; see fused_attn.cu).
+//
+// qkv (B, N, 3D) bf16 with columns [q | k | v] x head x dh -> o (B, N, D)
+// bf16. One block of four warps per (head, image): the head's K and V
+// (V transposed) are loaded once into shared memory, and each warp takes
+// 16 query rows at a time. q is scaled in fp32 and rounded to bf16; the
+// scores S = q k^T (mma.sync m16n8k16, fp32), the row max, exp and row sum
+// stay in registers; P is rounded to bf16 straight from the score
+// accumulators into the A operand of the PV product (the accumulator and A
+// fragment layouts line up), and 1/sum scales the PV output, as in the TPU
+// kernel. Keys past N are masked to zero probability.
+//
+// What bounds it on an H100: at ViT-S/16 (N = 197, dh = 32) the core reads
+// its qkv once and writes o once (155 MB at B=256) for 2 x 2 x 197^2 x 32
+// FLOPs per head and image, so it is bound by memory and latency, not by
+// the tensor cores. No score tile lives in shared memory (K and Vt take
+// 30 KB at dh = 32), so several blocks share an SM. The whole key range is
+// held at once (up to 256 keys: img_size 224 at patch 16); longer sequences
+// need the query-blocked kernel (K9).
+#pragma once
+
+#include "common.cuh"
+
+constexpr int ATT_WARPS = 4;
+constexpr int NMAX = 256;
+
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a, uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int DH, int NKT>  // NKT: key tiles of 8 held (even), NKT * 8 >= N
+struct AttnSmem {
+  static constexpr int NK = NKT * 8;
+  static constexpr int LDK = DH + 8;  // bf16 pitch of a K row
+  static constexpr int LDV = NK + 8;  // bf16 pitch of a Vt row (one head dim)
+  static constexpr size_t BYTES = (size_t)(NK * LDK + DH * LDV) * sizeof(bf16);
+};
+
+template <int DH, int NKT>
+__global__ void __launch_bounds__(ATT_WARPS * 32)
+    attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o, int N, int heads,
+                     float scale) {
+  using S = AttnSmem<DH, NKT>;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int D = heads * DH;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vt = Ks + S::NK * S::LDK;
+
+  const bf16* base = qkv + (size_t)b * N * 3 * D + h * DH;
+  constexpr int VPR = DH / 8;  // 16-byte vectors per head row
+  for (int idx = threadIdx.x; idx < S::NK * VPR; idx += ATT_WARPS * 32) {
+    const int n = idx / VPR, d = (idx % VPR) * 8;
+    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+    if (n < N) {
+      kv = *reinterpret_cast<const uint4*>(base + (size_t)n * 3 * D + D + d);
+      vv = *reinterpret_cast<const uint4*>(base + (size_t)n * 3 * D + 2 * D + d);
+    }
+    *reinterpret_cast<uint4*>(Ks + n * S::LDK + d) = kv;
+    const bf16* v8 = reinterpret_cast<const bf16*>(&vv);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) Vt[(d + t) * S::LDV + n] = v8[t];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // fragment row group, column pair
+  for (int q0 = warp * 16; q0 < N; q0 += ATT_WARPS * 16) {
+    // A fragments of q (scaled in fp32, rounded to bf16): rows q0+g, q0+g+8
+    uint32_t qa[DH / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = q0 + g + (r & 1) * 8, col = ks * 16 + 2 * t4 + (r >> 1) * 8;
+        float2 f = make_float2(0.f, 0.f);
+        if (row < N)
+          f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(base + (size_t)row * 3 * D + col));
+        qa[ks][r] = pack_bf16x2(f.x * scale, f.y * scale);
+      }
+
+    // S = q k^T: tile j holds keys 8j..8j+7; s[j][0..1] row g, [2..3] row g+8
+    float s[NKT][4];
+#pragma unroll
+    for (int j = 0; j < NKT; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DH / 16; ++ks) {
+        const bf16* kp = Ks + (8 * j + g) * S::LDK + ks * 16 + 2 * t4;
+        mma_bf16_16816(s[j], qa[ks], *reinterpret_cast<const uint32_t*>(kp),
+                       *reinterpret_cast<const uint32_t*>(kp + 8));
+      }
+    }
+
+    // fp32 softmax over the valid keys; the four lanes of a quad share a row
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (8 * j + 2 * t4 + c < N) {
+          m0 = fmaxf(m0, s[j][c]);
+          m1 = fmaxf(m1, s[j][2 + c]);
+        }
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const bool valid = 8 * j + 2 * t4 + c < N;
+        s[j][c] = valid ? expf(s[j][c] - m0) : 0.f;
+        s[j][2 + c] = valid ? expf(s[j][2 + c] - m1) : 0.f;
+        l0 += s[j][c];
+        l1 += s[j][2 + c];
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+
+    // O = P V: 16 keys per step; P's A fragment comes from two score tiles
+    float oacc[DH / 8][4];
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) oacc[c][0] = oacc[c][1] = oacc[c][2] = oacc[c][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NKT / 2; ++kk) {
+      const uint32_t pa[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c) {
+        const bf16* vp = Vt + (8 * c + g) * S::LDV + 16 * kk + 2 * t4;
+        mma_bf16_16816(oacc[c], pa, *reinterpret_cast<const uint32_t*>(vp),
+                       *reinterpret_cast<const uint32_t*>(vp + 8));
+      }
+    }
+
+    const float r0 = 1.0f / l0, r1 = 1.0f / l1;
+    bf16* orow = o + ((size_t)b * N + q0 + g) * D + h * DH + 2 * t4;
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+      if (q0 + g < N)
+        *reinterpret_cast<uint32_t*>(orow + 8 * c) = pack_bf16x2(oacc[c][0] * r0, oacc[c][1] * r0);
+      if (q0 + g + 8 < N)
+        *reinterpret_cast<uint32_t*>(orow + (size_t)8 * D + 8 * c) =
+            pack_bf16x2(oacc[c][2] * r1, oacc[c][3] * r1);
+    }
+  }
+}
+
+template <int DH, int NKT>
+static int launch_attn(const void* qkv, void* o, int B, int N, int heads, float scale,
+                       cudaStream_t stream) {
+  const size_t smem = AttnSmem<DH, NKT>::BYTES;
+  auto kern = attn_core_kernel<DH, NKT>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(heads, B), ATT_WARPS * 32, smem, stream>>>(static_cast<const bf16*>(qkv),
+                                                          static_cast<bf16*>(o), N, heads, scale);
+  return (int)cudaGetLastError();
+}
+
+// The smallest key-tile count that covers N: 64, 128, 208 or 256 keys.
+template <int DH>
+static int launch_attn_n(const void* qkv, void* o, int B, int N, int heads, float scale,
+                         cudaStream_t s) {
+  if (N <= 64) return launch_attn<DH, 8>(qkv, o, B, N, heads, scale, s);
+  if (N <= 128) return launch_attn<DH, 16>(qkv, o, B, N, heads, scale, s);
+  if (N <= 208) return launch_attn<DH, 26>(qkv, o, B, N, heads, scale, s);
+  return launch_attn<DH, 32>(qkv, o, B, N, heads, scale, s);
+}
+
+static int attn_core(const void* qkv, void* o, int B, int N, int heads, int dh, float scale,
+                     cudaStream_t s) {
+  if (B <= 0 || B > 65535 || N <= 0 || N > NMAX || heads <= 0) return (int)cudaErrorInvalidValue;
+  switch (dh) {
+    case 32: return launch_attn_n<32>(qkv, o, B, N, heads, scale, s);
+    case 64: return launch_attn_n<64>(qkv, o, B, N, heads, scale, s);
+    case 128: return launch_attn_n<128>(qkv, o, B, N, heads, scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}

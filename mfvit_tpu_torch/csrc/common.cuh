@@ -1,0 +1,67 @@
+// Shared helpers for the Hopper kernels of mfvit_tpu_torch.
+//
+// Every entry point has a plain C interface (loaded with ctypes by
+// mfvit_tpu_torch/ops/build.py): raw device pointers, the CUDA stream as a
+// pointer, and an int return value that is cudaGetLastError() right after
+// the launch (or cudaErrorInvalidValue for shapes the kernel does not take).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+#define MFV_API extern "C" __attribute__((visibility("default")))
+
+// 8 bf16 values <-> one 16-byte vector.
+__device__ __forceinline__ void bf16x8_to_float(const uint4& v, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ uint4 float_to_bf16x8(const float* f) {
+  uint4 v;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return v;
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Sum over the whole block; `scratch` holds one float per warp. Every
+// thread gets the result. The block size must be a multiple of 32.
+__device__ __forceinline__ float block_sum(float v, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();  // scratch may still be read by a previous call
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int i = 0; i < nwarps; ++i) t += scratch[i];
+  return t;
+}
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }

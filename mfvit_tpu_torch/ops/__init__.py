@@ -1,0 +1,22 @@
+"""Kernels of the serving path (K1-K4) with their plain PyTorch versions.
+
+Each kernel module keeps a ``LAUNCHES`` count that its wrapper raises by
+one where it launches its kernels on a CUDA tensor, and nowhere else."""
+from __future__ import annotations
+
+from mfvit_tpu_torch.ops import fused_attn, fused_fusion, fused_mlp
+
+_COUNTERS = (fused_attn.LAUNCHES, fused_mlp.LAUNCHES, fused_fusion.LAUNCHES)
+
+
+def launch_counts() -> dict:
+    out = {}
+    for c in _COUNTERS:
+        out.update(c)
+    return out
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS:
+        for k in c:
+            c[k] = 0
