@@ -1,13 +1,17 @@
-"""CLI plumbing shared by the entry points (the flags ``infer`` uses, from
-``mfvit_tpu/cli/common.py``), plus ``--device``."""
+"""CLI plumbing shared by the entry points (the flags ``infer`` and
+``finetune`` use, from ``mfvit_tpu/cli/common.py``), plus ``--device``: the
+streaming single-flavour training feed, and the eval runner."""
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
-from mfvit_tpu_torch.data import datasets, host_transforms as ht, pipeline
+from mfvit_tpu_torch.data import datasets, device_aug, host_transforms as ht
+from mfvit_tpu_torch.data import pipeline
 from mfvit_tpu_torch.nn import vit as vit_mod
+from mfvit_tpu_torch.train.evaluator import Evaluator
 
 
 def add_common_args(p: argparse.ArgumentParser) -> None:
@@ -23,6 +27,39 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    choices=["bfloat16", "float32"])
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises where CUDA is missing")
+
+
+def add_train_args(p: argparse.ArgumentParser) -> None:
+    """The training flags of ``mfvit_tpu/cli/common.py::add_common_args``
+    that ``finetune`` reads, same names and defaults."""
+    p.add_argument("--epochs", default=100, type=int)
+    p.add_argument("--start-epoch", default=0, type=int)
+    p.add_argument("--lr", "--learning-rate", default=0.6, type=float,
+                   dest="lr")
+    p.add_argument("--momentum", default=0.9, type=float)
+    p.add_argument("--wd", "--weight-decay", default=1e-6, type=float,
+                   dest="weight_decay")
+    p.add_argument("-p", "--print-freq", default=10, type=int)
+    p.add_argument("--seed", default=None, type=int)
+    p.add_argument("--exp-name", dest="exp_name", type=str, default="exp")
+    p.add_argument("--storage-root", type=str, default=None,
+                   help="experiment storage root (MFVIT_STORAGE_ROOT)")
+    p.add_argument("--rotate", dest="rotate", default=10, type=float,
+                   nargs="?", const=1.0,
+                   help="rotation degrees; bare flag = +-1 degree (the "
+                        "reference finetune bool quirk)")
+    p.add_argument("--cos", action="store_true")
+    p.add_argument("--schedule", default=[12, 18, 24], nargs="*", type=int)
+    p.add_argument("--covid-ds", dest="covid_ds", type=str,
+                   default="create_covid_dataset",
+                   help="folder with split manifests + val_ds/test_ds")
+    p.add_argument("--semi-ratios", nargs="*", type=float, default=[1.0],
+                   help="labeled fractions")
+    p.add_argument("--draws", type=int, default=None,
+                   help="override #draws per ratio")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the transformer blocks in the backward "
+                        "(torch.utils.checkpoint)")
 
 
 def get_vit_arch(args) -> vit_mod.ViTConfig:
@@ -55,3 +92,59 @@ def make_paired_eval_loader(args, manifest_path: str) -> pipeline.BatchLoader:
     ds = datasets.CovidPairedDataset(manifest_path, tf)
     return pipeline.BatchLoader(ds, args.batch_size,
                                 num_workers=args.workers)
+
+
+def make_covid_loader(args, manifest_path: str, folder: str, *,
+                      training: bool, seed: int = 0) -> pipeline.BatchLoader:
+    """Single-flavour canvases over a COVID manifest (the streaming feed of
+    ``mfvit_tpu/cli/common.py::make_covid_loader`` :475-560 with its
+    defaults ``--aug-device``, ``--aug-order reference``): training
+    canvases come fully augmented from the host in the reference order
+    (flip -> rotate -> crop), shuffled per epoch, the last short batch
+    dropped; eval canvases are center crops in manifest order, the last
+    batch padded."""
+    tf = ht.CanvasTransform(img_size=args.img_size, crop=args.crop,
+                            maintain_ratio=args.maintain_ratio,
+                            training=training,
+                            rotate_deg=float(args.rotate), seed=seed)
+    ds = datasets.CovidDataset(folder, manifest_path, tf)
+    return pipeline.BatchLoader(ds, args.batch_size, shuffle=training,
+                                seed=seed, drop_last=training,
+                                num_workers=args.workers)
+
+
+def stream_train_view(args, canv: torch.Tensor, img_type: str):
+    """The device half of one streaming training batch: the host already
+    augmented the canvases, so only the normalisation remains."""
+    return device_aug.augment_batch(canv, img_type=img_type,
+                                    out_dtype=compute_dtype(args))
+
+
+def make_eval_runner(args, img_types, forward, device) -> Evaluator:
+    """The eval loop of the CLIs: each image field of a batch normalised
+    on ``device`` for its flavour, ``forward(*imgs) -> logits``, the
+    padded tail trimmed, AUC and top-1 on the host."""
+    dt = compute_dtype(args)
+
+    def batch_forward(batch):
+        *imgs, labels = batch
+        xs = [device_aug.augment_batch(torch.from_numpy(img).to(device),
+                                       img_type=flavor, out_dtype=dt)
+              for img, flavor in zip(imgs, img_types)]
+        return forward(*xs).float().cpu().numpy(), np.asarray(labels)
+
+    return Evaluator(batch_forward, metric_names=["auc", "acc"])
+
+
+def make_param_evaluate(args, img_types, eval_step, device):
+    """``evaluate(model, loader, *, n_total) -> Evaluator result`` over
+    ``eval_step(model, *imgs) -> logits``, the runner built once."""
+    cell = {"model": None}
+    runner = make_eval_runner(
+        args, img_types, lambda *xs: eval_step(cell["model"], *xs), device)
+
+    def evaluate(model, loader, *, n_total: int):
+        cell["model"] = model
+        return runner.evaluate(loader, n_total=n_total)
+
+    return evaluate

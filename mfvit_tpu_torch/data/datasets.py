@@ -1,6 +1,8 @@
-"""``CovidPairedDataset``: jointly indexed CXR + enhanced pairs, the port of
-``mfvit_tpu/data/datasets.py::CovidPairedDataset`` (pairing by sample index,
-by construction)."""
+"""COVID datasets, the port of ``mfvit_tpu/data/datasets.py``'s
+``CovidDataset`` (one flavour, ``(image, label)``) and
+``CovidPairedDataset`` (CXR + enhanced pairs by sample index). A seeded
+transform gets the per-sample context (epoch, index), so its draws do not
+depend on the loader's worker count; ``BatchLoader`` calls ``set_epoch``."""
 from __future__ import annotations
 
 from typing import Callable
@@ -8,13 +10,44 @@ from typing import Callable
 import numpy as np
 
 from mfvit_tpu_torch.data.host_transforms import decode_bgr
-from mfvit_tpu_torch.data.manifest import parse_covid_paired
+from mfvit_tpu_torch.data.manifest import parse_covid, parse_covid_paired
 
 
-class CovidPairedDataset:
+def _apply_tf(tf: Callable, img: np.ndarray, ctx):
+    """A seeded transform gets the (epoch, index) context; others do not."""
+    if getattr(tf, "seed", None) is not None:
+        return tf(img, ctx)
+    return tf(img)
+
+
+class _EpochMixin:
+    _epoch: int = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+
+class CovidDataset(_EpochMixin):
+    """(image, label) of one flavour folder (``data`` or ``Train_Mix``)."""
+
+    def __init__(self, folder: str, img_csv: str,
+                 transform: Callable[[np.ndarray], np.ndarray]):
+        self.manifest = parse_covid(img_csv, folder)
+        self.transform = transform
+
+    def __len__(self):
+        return len(self.manifest)
+
+    def __getitem__(self, idx: int):
+        img = decode_bgr(self.manifest.paths[idx])
+        return (_apply_tf(self.transform, img, (self._epoch, idx)),
+                self.manifest.labels[idx])
+
+
+class CovidPairedDataset(_EpochMixin):
     """(img_cxr, img_enh, label) per index: the 'data' and 'Train_Mix'
     images of one manifest row, each decoded and put through
-    ``transform`` (the eval transform has no random draws)."""
+    ``transform``."""
 
     def __init__(self, img_csv: str,
                  transform: Callable[[np.ndarray], np.ndarray]):
@@ -25,6 +58,9 @@ class CovidPairedDataset:
         return len(self.manifest)
 
     def __getitem__(self, idx: int):
-        return (self.transform(decode_bgr(self.manifest.paths[idx])),
-                self.transform(decode_bgr(self.manifest.paths_alt[idx])),
+        ctx = (self._epoch, idx)
+        return (_apply_tf(self.transform,
+                          decode_bgr(self.manifest.paths[idx]), ctx),
+                _apply_tf(self.transform,
+                          decode_bgr(self.manifest.paths_alt[idx]), ctx),
                 self.manifest.labels[idx])

@@ -1,5 +1,6 @@
-"""COVID manifest parsing and writing (the serving subset of
-``mfvit_tpu/data/manifest.py``): space-separated lines
+"""COVID manifest parsing and writing, and the split-manifest naming of
+the 5-draws harness (the COVID subset of ``mfvit_tpu/data/manifest.py``):
+space-separated lines
 ``<idx> <root> <filename> <label> <extra>``; ``path = join(root, folder,
 filename)`` where ``folder`` selects the flavour (``data`` = original CXR,
 ``Train_Mix`` = enhanced) and ``label = fields[-2]``."""
@@ -43,6 +44,24 @@ def parse_covid_paired(img_csv: str) -> Manifest:
     cxr = parse_covid(img_csv, "data")
     enh = parse_covid(img_csv, "Train_Mix")
     return Manifest(cxr.paths, cxr.labels, paths_alt=enh.paths)
+
+
+def split_manifest_path(root: str, ratio: float, draw: int, *,
+                        labeled: bool = True) -> str:
+    """``{ratio}_{labeled|unlabeled}_train_{draw}.txt`` under ``root``, the
+    ratio formatted as the reference writes it (``ratio_tag``)."""
+    kind = "labeled" if labeled else "unlabeled"
+    return os.path.join(root, f"{ratio_tag(ratio)}_{kind}_train_{draw}.txt")
+
+
+def ratio_tag(ratio: float):
+    """Integral ratios print as ints (``train_1_0``), fractional verbatim
+    (``0.1_labeled_train_0.txt``)."""
+    return int(ratio) if float(ratio) == int(ratio) else ratio
+
+
+def eval_manifest_paths(root: str) -> tuple:
+    return os.path.join(root, "val_ds.txt"), os.path.join(root, "test_ds.txt")
 
 
 def write_covid_manifest(path: str, data_root: str, filenames: Sequence[str],

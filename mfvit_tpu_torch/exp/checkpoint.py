@@ -1,5 +1,6 @@
-"""The weight bridge from JAX parameter trees, and the port's serving
-checkpoint.
+"""The weight bridge from JAX parameter trees, the port's serving
+checkpoint, the training checkpoints (``BestKeeper``) and the reference
+MoCo ``.pth.tar`` surgery.
 
 ``vit_state_from_jax`` and ``fusion_state_from_jax`` take the JAX package's
 parameter trees as nested dicts of numpy arrays (``mfvit_tpu/nn/vit.py::init``
@@ -11,6 +12,8 @@ names that ``mfvit_tpu/exp/checkpoint.py::params_to_torch_vit`` (:313) and
 conv weight (D, C, P, P).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -90,3 +93,68 @@ def load_serving(path: str) -> dict:
         raise ValueError(f"{path}: expected a serving checkpoint with keys "
                          f"cxr/enh/fus, got {sorted(ck)}")
     return ck
+
+
+# ------------------------------------------------------ training artifacts
+
+class BestKeeper:
+    """Track a metric (higher is better) and save best/last checkpoints
+    (the reference policy, ``mfvit_tpu/exp/checkpoint.py:77-104``), as
+    ``torch.save`` state dicts under the same names."""
+
+    best_name, last_name = "model_best", "last_checkpoint"
+
+    def __init__(self, folder):
+        self.folder = str(folder)
+        self.best = None
+
+    def _save(self, name: str, state: dict) -> None:
+        torch.save({k: v.detach().cpu() for k, v in state.items()},
+                   os.path.join(self.folder, name))
+
+    def update(self, metric: float, state: dict, *,
+               save_last: bool = True) -> bool:
+        """Save ``last`` (optional) and, on improvement, ``best``. Returns
+        True when the metric improved. A NaN metric never becomes best."""
+        if save_last:
+            self._save(self.last_name, state)
+        if not np.isfinite(metric):
+            return False
+        better = (self.best is None or not np.isfinite(self.best)
+                  or metric > self.best)
+        if better:
+            self.best = metric
+            self._save(self.best_name, state)
+        return better
+
+
+# ------------------------------------------------ reference .pth.tar files
+
+def load_torch_state_dict(path: str) -> dict:
+    """A reference ``.pth.tar`` -> flat {name: tensor} (unwrapping the
+    ``{'state_dict': ...}`` the mains save)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    return {k: torch.as_tensor(v) for k, v in sd.items()}
+
+
+def strip_prefix(sd: dict, prefix: str) -> dict:
+    """Keep only keys under ``prefix``, with it removed (the reference's
+    ``module.base_encoder.`` surgery)."""
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def load_moco_pretrained_backbone(path: str, cfg) -> dict:
+    """MoCo ``.pth.tar`` -> the ``nn.vit.ViT`` state dict of its base
+    encoder without a head (``mfvit_tpu/exp/checkpoint.py:168``): strip
+    ``module.base_encoder.``, drop the projector that replaced ``head``,
+    and keep the fixed position table of the port for sincos configs."""
+    sd = strip_prefix(load_torch_state_dict(path), "module.base_encoder.")
+    sd = {k: v.float() for k, v in sd.items() if not k.startswith("head.")}
+    if not cfg.learned_pos:
+        sd["pos_embed"] = posembed.sincos_2d(cfg.grid, cfg.grid, cfg.dim)
+    want = {"patch_embed.proj.weight", "cls_token", "norm.weight"}
+    if not want <= set(sd):
+        raise ValueError(f"{path}: no MoCo base encoder under "
+                         "'module.base_encoder.'")
+    return sd

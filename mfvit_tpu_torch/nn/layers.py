@@ -50,6 +50,36 @@ def linear_f32(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
     return y if b is None else y + b.float()
 
 
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for 2-D operands in the working dtype, with fp32 sums and an
+    fp32 result (the ``preferred_element_type=f32`` products of the TPU
+    backward kernels)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def layer_norm_stats(x: torch.Tensor, eps: float = 1e-6):
+    """(xhat, 1/std) of x in fp32, the recompute every backward starts
+    from."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    inv = torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + eps)
+    return (xf - mean) * inv, inv
+
+
+def layer_norm_bwd(dy: torch.Tensor, xhat: torch.Tensor, inv: torch.Tensor,
+                   scale: torch.Tensor):
+    """LayerNorm backward in fp32 over the last axis: (dx, dscale, dbias)
+    for y = xhat * scale + bias, the parameter gradients summed over every
+    leading axis (fused_attn.py:475-480 in the JAX package)."""
+    lead = tuple(range(dy.dim() - 1))
+    dxhat = dy * scale.float()
+    dx = inv * (dxhat - dxhat.mean(-1, keepdim=True)
+                - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx, (dy * xhat).sum(lead), dy.sum(lead)
+
+
 def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """x @ W^T + b in x's dtype (the weights are cast to it)."""
     b = None if p.bias is None else p.bias.to(x.dtype)

@@ -17,10 +17,12 @@ built (``block_plan``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from mfvit_tpu_torch.nn import posembed
@@ -89,16 +91,15 @@ class BlockOps:
 
 
 def block_plan(depth: int, reference: bool = False) -> tuple:
-    """The ops each block runs. ``reference=True`` gives the plain PyTorch
-    versions on any device: the reference the kernels are held to."""
-    if reference:
-        attn = fused_attn.fused_attention_block_plain
-        mid = fused_mlp.fused_mlp_block_plain
-        last = fused_mlp.fused_mlp_block_final_ln_plain
-    else:
-        attn = fused_attn.fused_attention_block
-        mid = fused_mlp.fused_mlp_block
-        last = fused_mlp.fused_mlp_block_final_ln
+    """The ops each block runs: the kernel Functions (K1/K5, K2/K7,
+    K3/K7). ``reference=True`` gives the same Functions over the plain
+    PyTorch versions, forward and backward, on any device: the reference
+    the kernels are held to."""
+    attn = functools.partial(fused_attn.fused_attention_block,
+                             plain=reference)
+    mid = functools.partial(fused_mlp.fused_mlp_block, plain=reference)
+    last = functools.partial(fused_mlp.fused_mlp_block_final_ln,
+                             plain=reference)
     return tuple(BlockOps(attn, last, True) if i == depth - 1
                  else BlockOps(attn, mid, False) for i in range(depth))
 
@@ -204,13 +205,31 @@ class ViT(nn.Module):
             nn.init.normal_(self.head.weight, std=0.01, generator=generator)
             nn.init.zeros_(self.head.bias)
 
+    def _block(self, x, blk: Block, ops: BlockOps) -> torch.Tensor:
+        """One block through its ops, on the fp32 parameters: the ops cast
+        them to x's dtype and return fp32 gradients."""
+        a, m = blk.attn, blk.mlp
+        x = ops.attn(x, blk.norm1.weight, blk.norm1.bias, a.qkv.weight,
+                     a.qkv.bias, a.proj.weight, a.proj.bias, self.cfg.heads,
+                     self.cfg.head_dim ** -0.5)
+        args = (x, blk.norm2.weight, blk.norm2.bias, m.fc1.weight, m.fc1.bias,
+                m.fc2.weight, m.fc2.bias)
+        if ops.final_ln:
+            return ops.mlp(*args, self.norm.weight, self.norm.bias)
+        return ops.mlp(*args)
+
     def forward(self, imgs: torch.Tensor, *,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                return_features: bool = False, reference: bool = False):
+                return_features: bool = False, reference: bool = False,
+                remat: bool = False):
         """imgs (B, H, W, C) -> logits (B, num_classes) fp32, or the CLS
         embedding without a head; with ``return_features`` also the
         post-norm tokens (B, N+1, dim) in ``compute_dtype``. ``reference``
-        runs the plain PyTorch versions of the kernels."""
+        runs the plain PyTorch versions of the kernels. ``remat``
+        recomputes each block in the backward
+        (``torch.utils.checkpoint``, the port of ``jax.checkpoint`` at
+        ``mfvit_tpu/nn/vit.py:443-444``); a block's forward kernels then
+        run twice per training step."""
         cfg = self.cfg
         if imgs.is_cuda and cfg.img_size > 224:
             raise NotImplementedError(
@@ -222,16 +241,12 @@ class ViT(nn.Module):
         cls = self.cls_token.to(dt).expand(B, 1, cfg.dim)
         x = torch.cat([cls, x], 1)
         x = (x.float() + self.pos_embed).to(dt)
-        scale = cfg.head_dim ** -0.5
         for blk, ops in zip(self.blocks, self.plans[reference]):
-            a, m = blk.attn, blk.mlp
-            x = ops.attn(x, blk.norm1.weight, blk.norm1.bias,
-                         a.qkv.weight.to(dt), a.qkv.bias, a.proj.weight.to(dt),
-                         a.proj.bias, cfg.heads, scale)
-            args = (x, blk.norm2.weight, blk.norm2.bias, m.fc1.weight.to(dt),
-                    m.fc1.bias, m.fc2.weight.to(dt), m.fc2.bias)
-            x = (ops.mlp(*args, self.norm.weight, self.norm.bias)
-                 if ops.final_ln else ops.mlp(*args))
+            if remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(
+                    self._block, x, blk, ops, use_reentrant=False)
+            else:
+                x = self._block(x, blk, ops)
         tokens = x  # the final LayerNorm ran in the last block's K3
         cls_out = tokens[:, 0].float()
         out = (F.linear(cls_out, self.head.weight, self.head.bias)

@@ -1,7 +1,8 @@
 """Build and load the Hopper kernels in ``mfvit_tpu_torch/csrc``.
 
 The kernels have a plain C interface and are compiled by ``nvcc`` into one
-shared library, loaded with ``ctypes``. The build happens on first use:
+shared library, loaded with ``ctypes``: one ``nvcc -c`` per ``.cu`` source,
+all started together, then one link. The build happens on first use:
 the library's file name carries a hash of the ``csrc`` sources, so an
 edited source rebuilds and an unchanged one loads the library already
 built. Output goes to ``build/mfvit_tpu_torch/`` beside the package, with
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mfvit_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +34,9 @@ SIGNATURES = {
     "mfv_fused_mlp_block": [_P] * 13 + [_I, _I, _I, _P],
     "mfv_fused_fusion_cls": [_P, _P, _I, _I, _I, _I, _F, _PP, _PP, _P, _P,
                              _P, _P, _P, _P],
+    "mfv_fused_attention_block_bwd": [_P] * 22 + [_I] * 4 + [_F] + [_I] * 6
+                                     + [_P],
+    "mfv_fused_mlp_block_bwd": [_P] * 20 + [_I] * 7 + [_P],
 }
 
 _lib = None
@@ -66,19 +70,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name and rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        Path(tmp).unlink(missing_ok=True)  # nvcc removes it on some failures
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
+    # compile into a fresh directory and rename the library: a concurrent
+    # or interrupted build never leaves a half-written one under its name
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    nvcc = _nvcc()
+    cus = [p for p in sources() if p.suffix == ".cu"]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", str(work / f"{p.stem}.o")]
+            for p in cus]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+    link = [nvcc, "-shared", "-o", str(work / "lib.so"),
+            *[c[-1] for c in cmds]]
+    if all(rc == 0 for _, _, rc in logs):
+        res = subprocess.run(link, capture_output=True, text=True)
+        logs.append((link, res.stdout + res.stderr, res.returncode))
+    (BUILD_DIR / "build.log").write_text("".join(
+        " ".join(c) + "\n" + text for c, text, _ in logs))
+    failed = [(c, text, rc) for c, text, rc in logs if rc != 0]
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        c, text, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(c)}\n{text}")
+    os.replace(work / "lib.so", out)
+    shutil.rmtree(work, ignore_errors=True)
     return out
 
 

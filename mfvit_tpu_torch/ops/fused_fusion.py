@@ -12,7 +12,8 @@ On a CUDA tensor: per direction the LayerNorm row statistics and one
 both directions (csrc/fused_fusion.cu over csrc/gemm_ln.cuh and
 csrc/fusion_tail.cuh). On a CPU tensor: the plain version,
 a port of the JAX ``_cls_xla`` math, which is also the reference on the
-card. Any batch size and any head_dim go through the kernel.
+card. Any batch size and any head_dim go through the kernel. The
+gradient is that of the plain version, recomputed (``_FusionCls``).
 """
 from __future__ import annotations
 
@@ -71,11 +72,7 @@ def fused_fusion_cls_plain(tok_c, tok_e, flat, heads: int):
                                                          *flat[8:])
 
 
-def fused_fusion_cls(tok_c, tok_e, flat, heads: int):
-    """K4. CPU tensors take the plain version; CUDA tensors the kernels
-    (bf16 tokens and matrices) or a ValueError."""
-    if not tok_c.is_cuda:
-        return fused_fusion_cls_plain(tok_c, tok_e, flat, heads)
+def _fusion_cuda(tok_c, tok_e, flat, heads: int):
     B, N, D = tok_c.shape
     if D % heads or D % 64:
         raise ValueError(f"the K4 kernels take D % heads == 0 and "
@@ -102,3 +99,34 @@ def fused_fusion_cls(tok_c, tok_e, flat, heads: int):
                 kv_l, out_c, out_e)
     LAUNCHES["fused_fusion_cls"] += 1
     return out_c, out_e
+
+
+class _FusionCls(torch.autograd.Function):
+    """K4 forward; backward by recomputing the plain version under
+    autograd, as the JAX package differentiates ``_cls_xla`` with
+    ``jax.vjp`` (fused_fusion.py:121): the TPU kernel has no backward."""
+
+    @staticmethod
+    def forward(ctx, heads, tok_c, tok_e, *flat):
+        ctx.save_for_backward(tok_c, tok_e, *flat)
+        ctx.heads = heads
+        if not tok_c.is_cuda:
+            return fused_fusion_cls_plain(tok_c, tok_e, flat, heads)
+        return _fusion_cuda(tok_c, tok_e, flat, heads)
+
+    @staticmethod
+    def backward(ctx, g_c, g_e):
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = fused_fusion_cls_plain(leaves[0], leaves[1], leaves[2:],
+                                          ctx.heads)
+        grads = torch.autograd.grad(outs, leaves, (g_c, g_e),
+                                    allow_unused=True)
+        return (None, *grads)
+
+
+def fused_fusion_cls(tok_c, tok_e, flat, heads: int):
+    """K4. CPU tensors take the plain version; CUDA tensors the kernels
+    (bf16 tokens and matrices) or a ValueError. Differentiable on both
+    devices."""
+    return _FusionCls.apply(heads, tok_c, tok_e, *flat)

@@ -35,6 +35,16 @@ def call(entry: str, device: torch.device, *args) -> None:
     check(getattr(lib(), entry)(*ptrs, stream), entry)
 
 
+def k_split(K: int, tiles: int, step: int, target: int = 264) -> tuple:
+    """(S, kc): S slices of kc rows each for a reduction over K rows with
+    ``tiles`` output tiles, so that about ``target`` blocks (two per SM of
+    an H100) run at once. kc is a multiple of ``step`` and no slice is
+    empty; the kernels take both numbers as they are and only check them."""
+    s = max(1, min(-(-target // tiles), -(-K // step)))
+    kc = -(-(-(-K // s)) // step) * step
+    return -(-K // kc), kc
+
+
 def vec(v: torch.Tensor, n: int, name: str) -> torch.Tensor:
     """A bias or LayerNorm vector as the kernels take it: (n,) fp32,
     contiguous, on the device."""

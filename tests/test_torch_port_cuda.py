@@ -1,4 +1,4 @@
-"""Kernel-against-plain tests for K1-K4 on the card. They need CUDA, nvcc
+"""Kernel-against-plain tests for K1-K5 and K7 on the card. They need CUDA, nvcc
 and an sm_90a GPU, so they carry the ``cuda`` marker and skip elsewhere;
 on the card run ``python -m pytest tests/test_torch_port_cuda.py``
 (``chip_smoke.py`` makes the same comparisons at serving shapes).
@@ -79,7 +79,8 @@ def test_kernels_match_plain(dev, B, N, D, H):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
         "fused_attention_block": 1, "fused_mlp_block": 1,
-        "fused_mlp_block_final_ln": 1, "fused_fusion_cls": 0}
+        "fused_mlp_block_final_ln": 1, "fused_fusion_cls": 0,
+        "fused_attention_block_bwd": 0, "fused_mlp_block_bwd": 0}
 
 
 @pytest.mark.parametrize("B,heads", [(8, 3), (5, 3), (3, 6)])
@@ -100,6 +101,50 @@ def test_fusion_kernel_matches_plain(dev, B, heads):
         tc.float(), te.float(), [f.float() for f in flat], heads)
     for a, b in zip(got, ref):
         assert _rel(a, b) < REL
+
+
+@pytest.mark.parametrize("B,N,D,H", [(2, 197, 384, 12), (3, 197, 384, 6),
+                                     (2, 197, 768, 12), (2, 50, 256, 2),
+                                     (2, 100, 512, 4), (1, 256, 384, 6)])
+def test_backward_kernels_match_plain(dev, B, N, D, H):
+    """K5 and K7 against their plain backward in fp32 on the same bf16
+    values, all seven outputs."""
+    t = _block(dev, B, N, D)
+    g = _rnd(torch.Generator().manual_seed(3), B, N, D).bfloat16().to(dev)
+    scale = (D // H) ** -0.5
+    ops.reset_launch_counts()
+    a = [g] + [t[k] for k in ATTN[:-1]]
+    got = fused_attn.fused_attention_block_bwd(*a, H, scale)
+    ref = fused_attn.fused_attention_block_bwd_plain(
+        *[v.float() for v in a], H, scale)
+    assert all(_rel(x, y) < REL for x, y in zip(got, ref))
+    m = [g] + [t[k] for k in MLP[:-1]]
+    got = fused_mlp.fused_mlp_block_bwd(*m)
+    ref = fused_mlp.fused_mlp_block_bwd_plain(*[v.float() for v in m])
+    assert all(_rel(x, y) < REL for x, y in zip(got, ref))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["fused_attention_block_bwd"],
+            counts["fused_mlp_block_bwd"]) == (1, 1)
+
+
+def test_vit_training_gets_fp32_grads_from_the_kernels(dev):
+    """A requires_grad forward through a ViT on the card: every block
+    parameter gets a gradient, in fp32, and the backward ran K5 and K7
+    once per block (the kernels' outputs once had no grad_fn)."""
+    cfg = vit.get_config("vit_small")
+    m = vit.ViT(cfg, 3, device=dev)
+    imgs = torch.randn(2, 224, 224, 3, device=dev).bfloat16()
+    ops.reset_launch_counts()
+    m(imgs).sum().backward()
+    torch.cuda.synchronize()
+    for name, p in m.blocks.named_parameters():
+        assert p.grad is not None, name
+        assert p.grad.dtype == torch.float32, name
+        assert p.grad.abs().sum() > 0, name
+    counts = ops.launch_counts()
+    assert counts["fused_attention_block_bwd"] == cfg.depth
+    assert counts["fused_mlp_block_bwd"] == cfg.depth
 
 
 def test_cuda_tensors_never_take_the_plain_version(dev):

@@ -214,13 +214,18 @@ def test_sincos_2d_matches_jax(grid):
 
 def test_cpu_tensors_never_count_a_launch(blk, fusion_case):
     ops.reset_launch_counts()
-    fused_attn.fused_attention_block(*_port_attn_args(blk), H, SCALE)
-    fused_mlp.fused_mlp_block(*_port_mlp_args(blk))
-    fused_mlp.fused_mlp_block_final_ln(*_port_mlp_args(blk), _t(blk["fs"]),
-                                       _t(blk["fb"]))
+    x = _t(blk["x"]).requires_grad_()
+    out = fused_attn.fused_attention_block(x, *_port_attn_args(blk)[1:], H,
+                                           SCALE)
+    out = fused_mlp.fused_mlp_block(out, *_port_mlp_args(blk)[1:])
+    out = fused_mlp.fused_mlp_block_final_ln(out, *_port_mlp_args(blk)[1:],
+                                             _t(blk["fs"]), _t(blk["fb"]))
+    out.sum().backward()  # the backward Functions take the plain path too
+    assert x.grad is not None
     _, fus, tok_c, tok_e = fusion_case
     with torch.no_grad():
         fus(_t(tok_c), _t(tok_e))
     assert ops.launch_counts() == {
         "fused_attention_block": 0, "fused_mlp_block": 0,
-        "fused_mlp_block_final_ln": 0, "fused_fusion_cls": 0}
+        "fused_mlp_block_final_ln": 0, "fused_fusion_cls": 0,
+        "fused_attention_block_bwd": 0, "fused_mlp_block_bwd": 0}
