@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MF-ViT CA serving path and its ViT fine-tuning
-path once on an NVIDIA GPU.
+"""Drive the PyTorch port's MF-ViT CA serving path (bf16 and int8 W8A8)
+and its ViT fine-tuning path once on an NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -18,12 +18,25 @@ Phases, in order; any failure raises and exits non-zero:
    main`` at B=32 on the card; n, finite logits, launch counts (K1 24, K2
    22, K3 2, K4 1 per forward), and decision logits within rel 2e-2 of the
    plain path in bf16 on the card;
-5. the backward kernels K5 and K7 (K7 also through K3's backward) against
+5. the int8 kernels K10 and K11 against their plain versions at vit_small
+   block shapes (B=8 and B=32), a vit_base block (B=2, head_dim 64) and
+   N=50 (B=8): bf16 x, int8 weights from ``quantize_weight_cols``; rel <
+   2e-2 against the plain version in fp32 on the same values, and the
+   branch (out - x) within I8_BRANCH_BAR of the plain version in bf16,
+   a bar each of ``i8_controls`` (wrong versions of the kernel) must fail;
+6. the int8 serving slice through its entry point: the same 64 pairs and
+   checkpoint, ``infer.main`` with ``--int8`` at B=32; n, finite logits,
+   launch counts (K10 24, K11 24, K4 1, every other kernel 0 per
+   forward), top-1 agreement with the plain int8 path in bf16 on the card
+   (I8_TOP1_BAR says why no tighter end-to-end bar); then every K10/K11
+   call of one int8 forward (48) held on its own input by the branch bars
+   of phase 5, which every control must fail at every call;
+7. the backward kernels K5 and K7 (K7 also through K3's backward) against
    their plain versions, all seven (nine) outputs, at vit_small block
    shapes (B=8 and B=32) and vit_base block shapes (B=2, D=768, 12 heads, hidden
    3072); bf16 inputs and cotangent, the plain backward in fp32 on the same
    values; rel < 2e-2 per output;
-6. the training slice through its entry point: 64 synthetic PNGs in a
+8. the training slice through its entry point: 64 synthetic PNGs in a
    ``--covid-ds`` layout and a MoCo ``.pth.tar`` from seeded weights;
    ``mfvit_tpu_torch.cli.finetune.main`` with ``-a vit_small
    --semi-supervised -b 32 --epochs 2 --draws 1`` (FT): the loss finite at
@@ -31,15 +44,18 @@ Phases, in order; any failure raises and exits non-zero:
    plus one forward per eval batch, the backbone changed; then LP (no
    ``--semi-supervised``): the CLI's frozen-backbone check passes and K5/K7
    count 0;
-7. train-step parity: the kernel path and the plain path (bf16 on the
+9. train-step parity: the kernel path and the plain path (bf16 on the
    card) from the same vit_small weights and batch (B=32), three SGD steps
    each: the loss per step within rel 1e-2, and each block's flattened
    first-step gradient within rel 5e-2;
-8. times with CUDA events at B=256: each forward kernel and K5/K7 against
-   its plain version (K5/K7 first held against the plain fp32 backward on
-   the timed inputs), the end-to-end pairs/s of serving and the images/s
-   of the FT train step, kernel path against plain path; the FT step
-   also at B=16, the finetune CLI's default batch.
+10. times with CUDA events at B=256: each forward kernel (K10/K11
+   included) and K5/K7 against its plain version (K5/K7 first held
+   against the plain fp32 backward on the timed inputs), K5/K7 also at a
+   vit_base block (B=64, D=768, hidden 3072: the widths of K6 and K8),
+   the end-to-end pairs/s of serving, kernel path against plain path and
+   int8 against bf16 on the kernel path, and the images/s of the FT train
+   step, kernel path against plain path; the FT step also at B=16, the
+   finetune CLI's default batch.
 
 The last three lines are the end-to-end numbers, the kernel report (one
 JSON object) and ``{"ok": true, "device": {...}}``.
@@ -58,6 +74,23 @@ import numpy as np
 import torch
 
 REL_BAR = 2e-2
+# K10/K11 are held on their branch, out - x, against the plain int8 version
+# in bf16 on the same input, which rounds where the kernels do: branch_rel
+# below the kernel's bar. Where the fp32 sums of kernel and plain version
+# run in different orders, a value near a rounding tie lands on the other
+# side and flips an int8 code by one; those flips set the sound readings
+# (K10 up to about 3e-3, K11 up to about 4e-4 on the H100). Each bar sits
+# between them and the controls (``i8_controls``), wrong versions of the
+# kernel that must fail it wherever the kernel is held.
+I8_BRANCH_BAR = {"fused_attention_block_i8": 6e-3, "fused_mlp_block_i8": 2e-3}
+# The int8 decision logits cannot be held tightly end to end: with random
+# weights the one-code flips compound over 24 quantized block halves, so
+# the int8 kernel path lies about as far from the plain int8 path (rel
+# 2.6e-2-3.0e-2) as the bf16 path does (3.1e-2-4.0e-2). The end-to-end
+# gate is top-1 agreement with the plain int8 path, which catches gross
+# faults (one near-tie may flip); the per-call check along the path holds
+# the kernels tightly.
+I8_TOP1_BAR = 63 / 64
 PARITY_LOSS_BAR, PARITY_GRAD_BAR = 1e-2, 5e-2
 KERNELS = [  # name, CUDA source, the Pallas kernel body it replaces
     ("fused_attention_block", "mfvit_tpu_torch/csrc/fused_attn.cu",
@@ -72,6 +105,10 @@ KERNELS = [  # name, CUDA source, the Pallas kernel body it replaces
      "mfvit_tpu/ops/fused_attn.py:385"),
     ("fused_mlp_block_bwd", "mfvit_tpu_torch/csrc/fused_mlp_bwd.cu",
      "mfvit_tpu/ops/fused_mlp.py:246"),
+    ("fused_attention_block_i8", "mfvit_tpu_torch/csrc/fused_int8.cu",
+     "mfvit_tpu/ops/fused_int8.py:168"),
+    ("fused_mlp_block_i8", "mfvit_tpu_torch/csrc/fused_int8.cu",
+     "mfvit_tpu/ops/fused_int8.py:100"),
 ]
 PER_FORWARD = {"fused_attention_block": 24, "fused_mlp_block": 22,
                "fused_mlp_block_final_ln": 2, "fused_fusion_cls": 1}
@@ -79,14 +116,25 @@ PER_FORWARD = {"fused_attention_block": 24, "fused_mlp_block": 22,
 PER_VIT_FORWARD = {"fused_attention_block": 12, "fused_mlp_block": 11,
                    "fused_mlp_block_final_ln": 1}
 PER_FT_STEP = {"fused_attention_block_bwd": 12, "fused_mlp_block_bwd": 12}
+# one int8 paired forward (--int8)
+PER_I8_FORWARD = {"fused_attention_block_i8": 24, "fused_mlp_block_i8": 24,
+                  "fused_fusion_cls": 1}
 # the H100 SXM's published dense peaks at 700 W (NVIDIA data sheet)
-PEAK = {"bf16": 989e12, "fp32": 67e12}
+PEAK = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
 def rel(got, ref) -> float:
     return ((got.float() - ref.float()).abs().max()
             / ref.float().abs().max()).item()
+
+
+def branch_rel(got, ref, x) -> float:
+    """The error of a residual block's branch against the branch's own
+    size, ||got - ref|| / ||ref - x|| in fp32: the residual x, which is
+    most of the output, cancels."""
+    got, ref, x = got.float(), ref.float(), x.float()
+    return ((got - ref).norm() / (ref - x).norm()).item()
 
 
 def phase(name: str) -> None:
@@ -123,13 +171,13 @@ def environment() -> str:
     return smi[0]
 
 
-def block_inputs(g, B, D, dev):
+def block_inputs(g, B, D, dev, N=197):
     """One block's bf16 activations and weights, scaled so the attention
     and MLP branches are O(1) against the residual."""
     def r(*s, std=1.0):
         return (torch.randn(*s, generator=g) * std).to(dev)
     return dict(
-        x=r(B, 197, D).bfloat16(), ln_s=1 + r(D, std=0.1),
+        x=r(B, N, D).bfloat16(), ln_s=1 + r(D, std=0.1),
         ln_b=r(D, std=0.1), wqkv=r(3 * D, D, std=D ** -0.5).bfloat16(),
         bqkv=r(3 * D, std=0.1), wproj=r(D, D, std=D ** -0.5).bfloat16(),
         bproj=r(D, std=0.1), w1=r(4 * D, D, std=D ** -0.5).bfloat16(),
@@ -190,6 +238,187 @@ def kernel_calls(t, heads, tok_c, tok_e, flat, fusion_heads):
     }
 
 
+def i8_ops():
+    from mfvit_tpu_torch.ops import fused_int8 as fi8
+    return {"fused_attention_block_i8": fi8.fused_attention_block_i8,
+            "fused_mlp_block_i8": fi8.fused_mlp_block_i8}
+
+
+def i8_args(t, heads) -> dict:
+    """name -> the arguments after x of K10 and K11, on the block's weights
+    quantized per output channel."""
+    from mfvit_tpu_torch.ops import fused_int8 as fi8
+    scale = (t["x"].shape[-1] // heads) ** -0.5
+    q = {k: fi8.quantize_weight_cols(t[k]) for k in ("wqkv", "wproj", "w1",
+                                                      "w2")}
+    return {"fused_attention_block_i8": (
+                t["ln_s"], t["ln_b"], *q["wqkv"], t["bqkv"], *q["wproj"],
+                t["bproj"], heads, scale),
+            "fused_mlp_block_i8": (
+                t["ln_s"], t["ln_b"], *q["w1"], t["b1"], *q["w2"], t["b2"])}
+
+
+def i8_calls(t, heads):
+    """name -> (kernel call, plain call in the inputs' dtype, plain call in
+    fp32 on the same values) for K10 and K11."""
+    x, x32 = t["x"], t["x"].float()
+    return {name: (lambda op=op, a=a: op(x, *a),
+                   lambda op=op, a=a: op(x, *a, plain=True),
+                   lambda op=op, a=a: op(x32, *a, plain=True))
+            for (name, op), a in zip(i8_ops().items(),
+                                     i8_args(t, heads).values())}
+
+
+def i8_controls(name: str) -> dict:
+    """label -> fn(x, a): wrong versions of K10 (``name`` its op) or K11,
+    each the plain version with one fault: ``unquantized``, the plain bf16
+    K1/K2 on the dequantized weights (no activation quantization); for
+    K10 ``o in bf16``, the attention output rounded to bf16 before it is
+    quantized (as K1 rounds it); for K11 ``h1 in bf16`` (K2's rounding
+    point) and ``tanh GELU``."""
+    import contextlib
+
+    import torch.nn.functional as F
+
+    from mfvit_tpu_torch.ops import fused_attn as fa
+    from mfvit_tpu_torch.ops import fused_int8 as fi8
+    from mfvit_tpu_torch.ops import fused_mlp as fm
+
+    @contextlib.contextmanager
+    def patched(attr, value):
+        old = getattr(fi8, attr)
+        setattr(fi8, attr, value)
+        try:
+            yield
+        finally:
+            setattr(fi8, attr, old)
+
+    def faulty(attr, value):
+        def run(x, a):
+            with patched(attr, value):
+                return i8_ops()[name](x, *a, plain=True)
+        return run
+
+    dq = fi8.dequant_w
+    if name == "fused_attention_block_i8":
+        core = fi8.attn_core_plain
+        return {
+            "unquantized": lambda x, a: fa.fused_attention_block_plain(
+                x, a[0], a[1], dq(a[2], a[3]), a[4], dq(a[5], a[6]), *a[7:]),
+            "o in bf16": faulty("attn_core_plain",
+                                lambda qkv, heads, scale, out_dtype=None:
+                                core(qkv, heads, scale).float())}
+    gelu = fi8._gelu
+    return {
+        "unquantized": lambda x, a: fm.fused_mlp_block_plain(
+            x, a[0], a[1], dq(a[2], a[3]), a[4], dq(a[5], a[6]), a[7]),
+        "h1 in bf16": faulty("_gelu", lambda h: gelu(h).bfloat16().float()),
+        "tanh GELU": faulty("_gelu",
+                            lambda h: F.gelu(h, approximate="tanh"))}
+
+
+def hold_i8_branch(name: str, x, a, got) -> tuple:
+    """The kernel's branch_rel against the plain int8 version in x's dtype
+    on the same input, each control's ({label: rel}), and what fails: the
+    kernel at or above its I8_BRANCH_BAR, or a control below it."""
+    bar = I8_BRANCH_BAR[name]
+    plain = i8_ops()[name](x, *a, plain=True)
+    rk = branch_rel(got, plain, x)
+    rcs = {k: branch_rel(fn(x, a), plain, x)
+           for k, fn in i8_controls(name).items()}
+    bad = [] if math.isfinite(rk) and rk < bar else [
+        f"branch rel {rk} >= {bar}"]
+    bad += [f"the control '{k}' passes (branch rel {v} < {bar}): the bar "
+            "cannot tell it" for k, v in rcs.items() if not v >= bar]
+    return rk, rcs, bad
+
+
+def check_i8_kernels(dev) -> dict:
+    """K10 and K11 at vit_small (B=8, B=32), vit_base (B=2) and N=50 block
+    shapes: rel < REL_BAR against their plain fp32 versions, and the branch
+    held by ``hold_i8_branch``. Every reading is printed before a failure
+    raises. Returns the largest abs error at the vit_small shapes."""
+    errs, bad = {}, []
+    for label, B, N, D, heads in (("vit_small", 8, 197, 384, 12),
+                                  ("vit_small", 32, 197, 384, 12),
+                                  ("vit_base", 2, 197, 768, 12),
+                                  ("N=50", 8, 50, 384, 12)):
+        t = block_inputs(torch.Generator().manual_seed(3), B, D, dev, N=N)
+        x, x32 = t["x"], t["x"].float()
+        for name, a in i8_args(t, heads).items():
+            op = i8_ops()[name]
+            got = op(x, *a)
+            torch.cuda.synchronize()
+            ref = op(x32, *a, plain=True)
+            r = rel(got, ref)
+            err = (got.float() - ref).abs().max().item()
+            rk, rcs, why = hold_i8_branch(name, x, a, got)
+            where = f"{name} at {label} (B={B}, N={N}, D={D}, {heads} heads)"
+            print(f"{where}: rel vs plain fp32 {r:.3e} (bar {REL_BAR}), "
+                  f"max_abs_err {err:.3e}; branch rel vs plain bf16 {rk:.3e} "
+                  f"(bar {I8_BRANCH_BAR[name]}); the controls' (must fail) "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in rcs.items()))
+            if not (math.isfinite(r) and r < REL_BAR):
+                why.append(f"rel {r} >= {REL_BAR}")
+            bad += [f"{where}: {w}" for w in why]
+            if label == "vit_small":
+                errs[name] = max(errs.get(name, 0.0), err)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return errs
+
+
+def hold_i8_path(models, batch, dev) -> None:
+    """Every K10/K11 call of one int8 paired forward (both branches, 48
+    calls), held on the input the path gave it by ``hold_i8_branch``: the
+    tight check of the path, free of the compounding of the decision
+    logits."""
+    from mfvit_tpu_torch.cli import infer
+    from mfvit_tpu_torch.nn.vit import BlockOps
+    from mfvit_tpu_torch.train.steps import make_fusion_forward
+    calls = []
+
+    def recording(name, op):
+        def run(x, *a):
+            out = op(x, *a)
+            calls.append((name, x, a, out))
+            return out
+        return run
+
+    saved = {k: models[k].plans[False] for k in ("cxr", "enh")}
+    for k, plan in saved.items():
+        models[k].plans[False] = tuple(
+            BlockOps(recording("fused_attention_block_i8", o.attn),
+                     recording("fused_mlp_block_i8", o.mlp), o.final_ln)
+            for o in plan)
+    try:
+        make_fusion_forward()(models, *infer.prepare(batch, dev,
+                                                     torch.bfloat16))
+    finally:
+        for k, plan in saved.items():
+            models[k].plans[False] = plan
+    reads = {k: ([], {}) for k in i8_ops()}  # kernel, controls per label
+    bad = []
+    for i, (name, x, a, out) in enumerate(calls):
+        with torch.inference_mode():
+            rk, rcs, why = hold_i8_branch(name, x, a, out)
+        reads[name][0].append(rk)
+        for k, v in rcs.items():
+            reads[name][1].setdefault(k, []).append(v)
+        bad += [f"call {i} ({name}): {w}" for w in why]
+    for name, (rks, rcs) in reads.items():
+        print(f"int8 path, {name} on its own input at each of its "
+              f"{len(rks)} calls in one forward (B={batch[0].shape[0]}): "
+              "branch rel vs plain bf16 " + ", ".join(f"{v:.2e}" for v in rks)
+              + f" (max {max(rks):.3e}, bar {I8_BRANCH_BAR[name]}); the "
+              "controls' (must fail) least " + ", ".join(
+                  f"{k} {min(v):.3e}" for k, v in rcs.items()))
+    if len(calls) != sum(PER_I8_FORWARD[k] for k in i8_ops()):
+        bad.append(f"{len(calls)} K10/K11 calls in one forward")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
 def check_kernels(dev) -> dict:
     g = torch.Generator().manual_seed(0)
     t = block_inputs(g, 8, 384, dev)
@@ -234,7 +463,11 @@ def write_pairs(root: str, n: int, seed: int) -> str:
     return man
 
 
-def run_slice(dev, tmp: str) -> dict:
+def run_slice(dev, tmp: str, int8: bool) -> dict:
+    """The serving slice through ``infer.main`` (with ``--int8`` when
+    ``int8``) on 64 synthetic pairs at B=32; the first call writes the
+    pairs and the seeded serving checkpoint into ``tmp``, later calls
+    serve the same ones. Returns the run's launch counts."""
     from mfvit_tpu_torch import ops
     from mfvit_tpu_torch.cli import common, infer
     from mfvit_tpu_torch.exp.checkpoint import save_serving
@@ -243,25 +476,34 @@ def run_slice(dev, tmp: str) -> dict:
     from mfvit_tpu_torch.train.steps import make_fusion_forward
 
     n, bs = 64, 32
-    man = write_pairs(tmp, n, seed=0)
     cfg = get_config("vit_small")
-    seeds = [torch.Generator().manual_seed(s) for s in (1, 2, 3)]
+    man = os.path.join(tmp, "paired.txt")
     ckpt = os.path.join(tmp, "serving.pt")
-    save_serving(ckpt, ViT(cfg, 3, generator=seeds[0]).state_dict(),
-                 ViT(cfg, 3, generator=seeds[1]).state_dict(),
-                 Fusion(3, cfg.dim, 3, generator=seeds[2]).state_dict())
+    if not os.path.exists(ckpt):
+        write_pairs(tmp, n, seed=0)
+        seeds = [torch.Generator().manual_seed(s) for s in (1, 2, 3)]
+        save_serving(ckpt, ViT(cfg, 3, generator=seeds[0]).state_dict(),
+                     ViT(cfg, 3, generator=seeds[1]).state_dict(),
+                     Fusion(3, cfg.dim, 3, generator=seeds[2]).state_dict())
     argv = ["-a", "vit_small", "-b", str(bs), "--device", dev.type,
             "--report-throughput", "--checkpoint", ckpt, "--manifest", man,
             "--output", os.path.join(tmp, "predictions.json"), "-j", "8"]
+    argv_bf16 = list(argv)
+    if int8:
+        argv.append("--int8")
+    mode = "int8" if int8 else "bf16"
 
     ops.reset_launch_counts()
     out = infer.main(argv)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     forwards = -(-n // bs) + 1 + infer.THROUGHPUT_ITERS
-    print(f"launch counts {counts} over {forwards} forwards")
-    want = {k: v * forwards for k, v in PER_FORWARD.items()}
-    want.update({k: 0 for k in PER_FT_STEP})  # inference runs no backward
+    print(f"{mode} launch counts {counts} over {forwards} forwards")
+    # every kernel the path does not run (the backward ones, the other
+    # serving mode's) counts 0
+    want = {k: 0 for k in counts}
+    want.update({k: v * forwards for k, v in
+                 (PER_I8_FORWARD if int8 else PER_FORWARD).items()})
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     logits = torch.tensor(out["logits"])
@@ -273,24 +515,45 @@ def run_slice(dev, tmp: str) -> dict:
     args = infer.build_parser().parse_args(argv)
     models = infer.load_models(args, cfg, dev)
     loader = common.make_paired_eval_loader(args, man)
-    def outputs(dt, reference):  # (3, n, classes): fused, cxr, enh
+    def outputs(models, dt, reference):  # (3, n, classes)
         fwd = make_fusion_forward(compute_dtype=dt, reference=reference)
         return torch.cat([torch.stack([o.cpu() for o in fwd(
             models, *infer.prepare(b, dev, dt))]) for b in loader], 1)[:, :n]
 
-    plain16 = outputs(torch.bfloat16, True)
-    plain32 = outputs(torch.float32, True)
-    kern = outputs(torch.bfloat16, False)
+    plain16 = outputs(models, torch.bfloat16, True)
+    plain32 = outputs(models, torch.float32, True)
+    kern = outputs(models, torch.bfloat16, False)
     r16, r32 = rel(logits, plain16.sum(0)), rel(logits, plain32.sum(0))
     top1 = (logits.argmax(-1) == plain32.sum(0).argmax(-1)).float()
-    print(f"decision logits: rel vs plain bf16 {r16:.3e} (bar {REL_BAR}); "
-          f"for information: rel vs plain fp32 {r32:.3e}, top-1 agreement "
-          f"with plain fp32 {top1.mean().item():.3f}; per output vs plain "
-          "bf16: " + ", ".join(f"{k} {rel(kern[i], plain16[i]):.3e}" for i, k
-                                in enumerate(("fused", "cxr", "enh"))))
-    if not r16 < REL_BAR:
-        raise AssertionError(f"decision logits rel {r16} >= {REL_BAR}")
-    print(f"infer: pairs_per_sec {out['pairs_per_sec']:.1f}, "
+    per_output = ("; per output vs plain bf16: " + ", ".join(
+        f"{k} {rel(kern[i], plain16[i]):.3e}"
+        for i, k in enumerate(("fused", "cxr", "enh"))))
+    if not int8:
+        print(f"{mode} decision logits: rel vs plain bf16 {r16:.3e} (bar "
+              f"{REL_BAR}); for information: rel vs plain fp32 {r32:.3e}, "
+              f"top-1 agreement with plain fp32 {top1.mean().item():.3f}"
+              + per_output)
+        if not r16 < REL_BAR:
+            raise AssertionError(f"{mode} decision logits rel {r16} >= "
+                                 f"{REL_BAR}")
+    else:
+        agree = (logits.argmax(-1) == plain16.sum(0).argmax(-1)).float()
+        bf16 = outputs(infer.load_models(
+            infer.build_parser().parse_args(argv_bf16), cfg, dev),
+            torch.bfloat16, False).sum(0)
+        print(f"{mode} decision logits: top-1 agreement with plain bf16 "
+              f"{agree.mean().item():.3f} (bar {I8_TOP1_BAR:.3f}); for "
+              f"information: rel vs plain bf16 {r16:.3e}, vs plain fp32 "
+              f"{r32:.3e}, the bf16 kernel path's on the same weights vs "
+              f"plain bf16 {rel(bf16, plain16.sum(0)):.3e}; int8 against "
+              f"that bf16 path: rel {rel(logits, bf16):.3e}, top-1 agreement "
+              f"{(logits.argmax(-1) == bf16.argmax(-1)).float().mean():.3f}"
+              + per_output)
+        if not agree.mean().item() >= I8_TOP1_BAR:
+            raise AssertionError(f"{mode} top-1 agreement "
+                                 f"{agree.mean().item()} < {I8_TOP1_BAR}")
+        hold_i8_path(models, next(iter(loader)), dev)
+    print(f"{mode} infer: pairs_per_sec {out['pairs_per_sec']:.1f}, "
           f"pairs_per_sec_e2e {out['pairs_per_sec_e2e']:.1f} (B={bs}, n={n})")
     return counts
 
@@ -312,10 +575,11 @@ def time_kernels(dev) -> dict:
     g = torch.Generator().manual_seed(1)
     t = block_inputs(g, 256, 384, dev)
     tok_c, tok_e, flat = fusion_inputs(g, 256, 384, dev)
+    calls = kernel_calls(t, 12, tok_c, tok_e, flat, 3)
+    calls.update(i8_calls(t, 12))
     times = {}
     with torch.inference_mode():
-        for name, (kern, plain, _) in kernel_calls(t, 12, tok_c, tok_e,
-                                                   flat, 3).items():
+        for name, (kern, plain, _) in calls.items():
             # kernel, plain, plain, kernel: the card's clock drifts
             k1, p1, p2, k2 = (cuda_ms(f, 10) for f in (kern, plain, plain,
                                                        kern))
@@ -326,8 +590,13 @@ def time_kernels(dev) -> dict:
 
 
 def time_e2e(dev) -> dict:
+    """Serving pairs/s at B=256: the kernel path against the plain path
+    (kernel, plain, plain, kernel), then the int8 kernel path against the
+    bf16 kernel path on the same weights (int8, bf16, bf16, int8)."""
+    import copy
+
     from mfvit_tpu_torch.models.fusion import Fusion
-    from mfvit_tpu_torch.nn.vit import ViT, get_config
+    from mfvit_tpu_torch.nn.vit import ViT, get_config, quantize_vit_for_serving
     from mfvit_tpu_torch.train.steps import make_fusion_forward
 
     cfg = get_config("vit_small")
@@ -336,27 +605,33 @@ def time_e2e(dev) -> dict:
               "enh": ViT(cfg, 3, device=dev, generator=gens[1]).eval(),
               "fus": Fusion(3, cfg.dim, 3, device=dev,
                             generator=gens[2]).eval()}
+    models_i8 = dict(models, **{k: quantize_vit_for_serving(
+        copy.deepcopy(models[k])) for k in ("cxr", "enh")})
     B = 256
     xc = torch.randn(B, 224, 224, 3, generator=gens[3]).to(dev, torch.bfloat16)
     xe = torch.randn(B, 224, 224, 3, generator=gens[3]).to(dev, torch.bfloat16)
-    fwds = {"kernel": make_fusion_forward(),
-            "plain": make_fusion_forward(reference=True)}
+    kernel = make_fusion_forward()
+    fwds = {"kernel": (kernel, models), "bf16": (kernel, models),
+            "plain": (make_fusion_forward(reference=True), models),
+            "int8": (kernel, models_i8)}
 
     def rate(which: str, iters: int = 5) -> float:
-        fwd = fwds[which]
-        sum(fwd(models, xc, xe)).cpu()
+        fwd, ms = fwds[which]
+        sum(fwd(ms, xc, xe)).cpu()
         t0 = time.perf_counter()
         for _ in range(iters):
-            sum(fwd(models, xc, xe)).cpu()  # decision logits to the host
+            sum(fwd(ms, xc, xe)).cpu()  # decision logits to the host
         return B * iters / (time.perf_counter() - t0)
 
-    runs = {"kernel": [], "plain": []}
-    for which in ("kernel", "plain", "plain", "kernel"):
+    runs = {k: [] for k in fwds}
+    for which in ("kernel", "plain", "plain", "kernel",
+                  "int8", "bf16", "bf16", "int8"):
         runs[which].append(rate(which))
     out = {k: sum(v) / len(v) for k, v in runs.items()}
-    print("end to end at B=256 (bf16, logits fetched every forward): "
+    print("end to end at B=256 (logits fetched every forward): "
           + ", ".join(f"{k} {' / '.join(f'{r:.1f}' for r in v)} pairs/s"
-                      for k, v in runs.items()))
+                      for k, v in runs.items())
+          + " (kernel, plain: bf16; bf16, int8: the kernel path)")
     return out
 
 
@@ -398,6 +673,13 @@ def kernel_bounds(B: int, N: int, D: int, heads: int, Hd: int,
         # K7: fc1 recompute, g . W2, dW1, dW2, dh1
         "fused_mlp_block_bwd": bound({"bf16": 5 * 2 * M * D * Hd},
                                      3 * act + w_mlp + 2 * D * Hd * 4),
+        # K10: int8 qkv and proj GEMMs, bf16 scores and PV; int8 weights
+        "fused_attention_block_i8": bound(
+            {"int8": 2 * M * D * 3 * D + 2 * M * D * D, "bf16": 2 * attn_nn},
+            2 * act + 4 * D * D),
+        # K11: int8 fc1 and fc2
+        "fused_mlp_block_i8": bound({"int8": 4 * M * D * Hd},
+                                    2 * act + 2 * D * Hd),
     }
 
 
@@ -543,10 +825,10 @@ def run_training(dev, tmp: str) -> dict:
         losses = res.extra["train_losses"]
         steps, evals = len(losses), res.extra["eval_batches"]
         fwd = steps + evals
-        want = {k: v * fwd for k, v in PER_VIT_FORWARD.items()}
-        want.update({k: (v * steps if mode == "FT" else 0)
-                     for k, v in PER_FT_STEP.items()})
-        want["fused_fusion_cls"] = 0
+        want = {k: 0 for k in got}  # K4, K10, K11 and, under LP, K5/K7
+        want.update({k: v * fwd for k, v in PER_VIT_FORWARD.items()})
+        if mode == "FT":
+            want.update({k: v * steps for k, v in PER_FT_STEP.items()})
         print(f"{mode}: {steps} steps, {evals} eval batches, losses "
               + ", ".join(f"{v:.4f}" for v in losses)
               + f"; launch counts {got}")
@@ -609,21 +891,22 @@ def train_parity(dev) -> None:
         raise AssertionError("train-step parity out of its bar")
 
 
-def time_bwd(dev) -> dict:
-    """K5 and K7 at B=256: each held against its plain fp32 backward on
-    the timed inputs (the K-split geometry depends on B), then timed."""
+def time_bwd(dev, label: str, B: int, D: int) -> dict:
+    """K5 and K7 at a block of batch B and width D (12 heads, hidden 4D):
+    each held against its plain fp32 backward on the timed inputs (the
+    K-split geometry depends on B), then timed."""
     gen = torch.Generator().manual_seed(9)
-    t = block_inputs(gen, 256, 384, dev)
-    g = torch.randn(256, 197, 384, generator=gen).to(dev).bfloat16()
+    t = block_inputs(gen, B, D, dev)
+    g = torch.randn(B, 197, D, generator=gen).to(dev).bfloat16()
     times = {}
     for name, (kern, plain, plain32) in bwd_calls(t, g, 12).items():
-        hold_bwd(name, "vit_small (B=256, D=384)", kern, plain32)
+        hold_bwd(name, f"{label} (B={B}, D={D})", kern, plain32)
         if plain is None:
             continue
         k1, p1, p2, k2 = (cuda_ms(f, n) for f, n in ((kern, 10), (plain, 3),
                                                      (plain, 3), (kern, 10)))
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"{name} at B=256: kernel {k1:.3f}/{k2:.3f} ms, plain "
+        print(f"{name} at {label} B={B}: kernel {k1:.3f}/{k2:.3f} ms, plain "
               f"{p1:.3f}/{p2:.3f} ms (bf16)")
     return times
 
@@ -676,10 +959,19 @@ def main() -> int:
     phase("forward kernels against their plain versions (B=8)")
     errs = check_kernels(dev)
 
-    phase("the serving slice through mfvit_tpu_torch.cli.infer "
-          "(vit_small, B=32)")
     with tempfile.TemporaryDirectory() as tmp:
-        counts = run_slice(dev, tmp)
+        phase("the serving slice through mfvit_tpu_torch.cli.infer "
+              "(vit_small, B=32)")
+        counts = run_slice(dev, tmp, int8=False)
+
+        phase("int8 kernels K10/K11 against their plain versions")
+        errs.update(check_i8_kernels(dev))
+
+        phase("the int8 serving slice through mfvit_tpu_torch.cli.infer "
+              "--int8 (vit_small, B=32)")
+        i8_counts = run_slice(dev, tmp, int8=True)
+    counts.update({k: i8_counts[k] for k in PER_I8_FORWARD
+                   if k != "fused_fusion_cls"})
 
     phase("backward kernels against their plain versions")
     errs.update(check_bwd_kernels(dev))
@@ -693,15 +985,17 @@ def main() -> int:
     phase("train-step parity, kernel path against plain path (B=32)")
     train_parity(dev)
 
-    phase("times (B=256)")
+    phase("times (B=256; K5/K7 also at a vit_base block, B=64)")
     times = time_kernels(dev)
-    times.update(time_bwd(dev))
+    times.update(time_bwd(dev, "vit_small", 256, 384))
+    base = time_bwd(dev, "vit_base", 64, 768)
     e2e = time_e2e(dev)
     train = time_train(dev, 256, 4)
     train_cli = time_train(dev, 16, 32)  # the finetune CLI's default -b
     phase("done")
 
     bounds = kernel_bounds(256, 197, 384, 12, 1536, 3)
+    base_bounds = kernel_bounds(64, 197, 768, 12, 3072, 3)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": errs[name],
@@ -712,6 +1006,11 @@ def main() -> int:
     print(json.dumps({"e2e_pairs_per_sec_B256": e2e,
                       "ft_train_images_per_sec_B256": train,
                       "ft_train_images_per_sec_B16": train_cli,
+                      "vit_base_bwd_B64": {
+                          k: {"ms": v[0], "plain_ms": v[1],
+                              "bound_ms": base_bounds[k][0],
+                              "bound_by": base_bounds[k][1]}
+                          for k, v in base.items()},
                       "card": smi}))
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

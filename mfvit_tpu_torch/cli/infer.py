@@ -1,16 +1,18 @@
 """Batch inference: the MF-ViT CA forward over a paired manifest, writing
-predictions as JSON (the port of ``mfvit_tpu/cli/infer.py``, CA fusion and
-bf16/fp32 weights).
+predictions as JSON (the port of ``mfvit_tpu/cli/infer.py``, CA fusion).
 
     python -m mfvit_tpu_torch.cli.infer -a vit_small \\
         --checkpoint serving.pt --manifest paired.txt -b 256 \\
-        [--report-throughput] [--device cuda]
+        [--int8] [--report-throughput] [--device cuda]
 
-The checkpoint is a ``mfvit_tpu_torch.exp.checkpoint.save_serving`` file.
-The output JSON holds ``predictions``, ``logits`` and ``n``, and with
+The checkpoint is a ``mfvit_tpu_torch.exp.checkpoint.save_serving`` file
+(fp32). ``--int8`` quantizes both ViT branches after loading
+(``nn.vit.quantize_vit_for_serving``): their blocks then run the W8A8
+kernels K10 and K11. The output JSON holds ``predictions``, ``logits`` and
+``n``; when every label of the manifest is >= 0, a ``metrics`` block
+(``auc``, ``top1``, ``precision``, ``recall``, ``f1``); with
 ``--report-throughput`` also ``pairs_per_sec`` (device-resident batch) and
-``pairs_per_sec_e2e`` (the whole run, host decode included). Label metrics
-come with the port of ``train/metrics.py`` (ROADMAP.md).
+``pairs_per_sec_e2e`` (the whole run, host decode included).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from mfvit_tpu_torch.data import device_aug
 from mfvit_tpu_torch.exp import checkpoint as ckpt_mod
 from mfvit_tpu_torch.models import fusion as fusion_mod
 from mfvit_tpu_torch.nn import vit as vit_mod
+from mfvit_tpu_torch.train import metrics
 from mfvit_tpu_torch.train import steps as steps_mod
 
 FLAVORS = ("data", "Train_Mix")  # the CXR and enhanced normalisations
@@ -40,6 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(exp.checkpoint.save_serving)")
     p.add_argument("--manifest", required=True, help="paired manifest file")
     p.add_argument("--output", default="predictions.json")
+    p.add_argument("--int8", action="store_true",
+                   help="quantize ViT linears to int8 (W8A8 serving mode)")
     p.add_argument("--fusion-heads", type=int, default=3)
     p.add_argument("--cross-attn-depth", type=int, default=1)
     p.add_argument("--multi-scale-enc-depth", type=int, default=1)
@@ -50,6 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_models(args, cfg, device) -> dict:
+    """The serving checkpoint's models on ``device`` in eval mode, both ViT
+    branches quantized to int8 under ``--int8``."""
     ck = ckpt_mod.load_serving(args.checkpoint)
     models = {
         "cxr": vit_mod.ViT(cfg, args.num_classes),
@@ -61,6 +68,9 @@ def load_models(args, cfg, device) -> dict:
     for k, m in models.items():
         m.load_state_dict(ck[k], strict=True)
         m.to(device).eval()
+    if args.int8:
+        for k in ("cxr", "enh"):
+            vit_mod.quantize_vit_for_serving(models[k])
     return models
 
 
@@ -87,8 +97,12 @@ def main(argv=None):
     loader = common.make_paired_eval_loader(args, args.manifest)
     n_total = len(loader.ds)
     t0 = time.perf_counter()
-    logits = np.concatenate([forward(*prepare(b, device, dt)).cpu().numpy()
-                             for b in loader])[:n_total]
+    logits, labels = [], []
+    for b in loader:
+        logits.append(forward(*prepare(b, device, dt)).cpu().numpy())
+        labels.append(np.asarray(b[2]))
+    logits = np.concatenate(logits)[:n_total]
+    labels = np.concatenate(labels)[:n_total]
     wall = time.perf_counter() - t0
 
     out = {
@@ -96,6 +110,12 @@ def main(argv=None):
         "logits": logits.tolist(),
         "n": int(len(logits)),
     }
+    if (labels >= 0).all():
+        out["metrics"] = {
+            "auc": metrics.macro_ovr_auc(logits, labels, args.num_classes),
+            "top1": metrics.top1_acc(logits, labels),
+            **metrics.precision_recall_f1(logits, labels, args.num_classes),
+        }
     if args.report_throughput:
         out["pairs_per_sec_e2e"] = len(logits) / wall
         # forward throughput on one device-resident batch, the logits

@@ -3,7 +3,8 @@
 // its qkv GEMM and its proj GEMM (both gemm_ln.cuh; see fused_attn.cu).
 //
 // qkv (B, N, 3D) bf16 with columns [q | k | v] x head x dh -> o (B, N, D)
-// bf16. One block of four warps per (head, image): the head's K and V
+// in OT: bf16 for K1, fp32 for K10 (fused_int8.cu), which quantizes the
+// fp32 output per token (mfvit_tpu/ops/fused_int8.py:198-203). One block of four warps per (head, image): the head's K and V
 // (V transposed) are loaded once into shared memory, and each warp takes
 // 16 query rows at a time. q is scaled in fp32 and rounded to bf16; the
 // scores S = q k^T (mma.sync m16n8k16, fp32), the row max, exp and row sum
@@ -25,6 +26,14 @@
 
 constexpr int ATT_WARPS = 4;
 
+// Two adjacent outputs of one row.
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 template <int DH, int NKT>  // NKT: key tiles of 8 held (even), NKT * 8 >= N
 struct AttnSmem {
   static constexpr int NK = NKT * 8;
@@ -33,9 +42,9 @@ struct AttnSmem {
   static constexpr size_t BYTES = (size_t)(NK * LDK + DH * LDV) * sizeof(bf16);
 };
 
-template <int DH, int NKT>
+template <int DH, int NKT, typename OT>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
-    attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o, int N, int heads,
+    attn_core_kernel(const bf16* __restrict__ qkv, OT* __restrict__ o, int N, int heads,
                      float scale) {
   using S = AttnSmem<DH, NKT>;
   const int h = blockIdx.x, b = blockIdx.y;
@@ -142,47 +151,47 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
     }
 
     const float r0 = 1.0f / l0, r1 = 1.0f / l1;
-    bf16* orow = o + ((size_t)b * N + q0 + g) * D + h * DH + 2 * t4;
+    OT* orow = o + ((size_t)b * N + q0 + g) * D + h * DH + 2 * t4;
 #pragma unroll
     for (int c = 0; c < DH / 8; ++c) {
-      if (q0 + g < N)
-        *reinterpret_cast<uint32_t*>(orow + 8 * c) = pack_bf16x2(oacc[c][0] * r0, oacc[c][1] * r0);
+      if (q0 + g < N) store_pair(orow + 8 * c, oacc[c][0] * r0, oacc[c][1] * r0);
       if (q0 + g + 8 < N)
-        *reinterpret_cast<uint32_t*>(orow + (size_t)8 * D + 8 * c) =
-            pack_bf16x2(oacc[c][2] * r1, oacc[c][3] * r1);
+        store_pair(orow + (size_t)8 * D + 8 * c, oacc[c][2] * r1, oacc[c][3] * r1);
     }
   }
 }
 
-template <int DH, int NKT>
+template <int DH, int NKT, typename OT>
 static int launch_attn(const void* qkv, void* o, int B, int N, int heads, float scale,
                        cudaStream_t stream) {
   const size_t smem = AttnSmem<DH, NKT>::BYTES;
-  auto kern = attn_core_kernel<DH, NKT>;
+  auto kern = attn_core_kernel<DH, NKT, OT>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<dim3(heads, B), ATT_WARPS * 32, smem, stream>>>(static_cast<const bf16*>(qkv),
-                                                          static_cast<bf16*>(o), N, heads, scale);
+                                                          static_cast<OT*>(o), N, heads, scale);
   return (int)cudaGetLastError();
 }
 
 // The smallest key-tile count that covers N: 64, 128, 208 or 256 keys.
-template <int DH>
+template <int DH, typename OT>
 static int launch_attn_n(const void* qkv, void* o, int B, int N, int heads, float scale,
                          cudaStream_t s) {
-  if (N <= 64) return launch_attn<DH, 8>(qkv, o, B, N, heads, scale, s);
-  if (N <= 128) return launch_attn<DH, 16>(qkv, o, B, N, heads, scale, s);
-  if (N <= 208) return launch_attn<DH, 26>(qkv, o, B, N, heads, scale, s);
-  return launch_attn<DH, 32>(qkv, o, B, N, heads, scale, s);
+  if (N <= 64) return launch_attn<DH, 8, OT>(qkv, o, B, N, heads, scale, s);
+  if (N <= 128) return launch_attn<DH, 16, OT>(qkv, o, B, N, heads, scale, s);
+  if (N <= 208) return launch_attn<DH, 26, OT>(qkv, o, B, N, heads, scale, s);
+  return launch_attn<DH, 32, OT>(qkv, o, B, N, heads, scale, s);
 }
 
+// o is bf16 (OT = bf16) or fp32 (OT = float).
+template <typename OT>
 static int attn_core(const void* qkv, void* o, int B, int N, int heads, int dh, float scale,
                      cudaStream_t s) {
   if (B <= 0 || B > 65535 || N <= 0 || N > NMAX || heads <= 0) return (int)cudaErrorInvalidValue;
   switch (dh) {
-    case 32: return launch_attn_n<32>(qkv, o, B, N, heads, scale, s);
-    case 64: return launch_attn_n<64>(qkv, o, B, N, heads, scale, s);
-    case 128: return launch_attn_n<128>(qkv, o, B, N, heads, scale, s);
+    case 32: return launch_attn_n<32, OT>(qkv, o, B, N, heads, scale, s);
+    case 64: return launch_attn_n<64, OT>(qkv, o, B, N, heads, scale, s);
+    case 128: return launch_attn_n<128, OT>(qkv, o, B, N, heads, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -24,7 +24,7 @@ MFV_API int mfv_fused_attention_block(const void* x, const void* ln_s, const voi
   p.ln_stats = static_cast<float2*>(stats);
   int e = gemm_ln<true, EPI_BIAS>(p, s);
   if (e) return e;
-  e = attn_core(qkv, o, B, N, heads, D / heads, scale, s);
+  e = attn_core<bf16>(qkv, o, B, N, heads, D / heads, scale, s);
   if (e) return e;
   GemmArgs q = gemm_args(o, M, D, D, wproj, out);
   q.bias = static_cast<const float*>(bproj);

@@ -1,0 +1,68 @@
+// K10 and K11, the int8 W8A8 serving halves of a ViT block, replacing
+// mfvit_tpu/ops/fused_int8.py::fused_attention_block_i8 (Pallas
+// _attn_kernel_i8 :168) and fused_mlp_block_i8 (_mlp_kernel_i8 :100).
+//
+// K10, five launches on one stream: LN + row quantization of x (int8 h and
+// its per-token scales), the int8 qkv GEMM with the bias (bf16 qkv, the
+// weight scale applied first), the attention core of K1 with an fp32
+// output (attn_core.cuh), row quantization of that output over all D, and
+// the int8 proj GEMM with the bias and the bf16 residual add.
+//
+// K11, four launches: LN + row quantization of x, the int8 fc1 GEMM with
+// the bias and the exact-erf GELU into fp32 h1, row quantization of h1 over
+// all of its columns, and the int8 fc2 GEMM with the bias and the bf16
+// residual add.
+//
+// Scratch (the caller's): the int8 rows and their scales (reused by both
+// quantizations of K10), K10's bf16 qkv and fp32 attention output, K11's
+// fp32 h1 and its int8 codes. gemm_i8.cuh says what bounds each piece.
+#include "attn_core.cuh"
+#include "gemm_i8.cuh"
+
+MFV_API int mfv_fused_attention_block_i8(const void* x, const void* ln_s, const void* ln_b,
+                                         const void* wqkvq, const void* wqkvs, const void* bqkv,
+                                         const void* wprojq, const void* wprojs,
+                                         const void* bproj, void* q8, void* rs, void* qkv,
+                                         void* o, void* out, int B, int N, int D, int heads,
+                                         float scale, void* stream) {
+  if (B <= 0 || N <= 0 || heads <= 0 || D % heads != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * N;
+  int e = quant_rows<true, bf16>(x, ln_s, ln_b, q8, rs, M, D, s);
+  if (e) return e;
+  const GemmI8Args a = {static_cast<const int8_t*>(q8), static_cast<const float*>(rs),
+                        static_cast<const int8_t*>(wqkvq), static_cast<const float*>(wqkvs),
+                        static_cast<const float*>(bqkv), nullptr, qkv, M, 3 * D, D};
+  e = gemm_i8<I8_QKV>(a, s);
+  if (e) return e;
+  e = attn_core<float>(qkv, o, B, N, heads, D / heads, scale, s);
+  if (e) return e;
+  e = quant_rows<false, float>(o, nullptr, nullptr, q8, rs, M, D, s);
+  if (e) return e;
+  const GemmI8Args p = {static_cast<const int8_t*>(q8), static_cast<const float*>(rs),
+                        static_cast<const int8_t*>(wprojq), static_cast<const float*>(wprojs),
+                        static_cast<const float*>(bproj), static_cast<const bf16*>(x), out, M, D,
+                        D};
+  return gemm_i8<I8_RESID>(p, s);
+}
+
+MFV_API int mfv_fused_mlp_block_i8(const void* x, const void* ln_s, const void* ln_b,
+                                   const void* w1q, const void* w1s, const void* b1,
+                                   const void* w2q, const void* w2s, const void* b2, void* hq,
+                                   void* h1, void* h1q, void* rs, void* out, int M, int D, int Hd,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int e = quant_rows<true, bf16>(x, ln_s, ln_b, hq, rs, M, D, s);
+  if (e) return e;
+  const GemmI8Args a = {static_cast<const int8_t*>(hq), static_cast<const float*>(rs),
+                        static_cast<const int8_t*>(w1q), static_cast<const float*>(w1s),
+                        static_cast<const float*>(b1), nullptr, h1, M, Hd, D};
+  e = gemm_i8<I8_GELU_F32>(a, s);
+  if (e) return e;
+  e = quant_rows<false, float>(h1, nullptr, nullptr, h1q, rs, M, Hd, s);
+  if (e) return e;
+  const GemmI8Args p = {static_cast<const int8_t*>(h1q), static_cast<const float*>(rs),
+                        static_cast<const int8_t*>(w2q), static_cast<const float*>(w2s),
+                        static_cast<const float*>(b2), static_cast<const bf16*>(x), out, M, D, Hd};
+  return gemm_i8<I8_RESID>(p, s);
+}

@@ -2,7 +2,8 @@
 checkpoint, the training checkpoints (``BestKeeper``) and the reference
 MoCo ``.pth.tar`` surgery.
 
-``vit_state_from_jax`` and ``fusion_state_from_jax`` take the JAX package's
+``vit_state_from_jax``, ``vit_int8_state_from_jax`` and
+``fusion_state_from_jax`` take the JAX package's
 parameter trees as nested dicts of numpy arrays (``mfvit_tpu/nn/vit.py::init``
 and ``mfvit_tpu/models/fusion.py::init`` layouts) and return the port's
 state dicts, under the MoCo-v3 ``vits.py`` / reference ``Fus_CrossViT``
@@ -42,9 +43,7 @@ def vit_state_from_jax(tree, cfg) -> dict:
     }
     for i, blk in enumerate(tree["blocks"]):
         b = f"blocks.{i}."
-        for name, p in (("norm1", blk["norm1"]), ("norm2", blk["norm2"])):
-            sd[b + name + ".weight"] = _t(p["scale"])
-            sd[b + name + ".bias"] = _t(p["bias"])
+        _norms_from_jax(sd, b, blk)
         for name, p in (("attn.qkv", blk["qkv"]), ("attn.proj", blk["proj"]),
                         ("mlp.fc1", blk["mlp"]["fc1"]),
                         ("mlp.fc2", blk["mlp"]["fc2"])):
@@ -53,6 +52,32 @@ def vit_state_from_jax(tree, cfg) -> dict:
     if "head" in tree:
         sd["head.weight"] = _t(np.asarray(tree["head"]["w"]).T)
         sd["head.bias"] = _t(tree["head"]["b"])
+    return sd
+
+
+def _norms_from_jax(sd: dict, prefix: str, blk) -> None:
+    for name, p in (("norm1", blk["norm1"]), ("norm2", blk["norm2"])):
+        sd[prefix + name + ".weight"] = _t(p["scale"])
+        sd[prefix + name + ".bias"] = _t(p["bias"])
+
+
+def vit_int8_state_from_jax(qtree, cfg) -> dict:
+    """JAX int8 serving tree (``mfvit_tpu/ops/fused_int8.py::
+    quantize_vit_for_serving``) -> the state dict of an ``nn.vit.ViT``
+    after ``nn.vit.quantize_vit_for_serving``: each ``qkv8``/``proj8``/
+    ``fc18``/``fc28`` entry's int8 ``q`` (in, out) becomes ``q`` (out, in),
+    with its scales ``s`` and bias ``b`` as ``s`` and ``bias``."""
+    sd = vit_state_from_jax(dict(qtree, blocks=[]), cfg)
+    for i, blk in enumerate(qtree["blocks"]):
+        b = f"blocks.{i}."
+        _norms_from_jax(sd, b, blk)
+        for name, key in (("attn.qkv", "qkv8"), ("attn.proj", "proj8"),
+                          ("mlp.fc1", "fc18"), ("mlp.fc2", "fc28")):
+            p = blk[key]
+            q = np.ascontiguousarray(np.asarray(p["q"], np.int8).T)
+            sd[b + name + ".q"] = torch.from_numpy(q)
+            sd[b + name + ".s"] = _t(p["s"])
+            sd[b + name + ".bias"] = _t(p["b"])
     return sd
 
 

@@ -12,7 +12,9 @@ JAX tree loads with ``load_state_dict(strict=True)``.
 Every block runs K1 (``ops.fused_attn``) and K2 (``ops.fused_mlp``) except
 the last, which runs K3 with the model's final LayerNorm in its epilogue,
 at every width. That per-block plan is computed once, when the model is
-built (``block_plan``).
+built (``block_plan``). ``quantize_vit_for_serving`` turns a model into
+the int8 W8A8 serving form, whose blocks run K10 and K11
+(``ops.fused_int8``) and whose final LayerNorm runs after the blocks.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from mfvit_tpu_torch.nn import posembed
-from mfvit_tpu_torch.nn.layers import Mlp, trunc_normal_
-from mfvit_tpu_torch.ops import fused_attn, fused_mlp
+from mfvit_tpu_torch.nn.layers import Mlp, layer_norm, trunc_normal_
+from mfvit_tpu_torch.ops import fused_attn, fused_int8, fused_mlp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,11 +92,21 @@ class BlockOps:
     final_ln: bool  # the MLP op applies the model's final LayerNorm too
 
 
-def block_plan(depth: int, reference: bool = False) -> tuple:
+def block_plan(depth: int, reference: bool = False,
+               int8: bool = False) -> tuple:
     """The ops each block runs: the kernel Functions (K1/K5, K2/K7,
-    K3/K7). ``reference=True`` gives the same Functions over the plain
-    PyTorch versions, forward and backward, on any device: the reference
-    the kernels are held to."""
+    K3/K7), or with ``int8`` the inference-only K10 and K11 on every block
+    (the final LayerNorm then runs after the blocks, as JAX's
+    ``final_ln_done`` is False for an int8 tree). ``reference=True`` gives
+    the same ops over the plain PyTorch versions, on any device: the
+    reference the kernels are held to."""
+    if int8:
+        ops = BlockOps(
+            functools.partial(fused_int8.fused_attention_block_i8,
+                              plain=reference),
+            functools.partial(fused_int8.fused_mlp_block_i8, plain=reference),
+            False)
+        return (ops,) * depth
     attn = functools.partial(fused_attn.fused_attention_block,
                              plain=reference)
     mid = functools.partial(fused_mlp.fused_mlp_block, plain=reference)
@@ -134,6 +146,26 @@ class Attention(nn.Module):
         super().__init__()
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+
+
+class Int8Linear(nn.Module):
+    """A Linear quantized for serving: int8 codes ``q`` (out, in), one fp32
+    scale per output channel ``s`` and the fp32 ``bias``, as buffers."""
+
+    def __init__(self, lin: nn.Linear):
+        super().__init__()
+        q, s = fused_int8.quantize_weight_cols(lin.weight.detach())
+        self.register_buffer("q", q)
+        self.register_buffer("s", s)
+        self.register_buffer("bias", lin.bias.detach().float().clone())
+
+
+def _linear_params(lin) -> tuple:
+    """What a block op takes for one linear: (weight, bias) of an fp32
+    Linear, (q, s, bias) of an ``Int8Linear``."""
+    if isinstance(lin, Int8Linear):
+        return lin.q, lin.s, lin.bias
+    return lin.weight, lin.bias
 
 
 class Block(nn.Module):
@@ -209,11 +241,11 @@ class ViT(nn.Module):
         """One block through its ops, on the fp32 parameters: the ops cast
         them to x's dtype and return fp32 gradients."""
         a, m = blk.attn, blk.mlp
-        x = ops.attn(x, blk.norm1.weight, blk.norm1.bias, a.qkv.weight,
-                     a.qkv.bias, a.proj.weight, a.proj.bias, self.cfg.heads,
-                     self.cfg.head_dim ** -0.5)
-        args = (x, blk.norm2.weight, blk.norm2.bias, m.fc1.weight, m.fc1.bias,
-                m.fc2.weight, m.fc2.bias)
+        x = ops.attn(x, blk.norm1.weight, blk.norm1.bias,
+                     *_linear_params(a.qkv), *_linear_params(a.proj),
+                     self.cfg.heads, self.cfg.head_dim ** -0.5)
+        args = (x, blk.norm2.weight, blk.norm2.bias, *_linear_params(m.fc1),
+                *_linear_params(m.fc2))
         if ops.final_ln:
             return ops.mlp(*args, self.norm.weight, self.norm.bias)
         return ops.mlp(*args)
@@ -241,14 +273,33 @@ class ViT(nn.Module):
         cls = self.cls_token.to(dt).expand(B, 1, cfg.dim)
         x = torch.cat([cls, x], 1)
         x = (x.float() + self.pos_embed).to(dt)
-        for blk, ops in zip(self.blocks, self.plans[reference]):
+        plan = self.plans[reference]
+        for blk, ops in zip(self.blocks, plan):
             if remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(
                     self._block, x, blk, ops, use_reentrant=False)
             else:
                 x = self._block(x, blk, ops)
-        tokens = x  # the final LayerNorm ran in the last block's K3
+        # the final LayerNorm ran in the last block's K3, unless int8
+        tokens = (x if plan[-1].final_ln
+                  else layer_norm(x, self.norm.weight, self.norm.bias, 1e-6))
         cls_out = tokens[:, 0].float()
         out = (F.linear(cls_out, self.head.weight, self.head.bias)
                if self.head is not None else cls_out)
         return (tokens, out) if return_features else out
+
+
+def quantize_vit_for_serving(model: ViT) -> ViT:
+    """Turn ``model`` (in place) into the int8 W8A8 serving form, the port
+    of ``mfvit_tpu/ops/fused_int8.py::quantize_vit_for_serving`` (:273):
+    each block's qkv, proj, fc1 and fc2 become ``Int8Linear`` buffers and
+    its plan runs K10 and K11; the patch embedding, LayerNorms, CLS,
+    position table and the fp32 head stay exact. Returns the model."""
+    for blk in model.blocks:
+        a, m = blk.attn, blk.mlp
+        a.qkv, a.proj = Int8Linear(a.qkv), Int8Linear(a.proj)
+        m.fc1, m.fc2 = Int8Linear(m.fc1), Int8Linear(m.fc2)
+    depth = model.cfg.depth
+    model.plans = {False: block_plan(depth, int8=True),
+                   True: block_plan(depth, reference=True, int8=True)}
+    return model

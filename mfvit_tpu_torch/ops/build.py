@@ -37,6 +37,8 @@ SIGNATURES = {
     "mfv_fused_attention_block_bwd": [_P] * 22 + [_I] * 4 + [_F] + [_I] * 6
                                      + [_P],
     "mfv_fused_mlp_block_bwd": [_P] * 20 + [_I] * 7 + [_P],
+    "mfv_fused_attention_block_i8": [_P] * 14 + [_I] * 4 + [_F, _P],
+    "mfv_fused_mlp_block_i8": [_P] * 14 + [_I] * 3 + [_P],
 }
 
 _lib = None

@@ -35,10 +35,13 @@ from mfvit_tpu_torch.ops import launch
 LAUNCHES = {"fused_attention_block": 0, "fused_attention_block_bwd": 0}
 
 
-def attn_core_plain(qkv: torch.Tensor, heads: int, scale: float):
+def attn_core_plain(qkv: torch.Tensor, heads: int, scale: float,
+                    out_dtype: torch.dtype | None = None):
     """(B, N, 3D) packed qkv ([q|k|v] x head x dh) -> (B, N, D), with the
     TPU kernel's rounding points: q scaled in fp32 and rounded, fp32 scores
-    and softmax, P rounded for PV, 1/sum applied to the PV output."""
+    and softmax, P rounded for PV, 1/sum applied to the PV output. The
+    output is in qkv's dtype unless ``out_dtype`` is given (K10 quantizes
+    the fp32 output)."""
     B, N, three_d = qkv.shape
     D = three_d // 3
     dt = qkv.dtype
@@ -49,7 +52,7 @@ def attn_core_plain(qkv: torch.Tensor, heads: int, scale: float):
     p = torch.exp(s - s.amax(-1, keepdim=True))
     r = 1.0 / p.sum(-1, keepdim=True)
     o = (p.to(dt).float() @ v.float()) * r
-    return o.transpose(1, 2).reshape(B, N, D).to(dt)
+    return o.transpose(1, 2).reshape(B, N, D).to(out_dtype or dt)
 
 
 def fused_attention_block_plain(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,

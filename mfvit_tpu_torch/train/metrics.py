@@ -1,9 +1,10 @@
 """Metrics and meters, the port's own copy of ``mfvit_tpu/train/metrics.py``
-(numpy only): macro one-vs-rest ROC-AUC on raw logits, top-1 accuracy, and
-the reference's AverageMeter / ProgressMeter display contract."""
+(numpy only): macro one-vs-rest ROC-AUC on raw logits, top-1 and top-k
+accuracy, macro precision/recall/F1, and the reference's AverageMeter /
+ProgressMeter display contract."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Sequence
 
 import numpy as np
 
@@ -60,6 +61,33 @@ def macro_ovr_auc(logits: np.ndarray, labels: np.ndarray,
 
 def top1_acc(logits: np.ndarray, labels: np.ndarray) -> float:
     return float((logits.argmax(-1) == labels).mean())
+
+
+def topk_acc(logits: np.ndarray, labels: np.ndarray, k: int = 1) -> float:
+    """evaluator.py:60-64."""
+    topk = np.argsort(-logits, axis=-1)[:, :k]
+    return float((topk == labels[:, None]).any(-1).mean())
+
+
+def precision_recall_f1(logits: np.ndarray, labels: np.ndarray,
+                        num_classes: int = 3) -> Dict[str, float]:
+    """Macro precision/recall/F1 over the argmax predictions, a class with
+    no predictions (or no labels) counting 0 (the reference README's
+    metrics)."""
+    pred = logits.argmax(-1)
+    ps, rs, fs = [], [], []
+    for c in range(num_classes):
+        tp = np.sum((pred == c) & (labels == c))
+        fp = np.sum((pred == c) & (labels != c))
+        fn = np.sum((pred != c) & (labels == c))
+        p = tp / (tp + fp) if tp + fp else 0.0
+        r = tp / (tp + fn) if tp + fn else 0.0
+        f = 2 * p * r / (p + r) if p + r else 0.0
+        ps.append(p)
+        rs.append(r)
+        fs.append(f)
+    return {"precision": float(np.mean(ps)), "recall": float(np.mean(rs)),
+            "f1": float(np.mean(fs))}
 
 
 class DeferredFetch:

@@ -1,4 +1,4 @@
-"""Kernel-against-plain tests for K1-K5 and K7 on the card. They need CUDA, nvcc
+"""Kernel-against-plain tests for K1-K5, K7, K10 and K11 on the card. They need CUDA, nvcc
 and an sm_90a GPU, so they carry the ``cuda`` marker and skip elsewhere;
 on the card run ``python -m pytest tests/test_torch_port_cuda.py``
 (``chip_smoke.py`` makes the same comparisons at serving shapes).
@@ -11,7 +11,7 @@ import torch
 
 from mfvit_tpu_torch import ops
 from mfvit_tpu_torch.nn import vit
-from mfvit_tpu_torch.ops import fused_attn, fused_fusion, fused_mlp
+from mfvit_tpu_torch.ops import fused_attn, fused_fusion, fused_int8, fused_mlp
 
 pytestmark = pytest.mark.cuda
 REL = 2e-2
@@ -80,7 +80,8 @@ def test_kernels_match_plain(dev, B, N, D, H):
     assert ops.launch_counts() == {
         "fused_attention_block": 1, "fused_mlp_block": 1,
         "fused_mlp_block_final_ln": 1, "fused_fusion_cls": 0,
-        "fused_attention_block_bwd": 0, "fused_mlp_block_bwd": 0}
+        "fused_attention_block_bwd": 0, "fused_mlp_block_bwd": 0,
+        "fused_attention_block_i8": 0, "fused_mlp_block_i8": 0}
 
 
 @pytest.mark.parametrize("B,heads", [(8, 3), (5, 3), (3, 6)])
@@ -161,3 +162,66 @@ def test_long_sequences_need_k9(dev):
     m = vit.ViT(vit.get_config("vit_small", 384), 3, device=dev)
     with pytest.raises(NotImplementedError, match="K9"):
         m(torch.zeros(1, 384, 384, 3, device=dev))
+
+
+def _i8_args(t):
+    """K10's and K11's arguments from one block's inputs: the bf16 weights
+    quantized per output channel, the vectors fp32."""
+    q = {k: fused_int8.quantize_weight_cols(t[k]) for k in
+         ("wqkv", "wproj", "w1", "w2")}
+    attn = (t["x"], t["ln_s"], t["ln_b"], *q["wqkv"], t["bqkv"], *q["wproj"],
+            t["bproj"])
+    mlp = (t["x"], t["ln_s"], t["ln_b"], *q["w1"], t["b1"], *q["w2"],
+           t["b2"])
+    return attn, mlp
+
+
+@pytest.mark.parametrize("B,N,D,H", [(2, 197, 384, 12), (3, 50, 384, 12),
+                                     (2, 197, 768, 12), (2, 50, 768, 12),
+                                     (2, 197, 256, 2), (2, 50, 256, 2)])
+def test_int8_kernels_match_plain(dev, B, N, D, H):
+    """K10 and K11 against their plain versions in fp32 on the same bf16
+    x and int8 weights, at head_dim 32, 64 and 128 and N 50 and 197."""
+    attn, mlp = _i8_args(_block(dev, B, N, D))
+    scale = (D // H) ** -0.5
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = fused_int8.fused_attention_block_i8(*attn, H, scale)
+        ref = fused_int8.fused_attention_block_i8_plain(
+            attn[0].float(), *attn[1:], H, scale)
+        assert _rel(got, ref) < REL
+        got = fused_int8.fused_mlp_block_i8(*mlp)
+        ref = fused_int8.fused_mlp_block_i8_plain(mlp[0].float(), *mlp[1:])
+        assert _rel(got, ref) < REL
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["fused_attention_block_i8"],
+            counts["fused_mlp_block_i8"]) == (1, 1)
+
+
+def test_cuda_tensors_never_take_the_plain_int8_version(dev):
+    attn, mlp = _i8_args(_block(dev, 1, 197, 384))
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="bfloat16"):
+            fused_int8.fused_attention_block_i8(attn[0].float(), *attn[1:],
+                                                12, 32 ** -0.5)
+        with pytest.raises(ValueError, match="bfloat16"):
+            fused_int8.fused_mlp_block_i8(mlp[0].float(), *mlp[1:])
+        x = torch.zeros(1, 300, 384, dtype=torch.bfloat16, device=dev)
+        with pytest.raises(ValueError, match="N <= 256"):
+            fused_int8.fused_attention_block_i8(x, *attn[1:], 12, 32 ** -0.5)
+
+
+def test_int8_quantizers_on_the_card_match_the_cpu(dev):
+    """quantize_weight_cols and quant_rows give the same codes and scales
+    on a CUDA tensor as on the CPU (where they are JAX's bit for bit), and
+    the scales are those the kernels compute: amax / 127 by IEEE
+    division."""
+    g = torch.Generator().manual_seed(4)
+    w = _rnd(g, 1152, 384, std=0.05)
+    w[7] = 0.0
+    h = _rnd(g, 394, 1536)
+    for fn, a in ((fused_int8.quantize_weight_cols, w),
+                  (fused_int8.quant_rows, h)):
+        (q, s), (qd, sd) = fn(a), fn(a.to(dev))
+        assert torch.equal(q, qd.cpu()) and torch.equal(s, sd.cpu())

@@ -1,6 +1,7 @@
 """The port's serving entry point on the CPU: the data path and the infer
-CLI against the JAX package's on one synthetic paired manifest, plus the
-package boundary (no jax import) and the device contract."""
+CLI (with its label metrics) against the JAX package's on one synthetic
+paired manifest, plus the package boundary (no jax import) and the device
+contract."""
 import argparse
 import json
 import os
@@ -21,9 +22,11 @@ from mfvit_tpu.data import device_aug as jaug
 from mfvit_tpu.exp import checkpoint as jckpt
 from mfvit_tpu.models import fusion as jfusion
 from mfvit_tpu.nn import vit as jvit
+from mfvit_tpu.train import metrics as jmetrics
 from mfvit_tpu_torch.cli import common, infer
 from mfvit_tpu_torch.data import device_aug, manifest
 from mfvit_tpu_torch.exp import checkpoint
+from mfvit_tpu_torch.train import metrics
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_PAIRS = 8
@@ -109,10 +112,32 @@ def test_infer_cli_matches_jax(paired, tmp_path):
     np.testing.assert_allclose(np.asarray(got["logits"]),
                                np.asarray(want["logits"]), atol=1e-4)
     assert got["predictions"] == want["predictions"]
+    # every label is >= 0: both write the same metrics block
+    assert set(got["metrics"]) == set(want["metrics"]) == {
+        "auc", "top1", "precision", "recall", "f1"}
+    for k, v in want["metrics"].items():
+        assert got["metrics"][k] == pytest.approx(v, abs=1e-9), k
     with open(out) as f:
         written = json.load(f)
     assert written["logits"] == got["logits"]
+    assert written["metrics"] == got["metrics"]
     assert written["pairs_per_sec"] > 0 and written["pairs_per_sec_e2e"] > 0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_label_metrics_match_jax(seed):
+    """The port's copies of ``topk_acc`` and ``precision_recall_f1``
+    against the JAX package's, including a class that is never
+    predicted."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((40, 3)).astype(np.float32)
+    logits[:, 2] -= 10 * seed  # seed 1: class 2 is never predicted
+    labels = rng.integers(0, 3, 40)
+    assert (metrics.precision_recall_f1(logits, labels, 3)
+            == jmetrics.precision_recall_f1(logits, labels, 3))
+    for k in (1, 2, 3):
+        assert (metrics.topk_acc(logits, labels, k)
+                == jmetrics.topk_acc(logits, labels, k))
 
 
 def test_infer_cuda_request_without_cuda_raises(paired, tmp_path):

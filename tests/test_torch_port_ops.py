@@ -21,7 +21,8 @@ from mfvit_tpu_torch import ops
 from mfvit_tpu_torch.exp.checkpoint import fusion_state_from_jax
 from mfvit_tpu_torch.models.fusion import Fusion
 from mfvit_tpu_torch.nn import layers, posembed
-from mfvit_tpu_torch.ops import attention, fused_attn, fused_fusion, fused_mlp
+from mfvit_tpu_torch.ops import (attention, fused_attn, fused_fusion,
+                                 fused_int8, fused_mlp)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -223,9 +224,15 @@ def test_cpu_tensors_never_count_a_launch(blk, fusion_case):
     out.sum().backward()  # the backward Functions take the plain path too
     assert x.grad is not None
     _, fus, tok_c, tok_e = fusion_case
+    a, m = _port_attn_args(blk), _port_mlp_args(blk)
+    q = [fused_int8.quantize_weight_cols(w) for w in (a[3], a[5], m[3], m[5])]
     with torch.no_grad():
         fus(_t(tok_c), _t(tok_e))
+        fused_int8.fused_attention_block_i8(*a[:3], *q[0], a[4], *q[1], a[6],
+                                            H, SCALE)
+        fused_int8.fused_mlp_block_i8(*m[:3], *q[2], m[4], *q[3], m[6])
     assert ops.launch_counts() == {
         "fused_attention_block": 0, "fused_mlp_block": 0,
         "fused_mlp_block_final_ln": 0, "fused_fusion_cls": 0,
-        "fused_attention_block_bwd": 0, "fused_mlp_block_bwd": 0}
+        "fused_attention_block_bwd": 0, "fused_mlp_block_bwd": 0,
+        "fused_attention_block_i8": 0, "fused_mlp_block_i8": 0}
