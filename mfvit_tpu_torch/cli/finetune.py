@@ -10,7 +10,9 @@ checkpoints, and the LP frozen-backbone sanity check.
         --covid-ds create_covid_dataset --pretrained moco.pth.tar \\
         -b 16 --epochs 90 --lr 3 --cos [--device cuda]
 
-On CUDA every block runs K1/K2/K3 forward and, under FT, K5/K7 backward.
+On CUDA every block runs K1/K2/K3 forward and, under FT, K5/K7 backward;
+past 256 tokens (``--img-size 384 --crop 384``) K9 replaces K1, and its
+backward is the fp32 recompute of the JAX package, in plain PyTorch.
 Not ported yet (ROADMAP.md): the device canvas store (this behaves as the
 JAX CLI with ``--device-store-mb 0``), ``--aug-order crop-first``,
 ``--attn-backend``, the canvas cache, the distributed flags, TensorBoard

@@ -6,9 +6,12 @@ predictions as JSON (the port of ``mfvit_tpu/cli/infer.py``, CA fusion).
         [--int8] [--report-throughput] [--device cuda]
 
 The checkpoint is a ``mfvit_tpu_torch.exp.checkpoint.save_serving`` file
-(fp32). ``--int8`` quantizes both ViT branches after loading
-(``nn.vit.quantize_vit_for_serving``): their blocks then run the W8A8
-kernels K10 and K11. The output JSON holds ``predictions``, ``logits`` and
+(fp32). The network input is ``--crop`` pixels square (``--img-size`` the
+resize before the center crop): at 224 the blocks run K1, past 256 tokens
+(``--img-size 384 --crop 384``: 577) K9. ``--int8`` quantizes both ViT
+branches after loading (``nn.vit.quantize_vit_for_serving``): their blocks
+then run K11 and, for the attention half, the W8A8 K10 or K9 on the
+dequantized weights, by the JAX package's rule (vit_small at 384: K9). The output JSON holds ``predictions``, ``logits`` and
 ``n``; when every label of the manifest is >= 0, a ``metrics`` block
 (``auc``, ``top1``, ``precision``, ``recall``, ``f1``); with
 ``--report-throughput`` also ``pairs_per_sec`` (device-resident batch) and
@@ -57,7 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
 def load_models(args, cfg, device) -> dict:
     """The serving checkpoint's models on ``device`` in eval mode, both ViT
     branches quantized to int8 under ``--int8``."""
-    ck = ckpt_mod.load_serving(args.checkpoint)
+    ck = ckpt_mod.load_serving(args.checkpoint, cfg)
     models = {
         "cxr": vit_mod.ViT(cfg, args.num_classes),
         "enh": vit_mod.ViT(cfg, args.num_classes),

@@ -19,7 +19,7 @@
 // the tensor cores. No score tile lives in shared memory (K and Vt take
 // 30 KB at dh = 32), so several blocks share an SM. The whole key range is
 // held at once (up to 256 keys: img_size 224 at patch 16); longer sequences
-// need the query-blocked kernel (K9).
+// go through attn_long.cuh (K9).
 #pragma once
 
 #include "common.cuh"

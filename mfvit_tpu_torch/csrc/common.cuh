@@ -66,8 +66,8 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// The longest sequence the attention cores hold at once (img_size 224 at
-// patch 16 is 197).
+// The longest sequence the attention core of K1 holds at once (img_size 224
+// at patch 16 is 197); longer ones go through attn_long.cuh.
 constexpr int NMAX = 256;
 
 // D += A . B on the tensor cores, one m16n8k16 bf16 tile with fp32 sums.

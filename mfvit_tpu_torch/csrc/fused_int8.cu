@@ -5,8 +5,9 @@
 // K10, five launches on one stream: LN + row quantization of x (int8 h and
 // its per-token scales), the int8 qkv GEMM with the bias (bf16 qkv, the
 // weight scale applied first), the attention core of K1 with an fp32
-// output (attn_core.cuh), row quantization of that output over all D, and
-// the int8 proj GEMM with the bias and the bf16 residual add.
+// output (attn_core.cuh; past NMAX keys the long-sequence core of K9,
+// attn_long.cuh), row quantization of that output over all D, and the
+// int8 proj GEMM with the bias and the bf16 residual add.
 //
 // K11, four launches: LN + row quantization of x, the int8 fc1 GEMM with
 // the bias and the exact-erf GELU into fp32 h1, row quantization of h1 over
@@ -16,7 +17,7 @@
 // Scratch (the caller's): the int8 rows and their scales (reused by both
 // quantizations of K10), K10's bf16 qkv and fp32 attention output, K11's
 // fp32 h1 and its int8 codes. gemm_i8.cuh says what bounds each piece.
-#include "attn_core.cuh"
+#include "attn_long.cuh"
 #include "gemm_i8.cuh"
 
 MFV_API int mfv_fused_attention_block_i8(const void* x, const void* ln_s, const void* ln_b,
@@ -35,7 +36,8 @@ MFV_API int mfv_fused_attention_block_i8(const void* x, const void* ln_s, const 
                         static_cast<const float*>(bqkv), nullptr, qkv, M, 3 * D, D};
   e = gemm_i8<I8_QKV>(a, s);
   if (e) return e;
-  e = attn_core<float>(qkv, o, B, N, heads, D / heads, scale, s);
+  e = N <= NMAX ? attn_core<float>(qkv, o, B, N, heads, D / heads, scale, s)
+                : attn_long<float>(qkv, o, B, N, heads, D / heads, scale, s);
   if (e) return e;
   e = quant_rows<false, float>(o, nullptr, nullptr, q8, rs, M, D, s);
   if (e) return e;

@@ -111,12 +111,30 @@ def save_serving(path: str, cxr: dict, enh: dict, fus: dict) -> None:
     torch.save({"cxr": cpu(cxr), "enh": cpu(enh), "fus": cpu(fus)}, path)
 
 
-def load_serving(path: str) -> dict:
-    """Inverse of ``save_serving`` (tensors only: ``weights_only=True``)."""
+def load_serving(path: str, cfg=None) -> dict:
+    """Inverse of ``save_serving`` (tensors only: ``weights_only=True``).
+
+    With the branches' ``cfg``, the ViT entries are made to fit its input
+    size: a fixed sin-cos position table is rebuilt for ``cfg``'s grid (it
+    is a function of the input size, which the JAX package never stores),
+    so a file saved at 224 px serves at 384; a learned table of another
+    length raises, naming both input sizes."""
     ck = torch.load(path, map_location="cpu", weights_only=True)
     if set(ck) != {"cxr", "enh", "fus"}:
         raise ValueError(f"{path}: expected a serving checkpoint with keys "
                          f"cxr/enh/fus, got {sorted(ck)}")
+    if cfg is not None:
+        for k in ("cxr", "enh"):
+            pos = ck[k]["pos_embed"]
+            if not cfg.learned_pos:
+                ck[k]["pos_embed"] = posembed.sincos_2d(cfg.grid, cfg.grid,
+                                                        cfg.dim)
+            elif pos.shape[1] != cfg.seq_len:
+                side = round((pos.shape[1] - 1) ** 0.5) * cfg.patch
+                raise ValueError(
+                    f"{path}: the {k} branch learned its position table at "
+                    f"{side} px ({pos.shape[1]} tokens); it cannot serve "
+                    f"{cfg.img_size} px ({cfg.seq_len} tokens)")
     return ck
 
 

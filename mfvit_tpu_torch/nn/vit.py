@@ -9,12 +9,25 @@ Module and parameter names follow MoCo-v3 ``vits.py`` / timm, the names
 ``mfvit_tpu/exp/checkpoint.py::params_to_torch_vit`` emits, so a converted
 JAX tree loads with ``load_state_dict(strict=True)``.
 
-Every block runs K1 (``ops.fused_attn``) and K2 (``ops.fused_mlp``) except
-the last, which runs K3 with the model's final LayerNorm in its epilogue,
-at every width. That per-block plan is computed once, when the model is
-built (``block_plan``). ``quantize_vit_for_serving`` turns a model into
-the int8 W8A8 serving form, whose blocks run K10 and K11
-(``ops.fused_int8``) and whose final LayerNorm runs after the blocks.
+Every block runs an attention half (``ops.fused_attn``) and K2
+(``ops.fused_mlp``) except the last, which runs K3 with the model's final
+LayerNorm in its epilogue, at every width. The attention half is K1 up to
+256 tokens (img_size 224 at patch 16 is 197) and K9, its long-sequence
+form, past that (img_size 384 is 577 tokens). That per-block plan is
+computed once, when the model is built (``block_plan``).
+``quantize_vit_for_serving`` turns a model into the int8 serving form,
+whose blocks run K11 (``ops.fused_int8``) and, for the attention half, K10
+or K9 on the dequantized weights by the JAX package's rule, and whose final
+LayerNorm runs after the blocks.
+
+The port does not copy the JAX package's TPU memory gates
+(``mfvit_tpu/nn/vit.py:299-310``): where JAX picks its K1, K9 or XLA
+attention by what fits a v5e's VMEM, the port picks by the sequence
+length alone. So two configurations run other code than in JAX, with the
+same math and other bf16 rounding: vit_base@384, where neither Pallas
+kernel fits and JAX runs XLA attention, runs K9 here; and 256 < N where
+K1 still fits on the TPU (img_size 288, N = 325, at vit_small) runs K9
+here, whose backward is the fp32 recompute instead of K5.
 """
 from __future__ import annotations
 
@@ -92,28 +105,38 @@ class BlockOps:
     final_ln: bool  # the MLP op applies the model's final LayerNorm too
 
 
-def block_plan(depth: int, reference: bool = False,
+# the longest sequence K1 takes; longer ones run K9
+K1_MAX_TOKENS = 256
+
+
+def block_plan(cfg: ViTConfig, reference: bool = False,
                int8: bool = False) -> tuple:
-    """The ops each block runs: the kernel Functions (K1/K5, K2/K7,
-    K3/K7), or with ``int8`` the inference-only K10 and K11 on every block
-    (the final LayerNorm then runs after the blocks, as JAX's
-    ``final_ln_done`` is False for an int8 tree). ``reference=True`` gives
-    the same ops over the plain PyTorch versions, on any device: the
-    reference the kernels are held to."""
+    """The ops each block of ``cfg`` runs: the kernel Functions (K1/K5 up
+    to ``K1_MAX_TOKENS`` tokens, else K9 with its fp32-recompute backward;
+    K2/K7, K3/K7), or with ``int8`` the inference-only ops on every block:
+    K10, or K9 on the dequantized weights where
+    ``fused_int8.w8a8_attention`` says JAX takes that route, and K11 (the
+    final LayerNorm then runs after the blocks, as JAX's ``final_ln_done``
+    is False for an int8 tree). ``reference=True`` gives the same ops over
+    the plain PyTorch versions, on any device: the reference the kernels
+    are held to."""
     if int8:
+        attn = (fused_int8.fused_attention_block_i8
+                if fused_int8.w8a8_attention(cfg.seq_len, cfg.dim, cfg.heads)
+                else fused_int8.fused_attention_block_dequant)
         ops = BlockOps(
-            functools.partial(fused_int8.fused_attention_block_i8,
-                              plain=reference),
+            functools.partial(attn, plain=reference),
             functools.partial(fused_int8.fused_mlp_block_i8, plain=reference),
             False)
-        return (ops,) * depth
-    attn = functools.partial(fused_attn.fused_attention_block,
-                             plain=reference)
+        return (ops,) * cfg.depth
+    attn = functools.partial(
+        fused_attn.fused_attention_block if cfg.seq_len <= K1_MAX_TOKENS
+        else fused_attn.fused_attention_block_large, plain=reference)
     mid = functools.partial(fused_mlp.fused_mlp_block, plain=reference)
     last = functools.partial(fused_mlp.fused_mlp_block_final_ln,
                              plain=reference)
-    return tuple(BlockOps(attn, last, True) if i == depth - 1
-                 else BlockOps(attn, mid, False) for i in range(depth))
+    return tuple(BlockOps(attn, last, True) if i == cfg.depth - 1
+                 else BlockOps(attn, mid, False) for i in range(cfg.depth))
 
 
 # ---------------------------------------------------------------- modules
@@ -202,8 +225,8 @@ class ViT(nn.Module):
             Block(cfg.dim, cfg.dim * cfg.mlp_ratio) for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(cfg.dim, eps=1e-6)
         self.head = nn.Linear(cfg.dim, num_classes) if num_classes > 0 else None
-        self.plans = {False: block_plan(cfg.depth),
-                      True: block_plan(cfg.depth, reference=True)}
+        self.plans = {False: block_plan(cfg),
+                      True: block_plan(cfg, reference=True)}
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
         if device is not None:
             self.to(device)
@@ -263,10 +286,6 @@ class ViT(nn.Module):
         ``mfvit_tpu/nn/vit.py:443-444``); a block's forward kernels then
         run twice per training step."""
         cfg = self.cfg
-        if imgs.is_cuda and cfg.img_size > 224:
-            raise NotImplementedError(
-                f"img_size {cfg.img_size} > 224 needs the query-blocked "
-                "attention kernel K9 on CUDA (ROADMAP.md)")
         dt = compute_dtype
         B = imgs.shape[0]
         x = patch_embed(self.patch_embed.proj, imgs.to(dt), cfg.patch)
@@ -293,13 +312,13 @@ def quantize_vit_for_serving(model: ViT) -> ViT:
     """Turn ``model`` (in place) into the int8 W8A8 serving form, the port
     of ``mfvit_tpu/ops/fused_int8.py::quantize_vit_for_serving`` (:273):
     each block's qkv, proj, fc1 and fc2 become ``Int8Linear`` buffers and
-    its plan runs K10 and K11; the patch embedding, LayerNorms, CLS,
-    position table and the fp32 head stay exact. Returns the model."""
+    its plan runs K11 and, for the attention half, K10 or K9 on the
+    dequantized weights (``block_plan``); the patch embedding, LayerNorms,
+    CLS, position table and the fp32 head stay exact. Returns the model."""
     for blk in model.blocks:
         a, m = blk.attn, blk.mlp
         a.qkv, a.proj = Int8Linear(a.qkv), Int8Linear(a.proj)
         m.fc1, m.fc2 = Int8Linear(m.fc1), Int8Linear(m.fc2)
-    depth = model.cfg.depth
-    model.plans = {False: block_plan(depth, int8=True),
-                   True: block_plan(depth, reference=True, int8=True)}
+    model.plans = {False: block_plan(model.cfg, int8=True),
+                   True: block_plan(model.cfg, reference=True, int8=True)}
     return model

@@ -1,4 +1,4 @@
-"""Kernels of the ported paths (K1-K5, K7, K10, K11) with their plain
+"""Kernels of the ported paths (K1-K5, K7, K9-K11) with their plain
 PyTorch versions.
 
 Each kernel module keeps a ``LAUNCHES`` count that its wrapper raises by

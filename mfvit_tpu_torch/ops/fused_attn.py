@@ -1,4 +1,4 @@
-"""K1 and K5: the attention half of a ViT block, x + proj(MHSA(LN(x))),
+"""K1, K5 and K9: the attention half of a ViT block, x + proj(MHSA(LN(x))),
 and its backward.
 
 - K1, the forward, replaces ``mfvit_tpu/ops/fused_attn.py::
@@ -9,30 +9,49 @@ and its backward.
   bf16 residual add, all behind one C entry point (csrc/fused_attn.cu over
   csrc/gemm_ln.cuh and csrc/attn_core.cuh, whose notes say what bounds each
   on an H100). Unlike the TPU kernel, qkv makes one round trip through
-  device memory; the scores do not.
-- K5, the backward, replaces ``_fused_attn_bwd_impl`` (Pallas
+  device memory; the scores do not. It takes N <= 256.
+- K5, the backward of K1, replaces ``_fused_attn_bwd_impl`` (Pallas
   ``_bwd_kernel`` :385) and, at D > 512, ``_fused_attn_bwd_bigdim`` (K6,
   :661): csrc/fused_attn_bwd.cu over csrc/attn_bwd.cuh and
   csrc/gemm_bwd.cuh.
+- K9, ``fused_attention_block_large``, the same forward for any N,
+  replaces ``fused_attention_block_large`` (Pallas ``_kernel_qblocked``
+  :244, ``pallas_call`` :343): csrc/fused_attn_large.cu, K1's stages with
+  the long-sequence attention core csrc/attn_long.cuh, which streams the
+  keys through shared memory in tiles and takes the softmax in two passes.
+  Its backward is the JAX package's for K9, ``_bwd_xla_reference`` (:754),
+  a full-fp32 recompute with no bf16 rounding and no Pallas kernel: here
+  ``fused_attention_block_bwd_plain`` on fp32 copies of its inputs, plain
+  PyTorch on both devices (its large products are ``torch.matmul``).
 
-``fused_attention_block`` is a ``torch.autograd.Function`` on both
-devices. It takes the fp32 master weights, casts them to x's dtype inside,
-and returns fp32 weight and bias gradients and a dx in x's dtype, as the
-JAX ``_bwd`` (:734-751) does. On a CPU tensor (or with ``plain=True``) it
-runs ``fused_attention_block_plain`` forward and
+K9 rounds where K1 does (``_kernel_qblocked`` :244-292 against ``_kernel``
+:28-87), so both have one plain version, ``fused_attention_block_plain``,
+line by line: LayerNorm with eps 1e-6 and fp32 statistics, h rounded to
+x's dtype; qkv = h . Wqkv + bqkv with fp32 sums and the fp32 bias, rounded;
+q scaled in fp32 and rounded; fp32 scores (the padded keys the TPU kernel
+masks to -1e30 do not exist here); the row max, p = exp(s - max) and
+r = 1/sum(p) in fp32; PV with p rounded, fp32 sums, times r, rounded;
+proj + bias in fp32, rounded, plus x in x's dtype.
+
+``fused_attention_block`` and ``fused_attention_block_large`` are one
+``torch.autograd.Function`` on both devices. It takes the fp32 master
+weights, casts them to x's dtype inside, and returns fp32 weight and bias
+gradients and a dx in x's dtype, as the JAX ``_bwd`` (:734-751) and
+``_bwd_xla_reference`` do. On a CPU tensor (or with ``plain=True``) it runs
+``fused_attention_block_plain`` forward and, for K1,
 ``fused_attention_block_bwd_plain`` backward, the same math in PyTorch,
 which is also the reference the kernels are held to on the card.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from mfvit_tpu_torch.nn.layers import (layer_norm, layer_norm_bwd,
                                        layer_norm_stats, linear_f32, mm_f32)
 from mfvit_tpu_torch.ops import launch
 
-LAUNCHES = {"fused_attention_block": 0, "fused_attention_block_bwd": 0}
+LAUNCHES = {"fused_attention_block": 0, "fused_attention_block_bwd": 0,
+            "fused_attention_block_large": 0}
 
 
 def attn_core_plain(qkv: torch.Tensor, heads: int, scale: float,
@@ -61,9 +80,9 @@ def fused_attention_block_plain(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
     Linear layout (out, in): wqkv (3D, D), wproj (D, D)."""
     dt = x.dtype
     h = layer_norm(x, ln_s, ln_b, 1e-6)
-    qkv = F.linear(h, wqkv.to(dt), bqkv.to(dt))
+    qkv = linear_f32(h, wqkv, bqkv).to(dt)
     o = attn_core_plain(qkv, heads, scale)
-    return x + F.linear(o, wproj.to(dt), bproj.to(dt))
+    return x + linear_f32(o, wproj, bproj).to(dt)
 
 
 def fused_attention_block_bwd_plain(g, x, ln_s, ln_b, wqkv, bqkv, wproj,
@@ -110,18 +129,25 @@ def fused_attention_block_bwd_plain(g, x, ln_s, ln_b, wqkv, bqkv, wproj,
     return ((gf + dx_ln).to(dt), dln_s, dln_b, dwqkv, dbqkv, dwproj, dbproj)
 
 
-def _check(B: int, N: int, D: int, heads: int, what: str) -> None:
+def _check(B: int, N: int, D: int, heads: int, what: str,
+           n_max: int | None = 256) -> None:
+    """The shapes the kernels take: head_dim 32/64/128, D % 128 == 0 and
+    N <= ``n_max`` (any N where it is None: K9, and K10 over K9's core)."""
     dh = D // heads
-    if dh * heads != D or dh not in (32, 64, 128) or N > 256 or D % 128:
+    if (dh * heads != D or dh not in (32, 64, 128) or D % 128
+            or (n_max is not None and N > n_max)):
+        n_rule = "" if n_max is None else f"N <= {n_max} and "
         raise ValueError(f"the {what} kernels take head_dim 32/64/128, "
-                         f"N <= 256 and D % 128 == 0; got D={D}, "
+                         f"{n_rule}D % 128 == 0; got D={D}, "
                          f"heads={heads}, N={N}")
 
 
-def _forward_cuda(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads, scale):
-    """K1 on bf16 x; the weights are cast to bf16 here."""
+def _forward_cuda(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads, scale,
+                  large):
+    """K1 (K9 if ``large``) on bf16 x; the weights are cast to bf16 here."""
     B, N, D = x.shape
-    _check(B, N, D, heads, "K1")
+    _check(B, N, D, heads, "K9" if large else "K1",
+           None if large else 256)
     bf16 = torch.bfloat16
     launch.require(x, bf16, "x")
     wqkv = wqkv.to(bf16).contiguous()
@@ -132,12 +158,13 @@ def _forward_cuda(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads, scale):
     qkv = torch.empty(B, N, 3 * D, dtype=bf16, device=x.device)
     o = torch.empty(B, N, D, dtype=bf16, device=x.device)
     out = torch.empty_like(x)
-    launch.call("mfv_fused_attention_block", x.device, x,
+    name = "fused_attention_block_large" if large else "fused_attention_block"
+    launch.call(f"mfv_{name}", x.device, x,
                 launch.vec(ln_s, D, "ln_s"), launch.vec(ln_b, D, "ln_b"),
                 wqkv, launch.vec(bqkv, 3 * D, "bqkv"), wproj,
                 launch.vec(bproj, D, "bproj"), stats, qkv, o, out, B, N, D,
                 heads, scale)
-    LAUNCHES["fused_attention_block"] += 1
+    LAUNCHES[name] += 1
     return out
 
 
@@ -180,35 +207,59 @@ def fused_attention_block_bwd(g, x, ln_s, ln_b, wqkv, bqkv, wproj,
     return dx, dln_s, dln_b, dwqkv, dbqkv, dwproj, dbproj
 
 
+def fused_attention_block_bwd_f32(g, x, ln_s, ln_b, wqkv, bqkv, wproj,
+                                  heads: int, scale: float):
+    """K9's backward, the JAX package's ``_bwd_xla_reference`` (:754): the
+    gradients of the block recomputed in fp32 from fp32 copies of g, x and
+    the weights, with no bf16 rounding anywhere, on the inputs' device.
+    Outputs as ``fused_attention_block_bwd_plain``'s, all fp32."""
+    return fused_attention_block_bwd_plain(
+        *(t.float() for t in (g, x, ln_s, ln_b, wqkv, bqkv, wproj)), heads,
+        scale)
+
+
 class _AttentionBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads, scale,
-                plain):
+                plain, large):
         ctx.save_for_backward(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj)
-        ctx.heads, ctx.scale = heads, scale
+        ctx.heads, ctx.scale, ctx.large = heads, scale, large
         ctx.plain = plain or not x.is_cuda
         if ctx.plain:
             return fused_attention_block_plain(x, ln_s, ln_b, wqkv, bqkv,
                                                wproj, bproj, heads, scale)
         return _forward_cuda(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads,
-                             scale)
+                             scale, large)
 
     @staticmethod
     def backward(ctx, g):
         x, ln_s, ln_b, wqkv, bqkv, wproj, bproj = ctx.saved_tensors
-        bwd = (fused_attention_block_bwd_plain if ctx.plain
+        bwd = (fused_attention_block_bwd_f32 if ctx.large
+               else fused_attention_block_bwd_plain if ctx.plain
                else fused_attention_block_bwd)
         grads = bwd(g.contiguous(), x, ln_s, ln_b, wqkv, bqkv, wproj,
                     ctx.heads, ctx.scale)
         params = (x, ln_s, ln_b, wqkv, bqkv, wproj, bproj)
         return (*(d.to(p.dtype) for d, p in zip(grads, params)), None, None,
-                None)
+                None, None)
 
 
 def fused_attention_block(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
                           heads: int, scale: float, plain: bool = False):
     """K1 forward, K5 backward. CPU tensors (and ``plain=True``) take the
-    plain versions; CUDA tensors the kernels (bf16 x) or a ValueError.
-    Weights may be fp32 (the master copies); their gradients are fp32."""
+    plain versions; CUDA tensors the kernels (bf16 x, N <= 256) or a
+    ValueError. Weights may be fp32 (the master copies); their gradients
+    are fp32."""
     return _AttentionBlock.apply(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
-                                 heads, scale, plain)
+                                 heads, scale, plain, False)
+
+
+def fused_attention_block_large(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
+                                heads: int, scale: float,
+                                plain: bool = False):
+    """K9 forward (any N), fp32-recompute backward on both devices. CPU
+    tensors (and ``plain=True``) take the plain forward; CUDA tensors the
+    kernels (bf16 x) or a ValueError. Weights may be fp32; their gradients
+    are fp32."""
+    return _AttentionBlock.apply(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
+                                 heads, scale, plain, True)

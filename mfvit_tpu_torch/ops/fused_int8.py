@@ -14,11 +14,17 @@ quantized per row (per token) with a dynamic absmax scale
 stays bf16/fp32, the LayerNorms fp32 and the residual stream in x's dtype.
 
 On a CUDA tensor each op launches its kernels (csrc/fused_int8.cu over
-csrc/gemm_i8.cuh and csrc/attn_core.cuh) on bf16 x or raises; on a CPU
-tensor (or with ``plain=True``) it runs the plain version below, which
-rounds where the TPU kernels do and is the reference the kernels are held
-to on the card. The ops have no backward, as in JAX: an x that requires a
-gradient under grad mode raises.
+csrc/gemm_i8.cuh, and csrc/attn_core.cuh or, past 256 tokens,
+csrc/attn_long.cuh) on bf16 x or raises; on a CPU tensor (or with
+``plain=True``) it runs the plain version below, which rounds where the TPU
+kernels do and is the reference the kernels are held to on the card. The
+ops have no backward, as in JAX: an x that requires a gradient under grad
+mode raises.
+
+Which attention half an int8 block runs decides its result, so the port
+takes the JAX package's route (``w8a8_attention``): K10 where it holds,
+else ``fused_attention_block_dequant``, K9 on the dequantized weights
+(W8A16), as ``mfvit_tpu/nn/vit.py:351-382`` does on the chip.
 """
 from __future__ import annotations
 
@@ -26,9 +32,23 @@ import torch
 
 from mfvit_tpu_torch.nn.layers import layer_norm
 from mfvit_tpu_torch.ops import launch
-from mfvit_tpu_torch.ops.fused_attn import _check, attn_core_plain
+from mfvit_tpu_torch.ops.fused_attn import (_check, attn_core_plain,
+                                            fused_attention_block_large)
 
 LAUNCHES = {"fused_attention_block_i8": 0, "fused_mlp_block_i8": 0}
+
+
+def w8a8_attention(N: int, D: int, heads: int) -> bool:
+    """Whether an int8 block's attention half is W8A8 (K10) or W8A16 (K9 on
+    ``dequant_w`` weights) at sequence length N, width D: the route the JAX
+    package takes on the chip, so that both give the same result. It is
+    the formula of JAX's ``attn_supported`` (``_i8_cb(1, N, D, heads)``,
+    ``mfvit_tpu/ops/fused_int8.py:34-65``) with its 21 MiB budget, a
+    calibration of TPU memory, not a limit of the port's kernels, which
+    take either route at any N."""
+    Np = -(-N // 128) * 128
+    est = 4 * D * D + heads * N * Np * 4 + 3 * D * Np * 8 + 8 * N * D
+    return est < 21 * 1024 * 1024
 
 
 def _amax_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -119,7 +139,7 @@ def _refuse_grad(x: torch.Tensor, what: str) -> None:
 def _attn_cuda(x, ln_s, ln_b, wqkvq, wqkvs, bqkv, wprojq, wprojs, bproj,
                heads, scale):
     B, N, D = x.shape
-    _check(B, N, D, heads, "K10")
+    _check(B, N, D, heads, "K10", None)
     launch.require(x, torch.bfloat16, "x")
     launch.require(wqkvq, torch.int8, "wqkvq", (3 * D, D))
     launch.require(wprojq, torch.int8, "wprojq", (D, D))
@@ -167,14 +187,26 @@ def fused_attention_block_i8(x, ln_s, ln_b, wqkvq, wqkvs, bqkv, wprojq,
                              wprojs, bproj, heads: int, scale: float,
                              plain: bool = False):
     """K10. CPU tensors (and ``plain=True``) take the plain version; CUDA
-    tensors the kernels (bf16 x, head_dim 32/64/128, N <= 256, D % 128 ==
-    0) or a ValueError."""
+    tensors the kernels (bf16 x, head_dim 32/64/128, D % 128 == 0, any N)
+    or a ValueError."""
     _refuse_grad(x, "fused_attention_block_i8")
     args = (x, ln_s, ln_b, wqkvq, wqkvs, bqkv, wprojq, wprojs, bproj, heads,
             scale)
     if plain or not x.is_cuda:
         return fused_attention_block_i8_plain(*args)
     return _attn_cuda(*args)
+
+
+def fused_attention_block_dequant(x, ln_s, ln_b, wqkvq, wqkvs, bqkv, wprojq,
+                                  wprojs, bproj, heads: int, scale: float,
+                                  plain: bool = False):
+    """The attention half of an int8 block where ``w8a8_attention`` is
+    False: K9 on the dequantized weights and the fp32 biases (W8A16), as
+    ``mfvit_tpu/nn/vit.py:358-371`` runs it; JAX's XLA fallback after it
+    (:372-382) is the same math. Takes K10's arguments."""
+    return fused_attention_block_large(
+        x, ln_s, ln_b, dequant_w(wqkvq, wqkvs), bqkv,
+        dequant_w(wprojq, wprojs), bproj, heads, scale, plain=plain)
 
 
 def fused_mlp_block_i8(x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2,

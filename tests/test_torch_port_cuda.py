@@ -1,4 +1,4 @@
-"""Kernel-against-plain tests for K1-K5, K7, K10 and K11 on the card. They need CUDA, nvcc
+"""Kernel-against-plain tests for K1-K5, K7 and K9-K11 on the card. They need CUDA, nvcc
 and an sm_90a GPU, so they carry the ``cuda`` marker and skip elsewhere;
 on the card run ``python -m pytest tests/test_torch_port_cuda.py``
 (``chip_smoke.py`` makes the same comparisons at serving shapes).
@@ -78,7 +78,8 @@ def test_kernels_match_plain(dev, B, N, D, H):
     assert _rel(got, ref) < REL
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
-        "fused_attention_block": 1, "fused_mlp_block": 1,
+        "fused_attention_block": 1, "fused_attention_block_large": 0,
+        "fused_mlp_block": 1,
         "fused_mlp_block_final_ln": 1, "fused_fusion_cls": 0,
         "fused_attention_block_bwd": 0, "fused_mlp_block_bwd": 0,
         "fused_attention_block_i8": 0, "fused_mlp_block_i8": 0}
@@ -156,12 +157,75 @@ def test_cuda_tensors_never_take_the_plain_version(dev):
         x = torch.zeros(1, 300, 384, dtype=torch.bfloat16, device=dev)
         fused_attn.fused_attention_block(x, *[t[k] for k in ATTN[1:]], 12,
                                          32 ** -0.5)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_attn.fused_attention_block_large(*_f32(t, ATTN), 12,
+                                               32 ** -0.5)
 
 
 def test_long_sequences_need_k9(dev):
+    """A vit_small forward at 384 px (577 tokens) runs K9 in every block
+    and K1 in none; its backward is the fp32 recompute (no K5)."""
     m = vit.ViT(vit.get_config("vit_small", 384), 3, device=dev)
-    with pytest.raises(NotImplementedError, match="K9"):
-        m(torch.zeros(1, 384, 384, 3, device=dev))
+    ops.reset_launch_counts()
+    m(torch.randn(1, 384, 384, 3, device=dev).bfloat16()).sum().backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["fused_attention_block_large"] == 12
+    assert counts["fused_attention_block"] == 0
+    assert counts["fused_attention_block_bwd"] == 0
+    assert counts["fused_mlp_block_bwd"] == 12
+    for name, p in m.blocks.named_parameters():
+        assert p.grad is not None and p.grad.dtype == torch.float32, name
+
+
+@pytest.mark.parametrize("B,N,D,H", [(2, 577, 384, 12), (2, 1025, 384, 6),
+                                     (2, 577, 768, 12), (2, 300, 384, 3),
+                                     (2, 257, 384, 12)])
+def test_k9_matches_plain(dev, B, N, D, H):
+    """K9 at vit_small@384, vit_small_ori@512, vit_base@384, head_dim 128
+    and N=257 (the first length past K1), against its plain version in
+    fp32 on the same bf16 values."""
+    t = _block(dev, B, N, D)
+    scale = (D // H) ** -0.5
+    ops.reset_launch_counts()
+    got = fused_attn.fused_attention_block_large(*[t[k] for k in ATTN], H,
+                                                 scale)
+    torch.cuda.synchronize()
+    ref = fused_attn.fused_attention_block_plain(*_f32(t, ATTN), H, scale)
+    assert _rel(got, ref) < REL
+    assert ops.launch_counts()["fused_attention_block_large"] == 1
+
+
+@pytest.mark.parametrize("B,N,D,H", [(2, 197, 384, 12), (3, 50, 256, 2)])
+def test_k9_equals_k1_up_to_256_tokens(dev, B, N, D, H):
+    """Up to 256 tokens K9's attention core does K1's arithmetic in K1's
+    order, key for key: the two agree bit for bit."""
+    t = _block(dev, B, N, D)
+    scale = (D // H) ** -0.5
+    a = [t[k] for k in ATTN]
+    assert torch.equal(fused_attn.fused_attention_block_large(*a, H, scale),
+                       fused_attn.fused_attention_block(*a, H, scale))
+
+
+def test_k9_backward_on_the_card_is_the_fp32_recompute(dev):
+    """K9's Function backward on CUDA against the same fp32 recompute on
+    the CPU for the same inputs: fp32 sums in another order, so weight
+    gradients within rel 1e-4 and dx (rounded to bf16) within one bf16 ulp
+    of its largest value."""
+    B, N, D, H = 2, 577, 384, 12
+    t = _block(dev, B, N, D)
+    g = _rnd(torch.Generator().manual_seed(5), B, N, D).bfloat16()
+    scale = (D // H) ** -0.5
+    leaves = [t["x"]] + [t[k].float() for k in ATTN[1:]]
+    leaves = [v.detach().clone().requires_grad_() for v in leaves]
+    out = fused_attn.fused_attention_block_large(*leaves, H, scale)
+    got = torch.autograd.grad(out, leaves, g.to(dev))
+    cpu = [v.detach().cpu() for v in leaves]
+    want = fused_attn.fused_attention_block_bwd_f32(g, *cpu[:-1], H, scale)
+    assert got[0].dtype == torch.bfloat16
+    assert _rel(got[0].cpu(), want[0]) <= 2 ** -8
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32 and _rel(a.cpu(), b) < 1e-4
 
 
 def _i8_args(t):
@@ -199,6 +263,26 @@ def test_int8_kernels_match_plain(dev, B, N, D, H):
             counts["fused_mlp_block_i8"]) == (1, 1)
 
 
+def test_k10_at_577_tokens_holds_its_branch_bar(dev):
+    """K10 past 256 tokens (vit_small_ori@384: 6 heads, the W8A8 route
+    there) on attn_long.cuh: against the plain version in fp32 (rel <
+    2e-2), and its branch (out - x) against the plain version in bf16,
+    ||kernel - plain|| / ||plain - x|| < 6e-3, the bar of chip_smoke.py."""
+    attn, _ = _i8_args(_block(dev, 2, 577, 384))
+    scale = 64 ** -0.5
+    with torch.no_grad():
+        got = fused_int8.fused_attention_block_i8(*attn, 6, scale)
+        ref = fused_int8.fused_attention_block_i8_plain(
+            attn[0].float(), *attn[1:], 6, scale)
+        assert _rel(got, ref) < REL
+        plain = fused_int8.fused_attention_block_i8(*attn, 6, scale,
+                                                    plain=True)
+    x = attn[0].float()
+    branch = ((got.float() - plain.float()).norm()
+              / (plain.float() - x).norm()).item()
+    assert branch < 6e-3
+
+
 def test_cuda_tensors_never_take_the_plain_int8_version(dev):
     attn, mlp = _i8_args(_block(dev, 1, 197, 384))
     with torch.no_grad():
@@ -207,9 +291,8 @@ def test_cuda_tensors_never_take_the_plain_int8_version(dev):
                                                 12, 32 ** -0.5)
         with pytest.raises(ValueError, match="bfloat16"):
             fused_int8.fused_mlp_block_i8(mlp[0].float(), *mlp[1:])
-        x = torch.zeros(1, 300, 384, dtype=torch.bfloat16, device=dev)
-        with pytest.raises(ValueError, match="N <= 256"):
-            fused_int8.fused_attention_block_i8(x, *attn[1:], 12, 32 ** -0.5)
+        with pytest.raises(ValueError, match="head_dim"):
+            fused_int8.fused_attention_block_i8(*attn, 8, 48 ** -0.5)
 
 
 def test_int8_quantizers_on_the_card_match_the_cpu(dev):

@@ -221,6 +221,8 @@ def test_cpu_tensors_never_count_a_launch(blk, fusion_case):
     out = fused_mlp.fused_mlp_block(out, *_port_mlp_args(blk)[1:])
     out = fused_mlp.fused_mlp_block_final_ln(out, *_port_mlp_args(blk)[1:],
                                              _t(blk["fs"]), _t(blk["fb"]))
+    out = fused_attn.fused_attention_block_large(
+        out, *_port_attn_args(blk)[1:], H, SCALE)
     out.sum().backward()  # the backward Functions take the plain path too
     assert x.grad is not None
     _, fus, tok_c, tok_e = fusion_case
@@ -231,8 +233,11 @@ def test_cpu_tensors_never_count_a_launch(blk, fusion_case):
         fused_int8.fused_attention_block_i8(*a[:3], *q[0], a[4], *q[1], a[6],
                                             H, SCALE)
         fused_int8.fused_mlp_block_i8(*m[:3], *q[2], m[4], *q[3], m[6])
+        fused_int8.fused_attention_block_dequant(*a[:3], *q[0], a[4], *q[1],
+                                                 a[6], H, SCALE)
     assert ops.launch_counts() == {
-        "fused_attention_block": 0, "fused_mlp_block": 0,
+        "fused_attention_block": 0, "fused_attention_block_large": 0,
+        "fused_mlp_block": 0,
         "fused_mlp_block_final_ln": 0, "fused_fusion_cls": 0,
         "fused_attention_block_bwd": 0, "fused_mlp_block_bwd": 0,
         "fused_attention_block_i8": 0, "fused_mlp_block_i8": 0}
