@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MF-ViT CA serving path (bf16 and int8 W8A8)
-and its ViT fine-tuning path once on an NVIDIA GPU, at 224 px and at 384
-px (577 tokens: the long-sequence path).
+"""Drive the PyTorch port's MF-ViT CA serving path (bf16, int8 W8A8 and
+the XLA-level W8A8 trees of ``quantize_vit_params``) and its ViT
+fine-tuning path once on an NVIDIA GPU, at 224 px and at 384 px (577
+tokens: the long-sequence path).
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -32,12 +33,27 @@ Phases, in order; any failure raises and exits non-zero:
    (I8_TOP1_MISSES says why no tighter end-to-end bar); then every K10/K11
    call of one int8 forward (48) held on its own input by the branch bars
    of phase 5, which every control must fail at every call;
-7. the backward kernels K5 and K7 (K7 also through K3's backward) against
+7. the stand-alone attention kernels K12 (packed qkv), K13 (B, H, N, dh)
+   and K14 (transposed packed qkv) against their plain fp32 versions on
+   the same bf16 values (rel < 2e-2) and against their plain bf16
+   versions (fro_rel < MHSA_BAR, a bar each of ``mhsa_controls``, K1's
+   rounding points, must fail) at vit_small (B=8, N=197, 12 heads of
+   32), vit_small_ori (6 of 64), vit_base (D=768), head_dim 128 (N=300),
+   N=50, N=577 and N=1025; K12 equal to K14 bit for bit after the layout
+   change (one core);
+8. the XLA-level W8A8 path: vit_small MF-ViT CA from seeded weights, both
+   branches through ``quantize_vit_params``, ``fused_forward`` at B=32 on
+   the card: launch counts per paired forward K12 24, K4 1, every other
+   kernel 0; finite logits; top-1 agreement with the plain path in bf16
+   on all but I8_TOP1_MISSES pairs; then each of the 24 K12 calls of one
+   forward held on its own input by both bars of phase 7; then the same
+   at 384 px, B=4 (K12 at N=577);
+9. the backward kernels K5 and K7 (K7 also through K3's backward) against
    their plain versions, all seven (nine) outputs, at vit_small block
    shapes (B=8 and B=32) and vit_base block shapes (B=2, D=768, 12 heads, hidden
    3072); bf16 inputs and cotangent, the plain backward in fp32 on the same
    values; rel < 2e-2 per output;
-8. the training slice through its entry point: 64 synthetic PNGs in a
+10. the training slice through its entry point: 64 synthetic PNGs in a
    ``--covid-ds`` layout and a MoCo ``.pth.tar`` from seeded weights;
    ``mfvit_tpu_torch.cli.finetune.main`` with ``-a vit_small
    --semi-supervised -b 32 --epochs 2 --draws 1`` (FT): the loss finite at
@@ -45,39 +61,43 @@ Phases, in order; any failure raises and exits non-zero:
    plus one forward per eval batch, the backbone changed; then LP (no
    ``--semi-supervised``): the CLI's frozen-backbone check passes and K5/K7
    count 0;
-9. train-step parity: the kernel path and the plain path (bf16 on the
+11. train-step parity: the kernel path and the plain path (bf16 on the
    card) from the same vit_small weights and batch (B=32), three SGD steps
    each: the loss per step within rel 1e-2, and each block's flattened
    first-step gradient within rel 5e-2;
-10. times with CUDA events at B=256: each forward kernel (K10/K11
+12. times with CUDA events at B=256: each forward kernel (K10/K11
    included) and K5/K7 against its plain version (K5/K7 first held
    against the plain fp32 backward on the timed inputs), K5/K7 also at a
    vit_base block (B=64, D=768, hidden 3072: the widths of K6 and K8),
-   the end-to-end pairs/s of serving, kernel path against plain path and
-   int8 against bf16 on the kernel path, and the images/s of the FT train
+   K12, K13 and K14 against their plain versions and SDPA on the same
+   values (for K14 on contiguous copies, the transposes counted; K12 also
+   at N=577, B=64), the end-to-end pairs/s of serving,
+   kernel path against plain path, int8 against bf16 on the kernel path
+   and the XLA-level W8A8 path against its plain path, the bf16 path and
+   the int8 path, and the images/s of the FT train
    step, kernel path against plain path; the FT step also at B=16, the
    finetune CLI's default batch;
-11. the long-sequence kernels: K9 against its plain fp32 version (rel <
+13. the long-sequence kernels: K9 against its plain fp32 version (rel <
    2e-2) at vit_small@384 (B=2, N=577, D=384, 12 heads), vit_small_ori@512
    (N=1025, 6 heads), vit_base@384 (D=768), head_dim 128 (N=300, 3 heads)
    and N=257, the first length past K1; K10 past 256 tokens
    (vit_small_ori@384: B=2, N=577, 6 heads) against its plain fp32
    version and on its branch bar, which the ``i8_controls`` must fail;
-12. the serving slice at 384 px: 32 synthetic pairs, the checkpoint of
+14. the serving slice at 384 px: 32 synthetic pairs, the checkpoint of
    phase 4 (saved at 224 px), ``infer.main`` with ``--img-size 384 --crop
    384`` at B=16; launch counts per forward K9 24, K2 22, K3 2, K4 1,
    every other kernel 0; decision logits within rel 2e-2 of the plain
    path in bf16;
-13. the same with ``--int8``: the attention half of every block is K9 on
+15. the same with ``--int8``: the attention half of every block is K9 on
    the dequantized weights (the JAX package's route at vit_small@384);
    launch counts K9 24, K11 24, K4 1, K10 0; top-1 agreement with the
    plain int8 path on all but one pair;
-14. FT at 384 px through ``finetune.main`` (B=8, one epoch over 32
+16. FT at 384 px through ``finetune.main`` (B=8, one epoch over 32
    images): the loss finite at every step, launch counts per step K9 12,
    K2 11, K3 1, K7 12 and K5 0 (K9's backward is the fp32 recompute, plain
    PyTorch) plus one forward per eval batch, the backbone changed; then
    three-step train parity with the plain path (B=8);
-15. times at 384 px: K9 and its plain version at vit_small@384 (B=64) and
+17. times at 384 px: K9 and its plain version at vit_small@384 (B=64) and
    vit_small_ori@512 (B=16), the serving pairs/s at B=64 (kernel path
    against plain path), the FT step's images/s at B=32 and K9's backward
    (the fp32 recompute) at B=32.
@@ -116,6 +136,15 @@ I8_BRANCH_BAR = {"fused_attention_block_i8": 6e-3, "fused_mlp_block_i8": 2e-3}
 # I8_TOP1_MISSES pairs, which catches gross faults (one near-tie may
 # flip); the per-call check along the path holds the kernels tightly.
 I8_TOP1_MISSES = 1
+# K12-K14 are also held against their plain version in bf16, which rounds
+# where the kernels do: fro_rel = ||kernel - plain|| / ||plain|| below
+# MHSA_BAR. There only the order of the fp32 sums differs, which flips a
+# rare bf16 rounding of P or of the output (readings up to about 1.3e-4 on
+# the H100). K1's rounding points in place of the TPU kernels'
+# (``mhsa_controls``) read 1.1e-3-3.5e-3, about as far as the plain bf16
+# version lies from the plain fp32 one, so REL_BAR cannot tell them; they
+# must fail MHSA_BAR wherever a kernel is held.
+MHSA_BAR = 4e-4
 PARITY_LOSS_BAR, PARITY_GRAD_BAR = 1e-2, 5e-2
 KERNELS = [  # name, CUDA source, the Pallas kernel body it replaces
     ("fused_attention_block", "mfvit_tpu_torch/csrc/fused_attn.cu",
@@ -136,7 +165,13 @@ KERNELS = [  # name, CUDA source, the Pallas kernel body it replaces
      "mfvit_tpu/ops/fused_int8.py:100"),
     ("fused_attention_block_large", "mfvit_tpu_torch/csrc/fused_attn_large.cu",
      "mfvit_tpu/ops/fused_attn.py:244"),
+    ("mhsa_packed", "mfvit_tpu_torch/csrc/mhsa.cu",
+     "mfvit_tpu/ops/attention.py:181"),
+    ("mhsa", "mfvit_tpu_torch/csrc/mhsa.cu", "mfvit_tpu/ops/attention.py:78"),
+    ("mhsa_packed_t", "mfvit_tpu_torch/csrc/mhsa.cu",
+     "mfvit_tpu/ops/attention.py:295"),
 ]
+MHSA = ("mhsa_packed", "mhsa", "mhsa_packed_t")  # K12, K13, K14
 PER_FORWARD = {"fused_attention_block": 24, "fused_mlp_block": 22,
                "fused_mlp_block_final_ln": 2, "fused_fusion_cls": 1}
 # one vit_small forward (12 blocks) and one FT training step
@@ -155,6 +190,9 @@ PER_I8_FORWARD_384 = {"fused_attention_block_large": 24,
 PER_VIT_FORWARD_384 = {"fused_attention_block_large": 12,
                        "fused_mlp_block": 11, "fused_mlp_block_final_ln": 1}
 PER_FT_STEP_384 = {"fused_mlp_block_bwd": 12}
+# one paired forward of the XLA-level W8A8 path (quantize_vit_params), at
+# 224 and 384 px
+PER_QUANT_FORWARD = {"mhsa_packed": 24, "fused_fusion_cls": 1}
 # per paired forward, by (img, int8); per ViT forward and FT step, by img
 PER_PAIR = {(224, False): PER_FORWARD, (224, True): PER_I8_FORWARD,
             (384, False): PER_FORWARD_384, (384, True): PER_I8_FORWARD_384}
@@ -170,6 +208,11 @@ def rel(got, ref) -> float:
             / ref.float().abs().max()).item()
 
 
+def fro_rel(got, ref) -> float:
+    got, ref = got.float(), ref.float()
+    return ((got - ref).norm() / ref.norm()).item()
+
+
 def branch_rel(got, ref, x) -> float:
     """The error of a residual block's branch against the branch's own
     size, ||got - ref|| / ||ref - x|| in fp32: the residual x, which is
@@ -178,9 +221,12 @@ def branch_rel(got, ref, x) -> float:
     return ((got - ref).norm() / (ref - x).norm()).item()
 
 
+T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
     torch.cuda.synchronize()
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def environment() -> str:
@@ -534,6 +580,348 @@ def check_kernels(dev) -> dict:
     return errs
 
 
+# K12-K14's shapes: label, B, N, D, heads
+MHSA_SHAPES = (("vit_small", 8, 197, 384, 12), ("vit_small_ori", 8, 197, 384, 6),
+               ("vit_base", 4, 197, 768, 12), ("head_dim 128", 2, 300, 384, 3),
+               ("N=50", 8, 50, 384, 12), ("N=577", 2, 577, 384, 6),
+               ("N=1025", 2, 1025, 384, 6))
+
+
+def mhsa_calls(qkv, heads: int) -> dict:
+    """name -> (kernel call, plain call in bf16, plain call in fp32 on the
+    same values, SDPA on the same values) for K12, K13 and K14, each in its
+    own layout of one packed bf16 qkv (B, N, 3D): K12 on it, K13 on
+    contiguous q, k, v (B, H, N, dh), K14 on its transpose (B, 3D, N). SDPA
+    is the library yardstick, never on the port's path: for K12 it takes
+    strided views of the packed qkv (head_dim innermost, as its fused
+    kernels need); for K14 it takes contiguous copies of the transposed
+    layout's q, k, v and its output goes back to (B, D, N), the two
+    transposes counted (on K14's strided views, whose last dimension has
+    stride N, SDPA leaves its fused kernels; ``time_mhsa`` times that
+    too, as a note)."""
+    import torch.nn.functional as F
+
+    from mfvit_tpu_torch.ops import attention as at
+    scale = (qkv.shape[-1] // 3 // heads) ** -0.5
+    q, k, v = (t.contiguous() for t in at._split(qkv, heads, False))
+    qkv_t = qkv.transpose(1, 2).contiguous()
+    views = {"mhsa_packed": at._split(qkv, heads, False), "mhsa": (q, k, v),
+             "mhsa_packed_t": at._split(qkv_t, heads, True)}
+
+    def sdpa(name):
+        return lambda: F.scaled_dot_product_attention(*views[name],
+                                                      scale=scale)
+
+    def sdpa_t():
+        q_t, k_t, v_t = (t.contiguous() for t in views["mhsa_packed_t"])
+        return at._from_heads(F.scaled_dot_product_attention(
+            q_t, k_t, v_t, scale=scale), True)
+    return {
+        "mhsa_packed": (
+            lambda: at.mhsa_packed(qkv, heads, scale),
+            lambda: at.mhsa_packed_plain(qkv, heads, scale),
+            lambda: at.mhsa_packed_plain(qkv.float(), heads, scale),
+            sdpa("mhsa_packed")),
+        "mhsa": (
+            lambda: at.mhsa(q, k, v, scale),
+            lambda: at.mhsa_plain(q, k, v, scale),
+            lambda: at.mhsa_plain(q.float(), k.float(), v.float(), scale),
+            sdpa("mhsa")),
+        "mhsa_packed_t": (
+            lambda: at.mhsa_packed_t(qkv_t, heads, scale),
+            lambda: at.mhsa_packed_t_plain(qkv_t, heads, scale),
+            lambda: at.mhsa_packed_t_plain(qkv_t.float(), heads, scale),
+            sdpa_t),
+    }
+
+
+def packed_qkv(B, N, D, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(B, N, 3 * D, generator=g).to(dev).bfloat16()
+
+
+def mhsa_controls(scale: float) -> dict:
+    """label -> fn(q, k, v, recip) on (B, H, N, dh): wrong versions of
+    K12-K14 (K13 with ``recip``), each the plain version with one of K1's
+    rounding points: ``P rounded first``, exp(s - max) rounded to bf16 and
+    1/sum applied to the PV output; ``scale on q in bf16``, q * scale
+    rounded to bf16 before the product, only where the scale is not a
+    power of two (at head_dim 64 both orders give the same bits)."""
+    from mfvit_tpu_torch.ops import attention as at
+
+    def p_first(q, k, v, recip):
+        s = (q.float() @ k.float().transpose(-1, -2)) * scale
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = p.to(v.dtype).float() @ v.float()
+        return (o / p.sum(-1, keepdim=True)).to(q.dtype)
+    ctl = {"P rounded first": p_first}
+    if math.frexp(scale)[0] != 0.5:
+        ctl["scale on q in bf16"] = lambda q, k, v, recip: at._attn_plain(
+            (q.float() * scale).to(q.dtype), k, v, 1.0, recip)
+    return ctl
+
+
+def hold_mhsa(q, k, v, scale: float, recip: bool, got) -> tuple:
+    """A K12-K14 output ``got`` (B, H, N, dh) against the plain version in
+    bf16 on the same q, k, v: its fro_rel, each control's ({label: rel}),
+    and what fails: the kernel at or above MHSA_BAR, or a control below
+    it."""
+    from mfvit_tpu_torch.ops import attention as at
+    plain = at._attn_plain(q, k, v, scale, recip)
+    rk = fro_rel(got, plain)
+    rcs = {lab: fro_rel(fn(q, k, v, recip), plain)
+           for lab, fn in mhsa_controls(scale).items()}
+    bad = [] if math.isfinite(rk) and rk < MHSA_BAR else [
+        f"rel vs plain bf16 {rk} >= {MHSA_BAR}"]
+    bad += [f"the control '{lab}' passes (rel {v} < {MHSA_BAR}): the bar "
+            "cannot tell it" for lab, v in rcs.items() if not v >= MHSA_BAR]
+    return rk, rcs, bad
+
+
+def check_mhsa_kernels(dev) -> dict:
+    """K12, K13 and K14 at MHSA_SHAPES against their plain fp32 versions
+    (rel < REL_BAR) and against their plain bf16 versions (``hold_mhsa``:
+    fro_rel < MHSA_BAR, which every control must fail), and K12 equal to
+    K14 bit for bit. Every reading is printed before a failure raises.
+    Returns each one's largest abs error at vit_small."""
+    from mfvit_tpu_torch.ops import attention as at
+    errs, bad = {}, []
+    for label, B, N, D, heads in MHSA_SHAPES:
+        qkv = packed_qkv(B, N, D, dev, seed=15)
+        scale = (D // heads) ** -0.5
+        q, k, v = (t.contiguous() for t in at._split(qkv, heads, False))
+        to_heads = {"mhsa_packed": lambda o: at._to_heads(o, heads, False),
+                    "mhsa": lambda o: o,
+                    "mhsa_packed_t": lambda o: at._to_heads(o, heads, True)}
+        outs, reads, ctl = {}, [], {}
+        with torch.inference_mode():
+            for name, (kern, _, plain32, _) in mhsa_calls(qkv, heads).items():
+                got = kern()
+                torch.cuda.synchronize()
+                ref = plain32()
+                r = rel(got, ref)
+                rk, rcs, why = hold_mhsa(q, k, v, scale, name == "mhsa",
+                                         to_heads[name](got))
+                outs[name] = got
+                reads.append(f"{name} rel vs plain fp32 {r:.3e}, vs plain "
+                             f"bf16 {rk:.3e}")
+                for lab, val in rcs.items():
+                    ctl[lab] = min(ctl.get(lab, math.inf), val)
+                if not (math.isfinite(r) and r < REL_BAR):
+                    why.append(f"rel {r} >= {REL_BAR}")
+                bad += [f"{name} at {label}: {w}" for w in why]
+                if label == "vit_small":
+                    errs[name] = (got.float() - ref).abs().max().item()
+        same = torch.equal(outs["mhsa_packed"],
+                           outs["mhsa_packed_t"].transpose(1, 2))
+        print(f"K12-K14 at {label} (B={B}, N={N}, D={D}, {heads} heads): "
+              + ", ".join(reads) + f" (bars {REL_BAR}, {MHSA_BAR}); the "
+              "controls' vs plain bf16 (must fail) " + ", ".join(
+                  f"{lab} {val:.3e}" for lab, val in ctl.items())
+              + f"; K12 == K14 bit for bit: {same}")
+        if not same:
+            bad.append(f"K12 and K14 differ at {label}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return errs
+
+
+def quant_models(dev, img: int) -> dict:
+    """vit_small MF-ViT CA from seeded weights at ``img`` px, both branches
+    through ``quantize_vit_params``."""
+    from mfvit_tpu_torch.models.fusion import Fusion
+    from mfvit_tpu_torch.nn.vit import ViT, get_config, quantize_vit_params
+    cfg = get_config("vit_small", img)
+    gens = [torch.Generator().manual_seed(s) for s in (16, 17, 18)]
+    return {"cxr": quantize_vit_params(ViT(cfg, 3, device=dev,
+                                           generator=gens[0])).eval(),
+            "enh": quantize_vit_params(ViT(cfg, 3, device=dev,
+                                           generator=gens[1])).eval(),
+            "fus": Fusion(3, cfg.dim, 3, device=dev,
+                          generator=gens[2]).eval()}
+
+
+def run_quant_path(dev, img: int, B: int) -> dict:
+    """The XLA-level W8A8 path once through ``fused_forward`` (the serving
+    forward, ``make_fusion_forward``) at batch B and ``img`` px: launch
+    counts (PER_QUANT_FORWARD, every other kernel 0), finite logits, top-1
+    agreement with the plain path in bf16 on all but I8_TOP1_MISSES pairs;
+    then every K12 call of one forward held on its own input
+    (``hold_quant_path``). Returns the launch counts."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.train.steps import make_fusion_forward
+    models = quant_models(dev, img)
+    g = torch.Generator().manual_seed(19)
+    xc, xe = (torch.randn(B, img, img, 3, generator=g).to(dev, torch.bfloat16)
+              for _ in range(2))
+    mode = f"quant path at {img} px (B={B})"
+    ops.reset_launch_counts()
+    out = make_fusion_forward()(models, xc, xe)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"{mode} launch counts {counts} over 1 forward")
+    want = {k: 0 for k in counts}
+    want.update(PER_QUANT_FORWARD)
+    if counts != want:
+        raise AssertionError(f"{mode}: launch counts {counts} != {want}")
+    logits = sum(out)
+    if logits.shape != (B, 3) or not logits.isfinite().all():
+        raise AssertionError(f"{mode}: bad logits {tuple(logits.shape)}")
+    plain = make_fusion_forward(reference=True)(models, xc, xe)
+    agree = (logits.argmax(-1) == sum(plain).argmax(-1)).float().mean().item()
+    bar = 1 - I8_TOP1_MISSES / B
+    print(f"{mode} decision logits: top-1 agreement with plain bf16 "
+          f"{agree:.3f} (bar {bar:.3f}); for information: rel vs plain bf16 "
+          f"{rel(logits, sum(plain)):.3e}; per output " + ", ".join(
+              f"{k} {rel(a, b):.3e}"
+              for k, a, b in zip(("fused", "cxr", "enh"), out, plain)))
+    if not agree >= bar:
+        raise AssertionError(f"{mode}: top-1 agreement {agree} < {bar}")
+    hold_quant_path(models, xc, xe)
+    return counts
+
+
+def hold_quant_path(models, xc, xe) -> None:
+    """Each K12 call of one paired forward of the quant path (24), held on
+    the input the path gave it against K12's plain fp32 version (rel <
+    REL_BAR) and its plain bf16 version (``hold_mhsa``, which every control
+    must fail at every call): the tight check, free of the compounding of
+    the logits."""
+    from mfvit_tpu_torch.ops import attention as at
+    from mfvit_tpu_torch.train.steps import make_fusion_forward
+    calls = []
+    orig = at.mhsa_from_packed
+
+    def recording(qkv, heads, scale, plain=False):
+        out = orig(qkv, heads, scale, plain=plain)
+        calls.append((qkv, heads, scale, out))
+        return out
+
+    at.mhsa_from_packed = recording
+    try:
+        make_fusion_forward()(models, xc, xe)
+    finally:
+        at.mhsa_from_packed = orig
+    rels, rks, ctl, bad = [], [], {}, []
+    with torch.inference_mode():
+        for i, (qkv, heads, scale, out) in enumerate(calls):
+            rels.append(rel(out, at.mhsa_packed_plain(qkv.float(), heads,
+                                                      scale)))
+            rk, rcs, why = hold_mhsa(*at._split(qkv, heads, False), scale,
+                                     False, at._to_heads(out, heads, False))
+            rks.append(rk)
+            for lab, val in rcs.items():
+                ctl[lab] = min(ctl.get(lab, math.inf), val)
+            if not (math.isfinite(rels[-1]) and rels[-1] < REL_BAR):
+                why.append(f"rel {rels[-1]} >= {REL_BAR}")
+            bad += [f"K12 call {i}: {w}" for w in why]
+    N = calls[0][0].shape[1] if calls else 0
+    print(f"quant path, K12 on its own input at each of its {len(rels)} "
+          f"calls in one forward (N={N}): rel vs plain fp32 " + ", ".join(
+              f"{r:.2e}" for r in rels) + f" (max {max(rels):.3e}, bar "
+          f"{REL_BAR}); vs plain bf16 " + ", ".join(f"{r:.2e}" for r in rks)
+          + f" (max {max(rks):.3e}, bar {MHSA_BAR}); the controls' (must "
+          "fail) least " + ", ".join(f"{lab} {val:.3e}"
+                                     for lab, val in ctl.items()))
+    if len(calls) != PER_QUANT_FORWARD["mhsa_packed"]:
+        bad.append(f"{len(calls)} K12 calls in one forward")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+def time_mhsa(dev, label: str, B: int, N: int, D: int, heads: int,
+              names=MHSA) -> dict:
+    """name -> (kernel ms, plain ms, SDPA ms) of K12-K14 (those in
+    ``names``) at one shape: each first held against its plain fp32
+    version on the timed inputs, then kernel, plain, plain, kernel (the
+    plain version in bf16) and SDPA on the same values (for K14 also, as
+    a note, on its strided views)."""
+    import torch.nn.functional as F
+
+    from mfvit_tpu_torch.ops import attention as at
+    qkv = packed_qkv(B, N, D, dev, seed=20)
+    scale = (D // heads) ** -0.5
+    times = {}
+    with torch.inference_mode():
+        for name, (kern, plain, plain32, sdpa) in mhsa_calls(
+                qkv, heads).items():
+            if name not in names:
+                continue
+            r = rel(kern(), plain32())
+            if not (math.isfinite(r) and r < REL_BAR):
+                raise AssertionError(f"{name} at {label} B={B}: rel {r}")
+            k1, p1, p2, k2, s1 = (cuda_ms(f, n) for f, n in (
+                (kern, 20), (plain, 3), (plain, 3), (kern, 20), (sdpa, 20)))
+            times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, s1)
+            note = ""
+            if name == "mhsa_packed_t":
+                views = at._split(qkv.transpose(1, 2).contiguous(), heads,
+                                  True)
+                ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    *views, scale=scale), 20)
+                note = f"; SDPA on K14's strided views {ms:.4f} ms"
+            print(f"{name} at {label} B={B} (N={N}, {heads} heads): rel vs "
+                  f"plain fp32 {r:.3e}; kernel {k1:.4f}/{k2:.4f} ms, plain "
+                  f"{p1:.3f}/{p2:.3f} ms (bf16), SDPA {s1:.4f} ms{note}")
+    return times
+
+
+def profile_quant(dev, B: int = 256) -> dict:
+    """One ``torch.profiler`` window over two forwards of the quant path at
+    batch B (224 px, the models of ``quant_models``): the device time per
+    forward by the PyTorch operator (or autograd Function) that launched
+    it, the twelve largest with their calls per forward, and that of K12's
+    kernels; the launches per forward that waited for a full queue; and
+    the device's busy share of the window (the profiler's own cost
+    included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mfvit_tpu_torch.train.steps import make_fusion_forward
+    models = quant_models(dev, 224)
+    g = torch.Generator().manual_seed(21)
+    xc, xe = (torch.randn(B, 224, 224, 3, generator=g).to(dev, torch.bfloat16)
+              for _ in range(2))
+    fwd = make_fusion_forward()
+    sum(fwd(models, xc, xe)).cpu()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            sum(fwd(models, xc, xe)).cpu()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    kernels = {e.key: e.self_device_time_total / 2e3 for e in avgs
+               if e.device_type == DeviceType.CUDA}
+    busy = sum(kernels.values())
+    # "Command Buffer Full" marks a launch that waited for room in the
+    # queue (the host ahead of the device); the profiler also hands it the
+    # device time of those kernels, which their operators already count
+    full = {e.key: e.count // 2 for e in avgs}.get("Command Buffer Full", 0)
+    by_op = {e.key: (e.self_device_time_total / 2e3, e.count // 2)
+             for e in avgs if e.device_type == DeviceType.CPU
+             and e.self_device_time_total > 0
+             and e.key != "Command Buffer Full"}
+    k12 = sum(v for k, v in kernels.items() if "mhsa::" in k)
+    top = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:12]
+    print(f"quant path at B={B}, profiled: {wall_ms / 2:.1f} ms per forward "
+          f"on the host clock, device busy {busy:.1f} ms per forward "
+          f"({busy / (wall_ms / 2):.1%}); launches that waited for a full "
+          f"queue {full} per forward; device ms per forward by operator: "
+          + "; ".join(f"{k} {v:.2f} ms x{n}" for k, (v, n) in top)
+          + f"; K12's kernels {k12:.2f} ms")
+    return {"wall_ms": wall_ms / 2, "device_ms": busy,
+            "queue_full_per_forward": full,
+            "by_op": [[k, v, n] for k, (v, n) in top], "k12_ms": k12}
+
+
+def mhsa_bound(B: int, N: int, D: int, heads: int) -> tuple:
+    """K12-K14: q, k, v read and o written once in bf16; QK^T and PV on the
+    tensor cores."""
+    return bound({"bf16": 2 * 2 * B * heads * N * N * (D // heads)},
+                 4 * B * N * D * 2)
+
+
 def write_pairs(root: str, n: int, seed: int) -> str:
     import cv2
 
@@ -740,11 +1128,15 @@ def time_e2e(dev, B: int = 256, img: int = 224, int8: bool = True) -> dict:
     """Serving pairs/s at batch B and ``img`` px: the kernel path against
     the plain path (kernel, plain, plain, kernel), then, with ``int8``,
     the int8 kernel path against the bf16 kernel path on the same weights
-    (int8, bf16, bf16, int8)."""
+    (int8, bf16, bf16, int8) and the XLA-level W8A8 path (``quant``,
+    ``quantize_vit_params``) against its plain path, the bf16 path and the
+    int8 path (quant, quant_plain, quant_plain, quant, quant, bf16, bf16,
+    quant, quant, int8, int8, quant)."""
     import copy
 
     from mfvit_tpu_torch.models.fusion import Fusion
-    from mfvit_tpu_torch.nn.vit import ViT, get_config, quantize_vit_for_serving
+    from mfvit_tpu_torch.nn.vit import (ViT, get_config, quantize_vit_for_serving,
+                                        quantize_vit_params)
     from mfvit_tpu_torch.train.steps import make_fusion_forward
 
     cfg = get_config("vit_small", img)
@@ -755,12 +1147,15 @@ def time_e2e(dev, B: int = 256, img: int = 224, int8: bool = True) -> dict:
                             generator=gens[2]).eval()}
     models_i8 = dict(models, **{k: quantize_vit_for_serving(
         copy.deepcopy(models[k])) for k in ("cxr", "enh") if int8})
+    models_q = dict(models, **{k: quantize_vit_params(
+        copy.deepcopy(models[k])) for k in ("cxr", "enh") if int8})
     xc = torch.randn(B, img, img, 3, generator=gens[3]).to(dev, torch.bfloat16)
     xe = torch.randn(B, img, img, 3, generator=gens[3]).to(dev, torch.bfloat16)
     kernel = make_fusion_forward()
     fwds = {"kernel": (kernel, models), "bf16": (kernel, models),
             "plain": (make_fusion_forward(reference=True), models),
-            "int8": (kernel, models_i8)}
+            "int8": (kernel, models_i8), "quant": (kernel, models_q),
+            "quant_plain": (make_fusion_forward(reference=True), models_q)}
 
     def rate(which: str, iters: int = 5) -> float:
         fwd, ms = fwds[which]
@@ -772,7 +1167,10 @@ def time_e2e(dev, B: int = 256, img: int = 224, int8: bool = True) -> dict:
 
     order = ("kernel", "plain", "plain", "kernel")
     if int8:
-        order += ("int8", "bf16", "bf16", "int8")
+        order += ("int8", "bf16", "bf16", "int8",
+                  "quant", "quant_plain", "quant_plain", "quant",
+                  "quant", "bf16", "bf16", "quant",
+                  "quant", "int8", "int8", "quant")
     runs = {k: [] for k in order}
     for which in order:
         runs[which].append(rate(which))
@@ -780,7 +1178,9 @@ def time_e2e(dev, B: int = 256, img: int = 224, int8: bool = True) -> dict:
     print(f"end to end at B={B}, {img} px (logits fetched every forward): "
           + ", ".join(f"{k} {' / '.join(f'{r:.1f}' for r in v)} pairs/s"
                       for k, v in runs.items())
-          + " (kernel, plain: bf16; bf16, int8: the kernel path)")
+          + (" (kernel, plain: bf16; bf16, int8, quant: the kernel path; "
+             "quant_plain: the quant path over K12's plain version)" if int8
+             else " (bf16)"))
     return out
 
 
@@ -1130,6 +1530,17 @@ def main() -> int:
     counts.update({k: i8_counts[k] for k in PER_I8_FORWARD
                    if k != "fused_fusion_cls"})
 
+    phase("stand-alone attention kernels K12/K13/K14 against their plain "
+          "versions")
+    errs.update(check_mhsa_kernels(dev))
+
+    phase("the XLA-level W8A8 path: quantize_vit_params + fused_forward "
+          "(vit_small, B=32)")
+    q_counts = run_quant_path(dev, 224, 32)
+    counts.update({k: q_counts[k] for k in MHSA})
+    phase("the XLA-level W8A8 path at 384 px (vit_small, B=4)")
+    run_quant_path(dev, 384, 4)
+
     phase("backward kernels against their plain versions")
     errs.update(check_bwd_kernels(dev))
 
@@ -1142,11 +1553,16 @@ def main() -> int:
     phase("train-step parity, kernel path against plain path (B=32)")
     train_parity(dev)
 
-    phase("times (B=256; K5/K7 also at a vit_base block, B=64)")
+    phase("times (B=256; K12 also at N=577, B=64; K5/K7 also at a vit_base "
+          "block, B=64)")
     times = time_kernels(dev)
+    times.update(time_mhsa(dev, "vit_small", 256, 197, 384, 12))
+    k12_577 = time_mhsa(dev, "vit_small@384", 64, 577, 384, 12,
+                        ("mhsa_packed",))["mhsa_packed"]
     times.update(time_bwd(dev, "vit_small", 256, 384))
     base = time_bwd(dev, "vit_base", 64, 768)
     e2e = time_e2e(dev)
+    quant_profile = profile_quant(dev)
     train = time_train(dev, 256, 4)
     train_cli = time_train(dev, 16, 32)  # the finetune CLI's default -b
 
@@ -1182,12 +1598,14 @@ def main() -> int:
     long_bounds = {label: kernel_bounds(B, N, D, heads, 4 * D, 3)[
         "fused_attention_block_large"] for label, B, N, D, heads in K9_TIMED}
     bounds["fused_attention_block_large"] = long_bounds["vit_small@384"]
+    bounds.update({k: mhsa_bound(256, 197, 384, 12) for k in MHSA})
+    bound_577 = mhsa_bound(64, 577, 384, 12)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": None}
+         "library_ms": times[name][2] if name in MHSA else None}
         for name, src, rep in KERNELS]}
     print(json.dumps({"e2e_pairs_per_sec_B256": e2e,
                       "ft_train_images_per_sec_B256": train,
@@ -1200,6 +1618,11 @@ def main() -> int:
                       "e2e_pairs_per_sec_384_B64": e2e_384,
                       "ft_train_images_per_sec_384_B32": train_384,
                       "k9_backward_fp32_ms_384_B32": k9_bwd_384,
+                      "quant_profile_B256": quant_profile,
+                      "k12_vit_small@384_B64": {
+                          "ms": k12_577[0], "plain_ms": k12_577[1],
+                          "sdpa_ms": k12_577[2], "bound_ms": bound_577[0],
+                          "bound_by": bound_577[1]},
                       "k9": {f"{label} B={B}": {
                           "ms": long_times[label][0],
                           "plain_ms": long_times[label][1],

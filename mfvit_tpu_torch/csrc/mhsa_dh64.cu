@@ -1,0 +1,7 @@
+// K12-K14's attention core (mhsa.cuh) at head_dim 64, in a translation
+// unit of its own so that the builds of the head_dims run in parallel.
+#include "mhsa.cuh"
+
+int mhsa::run_dh64(const Args& a, int B, int variant, cudaStream_t s) {
+  return launch_variant<64>(a, B, variant, s);
+}

@@ -2,8 +2,9 @@
 checkpoint, the training checkpoints (``BestKeeper``) and the reference
 MoCo ``.pth.tar`` surgery.
 
-``vit_state_from_jax``, ``vit_int8_state_from_jax`` and
-``fusion_state_from_jax`` take the JAX package's
+``vit_state_from_jax``, ``vit_int8_state_from_jax``,
+``vit_quant_state_from_jax`` and ``fusion_state_from_jax`` take the JAX
+package's
 parameter trees as nested dicts of numpy arrays (``mfvit_tpu/nn/vit.py::init``
 and ``mfvit_tpu/models/fusion.py::init`` layouts) and return the port's
 state dicts, under the MoCo-v3 ``vits.py`` / reference ``Fus_CrossViT``
@@ -27,20 +28,26 @@ def _t(x) -> torch.Tensor:
 
 
 def vit_state_from_jax(tree, cfg) -> dict:
-    """JAX ViT tree -> ``nn.vit.ViT`` state dict."""
+    """JAX ViT tree -> ``nn.vit.ViT`` state dict. A quantized patch
+    projection (``{"wq": ..., "b"}``) becomes ``Int8Linear`` buffers."""
     D, P = cfg.dim, cfg.patch
-    pw = np.asarray(tree["patch"]["w"])  # (P*P*C, D), (ph, pw, c) order
-    C = pw.shape[0] // (P * P)
-    sd = {
-        "patch_embed.proj.weight": _t(pw.reshape(P, P, C, D)
-                                      .transpose(3, 2, 0, 1)),
-        "patch_embed.proj.bias": _t(tree["patch"]["b"]),
+    sd = {}
+    if "wq" in tree["patch"]:
+        _int8_from_jax(sd, "patch_embed.proj.", tree["patch"]["wq"],
+                       tree["patch"]["b"])
+    else:
+        pw = np.asarray(tree["patch"]["w"])  # (P*P*C, D), (ph, pw, c) order
+        C = pw.shape[0] // (P * P)
+        sd["patch_embed.proj.weight"] = _t(pw.reshape(P, P, C, D)
+                                           .transpose(3, 2, 0, 1))
+        sd["patch_embed.proj.bias"] = _t(tree["patch"]["b"])
+    sd.update({
         "cls_token": _t(tree["cls"]),
         "pos_embed": (_t(tree["pos"]) if cfg.learned_pos
                       else posembed.sincos_2d(cfg.grid, cfg.grid, D)),
         "norm.weight": _t(tree["norm"]["scale"]),
         "norm.bias": _t(tree["norm"]["bias"]),
-    }
+    })
     for i, blk in enumerate(tree["blocks"]):
         b = f"blocks.{i}."
         _norms_from_jax(sd, b, blk)
@@ -61,23 +68,44 @@ def _norms_from_jax(sd: dict, prefix: str, blk) -> None:
         sd[prefix + name + ".bias"] = _t(p["bias"])
 
 
+def _int8_from_jax(sd: dict, prefix: str, qs, b) -> None:
+    """One quantized linear: int8 ``q`` (in, out) -> ``q`` (out, in), its
+    scales ``s`` and the bias ``b`` as ``s`` and ``bias``."""
+    q = np.ascontiguousarray(np.asarray(qs["q"], np.int8).T)
+    sd[prefix + "q"] = torch.from_numpy(q)
+    sd[prefix + "s"] = _t(qs["s"])
+    sd[prefix + "bias"] = _t(b)
+
+
 def vit_int8_state_from_jax(qtree, cfg) -> dict:
     """JAX int8 serving tree (``mfvit_tpu/ops/fused_int8.py::
     quantize_vit_for_serving``) -> the state dict of an ``nn.vit.ViT``
     after ``nn.vit.quantize_vit_for_serving``: each ``qkv8``/``proj8``/
-    ``fc18``/``fc28`` entry's int8 ``q`` (in, out) becomes ``q`` (out, in),
-    with its scales ``s`` and bias ``b`` as ``s`` and ``bias``."""
+    ``fc18``/``fc28`` entry as ``_int8_from_jax`` maps it."""
     sd = vit_state_from_jax(dict(qtree, blocks=[]), cfg)
     for i, blk in enumerate(qtree["blocks"]):
         b = f"blocks.{i}."
         _norms_from_jax(sd, b, blk)
         for name, key in (("attn.qkv", "qkv8"), ("attn.proj", "proj8"),
                           ("mlp.fc1", "fc18"), ("mlp.fc2", "fc28")):
-            p = blk[key]
-            q = np.ascontiguousarray(np.asarray(p["q"], np.int8).T)
-            sd[b + name + ".q"] = torch.from_numpy(q)
-            sd[b + name + ".s"] = _t(p["s"])
-            sd[b + name + ".bias"] = _t(p["b"])
+            _int8_from_jax(sd, b + name + ".", blk[key], blk[key]["b"])
+    return sd
+
+
+def vit_quant_state_from_jax(qtree, cfg) -> dict:
+    """JAX XLA-level W8A8 tree (``mfvit_tpu/ops/quant.py::
+    quantize_vit_params``) -> the state dict of an ``nn.vit.ViT`` after
+    ``nn.vit.quantize_vit_params``: every ``{"wq": {"q", "s"}, "b"}``
+    entry, the patch projection's included, as ``_int8_from_jax`` maps
+    it."""
+    sd = vit_state_from_jax(dict(qtree, blocks=[]), cfg)
+    for i, blk in enumerate(qtree["blocks"]):
+        b = f"blocks.{i}."
+        _norms_from_jax(sd, b, blk)
+        for name, p in (("attn.qkv", blk["qkv"]), ("attn.proj", blk["proj"]),
+                        ("mlp.fc1", blk["mlp"]["fc1"]),
+                        ("mlp.fc2", blk["mlp"]["fc2"])):
+            _int8_from_jax(sd, b + name + ".", p["wq"], p["b"])
     return sd
 
 

@@ -18,7 +18,10 @@ computed once, when the model is built (``block_plan``).
 ``quantize_vit_for_serving`` turns a model into the int8 serving form,
 whose blocks run K11 (``ops.fused_int8``) and, for the attention half, K10
 or K9 on the dequantized weights by the JAX package's rule, and whose final
-LayerNorm runs after the blocks.
+LayerNorm runs after the blocks. ``quantize_vit_params`` turns it into the
+XLA-level W8A8 form of ``mfvit_tpu/ops/quant.py``: the patch projection and
+every block linear quantized, blocks of eager W8A8 linears around K12
+(``ops.quant``), the final LayerNorm after the blocks.
 
 The port does not copy the JAX package's TPU memory gates
 (``mfvit_tpu/nn/vit.py:299-310``): where JAX picks its K1, K9 or XLA
@@ -42,7 +45,7 @@ from torch import nn
 
 from mfvit_tpu_torch.nn import posembed
 from mfvit_tpu_torch.nn.layers import Mlp, layer_norm, trunc_normal_
-from mfvit_tpu_torch.ops import fused_attn, fused_int8, fused_mlp
+from mfvit_tpu_torch.ops import fused_attn, fused_int8, fused_mlp, quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,18 +112,32 @@ class BlockOps:
 K1_MAX_TOKENS = 256
 
 
+PLAN_MODES = ("bf16", "int8", "quant")
+
+
 def block_plan(cfg: ViTConfig, reference: bool = False,
-               int8: bool = False) -> tuple:
-    """The ops each block of ``cfg`` runs: the kernel Functions (K1/K5 up
-    to ``K1_MAX_TOKENS`` tokens, else K9 with its fp32-recompute backward;
-    K2/K7, K3/K7), or with ``int8`` the inference-only ops on every block:
-    K10, or K9 on the dequantized weights where
-    ``fused_int8.w8a8_attention`` says JAX takes that route, and K11 (the
-    final LayerNorm then runs after the blocks, as JAX's ``final_ln_done``
-    is False for an int8 tree). ``reference=True`` gives the same ops over
-    the plain PyTorch versions, on any device: the reference the kernels
-    are held to."""
-    if int8:
+               mode: str = "bf16") -> tuple:
+    """The ops each block of ``cfg`` runs, by ``mode``: ``bf16``, the
+    kernel Functions (K1/K5 up to ``K1_MAX_TOKENS`` tokens, else K9 with
+    its fp32-recompute backward; K2/K7, K3/K7); ``int8`` (the serving form
+    of ``quantize_vit_for_serving``), the inference-only ops on every
+    block: K10, or K9 on the dequantized weights where
+    ``fused_int8.w8a8_attention`` says JAX takes that route, and K11;
+    ``quant`` (``quantize_vit_params``), the XLA-level W8A8 halves of
+    ``ops.quant`` (K12 at any N, as JAX's ``use_large_attn`` covers only
+    unquantized blocks). In both quantized forms the final LayerNorm runs
+    after the blocks, as JAX's ``final_ln_done`` is False for such a tree.
+    ``reference=True`` gives the same ops over the plain PyTorch versions,
+    on any device: the reference the kernels are held to."""
+    if mode not in PLAN_MODES:
+        raise ValueError(f"block_plan: mode {mode!r} is not one of "
+                         f"{PLAN_MODES}")
+    if mode == "quant":
+        ops = BlockOps(functools.partial(quant.quant_attention_block,
+                                         plain=reference),
+                       quant.quant_mlp_block, False)
+        return (ops,) * cfg.depth
+    if mode == "int8":
         attn = (fused_int8.fused_attention_block_i8
                 if fused_int8.w8a8_attention(cfg.seq_len, cfg.dim, cfg.heads)
                 else fused_int8.fused_attention_block_dequant)
@@ -172,15 +189,16 @@ class Attention(nn.Module):
 
 
 class Int8Linear(nn.Module):
-    """A Linear quantized for serving: int8 codes ``q`` (out, in), one fp32
-    scale per output channel ``s`` and the fp32 ``bias``, as buffers."""
+    """A linear quantized for serving: int8 codes ``q`` (out, in), one fp32
+    scale per output channel ``s`` and the fp32 ``bias``, as buffers, from
+    an fp32 weight (out, in) and bias."""
 
-    def __init__(self, lin: nn.Linear):
+    def __init__(self, weight: torch.Tensor, bias: torch.Tensor):
         super().__init__()
-        q, s = fused_int8.quantize_weight_cols(lin.weight.detach())
+        q, s = fused_int8.quantize_weight_cols(weight.detach())
         self.register_buffer("q", q)
         self.register_buffer("s", s)
-        self.register_buffer("bias", lin.bias.detach().float().clone())
+        self.register_buffer("bias", bias.detach().float().clone())
 
 
 def _linear_params(lin) -> tuple:
@@ -288,7 +306,13 @@ class ViT(nn.Module):
         cfg = self.cfg
         dt = compute_dtype
         B = imgs.shape[0]
-        x = patch_embed(self.patch_embed.proj, imgs.to(dt), cfg.patch)
+        proj = self.patch_embed.proj
+        if isinstance(proj, Int8Linear):  # quantize_vit_params
+            x = quant.quantized_linear(proj.q, proj.s,
+                                       patchify(imgs.to(dt), cfg.patch),
+                                       proj.bias)
+        else:
+            x = patch_embed(proj, imgs.to(dt), cfg.patch)
         cls = self.cls_token.to(dt).expand(B, 1, cfg.dim)
         x = torch.cat([cls, x], 1)
         x = (x.float() + self.pos_embed).to(dt)
@@ -299,7 +323,7 @@ class ViT(nn.Module):
                     self._block, x, blk, ops, use_reentrant=False)
             else:
                 x = self._block(x, blk, ops)
-        # the final LayerNorm ran in the last block's K3, unless int8
+        # the final LayerNorm ran in the last block's K3, unless quantized
         tokens = (x if plan[-1].final_ln
                   else layer_norm(x, self.norm.weight, self.norm.bias, 1e-6))
         cls_out = tokens[:, 0].float()
@@ -315,10 +339,34 @@ def quantize_vit_for_serving(model: ViT) -> ViT:
     its plan runs K11 and, for the attention half, K10 or K9 on the
     dequantized weights (``block_plan``); the patch embedding, LayerNorms,
     CLS, position table and the fp32 head stay exact. Returns the model."""
+    _quantize_blocks(model)
+    model.plans = {False: block_plan(model.cfg, mode="int8"),
+                   True: block_plan(model.cfg, reference=True, mode="int8")}
+    return model
+
+
+def _quantize_blocks(model: ViT) -> None:
     for blk in model.blocks:
         a, m = blk.attn, blk.mlp
-        a.qkv, a.proj = Int8Linear(a.qkv), Int8Linear(a.proj)
-        m.fc1, m.fc2 = Int8Linear(m.fc1), Int8Linear(m.fc2)
-    model.plans = {False: block_plan(model.cfg, int8=True),
-                   True: block_plan(model.cfg, reference=True, int8=True)}
+        a.qkv, a.proj, m.fc1, m.fc2 = (Int8Linear(lin.weight, lin.bias)
+                                       for lin in (a.qkv, a.proj, m.fc1,
+                                                   m.fc2))
+
+
+def quantize_vit_params(model: ViT) -> ViT:
+    """Turn ``model`` (in place) into the XLA-level W8A8 form, the port of
+    ``mfvit_tpu/ops/quant.py::quantize_vit_params`` (:57): the patch
+    projection, in the JAX (P*P*C, D) layout's (ph, pw, c) order so that
+    its GEMM runs on ``patchify(imgs)``, and each block's qkv, proj, fc1
+    and fc2 become ``Int8Linear`` buffers; the plan runs
+    ``ops.quant``'s W8A8 halves around K12 (``block_plan``); LayerNorms,
+    CLS, the position table and the fp32 head stay exact. Inference only.
+    Returns the model."""
+    proj = model.patch_embed.proj
+    D = proj.weight.shape[0]
+    model.patch_embed.proj = Int8Linear(
+        proj.weight.permute(0, 2, 3, 1).reshape(D, -1), proj.bias)
+    _quantize_blocks(model)
+    model.plans = {False: block_plan(model.cfg, mode="quant"),
+                   True: block_plan(model.cfg, reference=True, mode="quant")}
     return model

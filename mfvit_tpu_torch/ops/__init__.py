@@ -1,14 +1,15 @@
-"""Kernels of the ported paths (K1-K5, K7, K9-K11) with their plain
-PyTorch versions.
+"""Kernels of the ported paths (K1-K5, K7, K9-K14; K5 and K7 also cover
+K6 and K8) with their plain PyTorch versions.
 
 Each kernel module keeps a ``LAUNCHES`` count that its wrapper raises by
 one where it launches its kernels on a CUDA tensor, and nowhere else."""
 from __future__ import annotations
 
-from mfvit_tpu_torch.ops import fused_attn, fused_fusion, fused_int8, fused_mlp
+from mfvit_tpu_torch.ops import (attention, fused_attn, fused_fusion,
+                                 fused_int8, fused_mlp)
 
 _COUNTERS = (fused_attn.LAUNCHES, fused_mlp.LAUNCHES, fused_fusion.LAUNCHES,
-             fused_int8.LAUNCHES)
+             fused_int8.LAUNCHES, attention.LAUNCHES)
 
 
 def launch_counts() -> dict:

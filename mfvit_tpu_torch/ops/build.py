@@ -40,6 +40,9 @@ SIGNATURES = {
     "mfv_fused_mlp_block_bwd": [_P] * 20 + [_I] * 7 + [_P],
     "mfv_fused_attention_block_i8": [_P] * 14 + [_I] * 4 + [_F, _P],
     "mfv_fused_mlp_block_i8": [_P] * 14 + [_I] * 3 + [_P],
+    "mfv_mhsa_packed": [_P, _P] + [_I] * 4 + [_F, _P],
+    "mfv_mhsa": [_P] * 4 + [_I] * 4 + [_F, _P],
+    "mfv_mhsa_packed_t": [_P, _P] + [_I] * 4 + [_F, _P],
 }
 
 _lib = None

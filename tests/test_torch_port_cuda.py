@@ -1,4 +1,4 @@
-"""Kernel-against-plain tests for K1-K5, K7 and K9-K11 on the card. They need CUDA, nvcc
+"""Kernel-against-plain tests for K1-K5, K7 and K9-K14 on the card. They need CUDA, nvcc
 and an sm_90a GPU, so they carry the ``cuda`` marker and skip elsewhere;
 on the card run ``python -m pytest tests/test_torch_port_cuda.py``
 (``chip_smoke.py`` makes the same comparisons at serving shapes).
@@ -11,7 +11,8 @@ import torch
 
 from mfvit_tpu_torch import ops
 from mfvit_tpu_torch.nn import vit
-from mfvit_tpu_torch.ops import fused_attn, fused_fusion, fused_int8, fused_mlp
+from mfvit_tpu_torch.ops import (attention, fused_attn, fused_fusion,
+                                 fused_int8, fused_mlp, quant)
 
 pytestmark = pytest.mark.cuda
 REL = 2e-2
@@ -82,7 +83,8 @@ def test_kernels_match_plain(dev, B, N, D, H):
         "fused_mlp_block": 1,
         "fused_mlp_block_final_ln": 1, "fused_fusion_cls": 0,
         "fused_attention_block_bwd": 0, "fused_mlp_block_bwd": 0,
-        "fused_attention_block_i8": 0, "fused_mlp_block_i8": 0}
+        "fused_attention_block_i8": 0, "fused_mlp_block_i8": 0,
+        "mhsa_packed": 0, "mhsa": 0, "mhsa_packed_t": 0}
 
 
 @pytest.mark.parametrize("B,heads", [(8, 3), (5, 3), (3, 6)])
@@ -308,3 +310,137 @@ def test_int8_quantizers_on_the_card_match_the_cpu(dev):
                   (fused_int8.quant_rows, h)):
         (q, s), (qd, sd) = fn(a), fn(a.to(dev))
         assert torch.equal(q, qd.cpu()) and torch.equal(s, sd.cpu())
+
+
+# K12-K14: (B, N, D, heads) at vit_small, vit_small_ori, vit_base, head_dim
+# 128, N=50 and past 256 tokens (N=577, 1025); then the edges: one token,
+# head_dim 128 in the shortest key tile, the last length of the register
+# core and the first of the streaming one
+MHSA_SHAPES = [(8, 197, 384, 12), (8, 197, 384, 6), (4, 197, 768, 12),
+               (2, 300, 384, 3), (8, 50, 384, 12), (2, 577, 384, 6),
+               (2, 1025, 384, 6), (3, 1, 384, 12), (2, 50, 256, 2),
+               (2, 256, 384, 6), (2, 257, 384, 6)]
+
+
+def _packed(dev, B, N, D, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return _rnd(g, B, N, 3 * D).bfloat16().to(dev)
+
+
+@pytest.mark.parametrize("B,N,D,H", MHSA_SHAPES)
+def test_mhsa_kernels_match_plain(dev, B, N, D, H):
+    """K12, K13 and K14 against their plain versions in fp32 on the same
+    bf16 values, each in its own layout, and against their plain versions
+    in bf16, which round where the kernels do (||diff|| / ||plain|| <
+    4e-4, the bar of chip_smoke.py's MHSA_BAR); one launch each."""
+    qkv = _packed(dev, B, N, D)
+    scale = (D // H) ** -0.5
+    q, k, v = (t.contiguous() for t in attention._split(qkv, H, False))
+    qkv_t = qkv.transpose(1, 2).contiguous()
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        for got, ref, plain in (
+                (attention.mhsa_packed(qkv, H, scale),
+                 attention.mhsa_packed_plain(qkv.float(), H, scale),
+                 attention.mhsa_packed_plain(qkv, H, scale)),
+                (attention.mhsa(q, k, v),
+                 attention.mhsa_plain(q.float(), k.float(), v.float(),
+                                      (D // H) ** -0.5),
+                 attention.mhsa_plain(q, k, v, (D // H) ** -0.5)),
+                (attention.mhsa_packed_t(qkv_t, H, scale),
+                 attention.mhsa_packed_t_plain(qkv_t.float(), H, scale),
+                 attention.mhsa_packed_t_plain(qkv_t, H, scale))):
+            torch.cuda.synchronize()
+            assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+            assert _rel(got, ref) < REL
+            diff = (got.float() - plain.float()).norm()
+            assert diff / plain.float().norm() < 4e-4
+    counts = ops.launch_counts()
+    assert (counts["mhsa_packed"], counts["mhsa"],
+            counts["mhsa_packed_t"]) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("B,N,D,H", MHSA_SHAPES)
+def test_k12_equals_k14(dev, B, N, D, H):
+    """K12 and K14 share one core: the same bits on the same values after
+    the layout change."""
+    qkv = _packed(dev, B, N, D, seed=1)
+    scale = (D // H) ** -0.5
+    with torch.no_grad():
+        a = attention.mhsa_packed(qkv, H, scale)
+        b = attention.mhsa_packed_t(qkv.transpose(1, 2).contiguous(), H,
+                                    scale)
+    assert torch.equal(a, b.transpose(1, 2))
+
+
+def test_mhsa_backward_on_the_card_is_the_fp32_recompute(dev):
+    """The Functions' backward on CUDA tensors against the same fp32
+    recompute on the CPU: fp32 sums in another order, so within one bf16
+    ulp of the largest gradient."""
+    B, N, D, H = 2, 197, 384, 12
+    scale = 32 ** -0.5
+    qkv = _packed(dev, B, N, D, seed=2)
+    cot = _rnd(torch.Generator().manual_seed(3), B, N, D).bfloat16()
+    x = qkv.detach().clone().requires_grad_()
+    got = torch.autograd.grad(attention.mhsa_packed(x, H, scale), x,
+                              cot.to(dev))[0]
+    xc = qkv.cpu().requires_grad_()
+    want = torch.autograd.grad(attention.mhsa_packed(xc, H, scale), xc,
+                               cot)[0]
+    assert got.dtype == torch.bfloat16 and _rel(got.cpu(), want) <= 2 ** -8
+    xt = qkv.transpose(1, 2).contiguous().requires_grad_()
+    got_t = torch.autograd.grad(attention.mhsa_packed_t(xt, H, scale), xt,
+                                cot.to(dev).transpose(1, 2))[0]
+    assert _rel(got_t.transpose(1, 2).cpu(), want) <= 2 ** -8
+    q, k, v = (t.contiguous().requires_grad_()
+               for t in attention._split(qkv, H, False))
+    got3 = torch.autograd.grad(attention.mhsa(q, k, v), (q, k, v),
+                               attention._to_heads(cot.to(dev), H, False))
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    want3 = torch.autograd.grad(attention.mhsa(qc, kc, vc), (qc, kc, vc),
+                                attention._to_heads(cot, H, False))
+    for a, b in zip(got3, want3):
+        assert a.dtype == torch.bfloat16 and _rel(a.cpu(), b) <= 2 ** -8
+
+
+def test_cuda_tensors_never_take_the_plain_mhsa(dev):
+    qkv = _packed(dev, 1, 197, 384)
+    with pytest.raises(ValueError, match="bfloat16"):
+        attention.mhsa_packed(qkv.float(), 12, 0.2)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.mhsa_packed(qkv, 8, 0.2)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.mhsa_packed_t(qkv.transpose(1, 2), 12, 0.2)
+    q = torch.zeros(1, 2, 9, 16, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.mhsa(q, q, q)
+
+
+def test_quantized_linear_refuses_requires_grad_on_the_card(dev):
+    """A quantized linear is inference only on the card too; under no_grad
+    its torch._int_mm product equals the CPU's float64 one."""
+    g = torch.Generator().manual_seed(6)
+    q, s = fused_int8.quantize_weight_cols(_rnd(g, 1152, 384, std=0.05))
+    x = _rnd(g, 4, 197, 384).bfloat16()
+    xd = x.to(dev).requires_grad_()
+    with pytest.raises(RuntimeError, match="inference-only"):
+        quant.quantized_linear(q.to(dev), s.to(dev), xd)
+    with torch.no_grad():
+        got = quant.quantized_linear(q.to(dev), s.to(dev), xd, s.to(dev))
+        want = quant.quantized_linear(q, s, x, s)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_quantized_vit_runs_k12_in_every_block(dev):
+    """A vit_small forward after quantize_vit_params runs K12 once per block
+    and no other kernel, at 224 and 384 px."""
+    for img in (224, 384):
+        m = vit.quantize_vit_params(
+            vit.ViT(vit.get_config("vit_small", img), 3, device=dev))
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            out = m(torch.randn(2, img, img, 3, device=dev).bfloat16())
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts.pop("mhsa_packed") == 12
+        assert not any(counts.values()) and out.isfinite().all()

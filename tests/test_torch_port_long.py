@@ -251,7 +251,7 @@ def test_w8a8_attention_matches_jax_rule(arch):
     ("vit_small_ori", 512, "fused_attention_block_dequant"),
     ("vit_base", 384, "fused_attention_block_dequant")])
 def test_int8_plan_takes_the_jax_route(arch, img, want):
-    plan = vit.block_plan(vit.get_config(arch, img), int8=True)
+    plan = vit.block_plan(vit.get_config(arch, img), mode="int8")
     assert {_attn_fn(o.attn).__name__ for o in plan} == {want}
     assert {_attn_fn(o.mlp).__name__ for o in plan} == {"fused_mlp_block_i8"}
 

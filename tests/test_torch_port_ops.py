@@ -235,9 +235,14 @@ def test_cpu_tensors_never_count_a_launch(blk, fusion_case):
         fused_int8.fused_mlp_block_i8(*m[:3], *q[2], m[4], *q[3], m[6])
         fused_int8.fused_attention_block_dequant(*a[:3], *q[0], a[4], *q[1],
                                                  a[6], H, SCALE)
+    qkv = torch.zeros(B, N, 3 * D, requires_grad=True)
+    attention.mhsa_packed(qkv, H, SCALE).sum().backward()
+    attention.mhsa_packed_t(qkv.detach().transpose(1, 2), H, SCALE)
+    attention.mhsa(*torch.zeros(3, B, H, N, DH))
     assert ops.launch_counts() == {
         "fused_attention_block": 0, "fused_attention_block_large": 0,
         "fused_mlp_block": 0,
         "fused_mlp_block_final_ln": 0, "fused_fusion_cls": 0,
         "fused_attention_block_bwd": 0, "fused_mlp_block_bwd": 0,
-        "fused_attention_block_i8": 0, "fused_mlp_block_i8": 0}
+        "fused_attention_block_i8": 0, "fused_mlp_block_i8": 0,
+        "mhsa_packed": 0, "mhsa": 0, "mhsa_packed_t": 0}
