@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MF-ViT CA serving path (bf16, int8 W8A8 and
-the XLA-level W8A8 trees of ``quantize_vit_params``) and its ViT
-fine-tuning path once on an NVIDIA GPU, at 224 px and at 384 px (577
-tokens: the long-sequence path).
+the XLA-level W8A8 trees of ``quantize_vit_params``), its ViT fine-tuning
+path, its fusion training (``cli/fuse``) and the whole-block kernel K15
+(through ``tools/bench_block``) once on an NVIDIA GPU, at 224 px and at
+384 px (577 tokens: the long-sequence path).
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -65,7 +66,32 @@ Phases, in order; any failure raises and exits non-zero:
    card) from the same vit_small weights and batch (B=32), three SGD steps
    each: the loss per step within rel 1e-2, and each block's flattened
    first-step gradient within rel 5e-2;
-12. times with CUDA events at B=256: each forward kernel (K10/K11
+12. K15 against the K1 -> K2 kernel chain on the same bf16 inputs (equal
+   bit for bit) and its plain fp32 version (rel < 2e-2), its 13 gradients
+   (``torch.autograd.grad``: K1's forward recomputed, K7, K5) against the
+   plain fp32 backward (rel < 2e-2 each), at vit_small, vit_small_ori,
+   N=50 and head_dim 128 (B=8), non-zero biases; launch counts K15 1 and
+   every other kernel 0 per forward, K15, K1, K7 and K5 1 each per
+   forward and backward; the vit_base block (D=768) refused with its
+   ValueError;
+13. K15's entry point, ``mfvit_tpu_torch.tools.bench_block`` (B=512, 12
+   blocks, the K1 -> K2 chain and the K15 chain): launch counts K15, K1,
+   K2 12 per chain of theirs, every other kernel 0; equal checksums; then
+   one block on the tool's inputs: K15 within rel 2e-2 of its plain fp32
+   version and equal to the K1 -> K2 pair bit for bit;
+14. the fusion-training slice through ``mfvit_tpu_torch.cli.fuse.main``:
+   64 synthetic pairs, both vit_small branches from seeded files with
+   non-zero biases, B=32, one epoch; LP then ``--semi-supervised``: finite
+   losses, launch counts per step (K1 24, K2 22, K3 2, K4 1, and K5 24, K7
+   24 under ``--semi-supervised`` only) plus one paired forward per eval
+   batch, the LP sanity-check line under LP only, ``model_best`` equal to
+   the last state; then ``infer.main`` on that ``model_best`` over the 32
+   val pairs: decision logits equal to ``eval_step`` on that state;
+15. fusion train-step parity: kernel path and plain path (bf16 on the
+   card) from the same weights and batch (B=32), three Adam steps, LP and
+   ``--semi-supervised``: loss per step within rel 1e-2, the first-step
+   gradient of the head and of each branch block within rel 5e-2;
+16. times with CUDA events at B=256: each forward kernel (K10/K11
    included) and K5/K7 against its plain version (K5/K7 first held
    against the plain fp32 backward on the timed inputs), K5/K7 also at a
    vit_base block (B=64, D=768, hidden 3072: the widths of K6 and K8),
@@ -76,28 +102,33 @@ Phases, in order; any failure raises and exits non-zero:
    and the XLA-level W8A8 path against its plain path, the bf16 path and
    the int8 path, and the images/s of the FT train
    step, kernel path against plain path; the FT step also at B=16, the
-   finetune CLI's default batch;
-13. the long-sequence kernels: K9 against its plain fp32 version (rel <
+   finetune CLI's default batch; K15 against the K1 -> K2 pair, its
+   plain version and the library block (``nn.TransformerEncoderLayer``
+   in inference mode on K15's weights, first held within rel 2e-2 of the
+   plain fp32 version) at B=256; the pairs/s of the fusion train step, LP and
+   ``--semi-supervised``, kernel against plain path, at B=32 (the fuse
+   CLI's default) and B=256;
+17. the long-sequence kernels: K9 against its plain fp32 version (rel <
    2e-2) at vit_small@384 (B=2, N=577, D=384, 12 heads), vit_small_ori@512
    (N=1025, 6 heads), vit_base@384 (D=768), head_dim 128 (N=300, 3 heads)
    and N=257, the first length past K1; K10 past 256 tokens
    (vit_small_ori@384: B=2, N=577, 6 heads) against its plain fp32
    version and on its branch bar, which the ``i8_controls`` must fail;
-14. the serving slice at 384 px: 32 synthetic pairs, the checkpoint of
+18. the serving slice at 384 px: 32 synthetic pairs, the checkpoint of
    phase 4 (saved at 224 px), ``infer.main`` with ``--img-size 384 --crop
    384`` at B=16; launch counts per forward K9 24, K2 22, K3 2, K4 1,
    every other kernel 0; decision logits within rel 2e-2 of the plain
    path in bf16;
-15. the same with ``--int8``: the attention half of every block is K9 on
+19. the same with ``--int8``: the attention half of every block is K9 on
    the dequantized weights (the JAX package's route at vit_small@384);
    launch counts K9 24, K11 24, K4 1, K10 0; top-1 agreement with the
    plain int8 path on all but one pair;
-16. FT at 384 px through ``finetune.main`` (B=8, one epoch over 32
+20. FT at 384 px through ``finetune.main`` (B=8, one epoch over 32
    images): the loss finite at every step, launch counts per step K9 12,
    K2 11, K3 1, K7 12 and K5 0 (K9's backward is the fp32 recompute, plain
    PyTorch) plus one forward per eval batch, the backbone changed; then
    three-step train parity with the plain path (B=8);
-17. times at 384 px: K9 and its plain version at vit_small@384 (B=64) and
+21. times at 384 px: K9 and its plain version at vit_small@384 (B=64) and
    vit_small_ori@512 (B=16), the serving pairs/s at B=64 (kernel path
    against plain path), the FT step's images/s at B=32 and K9's backward
    (the fp32 recompute) at B=32.
@@ -170,6 +201,8 @@ KERNELS = [  # name, CUDA source, the Pallas kernel body it replaces
     ("mhsa", "mfvit_tpu_torch/csrc/mhsa.cu", "mfvit_tpu/ops/attention.py:78"),
     ("mhsa_packed_t", "mfvit_tpu_torch/csrc/mhsa.cu",
      "mfvit_tpu/ops/attention.py:295"),
+    ("fused_transformer_block", "mfvit_tpu_torch/csrc/fused_block.cu",
+     "mfvit_tpu/ops/fused_block.py:36"),
 ]
 MHSA = ("mhsa_packed", "mhsa", "mhsa_packed_t")  # K12, K13, K14
 PER_FORWARD = {"fused_attention_block": 24, "fused_mlp_block": 22,
@@ -193,6 +226,18 @@ PER_FT_STEP_384 = {"fused_mlp_block_bwd": 12}
 # one paired forward of the XLA-level W8A8 path (quantize_vit_params), at
 # 224 and 384 px
 PER_QUANT_FORWARD = {"mhsa_packed": 24, "fused_fusion_cls": 1}
+# one fusion training step (cli/fuse): the paired forward, and under
+# --semi-supervised the backward of both branches (K4's backward is its
+# plain recompute); one K15 forward and backward (K1 recompute, K7, K5)
+PER_FUSION_STEP = {False: PER_FORWARD,
+                   True: dict(PER_FORWARD, fused_attention_block_bwd=24,
+                              fused_mlp_block_bwd=24)}
+PER_K15_FWD = {"fused_transformer_block": 1}
+PER_K15_FWD_BWD = {"fused_transformer_block": 1, "fused_attention_block": 1,
+                   "fused_mlp_block_bwd": 1, "fused_attention_block_bwd": 1}
+# the kernels of one block of tools/bench_block's chains, each once
+PER_BENCH_BLOCK = {"fused_transformer_block": 1, "fused_attention_block": 1,
+                   "fused_mlp_block": 1}
 # per paired forward, by (img, int8); per ViT forward and FT step, by img
 PER_PAIR = {(224, False): PER_FORWARD, (224, True): PER_I8_FORWARD,
             (384, False): PER_FORWARD_384, (384, True): PER_I8_FORWARD_384}
@@ -999,7 +1044,7 @@ def run_slice(dev, tmp: str, int8: bool, img: int = 224) -> dict:
     # the same weights and batches through the plain path on the card
     args = infer.build_parser().parse_args(argv)
     models = infer.load_models(args, cfg, dev)
-    loader = common.make_paired_eval_loader(args, man)
+    loader = common.make_paired_loader(args, man)
     def outputs(models, dt, reference):  # (3, n, classes)
         fwd = make_fusion_forward(compute_dtype=dt, reference=reference)
         return torch.cat([torch.stack([o.cpu() for o in fwd(
@@ -1232,6 +1277,10 @@ def kernel_bounds(B: int, N: int, D: int, heads: int, Hd: int,
         # K11: int8 fc1 and fc2
         "fused_mlp_block_i8": bound({"int8": 4 * M * D * Hd},
                                     2 * act + 2 * D * Hd),
+        # K15: K1's and K2's products; x read and the output written once
+        "fused_transformer_block": bound(
+            {"bf16": 2 * M * D * 4 * D + 2 * attn_nn + 4 * M * D * Hd},
+            2 * act + w_attn + w_mlp),
     }
 
 
@@ -1304,26 +1353,30 @@ def check_bwd_kernels(dev) -> dict:
     return errs
 
 
-def write_covid_ds(root: str, n: int, seed: int) -> str:
-    """n synthetic PNGs in the ``--covid-ds`` layout: every image in the
+def write_covid_ds(root: str, n: int, seed: int, paired: bool = False) -> str:
+    """n synthetic PNGs in the ``--covid-ds`` layout (with ``paired`` an
+    enhanced 'Train_Mix' image beside each 'data' one): every image in the
     train manifest (1_labeled_train_0.txt), the two halves as val and
-    test."""
+    test. Returns the manifest folder."""
     import cv2
 
     from mfvit_tpu_torch.data.manifest import write_covid_manifest
     rng = np.random.default_rng(seed)
     images = os.path.join(root, "images")
     man = os.path.join(root, "create_covid_dataset")
-    os.makedirs(os.path.join(images, "data"))
+    folders = ("data", "Train_Mix") if paired else ("data",)
+    for folder in folders:
+        os.makedirs(os.path.join(images, folder))
     os.makedirs(man)
     names = [f"img_{i:03d}.png" for i in range(n)]
     labels = [i % 3 for i in range(n)]
     yy, xx = np.mgrid[0:256, 0:288]
     for i, fn in enumerate(names):
-        img = rng.integers(0, 60, (256, 288, 3), np.uint8)
-        img += ((np.sin(xx / (9 + i % 7)) + np.cos(yy / 13)) * 60
-                + 100 + 30 * labels[i]).astype(np.uint8)[..., None]
-        cv2.imwrite(os.path.join(images, "data", fn), img)
+        for folder in folders:
+            img = rng.integers(0, 60, (256, 288, 3), np.uint8)
+            img += ((np.sin(xx / (9 + i % 7)) + np.cos(yy / 13)) * 60
+                    + 100 + 30 * labels[i]).astype(np.uint8)[..., None]
+            cv2.imwrite(os.path.join(images, folder, fn), img)
     half = n // 2
     for fname, sl in (("1_labeled_train_0.txt", slice(0, n)),
                       ("val_ds.txt", slice(0, half)),
@@ -1500,6 +1553,439 @@ def time_train(dev, B: int, iters: int, img: int = 224) -> dict:
     return {k: sum(v) / len(v) for k, v in runs.items()}
 
 
+# K15's shapes: label, B, N, D, heads (head_dim 128 at D=384: 3 heads)
+K15_SHAPES = (("vit_small", 8, 197, 384, 12),
+              ("vit_small_ori", 8, 197, 384, 6), ("N=50", 8, 50, 384, 12),
+              ("head_dim 128", 8, 197, 384, 3))
+K15_KEYS = ("x", "ln_s", "ln_b", "wqkv", "bqkv", "wproj", "bproj", "ln_s",
+            "ln_b", "w1", "b1", "w2", "b2")
+K15_GRADS = ("dx", "dln1_s", "dln1_b", "dwqkv", "dbqkv", "dwproj", "dbproj",
+             "dln2_s", "dln2_b", "dw1", "db1", "dw2", "db2")
+
+
+def k15_calls(t, heads: int):
+    """(K15, the K1 -> K2 kernel chain, K15's plain version) on one
+    block's inputs, and K15's arguments."""
+    from mfvit_tpu_torch.ops import fused_attn as fa
+    from mfvit_tpu_torch.ops import fused_block as fb
+    from mfvit_tpu_torch.ops import fused_mlp as fm
+    a = [t[k] for k in K15_KEYS]
+    scale = (t["x"].shape[-1] // heads) ** -0.5
+    return ((lambda: fb.fused_transformer_block(*a, heads, scale)),
+            (lambda: fm.fused_mlp_block(
+                fa.fused_attention_block(*a[:7], heads, scale), *a[7:])),
+            (lambda: fb.fused_transformer_block_plain(*a, heads, scale)), a)
+
+
+def check_block_kernel(dev) -> float:
+    """K15 at K15_SHAPES on bf16 inputs with non-zero biases: equal to the
+    K1 -> K2 kernel chain bit for bit, within REL_BAR of its plain fp32
+    version, and its 13 gradients (via torch.autograd.grad) each within
+    REL_BAR of the plain fp32 backward; one forward launches K15 once and
+    nothing else, a forward and backward K15, K1, K7 and K5 once each. At
+    the vit_base block (D=768) it must raise the ValueError that names its
+    limit. Returns the largest abs error at vit_small."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.ops import fused_block as fb
+    err = 0.0
+    for label, B, N, D, heads in K15_SHAPES:
+        gen = torch.Generator().manual_seed(15)
+        t = block_inputs(gen, B, D, dev, N=N)
+        k15, chain, _, a = k15_calls(t, heads)
+        scale = (D // heads) ** -0.5
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            got = k15()
+            torch.cuda.synchronize()
+            fwd = {k: v for k, v in ops.launch_counts().items() if v}
+            same = chain()
+            ref = fb.fused_transformer_block_plain(*[v.float() for v in a],
+                                                   heads, scale)
+        r = rel(got, ref)
+        n_diff = (got != same).sum().item()
+        leaves = [v.detach().clone().requires_grad_() for v in a]
+        g = torch.randn(B, N, D, generator=gen).to(dev).bfloat16()
+        ops.reset_launch_counts()
+        grads = torch.autograd.grad(
+            fb.fused_transformer_block(*leaves, heads, scale), leaves, g)
+        torch.cuda.synchronize()
+        bwd = {k: v for k, v in ops.launch_counts().items() if v}
+        l32 = [v.detach().float().requires_grad_() for v in a]
+        want = torch.autograd.grad(fb.fused_transformer_block(
+            *l32, heads, scale, plain=True), l32, g.float())
+        rels = [rel(d, w) for d, w in zip(grads, want)]
+        print(f"fused_transformer_block at {label} (B={B}, N={N}, D={D}, "
+              f"{heads} heads): {n_diff} of {got.numel()} outputs differ "
+              f"from the K1 -> K2 chain; rel vs plain fp32 {r:.3e}; "
+              "gradients rel vs the plain fp32 backward " + ", ".join(
+                  f"{n} {v:.2e}" for n, v in zip(K15_GRADS, rels))
+              + f"; launches: forward {fwd}, forward + backward {bwd}")
+        if n_diff:
+            raise AssertionError(f"K15 at {label}: {n_diff} outputs differ "
+                                 "from the K1 -> K2 chain")
+        if not (math.isfinite(r) and r < REL_BAR
+                and all(math.isfinite(v) and v < REL_BAR for v in rels)):
+            raise AssertionError(f"K15 at {label}: rel {r}, gradients {rels}")
+        if fwd != PER_K15_FWD or bwd != PER_K15_FWD_BWD:
+            raise AssertionError(f"K15 at {label}: launches {fwd}, {bwd}")
+        if label == "vit_small":
+            err = (got.float() - ref).abs().max().item()
+    t = block_inputs(torch.Generator().manual_seed(15), 1, 768, dev)
+    try:
+        fb.fused_transformer_block(*[t[k] for k in K15_KEYS], 12, 64 ** -0.5)
+    except ValueError as e:
+        print(f"fused_transformer_block at the vit_base block (D=768): "
+              f"refused as it should be: {e}")
+    else:
+        raise AssertionError("K15 took D=768, past the limit it states")
+    return err
+
+
+def run_bench_block(dev) -> tuple:
+    """K15's main path, ``mfvit_tpu_torch.tools.bench_block.run`` (B=512,
+    N=197, D=384, 12 blocks; pair, K15, K15, pair, each a warm-up and
+    ``bench_block.ITERS`` timed chains): launch counts K15, K1 and K2 12
+    per chain of theirs, every other kernel 0; both chains' checksums
+    equal. Then, outside the counted run, one block on the tool's own
+    inputs: K15 within REL_BAR of its plain version on the upcast inputs
+    and equal to the K1 -> K2 pair bit for bit.
+    Returns (counts, {name: (ms, checksum)})."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.ops import fused_attn as fa
+    from mfvit_tpu_torch.ops import fused_block as fb
+    from mfvit_tpu_torch.ops import fused_mlp as fm
+    from mfvit_tpu_torch.tools import bench_block as bb
+    ops.reset_launch_counts()
+    res = bb.run(dev, 512, 12)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {k: 0 for k in counts}  # each chain ran 2 * (1 + bb.ITERS)
+    want.update({k: v * 12 * 2 * (1 + bb.ITERS)
+                 for k, v in PER_BENCH_BLOCK.items()})
+    print(f"bench_block launch counts {counts}")
+    if counts != want:
+        raise AssertionError(f"bench_block launch counts {counts} != {want}")
+    sums = [v[1] for v in res.values()]
+    if not (math.isfinite(sums[0]) and sums[0] == sums[1]):
+        raise AssertionError(f"bench_block checksums differ: {res}")
+    x, p = bb.make_inputs(512, dev)
+    a = [p[k] for k in bb.ATTN + bb.MLP]
+    with torch.inference_mode():
+        got = fb.fused_transformer_block(x, *a, bb.HEADS, bb.SCALE)
+        pair = fm.fused_mlp_block(fa.fused_attention_block(
+            x, *a[:6], bb.HEADS, bb.SCALE), *a[6:])
+        ref = fb.fused_transformer_block_plain(
+            x.float(), *[v.float() for v in a], bb.HEADS, bb.SCALE)
+    r, n_diff = rel(got, ref), (got != pair).sum().item()
+    del ref
+    print(f"bench_block's inputs, one block (B=512): K15 rel vs plain fp32 "
+          f"{r:.3e} (bar {REL_BAR}); {n_diff} of {got.numel()} outputs "
+          "differ from the K1 -> K2 pair")
+    if not (math.isfinite(r) and r < REL_BAR) or n_diff:
+        raise AssertionError(f"K15 on bench_block's inputs: rel {r}, "
+                             f"{n_diff} outputs differ from the pair")
+    return counts, res
+
+
+class _Tee:
+    """Stands in for sys.stdout: prints, and keeps a copy of the text."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def fusion_models(gen):
+    """Two vit_small branches and the CA head (3 heads) from ``gen``, on
+    the CPU."""
+    from torch import nn
+
+    from mfvit_tpu_torch.models.fusion import Fusion
+    from mfvit_tpu_torch.nn.vit import ViT, get_config
+    cfg = get_config("vit_small")
+    return nn.ModuleDict({"cxr": ViT(cfg, 3, generator=gen),
+                          "enh": ViT(cfg, 3, generator=gen),
+                          "fus": Fusion(3, cfg.dim, 3, generator=gen)})
+
+
+def run_fusion(dev, tmp: str) -> dict:
+    """The fusion-training slice through ``cli.fuse.main`` (vit_small, 224
+    px, B=32, one epoch over 64 synthetic pairs; the branches from seeded
+    ViT files with non-zero biases, saved as ``finetune`` saves its
+    ``model_best``): LP, then ``--semi-supervised``. Gates: two finite
+    losses, launch counts per step (LP: K1 24, K2 22, K3 2, K4 1, K5 0,
+    K7 0; ``--semi-supervised`` the same plus K5 24, K7 24) plus one paired
+    forward per eval batch, the LP sanity-check line (and only under LP),
+    ``model_best`` equal to the run's last state. Then ``infer.main`` on the
+    last run's ``model_best`` over the 32 val pairs: its decision logits
+    equal those of ``eval_step`` on that state. Returns the launch counts
+    of the ``--semi-supervised`` run."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.cli import common, fuse, infer
+    from mfvit_tpu_torch.exp.checkpoint import load_serving
+    from mfvit_tpu_torch.nn.vit import ViT, get_config
+    from mfvit_tpu_torch.train.steps import make_fusion_steps
+
+    cfg = get_config("vit_small")
+    man = write_covid_ds(os.path.join(tmp, "pairs"), 64, seed=7, paired=True)
+    branches = []
+    for b, seed in (("cxr", 21), ("enh", 22)):
+        gen = torch.Generator().manual_seed(seed)
+        vit = ViT(cfg, 3, generator=gen)
+        with torch.no_grad():  # a trained checkpoint's biases are not 0
+            for name, p in vit.named_parameters():
+                if name.endswith("bias"):
+                    p.normal_(0.0, 0.02, generator=gen)
+        path = os.path.join(tmp, f"{b}_model_best")
+        torch.save(vit.state_dict(), path)
+        branches += [f"--pretrained-{b}", path]
+    argv = ["-a", "vit_small", "-b", "32", "--epochs", "1", "--draws", "1",
+            "--covid-ds", man, "--lr", "1e-3", "-j", "8", "-p", "1",
+            "--device", dev.type] + branches
+    counts = {}
+    for semi in (False, True):
+        mode = "--semi-supervised" if semi else "LP"
+        root = os.path.join(tmp, "fuse_semi" if semi else "fuse_lp")
+        ops.reset_launch_counts()
+        tee = _Tee(sys.stdout)
+        sys.stdout = tee
+        try:
+            res = fuse.main(argv + ["--storage-root", root]
+                            + (["--semi-supervised"] if semi else []))[0]
+        finally:
+            sys.stdout = tee.out
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        losses = res.extra["train_losses"]
+        steps, evals = len(losses), res.extra["eval_batches"]
+        want = {k: 0 for k in got}
+        want.update({k: v * steps for k, v in PER_FUSION_STEP[semi].items()})
+        for k, v in PER_FORWARD.items():
+            want[k] += v * evals
+        sanity = "=> fusion sanity check passed." in "".join(tee.parts)
+        print(f"fuse {mode}: {steps} steps, {evals} eval batches, losses "
+              + ", ".join(f"{v:.4f}" for v in losses)
+              + f"; launch counts {got}; sanity-check line: {sanity}; test "
+              f"auc {res.test_auc:.4f}")
+        if steps != 2 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"fuse {mode}: losses {losses}")
+        if got != want:
+            raise AssertionError(f"fuse {mode}: launch counts {got} != {want}")
+        if sanity == semi:
+            raise AssertionError(f"fuse {mode}: sanity-check line {sanity}")
+        sub = os.path.join(next(os.scandir(root)).path, "train_1_0")
+        best = os.path.join(sub, "model_best")
+        last = torch.load(os.path.join(sub, "last_checkpoint"),
+                          weights_only=True)
+        kept = torch.load(best, weights_only=True)
+        if sorted(kept) != sorted(last) or not all(
+                torch.equal(kept[k], last[k]) for k in last):
+            raise AssertionError(f"fuse {mode}: model_best is not the run's "
+                                 "last state")
+        counts[semi] = got
+
+    val = os.path.join(man, "val_ds.txt")
+    argv = ["-a", "vit_small", "-b", "32", "--device", dev.type, "-j", "8",
+            "--checkpoint", best, "--manifest", val,
+            "--output", os.path.join(tmp, "fuse_predictions.json")]
+    out = infer.main(argv)
+    logits = torch.tensor(out["logits"])
+    ck = load_serving(os.path.join(sub, "last_checkpoint"), cfg)
+    models = fusion_models(torch.Generator().manual_seed(0))
+    for k, m in models.items():
+        m.load_state_dict(ck[k], strict=True)
+    models.to(dev).eval()
+    _, eval_step = make_fusion_steps()
+    args = infer.build_parser().parse_args(argv)
+    loader = common.make_paired_loader(args, val)
+    want = torch.cat([eval_step(models, *infer.prepare(b, dev, torch.bfloat16))
+                      .float().cpu() for b in loader])[:out["n"]]
+    d = (logits - want).abs().max().item()
+    print(f"infer on fuse's model_best: n {out['n']}, decision logits max "
+          f"|diff| {d} against eval_step on the run's last state")
+    if out["n"] != 32 or d != 0.0:
+        raise AssertionError(f"infer on fuse's model_best: n {out['n']}, "
+                             f"max |diff| {d}")
+    return counts[True]
+
+
+def fusion_parity(dev, B: int = 32) -> None:
+    """Three Adam steps of the fusion train step, the kernel path and the
+    plain path (bf16 on the card) from the same weights and batch, LP and
+    ``--semi-supervised``: the loss per step within PARITY_LOSS_BAR, the
+    first-step gradient of the head (and under ``--semi-supervised`` of
+    every branch block) within PARITY_GRAD_BAR."""
+    import copy
+
+    from mfvit_tpu_torch.cli.fuse import fusion_trainable_mask
+    from mfvit_tpu_torch.train import optim, steps
+
+    gen = torch.Generator().manual_seed(23)
+    models0 = fusion_models(gen)
+    xc, xe = (torch.randn(B, 224, 224, 3, generator=gen).to(dev).bfloat16()
+              for _ in range(2))
+    labels = torch.randint(0, 3, (B,), generator=gen).to(dev)
+    for semi in (False, True):
+        runs = {}
+        for ref in (False, True):
+            models = copy.deepcopy(models0).to(dev)
+            mask = (None if semi
+                    else fusion_trainable_mask(models.named_parameters()))
+            opt = optim.build_optimizer("adam", models.named_parameters(),
+                                        1e-4, trainable_mask=mask)
+            step, _ = steps.make_fusion_steps(freeze_backbones=not semi,
+                                              reference=ref)
+            losses, grads = [], None
+            for i in range(3):
+                loss, _ = step(models, opt, xc, xe, labels)
+                losses.append(loss.item())
+                if i == 0:
+                    groups = [models["fus"]] + (
+                        [*models["cxr"].blocks, *models["enh"].blocks]
+                        if semi else [])
+                    grads = [torch.cat([p.grad.flatten()
+                                        for p in m.parameters()])
+                             for m in groups]
+            runs[ref] = (losses, grads)
+        (lk, gk), (lp, gp) = runs[False], runs[True]
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
+        grad_rel = [rel(a, b) for a, b in zip(gk, gp)]
+        mode = "--semi-supervised" if semi else "LP"
+        print(f"fusion train-step parity ({mode}, vit_small, B={B}, 3 Adam "
+              "steps): losses kernel " + ", ".join(f"{v:.5f}" for v in lk)
+              + " plain " + ", ".join(f"{v:.5f}" for v in lp)
+              + "; loss rel " + ", ".join(f"{v:.3e}" for v in loss_rel)
+              + f" (bar {PARITY_LOSS_BAR}); first-step gradient rel, head"
+              + (" then each branch block" if semi else "") + " "
+              + ", ".join(f"{v:.3e}" for v in grad_rel)
+              + f" (bar {PARITY_GRAD_BAR})")
+        if not (max(loss_rel) < PARITY_LOSS_BAR
+                and max(grad_rel) < PARITY_GRAD_BAR):
+            raise AssertionError(f"fusion train-step parity ({mode}) out of "
+                                 "its bar")
+
+
+def library_block(t, heads: int):
+    """K15's library yardstick: ``nn.TransformerEncoderLayer`` (pre-norm,
+    exact GELU, eps 1e-6, packed qkv bias) in bf16 with K15's weights,
+    which in inference mode is one call of PyTorch's fused encoder layer
+    (``torch._transformer_encoder_layer_fwd``). The port never calls it.
+    Returns (the call, the layer)."""
+    x = t["x"]
+    D = x.shape[-1]
+    layer = torch.nn.TransformerEncoderLayer(
+        D, heads, 4 * D, dropout=0.0, activation="gelu",
+        layer_norm_eps=1e-6, batch_first=True, norm_first=True,
+        device=x.device, dtype=torch.bfloat16).eval()
+    sa = layer.self_attn
+    with torch.no_grad():
+        for dst, k in ((sa.in_proj_weight, "wqkv"), (sa.in_proj_bias, "bqkv"),
+                       (sa.out_proj.weight, "wproj"),
+                       (sa.out_proj.bias, "bproj"),
+                       (layer.linear1.weight, "w1"), (layer.linear1.bias, "b1"),
+                       (layer.linear2.weight, "w2"), (layer.linear2.bias, "b2"),
+                       (layer.norm1.weight, "ln_s"), (layer.norm1.bias, "ln_b"),
+                       (layer.norm2.weight, "ln_s"),
+                       (layer.norm2.bias, "ln_b")):
+            dst.copy_(t[k])
+    return (lambda: layer(x)), layer
+
+
+def time_block(dev) -> tuple:
+    """K15 at vit_small B=256 against the K1 -> K2 pair (K15, pair, pair,
+    K15), then its plain version twice, then the library block
+    (``library_block``); K15 first held equal to the pair on the timed
+    inputs, and the library block within REL_BAR of K15's plain fp32
+    version (so it computes the same function). Returns (K15 ms, plain ms,
+    library ms, pair ms)."""
+    from mfvit_tpu_torch.ops import fused_block as fb
+    t = block_inputs(torch.Generator().manual_seed(16), 256, 384, dev)
+    k15, pair, plain, a = k15_calls(t, 12)
+    lib, _ = library_block(t, 12)
+    fast = []
+    fused_layer = torch._transformer_encoder_layer_fwd
+    with torch.inference_mode():
+        if not torch.equal(k15(), pair()):
+            raise AssertionError("K15 differs from K1 -> K2 at B=256")
+        torch._transformer_encoder_layer_fwd = (
+            lambda *args, **kw: fast.append(1) or fused_layer(*args, **kw))
+        try:
+            got = lib()
+        finally:
+            torch._transformer_encoder_layer_fwd = fused_layer
+        r = rel(got, fb.fused_transformer_block_plain(
+            *[v.float() for v in a], 12, 32 ** -0.5))
+        if not (math.isfinite(r) and r < REL_BAR):
+            raise AssertionError(f"the library block at B=256: rel {r} vs "
+                                 "K15's plain fp32 version")
+        k1, p1, p2, k2 = (cuda_ms(f, 10) for f in (k15, pair, pair, k15))
+        q1, q2 = cuda_ms(plain, 3), cuda_ms(plain, 3)
+        l1 = cuda_ms(lib, 10)
+    print(f"fused_transformer_block at B=256: kernel {k1:.3f}/{k2:.3f} ms, "
+          f"K1 -> K2 {p1:.3f}/{p2:.3f} ms, plain {q1:.3f}/{q2:.3f} ms "
+          f"(bf16); library nn.TransformerEncoderLayer {l1:.3f} ms (bf16, "
+          f"fused fast path {'taken' if fast else 'NOT taken'}; rel vs plain "
+          f"fp32 {r:.3e})")
+    return (k1 + k2) / 2, (q1 + q2) / 2, l1, (p1 + p2) / 2
+
+
+def time_fusion(dev, B: int, iters: int) -> dict:
+    """Pairs/s of the fusion train step (forward, backward, Adam, the loss
+    fetched every step) at batch B, 224 px: LP and ``--semi-supervised``,
+    each the kernel path against the plain path (kernel, plain, plain,
+    kernel), on its own copy of the seeded models."""
+    import copy
+
+    from mfvit_tpu_torch.cli.fuse import fusion_trainable_mask
+    from mfvit_tpu_torch.train import optim, steps
+
+    gen = torch.Generator().manual_seed(24)
+    models0 = fusion_models(gen)
+    xc, xe = (torch.randn(B, 224, 224, 3, generator=gen).to(dev).bfloat16()
+              for _ in range(2))
+    labels = torch.randint(0, 3, (B,), generator=gen).to(dev)
+    out = {}
+    for semi in (False, True):
+        models = copy.deepcopy(models0).to(dev)
+        mask = None if semi else fusion_trainable_mask(
+            models.named_parameters())
+        opt = optim.build_optimizer("adam", models.named_parameters(), 1e-5,
+                                    trainable_mask=mask)
+        fns = {k: steps.make_fusion_steps(freeze_backbones=not semi,
+                                          reference=k == "plain")[0]
+               for k in ("kernel", "plain")}
+        torch.cuda.reset_peak_memory_stats()
+
+        def rate(which: str) -> float:
+            fns[which](models, opt, xc, xe, labels)[0].item()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fns[which](models, opt, xc, xe, labels)[0].item()
+            return B * iters / (time.perf_counter() - t0)
+
+        runs = {"kernel": [], "plain": []}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            runs[which].append(rate(which))
+        mode = "semi" if semi else "lp"
+        print(f"fusion train step ({'--semi-supervised' if semi else 'LP'}) "
+              f"at B={B} (bf16, forward + backward + Adam, loss fetched "
+              "every step): " + ", ".join(
+                  f"{k} {' / '.join(f'{r:.1f}' for r in v)} pairs/s"
+                  for k, v in runs.items())
+              + f"; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+        out[mode] = {k: sum(v) / len(v) for k, v in runs.items()}
+        del models, opt
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     smi = environment()
     dev = torch.device("cuda")
@@ -1553,8 +2039,23 @@ def main() -> int:
     phase("train-step parity, kernel path against plain path (B=32)")
     train_parity(dev)
 
+    phase("K15 against the K1 -> K2 chain and its plain versions (B=8)")
+    errs["fused_transformer_block"] = check_block_kernel(dev)
+    phase("K15's entry point: mfvit_tpu_torch.tools.bench_block (B=512, "
+          "12 blocks)")
+    bench_counts, bench = run_bench_block(dev)
+    counts["fused_transformer_block"] = bench_counts["fused_transformer_block"]
+
+    phase("the fusion-training slice through mfvit_tpu_torch.cli.fuse "
+          "(vit_small, B=32, LP then --semi-supervised), then infer on its "
+          "model_best")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_fusion(dev, tmp)
+    phase("fusion train-step parity, kernel path against plain path (B=32)")
+    fusion_parity(dev)
+
     phase("times (B=256; K12 also at N=577, B=64; K5/K7 also at a vit_base "
-          "block, B=64)")
+          "block, B=64; the fusion step also at B=32)")
     times = time_kernels(dev)
     times.update(time_mhsa(dev, "vit_small", 256, 197, 384, 12))
     k12_577 = time_mhsa(dev, "vit_small@384", 64, 577, 384, 12,
@@ -1565,6 +2066,10 @@ def main() -> int:
     quant_profile = profile_quant(dev)
     train = time_train(dev, 256, 4)
     train_cli = time_train(dev, 16, 32)  # the finetune CLI's default -b
+    k15_ms, k15_plain_ms, k15_lib_ms, pair_ms = time_block(dev)
+    times["fused_transformer_block"] = (k15_ms, k15_plain_ms, k15_lib_ms)
+    fusion_cli = time_fusion(dev, 32, 8)  # the fuse CLI's default -b
+    fusion_256 = time_fusion(dev, 256, 3)
 
     phase("long-sequence kernels K9 and K10 against their plain versions")
     errs.update(check_long_kernels(dev))
@@ -1605,7 +2110,7 @@ def main() -> int:
          "launches": counts[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": times[name][2] if name in MHSA else None}
+         "library_ms": times[name][2] if len(times[name]) > 2 else None}
         for name, src, rep in KERNELS]}
     print(json.dumps({"e2e_pairs_per_sec_B256": e2e,
                       "ft_train_images_per_sec_B256": train,
@@ -1623,6 +2128,14 @@ def main() -> int:
                           "ms": k12_577[0], "plain_ms": k12_577[1],
                           "sdpa_ms": k12_577[2], "bound_ms": bound_577[0],
                           "bound_by": bound_577[1]},
+                      "k15_B256": {
+                          "ms": k15_ms, "plain_ms": k15_plain_ms,
+                          "library_ms": k15_lib_ms, "k1_then_k2_ms": pair_ms,
+                          "bound_ms": bounds["fused_transformer_block"][0]},
+                      "bench_block_B512_12_blocks_ms": {
+                          k: v[0] for k, v in bench.items()},
+                      "fusion_step_pairs_per_sec_B32": fusion_cli,
+                      "fusion_step_pairs_per_sec_B256": fusion_256,
                       "k9": {f"{label} B={B}": {
                           "ms": long_times[label][0],
                           "plain_ms": long_times[label][1],

@@ -1,6 +1,7 @@
-"""CLI plumbing shared by the entry points (the flags ``infer`` and
-``finetune`` use, from ``mfvit_tpu/cli/common.py``), plus ``--device``: the
-streaming single-flavour training feed, and the eval runner."""
+"""CLI plumbing shared by the entry points (the flags ``infer``,
+``finetune`` and ``fuse`` use, from ``mfvit_tpu/cli/common.py``), plus
+``--device``: the streaming training feeds (one flavour, or paired), and
+the eval runner."""
 from __future__ import annotations
 
 import argparse
@@ -84,13 +85,24 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def make_paired_eval_loader(args, manifest_path: str) -> pipeline.BatchLoader:
-    """CXR ('data') + enhanced ('Train_Mix') eval canvases in manifest
-    order, the final batch wrap-padded."""
-    tf = ht.CanvasTransform(img_size=args.img_size, crop=args.crop,
-                            maintain_ratio=args.maintain_ratio)
-    ds = datasets.CovidPairedDataset(manifest_path, tf)
-    return pipeline.BatchLoader(ds, args.batch_size,
+def make_paired_loader(args, manifest_path: str, *, training: bool = False,
+                       seed: int = 0) -> pipeline.BatchLoader:
+    """(CXR ('data'), enhanced ('Train_Mix'), label) canvases over a COVID
+    manifest. Eval (the default): center crops in manifest order, the final
+    batch wrap-padded. ``training``: each branch gets its own host
+    transform, seeded ``seed`` and ``seed + 1`` as in
+    ``mfvit_tpu/cli/common.py::make_covid_loader`` (:507-512, :527-529),
+    fully augmented in the reference order (flip -> rotate -> crop),
+    shuffled per epoch, the last short batch dropped."""
+    def tf(seed_off: int) -> ht.CanvasTransform:
+        aug = (dict(training=True, rotate_deg=float(args.rotate),
+                    seed=seed + seed_off) if training else {})
+        return ht.CanvasTransform(img_size=args.img_size, crop=args.crop,
+                                  maintain_ratio=args.maintain_ratio, **aug)
+    ds = datasets.CovidPairedDataset(manifest_path, tf(0),
+                                     tf(1) if training else None)
+    return pipeline.BatchLoader(ds, args.batch_size, shuffle=training,
+                                seed=seed, drop_last=training,
                                 num_workers=args.workers)
 
 

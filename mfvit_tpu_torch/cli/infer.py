@@ -6,7 +6,7 @@ predictions as JSON (the port of ``mfvit_tpu/cli/infer.py``, CA fusion).
         [--int8] [--report-throughput] [--device cuda]
 
 The checkpoint is a ``mfvit_tpu_torch.exp.checkpoint.save_serving`` file
-(fp32). The network input is ``--crop`` pixels square (``--img-size`` the
+(fp32) or a ``model_best`` of ``mfvit_tpu_torch.cli.fuse``. The network input is ``--crop`` pixels square (``--img-size`` the
 resize before the center crop): at 224 the blocks run K1, past 256 tokens
 (``--img-size 384 --crop 384``: 577) K9. ``--int8`` quantizes both ViT
 branches after loading (``nn.vit.quantize_vit_for_serving``): their blocks
@@ -43,7 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_common_args(p)
     p.add_argument("--checkpoint", required=True,
                    help="serving checkpoint {'cxr','enh','fus'} "
-                        "(exp.checkpoint.save_serving)")
+                        "(exp.checkpoint.save_serving), or the model_best "
+                        "that cli/fuse.py saves (flat cxr./enh./fus. "
+                        "entries)")
     p.add_argument("--manifest", required=True, help="paired manifest file")
     p.add_argument("--output", default="predictions.json")
     p.add_argument("--int8", action="store_true",
@@ -97,7 +99,7 @@ def main(argv=None):
         fused, lc, le = fwd3(models, xc, xe)
         return fused + lc + le
 
-    loader = common.make_paired_eval_loader(args, args.manifest)
+    loader = common.make_paired_loader(args, args.manifest)
     n_total = len(loader.ds)
     t0 = time.perf_counter()
     logits, labels = [], []

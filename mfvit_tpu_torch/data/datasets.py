@@ -46,13 +46,18 @@ class CovidDataset(_EpochMixin):
 
 class CovidPairedDataset(_EpochMixin):
     """(img_cxr, img_enh, label) per index: the 'data' and 'Train_Mix'
-    images of one manifest row, each decoded and put through
-    ``transform``."""
+    images of one manifest row, each decoded and put through its own
+    transform (``transform_enh`` defaults to ``transform``). Training gives
+    each branch its own seeded transform, so the two draw their flips,
+    angles and crops independently, as the JAX package's do."""
 
     def __init__(self, img_csv: str,
-                 transform: Callable[[np.ndarray], np.ndarray]):
+                 transform: Callable[[np.ndarray], np.ndarray],
+                 transform_enh: Callable[[np.ndarray], np.ndarray] | None
+                 = None):
         self.manifest = parse_covid_paired(img_csv)
         self.transform = transform
+        self.transform_enh = transform_enh or transform
 
     def __len__(self):
         return len(self.manifest)
@@ -61,6 +66,6 @@ class CovidPairedDataset(_EpochMixin):
         ctx = (self._epoch, idx)
         return (_apply_tf(self.transform,
                           decode_bgr(self.manifest.paths[idx]), ctx),
-                _apply_tf(self.transform,
+                _apply_tf(self.transform_enh,
                           decode_bgr(self.manifest.paths_alt[idx]), ctx),
                 self.manifest.labels[idx])

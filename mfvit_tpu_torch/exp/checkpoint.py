@@ -139,8 +139,14 @@ def save_serving(path: str, cxr: dict, enh: dict, fus: dict) -> None:
     torch.save({"cxr": cpu(cxr), "enh": cpu(enh), "fus": cpu(fus)}, path)
 
 
+SERVING_KEYS = ("cxr", "enh", "fus")
+
+
 def load_serving(path: str, cfg=None) -> dict:
     """Inverse of ``save_serving`` (tensors only: ``weights_only=True``).
+    It also takes the flat state dict of an ``nn.ModuleDict({"cxr", "enh",
+    "fus"})``, the ``model_best`` that ``cli/fuse.py`` saves: the
+    ``cxr.``/``enh.``/``fus.`` entries become the three state dicts.
 
     With the branches' ``cfg``, the ViT entries are made to fit its input
     size: a fixed sin-cos position table is rebuilt for ``cfg``'s grid (it
@@ -148,9 +154,17 @@ def load_serving(path: str, cfg=None) -> dict:
     so a file saved at 224 px serves at 384; a learned table of another
     length raises, naming both input sizes."""
     ck = torch.load(path, map_location="cpu", weights_only=True)
-    if set(ck) != {"cxr", "enh", "fus"}:
-        raise ValueError(f"{path}: expected a serving checkpoint with keys "
-                         f"cxr/enh/fus, got {sorted(ck)}")
+    if set(ck) != set(SERVING_KEYS):
+        groups = {k: {} for k in SERVING_KEYS}
+        for name, v in ck.items():
+            head, _, rest = name.partition(".")
+            if head not in groups or not rest:
+                raise ValueError(f"{path}: expected a serving checkpoint "
+                                 "with keys cxr/enh/fus or a fusion "
+                                 "model_best with cxr./enh./fus. entries, "
+                                 f"got {name!r}")
+            groups[head][rest] = v
+        ck = groups
     if cfg is not None:
         for k in ("cxr", "enh"):
             pos = ck[k]["pos_embed"]
@@ -200,6 +214,22 @@ class BestKeeper:
 
 
 # ------------------------------------------------ reference .pth.tar files
+
+def load_vit_state(path: str, cfg) -> dict:
+    """A single-branch ViT file -> the ``nn.vit.ViT`` state dict it holds,
+    for a strict load (``mfvit_tpu/cli/fuse.py::load_branch`` :87-94): a
+    reference ``.pth``/``.pth.tar``/``.pt`` (MoCo-v3 ``vits.py`` names, a
+    ``module.`` prefix stripped) or the port's own ``finetune``
+    ``model_best``. A fixed sin-cos position table is rebuilt for
+    ``cfg``, as ``load_serving`` does."""
+    sd = load_torch_state_dict(path)
+    if any(k.startswith("module.") for k in sd):
+        sd = strip_prefix(sd, "module.")
+    sd = {k: v.float() for k, v in sd.items()}
+    if not cfg.learned_pos:
+        sd["pos_embed"] = posembed.sincos_2d(cfg.grid, cfg.grid, cfg.dim)
+    return sd
+
 
 def load_torch_state_dict(path: str) -> dict:
     """A reference ``.pth.tar`` -> flat {name: tensor} (unwrapping the

@@ -141,12 +141,13 @@ def encode(fus: Fusion, cxr_tokens, enh_tokens):
 
 def fused_forward(vit_cxr: ViT, vit_enh: ViT, fus: Fusion, img_cxr, img_enh,
                   *, compute_dtype: torch.dtype = torch.bfloat16,
-                  reference: bool = False):
+                  reference: bool = False, remat: bool = False):
     """The MF-ViT CA forward: one pass per ViT branch giving both tokens
     and branch logits, then the fusion head. Returns (fused, logits_cxr,
-    logits_enh); the decision logits are their sum."""
+    logits_enh); the decision logits are their sum. ``remat`` recomputes
+    the branches' blocks in the backward."""
     kw = dict(compute_dtype=compute_dtype, return_features=True,
-              reference=reference)
+              reference=reference, remat=remat)
     cxr_tokens, logits_cxr = vit_cxr(img_cxr, **kw)
     enh_tokens, logits_enh = vit_enh(img_enh, **kw)
     fused = fus(cxr_tokens, enh_tokens, reference=reference)

@@ -37,14 +37,33 @@ def layernorm(p: nn.LayerNorm, x: torch.Tensor, eps: float = 1e-6):
     return layer_norm(x, p.weight, p.bias, eps)
 
 
+class _MmF32(torch.autograd.Function):
+    """a @ b on CUDA with fp32 sums and an fp32 result (cuBLAS's
+    fp32-output GEMM, which autograd does not differentiate); the backward
+    multiplies in the operands' dtype, as ``a @ b``'s does."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return (g @ b.t() if ctx.needs_input_grad[0] else None,
+                a.t() @ g if ctx.needs_input_grad[1] else None)
+
+
 def linear_f32(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
     """x @ w^T (+ b) with fp32 sums and an fp32 result, for x and w in the
     working dtype: the products of its values, as ``preferred_element_type
     =f32`` gives in JAX and as the kernels keep their accumulators. On CUDA
-    this is cuBLAS's fp32-output GEMM; elsewhere the operands are upcast."""
+    this is cuBLAS's fp32-output GEMM (differentiable); elsewhere the
+    operands are upcast."""
     if x.is_cuda and x.dtype != torch.float32:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype).t(),
-                     out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+        y = _MmF32.apply(x.reshape(-1, x.shape[-1]),
+                         w.to(x.dtype).t()).reshape(*x.shape[:-1], -1)
     else:
         y = x.float() @ w.to(x.dtype).float().t()
     return y if b is None else y + b.float()
@@ -81,9 +100,11 @@ def layer_norm_bwd(dy: torch.Tensor, xhat: torch.Tensor, inv: torch.Tensor,
 
 
 def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """x @ W^T + b in x's dtype (the weights are cast to it)."""
-    b = None if p.bias is None else p.bias.to(x.dtype)
-    return F.linear(x, p.weight.to(x.dtype), b)
+    """x @ W^T + b in x's dtype (the weights are cast to it): the product
+    is rounded to x's dtype, then the bias, cast to it, is added and the
+    sum rounded again, as ``mfvit_tpu/nn/layers.py::linear`` (:48-50)."""
+    y = F.linear(x, p.weight.to(x.dtype))
+    return y if p.bias is None else y + p.bias.to(x.dtype)
 
 
 class Mlp(nn.Module):

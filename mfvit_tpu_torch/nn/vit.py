@@ -30,7 +30,13 @@ length alone. So two configurations run other code than in JAX, with the
 same math and other bf16 rounding: vit_base@384, where neither Pallas
 kernel fits and JAX runs XLA attention, runs K9 here; and 256 < N where
 K1 still fits on the TPU (img_size 288, N = 325, at vit_small) runs K9
-here, whose backward is the fp32 recompute instead of K5.
+here, whose backward is the fp32 recompute instead of K5. And at D > 512
+(vit_base, vit_base_ori) the last block runs K3, which keeps x +
+MLP(LN(x)) in fp32 into the final LayerNorm, where JAX runs K2, rounding
+that sum to bf16, and then the final LayerNorm after the blocks
+(:411-423); the bf16 tokens differ by that one rounding
+(``tests/test_torch_port_faults.py`` holds them within 1e-2 of JAX's at
+D=768).
 """
 from __future__ import annotations
 
@@ -44,7 +50,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from mfvit_tpu_torch.nn import posembed
-from mfvit_tpu_torch.nn.layers import Mlp, layer_norm, trunc_normal_
+from mfvit_tpu_torch.nn.layers import (Mlp, layer_norm, linear_f32,
+                                       trunc_normal_)
 from mfvit_tpu_torch.ops import fused_attn, fused_int8, fused_mlp, quant
 
 
@@ -169,10 +176,12 @@ def patchify(imgs: torch.Tensor, patch: int) -> torch.Tensor:
 
 def patch_embed(proj: nn.Conv2d, imgs: torch.Tensor, patch: int):
     """The stride-``patch`` conv as one GEMM over patchified NHWC pixels;
-    the conv weight (D, C, P, P) is read in (ph, pw, c) order."""
+    the conv weight (D, C, P, P) is read in (ph, pw, c) order. The fp32
+    sums take the fp32 bias and are rounded once to the images' dtype, as
+    ``mfvit_tpu/nn/vit.py::patch_embed`` (:203-205) does."""
     D = proj.weight.shape[0]
-    w = proj.weight.permute(0, 2, 3, 1).reshape(D, -1).to(imgs.dtype)
-    return F.linear(patchify(imgs, patch), w, proj.bias.to(imgs.dtype))
+    w = proj.weight.permute(0, 2, 3, 1).reshape(D, -1)
+    return linear_f32(patchify(imgs, patch), w, proj.bias).to(imgs.dtype)
 
 
 class PatchEmbed(nn.Module):

@@ -33,6 +33,7 @@ SIGNATURES = {
     "mfv_fused_attention_block": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "mfv_fused_attention_block_large": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "mfv_fused_mlp_block": [_P] * 13 + [_I, _I, _I, _P],
+    "mfv_fused_transformer_block": [_P] * 17 + [_I] * 5 + [_F, _P],
     "mfv_fused_fusion_cls": [_P, _P, _I, _I, _I, _I, _F, _PP, _PP, _P, _P,
                              _P, _P, _P, _P],
     "mfv_fused_attention_block_bwd": [_P] * 22 + [_I] * 4 + [_F] + [_I] * 6

@@ -45,10 +45,11 @@ def _hidden(x, ln_s, ln_b, w1, b1):
 
 
 def fused_mlp_block_plain(x, ln_s, ln_b, w1, b1, w2, b2) -> torch.Tensor:
-    """x (B, N, D) -> x + MLP(LN(x)) in x's dtype; w1 (4D, D), w2 (D, 4D)."""
-    dt = x.dtype
+    """x (B, N, D) -> x + MLP(LN(x)) in x's dtype; w1 (4D, D), w2 (D, 4D).
+    fc2's fp32 sums take the fp32 bias and are rounded once, as in the
+    kernels."""
     h = _hidden(x, ln_s, ln_b, w1, b1)
-    return x + F.linear(h, w2.to(dt), b2.to(dt))
+    return x + linear_f32(h, w2, b2).to(x.dtype)
 
 
 def fused_mlp_block_final_ln_plain(x, ln_s, ln_b, w1, b1, w2, b2, final_s,

@@ -1,4 +1,4 @@
-"""Kernel-against-plain tests for K1-K5, K7 and K9-K14 on the card. They need CUDA, nvcc
+"""Kernel-against-plain tests for K1-K5, K7 and K9-K15 on the card. They need CUDA, nvcc
 and an sm_90a GPU, so they carry the ``cuda`` marker and skip elsewhere;
 on the card run ``python -m pytest tests/test_torch_port_cuda.py``
 (``chip_smoke.py`` makes the same comparisons at serving shapes).
@@ -11,8 +11,8 @@ import torch
 
 from mfvit_tpu_torch import ops
 from mfvit_tpu_torch.nn import vit
-from mfvit_tpu_torch.ops import (attention, fused_attn, fused_fusion,
-                                 fused_int8, fused_mlp, quant)
+from mfvit_tpu_torch.ops import (attention, fused_attn, fused_block,
+                                 fused_fusion, fused_int8, fused_mlp, quant)
 
 pytestmark = pytest.mark.cuda
 REL = 2e-2
@@ -84,7 +84,8 @@ def test_kernels_match_plain(dev, B, N, D, H):
         "fused_mlp_block_final_ln": 1, "fused_fusion_cls": 0,
         "fused_attention_block_bwd": 0, "fused_mlp_block_bwd": 0,
         "fused_attention_block_i8": 0, "fused_mlp_block_i8": 0,
-        "mhsa_packed": 0, "mhsa": 0, "mhsa_packed_t": 0}
+        "mhsa_packed": 0, "mhsa": 0, "mhsa_packed_t": 0,
+        "fused_transformer_block": 0}
 
 
 @pytest.mark.parametrize("B,heads", [(8, 3), (5, 3), (3, 6)])
@@ -133,16 +134,18 @@ def test_backward_kernels_match_plain(dev, B, N, D, H):
 
 
 def test_vit_training_gets_fp32_grads_from_the_kernels(dev):
-    """A requires_grad forward through a ViT on the card: every block
-    parameter gets a gradient, in fp32, and the backward ran K5 and K7
-    once per block (the kernels' outputs once had no grad_fn)."""
+    """A requires_grad forward through a ViT on the card: every block and
+    patch-embedding parameter gets a gradient, in fp32, and the backward ran K5 and K7 once per
+    block (the kernels' outputs once had no grad_fn; the patch embedding's
+    fp32-output GEMM once had no derivative)."""
     cfg = vit.get_config("vit_small")
     m = vit.ViT(cfg, 3, device=dev)
     imgs = torch.randn(2, 224, 224, 3, device=dev).bfloat16()
     ops.reset_launch_counts()
     m(imgs).sum().backward()
     torch.cuda.synchronize()
-    for name, p in m.blocks.named_parameters():
+    for name, p in [*m.blocks.named_parameters(),
+                    *m.patch_embed.named_parameters()]:
         assert p.grad is not None, name
         assert p.grad.dtype == torch.float32, name
         assert p.grad.abs().sum() > 0, name
@@ -444,3 +447,67 @@ def test_quantized_vit_runs_k12_in_every_block(dev):
         counts = ops.launch_counts()
         assert counts.pop("mhsa_packed") == 12
         assert not any(counts.values()) and out.isfinite().all()
+
+
+K15_ARGS = ("x", "ln_s", "ln_b", "wqkv", "bqkv", "wproj", "bproj", "ln_s",
+            "ln_b", "w1", "b1", "w2", "b2")
+
+
+@pytest.mark.parametrize("B,N,D,H", [(8, 197, 384, 12), (8, 197, 384, 6),
+                                     (8, 50, 384, 12), (3, 197, 384, 3),
+                                     (2, 197, 256, 2), (2, 100, 512, 8),
+                                     (2, 197, 128, 4)])
+def test_k15_equals_the_k1_k2_chain_and_holds_its_plain_version(dev, B, N,
+                                                                 D, H):
+    """K15 against the K1 -> K2 kernel chain on the same bf16 inputs (the
+    same rounding points and the same order of every fp32 sum: equal bit
+    for bit), against its plain fp32 version (rel < 2e-2), and its 13
+    gradients (K1 recompute, K7, K5) against the plain fp32 backward."""
+    t = _block(dev, B, N, D)
+    scale = (D // H) ** -0.5
+    a = [t[k] for k in K15_ARGS]
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = fused_block.fused_transformer_block(*a, H, scale)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts.pop("fused_transformer_block") == 1
+    assert not any(counts.values())
+    with torch.no_grad():
+        chain = fused_mlp.fused_mlp_block(
+            fused_attn.fused_attention_block(*a[:7], H, scale), *a[7:])
+        ref = fused_block.fused_transformer_block_plain(
+            *[v.float() for v in a], H, scale)
+    assert torch.equal(got, chain)
+    assert _rel(got, ref) < REL
+    leaves = [v.detach().clone().requires_grad_() for v in a]
+    g = _rnd(torch.Generator().manual_seed(4), B, N, D).bfloat16().to(dev)
+    ops.reset_launch_counts()
+    grads = torch.autograd.grad(
+        fused_block.fused_transformer_block(*leaves, H, scale), leaves, g)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "fused_transformer_block": 1, "fused_attention_block": 1,
+        "fused_mlp_block_bwd": 1, "fused_attention_block_bwd": 1}
+    leaves32 = [v.detach().float().requires_grad_() for v in a]
+    want = torch.autograd.grad(fused_block.fused_transformer_block(
+        *leaves32, H, scale, plain=True), leaves32, g.float())
+    for d, w in zip(grads, want):
+        assert _rel(d, w) < REL
+
+
+def test_k15_refuses_what_it_does_not_take(dev):
+    t = _block(dev, 1, 197, 768)
+    with pytest.raises(ValueError, match="D <= 512"):
+        fused_block.fused_transformer_block(*[t[k] for k in K15_ARGS], 12,
+                                            64 ** -0.5)
+    t = _block(dev, 1, 300, 384)
+    with pytest.raises(ValueError, match="N <= 256"):
+        fused_block.fused_transformer_block(*[t[k] for k in K15_ARGS], 12,
+                                            32 ** -0.5)
+    t = _block(dev, 1, 197, 384)
+    a = [t[k] for k in K15_ARGS]
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_block.fused_transformer_block(a[0].float(), *a[1:], 12,
+                                            32 ** -0.5)

@@ -67,7 +67,7 @@ def test_eval_batches_match_jax(paired):
                             canvas_cache_mb=0, rotate=10.0)
     jl = jcommon.make_covid_loader(ja, man, "data", training=False,
                                    paired=True)
-    pl = common.make_paired_eval_loader(a, man)
+    pl = common.make_paired_loader(a, man)
     jb, pb = list(jl), list(pl)
     assert len(jb) == len(pb) == 3  # 8 pairs at B=3: the last one padded
     for j, p in zip(jb, pb):

@@ -204,7 +204,7 @@ def test_infer_int8_matches_jax_kernel_path(paired, tmp_path):  # noqa: F811
     fwd = jsteps.make_fusion_forward(CFG, heads=2, compute_dtype=jnp.float32,
                                      attn_backend="pallas_interpret")
     args = infer.build_parser().parse_args(argv)
-    loader = common.make_paired_eval_loader(args, man)
+    loader = common.make_paired_loader(args, man)
     want = np.concatenate([
         np.asarray(sum(fwd(jq, *(jnp.asarray(x.numpy()) for x in
                                  infer.prepare(b, "cpu", torch.float32)))))

@@ -21,8 +21,8 @@ from mfvit_tpu_torch import ops
 from mfvit_tpu_torch.exp.checkpoint import fusion_state_from_jax
 from mfvit_tpu_torch.models.fusion import Fusion
 from mfvit_tpu_torch.nn import layers, posembed
-from mfvit_tpu_torch.ops import (attention, fused_attn, fused_fusion,
-                                 fused_int8, fused_mlp)
+from mfvit_tpu_torch.ops import (attention, fused_attn, fused_block,
+                                 fused_fusion, fused_int8, fused_mlp)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -223,6 +223,8 @@ def test_cpu_tensors_never_count_a_launch(blk, fusion_case):
                                              _t(blk["fs"]), _t(blk["fb"]))
     out = fused_attn.fused_attention_block_large(
         out, *_port_attn_args(blk)[1:], H, SCALE)
+    out = fused_block.fused_transformer_block(
+        out, *_port_attn_args(blk)[1:], *_port_mlp_args(blk)[1:], H, SCALE)
     out.sum().backward()  # the backward Functions take the plain path too
     assert x.grad is not None
     _, fus, tok_c, tok_e = fusion_case
@@ -245,4 +247,5 @@ def test_cpu_tensors_never_count_a_launch(blk, fusion_case):
         "fused_mlp_block_final_ln": 0, "fused_fusion_cls": 0,
         "fused_attention_block_bwd": 0, "fused_mlp_block_bwd": 0,
         "fused_attention_block_i8": 0, "fused_mlp_block_i8": 0,
-        "mhsa_packed": 0, "mhsa": 0, "mhsa_packed_t": 0}
+        "mhsa_packed": 0, "mhsa": 0, "mhsa_packed_t": 0,
+        "fused_transformer_block": 0}
