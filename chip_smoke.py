@@ -2,8 +2,10 @@
 """Drive the PyTorch port's MF-ViT CA serving path (bf16, int8 W8A8 and
 the XLA-level W8A8 trees of ``quantize_vit_params``), its ViT fine-tuning
 path, its fusion training (``cli/fuse``) and the whole-block kernel K15
-(through ``tools/bench_block``) once on an NVIDIA GPU, at 224 px and at
-384 px (577 tokens: the long-sequence path).
+(through ``tools/bench_block``) and the schedule variants T3, T4, T6 and
+T7 (through ``tools/bench_mlp3d`` and ``tools/bench_pipelined``) once on
+an NVIDIA GPU, at 224 px and at 384 px (577 tokens: the long-sequence
+path).
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -79,7 +81,27 @@ Phases, in order; any failure raises and exits non-zero:
    K2 12 per chain of theirs, every other kernel 0; equal checksums; then
    one block on the tool's inputs: K15 within rel 2e-2 of its plain fp32
    version and equal to the K1 -> K2 pair bit for bit;
-14. the fusion-training slice through ``mfvit_tpu_torch.cli.fuse.main``:
+14. the schedule variants T6 (``mlp3d``, flat and per image), T7
+   (``mlp3d_staged``), T3 (``mlp_pipe``) and T4 (``attn_staged``) at
+   vit_small (B=8), N=50, B=3 (a ragged last row tile) and D=512, T4 also
+   at vit_small_ori and head_dim 128, at every schedule argument their
+   tools sweep (and ``mlp_pipe`` at splits=1, its no-overlap control),
+   non-zero biases (b2 included): equal to K2 (T4: K1) bit
+   for bit and within rel 2e-2 of the plain fp32 version; one call
+   launches the variant once and no other kernel; every shape and argument
+   the ops refuse (cb not dividing B, tm and splits past the register
+   tile, D=768, head_dim 128 past 208 tokens, a weight that requires
+   grad) raises;
+15. their entry points, ``mfvit_tpu_torch.tools.bench_mlp3d`` and
+   ``bench_pipelined`` (B=512, 12 blocks, the JAX tools' chains in their
+   order): launch counts per tool equal to what its chains launch, every
+   other kernel 0; every chain's checksum equal to the baseline's; then
+   one 12-block ``mlp3d staged cb=4`` chain: ``mlp3d_staged`` 12, K1 12;
+   then one block on the tools' inputs (B=512; the MLP variants on K1's
+   output) at every argument the tools sweep: each variant equal to K2
+   (T4: K1) bit for bit and within rel 2e-2 of its plain fp32 version
+   (the kernel report's error for the variants is from this run);
+16. the fusion-training slice through ``mfvit_tpu_torch.cli.fuse.main``:
    64 synthetic pairs, both vit_small branches from seeded files with
    non-zero biases, B=32, one epoch; LP then ``--semi-supervised``: finite
    losses, launch counts per step (K1 24, K2 22, K3 2, K4 1, and K5 24, K7
@@ -87,11 +109,11 @@ Phases, in order; any failure raises and exits non-zero:
    batch, the LP sanity-check line under LP only, ``model_best`` equal to
    the last state; then ``infer.main`` on that ``model_best`` over the 32
    val pairs: decision logits equal to ``eval_step`` on that state;
-15. fusion train-step parity: kernel path and plain path (bf16 on the
+17. fusion train-step parity: kernel path and plain path (bf16 on the
    card) from the same weights and batch (B=32), three Adam steps, LP and
    ``--semi-supervised``: loss per step within rel 1e-2, the first-step
    gradient of the head and of each branch block within rel 5e-2;
-16. times with CUDA events at B=256: each forward kernel (K10/K11
+18. times with CUDA events at B=256: each forward kernel (K10/K11
    included) and K5/K7 against its plain version (K5/K7 first held
    against the plain fp32 backward on the timed inputs), K5/K7 also at a
    vit_base block (B=64, D=768, hidden 3072: the widths of K6 and K8),
@@ -107,28 +129,30 @@ Phases, in order; any failure raises and exits non-zero:
    in inference mode on K15's weights, first held within rel 2e-2 of the
    plain fp32 version) at B=256; the pairs/s of the fusion train step, LP and
    ``--semi-supervised``, kernel against plain path, at B=32 (the fuse
-   CLI's default) and B=256;
-17. the long-sequence kernels: K9 against its plain fp32 version (rel <
+   CLI's default) and B=256; each schedule variant at each argument its
+   tool sweeps against its base kernel (variant, base, base, variant) and
+   K1's and K2's plain versions, at B=256;
+19. the long-sequence kernels: K9 against its plain fp32 version (rel <
    2e-2) at vit_small@384 (B=2, N=577, D=384, 12 heads), vit_small_ori@512
    (N=1025, 6 heads), vit_base@384 (D=768), head_dim 128 (N=300, 3 heads)
    and N=257, the first length past K1; K10 past 256 tokens
    (vit_small_ori@384: B=2, N=577, 6 heads) against its plain fp32
    version and on its branch bar, which the ``i8_controls`` must fail;
-18. the serving slice at 384 px: 32 synthetic pairs, the checkpoint of
+20. the serving slice at 384 px: 32 synthetic pairs, the checkpoint of
    phase 4 (saved at 224 px), ``infer.main`` with ``--img-size 384 --crop
    384`` at B=16; launch counts per forward K9 24, K2 22, K3 2, K4 1,
    every other kernel 0; decision logits within rel 2e-2 of the plain
    path in bf16;
-19. the same with ``--int8``: the attention half of every block is K9 on
+21. the same with ``--int8``: the attention half of every block is K9 on
    the dequantized weights (the JAX package's route at vit_small@384);
    launch counts K9 24, K11 24, K4 1, K10 0; top-1 agreement with the
    plain int8 path on all but one pair;
-20. FT at 384 px through ``finetune.main`` (B=8, one epoch over 32
+22. FT at 384 px through ``finetune.main`` (B=8, one epoch over 32
    images): the loss finite at every step, launch counts per step K9 12,
    K2 11, K3 1, K7 12 and K5 0 (K9's backward is the fp32 recompute, plain
    PyTorch) plus one forward per eval batch, the backbone changed; then
    three-step train parity with the plain path (B=8);
-21. times at 384 px: K9 and its plain version at vit_small@384 (B=64) and
+23. times at 384 px: K9 and its plain version at vit_small@384 (B=64) and
    vit_small_ori@512 (B=16), the serving pairs/s at B=64 (kernel path
    against plain path), the FT step's images/s at B=32 and K9's backward
    (the fp32 recompute) at B=32.
@@ -138,6 +162,7 @@ JSON object) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -204,6 +229,19 @@ KERNELS = [  # name, CUDA source, the Pallas kernel body it replaces
     ("fused_transformer_block", "mfvit_tpu_torch/csrc/fused_block.cu",
      "mfvit_tpu/ops/fused_block.py:36"),
 ]
+# the schedule variants of the JAX harness's tools: name, CUDA source, the
+# Pallas kernel body it replaces, the kernel whose function it computes
+VARIANTS = [
+    ("mlp3d", "mfvit_tpu_torch/csrc/mlp_variants.cu",
+     "tools/bench_mlp3d.py:39", "fused_mlp_block"),
+    ("mlp3d_staged", "mfvit_tpu_torch/csrc/mlp_variants.cu",
+     "tools/bench_mlp3d.py:138", "fused_mlp_block"),
+    ("mlp_pipe", "mfvit_tpu_torch/csrc/mlp_variants.cu",
+     "tools/bench_pipelined.py:43", "fused_mlp_block"),
+    ("attn_staged", "mfvit_tpu_torch/csrc/attn_staged.cu",
+     "tools/bench_pipelined.py:118", "fused_attention_block"),
+]
+KERNELS += [v[:3] for v in VARIANTS]
 MHSA = ("mhsa_packed", "mhsa", "mhsa_packed_t")  # K12, K13, K14
 PER_FORWARD = {"fused_attention_block": 24, "fused_mlp_block": 22,
                "fused_mlp_block_final_ln": 2, "fused_fusion_cls": 1}
@@ -337,25 +375,14 @@ MLP = ("x", "ln_s", "ln_b", "w1", "b1", "w2", "b2")
 def kernel_calls(t, heads, tok_c, tok_e, flat, fusion_heads):
     """name -> (kernel call, plain call in the inputs' dtype, plain call in
     fp32 on the same values)."""
-    from mfvit_tpu_torch.ops import fused_attn as fa
     from mfvit_tpu_torch.ops import fused_fusion as ff
     from mfvit_tpu_torch.ops import fused_mlp as fm
-    scale = (t["x"].shape[-1] // heads) ** -0.5
-    a = [t[k] for k in ATTN]
     m = [t[k] for k in MLP]
-    a32 = [v.float() for v in a]
     m32 = [v.float() for v in m]
     f32 = [v.float() for v in flat]
     fin = (t["fs"], t["fb"])
     return {
-        "fused_attention_block": (
-            lambda: fa.fused_attention_block(*a, heads, scale),
-            lambda: fa.fused_attention_block_plain(*a, heads, scale),
-            lambda: fa.fused_attention_block_plain(*a32, heads, scale)),
-        "fused_mlp_block": (
-            lambda: fm.fused_mlp_block(*m),
-            lambda: fm.fused_mlp_block_plain(*m),
-            lambda: fm.fused_mlp_block_plain(*m32)),
+        **base_calls(t, heads),
         "fused_mlp_block_final_ln": (
             lambda: fm.fused_mlp_block_final_ln(*m, *fin),
             lambda: fm.fused_mlp_block_final_ln_plain(*m, *fin),
@@ -368,6 +395,25 @@ def kernel_calls(t, heads, tok_c, tok_e, flat, fusion_heads):
             lambda: torch.cat(ff.fused_fusion_cls_plain(
                 tok_c.float(), tok_e.float(), f32, fusion_heads))),
     }
+
+
+def base_calls(t, heads: int) -> dict:
+    """K1's and K2's (kernel, plain in the inputs' dtype, plain in fp32)
+    on one block's inputs: the schedule variants' base kernels."""
+    from mfvit_tpu_torch.ops import fused_attn as fa
+    from mfvit_tpu_torch.ops import fused_mlp as fm
+    scale = (t["x"].shape[-1] // heads) ** -0.5
+    a, m = [t[k] for k in ATTN], [t[k] for k in MLP]
+    a32, m32 = [v.float() for v in a], [v.float() for v in m]
+    return {
+        "fused_attention_block": (
+            lambda: fa.fused_attention_block(*a, heads, scale),
+            lambda: fa.fused_attention_block_plain(*a, heads, scale),
+            lambda: fa.fused_attention_block_plain(*a32, heads, scale)),
+        "fused_mlp_block": (
+            lambda: fm.fused_mlp_block(*m),
+            lambda: fm.fused_mlp_block_plain(*m),
+            lambda: fm.fused_mlp_block_plain(*m32))}
 
 
 def i8_ops():
@@ -1687,6 +1733,258 @@ def run_bench_block(dev) -> tuple:
     return counts, res
 
 
+# The schedule variants' shapes: label, B, N, D, heads. The MLP variants
+# run at the 12-head shapes (their heads do not matter); B=3 leaves
+# mlp_pipe's last row tile ragged (591 rows), and every N=197 image ends in
+# a ragged tile of T6's and T7's per-image walks.
+VARIANT_SHAPES = (("vit_small", 8, 197, 384, 12), ("N=50", 8, 50, 384, 12),
+                  ("B=3", 3, 197, 384, 12), ("D=512", 4, 197, 512, 8),
+                  ("vit_small_ori", 8, 197, 384, 6),
+                  ("head_dim 128", 8, 197, 384, 3))
+# the schedule argument each op takes by default: the kernel report's time
+VARIANT_DEFAULT = {"mlp3d": dict(cb=4, flat=True), "mlp3d_staged": dict(cb=4),
+                   "mlp_pipe": dict(splits=2, tm=64), "attn_staged": dict(cb=2)}
+
+
+def variant_settings(name: str, B: int, D: int) -> list:
+    """The schedule arguments of ``name`` that its tool sweeps and the
+    kernel takes at batch B and width D (cb=1 where no swept cb divides
+    B); for mlp_pipe also splits=1, the same kernel with no sub-tile to
+    overlap, the control its pipelining is timed against."""
+    from mfvit_tpu_torch.ops import mlp_variants as mv
+    from mfvit_tpu_torch.tools import bench_mlp3d as bm
+    from mfvit_tpu_torch.tools import bench_pipelined as bp
+    if name == "mlp_pipe":
+        return [dict(splits=s, tm=tm) for s, tm in (*bp.PIPE_SWEEP, (1, 64))
+                if tm * D <= mv.REG_TILE]
+    cbs = [cb for cb in (bp.CBS if name == "attn_staged" else bm.CBS)
+           if B % cb == 0] or [1]
+    if name == "mlp3d":
+        return [dict(cb=cb, flat=f) for f in (True, False) for cb in cbs]
+    return [dict(cb=cb) for cb in cbs]
+
+
+def variant_call(name: str, t, heads: int, kw: dict):
+    """The variant ``name`` on one block's inputs at schedule ``kw``."""
+    from mfvit_tpu_torch.ops import attn_variants as av
+    from mfvit_tpu_torch.ops import mlp_variants as mv
+    if name == "attn_staged":
+        a = [t[k] for k in ATTN]
+        scale = (t["x"].shape[-1] // heads) ** -0.5
+        return lambda: av.attn_staged(*a, heads, scale, **kw)
+    op, m = getattr(mv, name), [t[k] for k in MLP]
+    return lambda: op(*m, **kw)
+
+
+def check_variant_kernels(dev) -> dict:
+    """T6, T7, T3 and T4 at VARIANT_SHAPES, bf16 inputs from a seed with
+    non-zero biases (b2 included), at every schedule argument their tools
+    sweep: equal to K2 (T4: K1) bit for bit, within REL_BAR of the plain
+    fp32 version; one call launches the variant once and no other kernel.
+    Then every shape and argument the ops refuse must raise."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.ops import attn_variants as av
+    from mfvit_tpu_torch.ops import mlp_variants as mv
+    with torch.no_grad():
+        for label, B, N, D, heads in VARIANT_SHAPES:
+            t = block_inputs(torch.Generator().manual_seed(17), B, D, dev,
+                             N=N)
+            base = {k: (kern(), plain32())
+                    for k, (kern, _, plain32) in base_calls(t, heads).items()}
+            for name, _, _, base_name in VARIANTS:
+                if base_name == "fused_mlp_block" and heads != 12:
+                    continue
+                same, ref = base[base_name]
+                for kw in variant_settings(name, B, D):
+                    ops.reset_launch_counts()
+                    got = variant_call(name, t, heads, kw)()
+                    torch.cuda.synchronize()
+                    counts = {k: v for k, v in ops.launch_counts().items()
+                              if v}
+                    r, n_diff = rel(got, ref), (got != same).sum().item()
+                    print(f"{name} {kw} at {label} (B={B}, N={N}, D={D}, "
+                          f"{heads} heads): rel vs plain fp32 {r:.3e}; "
+                          f"{n_diff} of {got.numel()} outputs differ from "
+                          f"{base_name}; launches {counts}")
+                    if n_diff or counts != {name: 1}:
+                        raise AssertionError(
+                            f"{name} {kw} at {label}: {n_diff} outputs off "
+                            f"{base_name}, launches {counts}")
+                    if not (math.isfinite(r) and r < REL_BAR):
+                        raise AssertionError(f"{name} {kw} at {label}: rel "
+                                             f"{r}")
+        t = block_inputs(torch.Generator().manual_seed(17), 8, 384, dev)
+        m, a = [t[k] for k in MLP], [t[k] for k in ATTN]
+        wide = block_inputs(torch.Generator().manual_seed(17), 1, 768, dev)
+        d512 = block_inputs(torch.Generator().manual_seed(17), 2, 512, dev)
+        long = block_inputs(torch.Generator().manual_seed(17), 2, 384, dev,
+                            N=209)
+        refusals = {
+            "mlp3d cb=3 at B=8": lambda: mv.mlp3d(*m, cb=3),
+            "mlp3d_staged cb=16 at B=8": lambda: mv.mlp3d_staged(*m, cb=16),
+            "attn_staged cb=3 at B=8": lambda: av.attn_staged(
+                *a, 12, 32 ** -0.5, cb=3),
+            "mlp_pipe splits=3 tm=64": lambda: mv.mlp_pipe(*m, splits=3,
+                                                           tm=64),
+            "mlp_pipe splits=4 tm=32": lambda: mv.mlp_pipe(*m, splits=4,
+                                                           tm=32),
+            "mlp_pipe tm=128": lambda: mv.mlp_pipe(*m, splits=2, tm=128),
+            "mlp_pipe tm=64 at D=512": lambda: mv.mlp_pipe(
+                *[d512[k] for k in MLP], splits=2, tm=64),
+            "mlp3d at D=768": lambda: mv.mlp3d(*[wide[k] for k in MLP],
+                                               cb=1),
+            "attn_staged at head_dim 128, N=209": lambda: av.attn_staged(
+                *[long[k] for k in ATTN], 3, 128 ** -0.5, cb=2),
+        }
+    refusals["mlp3d on a weight that requires grad"] = lambda: mv.mlp3d(
+        m[0], m[1], m[2], m[3].clone().requires_grad_(), *m[4:], cb=2)
+    for what, call in refusals.items():
+        try:
+            call()
+        except (ValueError, RuntimeError) as e:
+            print(f"refused as it should be: {what}: {e}")
+        else:
+            raise AssertionError(f"{what} was taken")
+
+
+def chain_kernels(name: str) -> tuple:
+    """The kernels one block of the tool chain ``name`` launches."""
+    attn = ("attn_staged" if name.startswith("attn_staged")
+            else "fused_attention_block")
+    if name.startswith("mlp3d"):
+        mlp = "mlp3d_staged" if "staged" in name else "mlp3d"
+    else:
+        mlp = "mlp_pipe" if "mlp_pipe" in name else "fused_mlp_block"
+    return attn, mlp
+
+
+def run_variant_tools(dev, batch: int = 512, depth: int = 12) -> tuple:
+    """The variants' main path: ``mfvit_tpu_torch.tools.bench_mlp3d.run``
+    and ``bench_pipelined.run`` at B=512, 12 blocks, each chain a warm-up
+    and ``bench_block.ITERS`` timed runs. Launch counts per tool equal to
+    what its chains launch (every other kernel 0); every chain's checksum
+    equal to the baseline's (each variant equals its base kernel bit for
+    bit). Then one 12-block ``mlp3d staged cb=4`` chain: ``mlp3d_staged``
+    12 and K1 12. Then ``hold_variants_at_tool_size``. Returns (the
+    variants' launches in the tools' runs, {tool: {chain: (ms, checksum)}},
+    {variant: largest abs error against plain fp32 at the tools' size})."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.tools import bench_block as bb
+    from mfvit_tpu_torch.tools import bench_mlp3d as bm
+    from mfvit_tpu_torch.tools import bench_pipelined as bp
+    launches, lines = {}, {}
+    for tool in (bm, bp):
+        ops.reset_launch_counts()
+        res = tool.run(dev, batch, depth)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = {k: 0 for k in counts}
+        for name, cb, _ in tool.chains():
+            for k in chain_kernels(name):
+                want[k] += depth * (1 + bb.ITERS) * (batch % (cb or 1) == 0)
+        tag = tool.__name__.rsplit(".", 1)[-1]
+        print(f"{tag} launch counts {counts}")
+        if counts != want:
+            raise AssertionError(f"{tag} launch counts {counts} != {want}")
+        sums = {k: v[1] for k, v in res.items()}
+        base = next(iter(sums.values()))
+        if not math.isfinite(base) or any(v != base for v in sums.values()):
+            raise AssertionError(f"{tag} checksums differ: {sums}")
+        launches.update({k: counts[k] for k, *_ in VARIANTS if counts[k]})
+        lines[tag] = res
+    x, p = bb.make_inputs(batch, dev)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        bm.chain_of(lambda *w: bm.mlp3d_staged(*w, cb=4))(x, p, depth)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    print(f"one {depth}-block mlp3d staged cb=4 chain: launches {counts}")
+    if counts != {"mlp3d_staged": depth, "fused_attention_block": depth}:
+        raise AssertionError(f"the staged chain launched {counts}")
+    return launches, lines, hold_variants_at_tool_size(dev, batch)
+
+
+def hold_variants_at_tool_size(dev, batch: int) -> dict:
+    """One block of each variant on the tools' own inputs
+    (``bench_block.make_inputs(batch)``; the MLP variants take K1's output,
+    as in the first block of a chain) at every schedule argument its tool
+    sweeps (``variant_settings``): equal to K2 (T4: K1) on the same input
+    bit for bit, and within REL_BAR of its plain fp32 version (the op with
+    ``plain=True`` on the upcast inputs). The chains' checksums alone
+    cannot tell a handful of wrong outputs among 38.7M. Returns the
+    largest abs error against plain fp32 of each variant."""
+    from mfvit_tpu_torch.ops import attn_variants as av
+    from mfvit_tpu_torch.ops import fused_attn as fa
+    from mfvit_tpu_torch.ops import fused_mlp as fm
+    from mfvit_tpu_torch.ops import mlp_variants as mv
+    from mfvit_tpu_torch.tools import bench_block as bb
+    x, p = bb.make_inputs(batch, dev)
+    a, w = [p[k] for k in bb.ATTN], [p[k] for k in bb.MLP]
+    errs = {}
+    with torch.inference_mode():
+        y = fa.fused_attention_block(x, *a, bb.HEADS, bb.SCALE)
+        base = {"fused_attention_block": y,
+                "fused_mlp_block": fm.fused_mlp_block(y, *w)}
+        for name, _, _, base_name in VARIANTS:
+            if name == "attn_staged":
+                inp, args = x, a
+                op = functools.partial(av.attn_staged, heads=bb.HEADS,
+                                       scale=bb.SCALE)
+            else:
+                inp, args, op = y, w, getattr(mv, name)
+            args32 = [v.float() for v in args]
+            for kw in variant_settings(name, batch, bb.D):
+                got = op(inp, *args, **kw)
+                ref = op(inp.float(), *args32, **kw, plain=True)
+                r = rel(got, ref)
+                same = torch.equal(got, base[base_name])
+                n_diff = (got != base[base_name]).sum().item()
+                errs[name] = max(errs.get(name, 0.0),
+                                 (got.float() - ref).abs().max().item())
+                del ref
+                print(f"the tools' inputs, one block (B={batch}): {name} "
+                      f"{kw}: rel vs plain fp32 {r:.3e} (bar {REL_BAR}); "
+                      f"{n_diff} of {got.numel()} outputs differ from "
+                      f"{base_name}")
+                if not (same and math.isfinite(r) and r < REL_BAR):
+                    raise AssertionError(
+                        f"{name} {kw} on the tools' inputs at B={batch}: rel "
+                        f"{r}, {n_diff} outputs differ from {base_name}")
+    return errs
+
+
+def time_variants(dev) -> dict:
+    """Each variant at each schedule argument its tool sweeps against its
+    base kernel at vit_small B=256, in one call (variant, base, base,
+    variant), first held equal to the base kernel on the timed inputs; then
+    the plain versions (K2's, K1's) twice each. Returns {(name, setting):
+    (ms, base ms)} and {base name: plain ms}."""
+    t = block_inputs(torch.Generator().manual_seed(18), 256, 384, dev)
+    calls = base_calls(t, 12)
+    out = {}
+    with torch.inference_mode():
+        for name, _, _, base_name in VARIANTS:
+            kern = calls[base_name][0]
+            for kw in variant_settings(name, 256, 384):
+                var = variant_call(name, t, 12, kw)
+                if not torch.equal(var(), kern()):
+                    raise AssertionError(f"{name} {kw} differs from "
+                                         f"{base_name} at B=256")
+                v1, b1, b2, v2 = (cuda_ms(f, 10) for f in (var, kern, kern,
+                                                           var))
+                setting = " ".join(f"{k}={v}" for k, v in kw.items())
+                out[(name, setting)] = ((v1 + v2) / 2, (b1 + b2) / 2)
+                print(f"{name} {setting} at B=256: kernel {v1:.3f}/{v2:.3f} "
+                      f"ms, {base_name} {b1:.3f}/{b2:.3f} ms")
+        plain = {}
+        for base_name, (_, plain_bf16, _) in calls.items():
+            p1, p2 = cuda_ms(plain_bf16, 3), cuda_ms(plain_bf16, 3)
+            plain[base_name] = (p1 + p2) / 2
+            print(f"{base_name}'s plain version at B=256: {p1:.3f}/{p2:.3f} "
+                  "ms (bf16)")
+    return out, plain
+
+
 class _Tee:
     """Stands in for sys.stdout: prints, and keeps a copy of the text."""
 
@@ -2046,6 +2344,15 @@ def main() -> int:
     bench_counts, bench = run_bench_block(dev)
     counts["fused_transformer_block"] = bench_counts["fused_transformer_block"]
 
+    phase("schedule variants T6/T7/T3/T4 against K2/K1 and their plain "
+          "versions (B=8; N=50; B=3; D=512)")
+    check_variant_kernels(dev)
+    phase("the variants' entry points: mfvit_tpu_torch.tools.bench_mlp3d and "
+          "bench_pipelined (B=512, 12 blocks)")
+    variant_counts, variant_lines, variant_errs = run_variant_tools(dev)
+    counts.update(variant_counts)
+    errs.update(variant_errs)
+
     phase("the fusion-training slice through mfvit_tpu_torch.cli.fuse "
           "(vit_small, B=32, LP then --semi-supervised), then infer on its "
           "model_best")
@@ -2055,7 +2362,8 @@ def main() -> int:
     fusion_parity(dev)
 
     phase("times (B=256; K12 also at N=577, B=64; K5/K7 also at a vit_base "
-          "block, B=64; the fusion step also at B=32)")
+          "block, B=64; the fusion step also at B=32; the schedule variants "
+          "against K1/K2)")
     times = time_kernels(dev)
     times.update(time_mhsa(dev, "vit_small", 256, 197, 384, 12))
     k12_577 = time_mhsa(dev, "vit_small@384", 64, 577, 384, 12,
@@ -2068,6 +2376,11 @@ def main() -> int:
     train_cli = time_train(dev, 16, 32)  # the finetune CLI's default -b
     k15_ms, k15_plain_ms, k15_lib_ms, pair_ms = time_block(dev)
     times["fused_transformer_block"] = (k15_ms, k15_plain_ms, k15_lib_ms)
+    variant_times, base_plain = time_variants(dev)
+    for name, _, _, base_name in VARIANTS:
+        setting = " ".join(f"{k}={v}" for k, v in VARIANT_DEFAULT[name].items())
+        times[name] = (variant_times[(name, setting)][0], base_plain[base_name],
+                       None)
     fusion_cli = time_fusion(dev, 32, 8)  # the fuse CLI's default -b
     fusion_256 = time_fusion(dev, 256, 3)
 
@@ -2104,6 +2417,7 @@ def main() -> int:
         "fused_attention_block_large"] for label, B, N, D, heads in K9_TIMED}
     bounds["fused_attention_block_large"] = long_bounds["vit_small@384"]
     bounds.update({k: mhsa_bound(256, 197, 384, 12) for k in MHSA})
+    bounds.update({name: bounds[base] for name, _, _, base in VARIANTS})
     bound_577 = mhsa_bound(64, 577, 384, 12)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -2134,6 +2448,12 @@ def main() -> int:
                           "bound_ms": bounds["fused_transformer_block"][0]},
                       "bench_block_B512_12_blocks_ms": {
                           k: v[0] for k, v in bench.items()},
+                      "variants_B256": {
+                          f"{n} {st}": {"ms": v[0], "base_ms": v[1]}
+                          for (n, st), v in variant_times.items()},
+                      "variant_tools_B512_12_blocks_ms": {
+                          tool: {k: v[0] for k, v in res.items()}
+                          for tool, res in variant_lines.items()},
                       "fusion_step_pairs_per_sec_B32": fusion_cli,
                       "fusion_step_pairs_per_sec_B256": fusion_256,
                       "k9": {f"{label} B={B}": {

@@ -42,6 +42,138 @@ struct AttnSmem {
   static constexpr size_t BYTES = (size_t)(NK * LDK + DH * LDV) * sizeof(bf16);
 };
 
+// The stages of the core for one (image, head), shared with T4's staged
+// core (attn_staged.cu). `base` points at the head's q columns of the
+// image's first token in qkv; the o rows of the image start at `o`.
+
+// The head's K and V (V transposed) into shared memory, zeros past N, by
+// `threads` threads (tid the thread's index among them).
+template <int DH, int NKT>
+__device__ __forceinline__ void attn_stage_kv(const bf16* base, int D, int N, bf16* Ks, bf16* Vt,
+                                              int tid, int threads) {
+  using S = AttnSmem<DH, NKT>;
+  constexpr int VPR = DH / 8;  // 16-byte vectors per head row
+  for (int idx = tid; idx < S::NK * VPR; idx += threads) {
+    const int n = idx / VPR, d = (idx % VPR) * 8;
+    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+    if (n < N) {
+      kv = *reinterpret_cast<const uint4*>(base + (size_t)n * 3 * D + D + d);
+      vv = *reinterpret_cast<const uint4*>(base + (size_t)n * 3 * D + 2 * D + d);
+    }
+    *reinterpret_cast<uint4*>(Ks + n * S::LDK + d) = kv;
+    const bf16* v8 = reinterpret_cast<const bf16*>(&vv);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) Vt[(d + t) * S::LDV + n] = v8[t];
+  }
+}
+
+// One warp's scores for query rows q0 .. q0+15: s = bf16(q * scale) k^T,
+// tile j holding keys 8j..8j+7, s[j][0..1] row q0+g, [2..3] row q0+g+8.
+template <int DH, int NKT>
+__device__ __forceinline__ void attn_scores(const bf16* base, int D, int N, int q0, float scale,
+                                            const bf16* Ks, float (&s)[NKT][4]) {
+  using S = AttnSmem<DH, NKT>;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // fragment row group, column pair
+  // A fragments of q (scaled in fp32, rounded to bf16): rows q0+g, q0+g+8
+  uint32_t qa[DH / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = q0 + g + (r & 1) * 8, col = ks * 16 + 2 * t4 + (r >> 1) * 8;
+      float2 f = make_float2(0.f, 0.f);
+      if (row < N)
+        f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(base + (size_t)row * 3 * D + col));
+      qa[ks][r] = pack_bf16x2(f.x * scale, f.y * scale);
+    }
+#pragma unroll
+  for (int j = 0; j < NKT; ++j) {
+    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks) {
+      const bf16* kp = Ks + (8 * j + g) * S::LDK + ks * 16 + 2 * t4;
+      mma_bf16_16816(s[j], qa[ks], *reinterpret_cast<const uint32_t*>(kp),
+                     *reinterpret_cast<const uint32_t*>(kp + 8));
+    }
+  }
+}
+
+// fp32 softmax over the valid keys, in place: s = exp(s - row max), and
+// the row sums l0 (row q0+g), l1 (row q0+g+8). The four lanes of a quad
+// share a row.
+template <int NKT>
+__device__ __forceinline__ void attn_softmax(float (&s)[NKT][4], int N, float& l0, float& l1) {
+  const int t4 = threadIdx.x & 3;
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NKT; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (8 * j + 2 * t4 + c < N) {
+        m0 = fmaxf(m0, s[j][c]);
+        m1 = fmaxf(m1, s[j][2 + c]);
+      }
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  l0 = 0.f;
+  l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NKT; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const bool valid = 8 * j + 2 * t4 + c < N;
+      s[j][c] = valid ? expf(s[j][c] - m0) : 0.f;
+      s[j][2 + c] = valid ? expf(s[j][2 + c] - m1) : 0.f;
+      l0 += s[j][c];
+      l1 += s[j][2 + c];
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+}
+
+// O = P V for rows q0 .. q0+15, 16 keys per step (P's A fragment comes
+// from two score tiles), scaled by 1/sum and stored to the o rows (row
+// pitch D) below N.
+template <int DH, int NKT, typename OT>
+__device__ __forceinline__ void attn_pv(const float (&s)[NKT][4], float l0, float l1,
+                                        const bf16* Vt, OT* o, int D, int N, int q0) {
+  using S = AttnSmem<DH, NKT>;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  float oacc[DH / 8][4];
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c) oacc[c][0] = oacc[c][1] = oacc[c][2] = oacc[c][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NKT / 2; ++kk) {
+    const uint32_t pa[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
+                            pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+                            pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                            pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+      const bf16* vp = Vt + (8 * c + g) * S::LDV + 16 * kk + 2 * t4;
+      mma_bf16_16816(oacc[c], pa, *reinterpret_cast<const uint32_t*>(vp),
+                     *reinterpret_cast<const uint32_t*>(vp + 8));
+    }
+  }
+  const float r0 = 1.0f / l0, r1 = 1.0f / l1;
+  OT* orow = o + (size_t)(q0 + g) * D + 2 * t4;
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c) {
+    if (q0 + g < N) store_pair(orow + 8 * c, oacc[c][0] * r0, oacc[c][1] * r0);
+    if (q0 + g + 8 < N) store_pair(orow + (size_t)8 * D + 8 * c, oacc[c][2] * r1, oacc[c][3] * r1);
+  }
+}
+
 template <int DH, int NKT, typename OT>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
     attn_core_kernel(const bf16* __restrict__ qkv, OT* __restrict__ o, int N, int heads,
@@ -54,110 +186,16 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
   bf16* Vt = Ks + S::NK * S::LDK;
 
   const bf16* base = qkv + (size_t)b * N * 3 * D + h * DH;
-  constexpr int VPR = DH / 8;  // 16-byte vectors per head row
-  for (int idx = threadIdx.x; idx < S::NK * VPR; idx += ATT_WARPS * 32) {
-    const int n = idx / VPR, d = (idx % VPR) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (n < N) {
-      kv = *reinterpret_cast<const uint4*>(base + (size_t)n * 3 * D + D + d);
-      vv = *reinterpret_cast<const uint4*>(base + (size_t)n * 3 * D + 2 * D + d);
-    }
-    *reinterpret_cast<uint4*>(Ks + n * S::LDK + d) = kv;
-    const bf16* v8 = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) Vt[(d + t) * S::LDV + n] = v8[t];
-  }
+  attn_stage_kv<DH, NKT>(base, D, N, Ks, Vt, threadIdx.x, ATT_WARPS * 32);
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // fragment row group, column pair
+  const int warp = threadIdx.x >> 5;
+  OT* ob = o + (size_t)b * N * D + h * DH;
   for (int q0 = warp * 16; q0 < N; q0 += ATT_WARPS * 16) {
-    // A fragments of q (scaled in fp32, rounded to bf16): rows q0+g, q0+g+8
-    uint32_t qa[DH / 16][4];
-#pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = q0 + g + (r & 1) * 8, col = ks * 16 + 2 * t4 + (r >> 1) * 8;
-        float2 f = make_float2(0.f, 0.f);
-        if (row < N)
-          f = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(base + (size_t)row * 3 * D + col));
-        qa[ks][r] = pack_bf16x2(f.x * scale, f.y * scale);
-      }
-
-    // S = q k^T: tile j holds keys 8j..8j+7; s[j][0..1] row g, [2..3] row g+8
-    float s[NKT][4];
-#pragma unroll
-    for (int j = 0; j < NKT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < DH / 16; ++ks) {
-        const bf16* kp = Ks + (8 * j + g) * S::LDK + ks * 16 + 2 * t4;
-        mma_bf16_16816(s[j], qa[ks], *reinterpret_cast<const uint32_t*>(kp),
-                       *reinterpret_cast<const uint32_t*>(kp + 8));
-      }
-    }
-
-    // fp32 softmax over the valid keys; the four lanes of a quad share a row
-    float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        if (8 * j + 2 * t4 + c < N) {
-          m0 = fmaxf(m0, s[j][c]);
-          m1 = fmaxf(m1, s[j][2 + c]);
-        }
-      }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-    }
-    float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const bool valid = 8 * j + 2 * t4 + c < N;
-        s[j][c] = valid ? expf(s[j][c] - m0) : 0.f;
-        s[j][2 + c] = valid ? expf(s[j][2 + c] - m1) : 0.f;
-        l0 += s[j][c];
-        l1 += s[j][2 + c];
-      }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
-
-    // O = P V: 16 keys per step; P's A fragment comes from two score tiles
-    float oacc[DH / 8][4];
-#pragma unroll
-    for (int c = 0; c < DH / 8; ++c) oacc[c][0] = oacc[c][1] = oacc[c][2] = oacc[c][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < NKT / 2; ++kk) {
-      const uint32_t pa[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int c = 0; c < DH / 8; ++c) {
-        const bf16* vp = Vt + (8 * c + g) * S::LDV + 16 * kk + 2 * t4;
-        mma_bf16_16816(oacc[c], pa, *reinterpret_cast<const uint32_t*>(vp),
-                       *reinterpret_cast<const uint32_t*>(vp + 8));
-      }
-    }
-
-    const float r0 = 1.0f / l0, r1 = 1.0f / l1;
-    OT* orow = o + ((size_t)b * N + q0 + g) * D + h * DH + 2 * t4;
-#pragma unroll
-    for (int c = 0; c < DH / 8; ++c) {
-      if (q0 + g < N) store_pair(orow + 8 * c, oacc[c][0] * r0, oacc[c][1] * r0);
-      if (q0 + g + 8 < N)
-        store_pair(orow + (size_t)8 * D + 8 * c, oacc[c][2] * r1, oacc[c][3] * r1);
-    }
+    float s[NKT][4], l0, l1;
+    attn_scores<DH, NKT>(base, D, N, q0, scale, Ks, s);
+    attn_softmax<NKT>(s, N, l0, l1);
+    attn_pv<DH, NKT>(s, l0, l1, Vt, ob, D, N, q0);
   }
 }
 

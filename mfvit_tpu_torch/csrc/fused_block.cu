@@ -28,6 +28,9 @@
 //   chunks: the (M, 4D) hidden never goes to device memory;
 // - out = x2 + bf16(acc + b2).
 //
+// The LN2 and MLP stages are mlp_tail.cuh's, shared with the MLP schedule
+// variants T6 and T7 (mlp_variants.cu).
+//
 // Rounding points are K1's and K2's (gemm_ln.cuh's epilogues, eps 1e-6,
 // exact erff). Every fp32 sum runs over k in the order of gemm_ln.cuh's K
 // loop (WMMA 16x16x16 steps from k = 0 up, one accumulator per output, no
@@ -47,16 +50,11 @@
 // D > 512 is refused: the fp32 output tile in registers would pass 128
 // floats a thread.
 #include "attn_core.cuh"
-#include "gemm_ln.cuh"
+#include "mlp_tail.cuh"
 
 namespace {
 
 constexpr int TAIL_THREADS = 256;  // eight warps
-constexpr int HC = 128;            // hidden columns per MLP chunk
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 struct TailArgs {
   const bf16* x;      // (M, D) block input, the first residual
@@ -73,131 +71,31 @@ struct TailArgs {
   int M, Hd;
 };
 
-// Warps are laid out WM x WN over a (BM, cols) output tile, each owning 32
-// rows (two 16-row fragments) and cols / WN columns.
-template <int BM, int D>
-struct Tail {
-  static constexpr int WM = BM / 32;
-  static constexpr int WN = TAIL_THREADS / 32 / WM;
-  static constexpr int FN = D / 16 / WN;    // fragments a warp holds across D
-  static constexpr int FN1 = HC / 16 / WN;  // across one hidden chunk
-  static constexpr int LDS = D + 8;         // bf16 pitch of the (BM, D) tiles
-  static constexpr int LDH = HC + 8;        // bf16 pitch of the hidden tile
-  static constexpr int NW = D > HC ? D : HC;  // most weight rows staged at once
-  // shared memory, in bytes (each offset a multiple of 32, as WMMA needs)
-  static constexpr int A_OFF = 0;  // the o rows, then LN2(x2)
-  static constexpr int X2_OFF = A_OFF + BM * LDS * 2;
-  static constexpr int H_OFF = X2_OFF + BM * LDS * 2;
-  static constexpr int W_OFF = H_OFF + BM * LDH * 2;
-  static constexpr int S_OFF = W_OFF + NW * LDA * 2;  // a 16x16 fp32 tile per warp
-  static constexpr int SMEM = S_OFF + TAIL_THREADS / 32 * 256 * 4;
-  static_assert(WM * 32 == BM && FN * 16 * WN == D && FN1 * 16 * WN == HC, "warp tiling");
-};
-
-// acc[2][FN] += As[wrow .. wrow+32, 0:K] . W[wcol .. wcol+16*FN, 0:K]^T:
-// As in shared memory (bf16 pitch lda); the NR rows of W (row pitch ldw)
-// streamed through Ws in K slices of BK, the next slice held in registers
-// while the current one is multiplied. The k steps of each accumulator
-// run in gemm_ln.cuh's order.
-template <int NR, int FN>
-__device__ __forceinline__ void smem_gemm(const bf16* As, int lda, const bf16* __restrict__ W,
-                                          int ldw, int K, bf16* Ws, int wrow, int wcol,
-                                          FragC (&acc)[2][FN]) {
-  constexpr int BV = NR * (BK / 8) / TAIL_THREADS;  // 16-byte vectors per thread
-  static_assert(BV * TAIL_THREADS == NR * (BK / 8), "W slice split");
-  const int tid = threadIdx.x;
-  uint4 br[BV];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int v = 0; v < BV; ++v) {
-      const int idx = tid + v * TAIL_THREADS;
-      const int i = idx / (BK / 8), kc = (idx % (BK / 8)) * 8;
-      br[v] = *reinterpret_cast<const uint4*>(W + (size_t)i * ldw + k0 + kc);
-    }
-  };
-  const int KT = K / BK;
-  load(0);
-  for (int kt = 0; kt < KT; ++kt) {
-#pragma unroll
-    for (int v = 0; v < BV; ++v) {
-      const int idx = tid + v * TAIL_THREADS;
-      const int i = idx / (BK / 8), kc = (idx % (BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(Ws + i * LDA + kc) = br[v];
-    }
-    __syncthreads();
-    if (kt + 1 < KT) load((kt + 1) * BK);  // in flight during the MMAs below
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA af[2];
-      FragB bfr[FN];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], As + (wrow + i * 16) * lda + kt * BK + kk, lda);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(bfr[j], Ws + (wcol + j * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();  // Ws is rewritten next
-  }
-}
-
-template <int FN>
-__device__ __forceinline__ void zero(FragC (&acc)[2][FN]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-}
-
-// Hand one 16x16 accumulator tile to f(row, col, v): the warp stages it in
-// its fp32 scratch tile, and each lane gets 8 adjacent values of one row
-// (row = lane / 2, col = 8 * (lane % 2)).
-template <class F>
-__device__ __forceinline__ void frag_epilogue(const FragC& acc, float* scratch, F&& f) {
-  wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-  const int r = lane >> 1, c = (lane & 1) * 8;
-  float v[8];
-#pragma unroll
-  for (int t = 0; t < 8; ++t) v[t] = scratch[r * 16 + c + t];
-  f(r, c, v);
-  __syncwarp();  // the scratch tile is rewritten next
-}
-
 template <int BM, int D>
 __global__ void __launch_bounds__(TAIL_THREADS) block_tail_kernel(const TailArgs p) {
-  using T = Tail<BM, D>;
+  using T = RowTile<BM, D, TAIL_THREADS / 32>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem + T::A_OFF);
-  bf16* X2 = reinterpret_cast<bf16*>(smem + T::X2_OFF);
+  bf16* X2 = reinterpret_cast<bf16*>(smem + T::X_OFF);
   bf16* Hs = reinterpret_cast<bf16*>(smem + T::H_OFF);
   bf16* Ws = reinterpret_cast<bf16*>(smem + T::W_OFF);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid >> 5;
   float* scratch = reinterpret_cast<float*>(smem + T::S_OFF) + warp * 256;
   const int m0 = blockIdx.x * BM;
-  const int wrow = (warp / T::WN) * 32, wn = warp % T::WN;
+  const int wrow = (warp / T::WN) * 32, wn = warp % T::WN;  // T::FM == 2
   const int wcol = wn * (D / T::WN), wcol1 = wn * (HC / T::WN);
+  const BlockSync sync;
 
   // the block's o rows (zeros past M)
-  for (int g = threadIdx.x; g < BM * D / 8; g += TAIL_THREADS) {
-    const int i = g / (D / 8), c = (g % (D / 8)) * 8;
-    const int r = m0 + i;
-    *reinterpret_cast<uint4*>(As + i * T::LDS + c) =
-        r < p.M ? *reinterpret_cast<const uint4*>(p.o + (size_t)r * D + c)
-                : make_uint4(0, 0, 0, 0);
-  }
+  load_rows<D>(p.o + (size_t)m0 * D, As, T::LDS, p.M - m0, BM, tid, TAIL_THREADS);
   __syncthreads();
 
   // proj + bias + residual: x2 (bf16) into shared memory
   {
     FragC acc[2][T::FN];
     zero(acc);
-    smem_gemm<D, T::FN>(As, T::LDS, p.wproj, D, D, Ws, wrow, wcol, acc);
+    smem_gemm<D, 2, T::FN, TAIL_THREADS>(As, T::LDS, p.wproj, D, D, Ws, tid, wrow, wcol, acc,
+                                         sync);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -216,84 +114,21 @@ __global__ void __launch_bounds__(TAIL_THREADS) block_tail_kernel(const TailArgs
   }
   __syncthreads();
 
-  // LN2 row statistics and LN2(x2) (bf16) over the o rows, one warp a row
-  for (int row = warp; row < BM; row += TAIL_THREADS / 32) {
-    const bf16* xr = X2 + row * T::LDS;
-    float s = 0.f;
-    for (int k = lane * 8; k < D; k += 256) {
-      float f[8];
-      bf16x8_to_float(*reinterpret_cast<const uint4*>(xr + k), f);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s += f[j];
-    }
-    const float mean = warp_sum(s) / D;
-    float var = 0.f;
-    for (int k = lane * 8; k < D; k += 256) {
-      float f[8];
-      bf16x8_to_float(*reinterpret_cast<const uint4*>(xr + k), f);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float d = f[j] - mean;
-        var += d * d;
-      }
-    }
-    var = warp_sum(var) / D;
-    const float rstd = 1.0f / sqrtf(var + 1e-6f);
-    for (int k = lane * 8; k < D; k += 256) {
-      float f[8];
-      bf16x8_to_float(*reinterpret_cast<const uint4*>(xr + k), f);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) f[j] = (f[j] - mean) * rstd * p.ln2_s[k + j] + p.ln2_b[k + j];
-      *reinterpret_cast<uint4*>(As + row * T::LDS + k) = float_to_bf16x8(f);
-    }
-  }
+  // LN2(x2) (bf16) over the o rows, which are no longer needed
+  ln_tile<D>(X2, As, T::LDS, BM, warp, TAIL_THREADS / 32, p.ln2_s, p.ln2_b);
   __syncthreads();
 
-  // the MLP, 128 hidden columns at a time; fc2's accumulators span the chunks
+  // the MLP, 128 hidden columns at a time; fc2's accumulators span the
+  // chunks; then fc2's bias and the residual
   FragC acc2[2][T::FN];
-  zero(acc2);
-  for (int c0 = 0; c0 < p.Hd; c0 += HC) {
-    FragC acc1[2][T::FN1];
-    zero(acc1);
-    smem_gemm<HC, T::FN1>(As, T::LDS, p.w1 + (size_t)c0 * D, D, D, Ws, wrow, wcol1, acc1);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < T::FN1; ++j)
-        frag_epilogue(acc1[i][j], scratch, [&](int rr, int cc, float* v) {
-          const int row = wrow + i * 16 + rr, col = wcol1 + j * 16 + cc;
-#pragma unroll
-          for (int t = 0; t < 8; ++t) v[t] += p.b1[c0 + col + t];
-#pragma unroll
-          for (int t = 0; t < 8; ++t) v[t] = gelu_erf(v[t]);
-          *reinterpret_cast<uint4*>(Hs + row * T::LDH + col) = float_to_bf16x8(v);
-        });
-    __syncthreads();
-    smem_gemm<D, T::FN>(Hs, T::LDH, p.w2 + c0, p.Hd, HC, Ws, wrow, wcol, acc2);
-  }
-
-  // fc2 bias + residual
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j)
-      frag_epilogue(acc2[i][j], scratch, [&](int rr, int cc, float* v) {
-        const int row = wrow + i * 16 + rr, col = wcol + j * 16 + cc;
-        const int r = m0 + row;
-        if (r >= p.M) return;
-        float x[8];
-        bf16x8_to_float(*reinterpret_cast<const uint4*>(X2 + row * T::LDS + col), x);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) v[t] += p.b2[col + t];
-#pragma unroll
-        for (int t = 0; t < 8; ++t) v[t] = x[t] + round_bf16(v[t]);
-        *reinterpret_cast<uint4*>(p.out + (size_t)r * D + col) = float_to_bf16x8(v);
-      });
+  mlp_chunks<D, 2, T::FN, T::FN1, TAIL_THREADS>(As, T::LDS, Hs, T::LDH, Ws, scratch, p.w1, p.b1,
+                                                 p.w2, p.Hd, tid, wrow, wcol, wcol1, acc2, sync);
+  residual_out<D>(acc2, p.b2, X2, T::LDS, p.out + (size_t)m0 * D, p.M - m0, scratch, wrow, wcol);
 }
 
 template <int BM, int D>
 int launch_tail(const TailArgs& p, cudaStream_t s) {
-  using T = Tail<BM, D>;
+  using T = RowTile<BM, D, TAIL_THREADS / 32>;
   auto kern = block_tail_kernel<BM, D>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);

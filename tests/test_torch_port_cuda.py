@@ -1,4 +1,5 @@
-"""Kernel-against-plain tests for K1-K5, K7 and K9-K15 on the card. They need CUDA, nvcc
+"""Kernel-against-plain tests for K1-K5, K7, K9-K15 and the schedule
+variants T3, T4, T6 and T7 on the card. They need CUDA, nvcc
 and an sm_90a GPU, so they carry the ``cuda`` marker and skip elsewhere;
 on the card run ``python -m pytest tests/test_torch_port_cuda.py``
 (``chip_smoke.py`` makes the same comparisons at serving shapes).
@@ -11,8 +12,9 @@ import torch
 
 from mfvit_tpu_torch import ops
 from mfvit_tpu_torch.nn import vit
-from mfvit_tpu_torch.ops import (attention, fused_attn, fused_block,
-                                 fused_fusion, fused_int8, fused_mlp, quant)
+from mfvit_tpu_torch.ops import (attention, attn_variants, fused_attn,
+                                 fused_block, fused_fusion, fused_int8,
+                                 fused_mlp, mlp_variants, quant)
 
 pytestmark = pytest.mark.cuda
 REL = 2e-2
@@ -85,7 +87,8 @@ def test_kernels_match_plain(dev, B, N, D, H):
         "fused_attention_block_bwd": 0, "fused_mlp_block_bwd": 0,
         "fused_attention_block_i8": 0, "fused_mlp_block_i8": 0,
         "mhsa_packed": 0, "mhsa": 0, "mhsa_packed_t": 0,
-        "fused_transformer_block": 0}
+        "fused_transformer_block": 0, "mlp3d": 0, "mlp3d_staged": 0,
+        "mlp_pipe": 0, "attn_staged": 0}
 
 
 @pytest.mark.parametrize("B,heads", [(8, 3), (5, 3), (3, 6)])
@@ -511,3 +514,89 @@ def test_k15_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="bfloat16"):
         fused_block.fused_transformer_block(a[0].float(), *a[1:], 12,
                                             32 ** -0.5)
+
+
+# the MLP variants at every schedule argument their tools sweep
+MLP_VARIANTS = {
+    **{f"mlp3d flat cb={cb}": (lambda a, cb=cb: mlp_variants.mlp3d(
+        *a, cb=cb, flat=True), "mlp3d") for cb in (1, 2, 4)},
+    **{f"mlp3d loop cb={cb}": (lambda a, cb=cb: mlp_variants.mlp3d(
+        *a, cb=cb, flat=False), "mlp3d") for cb in (1, 2, 4)},
+    **{f"mlp3d_staged cb={cb}": (lambda a, cb=cb: mlp_variants.mlp3d_staged(
+        *a, cb=cb), "mlp3d_staged") for cb in (1, 2, 4)},
+    **{f"mlp_pipe s={s} tm={tm}": (lambda a, s=s, tm=tm: mlp_variants.mlp_pipe(
+        *a, splits=s, tm=tm), "mlp_pipe") for s, tm in ((2, 32), (2, 64),
+                                                        (4, 64), (1, 64))},
+}
+
+
+@pytest.mark.parametrize("B,N,D", [(4, 197, 384), (4, 50, 384),
+                                   (3, 197, 512), (2, 100, 128)])
+@pytest.mark.parametrize("name", sorted(MLP_VARIANTS))
+def test_mlp_variants_equal_k2_and_hold_its_plain_version(dev, name, B, N,
+                                                          D):
+    """T6, T7 and T3 against the K2 kernel on the same bf16 inputs (equal
+    bit for bit: the same rounding points and order of every fp32 sum) and
+    against the plain fp32 version (rel < 2e-2); one call launches its
+    kernel once and nothing else. B=3 leaves a ragged last tile."""
+    call, counter = MLP_VARIANTS[name]
+    if counter == "mlp_pipe" and "tm=64" in name and D > 384:
+        pytest.skip("tm=64 at D=512 passes the register tile")
+    cb = int(name.split("cb=")[1]) if "cb=" in name else 1
+    if B % cb:
+        pytest.skip("cb must divide B")
+    t = _block(dev, B, N, D)
+    a = [t[k] for k in MLP]
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = call(a)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts.pop(counter) == 1 and not any(counts.values())
+    with torch.no_grad():
+        k2 = fused_mlp.fused_mlp_block(*a)
+    assert torch.equal(got, k2)
+    assert _rel(got, fused_mlp.fused_mlp_block_plain(*_f32(t, MLP))) < REL
+
+
+@pytest.mark.parametrize("B,N,D,H", [(4, 197, 384, 12), (4, 197, 384, 6),
+                                     (4, 50, 384, 12), (2, 197, 384, 3),
+                                     (3, 100, 256, 2)])
+@pytest.mark.parametrize("cb", [1, 2])
+def test_attn_staged_equals_k1_and_holds_its_plain_version(dev, cb, B, N, D,
+                                                           H):
+    """T4 against the K1 kernel (equal bit for bit) and its plain fp32
+    version (rel < 2e-2); one call launches T4 once and K1 never."""
+    if B % cb:
+        pytest.skip("cb must divide B")
+    t = _block(dev, B, N, D)
+    a = [t[k] for k in ATTN]
+    scale = (D // H) ** -0.5
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = attn_variants.attn_staged(*a, H, scale, cb=cb)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts.pop("attn_staged") == 1 and not any(counts.values())
+    with torch.no_grad():
+        k1 = fused_attn.fused_attention_block(*a, H, scale)
+    assert torch.equal(got, k1)
+    ref = fused_attn.fused_attention_block_plain(*_f32(t, ATTN), H, scale)
+    assert _rel(got, ref) < REL
+
+
+def test_the_variants_refuse_on_the_card_too(dev):
+    t = _block(dev, 3, 197, 384)
+    m, a = [t[k] for k in MLP], [t[k] for k in ATTN]
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="must divide B"):
+            mlp_variants.mlp3d(*m, cb=2)
+        with pytest.raises(ValueError, match="must divide B"):
+            attn_variants.attn_staged(*a, 12, 32 ** -0.5, cb=2)
+        with pytest.raises(ValueError, match="registers"):
+            mlp_variants.mlp_pipe(*m, splits=4, tm=32)
+        with pytest.raises(ValueError, match="bfloat16"):
+            mlp_variants.mlp3d_staged(m[0].float(), *m[1:], cb=1)
+    with pytest.raises(RuntimeError, match="forward only"):
+        mlp_variants.mlp3d(m[0], m[1].clone().requires_grad_(), *m[2:],
+                           cb=1)

@@ -21,8 +21,9 @@ from mfvit_tpu_torch import ops
 from mfvit_tpu_torch.exp.checkpoint import fusion_state_from_jax
 from mfvit_tpu_torch.models.fusion import Fusion
 from mfvit_tpu_torch.nn import layers, posembed
-from mfvit_tpu_torch.ops import (attention, fused_attn, fused_block,
-                                 fused_fusion, fused_int8, fused_mlp)
+from mfvit_tpu_torch.ops import (attention, attn_variants, fused_attn,
+                                 fused_block, fused_fusion, fused_int8,
+                                 fused_mlp, mlp_variants)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -96,6 +97,46 @@ def test_fused_attention_block_matches_jax(blk, ref):
         want = _xla_attn(blk)
     got = fused_attn.fused_attention_block(*_port_attn_args(blk), H, SCALE)
     np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+
+
+# The plain K1 in bf16 against JAX's K1 in interpret mode: the branch
+# error ||got - want|| / ||want - x||. Both keep the qkv and proj biases in
+# fp32 and round the sums once, so only the order of the fp32 sums differs
+# (readings 0 at D=64, up to about 1.2e-4 at D=128: a rare bf16 flip).
+# Rounding the biases to bf16 first, the fault the plain version once had,
+# reads 4.5e-3 and more.
+K1_BIAS_BAR = 1e-3
+
+
+@pytest.mark.parametrize("shape", [(2, 67, 4, 16), (4, 197, 4, 32)])
+def test_plain_k1_keeps_its_biases_in_fp32_in_bf16(shape):
+    b, n, h, dh = shape
+    d, scale = h * dh, dh ** -0.5
+    rng = np.random.default_rng(7)
+    f = lambda *s, std=1.0: (rng.standard_normal(s) * std).astype(np.float32)  # noqa: E731
+    p = dict(x=f(b, n, d), ln_s=1 + f(d, std=0.1), ln_b=f(d, std=0.1),
+             wqkv=f(d, 3 * d, std=0.05), bqkv=f(3 * d, std=0.3),
+             wproj=f(d, d, std=0.05), bproj=f(d, std=0.3))
+    xb = jnp.asarray(p["x"]).astype(jnp.bfloat16)
+    want = _np(jfa.fused_attention_block(
+        xb, *(jnp.asarray(p[k]) for k in
+              ("ln_s", "ln_b", "wqkv", "bqkv", "wproj", "bproj")),
+        h, scale, True).astype(jnp.float32))
+    x, ln_s, ln_b, wqkv, bqkv, wproj, bproj = _port_attn_args(p)
+    x = torch.from_numpy(_np(xb.astype(jnp.float32))).bfloat16()
+    wqkv, wproj = wqkv.bfloat16(), wproj.bfloat16()
+    # the biases are off the bf16 grid, so rounding them changes them
+    assert not torch.equal(bqkv.bfloat16().float(), bqkv)
+
+    def branch_err(bq, bp):
+        got = fused_attn.fused_attention_block_plain(
+            x, ln_s, ln_b, wqkv, bq, wproj, bp, h, scale).float().numpy()
+        return float(np.linalg.norm(got - want)
+                     / np.linalg.norm(want - _np(x.float())))
+
+    assert branch_err(bqkv, bproj) < K1_BIAS_BAR
+    rounded = branch_err(bqkv.bfloat16().float(), bproj.bfloat16().float())
+    assert rounded > K1_BIAS_BAR, rounded
 
 
 @pytest.mark.parametrize("ref", ["pallas_interpret", "xla"])
@@ -241,6 +282,17 @@ def test_cpu_tensors_never_count_a_launch(blk, fusion_case):
     attention.mhsa_packed(qkv, H, SCALE).sum().backward()
     attention.mhsa_packed_t(qkv.detach().transpose(1, 2), H, SCALE)
     attention.mhsa(*torch.zeros(3, B, H, N, DH))
+    # the schedule variants take D in 128..512 and head_dim 32/64/128
+    x = torch.randn(B, N, 128)
+    v = [torch.ones(128), torch.zeros(128)]
+    mlp_args = (x, *v, torch.randn(512, 128), torch.zeros(512),
+                torch.randn(128, 512), torch.zeros(128))
+    mlp_variants.mlp3d(*mlp_args, cb=2)
+    mlp_variants.mlp3d_staged(*mlp_args, cb=2)
+    mlp_variants.mlp_pipe(*mlp_args)
+    attn_variants.attn_staged(x, *v, torch.randn(384, 128), torch.zeros(384),
+                              torch.randn(128, 128), torch.zeros(128), 4,
+                              32 ** -0.5, cb=2)
     assert ops.launch_counts() == {
         "fused_attention_block": 0, "fused_attention_block_large": 0,
         "fused_mlp_block": 0,
@@ -248,4 +300,5 @@ def test_cpu_tensors_never_count_a_launch(blk, fusion_case):
         "fused_attention_block_bwd": 0, "fused_mlp_block_bwd": 0,
         "fused_attention_block_i8": 0, "fused_mlp_block_i8": 0,
         "mhsa_packed": 0, "mhsa": 0, "mhsa_packed_t": 0,
-        "fused_transformer_block": 0}
+        "fused_transformer_block": 0, "mlp3d": 0, "mlp3d_staged": 0,
+        "mlp_pipe": 0, "attn_staged": 0}
