@@ -2,8 +2,9 @@
 """Drive the PyTorch port's MF-ViT CA serving path (bf16, int8 W8A8 and
 the XLA-level W8A8 trees of ``quantize_vit_params``), its ViT fine-tuning
 path, its fusion training (``cli/fuse``) and the whole-block kernel K15
-(through ``tools/bench_block``) and the schedule variants T3, T4, T6 and
-T7 (through ``tools/bench_mlp3d`` and ``tools/bench_pipelined``) once on
+(through ``tools/bench_block``) and the schedule variants T1-T7 (through
+``tools/bench_mlp3d``, ``bench_pipelined``, ``bench_attn_pairs``,
+``bench_rolling`` and ``bench_bwd_staged``) once on
 an NVIDIA GPU, at 224 px and at 384 px (577 tokens: the long-sequence
 path).
 
@@ -82,25 +83,32 @@ Phases, in order; any failure raises and exits non-zero:
    one block on the tool's inputs: K15 within rel 2e-2 of its plain fp32
    version and equal to the K1 -> K2 pair bit for bit;
 14. the schedule variants T6 (``mlp3d``, flat and per image), T7
-   (``mlp3d_staged``), T3 (``mlp_pipe``) and T4 (``attn_staged``) at
-   vit_small (B=8), N=50, B=3 (a ragged last row tile) and D=512, T4 also
-   at vit_small_ori and head_dim 128, at every schedule argument their
-   tools sweep (and ``mlp_pipe`` at splits=1, its no-overlap control),
-   non-zero biases (b2 included): equal to K2 (T4: K1) bit
-   for bit and within rel 2e-2 of the plain fp32 version; one call
-   launches the variant once and no other kernel; every shape and argument
-   the ops refuse (cb not dividing B, tm and splits past the register
-   tile, D=768, head_dim 128 past 208 tokens, a weight that requires
-   grad) raises;
-15. their entry points, ``mfvit_tpu_torch.tools.bench_mlp3d`` and
-   ``bench_pipelined`` (B=512, 12 blocks, the JAX tools' chains in their
-   order): launch counts per tool equal to what its chains launch, every
-   other kernel 0; every chain's checksum equal to the baseline's; then
-   one 12-block ``mlp3d staged cb=4`` chain: ``mlp3d_staged`` 12, K1 12;
-   then one block on the tools' inputs (B=512; the MLP variants on K1's
-   output) at every argument the tools sweep: each variant equal to K2
-   (T4: K1) bit for bit and within rel 2e-2 of its plain fp32 version
-   (the kernel report's error for the variants is from this run);
+   (``mlp3d_staged``), T3 (``mlp_pipe``), T4 (``attn_staged``), T1
+   (``attn_pairs``), T2 (``attn_rolling``) and T5 (``staged_bwd``) at
+   vit_small (B=8), N=50, B=3 (a ragged last row tile; T1, whose cb is
+   even, skips it), B=6 (T1 at cb=2) and D=512, the attention variants
+   also at vit_small_ori, head_dim 128 and head_dim 128 at N=208 (their
+   limit), at every schedule argument their tools sweep (and ``mlp_pipe``
+   at splits=1, its no-overlap control), non-zero biases (b2 included),
+   T5 on a bf16 cotangent: equal to K2 (T4, T1, T2: K1; T5: K5 on all
+   seven outputs) bit for bit and within rel 2e-2 of the plain fp32
+   version (each output); one call launches the variant once and no other
+   kernel; every shape and argument the ops refuse (cb not dividing B, an
+   odd cb for T1, tm and splits past the register tile, D=768, head_dim
+   128 past 208 tokens, a weight that requires grad) raises;
+15. their entry points, ``mfvit_tpu_torch.tools.bench_mlp3d``,
+   ``bench_pipelined``, ``bench_attn_pairs`` and ``bench_rolling`` (B=512,
+   12 blocks) and ``bench_bwd_staged`` (B=256, chains of 12 backwards, dx
+   fed back as g), the JAX tools' chains in their order: launch counts
+   per tool equal to what its chains launch (and the bwd tool's agreement
+   run, one K5 and one T5), every other kernel 0; every chain's checksum
+   equal to the baseline's, and T5's agreement with K5 0 on every output;
+   then one 12-block ``mlp3d staged cb=4`` chain: ``mlp3d_staged`` 12, K1
+   12; then one block (T5: one backward, B=256) on the tools' inputs
+   (B=512; the MLP variants on K1's output) at every argument the tools
+   sweep: each variant equal to K2 (T4, T1, T2: K1; T5: K5) bit for bit
+   and within rel 2e-2 of its plain fp32 version (the kernel report's
+   error for the variants is from this run);
 16. the fusion-training slice through ``mfvit_tpu_torch.cli.fuse.main``:
    64 synthetic pairs, both vit_small branches from seeded files with
    non-zero biases, B=32, one epoch; LP then ``--semi-supervised``: finite
@@ -131,7 +139,7 @@ Phases, in order; any failure raises and exits non-zero:
    ``--semi-supervised``, kernel against plain path, at B=32 (the fuse
    CLI's default) and B=256; each schedule variant at each argument its
    tool sweeps against its base kernel (variant, base, base, variant) and
-   K1's and K2's plain versions, at B=256;
+   K1's, K2's and K5's plain versions, at B=256;
 19. the long-sequence kernels: K9 against its plain fp32 version (rel <
    2e-2) at vit_small@384 (B=2, N=577, D=384, 12 heads), vit_small_ori@512
    (N=1025, 6 heads), vit_base@384 (D=768), head_dim 128 (N=300, 3 heads)
@@ -240,7 +248,14 @@ VARIANTS = [
      "tools/bench_pipelined.py:43", "fused_mlp_block"),
     ("attn_staged", "mfvit_tpu_torch/csrc/attn_staged.cu",
      "tools/bench_pipelined.py:118", "fused_attention_block"),
+    ("attn_pairs", "mfvit_tpu_torch/csrc/attn_pairs.cu",
+     "tools/bench_attn_pairs.py:37", "fused_attention_block"),
+    ("attn_rolling", "mfvit_tpu_torch/csrc/attn_rolling.cu",
+     "tools/bench_rolling.py:35", "fused_attention_block"),
+    ("staged_bwd", "mfvit_tpu_torch/csrc/attn_bwd_staged.cuh",
+     "tools/bench_bwd_staged.py:37", "fused_attention_block_bwd"),
 ]
+ATTN_VARIANTS = ("attn_staged", "attn_pairs", "attn_rolling")
 KERNELS += [v[:3] for v in VARIANTS]
 MHSA = ("mhsa_packed", "mhsa", "mhsa_packed_t")  # K12, K13, K14
 PER_FORWARD = {"fused_attention_block": 24, "fused_mlp_block": 22,
@@ -1736,75 +1751,119 @@ def run_bench_block(dev) -> tuple:
 # The schedule variants' shapes: label, B, N, D, heads. The MLP variants
 # run at the 12-head shapes (their heads do not matter); B=3 leaves
 # mlp_pipe's last row tile ragged (591 rows), and every N=197 image ends in
-# a ragged tile of T6's and T7's per-image walks.
+# a ragged tile of T6's and T7's per-image walks. T1 takes an even cb, so
+# it skips B=3 and runs B=6 at cb=2; N=208 is the attention variants'
+# limit at head_dim 128.
 VARIANT_SHAPES = (("vit_small", 8, 197, 384, 12), ("N=50", 8, 50, 384, 12),
-                  ("B=3", 3, 197, 384, 12), ("D=512", 4, 197, 512, 8),
+                  ("B=3", 3, 197, 384, 12), ("B=6", 6, 197, 384, 12),
+                  ("D=512", 4, 197, 512, 8),
                   ("vit_small_ori", 8, 197, 384, 6),
-                  ("head_dim 128", 8, 197, 384, 3))
+                  ("head_dim 128", 8, 197, 384, 3),
+                  ("head_dim 128, N=208", 8, 208, 384, 3))
 # the schedule argument each op takes by default: the kernel report's time
 VARIANT_DEFAULT = {"mlp3d": dict(cb=4, flat=True), "mlp3d_staged": dict(cb=4),
-                   "mlp_pipe": dict(splits=2, tm=64), "attn_staged": dict(cb=2)}
+                   "mlp_pipe": dict(splits=2, tm=64), "attn_staged": dict(cb=2),
+                   "attn_pairs": dict(cb=4), "attn_rolling": dict(cb=8),
+                   "staged_bwd": dict(cb=2)}
 
 
 def variant_settings(name: str, B: int, D: int) -> list:
     """The schedule arguments of ``name`` that its tool sweeps and the
     kernel takes at batch B and width D (cb=1 where no swept cb divides
-    B); for mlp_pipe also splits=1, the same kernel with no sub-tile to
+    B, cb=2 for T1, none for T1 at an odd B); for mlp_pipe also splits=1, the same kernel with no sub-tile to
     overlap, the control its pipelining is timed against."""
     from mfvit_tpu_torch.ops import mlp_variants as mv
+    from mfvit_tpu_torch.tools import bench_attn_pairs as bap
+    from mfvit_tpu_torch.tools import bench_bwd_staged as bbs
     from mfvit_tpu_torch.tools import bench_mlp3d as bm
     from mfvit_tpu_torch.tools import bench_pipelined as bp
+    from mfvit_tpu_torch.tools import bench_rolling as br
     if name == "mlp_pipe":
         return [dict(splits=s, tm=tm) for s, tm in (*bp.PIPE_SWEEP, (1, 64))
                 if tm * D <= mv.REG_TILE]
-    cbs = [cb for cb in (bp.CBS if name == "attn_staged" else bm.CBS)
-           if B % cb == 0] or [1]
+    if name == "attn_pairs" and B % 2:
+        return []  # its cb is even
+    sweep = {"attn_staged": bp.CBS, "attn_pairs": bap.CBS,
+             "attn_rolling": br.CBS, "staged_bwd": bbs.CBS}.get(name, bm.CBS)
+    cbs = ([cb for cb in sweep if B % cb == 0]
+           or [2 if name == "attn_pairs" else 1])
     if name == "mlp3d":
         return [dict(cb=cb, flat=f) for f in (True, False) for cb in cbs]
     return [dict(cb=cb) for cb in cbs]
 
 
 def variant_call(name: str, t, heads: int, kw: dict):
-    """The variant ``name`` on one block's inputs at schedule ``kw``."""
+    """The variant ``name`` on one block's inputs (T5: and the cotangent
+    t["g"]) at schedule ``kw``."""
     from mfvit_tpu_torch.ops import attn_variants as av
     from mfvit_tpu_torch.ops import mlp_variants as mv
-    if name == "attn_staged":
-        a = [t[k] for k in ATTN]
-        scale = (t["x"].shape[-1] // heads) ** -0.5
-        return lambda: av.attn_staged(*a, heads, scale, **kw)
+    a = [t[k] for k in ATTN]
+    scale = (t["x"].shape[-1] // heads) ** -0.5
+    if name == "staged_bwd":
+        return lambda: av.staged_bwd(t["g"], *a[:6], heads, scale, **kw)
+    if name in ATTN_VARIANTS:
+        op = getattr(av, name)
+        return lambda: op(*a, heads, scale, **kw)
     op, m = getattr(mv, name), [t[k] for k in MLP]
     return lambda: op(*m, **kw)
 
 
+def as_tuple(v) -> tuple:
+    """A kernel's outputs as a tuple (T5 and K5 return seven)."""
+    return v if isinstance(v, tuple) else (v,)
+
+
+def variant_inputs(seed: int, B: int, N: int, D: int, dev) -> dict:
+    """One block's inputs with a bf16 cotangent ``g`` for T5 and K5."""
+    gen = torch.Generator().manual_seed(seed)
+    t = block_inputs(gen, B, D, dev, N=N)
+    t["g"] = torch.randn(B, N, D, generator=gen).to(dev).bfloat16()
+    return t
+
+
+def variant_bases(t, heads: int) -> dict:
+    """The variants' base kernels on ``t``: name -> (kernel, plain in the
+    inputs' dtype, plain in fp32), K1 and K2 from ``base_calls``, K5 from
+    ``bwd_calls``."""
+    calls = base_calls(t, heads)
+    calls["fused_attention_block_bwd"] = bwd_calls(t, t["g"], heads)[
+        "fused_attention_block_bwd"]
+    return calls
+
+
 def check_variant_kernels(dev) -> dict:
-    """T6, T7, T3 and T4 at VARIANT_SHAPES, bf16 inputs from a seed with
-    non-zero biases (b2 included), at every schedule argument their tools
-    sweep: equal to K2 (T4: K1) bit for bit, within REL_BAR of the plain
-    fp32 version; one call launches the variant once and no other kernel.
-    Then every shape and argument the ops refuse must raise."""
+    """T6, T7, T3, T4, T1, T2 and T5 at VARIANT_SHAPES, bf16 inputs (and
+    T5's cotangent) from a seed with non-zero biases (b2 included), at
+    every schedule argument their tools sweep: equal to K2 (T4, T1, T2: K1;
+    T5: K5 on all seven outputs) bit for bit, within REL_BAR of the plain
+    fp32 version (each output); one call launches the variant once and no
+    other kernel. Then every shape and argument the ops refuse must
+    raise."""
     from mfvit_tpu_torch import ops
     from mfvit_tpu_torch.ops import attn_variants as av
     from mfvit_tpu_torch.ops import mlp_variants as mv
     with torch.no_grad():
         for label, B, N, D, heads in VARIANT_SHAPES:
-            t = block_inputs(torch.Generator().manual_seed(17), B, D, dev,
-                             N=N)
-            base = {k: (kern(), plain32())
-                    for k, (kern, _, plain32) in base_calls(t, heads).items()}
+            t = variant_inputs(17, B, N, D, dev)
+            base = {k: (as_tuple(kern()), as_tuple(plain32()))
+                    for k, (kern, _, plain32) in variant_bases(t, heads).items()}
             for name, _, _, base_name in VARIANTS:
                 if base_name == "fused_mlp_block" and heads != 12:
                     continue
                 same, ref = base[base_name]
                 for kw in variant_settings(name, B, D):
                     ops.reset_launch_counts()
-                    got = variant_call(name, t, heads, kw)()
+                    got = as_tuple(variant_call(name, t, heads, kw)())
                     torch.cuda.synchronize()
                     counts = {k: v for k, v in ops.launch_counts().items()
                               if v}
-                    r, n_diff = rel(got, ref), (got != same).sum().item()
+                    r = max(rel(a, b) for a, b in zip(got, ref))
+                    n_diff = sum((a != b).sum().item()
+                                 for a, b in zip(got, same))
+                    numel = sum(a.numel() for a in got)
                     print(f"{name} {kw} at {label} (B={B}, N={N}, D={D}, "
                           f"{heads} heads): rel vs plain fp32 {r:.3e}; "
-                          f"{n_diff} of {got.numel()} outputs differ from "
+                          f"{n_diff} of {numel} outputs differ from "
                           f"{base_name}; launches {counts}")
                     if n_diff or counts != {name: 1}:
                         raise AssertionError(
@@ -1819,7 +1878,20 @@ def check_variant_kernels(dev) -> dict:
         d512 = block_inputs(torch.Generator().manual_seed(17), 2, 512, dev)
         long = block_inputs(torch.Generator().manual_seed(17), 2, 384, dev,
                             N=209)
+        la = [long[k] for k in ATTN]
         refusals = {
+            "attn_pairs cb=1 (odd)": lambda: av.attn_pairs(
+                *a, 12, 32 ** -0.5, cb=1),
+            "attn_rolling cb=3 at B=8": lambda: av.attn_rolling(
+                *a, 12, 32 ** -0.5, cb=3),
+            "staged_bwd cb=3 at B=8": lambda: av.staged_bwd(
+                a[0], *a[:6], 12, 32 ** -0.5, cb=3),
+            "attn_pairs at head_dim 128, N=209": lambda: av.attn_pairs(
+                *la, 3, 128 ** -0.5, cb=2),
+            "attn_rolling at head_dim 128, N=209": lambda: av.attn_rolling(
+                *la, 3, 128 ** -0.5, cb=2),
+            "staged_bwd at head_dim 128, N=209": lambda: av.staged_bwd(
+                la[0], *la[:6], 3, 128 ** -0.5, cb=2),
             "mlp3d cb=3 at B=8": lambda: mv.mlp3d(*m, cb=3),
             "mlp3d_staged cb=16 at B=8": lambda: mv.mlp3d_staged(*m, cb=16),
             "attn_staged cb=3 at B=8": lambda: av.attn_staged(
@@ -1849,8 +1921,9 @@ def check_variant_kernels(dev) -> dict:
 
 def chain_kernels(name: str) -> tuple:
     """The kernels one block of the tool chain ``name`` launches."""
-    attn = ("attn_staged" if name.startswith("attn_staged")
-            else "fused_attention_block")
+    attn = {"attn_staged": "attn_staged", "pairs": "attn_pairs",
+            "rolling": "attn_rolling"}.get(name.split()[0],
+                                           "fused_attention_block")
     if name.startswith("mlp3d"):
         mlp = "mlp3d_staged" if "staged" in name else "mlp3d"
     else:
@@ -1859,30 +1932,51 @@ def chain_kernels(name: str) -> tuple:
 
 
 def run_variant_tools(dev, batch: int = 512, depth: int = 12) -> tuple:
-    """The variants' main path: ``mfvit_tpu_torch.tools.bench_mlp3d.run``
-    and ``bench_pipelined.run`` at B=512, 12 blocks, each chain a warm-up
-    and ``bench_block.ITERS`` timed runs. Launch counts per tool equal to
-    what its chains launch (every other kernel 0); every chain's checksum
-    equal to the baseline's (each variant equals its base kernel bit for
-    bit). Then one 12-block ``mlp3d staged cb=4`` chain: ``mlp3d_staged``
-    12 and K1 12. Then ``hold_variants_at_tool_size``. Returns (the
-    variants' launches in the tools' runs, {tool: {chain: (ms, checksum)}},
-    {variant: largest abs error against plain fp32 at the tools' size})."""
+    """The variants' main path: ``mfvit_tpu_torch.tools.bench_mlp3d.run``,
+    ``bench_pipelined.run``, ``bench_attn_pairs.run`` and
+    ``bench_rolling.run`` at B=512, 12 blocks, and ``bench_bwd_staged.run``
+    at its B=256, 12 backwards a chain, each chain a warm-up and
+    ``bench_block.ITERS`` timed runs. Launch counts per tool equal to what
+    its chains launch (``bench_bwd_staged``: and its agreement run, one K5
+    and one T5), every other kernel 0; every chain's checksum equal to the
+    baseline's (each variant equals its base kernel bit for bit), and
+    ``bench_bwd_staged``'s agreement 0 on every output. Then one 12-block
+    ``mlp3d staged cb=4`` chain: ``mlp3d_staged`` 12 and K1 12. Then
+    ``hold_variants_at_tool_size``. Returns (the variants' launches in the
+    tools' runs, {tool: {chain: (ms, checksum)}}, {variant: largest abs
+    error against plain fp32 at the tools' size})."""
     from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.tools import bench_attn_pairs as bap
     from mfvit_tpu_torch.tools import bench_block as bb
+    from mfvit_tpu_torch.tools import bench_bwd_staged as bbs
     from mfvit_tpu_torch.tools import bench_mlp3d as bm
     from mfvit_tpu_torch.tools import bench_pipelined as bp
+    from mfvit_tpu_torch.tools import bench_rolling as br
     launches, lines = {}, {}
-    for tool in (bm, bp):
+    for tool in (bm, bp, bap, br, bbs):
+        tag = tool.__name__.rsplit(".", 1)[-1]
         ops.reset_launch_counts()
-        res = tool.run(dev, batch, depth)
+        if tool is bbs:
+            res, agree = tool.run(dev, bbs.BATCH, depth)
+        else:
+            res = tool.run(dev, batch, depth)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         want = {k: 0 for k in counts}
         for name, cb, _ in tool.chains():
-            for k in chain_kernels(name):
-                want[k] += depth * (1 + bb.ITERS) * (batch % (cb or 1) == 0)
-        tag = tool.__name__.rsplit(".", 1)[-1]
+            if tool is bbs:
+                kernels = ("staged_bwd",) if cb else (
+                    "fused_attention_block_bwd",)
+            else:
+                kernels = chain_kernels(name)
+            tb = bbs.BATCH if tool is bbs else batch
+            for k in kernels:
+                want[k] += depth * (1 + bb.ITERS) * (tb % (cb or 1) == 0)
+        if tool is bbs:
+            want["fused_attention_block_bwd"] += 1
+            want["staged_bwd"] += 1
+            if any(v != 0.0 for v in agree.values()):
+                raise AssertionError(f"{tag}: T5 off K5 {agree}")
         print(f"{tag} launch counts {counts}")
         if counts != want:
             raise AssertionError(f"{tag} launch counts {counts} != {want}")
@@ -1907,48 +2001,61 @@ def run_variant_tools(dev, batch: int = 512, depth: int = 12) -> tuple:
 def hold_variants_at_tool_size(dev, batch: int) -> dict:
     """One block of each variant on the tools' own inputs
     (``bench_block.make_inputs(batch)``; the MLP variants take K1's output,
-    as in the first block of a chain) at every schedule argument its tool
-    sweeps (``variant_settings``): equal to K2 (T4: K1) on the same input
-    bit for bit, and within REL_BAR of its plain fp32 version (the op with
-    ``plain=True`` on the upcast inputs). The chains' checksums alone
-    cannot tell a handful of wrong outputs among 38.7M. Returns the
-    largest abs error against plain fp32 of each variant."""
+    as in the first block of a chain; T5 one backward on
+    ``bench_bwd_staged``'s B=256 inputs and g0) at every schedule argument
+    its tool sweeps (``variant_settings``): equal to K2 (T4, T1, T2: K1;
+    T5: K5, every output) on the same input bit for bit, and within
+    REL_BAR of its plain fp32 version (the op with ``plain=True`` on the
+    upcast inputs; each output). The chains' checksums alone cannot tell a
+    handful of wrong outputs among 38.7M. Returns the largest abs error
+    against plain fp32 of each variant."""
     from mfvit_tpu_torch.ops import attn_variants as av
     from mfvit_tpu_torch.ops import fused_attn as fa
     from mfvit_tpu_torch.ops import fused_mlp as fm
     from mfvit_tpu_torch.ops import mlp_variants as mv
     from mfvit_tpu_torch.tools import bench_block as bb
+    from mfvit_tpu_torch.tools import bench_bwd_staged as bbs
     x, p = bb.make_inputs(batch, dev)
     a, w = [p[k] for k in bb.ATTN], [p[k] for k in bb.MLP]
+    g0, pb = bbs.make_bwd_inputs(bbs.BATCH, dev)
+    ab = [pb["x"]] + [pb[k] for k in bb.ATTN[:-1]]
     errs = {}
     with torch.inference_mode():
         y = fa.fused_attention_block(x, *a, bb.HEADS, bb.SCALE)
-        base = {"fused_attention_block": y,
-                "fused_mlp_block": fm.fused_mlp_block(y, *w)}
+        base = {"fused_attention_block": (y,),
+                "fused_mlp_block": (fm.fused_mlp_block(y, *w),),
+                "fused_attention_block_bwd": fa.fused_attention_block_bwd(
+                    g0, *ab, bb.HEADS, bb.SCALE)}
         for name, _, _, base_name in VARIANTS:
-            if name == "attn_staged":
+            B = batch
+            if name == "staged_bwd":
+                B, inp, args = bbs.BATCH, g0, ab
+                op = functools.partial(av.staged_bwd, heads=bb.HEADS,
+                                       scale=bb.SCALE)
+            elif name in ATTN_VARIANTS:
                 inp, args = x, a
-                op = functools.partial(av.attn_staged, heads=bb.HEADS,
+                op = functools.partial(getattr(av, name), heads=bb.HEADS,
                                        scale=bb.SCALE)
             else:
                 inp, args, op = y, w, getattr(mv, name)
             args32 = [v.float() for v in args]
-            for kw in variant_settings(name, batch, bb.D):
-                got = op(inp, *args, **kw)
-                ref = op(inp.float(), *args32, **kw, plain=True)
-                r = rel(got, ref)
-                same = torch.equal(got, base[base_name])
-                n_diff = (got != base[base_name]).sum().item()
-                errs[name] = max(errs.get(name, 0.0),
-                                 (got.float() - ref).abs().max().item())
+            for kw in variant_settings(name, B, bb.D):
+                got = as_tuple(op(inp, *args, **kw))
+                ref = as_tuple(op(inp.float(), *args32, **kw, plain=True))
+                r = max(rel(u, v) for u, v in zip(got, ref))
+                n_diff = sum((u != v).sum().item()
+                             for u, v in zip(got, base[base_name]))
+                errs[name] = max(errs.get(name, 0.0), max(
+                    (u.float() - v).abs().max().item()
+                    for u, v in zip(got, ref)))
                 del ref
-                print(f"the tools' inputs, one block (B={batch}): {name} "
+                print(f"the tools' inputs, one block (B={B}): {name} "
                       f"{kw}: rel vs plain fp32 {r:.3e} (bar {REL_BAR}); "
-                      f"{n_diff} of {got.numel()} outputs differ from "
-                      f"{base_name}")
-                if not (same and math.isfinite(r) and r < REL_BAR):
+                      f"{n_diff} of {sum(u.numel() for u in got)} outputs "
+                      f"differ from {base_name}")
+                if n_diff or not (math.isfinite(r) and r < REL_BAR):
                     raise AssertionError(
-                        f"{name} {kw} on the tools' inputs at B={batch}: rel "
+                        f"{name} {kw} on the tools' inputs at B={B}: rel "
                         f"{r}, {n_diff} outputs differ from {base_name}")
     return errs
 
@@ -1957,17 +2064,18 @@ def time_variants(dev) -> dict:
     """Each variant at each schedule argument its tool sweeps against its
     base kernel at vit_small B=256, in one call (variant, base, base,
     variant), first held equal to the base kernel on the timed inputs; then
-    the plain versions (K2's, K1's) twice each. Returns {(name, setting):
-    (ms, base ms)} and {base name: plain ms}."""
-    t = block_inputs(torch.Generator().manual_seed(18), 256, 384, dev)
-    calls = base_calls(t, 12)
+    the plain versions (K2's, K1's, K5's) twice each. Returns {(name,
+    setting): (ms, base ms)} and {base name: plain ms}."""
+    t = variant_inputs(18, 256, 197, 384, dev)
+    calls = variant_bases(t, 12)
     out = {}
     with torch.inference_mode():
         for name, _, _, base_name in VARIANTS:
             kern = calls[base_name][0]
             for kw in variant_settings(name, 256, 384):
                 var = variant_call(name, t, 12, kw)
-                if not torch.equal(var(), kern()):
+                if not all(torch.equal(u, v) for u, v in zip(
+                        as_tuple(var()), as_tuple(kern()))):
                     raise AssertionError(f"{name} {kw} differs from "
                                          f"{base_name} at B=256")
                 v1, b1, b2, v2 = (cuda_ms(f, 10) for f in (var, kern, kern,
@@ -2344,11 +2452,12 @@ def main() -> int:
     bench_counts, bench = run_bench_block(dev)
     counts["fused_transformer_block"] = bench_counts["fused_transformer_block"]
 
-    phase("schedule variants T6/T7/T3/T4 against K2/K1 and their plain "
-          "versions (B=8; N=50; B=3; D=512)")
+    phase("schedule variants T6/T7/T3/T4/T1/T2/T5 against K2/K1/K5 and "
+          "their plain versions (B=8; N=50; B=3; B=6; D=512)")
     check_variant_kernels(dev)
-    phase("the variants' entry points: mfvit_tpu_torch.tools.bench_mlp3d and "
-          "bench_pipelined (B=512, 12 blocks)")
+    phase("the variants' entry points: mfvit_tpu_torch.tools.bench_mlp3d, "
+          "bench_pipelined, bench_attn_pairs, bench_rolling (B=512, 12 "
+          "blocks) and bench_bwd_staged (B=256, 12 backwards)")
     variant_counts, variant_lines, variant_errs = run_variant_tools(dev)
     counts.update(variant_counts)
     errs.update(variant_errs)

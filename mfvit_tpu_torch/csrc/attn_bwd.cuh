@@ -55,12 +55,12 @@ __device__ __forceinline__ uint32_t col_pair(const bf16* t, int ld, int r, int c
 }
 
 // Copy rows [0, NP) of one head's dh columns (rows >= N zero) into a
-// row-major smem tile.
+// row-major smem tile, on `threads` threads (tid the thread's index).
 template <int DH>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, size_t pitch, int N, int NP,
-                                          int ld) {
+                                          int ld, int tid, int threads) {
   constexpr int VPR = DH / 8;
-  for (int idx = threadIdx.x; idx < NP * VPR; idx += WARPS * 32) {
+  for (int idx = tid; idx < NP * VPR; idx += threads) {
     const int n = idx / VPR, d = (idx % VPR) * 8;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (n < N) v = *reinterpret_cast<const uint4*>(src + (size_t)n * pitch + d);
@@ -81,241 +81,301 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[DH / 16][4], const bf16* sr
     }
 }
 
+// The per-warp stages of the core for one (image, head), shared with T5's
+// staged core (attn_bwd_staged.cuh). A Head points at the head's columns of
+// the image's first token: q in qkv (k at +D, v at +2D, pitch 3D), dO, dq
+// in dqkv (dk at +D, dv at +2D) and o; its row statistics live in shared
+// memory.
+struct Head {
+  const bf16* q;
+  const bf16* dout;
+  bf16* dq;
+  float* o;
+  float *rmax, *rsum, *rdel;
+  int N, D;
+  float scale;
+};
+
+// Phase A, the recompute: the scores S = q k^T of query rows q0 .. q0+15
+// against the K rows in T0 (tile j holding keys 8j..8j+7, p[j][0..1] row
+// q0+g, [2..3] row q0+g+8).
+template <int DH, int NKT>
+__device__ __forceinline__ void bwd_scores(const Head& hd, int q0, const bf16* T0,
+                                           float (&p)[NKT][4]) {
+  constexpr int LD = Smem<DH, NKT>::LD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  uint32_t qa[DH / 16][4];
+  load_a<DH>(qa, hd.q, (size_t)3 * hd.D, q0, hd.N, g, t4);
+#pragma unroll
+  for (int j = 0; j < NKT; ++j) {
+    p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks) {
+      const bf16* kp = T0 + (8 * j + g) * LD + ks * 16 + 2 * t4;
+      mma_bf16_16816(p[j], qa[ks], ld32(kp), ld32(kp + 8));
+    }
+  }
+}
+
+// Phase A, the recompute: P = softmax(scale S) in fp32, in place, over
+// the valid keys; the row maxima m and sums l of the thread's two rows.
+template <int NKT>
+__device__ __forceinline__ void bwd_softmax(float (&p)[NKT][4], int N, float scale, float& m0,
+                                            float& m1, float& l0, float& l1) {
+  const int t4 = threadIdx.x & 3;
+  m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NKT; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      p[j][c] *= scale;
+      p[j][2 + c] *= scale;
+      if (8 * j + 2 * t4 + c < N) {
+        m0 = fmaxf(m0, p[j][c]);
+        m1 = fmaxf(m1, p[j][2 + c]);
+      }
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NKT; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const bool valid = 8 * j + 2 * t4 + c < N;
+      p[j][c] = valid ? expf(p[j][c] - m0) : 0.f;
+      p[j][2 + c] = valid ? expf(p[j][2 + c] - m1) : 0.f;
+      l0 += p[j][c];
+      l1 += p[j][2 + c];
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+#pragma unroll
+  for (int j = 0; j < NKT; ++j) {
+    p[j][0] /= l0;
+    p[j][1] /= l0;
+    p[j][2] /= l1;
+    p[j][3] /= l1;
+  }
+}
+
+// Phase A, the gradients of query rows q0 .. q0+15 from their P (K rows
+// in T0, V rows in T1): o = bf16(P) V written in fp32, D_i from dP = dO
+// V^T, then dP again key tile by key tile, dS and dq = dS K; the rows'
+// max, sum and D_i to shared memory for phase B.
+template <int DH, int NKT>
+__device__ __forceinline__ void bwd_query_grads(const Head& hd, int q0, const bf16* T0,
+                                                const bf16* T1, const float (&p)[NKT][4],
+                                                float m0, float m1, float l0, float l1) {
+  constexpr int LD = Smem<DH, NKT>::LD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int N = hd.N, D = hd.D;
+  const size_t P3 = (size_t)3 * D;
+  const int ra = q0 + g, rb = q0 + g + 8;  // this thread's two query rows
+  {  // o = bf16(P) V, written in fp32
+    float oacc[DH / 8][4];
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) oacc[c][0] = oacc[c][1] = oacc[c][2] = oacc[c][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NKT / 2; ++kk) {
+      const uint32_t pa[4] = {pack_bf16x2(p[2 * kk][0], p[2 * kk][1]),
+                              pack_bf16x2(p[2 * kk][2], p[2 * kk][3]),
+                              pack_bf16x2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                              pack_bf16x2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c)
+        mma_bf16_16816(oacc[c], pa, col_pair(T1, LD, 16 * kk + 2 * t4, 8 * c + g),
+                       col_pair(T1, LD, 16 * kk + 2 * t4 + 8, 8 * c + g));
+    }
+    float* ob = hd.o + 2 * t4;
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+      if (ra < N)
+        *reinterpret_cast<float2*>(ob + (size_t)ra * D + 8 * c) = make_float2(oacc[c][0], oacc[c][1]);
+      if (rb < N)
+        *reinterpret_cast<float2*>(ob + (size_t)rb * D + 8 * c) = make_float2(oacc[c][2], oacc[c][3]);
+    }
+  }
+
+  uint32_t da[DH / 16][4];
+  load_a<DH>(da, hd.dout, D, q0, N, g, t4);
+  // dP tile j = dO V^T over keys 8j..8j+7
+  auto dp_tile = [&](int j, float (&t)[4]) {
+    t[0] = t[1] = t[2] = t[3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks) {
+      const bf16* vp = T1 + (8 * j + g) * LD + ks * 16 + 2 * t4;
+      mma_bf16_16816(t, da[ks], ld32(vp), ld32(vp + 8));
+    }
+  };
+  float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NKT; ++j) {
+    float t[4];
+    dp_tile(j, t);
+    d0 += t[0] * p[j][0] + t[1] * p[j][1];
+    d1 += t[2] * p[j][2] + t[3] * p[j][3];
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    d0 += __shfl_xor_sync(0xffffffffu, d0, off);
+    d1 += __shfl_xor_sync(0xffffffffu, d1, off);
+  }
+
+  float qacc[DH / 8][4];
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c) qacc[c][0] = qacc[c][1] = qacc[c][2] = qacc[c][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NKT / 2; ++kk) {
+    float t0[4], t1[4];
+    dp_tile(2 * kk, t0);
+    dp_tile(2 * kk + 1, t1);
+    const float* p0 = p[2 * kk];
+    const float* p1 = p[2 * kk + 1];
+    const uint32_t sa[4] = {
+        pack_bf16x2(p0[0] * (t0[0] - d0), p0[1] * (t0[1] - d0)),
+        pack_bf16x2(p0[2] * (t0[2] - d1), p0[3] * (t0[3] - d1)),
+        pack_bf16x2(p1[0] * (t1[0] - d0), p1[1] * (t1[1] - d0)),
+        pack_bf16x2(p1[2] * (t1[2] - d1), p1[3] * (t1[3] - d1))};
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c)
+      mma_bf16_16816(qacc[c], sa, col_pair(T0, LD, 16 * kk + 2 * t4, 8 * c + g),
+                     col_pair(T0, LD, 16 * kk + 2 * t4 + 8, 8 * c + g));
+  }
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c) {
+    if (ra < N)
+      *reinterpret_cast<uint32_t*>(hd.dq + (size_t)ra * P3 + 8 * c + 2 * t4) =
+          pack_bf16x2(qacc[c][0] * hd.scale, qacc[c][1] * hd.scale);
+    if (rb < N)
+      *reinterpret_cast<uint32_t*>(hd.dq + (size_t)rb * P3 + 8 * c + 2 * t4) =
+          pack_bf16x2(qacc[c][2] * hd.scale, qacc[c][3] * hd.scale);
+  }
+  if (t4 == 0) {
+    hd.rmax[ra] = m0, hd.rsum[ra] = l0, hd.rdel[ra] = d0;
+    hd.rmax[rb] = m1, hd.rsum[rb] = l1, hd.rdel[rb] = d1;
+  }
+}
+
+// Phase B, the gradients of key rows k0 .. k0+15 (Q rows in T0, dO rows
+// in T1): over all queries, S^T = K Q^T, P^T from the stored row
+// statistics, dP^T = V dO^T, dS^T, dv += P^T dO and dk += dS^T Q.
+template <int DH, int NKT>
+__device__ __forceinline__ void bwd_key_grads(const Head& hd, int k0, const bf16* T0,
+                                              const bf16* T1) {
+  constexpr int NP = Smem<DH, NKT>::NP, LD = Smem<DH, NKT>::LD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int N = hd.N, D = hd.D;
+  const size_t P3 = (size_t)3 * D;
+  const float scale = hd.scale;
+  uint32_t ka[DH / 16][4], va[DH / 16][4];
+  load_a<DH>(ka, hd.q + D, P3, k0, N, g, t4);
+  load_a<DH>(va, hd.q + 2 * D, P3, k0, N, g, t4);
+  float vacc[DH / 8][4], kacc[DH / 8][4];
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) vacc[c][r] = kacc[c][r] = 0.f;
+  const bool va0 = k0 + g < N, va1 = k0 + g + 8 < N;  // this thread's key rows
+  for (int qc = 0; qc < NP / 16; ++qc) {
+    float pt[2][4], st[2][4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < DH / 16; ++ks) {
+        const int off = (16 * qc + 8 * t + g) * LD + ks * 16 + 2 * t4;
+        mma_bf16_16816(s, ka[ks], ld32(T0 + off), ld32(T0 + off + 8));
+        mma_bf16_16816(dp, va[ks], ld32(T1 + off), ld32(T1 + off + 8));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = 16 * qc + 8 * t + 2 * t4 + (e & 1);
+        const bool valid = q < N && ((e >> 1) ? va1 : va0);
+        const float pv = valid ? expf(s[e] * scale - hd.rmax[q]) / hd.rsum[q] : 0.f;
+        pt[t][e] = pv;
+        st[t][e] = valid ? pv * (dp[e] - hd.rdel[q]) : 0.f;
+      }
+    }
+    const uint32_t pa[4] = {pack_bf16x2(pt[0][0], pt[0][1]), pack_bf16x2(pt[0][2], pt[0][3]),
+                            pack_bf16x2(pt[1][0], pt[1][1]), pack_bf16x2(pt[1][2], pt[1][3])};
+    const uint32_t sa[4] = {pack_bf16x2(st[0][0], st[0][1]), pack_bf16x2(st[0][2], st[0][3]),
+                            pack_bf16x2(st[1][0], st[1][1]), pack_bf16x2(st[1][2], st[1][3])};
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+      mma_bf16_16816(vacc[c], pa, col_pair(T1, LD, 16 * qc + 2 * t4, 8 * c + g),
+                     col_pair(T1, LD, 16 * qc + 2 * t4 + 8, 8 * c + g));
+      mma_bf16_16816(kacc[c], sa, col_pair(T0, LD, 16 * qc + 2 * t4, 8 * c + g),
+                     col_pair(T0, LD, 16 * qc + 2 * t4 + 8, 8 * c + g));
+    }
+  }
+  bf16* dkb = hd.dq + D;
+  bf16* dvb = hd.dq + 2 * D;
+  const int ra = k0 + g, rb = k0 + g + 8;
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c) {
+    const int col = 8 * c + 2 * t4;
+    if (va0) {
+      *reinterpret_cast<uint32_t*>(dkb + (size_t)ra * P3 + col) =
+          pack_bf16x2(kacc[c][0] * scale, kacc[c][1] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + (size_t)ra * P3 + col) = pack_bf16x2(vacc[c][0], vacc[c][1]);
+    }
+    if (va1) {
+      *reinterpret_cast<uint32_t*>(dkb + (size_t)rb * P3 + col) =
+          pack_bf16x2(kacc[c][2] * scale, kacc[c][3] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + (size_t)rb * P3 + col) = pack_bf16x2(vacc[c][2], vacc[c][3]);
+    }
+  }
+}
+
+// The head (image b, head h) and its statistics in the smem at `sm`.
+template <int DH, int NKT>
+__device__ __forceinline__ Head head_of(const bf16* qkv, const bf16* dout, float* o, bf16* dqkv,
+                                        int b, int h, int N, int heads, float scale,
+                                        unsigned char* sm) {
+  const int D = heads * DH;
+  float* rmax = reinterpret_cast<float*>(sm + Smem<DH, NKT>::TILES);
+  const int NP = Smem<DH, NKT>::NP;
+  return Head{qkv + (size_t)b * N * 3 * D + h * DH, dout + (size_t)b * N * D + h * DH,
+              dqkv + (size_t)b * N * 3 * D + h * DH, o + (size_t)b * N * D + h * DH,
+              rmax, rmax + NP, rmax + 2 * NP, N, D, scale};
+}
+
 template <int DH, int NKT>
 __global__ void __launch_bounds__(WARPS * 32)
     attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                     float* __restrict__ o, bf16* __restrict__ dqkv, int N, int heads,
                     float scale) {
   using S = Smem<DH, NKT>;
-  constexpr int NP = S::NP, LD = S::LD;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int D = heads * DH;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* T0 = reinterpret_cast<bf16*>(smem);  // phase A: K rows; phase B: Q rows
-  bf16* T1 = T0 + NP * LD;                   // phase A: V rows; phase B: dO rows
-  float* rmax = reinterpret_cast<float*>(smem + S::TILES);
-  float* rsum = rmax + NP;
-  float* rdel = rsum + NP;
-
-  const size_t P3 = (size_t)3 * D;
-  const bf16* qb = qkv + (size_t)b * N * P3 + h * DH;  // q of this head; k at +D, v at +2D
-  const bf16* db = dout + (size_t)b * N * D + h * DH;
-  bf16* dqb = dqkv + (size_t)b * N * P3 + h * DH;
-  load_rows<DH>(T0, qb + D, P3, N, NP, LD);
-  load_rows<DH>(T1, qb + 2 * D, P3, N, NP, LD);
+  bf16* T1 = T0 + S::NP * S::LD;             // phase A: V rows; phase B: dO rows
+  const Head hd = head_of<DH, NKT>(qkv, dout, o, dqkv, blockIdx.y, blockIdx.x, N, heads, scale,
+                                   smem);
+  const size_t P3 = (size_t)3 * hd.D;
+  const int warp = threadIdx.x >> 5, nt = WARPS * 32;
+  load_rows<DH>(T0, hd.q + hd.D, P3, N, S::NP, S::LD, threadIdx.x, nt);
+  load_rows<DH>(T1, hd.q + 2 * hd.D, P3, N, S::NP, S::LD, threadIdx.x, nt);
   __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-
   // ---------------- phase A: 16 query rows per warp
   for (int q0 = warp * 16; q0 < N; q0 += WARPS * 16) {
-    float p[NKT][4];
-    {
-      uint32_t qa[DH / 16][4];
-      load_a<DH>(qa, qb, P3, q0, N, g, t4);
-#pragma unroll
-      for (int j = 0; j < NKT; ++j) {
-        p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < DH / 16; ++ks) {
-          const bf16* kp = T0 + (8 * j + g) * LD + ks * 16 + 2 * t4;
-          mma_bf16_16816(p[j], qa[ks], ld32(kp), ld32(kp + 8));
-        }
-      }
-    }
-    float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        p[j][c] *= scale;
-        p[j][2 + c] *= scale;
-        if (8 * j + 2 * t4 + c < N) {
-          m0 = fmaxf(m0, p[j][c]);
-          m1 = fmaxf(m1, p[j][2 + c]);
-        }
-      }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-    }
-    float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const bool valid = 8 * j + 2 * t4 + c < N;
-        p[j][c] = valid ? expf(p[j][c] - m0) : 0.f;
-        p[j][2 + c] = valid ? expf(p[j][2 + c] - m1) : 0.f;
-        l0 += p[j][c];
-        l1 += p[j][2 + c];
-      }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
-#pragma unroll
-    for (int j = 0; j < NKT; ++j) {
-      p[j][0] /= l0;
-      p[j][1] /= l0;
-      p[j][2] /= l1;
-      p[j][3] /= l1;
-    }
-
-    const int ra = q0 + g, rb = q0 + g + 8;  // this thread's two query rows
-    {  // o = bf16(P) V, written in fp32
-      float oacc[DH / 8][4];
-#pragma unroll
-      for (int c = 0; c < DH / 8; ++c) oacc[c][0] = oacc[c][1] = oacc[c][2] = oacc[c][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < NKT / 2; ++kk) {
-        const uint32_t pa[4] = {pack_bf16x2(p[2 * kk][0], p[2 * kk][1]),
-                                pack_bf16x2(p[2 * kk][2], p[2 * kk][3]),
-                                pack_bf16x2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                                pack_bf16x2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-        for (int c = 0; c < DH / 8; ++c)
-          mma_bf16_16816(oacc[c], pa, col_pair(T1, LD, 16 * kk + 2 * t4, 8 * c + g),
-                         col_pair(T1, LD, 16 * kk + 2 * t4 + 8, 8 * c + g));
-      }
-      float* ob = o + (size_t)b * N * D + h * DH + 2 * t4;
-#pragma unroll
-      for (int c = 0; c < DH / 8; ++c) {
-        if (ra < N)
-          *reinterpret_cast<float2*>(ob + (size_t)ra * D + 8 * c) = make_float2(oacc[c][0], oacc[c][1]);
-        if (rb < N)
-          *reinterpret_cast<float2*>(ob + (size_t)rb * D + 8 * c) = make_float2(oacc[c][2], oacc[c][3]);
-      }
-    }
-
-    uint32_t da[DH / 16][4];
-    load_a<DH>(da, db, D, q0, N, g, t4);
-    // dP tile j = dO V^T over keys 8j..8j+7
-    auto dp_tile = [&](int j, float (&t)[4]) {
-      t[0] = t[1] = t[2] = t[3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < DH / 16; ++ks) {
-        const bf16* vp = T1 + (8 * j + g) * LD + ks * 16 + 2 * t4;
-        mma_bf16_16816(t, da[ks], ld32(vp), ld32(vp + 8));
-      }
-    };
-    float d0 = 0.f, d1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NKT; ++j) {
-      float t[4];
-      dp_tile(j, t);
-      d0 += t[0] * p[j][0] + t[1] * p[j][1];
-      d1 += t[2] * p[j][2] + t[3] * p[j][3];
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      d0 += __shfl_xor_sync(0xffffffffu, d0, off);
-      d1 += __shfl_xor_sync(0xffffffffu, d1, off);
-    }
-
-    float qacc[DH / 8][4];
-#pragma unroll
-    for (int c = 0; c < DH / 8; ++c) qacc[c][0] = qacc[c][1] = qacc[c][2] = qacc[c][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < NKT / 2; ++kk) {
-      float t0[4], t1[4];
-      dp_tile(2 * kk, t0);
-      dp_tile(2 * kk + 1, t1);
-      const float* p0 = p[2 * kk];
-      const float* p1 = p[2 * kk + 1];
-      const uint32_t sa[4] = {
-          pack_bf16x2(p0[0] * (t0[0] - d0), p0[1] * (t0[1] - d0)),
-          pack_bf16x2(p0[2] * (t0[2] - d1), p0[3] * (t0[3] - d1)),
-          pack_bf16x2(p1[0] * (t1[0] - d0), p1[1] * (t1[1] - d0)),
-          pack_bf16x2(p1[2] * (t1[2] - d1), p1[3] * (t1[3] - d1))};
-#pragma unroll
-      for (int c = 0; c < DH / 8; ++c)
-        mma_bf16_16816(qacc[c], sa, col_pair(T0, LD, 16 * kk + 2 * t4, 8 * c + g),
-                       col_pair(T0, LD, 16 * kk + 2 * t4 + 8, 8 * c + g));
-    }
-#pragma unroll
-    for (int c = 0; c < DH / 8; ++c) {
-      if (ra < N)
-        *reinterpret_cast<uint32_t*>(dqb + (size_t)ra * P3 + 8 * c + 2 * t4) =
-            pack_bf16x2(qacc[c][0] * scale, qacc[c][1] * scale);
-      if (rb < N)
-        *reinterpret_cast<uint32_t*>(dqb + (size_t)rb * P3 + 8 * c + 2 * t4) =
-            pack_bf16x2(qacc[c][2] * scale, qacc[c][3] * scale);
-    }
-    if (t4 == 0) {
-      rmax[ra] = m0, rsum[ra] = l0, rdel[ra] = d0;
-      rmax[rb] = m1, rsum[rb] = l1, rdel[rb] = d1;
-    }
+    float p[NKT][4], m0, m1, l0, l1;
+    bwd_scores<DH, NKT>(hd, q0, T0, p);
+    bwd_softmax<NKT>(p, N, scale, m0, m1, l0, l1);
+    bwd_query_grads<DH, NKT>(hd, q0, T0, T1, p, m0, m1, l0, l1);
   }
   __syncthreads();
-
   // ---------------- phase B: 16 key rows per warp
-  load_rows<DH>(T0, qb, P3, N, NP, LD);
-  load_rows<DH>(T1, db, D, N, NP, LD);
+  load_rows<DH>(T0, hd.q, P3, N, S::NP, S::LD, threadIdx.x, nt);
+  load_rows<DH>(T1, hd.dout, hd.D, N, S::NP, S::LD, threadIdx.x, nt);
   __syncthreads();
-  for (int k0 = warp * 16; k0 < N; k0 += WARPS * 16) {
-    uint32_t ka[DH / 16][4], va[DH / 16][4];
-    load_a<DH>(ka, qb + D, P3, k0, N, g, t4);
-    load_a<DH>(va, qb + 2 * D, P3, k0, N, g, t4);
-    float vacc[DH / 8][4], kacc[DH / 8][4];
-#pragma unroll
-    for (int c = 0; c < DH / 8; ++c)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) vacc[c][r] = kacc[c][r] = 0.f;
-    const bool va0 = k0 + g < N, va1 = k0 + g + 8 < N;  // this thread's key rows
-    for (int qc = 0; qc < NP / 16; ++qc) {
-      float pt[2][4], st[2][4];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int ks = 0; ks < DH / 16; ++ks) {
-          const int off = (16 * qc + 8 * t + g) * LD + ks * 16 + 2 * t4;
-          mma_bf16_16816(s, ka[ks], ld32(T0 + off), ld32(T0 + off + 8));
-          mma_bf16_16816(dp, va[ks], ld32(T1 + off), ld32(T1 + off + 8));
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int q = 16 * qc + 8 * t + 2 * t4 + (e & 1);
-          const bool valid = q < N && ((e >> 1) ? va1 : va0);
-          const float pv = valid ? expf(s[e] * scale - rmax[q]) / rsum[q] : 0.f;
-          pt[t][e] = pv;
-          st[t][e] = valid ? pv * (dp[e] - rdel[q]) : 0.f;
-        }
-      }
-      const uint32_t pa[4] = {pack_bf16x2(pt[0][0], pt[0][1]), pack_bf16x2(pt[0][2], pt[0][3]),
-                              pack_bf16x2(pt[1][0], pt[1][1]), pack_bf16x2(pt[1][2], pt[1][3])};
-      const uint32_t sa[4] = {pack_bf16x2(st[0][0], st[0][1]), pack_bf16x2(st[0][2], st[0][3]),
-                              pack_bf16x2(st[1][0], st[1][1]), pack_bf16x2(st[1][2], st[1][3])};
-#pragma unroll
-      for (int c = 0; c < DH / 8; ++c) {
-        mma_bf16_16816(vacc[c], pa, col_pair(T1, LD, 16 * qc + 2 * t4, 8 * c + g),
-                       col_pair(T1, LD, 16 * qc + 2 * t4 + 8, 8 * c + g));
-        mma_bf16_16816(kacc[c], sa, col_pair(T0, LD, 16 * qc + 2 * t4, 8 * c + g),
-                       col_pair(T0, LD, 16 * qc + 2 * t4 + 8, 8 * c + g));
-      }
-    }
-    bf16* dkb = dqb + D;
-    bf16* dvb = dqb + 2 * D;
-    const int ra = k0 + g, rb = k0 + g + 8;
-#pragma unroll
-    for (int c = 0; c < DH / 8; ++c) {
-      const int col = 8 * c + 2 * t4;
-      if (va0) {
-        *reinterpret_cast<uint32_t*>(dkb + (size_t)ra * P3 + col) =
-            pack_bf16x2(kacc[c][0] * scale, kacc[c][1] * scale);
-        *reinterpret_cast<uint32_t*>(dvb + (size_t)ra * P3 + col) = pack_bf16x2(vacc[c][0], vacc[c][1]);
-      }
-      if (va1) {
-        *reinterpret_cast<uint32_t*>(dkb + (size_t)rb * P3 + col) =
-            pack_bf16x2(kacc[c][2] * scale, kacc[c][3] * scale);
-        *reinterpret_cast<uint32_t*>(dvb + (size_t)rb * P3 + col) = pack_bf16x2(vacc[c][2], vacc[c][3]);
-      }
-    }
-  }
+  for (int k0 = warp * 16; k0 < N; k0 += WARPS * 16) bwd_key_grads<DH, NKT>(hd, k0, T0, T1);
 }
 
 template <int DH, int NKT>

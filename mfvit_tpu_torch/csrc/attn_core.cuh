@@ -42,29 +42,53 @@ struct AttnSmem {
   static constexpr size_t BYTES = (size_t)(NK * LDK + DH * LDV) * sizeof(bf16);
 };
 
-// The stages of the core for one (image, head), shared with T4's staged
-// core (attn_staged.cu). `base` points at the head's q columns of the
-// image's first token in qkv; the o rows of the image start at `o`.
+// The stages of the core for one (image, head), shared with the schedule
+// variants T4 (attn_staged.cu), T1 (attn_pairs.cu) and T2
+// (attn_rolling.cu). `base` points at the head's q columns of the image's
+// first token in qkv; the o rows of the image start at `o`. Each staging
+// function runs on `threads` threads, tid the thread's index among them.
 
-// The head's K and V (V transposed) into shared memory, zeros past N, by
-// `threads` threads (tid the thread's index among them).
-template <int DH, int NKT>
-__device__ __forceinline__ void attn_stage_kv(const bf16* base, int D, int N, bf16* Ks, bf16* Vt,
-                                              int tid, int threads) {
+// The head's K rows into shared memory, zeros past N; with ASYNC by
+// cp.async (the caller commits the group and waits for it).
+template <int DH, int NKT, bool ASYNC = false>
+__device__ __forceinline__ void attn_stage_k(const bf16* base, int D, int N, bf16* Ks, int tid,
+                                             int threads) {
   using S = AttnSmem<DH, NKT>;
   constexpr int VPR = DH / 8;  // 16-byte vectors per head row
   for (int idx = tid; idx < S::NK * VPR; idx += threads) {
     const int n = idx / VPR, d = (idx % VPR) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (n < N) {
-      kv = *reinterpret_cast<const uint4*>(base + (size_t)n * 3 * D + D + d);
-      vv = *reinterpret_cast<const uint4*>(base + (size_t)n * 3 * D + 2 * D + d);
-    }
-    *reinterpret_cast<uint4*>(Ks + n * S::LDK + d) = kv;
+    bf16* dst = Ks + n * S::LDK + d;
+    const bf16* src = base + (size_t)n * 3 * D + D + d;
+    if (n >= N)
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    else if (ASYNC)
+      cp_async16(dst, src);
+    else
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  }
+}
+
+// The head's V, transposed, into shared memory, zeros past N.
+template <int DH, int NKT>
+__device__ __forceinline__ void attn_stage_vt(const bf16* base, int D, int N, bf16* Vt, int tid,
+                                              int threads) {
+  using S = AttnSmem<DH, NKT>;
+  constexpr int VPR = DH / 8;
+  for (int idx = tid; idx < S::NK * VPR; idx += threads) {
+    const int n = idx / VPR, d = (idx % VPR) * 8;
+    uint4 vv = make_uint4(0, 0, 0, 0);
+    if (n < N) vv = *reinterpret_cast<const uint4*>(base + (size_t)n * 3 * D + 2 * D + d);
     const bf16* v8 = reinterpret_cast<const bf16*>(&vv);
 #pragma unroll
     for (int t = 0; t < 8; ++t) Vt[(d + t) * S::LDV + n] = v8[t];
   }
+}
+
+template <int DH, int NKT>
+__device__ __forceinline__ void attn_stage_kv(const bf16* base, int D, int N, bf16* Ks, bf16* Vt,
+                                              int tid, int threads) {
+  attn_stage_k<DH, NKT>(base, D, N, Ks, tid, threads);
+  attn_stage_vt<DH, NKT>(base, D, N, Vt, tid, threads);
 }
 
 // One warp's scores for query rows q0 .. q0+15: s = bf16(q * scale) k^T,
@@ -140,12 +164,24 @@ __device__ __forceinline__ void attn_softmax(float (&s)[NKT][4], int N, float& l
   }
 }
 
-// O = P V for rows q0 .. q0+15, 16 keys per step (P's A fragment comes
-// from two score tiles), scaled by 1/sum and stored to the o rows (row
-// pitch D) below N.
+// P rounded to bf16 as the A fragments of the PV product, 16 keys per
+// fragment (the accumulator and A fragment layouts line up).
+template <int NKT>
+__device__ __forceinline__ void attn_pack_p(const float (&s)[NKT][4], uint32_t (&pa)[NKT / 2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NKT / 2; ++kk) {
+    pa[kk][0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+    pa[kk][1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+    pa[kk][2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pa[kk][3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+}
+
+// O = P V for rows q0 .. q0+15 from P's packed fragments, scaled by 1/sum
+// and stored to the o rows (row pitch D) below N.
 template <int DH, int NKT, typename OT>
-__device__ __forceinline__ void attn_pv(const float (&s)[NKT][4], float l0, float l1,
-                                        const bf16* Vt, OT* o, int D, int N, int q0) {
+__device__ __forceinline__ void attn_pv_packed(const uint32_t (&pa)[NKT / 2][4], float l0, float l1,
+                                               const bf16* Vt, OT* o, int D, int N, int q0) {
   using S = AttnSmem<DH, NKT>;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -154,14 +190,10 @@ __device__ __forceinline__ void attn_pv(const float (&s)[NKT][4], float l0, floa
   for (int c = 0; c < DH / 8; ++c) oacc[c][0] = oacc[c][1] = oacc[c][2] = oacc[c][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < NKT / 2; ++kk) {
-    const uint32_t pa[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                            pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                            pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                            pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
     for (int c = 0; c < DH / 8; ++c) {
       const bf16* vp = Vt + (8 * c + g) * S::LDV + 16 * kk + 2 * t4;
-      mma_bf16_16816(oacc[c], pa, *reinterpret_cast<const uint32_t*>(vp),
+      mma_bf16_16816(oacc[c], pa[kk], *reinterpret_cast<const uint32_t*>(vp),
                      *reinterpret_cast<const uint32_t*>(vp + 8));
     }
   }
@@ -172,6 +204,15 @@ __device__ __forceinline__ void attn_pv(const float (&s)[NKT][4], float l0, floa
     if (q0 + g < N) store_pair(orow + 8 * c, oacc[c][0] * r0, oacc[c][1] * r0);
     if (q0 + g + 8 < N) store_pair(orow + (size_t)8 * D + 8 * c, oacc[c][2] * r1, oacc[c][3] * r1);
   }
+}
+
+// O = P V for rows q0 .. q0+15 from the softmax's registers.
+template <int DH, int NKT, typename OT>
+__device__ __forceinline__ void attn_pv(const float (&s)[NKT][4], float l0, float l1,
+                                        const bf16* Vt, OT* o, int D, int N, int q0) {
+  uint32_t pa[NKT / 2][4];
+  attn_pack_p<NKT>(s, pa);
+  attn_pv_packed<DH, NKT>(pa, l0, l1, Vt, o, D, N, q0);
 }
 
 template <int DH, int NKT, typename OT>

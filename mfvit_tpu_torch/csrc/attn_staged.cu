@@ -36,20 +36,7 @@
 
 namespace {
 
-constexpr int WG = 128;     // threads of a warpgroup
-constexpr int QB = 64;      // query rows of a unit: one 16-row tile per warp
-constexpr int PP_BAR = 3;   // ping-pong barriers: 3 for warpgroup 0, 4 for 1
-                            // (1 and 2 join each warpgroup's own threads)
-
-__device__ __forceinline__ void group_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void pp_wait(int id) {  // wait for the tensor cores
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void pp_pass(int id) {  // hand them to the other warpgroup
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
+constexpr int QB = 64;  // query rows of a unit: one 16-row tile per warp
 
 template <int DH, int NKT>
 __global__ void __launch_bounds__(2 * WG)
@@ -134,23 +121,12 @@ MFV_API int mfv_attn_staged(const void* x, const void* ln_s, const void* ln_b, c
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N, dh = D / heads;
-  GemmArgs p = gemm_args(x, M, 3 * D, D, wqkv, qkv);
-  p.bias = static_cast<const float*>(bqkv);
-  p.ln_g = static_cast<const float*>(ln_s);
-  p.ln_b = static_cast<const float*>(ln_b);
-  p.ln_eps = 1e-6f;
-  p.ln_stats = static_cast<float2*>(stats);
-  int e = gemm_ln<true, EPI_BIAS>(p, s);
-  if (e) return e;
-  switch (dh) {
-    case 32: e = launch_staged_n<32>(qkv, o, B, N, heads, scale, cb, s); break;
-    case 64: e = launch_staged_n<64>(qkv, o, B, N, heads, scale, cb, s); break;
-    case 128: e = launch_staged_n<128>(qkv, o, B, N, heads, scale, cb, s); break;
-    default: e = (int)cudaErrorInvalidValue;
-  }
-  if (e) return e;
-  GemmArgs q = gemm_args(o, M, D, D, wproj, out);
-  q.bias = static_cast<const float*>(bproj);
-  q.resid = static_cast<const bf16*>(x);
-  return gemm_ln<false, EPI_BIAS_RESID>(q, s);
+  return attn_block(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, stats, qkv, o, out, M, D, s, [&] {
+    switch (dh) {
+      case 32: return launch_staged_n<32>(qkv, o, B, N, heads, scale, cb, s);
+      case 64: return launch_staged_n<64>(qkv, o, B, N, heads, scale, cb, s);
+      case 128: return launch_staged_n<128>(qkv, o, B, N, heads, scale, cb, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  });
 }

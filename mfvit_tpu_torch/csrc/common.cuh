@@ -84,3 +84,34 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+// 16 bytes from device to shared memory by cp.async (T2's K rows, T3's
+// weight chunks); the caller commits the group and waits for it.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Ping-pong between the two warpgroups of a 256-thread block (T7, T4, T5):
+// a warpgroup waits on its own barrier (PP_BAR + its index) before its
+// tensor-core phase and arrives on the other's after it. Barriers 1 and 2
+// join a warpgroup's own threads (0 is __syncthreads').
+constexpr int WG = 128;    // threads of a warpgroup
+constexpr int PP_BAR = 3;  // 3 for warpgroup 0, 4 for 1
+
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pp_wait(int id) {  // wait for the tensor cores
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pp_pass(int id) {  // hand them to the other warpgroup
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}

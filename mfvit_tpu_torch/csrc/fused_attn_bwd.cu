@@ -14,6 +14,7 @@
 //   6. dWproj = g^T . o, dbproj, in fp32                 CUDA-core TN GEMM
 //   7. dh = dqkv . Wqkv (fp32)                           NN GEMM
 //   8. dx = bf16(g + LN backward(dh)), dln_s, dln_b      row + column kernels
+// T5 (mfv_staged_bwd) runs the same chain with its staged core in step 4.
 // Weights in the torch Linear layout: wqkv (3D, D), wproj (D, D); every
 // gradient of a parameter comes out in fp32 in that layout.
 //
@@ -22,18 +23,21 @@
 // the rest is bf16 tensor-core work (0.19 ms at 989 TFLOP/s). It is
 // compute-bound; the scratch round trips (h, qkv, dO, o, dqkv, dh: about
 // 0.5 GB) cost about 0.15 ms at 3.35 TB/s.
-#include "attn_bwd.cuh"
+#include "attn_bwd_staged.cuh"
 #include "gemm_bwd.cuh"
 #include "gemm_ln.cuh"
 
-MFV_API int mfv_fused_attention_block_bwd(
-    const void* g, const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
-    const void* bqkv, const void* wproj, void* stats, void* h, void* qkv, void* dout, void* o,
-    void* dqkv, void* dh, void* part, void* dx, void* dln_s, void* dln_b, void* dwqkv,
-    void* dbqkv, void* dwproj, void* dbproj, int B, int N, int D, int heads, float scale,
-    int s_qkv, int k_qkv, int s_proj, int k_proj, int s_ln, int k_ln, void* stream) {
+namespace {
+
+// The chain above; step 4 is K5's core, or T5's staged core (cb images a
+// block, attn_bwd_staged.cuh) where cb > 0.
+int bwd_chain(const void* g, const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
+              const void* bqkv, const void* wproj, void* stats, void* h, void* qkv, void* dout,
+              void* o, void* dqkv, void* dh, void* part, void* dx, void* dln_s, void* dln_b,
+              void* dwqkv, void* dbqkv, void* dwproj, void* dbproj, int B, int N, int D, int heads,
+              float scale, int s_qkv, int k_qkv, int s_proj, int k_proj, int s_ln, int k_ln, int cb,
+              cudaStream_t s) {
   if (B <= 0 || N <= 0 || heads <= 0 || D % heads != 0 || D % 128) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N;
   float* pt = static_cast<float*>(part);
   if (int e = bwd::ln_fwd_rows(x, ln_s, ln_b, stats, h, M, D, s)) return e;
@@ -41,7 +45,8 @@ MFV_API int mfv_fused_attention_block_bwd(
   p.bias = static_cast<const float*>(bqkv);
   if (int e = gemm_ln<false, EPI_BIAS>(p, s)) return e;
   if (int e = bwd::gemm_nn<false>(g, wproj, dout, M, D, D, s)) return e;
-  if (int e = attn_bwd::attn_bwd_core(qkv, dout, o, dqkv, B, N, heads, D / heads, scale, s))
+  if (int e = cb ? attn_bwd::staged_core(qkv, dout, o, dqkv, B, N, heads, D / heads, scale, cb, s)
+                 : attn_bwd::attn_bwd_core(qkv, dout, o, dqkv, B, N, heads, D / heads, scale, s))
     return e;
   if (int e = bwd::gemm_tn(dqkv, h, M, 3 * D, D, s_qkv, k_qkv, pt, static_cast<float*>(dwqkv),
                            static_cast<float*>(dbqkv), s))
@@ -51,4 +56,31 @@ MFV_API int mfv_fused_attention_block_bwd(
     return e;
   if (int e = bwd::gemm_nn<true>(dqkv, wqkv, dh, M, D, 3 * D, s)) return e;
   return bwd::ln_bwd(dh, x, stats, ln_s, g, dx, M, D, s_ln, k_ln, pt, dln_s, dln_b, s);
+}
+
+}  // namespace
+
+MFV_API int mfv_fused_attention_block_bwd(
+    const void* g, const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
+    const void* bqkv, const void* wproj, void* stats, void* h, void* qkv, void* dout, void* o,
+    void* dqkv, void* dh, void* part, void* dx, void* dln_s, void* dln_b, void* dwqkv,
+    void* dbqkv, void* dwproj, void* dbproj, int B, int N, int D, int heads, float scale,
+    int s_qkv, int k_qkv, int s_proj, int k_proj, int s_ln, int k_ln, void* stream) {
+  return bwd_chain(g, x, ln_s, ln_b, wqkv, bqkv, wproj, stats, h, qkv, dout, o, dqkv, dh, part, dx,
+                   dln_s, dln_b, dwqkv, dbqkv, dwproj, dbproj, B, N, D, heads, scale, s_qkv, k_qkv,
+                   s_proj, k_proj, s_ln, k_ln, 0, static_cast<cudaStream_t>(stream));
+}
+
+// T5 (tools/bench_bwd_staged.py::staged_bwd): K5's arguments and cb.
+MFV_API int mfv_staged_bwd(const void* g, const void* x, const void* ln_s, const void* ln_b,
+                           const void* wqkv, const void* bqkv, const void* wproj, void* stats,
+                           void* h, void* qkv, void* dout, void* o, void* dqkv, void* dh,
+                           void* part, void* dx, void* dln_s, void* dln_b, void* dwqkv,
+                           void* dbqkv, void* dwproj, void* dbproj, int B, int N, int D, int heads,
+                           float scale, int s_qkv, int k_qkv, int s_proj, int k_proj, int s_ln,
+                           int k_ln, int cb, void* stream) {
+  if (cb <= 0 || B % cb != 0) return (int)cudaErrorInvalidValue;
+  return bwd_chain(g, x, ln_s, ln_b, wqkv, bqkv, wproj, stats, h, qkv, dout, o, dqkv, dh, part, dx,
+                   dln_s, dln_b, dwqkv, dbqkv, dwproj, dbproj, B, N, D, heads, scale, s_qkv, k_qkv,
+                   s_proj, k_proj, s_ln, k_ln, cb, static_cast<cudaStream_t>(stream));
 }

@@ -22,18 +22,6 @@ MFV_API int mfv_fused_attention_block_large(const void* x, const void* ln_s, con
   if (B <= 0 || N <= 0 || heads <= 0 || D % heads != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N;
-  GemmArgs p = gemm_args(x, M, 3 * D, D, wqkv, qkv);
-  p.bias = static_cast<const float*>(bqkv);
-  p.ln_g = static_cast<const float*>(ln_s);
-  p.ln_b = static_cast<const float*>(ln_b);
-  p.ln_eps = 1e-6f;
-  p.ln_stats = static_cast<float2*>(stats);
-  int e = gemm_ln<true, EPI_BIAS>(p, s);
-  if (e) return e;
-  e = attn_long<bf16>(qkv, o, B, N, heads, D / heads, scale, s);
-  if (e) return e;
-  GemmArgs q = gemm_args(o, M, D, D, wproj, out);
-  q.bias = static_cast<const float*>(bproj);
-  q.resid = static_cast<const bf16*>(x);
-  return gemm_ln<false, EPI_BIAS_RESID>(q, s);
+  return attn_block(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, stats, qkv, o, out, M, D, s,
+                    [&] { return attn_long<bf16>(qkv, o, B, N, heads, D / heads, scale, s); });
 }

@@ -320,3 +320,26 @@ static inline GemmArgs gemm_args(const void* a, int M, int N, int K, const void*
   p.out = out;
   return p;
 }
+
+// K1's launch chain around an attention core, shared by K1, K9 and the
+// schedule variants T4, T1 and T2: the LN row statistics and the LN + qkv
+// GEMM with its bias (bf16 qkv), then `core()` (qkv -> o), then the proj
+// GEMM with its bias and the bf16 residual, all on stream s through the
+// caller's scratch (stats M x 2 fp32, qkv, o).
+template <typename Core>
+static int attn_block(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
+                      const void* bqkv, const void* wproj, const void* bproj, void* stats,
+                      void* qkv, void* o, void* out, int M, int D, cudaStream_t s, Core core) {
+  GemmArgs p = gemm_args(x, M, 3 * D, D, wqkv, qkv);
+  p.bias = static_cast<const float*>(bqkv);
+  p.ln_g = static_cast<const float*>(ln_s);
+  p.ln_b = static_cast<const float*>(ln_b);
+  p.ln_eps = 1e-6f;
+  p.ln_stats = static_cast<float2*>(stats);
+  if (int e = gemm_ln<true, EPI_BIAS>(p, s)) return e;
+  if (int e = core()) return e;
+  GemmArgs q = gemm_args(o, M, D, D, wproj, out);
+  q.bias = static_cast<const float*>(bproj);
+  q.resid = static_cast<const bf16*>(x);
+  return gemm_ln<false, EPI_BIAS_RESID>(q, s);
+}

@@ -122,16 +122,6 @@ int mlp3d_d(const MlpArgs& p, int B, int cb, int flat, cudaStream_t s) {
 
 // --------------------------------------------------------- T7 mlp3d_staged
 
-constexpr int WG = 128;     // threads of a warpgroup
-constexpr int PP_BAR = 3;   // the ping-pong barriers: 3 for warpgroup 0, 4 for 1
-                            // (1 and 2 join each warpgroup's own threads)
-
-__device__ __forceinline__ void pp_wait(int id) {  // wait for the tensor cores
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void pp_pass(int id) {  // hand them to the other warpgroup
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
 
 template <int BMW, int D>
 __global__ void __launch_bounds__(2 * WG) mlp3d_staged_kernel(const MlpArgs p, int cb, int) {
@@ -207,18 +197,6 @@ int mlp3d_staged_d(const MlpArgs& p, int B, int cb, cudaStream_t s) {
 
 constexpr int PC = 64;  // hidden columns per T3 chunk
 constexpr int T3_WARPS = 8;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // The 16x16 A fragment of mma.m16n8k16 from a row-major bf16 tile: rows
 // r0 + g (+8), columns k0 + 2 t4 (+8).

@@ -1,6 +1,6 @@
 """Kernels of the ported paths (K1-K5, K7, K9-K15; K5 and K7 also cover
-K6 and K8) and of the tools' schedule variants (T3, T4, T6, T7) with their
-plain PyTorch versions.
+K6 and K8) and of the tools' schedule variants (T1-T7) with their plain
+PyTorch versions.
 
 Each kernel module keeps a ``LAUNCHES`` count that its wrapper raises by
 one where it launches its kernels on a CUDA tensor, and nowhere else."""

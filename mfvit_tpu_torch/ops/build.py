@@ -48,6 +48,9 @@ SIGNATURES = {
     "mfv_mlp3d_staged": [_P] * 8 + [_I] * 5 + [_P],
     "mfv_mlp_pipe": [_P] * 8 + [_I] * 5 + [_P],
     "mfv_attn_staged": [_P] * 11 + [_I] * 5 + [_F, _P],
+    "mfv_attn_pairs": [_P] * 11 + [_I] * 5 + [_F, _P],
+    "mfv_attn_rolling": [_P] * 11 + [_I] * 5 + [_F, _P],
+    "mfv_staged_bwd": [_P] * 22 + [_I] * 4 + [_F] + [_I] * 7 + [_P],
 }
 
 _lib = None

@@ -168,11 +168,13 @@ def _forward_cuda(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads, scale,
     return out
 
 
-def fused_attention_block_bwd(g, x, ln_s, ln_b, wqkv, bqkv, wproj,
-                              heads: int, scale: float):
-    """K5 on CUDA tensors: the outputs of ``fused_attention_block_bwd_plain``
-    from the kernels (bf16 g and x; the weights are cast to bf16 here).
-    Anything the kernels do not take raises."""
+def bwd_cuda(g, x, ln_s, ln_b, wqkv, bqkv, wproj, heads: int, scale: float,
+             cb: int = 0):
+    """K5's launch chain on CUDA tensors, with T5's staged core over ``cb``
+    images a block where cb > 0: the outputs of
+    ``fused_attention_block_bwd_plain`` (bf16 g and x; the weights are cast
+    to bf16 here). Anything the kernels do not take raises. Counts no
+    launch: its callers do."""
     B, N, D = x.shape
     _check(B, N, D, heads, "K5")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -195,16 +197,27 @@ def fused_attention_block_bwd(g, x, ln_s, ln_b, wqkv, bqkv, wproj,
     dx = torch.empty_like(x)
     dln_s, dln_b, dbproj = empty(D), empty(D), empty(D)
     dwqkv, dbqkv, dwproj = empty(3 * D, D), empty(3 * D), empty(D, D)
-    launch.call("mfv_fused_attention_block_bwd", dev, g, x,
+    entry = "mfv_staged_bwd" if cb else "mfv_fused_attention_block_bwd"
+    launch.call(entry, dev, g, x,
                 launch.vec(ln_s, D, "ln_s"), launch.vec(ln_b, D, "ln_b"),
                 wqkv, launch.vec(bqkv, 3 * D, "bqkv"), wproj,
                 empty(M, 2), empty(M, D, dtype=bf16),
                 empty(M, 3 * D, dtype=bf16), empty(M, D, dtype=bf16),
                 empty(M, D), empty(M, 3 * D, dtype=bf16), empty(M, D), part,
                 dx, dln_s, dln_b, dwqkv, dbqkv, dwproj, dbproj, B, N, D,
-                heads, scale, s_qkv, k_qkv, s_proj, k_proj, s_ln, k_ln)
-    LAUNCHES["fused_attention_block_bwd"] += 1
+                heads, scale, s_qkv, k_qkv, s_proj, k_proj, s_ln, k_ln,
+                *([cb] if cb else []))
     return dx, dln_s, dln_b, dwqkv, dbqkv, dwproj, dbproj
+
+
+def fused_attention_block_bwd(g, x, ln_s, ln_b, wqkv, bqkv, wproj,
+                              heads: int, scale: float):
+    """K5 on CUDA tensors: the outputs of ``fused_attention_block_bwd_plain``
+    from the kernels (bf16 g and x; the weights are cast to bf16 here).
+    Anything the kernels do not take raises."""
+    out = bwd_cuda(g, x, ln_s, ln_b, wqkv, bqkv, wproj, heads, scale)
+    LAUNCHES["fused_attention_block_bwd"] += 1
+    return out
 
 
 def fused_attention_block_bwd_f32(g, x, ln_s, ln_b, wqkv, bqkv, wproj,

@@ -79,11 +79,11 @@ def run(device, batch: int = 512, depth: int = 12) -> dict:
     return run_chains(chains(), device, batch, depth)
 
 
-def build_parser(prog: str = "mfvit-torch-bench-mlp3d"):
+def build_parser(prog: str = "mfvit-torch-bench-mlp3d", batch: int = 512):
     p = argparse.ArgumentParser(prog)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises where CUDA is missing")
-    p.add_argument("--batch", type=int, default=512)
+    p.add_argument("--batch", type=int, default=batch)
     p.add_argument("--depth", type=int, default=12)
     return p
 

@@ -28,7 +28,7 @@ PIPE_SWEEP = ((2, 32), (2, 64), (4, 64))  # (splits, tm)
 CBS = (2, 4)
 
 
-def _k1(x, a, cb):
+def k1(x, a, cb):
     return fused_attn.fused_attention_block(x, *a, HEADS, SCALE)
 
 
@@ -48,9 +48,9 @@ def chain_of(attn, mlp, cb=None):
 def chains() -> list:
     """(name, cb or None, chain) in the JAX tool's order."""
     out = [("baseline attn+mlp", None,
-            chain_of(_k1, fused_mlp.fused_mlp_block))]
+            chain_of(k1, fused_mlp.fused_mlp_block))]
     out += [(f"attn + mlp_pipe s={sp} tm={tm}", None, chain_of(
-        _k1, lambda *w, sp=sp, tm=tm: mlp_pipe(*w, splits=sp, tm=tm)))
+        k1, lambda *w, sp=sp, tm=tm: mlp_pipe(*w, splits=sp, tm=tm)))
         for sp, tm in PIPE_SWEEP]
     out += [(f"attn_staged cb={cb} + mlp", cb,
              chain_of(_staged, fused_mlp.fused_mlp_block, cb)) for cb in CBS]

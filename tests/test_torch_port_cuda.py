@@ -1,5 +1,5 @@
 """Kernel-against-plain tests for K1-K5, K7, K9-K15 and the schedule
-variants T3, T4, T6 and T7 on the card. They need CUDA, nvcc
+variants T1-T7 on the card. They need CUDA, nvcc
 and an sm_90a GPU, so they carry the ``cuda`` marker and skip elsewhere;
 on the card run ``python -m pytest tests/test_torch_port_cuda.py``
 (``chip_smoke.py`` makes the same comparisons at serving shapes).
@@ -88,7 +88,8 @@ def test_kernels_match_plain(dev, B, N, D, H):
         "fused_attention_block_i8": 0, "fused_mlp_block_i8": 0,
         "mhsa_packed": 0, "mhsa": 0, "mhsa_packed_t": 0,
         "fused_transformer_block": 0, "mlp3d": 0, "mlp3d_staged": 0,
-        "mlp_pipe": 0, "attn_staged": 0}
+        "mlp_pipe": 0, "attn_staged": 0, "attn_pairs": 0, "attn_rolling": 0,
+        "staged_bwd": 0}
 
 
 @pytest.mark.parametrize("B,heads", [(8, 3), (5, 3), (3, 6)])
@@ -600,3 +601,84 @@ def test_the_variants_refuse_on_the_card_too(dev):
     with pytest.raises(RuntimeError, match="forward only"):
         mlp_variants.mlp3d(m[0], m[1].clone().requires_grad_(), *m[2:],
                            cb=1)
+
+
+ATTN_VARIANTS = {"attn_pairs": attn_variants.attn_pairs,
+                 "attn_rolling": attn_variants.attn_rolling}
+
+
+@pytest.mark.parametrize("B,N,D,H", [(4, 197, 384, 12), (4, 197, 384, 6),
+                                     (4, 50, 384, 12), (4, 208, 384, 3),
+                                     (6, 100, 256, 2)])
+@pytest.mark.parametrize("cb", [2, 4])
+@pytest.mark.parametrize("name", sorted(ATTN_VARIANTS))
+def test_attn_pairs_and_rolling_equal_k1_and_hold_its_plain_version(
+        dev, name, cb, B, N, D, H):
+    """T1 and T2 against the K1 kernel (equal bit for bit) and its plain
+    fp32 version (rel < 2e-2); one call launches the variant once and K1
+    never. N=208 is the head_dim-128 limit; B=6 at cb=4 is refused."""
+    t = _block(dev, B, N, D)
+    a = [t[k] for k in ATTN]
+    scale = (D // H) ** -0.5
+    if B % cb:
+        with pytest.raises(ValueError, match="must divide B"):
+            ATTN_VARIANTS[name](*a, H, scale, cb=cb)
+        return
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = ATTN_VARIANTS[name](*a, H, scale, cb=cb)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts.pop(name) == 1 and not any(counts.values())
+    with torch.no_grad():
+        k1 = fused_attn.fused_attention_block(*a, H, scale)
+    assert torch.equal(got, k1)
+    ref = fused_attn.fused_attention_block_plain(*_f32(t, ATTN), H, scale)
+    assert _rel(got, ref) < REL
+
+
+@pytest.mark.parametrize("B,N,D,H", [(4, 197, 384, 12), (4, 197, 384, 6),
+                                     (4, 50, 384, 12), (4, 208, 384, 3),
+                                     (3, 100, 256, 2)])
+@pytest.mark.parametrize("cb", [1, 2, 4])
+def test_staged_bwd_equals_k5_and_holds_its_plain_version(dev, cb, B, N, D,
+                                                          H):
+    """T5 against the K5 kernels on all seven outputs (equal bit for bit:
+    the same stages per warp and K5's reductions) and against the plain
+    fp32 backward (rel < 2e-2 each); one call launches T5 once and K5
+    never. cb=1 and B=3 at cb=1 leave a warpgroup without an image."""
+    if B % cb:
+        pytest.skip("cb must divide B")
+    t = _block(dev, B, N, D)
+    g = _rnd(torch.Generator().manual_seed(3), B, N, D).bfloat16().to(dev)
+    a = [g] + [t[k] for k in ATTN[:-1]]
+    scale = (D // H) ** -0.5
+    ops.reset_launch_counts()
+    got = attn_variants.staged_bwd(*a, H, scale, cb=cb)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts.pop("staged_bwd") == 1 and not any(counts.values())
+    k5 = fused_attn.fused_attention_block_bwd(*a, H, scale)
+    assert all(torch.equal(x, y) for x, y in zip(got, k5))
+    ref = fused_attn.fused_attention_block_bwd_plain(
+        *[v.float() for v in a], H, scale)
+    assert all(_rel(x, y) < REL for x, y in zip(got, ref))
+
+
+def test_the_attention_variants_refuse_on_the_card_too(dev):
+    t = _block(dev, 4, 209, 384)
+    a = [t[k] for k in ATTN]
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="must be even"):
+            attn_variants.attn_pairs(*a, 12, 32 ** -0.5, cb=1)
+        for op in ATTN_VARIANTS.values():
+            with pytest.raises(ValueError, match="N <= 208"):
+                op(*a, 3, 128 ** -0.5, cb=2)
+        with pytest.raises(ValueError, match="N <= 208"):
+            attn_variants.staged_bwd(a[0], *a[:6], 3, 128 ** -0.5)
+        with pytest.raises(ValueError, match="bfloat16"):
+            attn_variants.attn_rolling(a[0].float(), *a[1:], 12, 32 ** -0.5,
+                                       cb=2)
+    with pytest.raises(RuntimeError, match="forward only"):
+        attn_variants.attn_pairs(a[0], a[1].clone().requires_grad_(), *a[2:],
+                                 12, 32 ** -0.5, cb=2)

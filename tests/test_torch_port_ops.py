@@ -290,9 +290,12 @@ def test_cpu_tensors_never_count_a_launch(blk, fusion_case):
     mlp_variants.mlp3d(*mlp_args, cb=2)
     mlp_variants.mlp3d_staged(*mlp_args, cb=2)
     mlp_variants.mlp_pipe(*mlp_args)
-    attn_variants.attn_staged(x, *v, torch.randn(384, 128), torch.zeros(384),
-                              torch.randn(128, 128), torch.zeros(128), 4,
-                              32 ** -0.5, cb=2)
+    a = (x, *v, torch.randn(384, 128), torch.zeros(384),
+         torch.randn(128, 128), torch.zeros(128), 4, 32 ** -0.5)
+    attn_variants.attn_staged(*a, cb=2)
+    attn_variants.attn_pairs(*a, cb=2)
+    attn_variants.attn_rolling(*a, cb=2)
+    attn_variants.staged_bwd(x, *a[:6], 4, 32 ** -0.5, cb=2)
     assert ops.launch_counts() == {
         "fused_attention_block": 0, "fused_attention_block_large": 0,
         "fused_mlp_block": 0,
@@ -301,4 +304,5 @@ def test_cpu_tensors_never_count_a_launch(blk, fusion_case):
         "fused_attention_block_i8": 0, "fused_mlp_block_i8": 0,
         "mhsa_packed": 0, "mhsa": 0, "mhsa_packed_t": 0,
         "fused_transformer_block": 0, "mlp3d": 0, "mlp3d_staged": 0,
-        "mlp_pipe": 0, "attn_staged": 0}
+        "mlp_pipe": 0, "attn_staged": 0, "attn_pairs": 0, "attn_rolling": 0,
+        "staged_bwd": 0}
