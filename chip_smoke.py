@@ -43,8 +43,9 @@ Phases, in order; any failure raises and exits non-zero:
    versions (fro_rel < MHSA_BAR, a bar each of ``mhsa_controls``, K1's
    rounding points, must fail) at vit_small (B=8, N=197, 12 heads of
    32), vit_small_ori (6 of 64), vit_base (D=768), head_dim 128 (N=300),
-   N=50, N=577 and N=1025; K12 equal to K14 bit for bit after the layout
-   change (one core);
+   N=50, N=376 and N=377 (the longest rows whose scores the core holds in
+   shared memory, and the shortest it recomputes), N=577 and N=1025; K12
+   equal to K14 bit for bit after the layout change (one core);
 8. the XLA-level W8A8 path: vit_small MF-ViT CA from seeded weights, both
    branches through ``quantize_vit_params``, ``fused_forward`` at B=32 on
    the card: launch counts per paired forward K12 24, K4 1, every other
@@ -126,8 +127,8 @@ Phases, in order; any failure raises and exits non-zero:
    against the plain fp32 backward on the timed inputs), K5/K7 also at a
    vit_base block (B=64, D=768, hidden 3072: the widths of K6 and K8),
    K12, K13 and K14 against their plain versions and SDPA on the same
-   values (for K14 on contiguous copies, the transposes counted; K12 also
-   at N=577, B=64), the end-to-end pairs/s of serving,
+   values (for K14 on contiguous copies, the transposes counted; also at
+   N=577, B=64), the end-to-end pairs/s of serving,
    kernel path against plain path, int8 against bf16 on the kernel path
    and the XLA-level W8A8 path against its plain path, the bf16 path and
    the int8 path, and the images/s of the FT train
@@ -297,7 +298,10 @@ PER_PAIR = {(224, False): PER_FORWARD, (224, True): PER_I8_FORWARD,
 PER_VIT = {224: PER_VIT_FORWARD, 384: PER_VIT_FORWARD_384}
 PER_STEP = {224: PER_FT_STEP, 384: PER_FT_STEP_384}
 # the H100 SXM's published dense peaks at 700 W (NVIDIA data sheet)
-PEAK = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+PEAK = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12,
+        # exp2 on the special function units: 16 results a clock on each
+        # of 132 SMs at the 1.98 GHz boost clock (Hopper white paper)
+        "sfu": 132 * 16 * 1.98e9}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -689,7 +693,8 @@ def check_kernels(dev) -> dict:
 # K12-K14's shapes: label, B, N, D, heads
 MHSA_SHAPES = (("vit_small", 8, 197, 384, 12), ("vit_small_ori", 8, 197, 384, 6),
                ("vit_base", 4, 197, 768, 12), ("head_dim 128", 2, 300, 384, 3),
-               ("N=50", 8, 50, 384, 12), ("N=577", 2, 577, 384, 6),
+               ("N=50", 8, 50, 384, 12), ("N=376", 2, 376, 384, 12),
+               ("N=377", 2, 377, 384, 12), ("N=577", 2, 577, 384, 6),
                ("N=1025", 2, 1025, 384, 6))
 
 
@@ -1023,9 +1028,10 @@ def profile_quant(dev, B: int = 256) -> dict:
 
 def mhsa_bound(B: int, N: int, D: int, heads: int) -> tuple:
     """K12-K14: q, k, v read and o written once in bf16; QK^T and PV on the
-    tensor cores."""
-    return bound({"bf16": 2 * 2 * B * heads * N * N * (D // heads)},
-                 4 * B * N * D * 2)
+    tensor cores; one exp a score on the special function units (above
+    the bytes at N=577)."""
+    return bound({"bf16": 2 * 2 * B * heads * N * N * (D // heads),
+                  "sfu": B * heads * N * N}, 4 * B * N * D * 2)
 
 
 def write_pairs(root: str, n: int, seed: int) -> str:
@@ -2470,13 +2476,12 @@ def main() -> int:
     phase("fusion train-step parity, kernel path against plain path (B=32)")
     fusion_parity(dev)
 
-    phase("times (B=256; K12 also at N=577, B=64; K5/K7 also at a vit_base "
-          "block, B=64; the fusion step also at B=32; the schedule variants "
-          "against K1/K2)")
+    phase("times (B=256; K12-K14 also at N=577, B=64; K5/K7 also at a "
+          "vit_base block, B=64; the fusion step also at B=32; the schedule "
+          "variants against K1/K2)")
     times = time_kernels(dev)
     times.update(time_mhsa(dev, "vit_small", 256, 197, 384, 12))
-    k12_577 = time_mhsa(dev, "vit_small@384", 64, 577, 384, 12,
-                        ("mhsa_packed",))["mhsa_packed"]
+    mhsa_577 = time_mhsa(dev, "vit_small@384", 64, 577, 384, 12)
     times.update(time_bwd(dev, "vit_small", 256, 384))
     base = time_bwd(dev, "vit_base", 64, 768)
     e2e = time_e2e(dev)
@@ -2547,10 +2552,11 @@ def main() -> int:
                       "ft_train_images_per_sec_384_B32": train_384,
                       "k9_backward_fp32_ms_384_B32": k9_bwd_384,
                       "quant_profile_B256": quant_profile,
-                      "k12_vit_small@384_B64": {
-                          "ms": k12_577[0], "plain_ms": k12_577[1],
-                          "sdpa_ms": k12_577[2], "bound_ms": bound_577[0],
-                          "bound_by": bound_577[1]},
+                      "mhsa_vit_small@384_B64": {
+                          k: {"ms": v[0], "plain_ms": v[1], "sdpa_ms": v[2],
+                              "bound_ms": bound_577[0],
+                              "bound_by": bound_577[1]}
+                          for k, v in mhsa_577.items()},
                       "k15_B256": {
                           "ms": k15_ms, "plain_ms": k15_plain_ms,
                           "library_ms": k15_lib_ms, "k1_then_k2_ms": pair_ms,

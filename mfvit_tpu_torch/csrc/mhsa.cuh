@@ -2,16 +2,12 @@
 // (mfvit_tpu/ops/attention.py), one core over three layouts (mhsa.cu holds
 // the entry points; mhsa_dh{32,64,128}.cu the instantiations):
 //
-//   K12 mhsa_packed    (_packed_attn_kernel :181)    qkv (B, N, 3D) -> (B, N, D)
-//   K13 mhsa           (_fused_attn_kernel :78)      q, k, v (B, H, N, dh) -> (B, H, N, dh)
-//   K14 mhsa_packed_t  (_packed_attn_kernel_t :295)  qkv (B, 3D, N) -> (B, D, N)
-//
-// The layout is a template flag and a set of strides (Args): TRANS = false
-// puts head_dim innermost (K12, K13: 16-byte loads along a row), TRANS =
-// true puts the token innermost (K14: loads along a head dimension). The
-// normalisation is the other template flag. Everything between staging and
-// storing is the same code, so K12 and K14 give the same bits on the same
-// values.
+//   K12 mhsa_packed    (_packed_attn_kernel :181, pallas_call :236)
+//                      qkv (B, N, 3D) -> (B, N, D)
+//   K13 mhsa           (_fused_attn_kernel :78, pallas_call :152)
+//                      q, k, v (B, H, N, dh) -> (B, H, N, dh)
+//   K14 mhsa_packed_t  (_packed_attn_kernel_t :295, pallas_call :346)
+//                      qkv (B, 3D, N) -> (B, D, N)
 //
 // The TPU kernels' rounding points, which are not K1's (attn_core.cuh):
 // scores are the fp32 sums of the unscaled bf16 products q k^T, then times
@@ -20,43 +16,75 @@
 // normalised BEFORE its bf16 rounding: p / sum by IEEE division (K12, K14),
 // or p * (1 / sum) with a correctly rounded reciprocal (K13,
 // pl.reciprocal(approx=False)); then PV with fp32 sums (mma.sync m16n8k16)
-// and one rounding of the output to bf16. Keys past N are masked to zero
-// probability; query rows past N are computed on zeros and not stored.
-//
-// Two cores, by length:
-// - N <= NMAX (256): one block of four warps per (head, image) holds the
-//   head's K and V (V transposed) in shared memory; each warp takes 16
-//   query rows at a time with its fp32 scores against every key in
-//   registers, as attn_core.cuh does.
-// - N > NMAX: one block per (64 query rows, head, image); the keys stream
-//   through shared memory in tiles of 64, as attn_long.cuh does. Since P
-//   must be normalised before it is rounded, the PV pass needs the row max
-//   AND the row sum first: pass 1 keeps an online (max, sum) per thread
-//   over the key tiles (the sum rescaled by exp(old max - new max) when the
-//   max grows), merged across the four lanes of a row at the end; pass 2
-//   recomputes S, normalises p and accumulates PV. Cost: q k^T twice and K
-//   staged twice (1.5x the function's tensor-core work, against 2x for a
-//   separate max pass and sum pass); the sum differs from a two-pass sum by
-//   fp32 rounding only.
-// The streaming core takes any N, but at N = 197 (B = 256) it ran K12 1.12x,
-// K13 1.24x and K14 1.82x as long as the register core on an H100 80GB
-// HBM3 at 700 W (chip_smoke.py's time_mhsa; PERF.md), so the register core
-// stays up to NMAX.
+// and one rounding of the output to bf16. Keys past N get probability zero;
+// query rows past N are computed on zeros and not stored.
 //
 // What bounds it on an H100: at vit_small (B=256, N=197, 12 heads of 32)
 // K12 reads 116 MB and writes 39 MB (0.046 ms at 3.35 TB/s) for 15.3 GFLOP
-// (0.015 ms at 989 TFLOP/s): bytes. This first version reads qkv once per
-// (head, image) but with no TMA or wgmma, and K14's transposed staging and
-// stores are 2-byte accesses.
+// of q k^T and PV (0.015 ms at 989 TFLOP/s): bytes. In practice the CUDA
+// cores: the rounding points ask for an accurate expf and a correctly
+// rounded division for every valid score (119 M at N=197; 256 M at N=577,
+// B=64, where the exps alone take the SFUs about 0.06 ms, above that
+// shape's bytes bound of 0.034 ms), so the design keeps many warps busy
+// with little else: tensor work by mma.sync m16n8k16 is enough (wgmma
+// would save neither registers nor instructions on 16-row tiles).
+//
+// The design (chosen by ops/attention.py::_plan, which also sizes it):
+// - Units: (query tiles, head, image), R tiles of 16 rows a unit, one
+//   consumer warp a tile; R is chosen so that a head's tiles split evenly
+//   over its units (N=197: 13 tiles as units of 7 and 6), consecutive
+//   units of a head next to each other, so they find K and V in L2.
+// - Persistent grid: as many blocks as fit the SMs at once, each walks its
+//   units. One producer warp a block streams each unit's q tiles, then its
+//   K and V tiles (64 rows each), into a ring of 4 shared-memory slots
+//   by 16-byte cp.async, up to the ring's depth ahead of the consumers;
+//   `full` and `empty` barriers in shared memory (one arrival a copying
+//   lane, one a consumer warp) hand each slot over, so no warp waits for
+//   another except for data: the next unit's q and K arrive while a unit
+//   is computed.
+// - Fragments by ldmatrix: q's A and K's B fragments from row-major tiles,
+//   V's B fragment by ldmatrix.trans (no transposed copy).
+// - Because P is normalised before it is rounded, PV needs the row max
+//   and the row sum first. HOLD (short rows: while four tiles' scores fit
+//   the room for two blocks an SM, N <= 376 at head_dim 32): each warp
+//   keeps its tile's fp32 scores in shared memory in the mma accumulator
+//   layout (one float4 a lane per 8-key tile: every access a
+//   conflict-free 16-byte one), so each key is read once a unit and each
+//   exp taken once: the scores and row max with the K tiles, one pass for
+//   p = exp(s - max) and the row sum over the valid keys, then P V with
+//   the V tiles. Longer rows would leave a unit too few rows, each unit
+//   reading all of K and V again, so there the scores are computed three
+//   times from the K tiles (row max, row sum, then p with its V tile),
+//   with any number of rows in shared memory but a unit's staging.
+// - exp and the division only for keys below N; a tile of keys all below
+//   N takes a path with no masks; the division is div_rn (below), with
+//   one reciprocal a row.
+// - The output goes out through the warp's own shared memory as 16-byte
+//   rows (K12, K13) or token-contiguous runs (K14).
+// - K14's token-innermost layout: a head's rows of K^T are N tokens long,
+//   so at odd N (197, 577) they are not 16-byte aligned and neither
+//   ldmatrix nor a 16-byte copy can start at a token. But the head's dh x N
+//   block is contiguous and 16-byte aligned, so the producer copies each
+//   tile as the aligned 16-byte chunks around its rows (raw rows), and the
+//   consumers shift them into aligned rows together (two chunks into one by
+//   funnel shifts) before they use it. The tile is then dimension-major,
+//   so each fragment takes the other ldmatrix (.trans for q and K, plain for
+//   V) and comes out in the same registers: K12 and K14 run the same MMAs
+//   on the same values and give the same bits.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace mhsa {
 
-constexpr int WARPS = 4;
-constexpr int LONG_QB = WARPS * 16;  // query rows per block of the long core
-constexpr int LONG_KB = 64;          // keys per shared-memory tile of the long core
+constexpr int WARPS_MAX = 8;  // warps a block, the producer included
+constexpr int KB = 64;         // keys (or q rows) per staged tile
+constexpr int STAGES = 4;       // ring depth (a deeper ring measured no faster)
+constexpr int RAW = KB + 8;    // K14: bf16 pitch of a raw row (16-byte chunks around 64 tokens)
+constexpr int OT = 24;         // K14: bf16 pitch of a head-dimension row of the staged output
+constexpr int SMEM_MAX = 232448;
 
 // Element (b, h, n, d) of q/k/v sits at b * ib + h * ih + n * ix + d
 // (TRANS false) or b * ib + h * ih + d * ix + n (TRANS true); o likewise
@@ -68,188 +96,95 @@ struct Args {
   bf16* o;
   long long ib, ih, ix;
   long long ob, oh, ox;
-  int N, heads;
+  int N, heads, B;
   float scale;
 };
 
 enum Variant { PACKED = 0, BHND = 1, PACKED_T = 2 };  // K12, K13, K14
 
-__device__ __forceinline__ uint16_t raw16(const bf16* p) {
-  return *reinterpret_cast<const uint16_t*>(p);
-}
-
-template <int DH, int NK>  // NK keys held
-struct Smem {
-  static constexpr int LDK = DH + 8;  // bf16 pitch of a K row
-  static constexpr int LDV = NK + 8;  // bf16 pitch of a Vt row (one head dim)
-  static constexpr size_t BYTES = (size_t)(NK * LDK + DH * LDV) * sizeof(bf16);
+// The launch plan (ops/attention.py::_plan computes it; launch() checks
+// it): R query tiles of 16 rows a unit, and whether a tile's scores are
+// held in shared memory (`hold`).
+struct Plan {
+  int R, hold;
 };
 
-// Stage keys k0 .. k0 + NK - 1 of head h of image b (zero past N): K rows
-// into Ks, and with `with_v` V transposed into Vt.
-template <int DH, int NK, bool TRANS>
-__device__ __forceinline__ void stage(const Args& a, int b, int h, int k0, bool with_v, bf16* Ks,
-                                      bf16* Vt) {
-  using S = Smem<DH, NK>;
-  const long long off = b * a.ib + h * a.ih;
-  const bf16* kb = a.k + off;
-  const bf16* vb = a.v + off;
-  uint16_t* K16 = reinterpret_cast<uint16_t*>(Ks);
-  uint16_t* V16 = reinterpret_cast<uint16_t*>(Vt);
-  if (!TRANS) {
-    constexpr int VPR = DH / 8;  // 16-byte vectors per head row
-    for (int idx = threadIdx.x; idx < NK * VPR; idx += WARPS * 32) {
-      const int n = idx / VPR, d = (idx % VPR) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (k0 + n < a.N) {
-        const long long r = (long long)(k0 + n) * a.ix + d;
-        kv = *reinterpret_cast<const uint4*>(kb + r);
-        if (with_v) vv = *reinterpret_cast<const uint4*>(vb + r);
-      }
-      *reinterpret_cast<uint4*>(Ks + n * S::LDK + d) = kv;
-      if (with_v) {
-        const uint16_t* v8 = reinterpret_cast<const uint16_t*>(&vv);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) V16[(d + t) * S::LDV + n] = v8[t];
-      }
-    }
-  } else {
-    // neighbouring threads read neighbouring tokens of one head dimension
-    for (int idx = threadIdx.x; idx < DH * NK; idx += WARPS * 32) {
-      const int d = idx / NK, n = idx % NK;
-      uint16_t kv = 0, vv = 0;
-      if (k0 + n < a.N) {
-        const long long r = (long long)d * a.ix + k0 + n;
-        kv = raw16(kb + r);
-        if (with_v) vv = raw16(vb + r);
-      }
-      K16[n * S::LDK + d] = kv;
-      if (with_v) V16[d * S::LDV + n] = vv;
-    }
+template <int DH>
+struct Layout {
+  static constexpr int LD = DH + 8;  // bf16 pitch of a staged token row
+  static constexpr int LT = RAW;     // K14: bf16 pitch of a staged head-dimension row
+  // bf16 of a ring slot: 64 token rows (K12, K13) or DH raw rows (K14)
+  __host__ __device__ static constexpr int slot(bool trans) { return trans ? DH * RAW : KB * LD; }
+  __host__ __device__ static constexpr size_t ring_bytes(bool trans) {
+    return (size_t)STAGES * slot(trans) * sizeof(bf16);
   }
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// A fragments of the unscaled bf16 q, rows q0+g and q0+g+8 (zero past N).
+// 16 bytes from device to shared memory, or 16 zero bytes if not `valid`
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The ring's barriers in shared memory: `full` (the producer's cp.async
+// copies landed, one arrival a lane) and `empty` (one arrival a consumer
+// warp).
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(b)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(b)) : "memory");
+}
+// arrive once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* b) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(b))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(b)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// x4 fragments of the logical 16 x 16 block at token nb, head dimension db
+// of a staged tile: matrix m = lane / 8 covers tokens nb + NB(m) .. + 7
+// and dimensions db + DB(m) .. + 7; `trans` is the ldmatrix K12's
+// token-major tile takes. K14's tile is dimension-major, so it reads the
+// same block with the other ldmatrix and gets the same registers.
 template <int DH, bool TRANS>
-__device__ __forceinline__ void load_q(const Args& a, int b, int h, int q0,
-                                       uint32_t (&qa)[DH / 16][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const bf16* qb = a.q + b * a.ib + h * a.ih;
-#pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + g + (r & 1) * 8, col = ks * 16 + 2 * t4 + (r >> 1) * 8;
-      uint32_t w = 0;
-      if (row < a.N) {
-        if (!TRANS) {
-          w = *reinterpret_cast<const uint32_t*>(qb + (long long)row * a.ix + col);
-        } else {
-          const bf16* p = qb + (long long)col * a.ix + row;
-          w = (uint32_t)raw16(p) | ((uint32_t)raw16(p + a.ix) << 16);
-        }
-      }
-      qa[ks][r] = w;
-    }
-}
-
-// S = q k^T against the NT * 8 staged keys, then times the scale in fp32:
-// s[j][0..1] row g, [2..3] row g+8, keys 8j + 2t4 + {0, 1} of the tile.
-template <int DH, int NT, int LDK>
-__device__ __forceinline__ void scores(const bf16* Ks, const uint32_t (&qa)[DH / 16][4],
-                                       float scale, float (&s)[NT][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks) {
-      const bf16* kp = Ks + (8 * j + g) * LDK + ks * 16 + 2 * t4;
-      mma_bf16_16816(s[j], qa[ks], *reinterpret_cast<const uint32_t*>(kp),
-                     *reinterpret_cast<const uint32_t*>(kp + 8));
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);
-  }
-}
-
-// This thread's max of rows g (m0) and g+8 (m1) over its valid keys
-// (k0 + column < N), folded into m0 and m1.
-template <int NT>
-__device__ __forceinline__ void tile_max(const float (&s)[NT][4], int k0, int N, float& m0,
-                                         float& m1) {
-  const int t4 = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-      if (k0 + 8 * j + 2 * t4 + c < N) {
-        m0 = fmaxf(m0, s[j][c]);
-        m1 = fmaxf(m1, s[j][2 + c]);
-      }
-}
-
-// s <- exp(s - max) over the valid keys, 0 elsewhere.
-template <int NT>
-__device__ __forceinline__ void tile_exp(float (&s)[NT][4], int k0, int N, float m0, float m1) {
-  const int t4 = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const bool valid = k0 + 8 * j + 2 * t4 + c < N;
-      s[j][c] = valid ? expf(s[j][c] - m0) : 0.f;
-      s[j][2 + c] = valid ? expf(s[j][2 + c] - m1) : 0.f;
-    }
-}
-
-template <int NT>
-__device__ __forceinline__ void tile_sum(const float (&s)[NT][4], float& l0, float& l1) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      l0 += s[j][c];
-      l1 += s[j][2 + c];
-    }
-}
-
-// P normalised before its rounding: p / sum, or p * (1 / sum) (RECIP).
-template <int NT, bool RECIP>
-__device__ __forceinline__ void normalise(float (&s)[NT][4], float l0, float l1) {
-  const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      if (RECIP) {
-        s[j][c] = __fmul_rn(s[j][c], r0);
-        s[j][2 + c] = __fmul_rn(s[j][2 + c], r1);
-      } else {
-        s[j][c] = __fdiv_rn(s[j][c], l0);
-        s[j][2 + c] = __fdiv_rn(s[j][2 + c], l1);
-      }
-    }
-}
-
-// O += P V over the NT * 8 staged keys; P's A fragment comes from two score
-// tiles, rounded to bf16 (the accumulator and A fragment layouts line up).
-template <int DH, int NT, int LDV>
-__device__ __forceinline__ void pv(const bf16* Vt, const float (&s)[NT][4],
-                                   float (&o)[DH / 8][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    const uint32_t pa[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                            pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                            pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                            pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-    for (int c = 0; c < DH / 8; ++c) {
-      const bf16* vp = Vt + (8 * c + g) * LDV + 16 * kk + 2 * t4;
-      mma_bf16_16816(o[c], pa, *reinterpret_cast<const uint32_t*>(vp),
-                     *reinterpret_cast<const uint32_t*>(vp + 8));
-    }
+__device__ __forceinline__ void frag(uint32_t (&r)[4], const bf16* tile, int nb, int db,
+                                     bool trans) {
+  const int i = threadIdx.x & 7;
+  if (!TRANS) {
+    const bf16* p = tile + (nb + i) * Layout<DH>::LD + db;
+    if (trans) ldsm_x4_t(r, p); else ldsm_x4(r, p);
+  } else {
+    const bf16* p = tile + (db + i) * Layout<DH>::LT + nb;
+    if (trans) ldsm_x4(r, p); else ldsm_x4_t(r, p);
   }
 }
 
@@ -259,201 +194,522 @@ __device__ __forceinline__ float quad_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ float quad_min(float v) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
 __device__ __forceinline__ float quad_sum(float v) {
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-// The output rows q0+g and q0+g+8, rounded once to bf16 (rows past N are
-// not stored).
+// p / l rounded to nearest, the bits of __fdiv_rn, from r = __frcp_rn(l)
+// (the row's reciprocal, once a row): q0 = p r is within 1.5 ulp of p / l;
+// one correction q1 = q0 + (p - l q0) r, with the residual exact by the
+// FMA, is within 1/2 ulp plus 2^-23 of an ulp, so faithful; and by
+// Markstein's theorem (r within 1/2 ulp of 1/l, q1 within 1 ulp of p / l)
+// the second correction rounds correctly. It holds with no underflow: here
+// 1 <= l (the max key's own exp(0) is in the sum) and p <= 1; p = 0 gives
+// 0, and a unit whose rows may hold a p in (0, 2^-60) takes the IEEE
+// division.
+__device__ __forceinline__ float div_rn(float p, float l, float r) {
+  float q = __fmul_rn(p, r);
+  q = __fmaf_rn(__fmaf_rn(-l, q, p), r, q);
+  return __fmaf_rn(__fmaf_rn(-l, q, p), r, q);
+}
+
+// Start the copy of rows n0 .. n0 + KB - 1 of one head's q, k or v (`src`
+// at element (b, h, 0, 0)) into a ring slot by 16-byte cp.async, one
+// warp; rows past N zero. TRANS: into the slot's raw rows, one per head
+// dimension, each the aligned 16-byte chunks that cover tokens n0 .. n0 +
+// KB - 1 (the consumers realign them in place): the head's block starts
+// 16-byte aligned, and a chunk that starts before the row's last needed
+// token lies inside the tensor, whose end is aligned too.
 template <int DH, bool TRANS>
-__device__ __forceinline__ void store_o(const Args& a, int b, int h, int q0,
-                                        const float (&o)[DH / 8][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  bf16* ob = a.o + b * a.ob + h * a.oh;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + g + 8 * half;
-    if (row >= a.N) continue;
-#pragma unroll
-    for (int c = 0; c < DH / 8; ++c) {
-      const int col = 8 * c + 2 * t4;
-      const float x = o[c][2 * half], y = o[c][2 * half + 1];
-      if (!TRANS) {
-        *reinterpret_cast<uint32_t*>(ob + (long long)row * a.ox + col) = pack_bf16x2(x, y);
-      } else {
-        ob[(long long)col * a.ox + row] = __float2bfloat16_rn(x);
-        ob[(long long)(col + 1) * a.ox + row] = __float2bfloat16_rn(y);
-      }
+__device__ __forceinline__ void issue_tile(const bf16* src, long long ix, int N, int n0,
+                                           bf16* tile) {
+  using L = Layout<DH>;
+  const int lane = threadIdx.x & 31;
+  if (!TRANS) {
+    constexpr int CPR = DH / 8, RPI = 32 / CPR;  // 16-byte chunks a row, rows an iteration
+    const int c = lane % CPR * 8;
+    int r = lane / CPR;
+    const bf16* from = src + (long long)(n0 + r) * ix + c;
+    bf16* to = tile + r * L::LD + c;
+#pragma unroll 4
+    for (; r < KB; r += RPI, from += RPI * ix, to += RPI * L::LD)
+      cp_async16_zfill(to, n0 + r < N ? from : src, n0 + r < N);
+  } else {
+    constexpr int CPR = RAW / 8;
+    const int end = min(n0 + KB, N);
+    for (int idx = lane; idx < DH * CPR; idx += 32) {
+      const int d = idx / CPR, c = idx % CPR;
+      const long long first = ((long long)d * ix + n0) & ~7LL;
+      const long long at = first + 8 * c;
+      const bool ok = at < (long long)d * ix + end;
+      cp_async16_zfill(tile + d * RAW + 8 * c, ok ? src + at : src, ok);
     }
   }
 }
 
-// N <= NMAX: every key of the head in shared memory, a warp's scores in
-// registers. NKT: key tiles of 8 held (even), NKT * 8 >= N.
-template <int DH, int NKT, bool TRANS, bool RECIP>
-__global__ void __launch_bounds__(WARPS * 32) short_kernel(Args a) {
-  constexpr int NK = NKT * 8;
-  using S = Smem<DH, NK>;
-  const int h = blockIdx.x, b = blockIdx.y;
+// K14: a slot's raw rows made aligned in place: token n0 + n of head
+// dimension d sits at raw[d][(d * ix + n0) % 8 + n] and moves to
+// tile[d][n], 16 bytes at a time (two raw chunks shifted); tokens past N
+// zero. One thread a row, the chunks in order, each read before it is
+// written; thread t of T takes rows t, t + T, ...
+template <int DH>
+__device__ __forceinline__ void realign_tile(long long ix, int N, int n0, bf16* tile, int t,
+                                             int T) {
+  const int i8 = (int)(ix & 7);
+  for (int d = t; d < DH; d += T) {
+    const int sh = (d * i8 + n0) & 7;
+    uint4* row = reinterpret_cast<uint4*>(tile + d * RAW);
+    uint4 lo = row[0];
+#pragma unroll
+    for (int k = 0; k < KB / 8; ++k) {
+      const uint4 hi = row[k + 1];
+      uint32_t x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      lo = hi;
+      if (sh & 4) {
+#pragma unroll
+        for (int w = 0; w < 6; ++w) x[w] = x[w + 2];
+      }
+      if (sh & 2) {
+#pragma unroll
+        for (int w = 0; w < 5; ++w) x[w] = x[w + 1];
+      }
+      uint32_t y[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) y[w] = (sh & 1) ? __funnelshift_r(x[w], x[w + 1], 16) : x[w];
+      const int valid = N - n0 - 8 * k;  // tokens of this chunk below N
+      if (valid < 8) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          if (2 * w >= valid) y[w] = 0;
+          else if (2 * w + 1 >= valid) y[w] &= 0xffffu;
+        }
+      }
+      row[k] = make_uint4(y[0], y[1], y[2], y[3]);
+    }
+  }
+}
+
+// Bytes of the ring's barriers.
+constexpr int BAR_BYTES = 2 * STAGES * 8;
+
+// The bytes of shared memory a query tile takes at N: where its scores
+// are held, its 16 rows' fp32 scores (one float4 a lane per 8-key tile);
+// and at least its staged output tile.
+template <int DH>
+__host__ __device__ constexpr int region_bytes(int N, bool hold, bool trans) {
+  const int scores = hold ? (N + 7) / 8 * 32 * 16 : 0;
+  const int out = trans ? DH * OT * 2 : 16 * Layout<DH>::LD * 2;
+  return scores > out ? scores : out;
+}
+
+// One core for K12, K13 and K14 (see the note at the top): R consumer
+// warps, one a query tile, and one producer warp. HOLD:
+// the scores wait in the tile's buffer for the row sum; else they are
+// computed three times (row max, row sum, then P V).
+template <int DH, bool TRANS, bool RECIP, bool HOLD>
+__global__ void __launch_bounds__(WARPS_MAX * 32, DH == 128 ? 1 : 2) core(Args a, Plan pl) {
+  using L = Layout<DH>;
+  constexpr int DT = DH / 8;  // 8-column tiles of the output
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vt = Ks + NK * S::LDK;
-  stage<DH, NK, TRANS>(a, b, h, 0, true, Ks, Vt);
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::ring_bytes(TRANS));  // [slot]
+  uint64_t* empty = full + STAGES;                                           // [slot]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int R = pl.R;
+
+  const int N = a.N;
+  const int tiles = (N + 15) / 16;
+  const int chunks = (tiles + R - 1) / R;
+  const int units = chunks * a.heads * a.B;
+  const int nq = (R + 3) / 4;        // q tiles a unit
+  const int nk = (N + KB - 1) / KB;  // key tiles
+  // a unit's items: its q tiles, then K's tiles; HOLD: then V's tiles;
+  // else K's tiles again, then K's and V's in turns
+  const int per_unit = nq + (HOLD ? 2 : 4) * nk;
+  const int mine = units > (int)blockIdx.x ? (units - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int total = mine * per_unit;  // items of this block's load sequence
+  const int nt8 = (N + 7) / 8;        // 8-key tiles below N
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], R);
+    }
+  }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  for (int q0 = warp * 16; q0 < a.N; q0 += WARPS * 16) {
+  if (warp == R) {
+    // The producer: each item into the next ring slot (K14: its raw rows)
+    // once the consumers have released it.
+    // item t of unit u: its source (q, k or v at (b, h, 0, 0)) and its
+    // first row
+    auto item = [&](int u, int t, const bf16*& src, int& n0) {
+      const int hb = u / chunks;
+      const long long off = (hb / a.heads) * a.ib + (hb % a.heads) * a.ih;
+      if (t < nq) {
+        src = a.q + off;
+        n0 = (u % chunks) * R * 16 + t * KB;
+        return;
+      }
+      t -= nq;
+      const bool v = HOLD ? t >= nk : t >= 2 * nk && (t - 2 * nk) % 2 == 1;
+      src = (v ? a.v : a.k) + off;
+      n0 = (HOLD || t < 2 * nk ? t % nk : (t - 2 * nk) / 2) * KB;
+    };
+    for (int j = 0; j < total; ++j) {
+      const int slot = j % STAGES;
+      const bf16* src;
+      int n0;
+      item((int)blockIdx.x + j / per_unit * (int)gridDim.x, j % per_unit, src, n0);
+      if (j >= STAGES) mbar_wait(&empty[slot], (j / STAGES + 1) & 1);
+      issue_tile<DH, TRANS>(src, a.ix, N, n0, ring + slot * L::slot(TRANS));
+      cp_async_arrive(&full[slot]);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // The consumers: warp `warp` takes query tile `warp` of each unit.
+  unsigned char* region =
+      smem + L::ring_bytes(TRANS) + BAR_BYTES + (size_t)warp * region_bytes<DH>(N, HOLD, TRANS);
+  float4* sc = reinterpret_cast<float4*>(region);  // HOLD: [8-key tile][lane]
+  int j = 0;                                       // the next item
+  // the next item's tile (K14: realigned in place by the consumers
+  // together; n0, its first row)
+  auto acquire = [&](int n0) -> const bf16* {
+    const int slot = j % STAGES;
+    mbar_wait(&full[slot], (j / STAGES) & 1);
+    ++j;
+    if (TRANS) {
+      realign_tile<DH>(a.ix, N, n0, ring + slot * L::slot(TRANS), threadIdx.x, R * 32);
+      asm volatile("bar.sync 1, %0;\n" ::"r"(R * 32) : "memory");
+    }
+    return ring + slot * L::slot(TRANS);
+  };
+  auto release = [&](int items) {  // the last `items` acquired
+    __syncwarp();
+    if (lane == 0)
+      for (int i = items; i > 0; --i) mbar_arrive(&empty[(j - i) % STAGES]);
+  };
+
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int c = u % chunks, h = (u / chunks) % a.heads, b = u / (chunks * a.heads);
+    const int row0 = (c * R + warp) * 16;  // this warp's query tile
+    const bool active = row0 < N;
+
+    // q: A fragments of the unscaled bf16 q, rows row0 + (0..15)
     uint32_t qa[DH / 16][4];
-    load_q<DH, TRANS>(a, b, h, q0, qa);
-    float s[NKT][4];
-    scores<DH, NKT, S::LDK>(Ks, qa, a.scale, s);
-    float m0 = -INFINITY, m1 = -INFINITY;
-    tile_max<NKT>(s, 0, a.N, m0, m1);
+    for (int t = 0; t < nq; ++t) {
+      const bf16* tile = acquire(c * R * 16 + t * KB);
+      const int r = warp * 16 - t * KB;
+      if (active && r >= 0 && r < KB) {
+#pragma unroll
+        for (int kq = 0; kq < DH / 16; ++kq)
+          frag<DH, TRANS>(qa[kq], tile, r + ((lane >> 3) & 1) * 8, kq * 16 + (lane >> 4) * 8,
+                          false);
+      }
+      release(1);
+    }
+
+    // the scores of the 16-key group jp of a staged K tile, times the
+    // scale: s[e] holds 8-key tile 2 jp + e, [0..1] row g, [2..3] row g + 8
+    auto scores = [&](const bf16* tile, int jp, float (&s)[2][4]) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) s[e][0] = s[e][1] = s[e][2] = s[e][3] = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < DH / 16; ++kq) {
+        uint32_t kb[4];
+        frag<DH, TRANS>(kb, tile, 16 * jp + (lane >> 4) * 8, kq * 16 + ((lane >> 3) & 1) * 8,
+                        false);
+        mma_bf16_16816(s[0], qa[kq], kb[0], kb[1]);
+        mma_bf16_16816(s[1], qa[kq], kb[2], kb[3]);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) s[e][q] = __fmul_rn(s[e][q], a.scale);
+    };
+    // whether key 8 jt + 2 t4 + c is below N (every key of a full 8-key tile)
+    auto valid = [&](int jt, int cc) { return 8 * jt + 2 * t4 + cc < N; };
+    // f(jp, edge) for each 16-key group of the key tile at k0 below N;
+    // edge: the group may hold keys past N
+    auto groups = [&](int k0, auto f) {
+      if (k0 + KB <= N) {
+#pragma unroll
+        for (int jp = 0; jp < KB / 16; ++jp) f(jp, std::false_type{});
+      } else {
+#pragma unroll
+        for (int jp = 0; jp < KB / 16; ++jp)
+          if (k0 + 16 * jp < N) f(jp, std::true_type{});
+      }
+    };
+
+    // the row max of rows g (m0) and g + 8 (m1) over the valid keys, and
+    // the least (lo0, lo1)
+    float m0 = -INFINITY, m1 = -INFINITY, lo0 = INFINITY, lo1 = INFINITY;
+    auto fold_max = [&](const float (&s)[4], int jt, bool edge) {
+      if (!edge || 8 * jt + 8 <= N) {
+        m0 = fmaxf(m0, fmaxf(s[0], s[1]));
+        m1 = fmaxf(m1, fmaxf(s[2], s[3]));
+        lo0 = fminf(lo0, fminf(s[0], s[1]));
+        lo1 = fminf(lo1, fminf(s[2], s[3]));
+      } else {
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc)
+          if (valid(jt, cc)) {
+            m0 = fmaxf(m0, s[cc]);
+            m1 = fmaxf(m1, s[2 + cc]);
+            lo0 = fminf(lo0, s[cc]);
+            lo1 = fminf(lo1, s[2 + cc]);
+          }
+      }
+    };
+    // p = exp(s - max) over the valid keys, 0 elsewhere
+    auto exps = [&](float (&s)[4], int jt, bool edge) {
+      if (!edge || 8 * jt + 8 <= N) {
+        s[0] = expf(s[0] - m0);
+        s[1] = expf(s[1] - m0);
+        s[2] = expf(s[2] - m1);
+        s[3] = expf(s[3] - m1);
+      } else {
+        const bool v0 = valid(jt, 0), v1 = valid(jt, 1);
+        s[0] = v0 ? expf(s[0] - m0) : 0.f;
+        s[1] = v1 ? expf(s[1] - m0) : 0.f;
+        s[2] = v0 ? expf(s[2] - m1) : 0.f;
+        s[3] = v1 ? expf(s[3] - m1) : 0.f;
+      }
+    };
+    for (int t = 0; t < nk; ++t) {
+      const bf16* tile = acquire(t * KB);
+      const int k0 = t * KB;
+      if (active)
+        groups(k0, [&](int jp, auto edge) {
+          float s[2][4];
+          scores(tile, jp, s);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int jt = k0 / 8 + 2 * jp + e;
+            if (decltype(edge)::value && jt >= nt8) break;
+            fold_max(s[e], jt, decltype(edge)::value);
+            if (HOLD) sc[jt * 32 + lane] = make_float4(s[e][0], s[e][1], s[e][2], s[e][3]);
+          }
+        });
+      release(1);
+    }
     m0 = quad_max(m0);
     m1 = quad_max(m1);
-    tile_exp<NKT>(s, 0, a.N, m0, m1);
-    float l0 = 0.f, l1 = 0.f;
-    tile_sum<NKT>(s, l0, l1);
-    normalise<NKT, RECIP>(s, quad_sum(l0), quad_sum(l1));
-    float o[DH / 8][4];
+    // div_rn holds unless some p lies in (0, 2^-60); p >= exp(-40) > 2^-60
+    // wherever s - max >= -40, so a unit whose scores all are takes it
+    const float span0 = quad_min(lo0) - m0, span1 = quad_min(lo1) - m1;
+    const bool ieee = !RECIP && __any_sync(0xffffffffu, span0 < -40.f || span1 < -40.f);
+
+    // the row sums of p (la, lc: row g; lb, ld: row g + 8)
+    float la = 0.f, lb = 0.f, lc = 0.f, ld = 0.f;
+    if (HOLD) {
+      if (active) {
+        const int full16 = N / 16;  // 16-key groups below N
+        int P = 0;
+#pragma unroll 2
+        for (; P < full16; ++P)
 #pragma unroll
-    for (int c = 0; c < DH / 8; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
-    pv<DH, NKT, S::LDV>(Vt, s, o);
-    store_o<DH, TRANS>(a, b, h, q0, o);
+          for (int e = 0; e < 2; ++e) {
+            float4 v = sc[(2 * P + e) * 32 + lane];
+            float s[4] = {v.x, v.y, v.z, v.w};
+            exps(s, 2 * P + e, false);
+            (e ? lc : la) += s[0] + s[1];
+            (e ? ld : lb) += s[2] + s[3];
+            sc[(2 * P + e) * 32 + lane] = make_float4(s[0], s[1], s[2], s[3]);
+          }
+        for (int jt = 2 * P; jt < nt8; ++jt) {
+          float4 v = sc[jt * 32 + lane];
+          float s[4] = {v.x, v.y, v.z, v.w};
+          exps(s, jt, true);
+          la += s[0] + s[1];
+          lb += s[2] + s[3];
+          sc[jt * 32 + lane] = make_float4(s[0], s[1], s[2], s[3]);
+        }
+      }
+    } else {
+      for (int t = 0; t < nk; ++t) {
+        const bf16* tile = acquire(t * KB);
+        const int k0 = t * KB;
+        if (active)
+          groups(k0, [&](int jp, auto edge) {
+            float s[2][4];
+            scores(tile, jp, s);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int jt = k0 / 8 + 2 * jp + e;
+              if (decltype(edge)::value && jt >= nt8) break;
+              exps(s[e], jt, decltype(edge)::value);
+              (e ? lc : la) += s[e][0] + s[e][1];
+              (e ? ld : lb) += s[e][2] + s[e][3];
+            }
+          });
+        release(1);
+      }
+    }
+    const float l0 = quad_sum(la + lc), l1 = quad_sum(lb + ld);
+    const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
+
+    // O = P V, P normalised and rounded 16 keys at a time
+    float o[DT][4];
+#pragma unroll
+    for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+    // a 16-key group's p of rows g ([0, 1], [4, 5]) and g + 8 ([2, 3],
+    // [6, 7]) normalised (by the IEEE division where `ieee`) and rounded,
+    // then O += P V
+    auto pv = [&](const bf16* vtile, int kk, float (&p)[8]) {
+      if (RECIP) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) p[q] = __fmul_rn(p[q], (q & 2) ? r1 : r0);
+      } else if (ieee) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) p[q] = __fdiv_rn(p[q], (q & 2) ? l1 : l0);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) p[q] = (q & 2) ? div_rn(p[q], l1, r1) : div_rn(p[q], l0, r0);
+      }
+      const uint32_t pa[4] = {pack_bf16x2(p[0], p[1]), pack_bf16x2(p[2], p[3]),
+                              pack_bf16x2(p[4], p[5]), pack_bf16x2(p[6], p[7])};
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t vb[4];
+        frag<DH, TRANS>(vb, vtile, 16 * kk + ((lane >> 3) & 1) * 8, dp * 16 + (lane >> 4) * 8,
+                        true);
+        mma_bf16_16816(o[2 * dp], pa, vb[0], vb[1]);
+        mma_bf16_16816(o[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    };
+    for (int t = 0; t < nk; ++t) {
+      const bf16* ktile = HOLD ? nullptr : acquire(t * KB);
+      const bf16* vtile = acquire(t * KB);
+      const int k0 = t * KB;
+      if (active)
+        groups(k0, [&](int kk, auto edge) {
+          const int jt = k0 / 8 + 2 * kk;
+          float p[8];
+          if (HOLD) {
+            const float4 v = sc[jt * 32 + lane];
+            const float4 w = !decltype(edge)::value || jt + 1 < nt8
+                                 ? sc[(jt + 1) * 32 + lane]
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+            p[0] = v.x, p[1] = v.y, p[2] = v.z, p[3] = v.w;
+            p[4] = w.x, p[5] = w.y, p[6] = w.z, p[7] = w.w;
+          } else {
+            float s[2][4];
+            scores(ktile, kk, s);
+            exps(s[0], jt, decltype(edge)::value);
+            if (!decltype(edge)::value || jt + 1 < nt8)
+              exps(s[1], jt + 1, decltype(edge)::value);
+            else
+              s[1][0] = s[1][1] = s[1][2] = s[1][3] = 0.f;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) p[q] = s[0][q], p[4 + q] = s[1][q];
+          }
+          pv(vtile, kk, p);
+        });
+      release(HOLD ? 1 : 2);
+    }
+    if (!active) continue;
+
+    // the output rows, rounded once, through the warp's buffer
+    bf16* ob = a.o + b * a.ob + h * a.oh;
+    bf16* stg = reinterpret_cast<bf16*>(region);
+    __syncwarp();
+    if (!TRANS) {
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        *reinterpret_cast<uint32_t*>(stg + g * L::LD + 8 * d + 2 * t4) = pack_bf16x2(o[d][0], o[d][1]);
+        *reinterpret_cast<uint32_t*>(stg + (g + 8) * L::LD + 8 * d + 2 * t4) =
+            pack_bf16x2(o[d][2], o[d][3]);
+      }
+      __syncwarp();
+      for (int idx = lane; idx < 16 * DT; idx += 32) {
+        const int r = idx % 16, d = idx / 16;
+        if (row0 + r < N)
+          *reinterpret_cast<uint4*>(ob + (long long)(row0 + r) * a.ox + 8 * d) =
+              *reinterpret_cast<const uint4*>(stg + r * L::LD + 8 * d);
+      }
+    } else {
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          stg[(8 * d + 2 * t4 + (e & 1)) * OT + g + 8 * (e >> 1)] = __float2bfloat16_rn(o[d][e]);
+      __syncwarp();
+      for (int idx = lane; idx < DH * 16; idx += 32) {
+        const int dd = idx / 16, r = idx % 16;
+        if (row0 + r < N) ob[(long long)dd * a.ox + row0 + r] = stg[dd * OT + r];
+      }
+    }
+    __syncwarp();
   }
 }
 
-// Fold this thread's keys of one row (E = 0: row g, E = 2: row g+8) from
-// the tile into its online (max, sum): the sum is rescaled by exp(old max -
-// new max) when the max grows.
-template <int NT, int E>
-__device__ __forceinline__ void online(const float (&s)[NT][4], int k0, int N, float tmax,
-                                       float& m, float& l) {
-  const float mn = fmaxf(m, tmax);
-  if (mn == -INFINITY) return;  // no valid key of this row seen yet
-  const int t4 = threadIdx.x & 3;
-  float add = 0.f;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-      if (k0 + 8 * j + 2 * t4 + c < N) add += expf(s[j][E + c] - mn);
-  l = l * expf(m - mn) + add;
-  m = mn;
-}
-
-// The row's (max, sum) from the four lanes' online pairs.
-__device__ __forceinline__ void merge_quad(float& m, float& l) {
-  const float M = quad_max(m);
-  l = quad_sum(m == -INFINITY ? 0.f : l * expf(m - M));
-  m = M;
-}
-
-// N > NMAX: key tiles of LONG_KB streamed through shared memory.
 template <int DH, bool TRANS, bool RECIP>
-__global__ void __launch_bounds__(WARPS * 32) long_kernel(Args a) {
-  using S = Smem<DH, LONG_KB>;
-  constexpr int NT = LONG_KB / 8;
-  const int h = blockIdx.y, b = blockIdx.z;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vt = Ks + LONG_KB * S::LDK;
-  const int warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * LONG_QB + warp * 16;
-
-  uint32_t qa[DH / 16][4];
-  load_q<DH, TRANS>(a, b, h, q0, qa);
-
-  // pass 1: the online (max, sum) of each row
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  for (int k0 = 0; k0 < a.N; k0 += LONG_KB) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage<DH, LONG_KB, TRANS>(a, b, h, k0, false, Ks, Vt);
-    __syncthreads();
-    float s[NT][4];
-    scores<DH, NT, S::LDK>(Ks, qa, a.scale, s);
-    float t0 = -INFINITY, t1 = -INFINITY;
-    tile_max<NT>(s, k0, a.N, t0, t1);
-    online<NT, 0>(s, k0, a.N, t0, m0, l0);
-    online<NT, 2>(s, k0, a.N, t1, m1, l1);
-  }
-  merge_quad(m0, l0);
-  merge_quad(m1, l1);
-
-  // pass 2: p = exp(s - max) / sum, O = P V
-  float o[DH / 8][4];
-#pragma unroll
-  for (int c = 0; c < DH / 8; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
-  for (int k0 = 0; k0 < a.N; k0 += LONG_KB) {
-    __syncthreads();
-    stage<DH, LONG_KB, TRANS>(a, b, h, k0, true, Ks, Vt);
-    __syncthreads();
-    float s[NT][4];
-    scores<DH, NT, S::LDK>(Ks, qa, a.scale, s);
-    tile_exp<NT>(s, k0, a.N, m0, m1);
-    normalise<NT, RECIP>(s, l0, l1);
-    pv<DH, NT, S::LDV>(Vt, s, o);
-  }
-  store_o<DH, TRANS>(a, b, h, q0, o);
-}
-
-template <int DH, int NKT, bool TRANS, bool RECIP>
-static int launch_short(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = Smem<DH, NKT * 8>::BYTES;
-  auto kern = short_kernel<DH, NKT, TRANS, RECIP>;
+static int launch(const Args& a, const Plan& pl, cudaStream_t stream) {
+  const int threads = (pl.R + 1) * 32;
+  if (pl.R < 1 || threads > WARPS_MAX * 32) return (int)cudaErrorInvalidValue;
+  const size_t smem = Layout<DH>::ring_bytes(TRANS) + BAR_BYTES +
+                      (size_t)pl.R * region_bytes<DH>(a.N, pl.hold, TRANS);
+  if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kern = pl.hold ? core<DH, TRANS, RECIP, true> : core<DH, TRANS, RECIP, false>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(a.heads, B), WARPS * 32, smem, stream>>>(a);
+  const int tiles = (a.N + 15) / 16;
+  const long long units = (long long)((tiles + pl.R - 1) / pl.R) * a.heads * a.B;
+  if (units > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // the blocks that fit the card at once, for the last (device, block
+  // shape) this instantiation was launched with
+  static int last_dev = -1, last_threads = 0, last_hold = 0, last_blocks = 0;
+  static size_t last_smem = 0;
+  int dev = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if (dev != last_dev || threads != last_threads || smem != last_smem || pl.hold != last_hold) {
+    int sms = 0, per_sm = 0;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem)) !=
+        cudaSuccess)
+      return (int)e;
+    last_dev = dev, last_threads = threads, last_smem = smem, last_hold = pl.hold;
+    last_blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  kern<<<(int)(units < last_blocks ? units : last_blocks), threads, smem, stream>>>(a, pl);
   return (int)cudaGetLastError();
-}
-
-template <int DH, bool TRANS, bool RECIP>
-static int launch_long(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = Smem<DH, LONG_KB>::BYTES;
-  auto kern = long_kernel<DH, TRANS, RECIP>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.N + LONG_QB - 1) / LONG_QB, a.heads, B);
-  kern<<<grid, WARPS * 32, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// The smallest key-tile count that covers N (64, 128, 208 or 256 keys),
-// else the long core.
-template <int DH, bool TRANS, bool RECIP>
-static int launch_n(const Args& a, int B, cudaStream_t s) {
-  if (a.N <= 64) return launch_short<DH, 8, TRANS, RECIP>(a, B, s);
-  if (a.N <= 128) return launch_short<DH, 16, TRANS, RECIP>(a, B, s);
-  if (a.N <= 208) return launch_short<DH, 26, TRANS, RECIP>(a, B, s);
-  if (a.N <= NMAX) return launch_short<DH, 32, TRANS, RECIP>(a, B, s);
-  return launch_long<DH, TRANS, RECIP>(a, B, s);
 }
 
 template <int DH>
-static int launch_variant(const Args& a, int B, int variant, cudaStream_t s) {
+static int launch_variant(const Args& a, int variant, const Plan& pl, cudaStream_t s) {
   switch (variant) {
-    case PACKED: return launch_n<DH, false, false>(a, B, s);
-    case BHND: return launch_n<DH, false, true>(a, B, s);
-    case PACKED_T: return launch_n<DH, true, false>(a, B, s);
+    case PACKED: return launch<DH, false, false>(a, pl, s);
+    case BHND: return launch<DH, false, true>(a, pl, s);
+    case PACKED_T: return launch<DH, true, false>(a, pl, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // One translation unit per head_dim (mhsa_dh{32,64,128}.cu), so that the
 // instantiations compile in parallel.
-int run_dh32(const Args& a, int B, int variant, cudaStream_t s);
-int run_dh64(const Args& a, int B, int variant, cudaStream_t s);
-int run_dh128(const Args& a, int B, int variant, cudaStream_t s);
+int run_dh32(const Args& a, int variant, const Plan& pl, cudaStream_t s);
+int run_dh64(const Args& a, int variant, const Plan& pl, cudaStream_t s);
+int run_dh128(const Args& a, int variant, const Plan& pl, cudaStream_t s);
 
-static int run(const Args& a, int B, int dh, int variant, cudaStream_t s) {
-  if (B <= 0 || B > 65535 || a.N <= 0 || a.heads <= 0 || a.heads > 65535)
-    return (int)cudaErrorInvalidValue;
+static int run(const Args& a, int dh, int variant, const Plan& pl, cudaStream_t s) {
+  if (a.B <= 0 || a.N <= 0 || a.heads <= 0) return (int)cudaErrorInvalidValue;
   switch (dh) {
-    case 32: return run_dh32(a, B, variant, s);
-    case 64: return run_dh64(a, B, variant, s);
-    case 128: return run_dh128(a, B, variant, s);
+    case 32: return run_dh32(a, variant, pl, s);
+    case 64: return run_dh64(a, variant, pl, s);
+    case 128: return run_dh128(a, variant, pl, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -2,6 +2,6 @@
 // unit of its own so that the builds of the head_dims run in parallel.
 #include "mhsa.cuh"
 
-int mhsa::run_dh128(const Args& a, int B, int variant, cudaStream_t s) {
-  return launch_variant<128>(a, B, variant, s);
+int mhsa::run_dh128(const Args& a, int variant, const Plan& pl, cudaStream_t s) {
+  return launch_variant<128>(a, variant, pl, s);
 }

@@ -36,6 +36,7 @@ kernel, so it has no kernel here either.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -110,6 +111,78 @@ def _check_dims(heads: int, dh: int, N: int, what: str) -> None:
                          f"N >= 1; got head_dim={dh}, heads={heads}, N={N}")
 
 
+# csrc/mhsa.cuh's constants: the most warps a block (the producer included),
+# the rows of a staged tile, the ring's depth, the pitch of K14's raw rows
+# and of its staged output, the bytes of the ring's barriers, and the
+# shared memory a block can take on an H100 (an SM has 228 KB, less 1 KB a
+# block)
+WARPS_MAX, KB, STAGES, RAW, OT, BAR = 8, 64, 4, 72, 24, 64
+SMEM_MAX, SMEM_SM = 232448, 233472
+
+
+class Plan(NamedTuple):
+    """A launch of K12-K14's core: ``tiles`` query tiles of 16 rows a
+    unit, one warp each; ``region`` bytes of shared memory a tile;
+    ``smem`` bytes a block; and whether a tile's scores are held there
+    until the row sum is known (``hold``), or computed three times (row
+    max, row sum, P V)."""
+    tiles: int
+    region: int
+    smem: int
+    hold: bool
+
+
+def _ring(dh: int, transposed: bool) -> int:
+    """Bytes of the ring and its barriers: a slot holds 64 token rows of
+    dh, or for K14 dh raw rows of 64 tokens (realigned in place)."""
+    return STAGES * (dh * RAW if transposed else KB * (dh + 8)) * 2 + BAR
+
+
+def _region(N: int, dh: int, hold: bool, transposed: bool) -> int:
+    """A query tile's shared memory (mhsa.cuh's region_bytes): ``hold``,
+    its 16 rows' fp32 scores (64 bytes a key, in 8-key tiles); and at least
+    its staged output tile."""
+    out = dh * OT * 2 if transposed else 16 * (dh + 8) * 2
+    return max(-(-N // 8) * 32 * 16 if hold else 0, out)
+
+
+def _rooms(dh: int, transposed: bool) -> tuple:
+    """The shared memory for the tiles' regions beside the ring: with two
+    blocks an SM, and with one."""
+    ring = _ring(dh, transposed)
+    return SMEM_SM // 2 - 1024 - ring, SMEM_MAX - ring
+
+
+def _plan(N: int, dh: int, transposed: bool) -> Plan:
+    """The plan for sequence length N at head_dim ``dh`` (``transposed``:
+    K14, which also stages raw rows). Scores are held while four query
+    tiles' fit the room for two blocks an SM in K14's layout (N <= 376 at
+    head_dim 32); past that the units would hold too few rows, each reading
+    all of K and V, and the scores are computed three times instead. K12
+    and K13 decide the same way: it sets the order of the row sums and so
+    K12's bits, which K14's must equal. Query tiles a unit: as many as the
+    room and the block's warps leave, split evenly over the fewest units
+    (at N=197, 13 tiles as units of 7 and 6 rather than 7 and 7, or 4, 4, 4
+    and 1)."""
+    room2 = _rooms(dh, True)[0]
+    hold = room2 >= 4 * _region(N, dh, True, True)
+    region = _region(N, dh, hold, transposed)
+    tiles = -(-N // 16)
+    consumers = WARPS_MAX - 1  # and the producer warp
+    for room in _rooms(dh, transposed):
+        rmax = min(consumers, room // region)
+        if rmax >= 1:
+            r = -(-tiles // -(-tiles // rmax))
+            return Plan(r, region, _ring(dh, transposed) + r * region, hold)
+    raise AssertionError(f"no plan for N={N}, head_dim={dh}")
+
+
+def _core_args(N: int, dh: int, transposed: bool) -> tuple:
+    """(tiles, hold) for the C entry points."""
+    plan = _plan(N, dh, transposed)
+    return plan.tiles, int(plan.hold)
+
+
 def _packed_cuda(t, heads: int, scale: float, transposed: bool):
     """K12 on qkv (B, N, 3D), or K14 on qkv_t (B, 3D, N) if ``transposed``."""
     entry = "mhsa_packed_t" if transposed else "mhsa_packed"
@@ -124,6 +197,7 @@ def _packed_cuda(t, heads: int, scale: float, transposed: bool):
     out = torch.empty((B, D, N) if transposed else (B, N, D),
                       dtype=torch.bfloat16, device=t.device)
     launch.call(f"mfv_{entry}", t.device, t, out, B, N, heads, D // heads,
+                *_core_args(N, D // heads, transposed),
                 scale)
     LAUNCHES[entry] += 1
     return out
@@ -135,7 +209,8 @@ def _mhsa_cuda(q, k, v, scale: float):
     for name, t in (("q", q), ("k", k), ("v", v)):
         launch.require(t, torch.bfloat16, name, (B, H, N, dh))
     out = torch.empty_like(q)
-    launch.call("mfv_mhsa", q.device, q, k, v, out, B, H, N, dh, scale)
+    launch.call("mfv_mhsa", q.device, q, k, v, out, B, H, N, dh,
+                *_core_args(N, dh, False), scale)
     LAUNCHES["mhsa"] += 1
     return out
 

@@ -41,9 +41,9 @@ SIGNATURES = {
     "mfv_fused_mlp_block_bwd": [_P] * 20 + [_I] * 7 + [_P],
     "mfv_fused_attention_block_i8": [_P] * 14 + [_I] * 4 + [_F, _P],
     "mfv_fused_mlp_block_i8": [_P] * 14 + [_I] * 3 + [_P],
-    "mfv_mhsa_packed": [_P, _P] + [_I] * 4 + [_F, _P],
-    "mfv_mhsa": [_P] * 4 + [_I] * 4 + [_F, _P],
-    "mfv_mhsa_packed_t": [_P, _P] + [_I] * 4 + [_F, _P],
+    "mfv_mhsa_packed": [_P, _P] + [_I] * 6 + [_F, _P],
+    "mfv_mhsa": [_P] * 4 + [_I] * 6 + [_F, _P],
+    "mfv_mhsa_packed_t": [_P, _P] + [_I] * 6 + [_F, _P],
     "mfv_mlp3d": [_P] * 8 + [_I] * 6 + [_P],
     "mfv_mlp3d_staged": [_P] * 8 + [_I] * 5 + [_P],
     "mfv_mlp_pipe": [_P] * 8 + [_I] * 5 + [_P],

@@ -1,0 +1,95 @@
+"""The C bindings of the port's kernels, on the CPU: ``ops/build.py``'s
+ctypes table against the entry points the CUDA sources declare (a table
+that drifts from a changed C signature cuts pointers silently on the
+card), and K12-K14's launch plan at every head_dim and every N up to 2048.
+"""
+from __future__ import annotations
+
+import ctypes
+import re
+
+import pytest
+
+from mfvit_tpu_torch.ops import attention, build
+
+_DECL = re.compile(r"MFV_API\s+int\s+(mfv_\w+)\s*\(([^)]*)\)", re.S)
+_CTYPE = {"void**": ctypes.POINTER(ctypes.c_void_p), "int": ctypes.c_int,
+          "float": ctypes.c_float}
+
+
+def _declared() -> dict:
+    """name -> the C argument types, one per argument, of every ``MFV_API
+    int mfv_*(...)`` in csrc/*.cu."""
+    out = {}
+    for src in build.sources():
+        if src.suffix != ".cu":
+            continue
+        for name, args in _DECL.findall(src.read_text()):
+            types = []
+            for arg in args.split(","):
+                arg = " ".join(arg.split())
+                ptrs = arg.count("*")
+                base = re.sub(r"\bconst\b", "", arg.replace("*", " ")).split()
+                types.append("void*" if ptrs == 1 else
+                             "void**" if ptrs == 2 else base[0])
+            assert name not in out, f"{name} declared twice"
+            out[name] = types
+    return out
+
+
+DECLARED = _declared()
+
+
+def test_every_entry_point_has_a_ctypes_signature():
+    """The same entry points on both sides (mfv_error_string, which
+    returns a string, is bound on its own)."""
+    assert set(DECLARED) == set(build.SIGNATURES)
+    assert "mfv_error_string" not in build.SIGNATURES
+
+
+@pytest.mark.parametrize("name", sorted(build.SIGNATURES))
+def test_ctypes_signature_matches_the_c_declaration(name):
+    """Argument by argument: c_void_p for each pointer, c_int for each int,
+    c_float for each float, POINTER(c_void_p) for a void**."""
+    want = [ctypes.c_void_p if t == "void*" else _CTYPE[t]
+            for t in DECLARED[name]]
+    assert build.SIGNATURES[name] == want
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_mhsa_plan_fits_at_every_length(dh, transposed):
+    """Every N from 1 to 2048 gets a plan within a block's shared memory on
+    an H100: at most 8 warps a block with the producer, a region a query
+    tile that holds its staged output tile and, where the scores are held,
+    its 16 rows' fp32 scores; at most one idle query tile a unit; and
+    K12's choice to hold the scores equal to K14's, since it sets the
+    order of the row sums."""
+    ring = attention.STAGES * (dh * attention.RAW if transposed
+                               else attention.KB * (dh + 8)) * 2
+    out = dh * attention.OT * 2 if transposed else 16 * (dh + 8) * 2
+    for n in range(1, 2049):
+        plan = attention._plan(n, dh, transposed)
+        tiles = -(-n // 16)
+        units = -(-tiles // plan.tiles)
+        assert 1 <= plan.tiles <= attention.WARPS_MAX - 1
+        assert plan.smem <= attention.SMEM_MAX, (n, plan)
+        assert plan.smem == ring + attention.BAR + plan.tiles * plan.region
+        assert plan.region % 16 == 0 and plan.region >= out, (n, plan)
+        assert not plan.hold or plan.region >= -(-n // 8) * 512, (n, plan)
+        assert units * plan.tiles - tiles < units, (n, plan)
+        assert plan.hold == attention._plan(n, dh, not transposed).hold
+
+
+def test_mhsa_plan_at_the_main_shapes():
+    """vit_small at 224 px (N=197): the scores held, 13 query tiles as
+    units of 7, two blocks an SM; at 384 px (N=577), the scores computed
+    three times, units of 7 tiles; and the longest N that holds its scores
+    at head_dim 32 is 376."""
+    p = attention._plan(197, 32, False)
+    assert (p.tiles, p.region, p.hold) == (7, 12800, True)
+    assert 2 * (p.smem + 1024) <= attention.SMEM_SM
+    p = attention._plan(577, 32, False)
+    assert (p.tiles, p.hold) == (7, False)
+    assert attention._plan(376, 32, True).hold
+    assert not attention._plan(377, 32, True).hold

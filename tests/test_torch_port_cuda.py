@@ -319,14 +319,32 @@ def test_int8_quantizers_on_the_card_match_the_cpu(dev):
         assert torch.equal(q, qd.cpu()) and torch.equal(s, sd.cpu())
 
 
+def _last_held(dh: int) -> int:
+    """The longest N whose scores K12-K14's plan holds in shared memory;
+    one more computes them three times."""
+    n = 1
+    while attention._plan(n + 1, dh, True).hold:
+        n += 1
+    return n
+
+
 # K12-K14: (B, N, D, heads) at vit_small, vit_small_ori, vit_base, head_dim
 # 128, N=50 and past 256 tokens (N=577, 1025); then the edges: one token,
-# head_dim 128 in the shortest key tile, the last length of the register
-# core and the first of the streaming one
+# head_dim 128 in the shortest key tile, 256 and 257 tokens; one and two
+# 8-key tiles (N=16, 17), the last 8-key tile of N=197 full and one past it
+# (208, 209); one unit of seven query tiles and the first length that
+# takes two (112, 113); a batch whose units wrap the persistent grid
+# several times (B=67, 12 heads); head_dim 64 and 128 at N=577; and the
+# longest N that holds its scores in shared memory and the next one up
+# (head_dim 32: 376, 377)
 MHSA_SHAPES = [(8, 197, 384, 12), (8, 197, 384, 6), (4, 197, 768, 12),
                (2, 300, 384, 3), (8, 50, 384, 12), (2, 577, 384, 6),
                (2, 1025, 384, 6), (3, 1, 384, 12), (2, 50, 256, 2),
-               (2, 256, 384, 6), (2, 257, 384, 6)]
+               (2, 256, 384, 6), (2, 257, 384, 6),
+               (2, 16, 384, 12), (2, 17, 384, 12), (2, 208, 384, 12),
+               (2, 209, 384, 12), (2, 112, 384, 12), (2, 113, 384, 12),
+               (67, 197, 384, 12), (2, 577, 384, 3)]
+MHSA_SHAPES += [(2, n, 384, 12) for n in (_last_held(32), _last_held(32) + 1)]
 
 
 def _packed(dev, B, N, D, seed=0):
