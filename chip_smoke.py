@@ -70,8 +70,12 @@ Phases, in order; any failure raises and exits non-zero:
    card) from the same vit_small weights and batch (B=32), three SGD steps
    each: the loss per step within rel 1e-2, and each block's flattened
    first-step gradient within rel 5e-2;
-12. K15 against the K1 -> K2 kernel chain on the same bf16 inputs (equal
-   bit for bit) and its plain fp32 version (rel < 2e-2), its 13 gradients
+12. the probe of K15's GEMM core: ``mfv_gemm_sm90`` (wgmma) beside
+   ``gemm_ln`` (WMMA, K1's and K2's) on the same bf16 inputs at K1's qkv
+   and K2's fc1 and fc2 shapes (B=8; bias, GELU, and bias + residual
+   epilogues): the outputs that differ are printed and must be 0, each
+   core within rel 2e-2 of the plain fp32 version; then K15 against the
+   K1 -> K2 kernel chain on the same bf16 inputs (equal bit for bit) and its plain fp32 version (rel < 2e-2), its 13 gradients
    (``torch.autograd.grad``: K1's forward recomputed, K7, K5) against the
    plain fp32 backward (rel < 2e-2 each), at vit_small, vit_small_ori,
    N=50 and head_dim 128 (B=8), non-zero biases; launch counts K15 1 and
@@ -136,7 +140,10 @@ Phases, in order; any failure raises and exits non-zero:
    finetune CLI's default batch; K15 against the K1 -> K2 pair, its
    plain version and the library block (``nn.TransformerEncoderLayer``
    in inference mode on K15's weights, first held within rel 2e-2 of the
-   plain fp32 version) at B=256; the pairs/s of the fusion train step, LP and
+   plain fp32 version) at B=256, then K15's launches one by one under
+   ``torch.profiler`` (``tools/compare_block.py::stage_times``) and the
+   GEMM cores alone at K1's qkv and K2's fc1 shapes (B=256; ms and
+   TFLOP/s, wgmma against gemm_ln); the pairs/s of the fusion train step, LP and
    ``--semi-supervised``, kernel against plain path, at B=32 (the fuse
    CLI's default) and B=256; each schedule variant at each argument its
    tool sweeps against its base kernel (variant, base, base, variant) and
@@ -1708,6 +1715,79 @@ def check_block_kernel(dev) -> float:
     return err
 
 
+# The probe of K15's GEMM core against K1's and K2's: label, N, K, epilogue
+# (ops.gemm's), at M = 8 x 197 (K1's qkv, K2's fc1 and fc2 at B=8), and the
+# labels also timed at B=256
+PROBE_SHAPES = (("qkv", 1152, 384, "bias"), ("fc1", 1536, 384, "gelu"),
+                ("fc2", 384, 1536, "bias"),
+                ("fc2 + residual", 384, 1536, "resid"))
+PROBE_TIMED = ("qkv", "fc1")
+
+
+def probe_inputs(seed: int, M: int, N: int, K: int, dev) -> list:
+    """a (M, K), w (N, K), bias (N,) fp32, resid (M, N) for one GEMM."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(M, K, generator=g).bfloat16()
+    w = (torch.randn(N, K, generator=g) * K ** -0.5).bfloat16()
+    b = torch.randn(N, generator=g) * 0.1
+    r = torch.randn(M, N, generator=g).bfloat16()
+    return [v.to(dev) for v in (a, w, b, r)]
+
+
+def probe_gemm(dev, M: int = 8 * 197) -> dict:
+    """The wgmma core (``ops.gemm.gemm_sm90``, K15's) beside the WMMA core
+    (``gemm_ln``, K1's and K2's, no LN prologue) on the same bf16 inputs at
+    PROBE_SHAPES: how many outputs differ (whether a wgmma k16 step rounds
+    as mma.sync's does), each core within REL_BAR of the plain fp32
+    version. Every count must be 0: K15 runs its sums on the wgmma core
+    and is held equal to the K1 -> K2 chain bit for bit. Returns label ->
+    outputs that differ."""
+    from mfvit_tpu_torch.ops import gemm
+    out = {}
+    for label, N, K, epi in PROBE_SHAPES:
+        a, w, b, r = probe_inputs(30, M, N, K, dev)
+        with torch.inference_mode():
+            got = gemm.gemm_sm90(a, w, b, epi, r)
+            ref = gemm.gemm_ln(a, w, b, epi, r)
+            plain = gemm.gemm_plain(a.float(), w.float(), b, epi, r.float())
+        n = (got != ref).sum().item()
+        r_sm90, r_ln = rel(got, plain), rel(ref, plain)
+        print(f"probe {label} (M={M}, N={N}, K={K}, epilogue {epi}): {n} of "
+              f"{got.numel()} outputs of the wgmma core differ from "
+              f"gemm_ln's (max |diff| "
+              f"{(got.float() - ref.float()).abs().max().item():.3e}); rel "
+              f"vs plain fp32: wgmma {r_sm90:.3e}, gemm_ln {r_ln:.3e}")
+        if not (math.isfinite(r_sm90) and r_sm90 < REL_BAR and r_ln < REL_BAR):
+            raise AssertionError(f"probe {label}: rel {r_sm90}, {r_ln}")
+        out[label] = n
+    if any(out.values()):  # K15's bit-for-bit gates rest on equal sums
+        raise AssertionError(f"the wgmma core differs from gemm_ln: {out}")
+    return out
+
+
+def time_gemm(dev, M: int = 256 * 197) -> dict:
+    """The two cores at PROBE_TIMED's shapes at B=256, in turns (wgmma,
+    gemm_ln, gemm_ln, wgmma). label -> (wgmma ms, gemm_ln ms, wgmma TFLOP/s,
+    gemm_ln TFLOP/s)."""
+    from mfvit_tpu_torch.ops import gemm
+    out = {}
+    for label, N, K, epi in PROBE_SHAPES:
+        if label not in PROBE_TIMED:
+            continue
+        a, w, b, r = probe_inputs(31, M, N, K, dev)
+        fns = (lambda: gemm.gemm_sm90(a, w, b, epi, r),
+               lambda: gemm.gemm_ln(a, w, b, epi, r))
+        with torch.inference_mode():
+            s1, l1, l2, s2 = (cuda_ms(fns[i], 20) for i in (0, 1, 1, 0))
+        flop = 2 * M * N * K
+        ms = ((s1 + s2) / 2, (l1 + l2) / 2)
+        out[label] = (*ms, flop / ms[0] / 1e9, flop / ms[1] / 1e9)
+        print(f"GEMM {label} at B=256 (M={M}, N={N}, K={K}): wgmma core "
+              f"{s1:.4f}/{s2:.4f} ms ({out[label][2]:.1f} TFLOP/s), gemm_ln "
+              f"{l1:.4f}/{l2:.4f} ms ({out[label][3]:.1f} TFLOP/s)")
+    return out
+
+
 def run_bench_block(dev) -> tuple:
     """K15's main path, ``mfvit_tpu_torch.tools.bench_block.run`` (B=512,
     N=197, D=384, 12 blocks; pair, K15, K15, pair, each a warm-up and
@@ -2451,6 +2531,8 @@ def main() -> int:
     phase("train-step parity, kernel path against plain path (B=32)")
     train_parity(dev)
 
+    phase("K15's GEMM core against K1's and K2's: the probe (B=8)")
+    probe = probe_gemm(dev)
     phase("K15 against the K1 -> K2 chain and its plain versions (B=8)")
     errs["fused_transformer_block"] = check_block_kernel(dev)
     phase("K15's entry point: mfvit_tpu_torch.tools.bench_block (B=512, "
@@ -2489,6 +2571,9 @@ def main() -> int:
     train = time_train(dev, 256, 4)
     train_cli = time_train(dev, 16, 32)  # the finetune CLI's default -b
     k15_ms, k15_plain_ms, k15_lib_ms, pair_ms = time_block(dev)
+    from mfvit_tpu_torch.tools.compare_block import stage_times
+    k15_stages = stage_times(dev)
+    gemm_times = time_gemm(dev)
     times["fused_transformer_block"] = (k15_ms, k15_plain_ms, k15_lib_ms)
     variant_times, base_plain = time_variants(dev)
     for name, _, _, base_name in VARIANTS:
@@ -2560,7 +2645,13 @@ def main() -> int:
                       "k15_B256": {
                           "ms": k15_ms, "plain_ms": k15_plain_ms,
                           "library_ms": k15_lib_ms, "k1_then_k2_ms": pair_ms,
-                          "bound_ms": bounds["fused_transformer_block"][0]},
+                          "bound_ms": bounds["fused_transformer_block"][0],
+                          "stages_ms": k15_stages},
+                      "gemm_probe_outputs_differ_B8": probe,
+                      "gemm_B256": {
+                          k: {"wgmma_ms": v[0], "gemm_ln_ms": v[1],
+                              "wgmma_tflops": v[2], "gemm_ln_tflops": v[3]}
+                          for k, v in gemm_times.items()},
                       "bench_block_B512_12_blocks_ms": {
                           k: v[0] for k, v in bench.items()},
                       "variants_B256": {

@@ -1,5 +1,5 @@
-// mlp_tail: the on-chip MLP stage of K15's block tail (fused_block.cu),
-// shared with the MLP schedule variants T6 and T7 (mlp_variants.cu):
+// mlp_tail: the on-chip MLP stage of the MLP schedule variants T6 and T7
+// (mlp_variants.cu), on the WMMA core of gemm_ln.cuh:
 //
 //   out rows = x + bf16(GELU_erf(LN(x) . W1^T + b1) . W2^T + b2)
 //

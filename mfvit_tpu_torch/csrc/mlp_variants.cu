@@ -11,8 +11,8 @@
 // ln_stats_kernel sums them, so each equals the K2 kernel (fused_mlp.cu)
 // bit for bit. They differ only in their schedule:
 //
-// - T6 mlp3d (tools/bench_mlp3d.py::mlp3d, _mlp3d_kernel :39): K15's block
-//   tail without proj (mlp_tail.cuh). A block of eight warps owns `cb`
+// - T6 mlp3d (tools/bench_mlp3d.py::mlp3d, _mlp3d_kernel :39): the MLP
+//   stage of mlp_tail.cuh (WMMA). A block of eight warps owns `cb`
 //   images' rows, as a TPU grid step owns a (cb, N, D) block, and walks
 //   them in BM-row tiles (64, or 32 at D = 512): with `flat` the cb * N
 //   rows as one run, so a tile may straddle two images (the in-kernel

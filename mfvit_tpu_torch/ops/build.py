@@ -33,7 +33,7 @@ SIGNATURES = {
     "mfv_fused_attention_block": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "mfv_fused_attention_block_large": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "mfv_fused_mlp_block": [_P] * 13 + [_I, _I, _I, _P],
-    "mfv_fused_transformer_block": [_P] * 17 + [_I] * 5 + [_F, _P],
+    "mfv_fused_transformer_block": [_P] * 16 + [_I] * 6 + [_F, _P],
     "mfv_fused_fusion_cls": [_P, _P, _I, _I, _I, _I, _F, _PP, _PP, _P, _P,
                              _P, _P, _P, _P],
     "mfv_fused_attention_block_bwd": [_P] * 22 + [_I] * 4 + [_F] + [_I] * 6
@@ -51,6 +51,8 @@ SIGNATURES = {
     "mfv_attn_pairs": [_P] * 11 + [_I] * 5 + [_F, _P],
     "mfv_attn_rolling": [_P] * 11 + [_I] * 5 + [_F, _P],
     "mfv_staged_bwd": [_P] * 22 + [_I] * 4 + [_F] + [_I] * 7 + [_P],
+    "mfv_gemm_sm90": [_P] * 5 + [_I] * 4 + [_P],
+    "mfv_gemm_ln": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 _lib = None
@@ -95,8 +97,9 @@ def build() -> Path:
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
     logs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+    # -ldl: gemm_sm90.cuh looks up the driver's cuTensorMapEncodeTiled
     link = [nvcc, "-shared", "-o", str(work / "lib.so"),
-            *[c[-1] for c in cmds]]
+            *[c[-1] for c in cmds], "-ldl"]
     if all(rc == 0 for _, _, rc in logs):
         res = subprocess.run(link, capture_output=True, text=True)
         logs.append((link, res.stdout + res.stderr, res.returncode))

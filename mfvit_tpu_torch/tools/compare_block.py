@@ -1,0 +1,121 @@
+"""Time K15 of two checkouts of the repository on one card, in turns, and
+the end-to-end figures beside them:
+
+    python -m mfvit_tpu_torch.tools.compare_block --other DIR [--out FILE]
+
+DIR holds another checkout (for example a ``git archive`` of the parent
+commit unpacked into a directory that ``.gitignore`` lists). Each turn is a
+process of its own, started in one checkout (``tools/turns.py``, turns
+other, this, this, other), that builds that checkout's kernels and runs:
+its own ``chip_smoke.time_block`` (K15, the K1 -> K2 pair, K15's plain
+version and the library block at vit_small B=256), ``stage_times`` below
+(K15's launches one by one under ``torch.profiler``), ``bench_block``'s
+12-block chains at B=512, the GEMM cores alone at B=256 where the checkout
+has ``ops.gemm`` (``chip_smoke.time_gemm``), then the serving pairs/s at
+B=256 (``time_e2e``: bf16, int8 and the XLA-level W8A8 path), the FT
+step's images/s at B=256 (``time_train``) and the fusion step's pairs/s
+at B=256 (``time_fusion``), which no change to K15 should move. Prints one
+line a reading, and writes every reading to FILE as JSON. Needs a CUDA
+card.
+"""
+from __future__ import annotations
+
+import argparse
+import inspect
+import sys
+from pathlib import Path
+
+from mfvit_tpu_torch.tools import turns
+
+
+def stage_times(dev, B: int = 256, iters: int = 5) -> dict:
+    """The device ms of each kernel that one K15 call launches at vit_small
+    batch B (``chip_smoke.block_inputs``, seed 16), under ``torch.profiler``
+    over ``iters`` calls: kernel name (namespace, template arguments and
+    parameters dropped) -> the mean over its launches (each launches once a
+    call; the profiler may miss the window's first), in launch order."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from mfvit_tpu_torch.ops import fused_block as fb
+    t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B, 384, dev)
+    a = [t[k] for k in chip_smoke.K15_KEYS]
+    with torch.inference_mode():
+        fb.fused_transformer_block(*a, 12, 32 ** -0.5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fb.fused_transformer_block(*a, 12, 32 ** -0.5)
+            torch.cuda.synchronize()
+    runs, order = {}, []
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        name = re.sub(r"^void |\(anonymous namespace\)::|\w+::", "", e.name)
+        name = re.split(r"[<(]", name)[0]
+        runs.setdefault(name, []).append(e.time_range.elapsed_us() / 1e3)
+        order.append(name)
+    # in the order of the last call's launches
+    out = {n: sum(runs[n]) / len(runs[n]) for n in order[-len(runs):]}
+    print(f"K15's launches at B={B} (device ms per call, torch.profiler): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+          + f"; sum {sum(out.values()):.4f}")
+    return out
+
+
+CHILD = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke
+from mfvit_tpu_torch.ops import build
+from mfvit_tpu_torch.tools import bench_block
+build.lib()
+dev = torch.device("cuda")
+%s
+out = {"block": chip_smoke.time_block(dev), "stages": stage_times(dev),
+       "bench_block": {k: v[0] for k, v in bench_block.run(dev).items()}}
+if hasattr(chip_smoke, "time_gemm"):
+    out["gemm"] = chip_smoke.time_gemm(dev)
+fusion = chip_smoke.time_fusion(dev, 256, 3)
+out["e2e"] = {"serving_pairs_per_sec_B256": chip_smoke.time_e2e(dev),
+              "ft_images_per_sec_B256": chip_smoke.time_train(dev, 256, 4),
+              "fusion_pairs_per_sec_B256": {
+                  f"{mode} {k}": v for mode, rates in fusion.items()
+                  for k, v in rates.items()}}
+print("RESULT " + json.dumps(out))
+""" % inspect.getsource(stage_times)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True, type=Path)
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args(argv)
+    runs = turns.run(args.other, CHILD)
+    turns.print_e2e(runs)
+    for i, what in enumerate(("K15", "plain", "library block", "K1 -> K2")):
+        ms = turns.by_checkout(runs, lambda r: r["block"][i])
+        print(f"{what} at vit_small B=256: this " + "/".join(
+            f"{v:.4f}" for v in ms["this"]) + " ms, other " + "/".join(
+            f"{v:.4f}" for v in ms["other"]) + " ms")
+    for name in runs[0][1]["bench_block"]:
+        ms = turns.by_checkout(runs, lambda r: r["bench_block"][name])
+        print(f"bench_block {name}, 12 blocks at B=512: this " + "/".join(
+            f"{v:.2f}" for v in ms["this"]) + " ms, other " + "/".join(
+            f"{v:.2f}" for v in ms["other"]) + " ms")
+    for who, r in runs:
+        print(f"{who}: K15's stages " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r["stages"].items()) + " ms"
+            + "".join(f"; GEMM {k} wgmma {v[0]:.4f} ms ({v[2]:.1f} TFLOP/s), "
+                      f"gemm_ln {v[1]:.4f} ms ({v[3]:.1f} TFLOP/s)"
+                      for k, v in r.get("gemm", {}).items()))
+    turns.write(args.out, runs)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

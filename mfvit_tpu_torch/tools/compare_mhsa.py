@@ -12,20 +12,17 @@ plain, plain, kernel, then SDPA on the same values) at vit_small B=256
 B=256 (bf16, int8 and the XLA-level W8A8 path, which runs K12,
 ``time_e2e``), the FT step's images/s at B=256 (``time_train``) and the
 fusion step's pairs/s at B=256 (``time_fusion``). The turns go other,
-this, this, other, so that a drift of the card over the call shows as a
-difference between the two turns of one checkout. Prints one line a
-reading, and writes every reading to FILE as JSON. Needs a CUDA card.
+this, this, other (``tools/turns.py``). Prints one line a reading, and
+writes every reading to FILE as JSON. Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
-import json
-import os
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[2]
+from mfvit_tpu_torch.tools import turns
+
 SHAPES = (("vit_small", 256, 197, 384, 12), ("vit_small@384", 64, 577, 384, 12))
 CHILD = """
 import json, sys, torch
@@ -46,49 +43,22 @@ print("RESULT " + json.dumps(out))
 """ % (SHAPES,)
 
 
-def turn(checkout: Path) -> dict:
-    """label -> name -> (kernel ms, plain ms, SDPA ms), and "e2e" ->
-    figure -> path -> rate, from one process in ``checkout``."""
-    env = dict(os.environ, PYTHONPATH=str(checkout))
-    res = subprocess.run([sys.executable, "-c", CHILD], cwd=checkout, env=env,
-                         capture_output=True, text=True)
-    sys.stdout.write(res.stdout)
-    if res.returncode:
-        sys.stderr.write(res.stderr)
-        raise RuntimeError(f"the turn in {checkout} failed ({res.returncode})")
-    line = [ln for ln in res.stdout.splitlines() if ln.startswith("RESULT ")]
-    return json.loads(line[-1][len("RESULT "):])
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
-    other = args.other.resolve()
-    order = [("other", other), ("this", ROOT), ("this", ROOT),
-             ("other", other)]
-    runs = [(who, turn(path)) for who, path in order]
-    for what, figures in runs[0][1]["e2e"].items():
-        for key in figures:
-            rate = {who: [r["e2e"][what][key] for w, r in runs if w == who]
-                    for who in ("other", "this")}
-            print(f"{what} {key}: this " + "/".join(
-                f"{v:.1f}" for v in rate["this"]) + ", other " + "/".join(
-                f"{v:.1f}" for v in rate["other"]))
+    runs = turns.run(args.other, CHILD)
+    turns.print_e2e(runs)
     for label, B, N, *_ in SHAPES:
         for name in runs[0][1][label]:
-            ms = {who: [r[label][name][0] for w, r in runs if w == who]
-                  for who in ("other", "this")}
+            ms = turns.by_checkout(runs, lambda r: r[label][name][0])
             sdpa = [r[label][name][2] for _, r in runs]
             print(f"{name} at {label} B={B} (N={N}): this "
                   + "/".join(f"{v:.4f}" for v in ms["this"]) + " ms, other "
                   + "/".join(f"{v:.4f}" for v in ms["other"]) + " ms, SDPA "
                   + "/".join(f"{v:.4f}" for v in sdpa) + " ms")
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps(
-            {"order": [w for w, _ in order], "runs": [r for _, r in runs]}))
+    turns.write(args.out, runs)
     return 0
 
 

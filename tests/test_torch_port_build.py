@@ -1,7 +1,8 @@
 """The C bindings of the port's kernels, on the CPU: ``ops/build.py``'s
 ctypes table against the entry points the CUDA sources declare (a table
 that drifts from a changed C signature cuts pointers silently on the
-card), and K12-K14's launch plan at every head_dim and every N up to 2048.
+card), K12-K14's launch plan at every head_dim and every N up to 2048, and
+K15's at every width it takes.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import re
 
 import pytest
 
-from mfvit_tpu_torch.ops import attention, build
+from mfvit_tpu_torch.ops import attention, build, fused_block
 
 _DECL = re.compile(r"MFV_API\s+int\s+(mfv_\w+)\s*\(([^)]*)\)", re.S)
 _CTYPE = {"void**": ctypes.POINTER(ctypes.c_void_p), "int": ctypes.c_int,
@@ -93,3 +94,57 @@ def test_mhsa_plan_at_the_main_shapes():
     assert (p.tiles, p.hold) == (7, False)
     assert attention._plan(376, 32, True).hold
     assert not attention._plan(377, 32, True).hold
+
+
+_SM90 = (build.CSRC / "gemm_sm90.cuh").read_text()
+_K15 = (build.CSRC / "fused_block.cu").read_text()
+
+
+def _const(src: str, name: str) -> int:
+    return int(re.search(rf"\b{name} = (\d+)", src).group(1))
+
+
+def test_k15_plan_constants_are_the_c_sources():
+    """ops/fused_block.py's copy of the constants that size the launch
+    equals the CUDA sources' (a drift would plan shared memory the kernel
+    lays out otherwise)."""
+    assert fused_block.CONSUMER_REGS == _const(_SM90, "CONSUMER_REGS")
+    assert fused_block.PRODUCER_REGS == _const(_SM90, "PRODUCER_REGS")
+    assert fused_block.GEMM_SMEM == (
+        _const(_SM90, "GEMM_STAGES") * (_const(_SM90, "GEMM_BM")
+                                        + _const(_SM90, "GEMM_BN")) * 128
+        + 2 * _const(_SM90, "GEMM_STAGES") * 8 + 1024)
+    assert fused_block.TAIL_ROWS == _const(_K15, "TAIL_ROWS")
+    assert fused_block.THREADS == _const(_K15, "TAIL_THREADS") \
+        == _const(_SM90, "GEMM_THREADS")
+    assert fused_block.HC == _const(_K15, "TAIL_HC")
+    assert fused_block.TILE64 == 64 * 128 and fused_block.STAGE == 2 * 64 * 128
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("D", [128, 256, 384, 512])
+def test_k15_plan_fits_at_every_width(D, dh):
+    """K15's tail at every D it takes (hidden 4D) and every head_dim: the
+    ring holds at least 3 stages and the block fits a block's shared memory
+    on an H100, as does the qkv GEMM's; the accumulators a consumer thread
+    holds at once (fc2's D/4 and one fc1 chunk's 32) leave 64 registers
+    under setmaxnreg's 232, and the two consumer warpgroups at 232 and the
+    producer's at 40 fit the SM's 65,536 registers and the 255 a thread."""
+    plan = fused_block._plan(D, 4 * D, dh)
+    assert 3 <= plan.stages <= fused_block.STAGES_MAX
+    assert plan.smem == fused_block._smem(D, plan.stages) \
+        <= fused_block.SMEM_MAX
+    assert plan.stages == fused_block.STAGES_MAX or \
+        fused_block._smem(D, plan.stages + 1) > fused_block.SMEM_MAX
+    assert fused_block.GEMM_SMEM <= fused_block.SMEM_MAX
+    assert plan.acc_regs == D // 4 + 32
+    assert plan.acc_regs + 64 <= fused_block.CONSUMER_REGS <= 255
+    assert (2 * 128 * fused_block.CONSUMER_REGS
+            + 128 * fused_block.PRODUCER_REGS) <= 65536
+
+
+@pytest.mark.parametrize("D,Hd,dh", [(768, 3072, 64), (640, 2560, 64),
+                                     (384, 1500, 32), (384, 1536, 48)])
+def test_k15_plan_refuses_what_the_kernel_does_not_take(D, Hd, dh):
+    with pytest.raises(ValueError, match="K15"):
+        fused_block._plan(D, Hd, dh)

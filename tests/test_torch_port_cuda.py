@@ -1,5 +1,5 @@
-"""Kernel-against-plain tests for K1-K5, K7, K9-K15 and the schedule
-variants T1-T7 on the card. They need CUDA, nvcc
+"""Kernel-against-plain tests for K1-K5, K7, K9-K15, the schedule
+variants T1-T7 and the two GEMM cores (``ops.gemm``) on the card. They need CUDA, nvcc
 and an sm_90a GPU, so they carry the ``cuda`` marker and skip elsewhere;
 on the card run ``python -m pytest tests/test_torch_port_cuda.py``
 (``chip_smoke.py`` makes the same comparisons at serving shapes).
@@ -14,7 +14,7 @@ from mfvit_tpu_torch import ops
 from mfvit_tpu_torch.nn import vit
 from mfvit_tpu_torch.ops import (attention, attn_variants, fused_attn,
                                  fused_block, fused_fusion, fused_int8,
-                                 fused_mlp, mlp_variants, quant)
+                                 fused_mlp, gemm, mlp_variants, quant)
 
 pytestmark = pytest.mark.cuda
 REL = 2e-2
@@ -89,7 +89,7 @@ def test_kernels_match_plain(dev, B, N, D, H):
         "mhsa_packed": 0, "mhsa": 0, "mhsa_packed_t": 0,
         "fused_transformer_block": 0, "mlp3d": 0, "mlp3d_staged": 0,
         "mlp_pipe": 0, "attn_staged": 0, "attn_pairs": 0, "attn_rolling": 0,
-        "staged_bwd": 0}
+        "staged_bwd": 0, "gemm_sm90": 0, "gemm_ln": 0}
 
 
 @pytest.mark.parametrize("B,heads", [(8, 3), (5, 3), (3, 6)])
@@ -533,6 +533,33 @@ def test_k15_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="bfloat16"):
         fused_block.fused_transformer_block(a[0].float(), *a[1:], 12,
                                             32 ** -0.5)
+
+
+@pytest.mark.parametrize("M,N,K,epi", [(1576, 1152, 384, "bias"),
+                                       (1576, 1536, 384, "gelu"),
+                                       (1576, 384, 1536, "bias"),
+                                       (300, 384, 1536, "resid"),
+                                       (100, 128, 64, "bias")])
+def test_gemm_sm90_equals_gemm_ln_and_holds_its_plain_version(dev, M, N, K,
+                                                              epi):
+    """The wgmma core K15 runs on against the WMMA core of K1-K4 on the
+    same bf16 inputs (every sum in ascending k16 steps, the same epilogue
+    rounding: equal bit for bit), and within rel 2e-2 of the plain fp32
+    version; one launch each."""
+    g = torch.Generator().manual_seed(5)
+    a = _rnd(g, M, K).bfloat16().to(dev)
+    w = _rnd(g, N, K, std=K ** -0.5).bfloat16().to(dev)
+    b = _rnd(g, N, std=0.1).to(dev)
+    r = _rnd(g, M, N).bfloat16().to(dev)
+    ops.reset_launch_counts()
+    got = gemm.gemm_sm90(a, w, b, epi, r)
+    ref = gemm.gemm_ln(a, w, b, epi, r)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "gemm_sm90": 1, "gemm_ln": 1}
+    assert torch.equal(got, ref)
+    assert _rel(got, gemm.gemm_plain(a.float(), w.float(), b, epi,
+                                     r.float())) < REL
 
 
 # the MLP variants at every schedule argument their tools sweep

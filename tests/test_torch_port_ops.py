@@ -23,7 +23,7 @@ from mfvit_tpu_torch.models.fusion import Fusion
 from mfvit_tpu_torch.nn import layers, posembed
 from mfvit_tpu_torch.ops import (attention, attn_variants, fused_attn,
                                  fused_block, fused_fusion, fused_int8,
-                                 fused_mlp, mlp_variants)
+                                 fused_mlp, gemm, mlp_variants)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -296,6 +296,8 @@ def test_cpu_tensors_never_count_a_launch(blk, fusion_case):
     attn_variants.attn_pairs(*a, cb=2)
     attn_variants.attn_rolling(*a, cb=2)
     attn_variants.staged_bwd(x, *a[:6], 4, 32 ** -0.5, cb=2)
+    gemm.gemm_sm90(x[0], torch.randn(128, 128), torch.zeros(128))
+    gemm.gemm_ln(x[0], torch.randn(128, 128), torch.zeros(128))
     assert ops.launch_counts() == {
         "fused_attention_block": 0, "fused_attention_block_large": 0,
         "fused_mlp_block": 0,
@@ -305,4 +307,4 @@ def test_cpu_tensors_never_count_a_launch(blk, fusion_case):
         "mhsa_packed": 0, "mhsa": 0, "mhsa_packed_t": 0,
         "fused_transformer_block": 0, "mlp3d": 0, "mlp3d_staged": 0,
         "mlp_pipe": 0, "attn_staged": 0, "attn_pairs": 0, "attn_rolling": 0,
-        "staged_bwd": 0}
+        "staged_bwd": 0, "gemm_sm90": 0, "gemm_ln": 0}
