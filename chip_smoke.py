@@ -74,7 +74,16 @@ Phases, in order; any failure raises and exits non-zero:
    ``gemm_ln`` (WMMA, K1's and K2's) on the same bf16 inputs at K1's qkv
    and K2's fc1 and fc2 shapes (B=8; bias, GELU, and bias + residual
    epilogues): the outputs that differ are printed and must be 0, each
-   core within rel 2e-2 of the plain fp32 version; then K15 against the
+   core within rel 2e-2 of the plain fp32 version; then K1 and K2 against
+   the chains they ran before their redesign (the check-only
+   ``fused_attention_block_wmma`` and ``fused_mlp_block_wmma``: gemm_ln's
+   WMMA GEMMs and attn_core.cuh's core) at K15's shapes, B=3 (a partial
+   last row tile), D=128, 256 and 512, a vit_base block (D=768, K2's
+   three-launch route), N=50 at B=64 and vit_base at B=16 (blocks that
+   walk several attention pairs or GEMM tiles of more K slices than the
+   ring holds): the outputs that differ must be 0, each within
+   rel 2e-2 of its plain fp32 version, one launch of its own kernel a
+   call; then K15 against the
    K1 -> K2 kernel chain on the same bf16 inputs (equal bit for bit) and its plain fp32 version (rel < 2e-2), its 13 gradients
    (``torch.autograd.grad``: K1's forward recomputed, K7, K5) against the
    plain fp32 backward (rel < 2e-2 each), at vit_small, vit_small_ori,
@@ -141,7 +150,9 @@ Phases, in order; any failure raises and exits non-zero:
    plain version and the library block (``nn.TransformerEncoderLayer``
    in inference mode on K15's weights, first held within rel 2e-2 of the
    plain fp32 version) at B=256, then K15's launches one by one under
-   ``torch.profiler`` (``tools/compare_block.py::stage_times``) and the
+   ``torch.profiler`` (``tools/compare_block.py::stage_times``), K1 and K2
+   against their former chains (kernel, former, former, kernel) and the
+   launches of all four one by one, and the
    GEMM cores alone at K1's qkv and K2's fc1 shapes (B=256; ms and
    TFLOP/s, wgmma against gemm_ln); the pairs/s of the fusion train step, LP and
    ``--semi-supervised``, kernel against plain path, at B=32 (the fuse
@@ -1637,6 +1648,69 @@ K15_GRADS = ("dx", "dln1_s", "dln1_b", "dwqkv", "dbqkv", "dwproj", "dbproj",
              "dln2_s", "dln2_b", "dw1", "db1", "dw2", "db2")
 
 
+# The redesigned K1 and K2 against the chains they ran before (the
+# check-only ``fused_attention_block_wmma`` and ``fused_mlp_block_wmma``):
+# label, B, N, D, heads. K15's shapes, a partial last row tile (B=3: 591
+# rows, 9 tiles of the tail's 64 rows and 5 of the GEMM's 128), the tail's
+# other widths, and a vit_base block (D=768: K2's three-launch route); then
+# shapes where a block of the attention core walks several (image, head)
+# pairs of few query tiles (N=50, B=64) and where a GEMM block walks
+# several tiles of more K slices than its ring holds (vit_base, B=16: fc1
+# 12 slices, fc2 48, 7 stages): there a ring's wait, which tells the
+# rounds of a stage apart by parity alone, passes on the round before
+# unless the walk keeps in step with the ring.
+HALVES_SHAPES = K15_SHAPES + (("B=3", 3, 197, 384, 12),
+                              ("D=128", 4, 197, 128, 4),
+                              ("D=256", 4, 197, 256, 4),
+                              ("D=512", 4, 197, 512, 8),
+                              ("vit_base", 2, 197, 768, 12),
+                              ("N=50, B=64", 64, 50, 384, 12),
+                              ("vit_base, B=16", 16, 197, 768, 12))
+
+
+def check_halves(dev) -> dict:
+    """K1 and K2 at HALVES_SHAPES on bf16 inputs with non-zero biases: equal
+    bit for bit to the chains they ran before (every rounding point and sum
+    order kept: the count of outputs that differ must be 0) and within
+    REL_BAR of their plain fp32 versions; one call launches its own kernel
+    once and no other. Returns label -> [K1's, K2's outputs that differ]."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.ops import fused_attn as fa
+    from mfvit_tpu_torch.ops import fused_mlp as fm
+    out = {}
+    for label, B, N, D, heads in HALVES_SHAPES:
+        t = block_inputs(torch.Generator().manual_seed(11), B, D, dev, N=N)
+        scale = (D // heads) ** -0.5
+        a, m = [t[k] for k in ATTN], [t[k] for k in MLP]
+        a32, m32 = [v.float() for v in a], [v.float() for v in m]
+        halves = (
+            ("fused_attention_block",
+             lambda: fa.fused_attention_block(*a, heads, scale),
+             lambda: fa.fused_attention_block_wmma(*a, heads, scale),
+             lambda: fa.fused_attention_block_plain(*a32, heads, scale)),
+            ("fused_mlp_block", lambda: fm.fused_mlp_block(*m),
+             lambda: fm.fused_mlp_block_wmma(*m),
+             lambda: fm.fused_mlp_block_plain(*m32)))
+        out[label] = []
+        for name, kern, former, plain32 in halves:
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                got = kern()
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in ops.launch_counts().items() if v}
+                n_diff = (got != former()).sum().item()
+                r = rel(got, plain32())
+            print(f"{name} at {label} (B={B}, N={N}, D={D}, {heads} heads): "
+                  f"{n_diff} of {got.numel()} outputs differ from its former "
+                  f"chain; rel vs plain fp32 {r:.3e}; launches {counts}")
+            if n_diff or not (math.isfinite(r) and r < REL_BAR) \
+                    or counts != {name: 1}:
+                raise AssertionError(f"{name} at {label}: {n_diff} outputs "
+                                     f"differ, rel {r}, launches {counts}")
+            out[label].append(n_diff)
+    return out
+
+
 def k15_calls(t, heads: int):
     """(K15, the K1 -> K2 kernel chain, K15's plain version) on one
     block's inputs, and K15's arguments."""
@@ -2427,6 +2501,34 @@ def time_block(dev) -> tuple:
     return (k1 + k2) / 2, (q1 + q2) / 2, l1, (p1 + p2) / 2
 
 
+def time_halves(dev, B: int = 256) -> dict:
+    """K1 and K2 at vit_small batch B against the chains they ran before
+    (kernel, former, former, kernel; CUDA events), each first held equal to
+    it on the timed inputs. Returns name -> (ms, former ms)."""
+    from mfvit_tpu_torch.ops import fused_attn as fa
+    from mfvit_tpu_torch.ops import fused_mlp as fm
+    t = block_inputs(torch.Generator().manual_seed(16), B, 384, dev)
+    a, m = [t[k] for k in ATTN], [t[k] for k in MLP]
+    scale = 32 ** -0.5
+    halves = {"fused_attention_block": (
+        lambda: fa.fused_attention_block(*a, 12, scale),
+        lambda: fa.fused_attention_block_wmma(*a, 12, scale)),
+        "fused_mlp_block": (lambda: fm.fused_mlp_block(*m),
+                            lambda: fm.fused_mlp_block_wmma(*m))}
+    out = {}
+    with torch.inference_mode():
+        for name, (kern, former) in halves.items():
+            if not torch.equal(kern(), former()):
+                raise AssertionError(f"{name} differs from its former chain "
+                                     f"at B={B}")
+            k1, f1, f2, k2 = (cuda_ms(fn, 20)
+                              for fn in (kern, former, former, kern))
+            out[name] = ((k1 + k2) / 2, (f1 + f2) / 2)
+            print(f"{name} at B={B}: kernel {k1:.4f}/{k2:.4f} ms, its former "
+                  f"chain {f1:.4f}/{f2:.4f} ms")
+    return out
+
+
 def time_fusion(dev, B: int, iters: int) -> dict:
     """Pairs/s of the fusion train step (forward, backward, Adam, the loss
     fetched every step) at batch B, 224 px: LP and ``--semi-supervised``,
@@ -2533,6 +2635,9 @@ def main() -> int:
 
     phase("K15's GEMM core against K1's and K2's: the probe (B=8)")
     probe = probe_gemm(dev)
+    phase("K1 and K2 against the chains they ran before (B=8; B=3; N=50; "
+          "D=128-768)")
+    halves_diff = check_halves(dev)
     phase("K15 against the K1 -> K2 chain and its plain versions (B=8)")
     errs["fused_transformer_block"] = check_block_kernel(dev)
     phase("K15's entry point: mfvit_tpu_torch.tools.bench_block (B=512, "
@@ -2573,6 +2678,9 @@ def main() -> int:
     k15_ms, k15_plain_ms, k15_lib_ms, pair_ms = time_block(dev)
     from mfvit_tpu_torch.tools.compare_block import stage_times
     k15_stages = stage_times(dev)
+    halves = time_halves(dev)
+    half_stages = {op: stage_times(dev, op)
+                   for op in ("k1", "k1_wmma", "k2", "k2_wmma")}
     gemm_times = time_gemm(dev)
     times["fused_transformer_block"] = (k15_ms, k15_plain_ms, k15_lib_ms)
     variant_times, base_plain = time_variants(dev)
@@ -2647,6 +2755,13 @@ def main() -> int:
                           "library_ms": k15_lib_ms, "k1_then_k2_ms": pair_ms,
                           "bound_ms": bounds["fused_transformer_block"][0],
                           "stages_ms": k15_stages},
+                      "halves_B256": {
+                          name: {"ms": v[0], "former_chain_ms": v[1],
+                                 "stages_ms": half_stages[op],
+                                 "former_stages_ms": half_stages[op + "_wmma"]}
+                          for (name, v), op in zip(halves.items(),
+                                                   ("k1", "k2"))},
+                      "halves_outputs_differ_from_former": halves_diff,
                       "gemm_probe_outputs_differ_B8": probe,
                       "gemm_B256": {
                           k: {"wgmma_ms": v[0], "gemm_ln_ms": v[1],

@@ -1,0 +1,12 @@
+// attn_async: the attention core of K1 (fused_attn.cu) and K15
+// (fused_block.cu), between their qkv and proj GEMMs; attn_async.cu holds
+// the kernel and says how it works.
+#pragma once
+
+#include "common.cuh"
+
+// qkv (B, N, 3D) bf16, columns [q | k | v] x head x dh -> o (B, N, D) bf16
+// on stream s, with the rounding points of attn_core.cuh's core (its bits);
+// head_dim 32, 64 or 128 and N <= NMAX, else cudaErrorInvalidValue.
+int attn_async(const void* qkv, void* o, int B, int N, int heads, int dh, float scale,
+               cudaStream_t s);

@@ -1,25 +1,33 @@
-// attn_core: the multi-head self-attention core of K1
-// (mfvit_tpu/ops/fused_attn.py::fused_attention_block, _kernel :28), between
-// its qkv GEMM and its proj GEMM (both gemm_ln.cuh; see fused_attn.cu).
+// attn_core: the multi-head self-attention core K1
+// (mfvit_tpu/ops/fused_attn.py::fused_attention_block, _kernel :28) ran
+// before its redesign (attn_async.cu, which gives the same bits), between
+// its qkv GEMM and its proj GEMM. It stays as K10's core (fused_int8.cu,
+// fp32 output), in the chain fused_attn.cu keeps for the card's checks
+// (mfv_fused_attention_block_wmma), and as the per-warp stages that the
+// schedule variants T4 (attn_staged.cu), T1 (attn_pairs.cu) and T2
+// (attn_rolling.cu) and K9's long-sequence core (attn_long.cuh) run.
 //
 // qkv (B, N, 3D) bf16 with columns [q | k | v] x head x dh -> o (B, N, D)
-// in OT: bf16 for K1, fp32 for K10 (fused_int8.cu), which quantizes the
-// fp32 output per token (mfvit_tpu/ops/fused_int8.py:198-203). One block of four warps per (head, image): the head's K and V
-// (V transposed) are loaded once into shared memory, and each warp takes
-// 16 query rows at a time. q is scaled in fp32 and rounded to bf16; the
-// scores S = q k^T (mma.sync m16n8k16, fp32), the row max, exp and row sum
-// stay in registers; P is rounded to bf16 straight from the score
-// accumulators into the A operand of the PV product (the accumulator and A
-// fragment layouts line up), and 1/sum scales the PV output, as in the TPU
-// kernel. Keys past N are masked to zero probability.
+// in OT: bf16, or fp32 for K10, which quantizes the fp32 output per token
+// (mfvit_tpu/ops/fused_int8.py:198-203). One block of four warps per (head,
+// image): the head's K and V (V transposed) are loaded once into shared
+// memory, and each warp takes 16 query rows at a time. q is scaled in fp32
+// and rounded to bf16; the scores S = q k^T (mma.sync m16n8k16, fp32), the
+// row max, exp and row sum stay in registers; P is rounded to bf16 straight
+// from the score accumulators into the A operand of the PV product (the
+// accumulator and A fragment layouts line up), and 1/sum scales the PV
+// output, as in the TPU kernel. Keys past N are masked to zero probability.
 //
 // What bounds it on an H100: at ViT-S/16 (N = 197, dh = 32) the core reads
 // its qkv once and writes o once (155 MB at B=256) for 2 x 2 x 197^2 x 32
 // FLOPs per head and image, so it is bound by memory and latency, not by
 // the tensor cores. No score tile lives in shared memory (K and Vt take
-// 30 KB at dh = 32), so several blocks share an SM. The whole key range is
-// held at once (up to 256 keys: img_size 224 at patch 16); longer sequences
-// go through attn_long.cuh (K9).
+// 30 KB at dh = 32), so several blocks share an SM. Its staging is
+// synchronous (K and the transposed V by every thread, then a barrier) and
+// the 13 query tiles of an image at N = 197 fall 4/3/3/3 on the warps:
+// 0.29 ms at ViT-S B=256, against 0.19 for attn_async.cu (PERF.md). The
+// whole key range is held at once (up to 256 keys: img_size 224 at patch
+// 16); longer sequences go through attn_long.cuh (K9).
 #pragma once
 
 #include "common.cuh"

@@ -5,7 +5,8 @@
 // only two images' score buffers are live at once, which lets a grid step
 // take cb = 8 or 16 images.
 //
-// Four launches on one stream, as K1's (fused_attn.cu): the LN row
+// Four launches on one stream, as K1's former chain (fused_attn.cu's
+// mfv_fused_attention_block_wmma, which gives K1's bits): the LN row
 // statistics and the LN + qkv GEMM (gemm_ln.cuh), the rolling core below,
 // the proj GEMM with its bias and the bf16 residual (gemm_ln.cuh).
 //

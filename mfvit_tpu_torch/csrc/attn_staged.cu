@@ -4,7 +4,8 @@
 // of its cb images first, then the softmax of image b+1 before the PV and
 // proj products of image b, so the vector unit overlaps the matrix unit.
 //
-// Four launches on one stream, as K1's (fused_attn.cu): the LN row
+// Four launches on one stream, as K1's former chain (fused_attn.cu's
+// mfv_fused_attention_block_wmma, which gives K1's bits): the LN row
 // statistics and the LN + qkv GEMM (gemm_ln.cuh), the staged core below,
 // the proj GEMM with its bias and the bf16 residual (gemm_ln.cuh). One
 // image's qkv (443 KiB at ViT-S) does not fit a block's shared memory and

@@ -2,10 +2,12 @@
 // mfvit_tpu/ops/fused_attn.py::fused_attention_block_large (Pallas
 // _kernel_qblocked :244, pallas_call :343), which the JAX package runs where
 // the scores of K1 do not fit on chip (img_size 384 and up). The stages and
-// rounding points are K1's (fused_attn.cu): LN row statistics, LN + qkv GEMM
-// + bias (gemm_ln.cuh, any M = B*N) -> the long-sequence attention core
-// (attn_long.cuh: key tiles streamed through shared memory, a two-pass
-// softmax) -> proj GEMM + bias + bf16 residual (gemm_ln.cuh). The LN row
+// rounding points are those of K1's former chain (fused_attn.cu's
+// mfv_fused_attention_block_wmma, which gives K1's bits): LN row
+// statistics, LN + qkv GEMM + bias (gemm_ln.cuh, any M = B*N) -> the
+// long-sequence attention core (attn_long.cuh: key tiles streamed through
+// shared memory, a two-pass softmax) -> proj GEMM + bias + bf16 residual
+// (gemm_ln.cuh). The LN row
 // statistics (M x 2 fp32), qkv and attention outputs go through the
 // caller's scratch buffers in device memory.
 //

@@ -1,12 +1,18 @@
 // gemm_ln: bf16 GEMM with fp32 accumulation on the tensor cores (WMMA
 // 16x16x16), an optional LayerNorm prologue on the A rows and fused
-// epilogues. It carries the GEMMs of the four TPU kernels:
+// epilogues. It carries the GEMMs of
 //
-//   mfvit_tpu/ops/fused_attn.py::fused_attention_block   (K1)  LN+qkv, proj+residual
-//   mfvit_tpu/ops/fused_mlp.py::fused_mlp_block          (K2)  LN+fc1+GELU, fc2+residual
-//   mfvit_tpu/ops/fused_mlp.py::fused_mlp_block_final_ln (K3)  fc2 + fp32 residual + final LN
+//   mfvit_tpu/ops/fused_mlp.py::fused_mlp_block_final_ln (K3)  LN+fc1+GELU, fc2 +
+//                                                              fp32 residual + final LN
 //   mfvit_tpu/ops/fused_fusion.py::fused_fusion_cls      (K4)  LN+packed kv GEMM, rows
 //                                                              from two token streams
+//   K9 (fused_attn_large.cu) and the schedule variants T1, T2 and T4 (attn_block
+//   below: LN+qkv, proj+residual), T6 and T7 (mlp_tail.cuh)
+//
+// and of the chains K1 and K2 ran before their redesign, which fused_attn.cu
+// and fused_mlp.cu keep as check-only entries (mfv_fused_attention_block_wmma,
+// mfv_fused_mlp_block_wmma); K1, K2 and K15 run on the wgmma core of
+// gemm_sm90.cuh, whose sums and epilogues are these (chip_smoke.py's probe).
 //
 // C[M, N] = epilogue(prologue(A)[M, K] . W[N, K]^T + bias), W in the torch
 // Linear layout (out, in), so both operands are read along K with 16-byte
@@ -20,10 +26,8 @@
 // The LayerNorm prologue costs one extra read of the A rows: a pre-pass
 // kernel writes each row's mean and 1/std (8 bytes a row) once, and the
 // GEMM normalises each A tile as it is staged, so LN(x) never goes to
-// device memory. This first version uses
-// WMMA, not wgmma/TMA: the qkv and MLP hidden activations make one round
-// trip through device memory between the two GEMMs of each half-block.
-// Keeping them on chip (fused half-blocks) is later work.
+// device memory. WMMA with single-buffered K slices reaches about 100-110
+// TFLOP/s at these shapes; the wgmma core about twice that (PERF.md).
 //
 // Rounding points follow the TPU kernels: LN output is rounded to bf16
 // before the GEMM; qkv+bias and GELU(fc1+bias) are rounded to bf16; the
@@ -321,8 +325,9 @@ static inline GemmArgs gemm_args(const void* a, int M, int N, int K, const void*
   return p;
 }
 
-// K1's launch chain around an attention core, shared by K1, K9 and the
-// schedule variants T4, T1 and T2: the LN row statistics and the LN + qkv
+// The launch chain K1 ran before its redesign, around an attention core,
+// shared by K1's check-only former chain, K9 and the schedule variants T4,
+// T1 and T2: the LN row statistics and the LN + qkv
 // GEMM with its bias (bf16 qkv), then `core()` (qkv -> o), then the proj
 // GEMM with its bias and the bf16 residual, all on stream s through the
 // caller's scratch (stats M x 2 fp32, qkv, o).

@@ -1,9 +1,11 @@
 // gemm_sm90: the port's warpgroup-MMA GEMM core for Hopper (sm_90a): TMA
 // tile loads into a ring of shared-memory stages, filled by one producer
 // thread, consumed by warpgroups that run wgmma.mma_async with fp32
-// accumulators in registers. K15 (fused_block.cu) runs its qkv GEMM on
-// gemm_kernel below and its block tail on the same pieces; the plain C entry
-// mfv_gemm_sm90 (gemm_sm90.cu) runs gemm_kernel alone for the card's checks.
+// accumulators in registers. K1 (fused_attn.cu) runs its qkv and proj
+// GEMMs on gemm_kernel below, K15 (fused_block.cu) its qkv GEMM, K2
+// (fused_mlp.cu) its fc1 and fc2 at D > 512; block_tail.cuh builds K15's and
+// K2's block tail from the same pieces. The plain C entry mfv_gemm_sm90
+// (gemm_sm90.cu) runs gemm_kernel alone for the card's checks.
 //
 //   C[M, N] = epilogue(A[M, K] . W[N, K]^T + bias), A and W bf16, W in the
 //   torch Linear layout (out, in): both operands K-major, so neither wgmma
@@ -281,10 +283,10 @@ struct GemmParams {
 };
 
 // out = epilogue(acc + bias) for one accumulator pair at (row, col): gemm_ln's
-// rounding points
+// rounding points; `res` holds the pair's two bf16 residuals (EPI_BIAS_RESID)
 template <int EPI>
 __device__ __forceinline__ void store_pair(const GemmParams& p, int row, int col, float v0,
-                                           float v1) {
+                                           float v1, uint32_t res) {
   if (row >= p.M) return;
   const float2 b = *reinterpret_cast<const float2*>(p.bias + col);
   v0 += b.x;
@@ -293,13 +295,45 @@ __device__ __forceinline__ void store_pair(const GemmParams& p, int row, int col
     v0 = gelu_erf(v0);
     v1 = gelu_erf(v1);
   }
-  const size_t off = (size_t)row * p.N + col;
   if (EPI == EPI_BIAS_RESID) {
-    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.resid + off));
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&res));
     v0 = x.x + round_bf16(v0);
     v1 = x.y + round_bf16(v1);
   }
-  *reinterpret_cast<__nv_bfloat162*>(p.out + off) = __floats2bfloat162_rn(v0, v1);
+  *reinterpret_cast<__nv_bfloat162*>(p.out + (size_t)row * p.N + col) =
+      __floats2bfloat162_rn(v0, v1);
+}
+
+// The epilogue of 128 rows from m0 and 128 columns from n0 held in two
+// m64n128 accumulators (rows m0 .. + 63, m0 + 64 .. + 127) by one
+// warpgroup's thread t128.
+template <int EPI>
+__device__ __forceinline__ void store_rows(const GemmParams& p, float (&acc)[2][64], int m0, int n0,
+                                           int t128) {
+#pragma unroll
+  for (int hm = 0; hm < 2; ++hm) {
+    pin(acc[hm]);
+    // the half's residual pairs, all loads issued before its first store
+    // (the stores may alias them, so they would otherwise wait in turn)
+    uint32_t res[16][2] = {};
+    if (EPI == EPI_BIAS_RESID) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + hm * 64 + frag_row(t128, h);
+          if (row < p.M)
+            res[q][h] = *reinterpret_cast<const uint32_t*>(p.resid + (size_t)row * p.N + n0 +
+                                                           frag_col(t128, q));
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store_pair<EPI>(p, m0 + hm * 64 + frag_row(t128, h), n0 + frag_col(t128, q),
+                        acc[hm][4 * q + 2 * h], acc[hm][4 * q + 2 * h + 1], res[q][h]);
+  }
 }
 
 template <int EPI>
@@ -346,6 +380,12 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) gemm_kernel(const __grid_cons
       float acc[2][64];
       zero(acc[0]);
       zero(acc[1]);
+      // The warpgroups take the ring in turns, a tile's K loop each: a
+      // stage's wait tells its rounds apart by parity alone, so a tile's
+      // first wait must come after every stage of the tile before has been
+      // filled (else, with KT > GEMM_STAGES, it could pass on the round
+      // before); the other warpgroup's epilogue runs beside this K loop.
+      if (i > 0) pp_wait(PP_BAR + wg);
       for (int kt = 0; kt < KT; ++kt) {
         const unsigned char* st = sm + c.acquire(full) * GEMM_STAGE;
         const uint64_t da0 = desc(st), da1 = desc(st + TILE64), db = desc(st + GEMM_BM * 128);
@@ -360,17 +400,9 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) gemm_kernel(const __grid_cons
         pin(acc[0]);
         pin(acc[1]);
       }
+      if (t + gridDim.x < tiles) pp_pass(PP_BAR + (wg ^ 1));  // the next tile's turn
       c.drain(empty);
-#pragma unroll
-      for (int hm = 0; hm < 2; ++hm) {
-        pin(acc[hm]);
-#pragma unroll
-        for (int q = 0; q < 16; ++q)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            store_pair<EPI>(p, m0 + hm * 64 + frag_row(t128, h), n0 + frag_col(t128, q),
-                            acc[hm][4 * q + 2 * h], acc[hm][4 * q + 2 * h + 1]);
-      }
+      store_rows<EPI>(p, acc, m0, n0, t128);
     }
   }
 }

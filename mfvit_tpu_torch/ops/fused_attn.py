@@ -3,21 +3,29 @@ and its backward.
 
 - K1, the forward, replaces ``mfvit_tpu/ops/fused_attn.py::
   fused_attention_block`` (Pallas ``_kernel`` :28). On a CUDA tensor it
-  runs hand-written kernels: the LayerNorm row statistics, ``gemm_ln`` with
-  the LayerNorm prologue and the qkv bias (bf16 qkv out), ``attn_core``
-  (scores and softmax on chip) and ``gemm_ln`` with the proj bias and the
-  bf16 residual add, all behind one C entry point (csrc/fused_attn.cu over
-  csrc/gemm_ln.cuh and csrc/attn_core.cuh, whose notes say what bounds each
-  on an H100). Unlike the TPU kernel, qkv makes one round trip through
-  device memory; the scores do not. It takes N <= 256.
+  runs four hand-written kernels behind one C entry point
+  (csrc/fused_attn.cu): LN1(x) in bf16 (csrc/block_tail.cuh's LayerNorm
+  pass), the qkv GEMM with its bias on the wgmma core of
+  csrc/gemm_sm90.cuh, the attention core of csrc/attn_async.cu (scores and
+  softmax on chip; a producer warp stages each (image, head)'s q, K and V
+  into a ring of shared memory under the previous pair's MMAs), and the
+  proj GEMM with its bias and the bf16 residual on the same wgmma core. The
+  notes in those sources say what bounds each on an H100. Unlike the TPU
+  kernel, qkv and o make one round trip through device memory; the scores
+  do not. It takes N <= 256 and D of 128, 256, 384, 512 or 768.
+  ``fused_attention_block_wmma`` runs the chain K1 ran before (the
+  LayerNorm row statistics, ``gemm_ln``'s WMMA GEMMs and csrc/
+  attn_core.cuh's core) for the card's checks only: no op calls it, and
+  both give the same bits.
 - K5, the backward of K1, replaces ``_fused_attn_bwd_impl`` (Pallas
   ``_bwd_kernel`` :385) and, at D > 512, ``_fused_attn_bwd_bigdim`` (K6,
   :661): csrc/fused_attn_bwd.cu over csrc/attn_bwd.cuh and
   csrc/gemm_bwd.cuh.
 - K9, ``fused_attention_block_large``, the same forward for any N,
   replaces ``fused_attention_block_large`` (Pallas ``_kernel_qblocked``
-  :244, ``pallas_call`` :343): csrc/fused_attn_large.cu, K1's stages with
-  the long-sequence attention core csrc/attn_long.cuh, which streams the
+  :244, ``pallas_call`` :343): csrc/fused_attn_large.cu, the WMMA GEMMs
+  of K1's former chain (``attn_block`` in csrc/gemm_ln.cuh) around the
+  long-sequence attention core csrc/attn_long.cuh, which streams the
   keys through shared memory in tiles and takes the softmax in two passes.
   Its backward is the JAX package's for K9, ``_bwd_xla_reference`` (:754),
   a full-fp32 recompute with no bf16 rounding and no Pallas kernel: here
@@ -142,30 +150,62 @@ def _check(B: int, N: int, D: int, heads: int, what: str,
                          f"heads={heads}, N={N}")
 
 
+# the widths K1's LayerNorm pass takes (csrc/block_tail.cuh's ln1_takes)
+K1_WIDTHS = (128, 256, 384, 512, 768)
+
+
 def _forward_cuda(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads, scale,
                   large):
     """K1 (K9 if ``large``) on bf16 x; the weights are cast to bf16 here."""
     B, N, D = x.shape
     _check(B, N, D, heads, "K9" if large else "K1",
            None if large else 256)
+    if not large and D not in K1_WIDTHS:
+        raise ValueError(f"the K1 kernels take D of 128, 256, 384, 512 or "
+                         f"768; got D={D}")
+    name = "fused_attention_block_large" if large else "fused_attention_block"
+    out = _attn_chain(f"mfv_{name}", x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
+                      heads, scale, stats=large)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _attn_chain(entry, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads,
+                scale, stats):
+    """One launch chain of the attention half through its C entry point,
+    with the (M, 2) fp32 statistics scratch where the chain takes it."""
+    B, N, D = x.shape
     bf16 = torch.bfloat16
     launch.require(x, bf16, "x")
     wqkv = wqkv.to(bf16).contiguous()
     wproj = wproj.to(bf16).contiguous()
     launch.require(wqkv, bf16, "wqkv", (3 * D, D))
     launch.require(wproj, bf16, "wproj", (D, D))
-    stats = torch.empty(B * N, 2, dtype=torch.float32, device=x.device)
-    qkv = torch.empty(B, N, 3 * D, dtype=bf16, device=x.device)
-    o = torch.empty(B, N, D, dtype=bf16, device=x.device)
+    dev = x.device
+    scratch = ([torch.empty(B * N, 2, dtype=torch.float32, device=dev)]
+               if stats else [])
+    qkv = torch.empty(B, N, 3 * D, dtype=bf16, device=dev)
+    o = torch.empty(B, N, D, dtype=bf16, device=dev)
     out = torch.empty_like(x)
-    name = "fused_attention_block_large" if large else "fused_attention_block"
-    launch.call(f"mfv_{name}", x.device, x,
+    launch.call(entry, dev, x,
                 launch.vec(ln_s, D, "ln_s"), launch.vec(ln_b, D, "ln_b"),
                 wqkv, launch.vec(bqkv, 3 * D, "bqkv"), wproj,
-                launch.vec(bproj, D, "bproj"), stats, qkv, o, out, B, N, D,
-                heads, scale)
-    LAUNCHES[name] += 1
+                launch.vec(bproj, D, "bproj"), *scratch, qkv, o, out, B, N,
+                D, heads, scale)
     return out
+
+
+def fused_attention_block_wmma(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
+                               heads: int, scale: float) -> torch.Tensor:
+    """The chain K1 ran before its redesign (csrc/fused_attn.cu's
+    ``mfv_fused_attention_block_wmma``: LN statistics, ``gemm_ln``'s GEMMs,
+    attn_core.cuh's core), forward only, on CUDA tensors: the comparator
+    the card's checks hold K1 against bit for bit. No op calls it, and it
+    counts no launch."""
+    B, N, D = x.shape
+    _check(B, N, D, heads, "K1")
+    return _attn_chain("mfv_fused_attention_block_wmma", x, ln_s, ln_b, wqkv,
+                       bqkv, wproj, bproj, heads, scale, stats=True)
 
 
 def bwd_cuda(g, x, ln_s, ln_b, wqkv, bqkv, wproj, heads: int, scale: float,
@@ -260,9 +300,9 @@ class _AttentionBlock(torch.autograd.Function):
 def fused_attention_block(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
                           heads: int, scale: float, plain: bool = False):
     """K1 forward, K5 backward. CPU tensors (and ``plain=True``) take the
-    plain versions; CUDA tensors the kernels (bf16 x, N <= 256) or a
-    ValueError. Weights may be fp32 (the master copies); their gradients
-    are fp32."""
+    plain versions; CUDA tensors the kernels (bf16 x, N <= 256, D of 128,
+    256, 384, 512 or 768) or a ValueError. Weights may be fp32 (the master
+    copies); their gradients are fp32."""
     return _AttentionBlock.apply(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
                                  heads, scale, plain, False)
 

@@ -3,11 +3,13 @@ x2 + fc2(GELU(fc1(LN2(x2)))), and its backward.
 
 K15 replaces ``mfvit_tpu/ops/fused_block.py::fused_transformer_block``
 (:89; ``pallas_call`` :111, ``_block_kernel`` :36). On a CUDA tensor it runs
-csrc/fused_block.cu behind one C entry point: LN1(x) in bf16, the qkv GEMM
-on the wgmma core of csrc/gemm_sm90.cuh, K1's attention core, then one
-block-tail kernel on the same core that keeps x2 and the (M, 4D) hidden
-activation in shared memory and registers (the notes in that source say
-how, and what bounds it); ``_plan`` sizes the tail's ring of weight stages.
+csrc/fused_block.cu behind one C entry point: K1's first three launches
+(LN1(x) in bf16, the qkv GEMM on the wgmma core of csrc/gemm_sm90.cuh, the
+attention core of csrc/attn_async.cu), then csrc/block_tail.cuh's tail
+kernel with its proj stage, on the same core, which keeps x2 and the (M,
+4D) hidden activation in shared memory and registers (the notes in that
+header say how, and what bounds it); ``_plan`` sizes the tail's ring of
+weight stages, as K2's does (the same tiles).
 It takes K1's shapes (head_dim 32/64/128, N <= 256, any B) and D of 128,
 256, 384 or 512; the hidden width must be a multiple of 128. Anything
 else on a CUDA tensor raises. The TPU kernel's choice of 2 or 1 images a grid step (:104) is a
@@ -29,8 +31,6 @@ reached through this Python API and ``mfvit_tpu_torch.tools.bench_block``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
 from mfvit_tpu_torch.ops import fused_attn as fa
@@ -42,47 +42,19 @@ LAUNCHES = {"fused_transformer_block": 0}
 # the widest row the block tail holds on chip (its fp32 output tile lives
 # in registers)
 D_MAX = 512
-# csrc/fused_block.cu's and gemm_sm90.cuh's constants: the tail's rows a
-# tile, bytes of a ring stage and of a 64-row swizzled K slice, the hidden
-# chunk, the most stages; the registers setmaxnreg gives a consumer and a
-# producer thread, and a block's threads; the qkv GEMM's shared memory; and
-# the shared memory a block can take on an H100
-TAIL_ROWS, STAGE, TILE64, HC, STAGES_MAX = 64, 16384, 8192, 128, 8
-CONSUMER_REGS, PRODUCER_REGS, THREADS = 232, 40, 384
-GEMM_SMEM = 7 * 32768 + 2 * 7 * 8 + 1024
-SMEM_MAX = 232448
 
 
-class Plan(NamedTuple):
-    """A launch of K15's block tail: ``stages`` weight stages in its ring,
-    ``smem`` bytes of shared memory a block, and ``acc_regs`` fp32
-    accumulators a consumer thread holds at once (fc2's D/4, across the
-    chunks, and one fc1 chunk's 32)."""
-    stages: int
-    smem: int
-    acc_regs: int
-
-
-def _smem(D: int, stages: int) -> int:
-    """fused_block.cu's Tail<D>::smem: the ring, the A tile (D / 64 K
-    slices), the hidden chunk (two slices), x2 (pitch D + 8), the
-    barriers, and 1024 bytes to align the swizzled tiles."""
-    return (stages * STAGE + D // 64 * TILE64 + 2 * TILE64
-            + TAIL_ROWS * (D + 8) * 2 + (2 * stages + 2) * 8 + 1024)
-
-
-def _plan(D: int, Hd: int, dh: int) -> Plan:
-    """The tail's plan at width D, hidden Hd and head_dim dh: as many ring
-    stages as the shared memory beside the tiles holds, at most
-    STAGES_MAX."""
-    if D not in (128, 256, 384, 512) or Hd % HC or dh not in (32, 64, 128) \
-            or D % dh:
+def _plan(D: int, Hd: int, dh: int) -> fm.Plan:
+    """The tail's plan at width D, hidden Hd and head_dim dh: K2's (the
+    same tiles and ring; ``fused_mlp._plan``) at the widths the tail
+    takes."""
+    if D not in fm.TAIL_WIDTHS or Hd % fm.HC or Hd <= 0 \
+            or dh not in (32, 64, 128) or D % dh:
         raise ValueError(f"the K15 kernel takes D of 128, 256, 384 or 512 "
                          f"(D <= {D_MAX}), head_dim 32/64/128 and hidden % "
-                         f"{HC} == 0; got D={D}, head_dim={dh}, hidden={Hd}")
-    stages = max(s for s in range(1, STAGES_MAX + 1)
-                 if _smem(D, s) <= SMEM_MAX)
-    return Plan(stages, _smem(D, stages), D // 4 + 32)
+                         f"{fm.HC} == 0; got D={D}, head_dim={dh}, "
+                         f"hidden={Hd}")
+    return fm._plan(D, Hd)
 
 
 def fused_transformer_block_plain(x, ln1_s, ln1_b, wqkv, bqkv, wproj, bproj,

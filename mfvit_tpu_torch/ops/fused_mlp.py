@@ -13,13 +13,22 @@
   ``_final_bwd`` (:214): the epilogue LayerNorm backward on an fp32
   recompute in PyTorch (eager math in JAX too), then K7.
 
-On a CUDA tensor K2/K3 run the LayerNorm row statistics and two ``gemm_ln``
-kernels (csrc/fused_mlp.cu over csrc/gemm_ln.cuh): LN prologue + fc1 +
-bias + exact-erf GELU (bf16 hidden), then fc2 + bias with the bf16
-residual add (K2), or with the fp32 residual written out in fp32 and a row
-LayerNorm kernel after it (K3). Unlike the TPU kernel, the (M, 4D) hidden
-activation (and K3's fp32 sum) make one round trip through device memory.
-K7 is csrc/fused_mlp_bwd.cu over csrc/gemm_bwd.cuh.
+On a CUDA tensor K2 runs on the wgmma core of csrc/gemm_sm90.cuh
+(csrc/fused_mlp.cu), by width: at D of 128, 256, 384 or 512 one launch of
+csrc/block_tail.cuh's tail kernel without its proj stage (LN2, the hidden
+in chunks of 128 and fc2's output tile on chip, the (M, 4D) hidden never in
+device memory; ``_plan`` sizes its ring of weight stages); at D = 768
+(vit_base, vit_base_ori, vit_conv_base), where fc2's fp32 output tile does
+not fit the registers, three launches: LN2 in bf16, fc1 + bias + exact-erf
+GELU into an (M, 4D) bf16 scratch, fc2 + bias + the bf16 residual. The
+route follows from D; neither gives way to the other or to the plain
+version, and any other width raises. K3 keeps its WMMA chain on
+csrc/gemm_ln.cuh: the LayerNorm row statistics, LN + fc1 + GELU (bf16
+hidden), fc2 + bias with the fp32 residual written out in fp32, and a row
+LayerNorm kernel. ``fused_mlp_block_wmma`` runs the chain K2 ran before on
+that core, for the card's checks only (no op calls it); every route rounds
+where K2 does and sums in its order, so all give K2's bits. K7 is
+csrc/fused_mlp_bwd.cu over csrc/gemm_bwd.cuh.
 
 Both entry points are ``torch.autograd.Function``s on both devices: they
 take the fp32 master weights, cast them inside, and return fp32 weight
@@ -27,6 +36,8 @@ gradients. On a CPU tensor (or with ``plain=True``) they run the plain
 versions below, the reference the kernels are held to on the card.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +48,56 @@ from mfvit_tpu_torch.ops import launch
 
 LAUNCHES = {"fused_mlp_block": 0, "fused_mlp_block_final_ln": 0,
             "fused_mlp_block_bwd": 0}
+
+# csrc/block_tail.cuh's and gemm_sm90.cuh's constants: the tail's rows a
+# tile, bytes of a ring stage and of a 64-row swizzled K slice, the hidden
+# chunk, the most stages; the registers setmaxnreg gives a consumer and a
+# producer thread, and a block's threads; the GEMM's shared memory; and the
+# shared memory a block can take on an H100
+TAIL_ROWS, STAGE, TILE64, HC, STAGES_MAX = 64, 16384, 8192, 128, 8
+CONSUMER_REGS, PRODUCER_REGS, THREADS = 232, 40, 384
+GEMM_SMEM = 7 * 32768 + 2 * 7 * 8 + 1024
+SMEM_MAX = 232448
+# the widths the tail takes (its fp32 output tile lives in registers), and
+# the wider ones K2 runs in three launches
+TAIL_WIDTHS, WIDE_WIDTHS = (128, 256, 384, 512), (768,)
+
+
+class Plan(NamedTuple):
+    """A launch of K2 (or of K15's tail, at the same widths): ``route``
+    "tail" (one launch, ``stages`` weight stages in its ring, ``smem``
+    bytes of shared memory a block, ``acc_regs`` fp32 accumulators a
+    consumer thread holds at once: fc2's D/4 across the chunks and one fc1
+    chunk's 32) or "gemm" (three launches on the GEMM core, D > 512: no
+    ring of its own, the GEMM's shared memory and 128 accumulators)."""
+    route: str
+    stages: int
+    smem: int
+    acc_regs: int
+
+
+def _smem(D: int, stages: int) -> int:
+    """block_tail.cuh's Tail<D>::smem: the ring, the A tile (D / 64 K
+    slices), the hidden chunk (two slices), x2 (pitch D + 8), the
+    barriers, and 1024 bytes to align the swizzled tiles."""
+    return (stages * STAGE + D // 64 * TILE64 + 2 * TILE64
+            + TAIL_ROWS * (D + 8) * 2 + (2 * stages + 2) * 8 + 1024)
+
+
+def _plan(D: int, Hd: int) -> Plan:
+    """K2's plan at width D and hidden Hd: at a tail width, as many ring
+    stages as the shared memory beside the tiles holds (at most
+    STAGES_MAX); at D = 768 the three-launch route."""
+    if Hd % HC == 0 and Hd > 0:
+        if D in TAIL_WIDTHS:
+            stages = max(s for s in range(1, STAGES_MAX + 1)
+                         if _smem(D, s) <= SMEM_MAX)
+            return Plan("tail", stages, _smem(D, stages), D // 4 + 32)
+        if D in WIDE_WIDTHS:
+            return Plan("gemm", 0, GEMM_SMEM, 128)
+    raise ValueError(f"the K2 kernel takes D of 128, 256, 384 or 512 (one "
+                     f"launch) or 768 (three), and hidden % {HC} == 0; got "
+                     f"D={D}, hidden={Hd}")
 
 
 def _hidden(x, ln_s, ln_b, w1, b1):
@@ -102,31 +163,65 @@ def final_ln_bwd(g, x, ln_s, ln_b, w1, b1, w2, b2, final_s):
     return go.to(x.dtype), d_final_s, d_final_b
 
 
-def _mlp_cuda(x, ln_s, ln_b, w1, b1, w2, b2, final=None):
-    B, N, D = x.shape
-    Hd = w1.shape[0]
-    if D % 128 or Hd % 128:
-        raise ValueError(f"the K2/K3 kernels take D % 128 == 0 and "
-                         f"hidden % 128 == 0; got D={D}, hidden={Hd}")
+def _weights(x, w1, w2):
+    """bf16 x and the bf16 weights the kernels take, or a ValueError."""
+    D, Hd = x.shape[-1], w1.shape[0]
     bf16 = torch.bfloat16
     launch.require(x, bf16, "x")
     w1 = w1.to(bf16).contiguous()
     w2 = w2.to(bf16).contiguous()
     launch.require(w1, bf16, "w1", (Hd, D))
     launch.require(w2, bf16, "w2", (D, Hd))
-    fs, fb = ((launch.vec(final[0], D, "final_s"),
-               launch.vec(final[1], D, "final_b"))
-              if final is not None else (None, None))
-    stats = torch.empty(B * N, 2, dtype=torch.float32, device=x.device)
-    h = torch.empty(B * N, Hd, dtype=bf16, device=x.device)
-    o32 = (torch.empty(B * N, D, dtype=torch.float32, device=x.device)
-           if final is not None else None)
+    return w1, w2
+
+
+def _mlp_cuda(x, ln_s, ln_b, w1, b1, w2, b2):
+    """K2 on bf16 x, on the route ``_plan`` gives its width."""
+    B, N, D = x.shape
+    Hd = w1.shape[0]
+    plan = _plan(D, Hd)
+    w1, w2 = _weights(x, w1, w2)
+    wide = plan.route == "gemm"
+    scratch = [torch.empty(B * N, n, dtype=torch.bfloat16, device=x.device)
+               if wide else None for n in (D, Hd)]
     out = torch.empty_like(x)
     launch.call("mfv_fused_mlp_block", x.device, x,
                 launch.vec(ln_s, D, "ln_s"), launch.vec(ln_b, D, "ln_b"), w1,
-                launch.vec(b1, Hd, "b1"), w2, launch.vec(b2, D, "b2"), fs, fb,
-                stats, h, o32, out, B * N, D, Hd)
+                launch.vec(b1, Hd, "b1"), w2, launch.vec(b2, D, "b2"),
+                *scratch, out, B * N, D, Hd, plan.stages)
     return out
+
+
+def _wmma_chain(entry, x, ln_s, ln_b, w1, b1, w2, b2, final=()):
+    """K3 (``final`` = (final_s, final_b)) or K2's former chain on
+    csrc/gemm_ln.cuh."""
+    B, N, D = x.shape
+    Hd = w1.shape[0]
+    if D % 128 or Hd % 128:
+        raise ValueError(f"the K2/K3 WMMA kernels take D % 128 == 0 and "
+                         f"hidden % 128 == 0; got D={D}, hidden={Hd}")
+    w1, w2 = _weights(x, w1, w2)
+    f32, dev = torch.float32, x.device
+    out = torch.empty_like(x)
+    launch.call(entry, dev, x, launch.vec(ln_s, D, "ln_s"),
+                launch.vec(ln_b, D, "ln_b"), w1, launch.vec(b1, Hd, "b1"), w2,
+                launch.vec(b2, D, "b2"),
+                *(launch.vec(v, D, n) for v, n in zip(final, ("final_s",
+                                                              "final_b"))),
+                torch.empty(B * N, 2, dtype=f32, device=dev),
+                torch.empty(B * N, Hd, dtype=torch.bfloat16, device=dev),
+                *([torch.empty(B * N, D, dtype=f32, device=dev)] if final
+                  else []), out, B * N, D, Hd)
+    return out
+
+
+def fused_mlp_block_wmma(x, ln_s, ln_b, w1, b1, w2, b2) -> torch.Tensor:
+    """The chain K2 ran before its redesign (LN statistics and two
+    ``gemm_ln`` launches, csrc/fused_mlp.cu's ``mfv_fused_mlp_block_wmma``),
+    forward only, on CUDA tensors: the comparator the card's checks hold K2
+    against bit for bit. No op calls it, and it counts no launch."""
+    return _wmma_chain("mfv_fused_mlp_block_wmma", x, ln_s, ln_b, w1, b1, w2,
+                       b2)
 
 
 def fused_mlp_block_bwd(g, x, ln_s, ln_b, w1, b1, w2):
@@ -203,8 +298,8 @@ class _MlpBlockFinalLN(torch.autograd.Function):
         if ctx.plain:
             return fused_mlp_block_final_ln_plain(x, ln_s, ln_b, w1, b1, w2,
                                                   b2, final_s, final_b)
-        out = _mlp_cuda(x, ln_s, ln_b, w1, b1, w2, b2,
-                        final=(final_s, final_b))
+        out = _wmma_chain("mfv_fused_mlp_block_final_ln", x, ln_s, ln_b, w1,
+                          b1, w2, b2, final=(final_s, final_b))
         LAUNCHES["fused_mlp_block_final_ln"] += 1
         return out
 
@@ -218,7 +313,8 @@ class _MlpBlockFinalLN(torch.autograd.Function):
 
 def fused_mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, plain: bool = False):
     """K2 forward, K7 backward. CPU tensors (and ``plain=True``) take the
-    plain versions; CUDA tensors the kernels (bf16 x) or a ValueError."""
+    plain versions; CUDA tensors the kernels (bf16 x, D of 128-512 or 768)
+    or a ValueError."""
     return _MlpBlock.apply(x, ln_s, ln_b, w1, b1, w2, b2, plain)
 
 

@@ -1,9 +1,10 @@
 """The port's two bf16 GEMM cores alone: C = epilogue(A . W^T + bias).
 
 ``gemm_sm90`` runs the warpgroup-MMA core of ``csrc/gemm_sm90.cuh`` (TMA
-tile loads, ``wgmma.mma_async``), on which K15 runs its GEMMs; ``gemm_ln``
-runs the WMMA core of ``csrc/gemm_ln.cuh`` that K1-K4 run on, without its
-LayerNorm prologue. Both sum every output over k in ascending k16 steps and
+tile loads, ``wgmma.mma_async``), on which K1, K2 and K15 run their GEMMs;
+``gemm_ln`` runs the WMMA core of ``csrc/gemm_ln.cuh`` that K3, K4, K9 and
+the schedule variants run on (and K1 and K2 ran on before their redesign),
+without its LayerNorm prologue. Both sum every output over k in ascending k16 steps and
 round where gemm_ln's epilogues do, so ``chip_smoke.py`` can count the
 outputs where they differ (whether a wgmma k16 step rounds as ``mma.sync``'s
 does) and time them side by side. They replace no TPU kernel: no path of
@@ -59,5 +60,6 @@ def gemm_sm90(a, w, bias, epi: str = "bias", resid=None) -> torch.Tensor:
 
 
 def gemm_ln(a, w, bias, epi: str = "bias", resid=None) -> torch.Tensor:
-    """The WMMA core of K1-K4 (N % 128 == 0, K % 64 == 0 on the card)."""
+    """The WMMA core of K3 and K4 (N % 128 == 0, K % 64 == 0 on the
+    card)."""
     return _gemm("gemm_ln", a, w, bias, epi, resid)

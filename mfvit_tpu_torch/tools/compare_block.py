@@ -1,5 +1,5 @@
-"""Time K15 of two checkouts of the repository on one card, in turns, and
-the end-to-end figures beside them:
+"""Time K15, K1 and K2 of two checkouts of the repository on one card, in
+turns, and the end-to-end figures beside them:
 
     python -m mfvit_tpu_torch.tools.compare_block --other DIR [--out FILE]
 
@@ -8,32 +8,37 @@ commit unpacked into a directory that ``.gitignore`` lists). Each turn is a
 process of its own, started in one checkout (``tools/turns.py``, turns
 other, this, this, other), that builds that checkout's kernels and runs:
 its own ``chip_smoke.time_block`` (K15, the K1 -> K2 pair, K15's plain
-version and the library block at vit_small B=256), ``stage_times`` below
-(K15's launches one by one under ``torch.profiler``), ``bench_block``'s
-12-block chains at B=512, the GEMM cores alone at B=256 where the checkout
-has ``ops.gemm`` (``chip_smoke.time_gemm``), then the serving pairs/s at
-B=256 (``time_e2e``: bf16, int8 and the XLA-level W8A8 path), the FT
-step's images/s at B=256 (``time_train``) and the fusion step's pairs/s
-at B=256 (``time_fusion``), which no change to K15 should move. Prints one
-line a reading, and writes every reading to FILE as JSON. Needs a CUDA
-card.
+version and the library block at vit_small B=256), ``half_times`` below
+(K1 and K2 alone at B=256), ``stage_times`` below (the launches of K15, K1
+and K2 one by one under ``torch.profiler``), ``bench_block``'s 12-block
+chains at B=512, the GEMM cores alone at B=256 where the checkout has
+``ops.gemm`` (``chip_smoke.time_gemm``), then the serving pairs/s at B=256
+(``time_e2e``: bf16, int8 and the XLA-level W8A8 path) and at 384 px, B=64
+(bf16), the FT step's images/s at B=256 and B=16 (``time_train``) and the
+fusion step's pairs/s at B=256 (``time_fusion``, LP and
+``--semi-supervised``). Prints the card's name and power limit, one line a
+reading, and writes every reading to FILE as JSON. Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import inspect
+import subprocess
 import sys
 from pathlib import Path
 
 from mfvit_tpu_torch.tools import turns
 
 
-def stage_times(dev, B: int = 256, iters: int = 5) -> dict:
-    """The device ms of each kernel that one K15 call launches at vit_small
-    batch B (``chip_smoke.block_inputs``, seed 16), under ``torch.profiler``
-    over ``iters`` calls: kernel name (namespace, template arguments and
-    parameters dropped) -> the mean over its launches (each launches once a
-    call; the profiler may miss the window's first), in launch order."""
+def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5) -> dict:
+    """The device ms of each kernel that one call of ``op`` launches at
+    vit_small batch B (``chip_smoke.block_inputs``, seed 16), under
+    ``torch.profiler`` over ``iters`` calls: "k15" K15, "k1" K1, "k2" K2
+    (on the block's x). Kernel name (namespace and parameters dropped,
+    template arguments kept, so that two instances of one template stay
+    apart) -> the mean over its launches, in launch order; the profiler
+    may miss the window's first launches, so a kernel that one call
+    launches twice would be averaged."""
     import re
 
     import torch
@@ -41,29 +46,60 @@ def stage_times(dev, B: int = 256, iters: int = 5) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
+    from mfvit_tpu_torch.ops import fused_attn as fa
     from mfvit_tpu_torch.ops import fused_block as fb
+    from mfvit_tpu_torch.ops import fused_mlp as fm
     t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B, 384, dev)
     a = [t[k] for k in chip_smoke.K15_KEYS]
+    call = {"k15": lambda: fb.fused_transformer_block(*a, 12, 32 ** -0.5),
+            "k1": lambda: fa.fused_attention_block(*a[:7], 12, 32 ** -0.5),
+            "k2": lambda: fm.fused_mlp_block(a[0], *a[7:]),
+            "k1_wmma": lambda: fa.fused_attention_block_wmma(*a[:7], 12,
+                                                             32 ** -0.5),
+            "k2_wmma": lambda: fm.fused_mlp_block_wmma(a[0], *a[7:])}[op]
     with torch.inference_mode():
-        fb.fused_transformer_block(*a, 12, 32 ** -0.5)
+        call()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
-                fb.fused_transformer_block(*a, 12, 32 ** -0.5)
+                call()
             torch.cuda.synchronize()
     runs, order = {}, []
     for e in sorted((e for e in prof.events()
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start):
         name = re.sub(r"^void |\(anonymous namespace\)::|\w+::", "", e.name)
-        name = re.split(r"[<(]", name)[0]
+        name = name.split("(")[0]
         runs.setdefault(name, []).append(e.time_range.elapsed_us() / 1e3)
         order.append(name)
     # in the order of the last call's launches
     out = {n: sum(runs[n]) / len(runs[n]) for n in order[-len(runs):]}
-    print(f"K15's launches at B={B} (device ms per call, torch.profiler): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+    print(f"{op.upper()}'s launches at B={B} (device ms per call, "
+          "torch.profiler): " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in out.items())
           + f"; sum {sum(out.values()):.4f}")
+    return out
+
+
+def half_times(dev, B: int = 256, iters: int = 20) -> dict:
+    """K1 and K2 at vit_small batch B (``chip_smoke.block_inputs``, seed
+    16), each timed twice with CUDA events in turns (K1, K2, K2, K1): name
+    -> [ms, ms]."""
+    import torch
+
+    import chip_smoke
+    from mfvit_tpu_torch.ops import fused_attn as fa
+    from mfvit_tpu_torch.ops import fused_mlp as fm
+    t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B, 384, dev)
+    a = [t[k] for k in chip_smoke.K15_KEYS]
+    calls = {"k1": lambda: fa.fused_attention_block(*a[:7], 12, 32 ** -0.5),
+             "k2": lambda: fm.fused_mlp_block(a[0], *a[7:])}
+    out = {"k1": [], "k2": []}
+    with torch.inference_mode():
+        for name in ("k1", "k2", "k2", "k1"):
+            out[name].append(chip_smoke.cuda_ms(calls[name], iters))
+    print(f"K1 and K2 at B={B}: " + ", ".join(
+        f"{k} {'/'.join(f'{v:.4f}' for v in ms)} ms" for k, ms in out.items()))
     return out
 
 
@@ -76,18 +112,23 @@ from mfvit_tpu_torch.tools import bench_block
 build.lib()
 dev = torch.device("cuda")
 %s
-out = {"block": chip_smoke.time_block(dev), "stages": stage_times(dev),
+%s
+out = {"block": chip_smoke.time_block(dev), "halves": half_times(dev),
+       "stages": {op: stage_times(dev, op) for op in ("k15", "k1", "k2")},
        "bench_block": {k: v[0] for k, v in bench_block.run(dev).items()}}
 if hasattr(chip_smoke, "time_gemm"):
     out["gemm"] = chip_smoke.time_gemm(dev)
 fusion = chip_smoke.time_fusion(dev, 256, 3)
 out["e2e"] = {"serving_pairs_per_sec_B256": chip_smoke.time_e2e(dev),
+              "serving_pairs_per_sec_384_B64": chip_smoke.time_e2e(
+                  dev, B=64, img=384, int8=False),
               "ft_images_per_sec_B256": chip_smoke.time_train(dev, 256, 4),
+              "ft_images_per_sec_B16": chip_smoke.time_train(dev, 16, 32),
               "fusion_pairs_per_sec_B256": {
                   f"{mode} {k}": v for mode, rates in fusion.items()
                   for k, v in rates.items()}}
 print("RESULT " + json.dumps(out))
-""" % inspect.getsource(stage_times)
+""" % (inspect.getsource(stage_times), inspect.getsource(half_times))
 
 
 def main(argv=None) -> int:
@@ -95,6 +136,10 @@ def main(argv=None) -> int:
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"card: {card}")
     runs = turns.run(args.other, CHILD)
     turns.print_e2e(runs)
     for i, what in enumerate(("K15", "plain", "library block", "K1 -> K2")):
@@ -102,14 +147,21 @@ def main(argv=None) -> int:
         print(f"{what} at vit_small B=256: this " + "/".join(
             f"{v:.4f}" for v in ms["this"]) + " ms, other " + "/".join(
             f"{v:.4f}" for v in ms["other"]) + " ms")
+    for name in ("k1", "k2"):
+        ms = turns.by_checkout(runs, lambda r: r["halves"][name])
+        print(f"{name.upper()} at vit_small B=256: this " + "/".join(
+            f"{v:.4f}" for t in ms["this"] for v in t) + " ms, other "
+            + "/".join(f"{v:.4f}" for t in ms["other"] for v in t) + " ms")
     for name in runs[0][1]["bench_block"]:
         ms = turns.by_checkout(runs, lambda r: r["bench_block"][name])
         print(f"bench_block {name}, 12 blocks at B=512: this " + "/".join(
             f"{v:.2f}" for v in ms["this"]) + " ms, other " + "/".join(
             f"{v:.2f}" for v in ms["other"]) + " ms")
     for who, r in runs:
-        print(f"{who}: K15's stages " + ", ".join(
-            f"{k} {v:.4f}" for k, v in r["stages"].items()) + " ms"
+        print(f"{who}: " + "; ".join(
+            f"{op.upper()}'s stages " + ", ".join(
+                f"{k} {v:.4f}" for k, v in st.items()) + " ms"
+            for op, st in r["stages"].items())
             + "".join(f"; GEMM {k} wgmma {v[0]:.4f} ms ({v[2]:.1f} TFLOP/s), "
                       f"gemm_ln {v[1]:.4f} ms ({v[3]:.1f} TFLOP/s)"
                       for k, v in r.get("gemm", {}).items()))

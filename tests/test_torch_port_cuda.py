@@ -471,6 +471,58 @@ def test_quantized_vit_runs_k12_in_every_block(dev):
         assert not any(counts.values()) and out.isfinite().all()
 
 
+# chip_smoke.py's HALVES_SHAPES: K15's, a partial last row tile, the block
+# tail's other widths, a vit_base block (K2's three-launch route), and the
+# shapes where an attention block walks several pairs of few query tiles
+# and a GEMM block several tiles of more K slices than its ring holds
+HALVES = [(8, 197, 384, 12), (8, 197, 384, 6), (8, 50, 384, 12),
+          (8, 197, 384, 3), (3, 197, 384, 12), (4, 197, 128, 4),
+          (4, 197, 256, 4), (4, 197, 512, 8), (2, 197, 768, 12),
+          (64, 50, 384, 12), (16, 197, 768, 12)]
+
+
+@pytest.mark.parametrize("B,N,D,H", HALVES)
+def test_k1_k2_equal_their_former_chains_and_hold_their_plain_versions(
+        dev, B, N, D, H):
+    """K1 and K2 against the chains they ran before their redesign (the
+    check-only WMMA chains: the same rounding points and the same order of
+    every fp32 sum, so equal bit for bit) and against their plain fp32
+    versions (rel < 2e-2); one call launches its own kernel once."""
+    t = _block(dev, B, N, D)
+    scale = (D // H) ** -0.5
+    a, m = [t[k] for k in ATTN], [t[k] for k in MLP]
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        k1 = fused_attn.fused_attention_block(*a, H, scale)
+        k2 = fused_mlp.fused_mlp_block(*m)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "fused_attention_block": 1, "fused_mlp_block": 1}
+    with torch.no_grad():
+        assert torch.equal(k1, fused_attn.fused_attention_block_wmma(
+            *a, H, scale))
+        assert torch.equal(k2, fused_mlp.fused_mlp_block_wmma(*m))
+        assert _rel(k1, fused_attn.fused_attention_block_plain(
+            *_f32(t, ATTN), H, scale)) < REL
+        assert _rel(k2, fused_mlp.fused_mlp_block_plain(*_f32(t, MLP))) < REL
+
+
+def test_k1_k2_refuse_widths_they_do_not_take(dev):
+    """Widths past the block tail's other than 768 raise on the card, as
+    does a hidden width that is no multiple of 128."""
+    t = _block(dev, 1, 50, 640)
+    with pytest.raises(ValueError, match="D of 128"):
+        fused_attn.fused_attention_block(*[t[k] for k in ATTN], 10,
+                                         64 ** -0.5)
+    with pytest.raises(ValueError, match="K2"):
+        fused_mlp.fused_mlp_block(*[t[k] for k in MLP])
+    t = _block(dev, 1, 50, 384)
+    m = [t[k] for k in MLP]
+    with pytest.raises(ValueError, match="K2"):
+        fused_mlp.fused_mlp_block(*m[:3], m[3][:1500], m[4][:1500],
+                                  m[5][:, :1500], m[6])
+
+
 K15_ARGS = ("x", "ln_s", "ln_b", "wqkv", "bqkv", "wproj", "bproj", "ln_s",
             "ln_b", "w1", "b1", "w2", "b2")
 
@@ -539,7 +591,9 @@ def test_k15_refuses_what_it_does_not_take(dev):
                                        (1576, 1536, 384, "gelu"),
                                        (1576, 384, 1536, "bias"),
                                        (300, 384, 1536, "resid"),
-                                       (100, 128, 64, "bias")])
+                                       (100, 128, 64, "bias"),
+                                       (12608, 3072, 768, "gelu"),
+                                       (12608, 768, 3072, "resid")])
 def test_gemm_sm90_equals_gemm_ln_and_holds_its_plain_version(dev, M, N, K,
                                                               epi):
     """The wgmma core K15 runs on against the WMMA core of K1-K4 on the
