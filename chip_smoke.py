@@ -83,7 +83,14 @@ Phases, in order; any failure raises and exits non-zero:
    walk several attention pairs or GEMM tiles of more K slices than the
    ring holds): the outputs that differ must be 0, each within
    rel 2e-2 of its plain fp32 version, one launch of its own kernel a
-   call; then K15 against the
+   call; then K3 and K4 against their former designs (the check-only
+   ``fused_mlp_block_final_ln_wmma`` and ``fused_fusion_cls_kv``): K3 at
+   the same shapes, the outputs that differ 0; K4 at B=1, 3, 8 and 256,
+   N=197 and 50, D=384 (3 heads) and 768 (3 and 12 heads), and at N=577
+   (B=64 at D=384, B=16 at D=768, 3 heads): rel below
+   K4_FORMER_BAR, which each control (``k4_controls``: u from W_v, the
+   score scale undone) must fail; each within rel 2e-2 of its plain
+   fp32 version, one launch of its own kernel a call; then K15 against the
    K1 -> K2 kernel chain on the same bf16 inputs (equal bit for bit) and its plain fp32 version (rel < 2e-2), its 13 gradients
    (``torch.autograd.grad``: K1's forward recomputed, K7, K5) against the
    plain fp32 backward (rel < 2e-2 each), at vit_small, vit_small_ori,
@@ -150,9 +157,9 @@ Phases, in order; any failure raises and exits non-zero:
    plain version and the library block (``nn.TransformerEncoderLayer``
    in inference mode on K15's weights, first held within rel 2e-2 of the
    plain fp32 version) at B=256, then K15's launches one by one under
-   ``torch.profiler`` (``tools/compare_block.py::stage_times``), K1 and K2
-   against their former chains (kernel, former, former, kernel) and the
-   launches of all four one by one, and the
+   ``torch.profiler`` (``tools/compare_block.py::stage_times``), K1, K2,
+   K3 and K4 against their former designs (kernel, former, former,
+   kernel) and the launches of all eight one by one, and the
    GEMM cores alone at K1's qkv and K2's fc1 shapes (B=256; ms and
    TFLOP/s, wgmma against gemm_ln); the pairs/s of the fusion train step, LP and
    ``--semi-supervised``, kernel against plain path, at B=32 (the fuse
@@ -228,6 +235,16 @@ I8_TOP1_MISSES = 1
 # version lies from the plain fp32 one, so REL_BAR cannot tell them; they
 # must fail MHSA_BAR wherever a kernel is held.
 MHSA_BAR = 4e-4
+# K4 is held against its former design (the check-only
+# ``fused_fusion_cls_kv``, k and v of every row): both sum in fp32 with the
+# same bf16 rounding points, in other orders and associations, and the
+# former normalises the CLS row for q in another order than for its k/v
+# row, so a bf16 rounding of xn_0 may land on the other side of a tie.
+# On the H100 sound runs read at most 7.4e-5 (max|diff| / max|ref|) and
+# the controls (``k4_controls``: u from W_v in place of W_k, the score
+# scale undone) 6.5e-2 and more; each control must fail the bar wherever
+# K4 is held.
+K4_FORMER_BAR = 2e-4
 PARITY_LOSS_BAR, PARITY_GRAD_BAR = 1e-2, 5e-2
 KERNELS = [  # name, CUDA source, the Pallas kernel body it replaces
     ("fused_attention_block", "mfvit_tpu_torch/csrc/fused_attn.cu",
@@ -392,7 +409,7 @@ def block_inputs(g, B, D, dev, N=197):
         b2=r(D, std=0.1), fs=1 + r(D, std=0.1), fb=r(D, std=0.1))
 
 
-def fusion_inputs(g, B, D, dev):
+def fusion_inputs(g, B, D, dev, N=197):
     def r(*s, std=1.0):
         return (torch.randn(*s, generator=g) * std).to(dev)
     flat = []
@@ -402,7 +419,7 @@ def fusion_inputs(g, B, D, dev):
                  r(2 * D, D, std=D ** -0.5).bfloat16(),
                  r(D, D, std=D ** -0.5).bfloat16(), r(D, std=0.1),
                  1 + r(D, std=0.1), r(D, std=0.1)]
-    return r(B, 197, D).bfloat16(), r(B, 197, D).bfloat16(), flat
+    return r(B, N, D).bfloat16(), r(B, N, D).bfloat16(), flat
 
 
 ATTN = ("x", "ln_s", "ln_b", "wqkv", "bqkv", "wproj", "bproj")
@@ -1343,8 +1360,12 @@ def kernel_bounds(B: int, N: int, D: int, heads: int, Hd: int,
         "fused_mlp_block": bound({"bf16": 4 * M * D * Hd}, 2 * act + w_mlp),
         "fused_mlp_block_final_ln": bound({"bf16": 4 * M * D * Hd},
                                           2 * act + w_mlp),
+        # K4, both directions, in the absorbed form its kernels compute: per
+        # (image, direction) the scores and z (2 N D each a head) and q, u,
+        # o and proj (2 D D each), in fp32; the token streams read once
+        # bound it
         "fused_fusion_cls": bound(
-            {"bf16": 2 * (2 * M * D * 2 * D + 2 * B * D * D * 2)},
+            {"fp32": 2 * B * (4 * N * D * fusion_heads + 8 * D * D)},
             2 * act + 2 * 4 * D * D * 2 + 2 * B * D * 4),
         # K5: qkv recompute, dO, dWqkv, dh on the tensor cores; S, PV, dP,
         # dV, dQ, dK; dWproj in fp32 as the TPU kernel keeps it
@@ -1708,6 +1729,111 @@ def check_halves(dev) -> dict:
                 raise AssertionError(f"{name} at {label}: {n_diff} outputs "
                                      f"differ, rel {r}, launches {counts}")
             out[label].append(n_diff)
+    return out
+
+
+# K4 against its former design: label, B, N, D, heads (the fusion heads
+# that run, 3 at every width as the CLIs default: vit_small's, 3 heads of
+# 128, and vit_base's, 3 of 256; 12 heads of 64 at vit_base's width; then
+# both at 384 px, N=577, 37 chunks of the pass's 16-row ring)
+K4_SHAPES = tuple((f"B={B}, N={N}, D={D}, {heads} heads", B, N, D, heads)
+                  for B, N, D, heads in [
+                      (B, N, D, heads) for B in (1, 3, 8, 256)
+                      for N in (197, 50)
+                      for D, heads in ((384, 3), (768, 3), (768, 12))]
+                  + [(64, 577, 384, 3), (16, 577, 768, 3)])
+
+
+def k4_controls(tok_c, tok_e, flat, heads: int) -> dict:
+    """label -> a wrong K4 on these inputs, the kernel itself run on
+    wrong operands: ``u from W_v`` (u_h built from W_v in place of W_k:
+    wkv = [W_v; W_v]) and ``no scale`` (W_q times head_dim ** 0.5, so the
+    scores' head_dim ** -0.5 is undone)."""
+    from mfvit_tpu_torch.ops import fused_fusion as ff
+    D = tok_c.shape[-1]
+    swapped, unscaled = list(flat), list(flat)
+    for d in (0, 8):
+        wv = flat[d + 3][D:]
+        swapped[d + 3] = torch.cat([wv, wv]).contiguous()
+        unscaled[d + 2] = (flat[d + 2].float()
+                           * (D // heads) ** 0.5).to(flat[d + 2].dtype)
+    return {"u from W_v": lambda: torch.cat(ff._fusion_cuda(
+                tok_c, tok_e, swapped, heads)),
+            "no scale": lambda: torch.cat(ff._fusion_cuda(
+                tok_c, tok_e, unscaled, heads))}
+
+
+def check_heads(dev) -> dict:
+    """K3 at HALVES_SHAPES against the chain it ran before
+    (``fused_mlp_block_final_ln_wmma``: the outputs that differ must be 0)
+    and K4 at K4_SHAPES against its former design (``fused_fusion_cls_kv``:
+    rel < K4_FORMER_BAR, which every ``k4_controls`` entry must fail), each
+    within REL_BAR of its plain fp32 version; one call launches its own
+    kernel once and no other. Every reading is printed before a failure
+    raises. Returns {"k3": label -> outputs that differ, "k4": label ->
+    rel against the former design}."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.ops import fused_fusion as ff
+    from mfvit_tpu_torch.ops import fused_mlp as fm
+    out, bad = {"k3": {}, "k4": {}}, []
+
+    def launched(kern):
+        ops.reset_launch_counts()
+        got = kern()
+        torch.cuda.synchronize()
+        return got, {k: v for k, v in ops.launch_counts().items() if v}
+
+    with torch.no_grad():
+        for label, B, N, D, heads in HALVES_SHAPES:
+            t = block_inputs(torch.Generator().manual_seed(11), B, D, dev, N=N)
+            m, fin = [t[k] for k in MLP], (t["fs"], t["fb"])
+            got, counts = launched(
+                lambda: fm.fused_mlp_block_final_ln(*m, *fin))
+            former = fm.fused_mlp_block_final_ln_wmma(*m, *fin)
+            n_diff = (got != former).sum().item()
+            ulps = (got.view(torch.int16).int()
+                    - former.view(torch.int16).int()).abs().max().item()
+            r = rel(got, fm.fused_mlp_block_final_ln_plain(
+                *[v.float() for v in m], *fin))
+            print(f"fused_mlp_block_final_ln at {label} (B={B}, N={N}, "
+                  f"D={D}): {n_diff} of {got.numel()} outputs differ from its "
+                  f"former "
+                  f"chain (at most {ulps} ulps); rel vs plain fp32 {r:.3e}; "
+                  f"launches {counts}")
+            if n_diff or not (math.isfinite(r) and r < REL_BAR) \
+                    or counts != {"fused_mlp_block_final_ln": 1}:
+                bad.append(f"K3 at {label}: {n_diff} outputs differ, rel {r}, "
+                           f"launches {counts}")
+            out["k3"][label] = n_diff
+        for label, B, N, D, heads in K4_SHAPES:
+            tok_c, tok_e, flat = fusion_inputs(
+                torch.Generator().manual_seed(12), B, D, dev, N=N)
+            got, counts = launched(lambda: torch.cat(ff.fused_fusion_cls(
+                tok_c, tok_e, flat, heads)))
+            former = torch.cat(ff.fused_fusion_cls_kv(tok_c, tok_e, flat,
+                                                      heads))
+            rf = rel(got, former)
+            r = rel(got, torch.cat(ff.fused_fusion_cls_plain(
+                tok_c.float(), tok_e.float(), [v.float() for v in flat],
+                heads)))
+            rcs = {k: rel(fn(), former)
+                   for k, fn in k4_controls(tok_c, tok_e, flat, heads).items()}
+            print(f"fused_fusion_cls at {label}: rel vs its former design "
+                  f"{rf:.3e} (bar {K4_FORMER_BAR}); rel vs plain fp32 "
+                  f"{r:.3e}; controls " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in rcs.items())
+                  + f"; launches {counts}")
+            if not (math.isfinite(rf) and rf < K4_FORMER_BAR) \
+                    or not (math.isfinite(r) and r < REL_BAR) \
+                    or counts != {"fused_fusion_cls": 1}:
+                bad.append(f"K4 at {label}: rel vs former {rf}, vs plain fp32 "
+                           f"{r}, launches {counts}")
+            bad += [f"K4 at {label}: the control '{k}' passes (rel {v} < "
+                    f"{K4_FORMER_BAR})" for k, v in rcs.items()
+                    if not v >= K4_FORMER_BAR]
+            out["k4"][label] = rf
+    if bad:
+        raise AssertionError("; ".join(bad))
     return out
 
 
@@ -2501,31 +2627,55 @@ def time_block(dev) -> tuple:
     return (k1 + k2) / 2, (q1 + q2) / 2, l1, (p1 + p2) / 2
 
 
+# the halves timed against their former designs: op name -> the stage_times
+# ops (``tools/compare_block.py``) of the kernel and of its former design
+HALF_OPS = {"fused_attention_block": ("k1", "k1_wmma"),
+            "fused_mlp_block": ("k2", "k2_wmma"),
+            "fused_mlp_block_final_ln": ("k3", "k3_wmma"),
+            "fused_fusion_cls": ("k4", "k4_kv")}
+
+
 def time_halves(dev, B: int = 256) -> dict:
-    """K1 and K2 at vit_small batch B against the chains they ran before
-    (kernel, former, former, kernel; CUDA events), each first held equal to
-    it on the timed inputs. Returns name -> (ms, former ms)."""
+    """K1, K2, K3 and K4 at vit_small batch B (K4: the fusion head, 3 heads
+    of 128) against the designs they ran before (kernel, former, former,
+    kernel; CUDA events), each first held to it on the timed inputs (K1-K3
+    equal, K4 within K4_FORMER_BAR). Returns name -> (ms, former ms)."""
     from mfvit_tpu_torch.ops import fused_attn as fa
+    from mfvit_tpu_torch.ops import fused_fusion as ff
     from mfvit_tpu_torch.ops import fused_mlp as fm
     t = block_inputs(torch.Generator().manual_seed(16), B, 384, dev)
-    a, m = [t[k] for k in ATTN], [t[k] for k in MLP]
+    tok_c, tok_e, flat = fusion_inputs(torch.Generator().manual_seed(16), B,
+                                       384, dev)
+    a, m, fin = [t[k] for k in ATTN], [t[k] for k in MLP], (t["fs"], t["fb"])
     scale = 32 ** -0.5
     halves = {"fused_attention_block": (
         lambda: fa.fused_attention_block(*a, 12, scale),
         lambda: fa.fused_attention_block_wmma(*a, 12, scale)),
         "fused_mlp_block": (lambda: fm.fused_mlp_block(*m),
-                            lambda: fm.fused_mlp_block_wmma(*m))}
+                            lambda: fm.fused_mlp_block_wmma(*m)),
+        "fused_mlp_block_final_ln": (
+            lambda: fm.fused_mlp_block_final_ln(*m, *fin),
+            lambda: fm.fused_mlp_block_final_ln_wmma(*m, *fin)),
+        "fused_fusion_cls": (
+            lambda: ff.fused_fusion_cls(tok_c, tok_e, flat, 3),
+            lambda: ff.fused_fusion_cls_kv(tok_c, tok_e, flat, 3))}
     out = {}
     with torch.inference_mode():
         for name, (kern, former) in halves.items():
-            if not torch.equal(kern(), former()):
+            got, ref = kern(), former()
+            if name == "fused_fusion_cls":
+                r = rel(torch.cat(got), torch.cat(ref))
+                if not r < K4_FORMER_BAR:
+                    raise AssertionError(f"K4 at B={B}: rel {r} vs its former "
+                                         "design")
+            elif not torch.equal(got, ref):
                 raise AssertionError(f"{name} differs from its former chain "
                                      f"at B={B}")
             k1, f1, f2, k2 = (cuda_ms(fn, 20)
                               for fn in (kern, former, former, kern))
             out[name] = ((k1 + k2) / 2, (f1 + f2) / 2)
             print(f"{name} at B={B}: kernel {k1:.4f}/{k2:.4f} ms, its former "
-                  f"chain {f1:.4f}/{f2:.4f} ms")
+                  f"design {f1:.4f}/{f2:.4f} ms")
     return out
 
 
@@ -2638,6 +2788,9 @@ def main() -> int:
     phase("K1 and K2 against the chains they ran before (B=8; B=3; N=50; "
           "D=128-768)")
     halves_diff = check_halves(dev)
+    phase("K3 and K4 against their former designs (K3 at the shapes above; "
+          "K4 at B=1-256, N=197 and 50, D=384 and 768)")
+    heads_former = check_heads(dev)
     phase("K15 against the K1 -> K2 chain and its plain versions (B=8)")
     errs["fused_transformer_block"] = check_block_kernel(dev)
     phase("K15's entry point: mfvit_tpu_torch.tools.bench_block (B=512, "
@@ -2680,7 +2833,7 @@ def main() -> int:
     k15_stages = stage_times(dev)
     halves = time_halves(dev)
     half_stages = {op: stage_times(dev, op)
-                   for op in ("k1", "k1_wmma", "k2", "k2_wmma")}
+                   for pair in HALF_OPS.values() for op in pair}
     gemm_times = time_gemm(dev)
     times["fused_transformer_block"] = (k15_ms, k15_plain_ms, k15_lib_ms)
     variant_times, base_plain = time_variants(dev)
@@ -2756,12 +2909,14 @@ def main() -> int:
                           "bound_ms": bounds["fused_transformer_block"][0],
                           "stages_ms": k15_stages},
                       "halves_B256": {
-                          name: {"ms": v[0], "former_chain_ms": v[1],
-                                 "stages_ms": half_stages[op],
-                                 "former_stages_ms": half_stages[op + "_wmma"]}
-                          for (name, v), op in zip(halves.items(),
-                                                   ("k1", "k2"))},
+                          name: {"ms": v[0], "former_design_ms": v[1],
+                                 "stages_ms": half_stages[HALF_OPS[name][0]],
+                                 "former_stages_ms":
+                                     half_stages[HALF_OPS[name][1]]}
+                          for name, v in halves.items()},
                       "halves_outputs_differ_from_former": halves_diff,
+                      "k3_outputs_differ_from_former": heads_former["k3"],
+                      "k4_rel_vs_former": heads_former["k4"],
                       "gemm_probe_outputs_differ_B8": probe,
                       "gemm_B256": {
                           k: {"wgmma_ms": v[0], "gemm_ln_ms": v[1],

@@ -3,8 +3,9 @@
 // the LayerNorm pass that K1, K2 and K15 run on it:
 //
 //   PROJ (K15): x2  = x + bf16(o . Wproj^T + bproj)
-//   K2:         x2  = x
-//   both:       out = x2 + bf16(GELU(LN2(x2) . W1^T + b1) . W2^T + b2)
+//   K2, K3:     x2  = x
+//   K15, K2:    out = x2 + bf16(GELU(LN2(x2) . W1^T + b1) . W2^T + b2)
+//   FINAL (K3): out = bf16(LN_final(x2 + GELU(LN2(x2) . W1^T + b1) . W2^T + b2))
 //
 // tail_kernel is persistent, one block an SM: two consumer warpgroups and a
 // producer warpgroup whose one thread issues every TMA load. Each block
@@ -29,7 +30,13 @@
 //   (64, 128) swizzled bf16 tile that both warpgroups then read as fc2's
 //   A operand, fc2 accumulated across the chunks in the registers of the
 //   proj stage: the (M, 4D) hidden never goes to device memory;
-// - out = x2 + bf16(acc + b2).
+// - out = x2 + bf16(acc + b2); or, for K3 (FINAL), o = x2 + acc + b2 kept
+//   in fp32 and the model's final LayerNorm (eps 1e-6) taken over each row
+//   on chip: the fp32 rows go, 32 at a time, into the x2 tile (free once
+//   every thread has read its x2; FINAL_ROWS x (D + 8) fp32 is its size),
+//   and one warp a row sums them as gemm_ln.cuh's ln_rows_kernel does
+//   (lane-strided, then warp_sum, two passes), so K3 keeps the bits of
+//   its former chain, whose fc2 wrote them to device memory.
 //
 // Rounding points are K1's and K2's (gemm_ln.cuh's epilogues, eps 1e-6,
 // exact erff). Every fp32 sum runs over k in ascending k16 steps into one
@@ -140,11 +147,13 @@ static int launch_ln1(const void* x, const void* g, const void* b, void* y, int 
 
 constexpr int TAIL_ROWS = 64, TAIL_THREADS = 384, TAIL_HC = 128;  // HC: hidden chunk
 constexpr int STAGE = 2 * TILE64;  // 64 weight rows of one K slice for each warpgroup
+constexpr int FINAL_ROWS = 32;     // fp32 rows the x2 tile holds in K3's epilogue
 
 struct TailParams {
   CUtensorMap a, wproj, w1, w2;  // boxes of 64 rows (a) and 128 rows (weights)
   const bf16* x;                 // K15's residual (K2's x is the A tile)
   const float *bproj, *ln2_s, *ln2_b, *b1, *b2;
+  const float *final_s, *final_b;  // K3's final LayerNorm
   bf16* out;
   int M, Hd, stages;
 };
@@ -160,6 +169,7 @@ struct Tail {
   static constexpr int LDX = D + 8;
   static constexpr int A_BYTES = KD * TILE64, H_BYTES = 2 * TILE64;
   static constexpr int X_BYTES = TAIL_ROWS * LDX * 2;
+  static_assert(FINAL_ROWS * LDX * 4 == X_BYTES, "K3's fp32 rows fill the x2 tile");
   static int smem(int stages) {
     return stages * STAGE + A_BYTES + H_BYTES + X_BYTES + (2 * stages + 2) * 8 + 1024;
   }
@@ -176,8 +186,80 @@ __device__ __forceinline__ void mma_slice(float (&d)[32], const void* a, const v
   for (int kk = 0; kk < 4; ++kk) wgmma_n64(d, da + 2 * kk, db + 2 * kk);
 }
 
-template <int D, bool PROJ>
+// K3's epilogue: o = x2 + acc + b2 in fp32 (gemm_ln.cuh's EPI_F32 order:
+// x + acc, then + bias), then out = bf16(LN(o) * final_s + final_b), eps
+// 1e-6, over each of the tile's rows from m0. The fp32 rows pass through
+// the x2 tile FINAL_ROWS at a time (the rows of consumer warps 0-1, then
+// 2-3, of each warpgroup); each of the 8 consumer warps takes every 8th
+// row and sums it as ln_rows_kernel does, so the bits are its.
+template <int D>
+__device__ __forceinline__ void final_ln(float (&acc)[D / 128][32], bf16* X2, const TailParams& p,
+                                         int m0, int t128, int warp, int lane) {
+  using T = Tail<D>;
+  const int c0 = (warp >> 2) * 64;
+#pragma unroll
+  for (int j = 0; j < T::J; ++j) {
+    pin(acc[j]);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = frag_row(t128, h), col = c0 + j * 128 + frag_col(t128, q);
+        const float2 x2 =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(X2 + row * T::LDX + col));
+        float& v0 = acc[j][4 * q + 2 * h];
+        float& v1 = acc[j][4 * q + 2 * h + 1];
+        v0 = x2.x + v0;
+        v0 += p.b2[col];
+        v1 = x2.y + v1;
+        v1 += p.b2[col + 1];
+      }
+  }
+  consumers_sync();  // every x2 read: the tile takes the fp32 rows
+  float* O = reinterpret_cast<float*>(X2);
+  for (int half = 0; half < TAIL_ROWS / FINAL_ROWS; ++half) {
+    if (((warp & 3) >> 1) == half) {
+#pragma unroll
+      for (int j = 0; j < T::J; ++j)
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = frag_row(t128, h) - half * FINAL_ROWS;
+            const int col = c0 + j * 128 + frag_col(t128, q);
+            *reinterpret_cast<float2*>(O + row * T::LDX + col) =
+                make_float2(acc[j][4 * q + 2 * h], acc[j][4 * q + 2 * h + 1]);
+          }
+    }
+    consumers_sync();
+    for (int r = warp; r < FINAL_ROWS; r += 8) {
+      const int grow = m0 + half * FINAL_ROWS + r;
+      if (grow >= p.M) break;
+      const float* o = O + r * T::LDX;
+      float s = 0.f;
+      for (int n = lane; n < D; n += 32) s += o[n];
+      const float mean = warp_sum(s) / D;
+      float v = 0.f;
+      for (int n = lane; n < D; n += 32) {
+        const float d = o[n] - mean;
+        v += d * d;
+      }
+      const float rstd = 1.0f / sqrtf(warp_sum(v) / D + 1e-6f);
+      for (int k = lane * 8; k < D; k += 256) {
+        float f[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          f[i] = (o[k + i] - mean) * rstd * p.final_s[k + i] + p.final_b[k + i];
+        *reinterpret_cast<uint4*>(p.out + (size_t)grow * D + k) = float_to_bf16x8(f);
+      }
+    }
+    consumers_sync();  // the rows read: the next half, or the next tile's x2
+  }
+}
+
+template <int D, bool PROJ, bool FINAL>
 __global__ void __launch_bounds__(TAIL_THREADS, 1) tail_kernel(const __grid_constant__ TailParams p) {
+  static_assert(!(PROJ && FINAL), "K3 has no proj stage");
   using T = Tail<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align1024(smem_raw);
@@ -381,6 +463,10 @@ __global__ void __launch_bounds__(TAIL_THREADS, 1) tail_kernel(const __grid_cons
     }
     c.drain(empty);
 
+    if constexpr (FINAL) {
+      final_ln<D>(acc, X2, p, m0, t128, warp, lane);
+      continue;
+    }
     // out = x2 + bf16(acc + b2)
 #pragma unroll
     for (int j = 0; j < T::J; ++j) {
@@ -404,18 +490,19 @@ __global__ void __launch_bounds__(TAIL_THREADS, 1) tail_kernel(const __grid_cons
 
 // The tail on stream s; `a` holds the A rows (K15's o, K2's x), `wproj` is
 // read only with PROJ.
-template <int D, bool PROJ>
+template <int D, bool PROJ, bool FINAL>
 int launch_tail(TailParams& p, const void* a, const void* wproj, const void* w1, const void* w2,
                 cudaStream_t s) {
   const int smem = Tail<D>::smem(p.stages);
-  if (p.M <= 0 || p.Hd <= 0 || p.Hd % TAIL_HC || p.stages < 2 || smem > 232448)
+  if (p.M <= 0 || p.Hd <= 0 || p.Hd % TAIL_HC || p.stages < 2 || smem > 232448 ||
+      (FINAL && (p.final_s == nullptr || p.final_b == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (int e = tensor_map(&p.a, a, p.M, D, 64)) return e;
   if (PROJ)
     if (int e = tensor_map(&p.wproj, wproj, D, D, 128)) return e;
   if (int e = tensor_map(&p.w1, w1, p.Hd, D, 128)) return e;
   if (int e = tensor_map(&p.w2, w2, D, p.Hd, 128)) return e;
-  auto kern = tail_kernel<D, PROJ>;
+  auto kern = tail_kernel<D, PROJ, FINAL>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (p.M + TAIL_ROWS - 1) / TAIL_ROWS, sms = sm_count();
@@ -425,15 +512,15 @@ int launch_tail(TailParams& p, const void* a, const void* wproj, const void* w1,
 }
 
 // The tail at a width it takes (128, 256, 384 or 512), else
-// cudaErrorInvalidValue.
-template <bool PROJ>
+// cudaErrorInvalidValue; FINAL: K3's epilogue.
+template <bool PROJ, bool FINAL = false>
 int launch_tail_d(TailParams& p, int D, const void* a, const void* wproj, const void* w1,
                   const void* w2, cudaStream_t s) {
   switch (D) {
-    case 128: return launch_tail<128, PROJ>(p, a, wproj, w1, w2, s);
-    case 256: return launch_tail<256, PROJ>(p, a, wproj, w1, w2, s);
-    case 384: return launch_tail<384, PROJ>(p, a, wproj, w1, w2, s);
-    case 512: return launch_tail<512, PROJ>(p, a, wproj, w1, w2, s);
+    case 128: return launch_tail<128, PROJ, FINAL>(p, a, wproj, w1, w2, s);
+    case 256: return launch_tail<256, PROJ, FINAL>(p, a, wproj, w1, w2, s);
+    case 384: return launch_tail<384, PROJ, FINAL>(p, a, wproj, w1, w2, s);
+    case 512: return launch_tail<512, PROJ, FINAL>(p, a, wproj, w1, w2, s);
   }
   return (int)cudaErrorInvalidValue;
 }

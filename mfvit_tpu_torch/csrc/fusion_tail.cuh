@@ -1,7 +1,8 @@
-// fusion_tail: the per-image tail of K4
+// fusion_tail: the per-image tail of K4's former design
 // (mfvit_tpu/ops/fused_fusion.py::fused_fusion_cls, _dir_cls :36), after the
 // packed kv GEMM (gemm_ln.cuh, LN eps 1e-5 prologue, rows [own CLS, other
-// patches], fp32 out). One block per (image, direction):
+// patches], fp32 out), kept for the check-only entry mfv_fused_fusion_cls_kv
+// (fused_fusion.cu). One block per (image, direction):
 //
 //   xn0 = bf16(LN_1e-5(own CLS row)); q = xn0 . wq (fp32) * scale
 //   s[h, n] = q_h . k[n]_h (fp32); p = softmax_n(s) (fp32)

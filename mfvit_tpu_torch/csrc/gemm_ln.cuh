@@ -1,18 +1,15 @@
 // gemm_ln: bf16 GEMM with fp32 accumulation on the tensor cores (WMMA
 // 16x16x16), an optional LayerNorm prologue on the A rows and fused
-// epilogues. It carries the GEMMs of
-//
-//   mfvit_tpu/ops/fused_mlp.py::fused_mlp_block_final_ln (K3)  LN+fc1+GELU, fc2 +
-//                                                              fp32 residual + final LN
-//   mfvit_tpu/ops/fused_fusion.py::fused_fusion_cls      (K4)  LN+packed kv GEMM, rows
-//                                                              from two token streams
-//   K9 (fused_attn_large.cu) and the schedule variants T1, T2 and T4 (attn_block
-//   below: LN+qkv, proj+residual), T6 and T7 (mlp_tail.cuh)
-//
-// and of the chains K1 and K2 ran before their redesign, which fused_attn.cu
-// and fused_mlp.cu keep as check-only entries (mfv_fused_attention_block_wmma,
-// mfv_fused_mlp_block_wmma); K1, K2 and K15 run on the wgmma core of
-// gemm_sm90.cuh, whose sums and epilogues are these (chip_smoke.py's probe).
+// epilogues. It carries the GEMMs of K9 (fused_attn_large.cu) and of the
+// schedule variants T1, T2 and T4 (attn_block below: LN+qkv,
+// proj+residual), T6 and T7 (mlp_tail.cuh), and those of the chains K1, K2,
+// K3 and K4 ran before their redesign, which fused_attn.cu, fused_mlp.cu
+// and fused_fusion.cu keep as check-only entries
+// (mfv_fused_attention_block_wmma, mfv_fused_mlp_block_wmma,
+// mfv_fused_mlp_block_final_ln_wmma: LN+fc1+GELU, fc2 + fp32 residual +
+// final LN; mfv_fused_fusion_cls_kv: LN+packed kv GEMM, rows from two token
+// streams); K1, K2, K3 and K15 run on the wgmma core of gemm_sm90.cuh, whose
+// sums and epilogues are these (chip_smoke.py's probe).
 //
 // C[M, N] = epilogue(prologue(A)[M, K] . W[N, K]^T + bias), W in the torch
 // Linear layout (out, in), so both operands are read along K with 16-byte

@@ -2,9 +2,9 @@
 // tile loads into a ring of shared-memory stages, filled by one producer
 // thread, consumed by warpgroups that run wgmma.mma_async with fp32
 // accumulators in registers. K1 (fused_attn.cu) runs its qkv and proj
-// GEMMs on gemm_kernel below, K15 (fused_block.cu) its qkv GEMM, K2
-// (fused_mlp.cu) its fc1 and fc2 at D > 512; block_tail.cuh builds K15's and
-// K2's block tail from the same pieces. The plain C entry mfv_gemm_sm90
+// GEMMs on gemm_kernel below, K15 (fused_block.cu) its qkv GEMM, K2 and K3
+// (fused_mlp.cu) their fc1 and fc2 at D > 512; block_tail.cuh builds K15's,
+// K2's and K3's block tail from the same pieces. The plain C entry mfv_gemm_sm90
 // (gemm_sm90.cu) runs gemm_kernel alone for the card's checks.
 //
 //   C[M, N] = epilogue(A[M, K] . W[N, K]^T + bias), A and W bf16, W in the
@@ -278,17 +278,28 @@ struct GemmParams {
   CUtensorMap a, w;  // boxes of 128 rows
   const float* bias;
   const bf16* resid;
-  bf16* out;
+  void* out;  // bf16, or fp32 (EPI_F32)
   int M, N, K;
 };
 
 // out = epilogue(acc + bias) for one accumulator pair at (row, col): gemm_ln's
-// rounding points; `res` holds the pair's two bf16 residuals (EPI_BIAS_RESID)
+// rounding points; `res` holds the pair's two bf16 residuals (EPI_BIAS_RESID,
+// EPI_F32)
 template <int EPI>
 __device__ __forceinline__ void store_pair(const GemmParams& p, int row, int col, float v0,
                                            float v1, uint32_t res) {
   if (row >= p.M) return;
   const float2 b = *reinterpret_cast<const float2*>(p.bias + col);
+  if (EPI == EPI_F32) {  // K3 at D > 512: x + acc + bias in fp32, gemm_ln's order
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&res));
+    v0 = x.x + v0;
+    v0 += b.x;
+    v1 = x.y + v1;
+    v1 += b.y;
+    *reinterpret_cast<float2*>(static_cast<float*>(p.out) + (size_t)row * p.N + col) =
+        make_float2(v0, v1);
+    return;
+  }
   v0 += b.x;
   v1 += b.y;
   if (EPI == EPI_BIAS_GELU) {
@@ -300,7 +311,7 @@ __device__ __forceinline__ void store_pair(const GemmParams& p, int row, int col
     v0 = x.x + round_bf16(v0);
     v1 = x.y + round_bf16(v1);
   }
-  *reinterpret_cast<__nv_bfloat162*>(p.out + (size_t)row * p.N + col) =
+  *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.out) + (size_t)row * p.N + col) =
       __floats2bfloat162_rn(v0, v1);
 }
 
@@ -316,7 +327,7 @@ __device__ __forceinline__ void store_rows(const GemmParams& p, float (&acc)[2][
     // the half's residual pairs, all loads issued before its first store
     // (the stores may alias them, so they would otherwise wait in turn)
     uint32_t res[16][2] = {};
-    if (EPI == EPI_BIAS_RESID) {
+    if (EPI == EPI_BIAS_RESID || EPI == EPI_F32) {
 #pragma unroll
       for (int q = 0; q < 16; ++q)
 #pragma unroll
@@ -407,20 +418,21 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) gemm_kernel(const __grid_cons
   }
 }
 
-// out (M, N) bf16 = epilogue(a . w^T + bias) on stream s; resid (M, N) for
-// EPI_BIAS_RESID. Takes N % 128 == 0, K % 64 == 0, 16-byte aligned rows.
+// out (M, N) bf16 (EPI_F32: fp32) = epilogue(a . w^T + bias) on stream s;
+// resid (M, N) for EPI_BIAS_RESID and EPI_F32. Takes N % 128 == 0, K % 64
+// == 0, 16-byte aligned rows.
 template <int EPI>
 static int gemm(const void* a, const void* w, const void* bias, const void* resid, void* out,
                 int M, int N, int K, cudaStream_t s) {
   if (M <= 0 || N <= 0 || K <= 0 || N % GEMM_BN || K % 64 || bias == nullptr ||
-      (EPI == EPI_BIAS_RESID && resid == nullptr))
+      ((EPI == EPI_BIAS_RESID || EPI == EPI_F32) && resid == nullptr))
     return (int)cudaErrorInvalidValue;
   GemmParams p;
   if (int e = tensor_map(&p.a, a, M, K, GEMM_BM)) return e;
   if (int e = tensor_map(&p.w, w, N, K, GEMM_BN)) return e;
   p.bias = static_cast<const float*>(bias);
   p.resid = static_cast<const bf16*>(resid);
-  p.out = static_cast<bf16*>(out);
+  p.out = out;
   p.M = M;
   p.N = N;
   p.K = K;

@@ -34,11 +34,14 @@ SIGNATURES = {
     "mfv_fused_attention_block_wmma": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "mfv_fused_attention_block_large": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "mfv_fused_mlp_block": [_P] * 10 + [_I] * 4 + [_P],
-    "mfv_fused_mlp_block_final_ln": [_P] * 13 + [_I, _I, _I, _P],
+    "mfv_fused_mlp_block_final_ln": [_P] * 13 + [_I] * 4 + [_P],
+    "mfv_fused_mlp_block_final_ln_wmma": [_P] * 13 + [_I, _I, _I, _P],
     "mfv_fused_mlp_block_wmma": [_P] * 10 + [_I, _I, _I, _P],
     "mfv_fused_transformer_block": [_P] * 16 + [_I] * 6 + [_F, _P],
     "mfv_fused_fusion_cls": [_P, _P, _I, _I, _I, _I, _F, _PP, _PP, _P, _P,
-                             _P, _P, _P, _P],
+                             _P, _P, _P],
+    "mfv_fused_fusion_cls_kv": [_P, _P, _I, _I, _I, _I, _F, _PP, _PP, _P,
+                                _P, _P, _P, _P, _P],
     "mfv_fused_attention_block_bwd": [_P] * 22 + [_I] * 4 + [_F] + [_I] * 6
                                      + [_P],
     "mfv_fused_mlp_block_bwd": [_P] * 20 + [_I] * 7 + [_P],

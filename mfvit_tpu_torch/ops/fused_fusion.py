@@ -7,13 +7,22 @@ Replaces ``mfvit_tpu/ops/fused_fusion.py::fused_fusion_cls`` (Pallas
 CLS row -> 1-query multi-head attention -> proj + bias -> CLS residual ->
 LN (eps 1e-6) -> + tokens[:, 0].
 
-On a CUDA tensor: per direction the LayerNorm row statistics and one
-``gemm_ln`` (LN prologue, rows read through two pointers, fp32 k/v out) and one ``fusion_tail`` launch for
-both directions (csrc/fused_fusion.cu over csrc/gemm_ln.cuh and
-csrc/fusion_tail.cuh). On a CPU tensor: the plain version,
-a port of the JAX ``_cls_xla`` math, which is also the reference on the
-card. Any batch size and any head_dim go through the kernel. The
-gradient is that of the plain version, recomputed (``_FusionCls``).
+On a CUDA tensor: three launches (csrc/fused_fusion.cu) on the absorbed
+form of the 1-query attention, s[h, n] = xn_n . u_h with u_h = W_k[:, h]
+(scale q_h), and o_h = z_h . W_v[:, h] with z_h = sum_n p[h, n] xn_n:
+per group of images the LN'd CLS row, q and u; per (image, direction)
+one pass over the token rows (LN, scores, an online softmax and z, all on
+chip); per group o, proj, the CLS residual and the outer LN. No (B*N, 2D)
+k/v matrix reaches device memory, and every sum JAX takes in fp32 stays in
+fp32. ``_check`` refuses what the kernels do not take.
+``fused_fusion_cls_kv`` runs the design K4 had before (per direction the
+LayerNorm row statistics and one ``gemm_ln`` writing k and v of every row
+in fp32, then ``fusion_tail``; csrc/gemm_ln.cuh and csrc/fusion_tail.cuh)
+for the card's checks only. On a CPU tensor: the plain version, a port of
+the JAX ``_cls_xla`` math, which is also the reference on the card. Any
+batch size and any N go through the kernel, and any head count whose
+2 x heads x D fp32 vectors leave room for the pass's ring. The gradient
+is that of the plain version, recomputed (``_FusionCls``).
 """
 from __future__ import annotations
 
@@ -25,6 +34,43 @@ from mfvit_tpu_torch.nn.layers import layer_norm, linear_f32
 from mfvit_tpu_torch.ops import launch
 
 LAUNCHES = {"fused_fusion_cls": 0}
+
+# csrc/fused_fusion.cu's constants: the threads of a block of the pass and
+# of the first and last launch, the images a block of those takes; the rows
+# a slot of the pass's two-slot ring (2 a warp); the shared memory a block
+# can take on an H100
+THREADS, GTHREADS, GROUP = 256, 512, 4
+ROWS = 16
+SMEM_MAX = 232448
+
+
+def _pass_smem(D: int, heads: int) -> int:
+    """fused_fusion.cu's pass_smem: the ring (2 x ROWS x D bf16), u and z
+    (heads x D fp32 each), LN's scale and bias (D fp32 each), the scores
+    (heads x ROWS fp32) and three fp32 numbers a head (running maximum and
+    sum, the chunk's rescale)."""
+    return 2 * ROWS * D * 2 + (2 * heads * D + 2 * D + heads * ROWS
+                               + 3 * heads) * 4
+
+
+def _group_smem(D: int) -> int:
+    """fused_fusion.cu's group_smem: GROUP rows of D in bf16 and in fp32,
+    and the first launch's partial u, one GROUP x D fp32 tile for each of
+    its GTHREADS // (D / 8) row phases."""
+    return GROUP * D * 6 + GTHREADS // (D // 8) * GROUP * D * 4
+
+
+def _check(D: int, heads: int) -> None:
+    """A ValueError for what the kernels do not take: D past 8 x GTHREADS
+    (a column octet a thread in the first launch), or launches whose
+    shared memory does not fit a block's."""
+    if not (heads > 0 and 0 < D <= 8 * GTHREADS and D % heads == 0
+            and D % 64 == 0 and _group_smem(D) <= SMEM_MAX
+            and _pass_smem(D, heads) <= SMEM_MAX):
+        raise ValueError(f"the K4 kernels take D % heads == 0, D % 64 == 0 "
+                         f"and D <= {8 * GTHREADS}, with 2 x heads x D fp32 "
+                         f"vectors and a {ROWS}-row ring in a block's shared "
+                         f"memory; got D={D}, heads={heads}")
 
 
 def flatten_layer(layer, dtype: torch.dtype):
@@ -72,12 +118,11 @@ def fused_fusion_cls_plain(tok_c, tok_e, flat, heads: int):
                                                          *flat[8:])
 
 
-def _fusion_cuda(tok_c, tok_e, flat, heads: int):
-    B, N, D = tok_c.shape
-    if D % heads or D % 64:
-        raise ValueError(f"the K4 kernels take D % heads == 0 and "
-                         f"D % 64 == 0; got D={D}, heads={heads}")
-    bf16, f32 = torch.bfloat16, torch.float32
+def _operands(tok_c, tok_e, flat, D: int):
+    """The two directions' weight lists as the kernels take them (kept
+    alive by the caller) and their pointer arrays."""
+    bf16 = torch.bfloat16
+    B, N, _ = tok_c.shape
     launch.require(tok_c, bf16, "tok_c")
     launch.require(tok_e, bf16, "tok_e", (B, N, D))
     ws = []
@@ -89,15 +134,45 @@ def _fusion_cuda(tok_c, tok_e, flat, heads: int):
                    wq, wkv, wp, launch.vec(bp, D, "bproj"),
                    launch.vec(lns6, D, "ln6_s"), launch.vec(lnb6, D, "ln6_b")])
     ptrs = [(ctypes.c_void_p * 8)(*(t.data_ptr() for t in w)) for w in ws]
-    stats = torch.empty(B * N, 2, dtype=f32, device=tok_c.device)
-    kv_s, kv_l = (torch.empty(B * N, 2 * D, dtype=f32, device=tok_c.device)
-                  for _ in range(2))
-    out_c, out_e = (torch.empty(B, D, dtype=f32, device=tok_c.device)
+    return ws, ptrs
+
+
+def _fusion_cuda(tok_c, tok_e, flat, heads: int):
+    """K4's three launches."""
+    B, N, D = tok_c.shape
+    _check(D, heads)
+    f32, dev = torch.float32, tok_c.device
+    ws, ptrs = _operands(tok_c, tok_e, flat, D)
+    u, z = (torch.empty(2, B, heads, D, dtype=f32, device=dev)
+            for _ in range(2))
+    out_c, out_e = (torch.empty(B, D, dtype=f32, device=dev)
                     for _ in range(2))
-    launch.call("mfv_fused_fusion_cls", tok_c.device, tok_c, tok_e, B, N, D,
+    launch.call("mfv_fused_fusion_cls", dev, tok_c, tok_e, B, N, D, heads,
+                (D // heads) ** -0.5, ptrs[0], ptrs[1], u, z, out_c, out_e)
+    LAUNCHES["fused_fusion_cls"] += 1
+    return out_c, out_e
+
+
+def fused_fusion_cls_kv(tok_c, tok_e, flat, heads: int):
+    """The design K4 had before its redesign (csrc/fused_fusion.cu's
+    ``mfv_fused_fusion_cls_kv``: k and v of every row in an fp32 (B*N, 2D)
+    scratch per direction, then ``fusion_tail``), forward only, on CUDA
+    tensors: the comparator the card's checks hold K4 against. No op calls
+    it, and it counts no launch."""
+    B, N, D = tok_c.shape
+    if D % heads or D % 64:
+        raise ValueError(f"the former K4 kernels take D % heads == 0 and "
+                         f"D % 64 == 0; got D={D}, heads={heads}")
+    f32, dev = torch.float32, tok_c.device
+    ws, ptrs = _operands(tok_c, tok_e, flat, D)
+    stats = torch.empty(B * N, 2, dtype=f32, device=dev)
+    kv_s, kv_l = (torch.empty(B * N, 2 * D, dtype=f32, device=dev)
+                  for _ in range(2))
+    out_c, out_e = (torch.empty(B, D, dtype=f32, device=dev)
+                    for _ in range(2))
+    launch.call("mfv_fused_fusion_cls_kv", dev, tok_c, tok_e, B, N, D,
                 heads, (D // heads) ** -0.5, ptrs[0], ptrs[1], stats, kv_s,
                 kv_l, out_c, out_e)
-    LAUNCHES["fused_fusion_cls"] += 1
     return out_c, out_e
 
 

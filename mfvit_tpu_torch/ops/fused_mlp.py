@@ -13,22 +13,26 @@
   ``_final_bwd`` (:214): the epilogue LayerNorm backward on an fp32
   recompute in PyTorch (eager math in JAX too), then K7.
 
-On a CUDA tensor K2 runs on the wgmma core of csrc/gemm_sm90.cuh
+On a CUDA tensor K2 and K3 run on the wgmma core of csrc/gemm_sm90.cuh
 (csrc/fused_mlp.cu), by width: at D of 128, 256, 384 or 512 one launch of
 csrc/block_tail.cuh's tail kernel without its proj stage (LN2, the hidden
 in chunks of 128 and fc2's output tile on chip, the (M, 4D) hidden never in
-device memory; ``_plan`` sizes its ring of weight stages); at D = 768
+device memory; ``_plan`` sizes its ring of weight stages), K3 with an
+epilogue that keeps x + fc2 + b2 in fp32 and takes the final LayerNorm of
+each row on chip (the fp32 rows never in device memory); at D = 768
 (vit_base, vit_base_ori, vit_conv_base), where fc2's fp32 output tile does
 not fit the registers, three launches: LN2 in bf16, fc1 + bias + exact-erf
-GELU into an (M, 4D) bf16 scratch, fc2 + bias + the bf16 residual. The
-route follows from D; neither gives way to the other or to the plain
-version, and any other width raises. K3 keeps its WMMA chain on
-csrc/gemm_ln.cuh: the LayerNorm row statistics, LN + fc1 + GELU (bf16
-hidden), fc2 + bias with the fp32 residual written out in fp32, and a row
-LayerNorm kernel. ``fused_mlp_block_wmma`` runs the chain K2 ran before on
-that core, for the card's checks only (no op calls it); every route rounds
-where K2 does and sums in its order, so all give K2's bits. K7 is
-csrc/fused_mlp_bwd.cu over csrc/gemm_bwd.cuh.
+GELU into an (M, 4D) bf16 scratch, fc2 + bias + the bf16 residual (K3: fc2
+with x + acc + bias in an (M, D) fp32 scratch, then a fourth launch for the
+row LayerNorm). The route follows from D; neither gives way to the other
+or to the plain version, and any other width raises.
+``fused_mlp_block_wmma`` and ``fused_mlp_block_final_ln_wmma`` run the
+WMMA chains K2 and K3 ran before on csrc/gemm_ln.cuh (the LayerNorm row
+statistics, LN + fc1 + GELU into a bf16 hidden, fc2 + bias with the bf16
+residual or, for K3, with the fp32 residual written out in fp32, then a
+row LayerNorm kernel), for the card's checks only (no op calls them);
+every route rounds where the chains do and sums in their order, so each
+gives their bits. K7 is csrc/fused_mlp_bwd.cu over csrc/gemm_bwd.cuh.
 
 Both entry points are ``torch.autograd.Function``s on both devices: they
 take the fp32 master weights, cast them inside, and return fp32 weight
@@ -51,10 +55,12 @@ LAUNCHES = {"fused_mlp_block": 0, "fused_mlp_block_final_ln": 0,
 
 # csrc/block_tail.cuh's and gemm_sm90.cuh's constants: the tail's rows a
 # tile, bytes of a ring stage and of a 64-row swizzled K slice, the hidden
-# chunk, the most stages; the registers setmaxnreg gives a consumer and a
-# producer thread, and a block's threads; the GEMM's shared memory; and the
-# shared memory a block can take on an H100
+# chunk, the most stages, the fp32 rows K3's epilogue stages at once; the
+# registers setmaxnreg gives a consumer and a producer thread, and a
+# block's threads; the GEMM's shared memory; and the shared memory a block
+# can take on an H100
 TAIL_ROWS, STAGE, TILE64, HC, STAGES_MAX = 64, 16384, 8192, 128, 8
+FINAL_ROWS = 32
 CONSUMER_REGS, PRODUCER_REGS, THREADS = 232, 40, 384
 GEMM_SMEM = 7 * 32768 + 2 * 7 * 8 + 1024
 SMEM_MAX = 232448
@@ -64,7 +70,8 @@ TAIL_WIDTHS, WIDE_WIDTHS = (128, 256, 384, 512), (768,)
 
 
 class Plan(NamedTuple):
-    """A launch of K2 (or of K15's tail, at the same widths): ``route``
+    """A launch of K2 or K3 (or of K15's tail, at the same widths):
+    ``route``
     "tail" (one launch, ``stages`` weight stages in its ring, ``smem``
     bytes of shared memory a block, ``acc_regs`` fp32 accumulators a
     consumer thread holds at once: fc2's D/4 across the chunks and one fc1
@@ -79,15 +86,18 @@ class Plan(NamedTuple):
 def _smem(D: int, stages: int) -> int:
     """block_tail.cuh's Tail<D>::smem: the ring, the A tile (D / 64 K
     slices), the hidden chunk (two slices), x2 (pitch D + 8), the
-    barriers, and 1024 bytes to align the swizzled tiles."""
+    barriers, and 1024 bytes to align the swizzled tiles. K3's epilogue
+    takes no more: its fp32 rows pass through the x2 tile FINAL_ROWS at a
+    time (FINAL_ROWS x (D + 8) fp32, the tile's bytes)."""
     return (stages * STAGE + D // 64 * TILE64 + 2 * TILE64
             + TAIL_ROWS * (D + 8) * 2 + (2 * stages + 2) * 8 + 1024)
 
 
 def _plan(D: int, Hd: int) -> Plan:
-    """K2's plan at width D and hidden Hd: at a tail width, as many ring
-    stages as the shared memory beside the tiles holds (at most
-    STAGES_MAX); at D = 768 the three-launch route."""
+    """K2's and K3's plan at width D and hidden Hd: at a tail width, as
+    many ring stages as the shared memory beside the tiles holds (at most
+    STAGES_MAX); at D = 768 the route on the GEMM core (K2 three launches,
+    K3 four)."""
     if Hd % HC == 0 and Hd > 0:
         if D in TAIL_WIDTHS:
             stages = max(s for s in range(1, STAGES_MAX + 1)
@@ -95,9 +105,9 @@ def _plan(D: int, Hd: int) -> Plan:
             return Plan("tail", stages, _smem(D, stages), D // 4 + 32)
         if D in WIDE_WIDTHS:
             return Plan("gemm", 0, GEMM_SMEM, 128)
-    raise ValueError(f"the K2 kernel takes D of 128, 256, 384 or 512 (one "
-                     f"launch) or 768 (three), and hidden % {HC} == 0; got "
-                     f"D={D}, hidden={Hd}")
+    raise ValueError(f"the K2 and K3 kernels take D of 128, 256, 384 or 512 "
+                     f"(one launch) or 768 (the GEMM core), and hidden % {HC} "
+                     f"== 0; got D={D}, hidden={Hd}")
 
 
 def _hidden(x, ln_s, ln_b, w1, b1):
@@ -175,25 +185,34 @@ def _weights(x, w1, w2):
     return w1, w2
 
 
-def _mlp_cuda(x, ln_s, ln_b, w1, b1, w2, b2):
-    """K2 on bf16 x, on the route ``_plan`` gives its width."""
+def _mlp_cuda(x, ln_s, ln_b, w1, b1, w2, b2, final=()):
+    """K2, or K3 with ``final`` = (final_s, final_b), on bf16 x, on the
+    route ``_plan`` gives its width."""
     B, N, D = x.shape
     Hd = w1.shape[0]
     plan = _plan(D, Hd)
     w1, w2 = _weights(x, w1, w2)
     wide = plan.route == "gemm"
-    scratch = [torch.empty(B * N, n, dtype=torch.bfloat16, device=x.device)
-               if wide else None for n in (D, Hd)]
+    scratch = [torch.empty(B * N, n, dtype=dt, device=x.device)
+               if wide else None
+               for n, dt in ((D, torch.bfloat16), (Hd, torch.bfloat16),
+                             (D, torch.float32))[:3 if final else 2]]
     out = torch.empty_like(x)
-    launch.call("mfv_fused_mlp_block", x.device, x,
+    launch.call("mfv_fused_mlp_block_final_ln" if final
+                else "mfv_fused_mlp_block", x.device, x,
                 launch.vec(ln_s, D, "ln_s"), launch.vec(ln_b, D, "ln_b"), w1,
                 launch.vec(b1, Hd, "b1"), w2, launch.vec(b2, D, "b2"),
-                *scratch, out, B * N, D, Hd, plan.stages)
+                *_finals(final, D), *scratch, out, B * N, D, Hd, plan.stages)
     return out
 
 
+def _finals(final, D: int) -> list:
+    return [launch.vec(v, D, n) for v, n in zip(final, ("final_s",
+                                                        "final_b"))]
+
+
 def _wmma_chain(entry, x, ln_s, ln_b, w1, b1, w2, b2, final=()):
-    """K3 (``final`` = (final_s, final_b)) or K2's former chain on
+    """K3's (``final`` = (final_s, final_b)) or K2's former chain on
     csrc/gemm_ln.cuh."""
     B, N, D = x.shape
     Hd = w1.shape[0]
@@ -205,9 +224,7 @@ def _wmma_chain(entry, x, ln_s, ln_b, w1, b1, w2, b2, final=()):
     out = torch.empty_like(x)
     launch.call(entry, dev, x, launch.vec(ln_s, D, "ln_s"),
                 launch.vec(ln_b, D, "ln_b"), w1, launch.vec(b1, Hd, "b1"), w2,
-                launch.vec(b2, D, "b2"),
-                *(launch.vec(v, D, n) for v, n in zip(final, ("final_s",
-                                                              "final_b"))),
+                launch.vec(b2, D, "b2"), *_finals(final, D),
                 torch.empty(B * N, 2, dtype=f32, device=dev),
                 torch.empty(B * N, Hd, dtype=torch.bfloat16, device=dev),
                 *([torch.empty(B * N, D, dtype=f32, device=dev)] if final
@@ -222,6 +239,17 @@ def fused_mlp_block_wmma(x, ln_s, ln_b, w1, b1, w2, b2) -> torch.Tensor:
     against bit for bit. No op calls it, and it counts no launch."""
     return _wmma_chain("mfv_fused_mlp_block_wmma", x, ln_s, ln_b, w1, b1, w2,
                        b2)
+
+
+def fused_mlp_block_final_ln_wmma(x, ln_s, ln_b, w1, b1, w2, b2, final_s,
+                                  final_b) -> torch.Tensor:
+    """The chain K3 ran before its redesign (csrc/fused_mlp.cu's
+    ``mfv_fused_mlp_block_final_ln_wmma``: LN statistics, two ``gemm_ln``
+    launches with the fp32 sum written out, then the row LayerNorm),
+    forward only, on CUDA tensors: the comparator the card's checks hold
+    K3 against. No op calls it, and it counts no launch."""
+    return _wmma_chain("mfv_fused_mlp_block_final_ln_wmma", x, ln_s, ln_b,
+                       w1, b1, w2, b2, final=(final_s, final_b))
 
 
 def fused_mlp_block_bwd(g, x, ln_s, ln_b, w1, b1, w2):
@@ -298,8 +326,8 @@ class _MlpBlockFinalLN(torch.autograd.Function):
         if ctx.plain:
             return fused_mlp_block_final_ln_plain(x, ln_s, ln_b, w1, b1, w2,
                                                   b2, final_s, final_b)
-        out = _wmma_chain("mfv_fused_mlp_block_final_ln", x, ln_s, ln_b, w1,
-                          b1, w2, b2, final=(final_s, final_b))
+        out = _mlp_cuda(x, ln_s, ln_b, w1, b1, w2, b2,
+                        final=(final_s, final_b))
         LAUNCHES["fused_mlp_block_final_ln"] += 1
         return out
 
@@ -320,7 +348,8 @@ def fused_mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, plain: bool = False):
 
 def fused_mlp_block_final_ln(x, ln_s, ln_b, w1, b1, w2, b2, final_s,
                              final_b, plain: bool = False):
-    """K3 forward; backward the epilogue LayerNorm in PyTorch, then K7."""
+    """K3 forward (CUDA tensors: bf16 x, D of 128-512 or 768, or a
+    ValueError); backward the epilogue LayerNorm in PyTorch, then K7."""
     return _MlpBlockFinalLN.apply(x, ln_s, ln_b, w1, b1, w2, b2, final_s,
                                   final_b, plain)
 

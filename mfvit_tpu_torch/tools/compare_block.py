@@ -1,5 +1,5 @@
-"""Time K15, K1 and K2 of two checkouts of the repository on one card, in
-turns, and the end-to-end figures beside them:
+"""Time K15, K1, K2, K3 and K4 of two checkouts of the repository on one
+card, in turns, and the end-to-end figures beside them:
 
     python -m mfvit_tpu_torch.tools.compare_block --other DIR [--out FILE]
 
@@ -9,8 +9,9 @@ process of its own, started in one checkout (``tools/turns.py``, turns
 other, this, this, other), that builds that checkout's kernels and runs:
 its own ``chip_smoke.time_block`` (K15, the K1 -> K2 pair, K15's plain
 version and the library block at vit_small B=256), ``half_times`` below
-(K1 and K2 alone at B=256), ``stage_times`` below (the launches of K15, K1
-and K2 one by one under ``torch.profiler``), ``bench_block``'s 12-block
+(K1, K2, K3 and K4 alone at B=256), ``stage_times`` below (the launches of
+K15, K1, K2, K3 and K4 one by one under ``torch.profiler``),
+``bench_block``'s 12-block
 chains at B=512, the GEMM cores alone at B=256 where the checkout has
 ``ops.gemm`` (``chip_smoke.time_gemm``), then the serving pairs/s at B=256
 (``time_e2e``: bf16, int8 and the XLA-level W8A8 path) and at 384 px, B=64
@@ -34,7 +35,10 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5) -> dict:
     """The device ms of each kernel that one call of ``op`` launches at
     vit_small batch B (``chip_smoke.block_inputs``, seed 16), under
     ``torch.profiler`` over ``iters`` calls: "k15" K15, "k1" K1, "k2" K2
-    (on the block's x). Kernel name (namespace and parameters dropped,
+    and "k3" K3 (on the block's x), "k4" K4 (the fusion head, 3 heads of
+    128, on ``chip_smoke.fusion_inputs``, seed 16); "k1_wmma", "k2_wmma",
+    "k3_wmma" and "k4_kv" the former designs, where the checkout has them.
+    Kernel name (namespace and parameters dropped,
     template arguments kept, so that two instances of one template stay
     apart) -> the mean over its launches, in launch order; the profiler
     may miss the window's first launches, so a kernel that one call
@@ -48,15 +52,24 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5) -> dict:
     import chip_smoke
     from mfvit_tpu_torch.ops import fused_attn as fa
     from mfvit_tpu_torch.ops import fused_block as fb
+    from mfvit_tpu_torch.ops import fused_fusion as ff
     from mfvit_tpu_torch.ops import fused_mlp as fm
     t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B, 384, dev)
     a = [t[k] for k in chip_smoke.K15_KEYS]
+    fin = (t["fs"], t["fb"])
+    tok = chip_smoke.fusion_inputs(torch.Generator().manual_seed(16), B, 384,
+                                   dev)
     call = {"k15": lambda: fb.fused_transformer_block(*a, 12, 32 ** -0.5),
             "k1": lambda: fa.fused_attention_block(*a[:7], 12, 32 ** -0.5),
             "k2": lambda: fm.fused_mlp_block(a[0], *a[7:]),
+            "k3": lambda: fm.fused_mlp_block_final_ln(a[0], *a[7:], *fin),
+            "k4": lambda: ff.fused_fusion_cls(*tok, 3),
             "k1_wmma": lambda: fa.fused_attention_block_wmma(*a[:7], 12,
                                                              32 ** -0.5),
-            "k2_wmma": lambda: fm.fused_mlp_block_wmma(a[0], *a[7:])}[op]
+            "k2_wmma": lambda: fm.fused_mlp_block_wmma(a[0], *a[7:]),
+            "k3_wmma": lambda: fm.fused_mlp_block_final_ln_wmma(
+                a[0], *a[7:], *fin),
+            "k4_kv": lambda: ff.fused_fusion_cls_kv(*tok, 3)}[op]
     with torch.inference_mode():
         call()
         torch.cuda.synchronize()
@@ -82,23 +95,30 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5) -> dict:
 
 
 def half_times(dev, B: int = 256, iters: int = 20) -> dict:
-    """K1 and K2 at vit_small batch B (``chip_smoke.block_inputs``, seed
-    16), each timed twice with CUDA events in turns (K1, K2, K2, K1): name
-    -> [ms, ms]."""
+    """K1, K2, K3 (``chip_smoke.block_inputs``, seed 16) and K4 (the fusion
+    head, 3 heads of 128, ``chip_smoke.fusion_inputs``, seed 16) at
+    vit_small batch B, each timed twice with CUDA events in turns (K1, K2,
+    K3, K4, K4, K3, K2, K1): name -> [ms, ms]."""
     import torch
 
     import chip_smoke
     from mfvit_tpu_torch.ops import fused_attn as fa
+    from mfvit_tpu_torch.ops import fused_fusion as ff
     from mfvit_tpu_torch.ops import fused_mlp as fm
     t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B, 384, dev)
     a = [t[k] for k in chip_smoke.K15_KEYS]
+    tok = chip_smoke.fusion_inputs(torch.Generator().manual_seed(16), B, 384,
+                                   dev)
     calls = {"k1": lambda: fa.fused_attention_block(*a[:7], 12, 32 ** -0.5),
-             "k2": lambda: fm.fused_mlp_block(a[0], *a[7:])}
-    out = {"k1": [], "k2": []}
+             "k2": lambda: fm.fused_mlp_block(a[0], *a[7:]),
+             "k3": lambda: fm.fused_mlp_block_final_ln(a[0], *a[7:], t["fs"],
+                                                       t["fb"]),
+             "k4": lambda: ff.fused_fusion_cls(*tok, 3)}
+    out = {name: [] for name in calls}
     with torch.inference_mode():
-        for name in ("k1", "k2", "k2", "k1"):
+        for name in (*calls, *reversed(calls)):
             out[name].append(chip_smoke.cuda_ms(calls[name], iters))
-    print(f"K1 and K2 at B={B}: " + ", ".join(
+    print(f"K1-K4 at B={B}: " + ", ".join(
         f"{k} {'/'.join(f'{v:.4f}' for v in ms)} ms" for k, ms in out.items()))
     return out
 
@@ -114,7 +134,8 @@ dev = torch.device("cuda")
 %s
 %s
 out = {"block": chip_smoke.time_block(dev), "halves": half_times(dev),
-       "stages": {op: stage_times(dev, op) for op in ("k15", "k1", "k2")},
+       "stages": {op: stage_times(dev, op)
+                  for op in ("k15", "k1", "k2", "k3", "k4")},
        "bench_block": {k: v[0] for k, v in bench_block.run(dev).items()}}
 if hasattr(chip_smoke, "time_gemm"):
     out["gemm"] = chip_smoke.time_gemm(dev)
@@ -147,7 +168,7 @@ def main(argv=None) -> int:
         print(f"{what} at vit_small B=256: this " + "/".join(
             f"{v:.4f}" for v in ms["this"]) + " ms, other " + "/".join(
             f"{v:.4f}" for v in ms["other"]) + " ms")
-    for name in ("k1", "k2"):
+    for name in ("k1", "k2", "k3", "k4"):
         ms = turns.by_checkout(runs, lambda r: r["halves"][name])
         print(f"{name.upper()} at vit_small B=256: this " + "/".join(
             f"{v:.4f}" for t in ms["this"] for v in t) + " ms, other "

@@ -130,7 +130,7 @@ def test_k2_plan_constants_are_the_c_sources():
     LayerNorm pass's other widths (ln1_takes), and K1 takes every width
     that pass takes."""
     tail = set(map(int, re.findall(
-        r"case (\d+): return launch_tail<\d+, PROJ>", _TAIL)))
+        r"case (\d+): return launch_tail<\d+, PROJ, FINAL>", _TAIL)))
     ln1 = set(map(int, re.findall(r"D == (\d+)", re.search(
         r"ln1_takes\(int D\) \{([^}]*)\}", _TAIL).group(1))))
     assert tail == set(fused_mlp.TAIL_WIDTHS)

@@ -523,6 +523,73 @@ def test_k1_k2_refuse_widths_they_do_not_take(dev):
                                   m[5][:, :1500], m[6])
 
 
+@pytest.mark.parametrize("B,N,D", [(8, 197, 384), (16, 197, 768)])
+def test_k3_equals_its_former_chain_and_holds_its_plain_version(dev, B, N,
+                                                                D):
+    """K3 (the block tail with its final-LayerNorm epilogue at vit_small;
+    the GEMM core and the row LayerNorm at vit_base) against the WMMA chain
+    it ran before (the same rounding points and the same order of every
+    fp32 sum: equal bit for bit) and against its plain fp32 version (rel <
+    2e-2); one call launches K3 once."""
+    t = _block(dev, B, N, D)
+    m, fin = [t[k] for k in MLP], (t["fs"], t["fb"])
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = fused_mlp.fused_mlp_block_final_ln(*m, *fin)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "fused_mlp_block_final_ln": 1}
+    with torch.no_grad():
+        assert torch.equal(got, fused_mlp.fused_mlp_block_final_ln_wmma(
+            *m, *fin))
+        assert _rel(got, fused_mlp.fused_mlp_block_final_ln_plain(
+            *_f32(t, MLP), *fin)) < REL
+
+
+# chip_smoke.K4_FORMER_BAR: K4 against its former design (same rounding
+# points, fp32 sums in other orders)
+K4_FORMER_BAR = 2e-4
+
+
+@pytest.mark.parametrize("B,N,D,heads", [(3, 197, 384, 3), (256, 197, 384, 3),
+                                         (3, 197, 768, 3), (256, 197, 768, 3),
+                                         (64, 577, 384, 3), (3, 50, 768, 12)])
+def test_k4_holds_its_former_design_and_its_plain_version(dev, B, N, D,
+                                                          heads):
+    """K4 (three launches on the absorbed form, no (B*N, 2D) scratch) at
+    vit_small's and vit_base's fusion heads (3 heads, of 128 and of 256),
+    at 384 px (N=577) and at 12 heads of 64, within K4_FORMER_BAR of the
+    design it ran before (k and v of every row in fp32) and within rel
+    2e-2 of its plain fp32 version; one call launches K4 once; u built
+    from W_v in place of W_k fails the bar."""
+    g = torch.Generator().manual_seed(2)
+    tc, te = (_rnd(g, B, N, D).bfloat16().to(dev) for _ in range(2))
+    flat = []
+    for _ in range(2):
+        flat += [1 + _rnd(g, D, std=0.1), _rnd(g, D, std=0.1),
+                 _rnd(g, D, D, std=D ** -0.5).bfloat16(),
+                 _rnd(g, 2 * D, D, std=D ** -0.5).bfloat16(),
+                 _rnd(g, D, D, std=D ** -0.5).bfloat16(), _rnd(g, D, std=0.1),
+                 1 + _rnd(g, D, std=0.1), _rnd(g, D, std=0.1)]
+    flat = [f.to(dev) for f in flat]
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = torch.cat(fused_fusion.fused_fusion_cls(tc, te, flat, heads))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "fused_fusion_cls": 1}
+    former = torch.cat(fused_fusion.fused_fusion_cls_kv(tc, te, flat, heads))
+    assert _rel(got, former) < K4_FORMER_BAR
+    assert _rel(got, torch.cat(fused_fusion.fused_fusion_cls_plain(
+        tc.float(), te.float(), [f.float() for f in flat], heads))) < REL
+    swapped = list(flat)
+    for d in (0, 8):
+        swapped[d + 3] = torch.cat([flat[d + 3][D:]] * 2).contiguous()
+    assert _rel(torch.cat(fused_fusion.fused_fusion_cls(tc, te, swapped,
+                                                        heads)),
+                former) >= K4_FORMER_BAR
+
+
 K15_ARGS = ("x", "ln_s", "ln_b", "wqkv", "bqkv", "wproj", "bproj", "ln_s",
             "ln_b", "w1", "b1", "w2", "b2")
 
