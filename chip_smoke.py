@@ -74,7 +74,19 @@ Phases, in order; any failure raises and exits non-zero:
    ``gemm_ln`` (WMMA, K1's and K2's) on the same bf16 inputs at K1's qkv
    and K2's fc1 and fc2 shapes (B=8; bias, GELU, and bias + residual
    epilogues): the outputs that differ are printed and must be 0, each
-   core within rel 2e-2 of the plain fp32 version; then K1 and K2 against
+   core within rel 2e-2 of the plain fp32 version; its MN-major forms
+   (``mfv_gemm_mn``: K5's and K7's NN products dO, dh, dh1 and TN weight
+   gradients dWqkv, dW1, dW2 with their column sums, over
+   ``launch.k_split``'s slices) beside gemm_bwd.cuh's WMMA GEMMs
+   (``mfv_gemm_bwd``, their former chains') at B=8 and B=256 (blocks that
+   walk two tiles or more, each of more K stages than the ring holds): the
+   outputs that differ must be 0, each within rel 2e-2 of plain fp32;
+   then K5, K7 and K3's backward against the chains K5 and K7 ran before
+   their redesign (the check-only ``fused_attention_block_bwd_wmma`` and
+   ``fused_mlp_block_bwd_wmma``) at vit_small B=8, 32 and 256, vit_base
+   B=2 and 16, N=50 at head_dim 32, 64 and 128 and head_dim 128 at N=208
+   and 256: the outputs that differ, over all seven, must be 0, each
+   within rel 2e-2 of the plain fp32 backward; then K1 and K2 against
    the chains they ran before their redesign (the check-only
    ``fused_attention_block_wmma`` and ``fused_mlp_block_wmma``: gemm_ln's
    WMMA GEMMs and attn_core.cuh's core) at K15's shapes, B=3 (a partial
@@ -146,6 +158,8 @@ Phases, in order; any failure raises and exits non-zero:
    included) and K5/K7 against its plain version (K5/K7 first held
    against the plain fp32 backward on the timed inputs), K5/K7 also at a
    vit_base block (B=64, D=768, hidden 3072: the widths of K6 and K8),
+   and their launches one by one beside their former chains' under
+   ``torch.profiler`` (``stage_times`` "k5", "k7", "k5_wmma", "k7_wmma"),
    K12, K13 and K14 against their plain versions and SDPA on the same
    values (for K14 on contiguous copies, the transposes counted; also at
    N=577, B=64), the end-to-end pairs/s of serving,
@@ -1459,6 +1473,85 @@ def check_bwd_kernels(dev) -> dict:
     return errs
 
 
+# K5 and K7 against the chains they ran before: label, B, N, D, heads
+# (vit_small's blocks at B=8, 32 and 256; vit_base's, K6 and K8, at B=2 and
+# 16; N=50 at head_dim 32, 64 and 128; head_dim 128 at N=208 and N=256, the
+# attention-backward core's two- and one-slot rings)
+BWD_FORMER_SHAPES = (("vit_small", 8, 197, 384, 12),
+                     ("vit_small", 32, 197, 384, 12),
+                     ("vit_small", 256, 197, 384, 12),
+                     ("vit_base", 2, 197, 768, 12),
+                     ("vit_base", 16, 197, 768, 12),
+                     ("N=50, head_dim 32", 8, 50, 384, 12),
+                     ("N=50, head_dim 64", 8, 50, 384, 6),
+                     ("N=50, head_dim 128", 8, 50, 384, 3),
+                     ("N=208, head_dim 128", 4, 208, 384, 3),
+                     ("N=256, head_dim 128", 4, 256, 384, 3))
+
+
+def check_bwd_former(dev) -> dict:
+    """K5, K7 and K3's backward (its epilogue LayerNorm backward, then K7)
+    at BWD_FORMER_SHAPES against the chains K5 and K7 ran before
+    (``fused_attention_block_bwd_wmma``, ``fused_mlp_block_bwd_wmma``) on
+    the same bf16 inputs: the count of outputs that differ, over all seven,
+    must be 0 (every stage keeps its former one's rounding points and sum
+    order), and each output within REL_BAR of the plain fp32 backward.
+    Returns label -> [K5's, K7's, K3's outputs that differ]."""
+    from mfvit_tpu_torch.ops import fused_attn as fa
+    from mfvit_tpu_torch.ops import fused_mlp as fm
+    out = {}
+    for label, B, N, D, heads in BWD_FORMER_SHAPES:
+        gen = torch.Generator().manual_seed(12)
+        t = block_inputs(gen, B, D, dev, N=N)
+        g = torch.randn(B, N, D, generator=gen).to(dev).bfloat16()
+        scale = (D // heads) ** -0.5
+        a = [g] + [t[k] for k in ATTN[:-1]]
+        m = [g] + [t[k] for k in MLP[:-1]]
+        g2 = fm.final_ln_bwd(g, *[t[k] for k in MLP], t["fs"])[0]
+        m3 = [g2] + m[1:]
+        halves = (
+            ("fused_attention_block_bwd",
+             lambda: fa.fused_attention_block_bwd(*a, heads, scale),
+             lambda: fa.fused_attention_block_bwd_wmma(*a, heads, scale),
+             lambda: fa.fused_attention_block_bwd_plain(
+                 *[v.float() for v in a], heads, scale)),
+            ("fused_mlp_block_bwd", lambda: fm.fused_mlp_block_bwd(*m),
+             lambda: fm.fused_mlp_block_bwd_wmma(*m),
+             lambda: fm.fused_mlp_block_bwd_plain(*[v.float() for v in m])),
+            ("fused_mlp_block_final_ln's K7", lambda: fm.fused_mlp_block_bwd(*m3),
+             lambda: fm.fused_mlp_block_bwd_wmma(*m3),
+             lambda: fm.fused_mlp_block_bwd_plain(*[v.float() for v in m3])))
+        out[f"{label} B={B} N={N}"] = diffs = []
+        for name, kern, former, plain32 in halves:
+            got = kern()
+            ref = former()
+            torch.cuda.synchronize()
+            n_diff = sum((x != y).sum().item() for x, y in zip(got, ref))
+            n_out = sum(x.numel() for x in got)
+            rels = [rel(x, y) for x, y in zip(got, plain32())]
+            print(f"{name} at {label} (B={B}, N={N}, D={D}, {heads} heads): "
+                  f"{n_diff} of {n_out} outputs differ from its former chain; "
+                  "rel vs plain fp32 " + ", ".join(
+                      f"{n} {r:.3e}" for n, r in zip(BWD_NAMES, rels)))
+            if n_diff or not all(math.isfinite(r) and r < REL_BAR
+                                 for r in rels):
+                raise AssertionError(f"{name} at {label} B={B}: {n_diff} "
+                                     f"outputs differ, rel {rels}")
+            diffs.append(n_diff)
+    return out
+
+
+def bwd_stage_times(dev) -> dict:
+    """K5 and K7 (K6, K8 at vit_base) launch by launch under
+    ``torch.profiler`` (``tools/compare_block.stage_times``), beside their
+    former chains: vit_small at B=256, vit_base at B=64. "k5 D=384" ->
+    {kernel: ms}."""
+    from mfvit_tpu_torch.tools.compare_block import stage_times
+    return {f"{op} D={D}": stage_times(dev, op, B=B, D=D)
+            for B, D in ((256, 384), (64, 768))
+            for op in ("k5", "k7", "k5_wmma", "k7_wmma")}
+
+
 def write_covid_ds(root: str, n: int, seed: int, paired: bool = False) -> str:
     """n synthetic PNGs in the ``--covid-ds`` layout (with ``paired`` an
     enhanced 'Train_Mix' image beside each 'data' one): every image in the
@@ -1962,6 +2055,63 @@ def probe_gemm(dev, M: int = 8 * 197) -> dict:
         out[label] = n
     if any(out.values()):  # K15's bit-for-bit gates rest on equal sums
         raise AssertionError(f"the wgmma core differs from gemm_ln: {out}")
+    return out
+
+
+# The backward products of K5 and K7 at vit_small (D=384, hidden 1536):
+# label, form (ops.gemm's), M-side and N-side widths, reduced width (None:
+# the token rows, a TN product over launch.k_split's slices)
+PROBE_BWD_SHAPES = (("dWqkv", "tn", 1152, 384, None),
+                    ("dW2", "tn", 384, 1536, None),
+                    ("dW1", "tn", 1536, 384, None),
+                    ("dO", "nn", None, 384, 384),
+                    ("dh", "nn_f32", None, 384, 1152),
+                    ("dh1", "nn_f32", None, 384, 1536))
+
+
+def probe_gemm_bwd(dev, rows=(8 * 197, 256 * 197)) -> dict:
+    """The MN-major forms of the wgmma core (``ops.gemm.gemm_mn``, K5's and
+    K7's products) beside gemm_bwd.cuh's WMMA GEMMs (``gemm_bwd``, their
+    former chains') on the same bf16 inputs at PROBE_BWD_SHAPES, B=8 and
+    B=256 (there a block walks two tiles or more, each of more K slices
+    than the ring has stages): how many outputs (and column sums) differ,
+    which must be 0, and each within REL_BAR of the plain fp32 version.
+    Returns "label B=.." -> outputs that differ."""
+    from mfvit_tpu_torch.ops import gemm, launch
+    out = {}
+    for M in rows:
+        for label, form, mo, no, k in PROBE_BWD_SHAPES:
+            g = torch.Generator().manual_seed(32)
+            if form == "tn":
+                S, kc = launch.k_split(M, (mo // 128) * (no // 128), 32)
+                a = torch.randn(M, mo, generator=g).bfloat16().to(dev)
+                b = torch.randn(M, no, generator=g).bfloat16().to(dev)
+                shape = f"K={M}, M={mo}, N={no}, S={S}, kc={kc}"
+            else:
+                S, kc = 1, 0
+                a = torch.randn(M, k, generator=g).bfloat16().to(dev)
+                b = (torch.randn(k, no, generator=g) * k ** -0.5).bfloat16()
+                b = b.to(dev)
+                shape = f"M={M}, N={no}, K={k}"
+            with torch.inference_mode():
+                got = gemm.gemm_mn(a, b, form, S, kc)
+                ref = gemm.gemm_bwd(a, b, form, S, kc)
+                plain = gemm.gemm_bwd_plain(a, b, form)
+            got, ref, plain = ((v,) if form != "tn" else v
+                               for v in (got, ref, plain))
+            n = sum((x != y).sum().item() for x, y in zip(got, ref))
+            rs = [rel(x, y) for x, y in zip(got, plain)]
+            rl = [rel(x, y) for x, y in zip(ref, plain)]
+            print(f"probe {label} ({form}, {shape}): {n} of "
+                  f"{sum(x.numel() for x in got)} outputs of the wgmma core "
+                  f"differ from gemm_bwd.cuh's; rel vs plain fp32: wgmma "
+                  + "/".join(f"{r:.3e}" for r in rs) + ", WMMA "
+                  + "/".join(f"{r:.3e}" for r in rl))
+            if not all(math.isfinite(r) and r < REL_BAR for r in rs + rl):
+                raise AssertionError(f"probe {label}: rel {rs}, {rl}")
+            out[f"{label} B={M // 197}"] = n
+    if any(out.values()):  # K5's and K7's bit-for-bit gates rest on these
+        raise AssertionError(f"the MN-major forms differ from gemm_bwd: {out}")
     return out
 
 
@@ -2783,8 +2933,14 @@ def main() -> int:
     phase("train-step parity, kernel path against plain path (B=32)")
     train_parity(dev)
 
-    phase("K15's GEMM core against K1's and K2's: the probe (B=8)")
+    phase("K15's GEMM core against K1's and K2's: the probe (B=8); its "
+          "MN-major forms against K5's and K7's former GEMMs (B=8, B=256)")
     probe = probe_gemm(dev)
+    probe_bwd = probe_gemm_bwd(dev)
+    phase("K5 and K7 (and K3's backward) against the chains they ran before "
+          "(vit_small B=8/32/256, vit_base B=2/16, N=50 at head_dim "
+          "32/64/128, head_dim 128 at N=208/256)")
+    bwd_former = check_bwd_former(dev)
     phase("K1 and K2 against the chains they ran before (B=8; B=3; N=50; "
           "D=128-768)")
     halves_diff = check_halves(dev)
@@ -2824,6 +2980,7 @@ def main() -> int:
     mhsa_577 = time_mhsa(dev, "vit_small@384", 64, 577, 384, 12)
     times.update(time_bwd(dev, "vit_small", 256, 384))
     base = time_bwd(dev, "vit_base", 64, 768)
+    bwd_stages = bwd_stage_times(dev)
     e2e = time_e2e(dev)
     quant_profile = profile_quant(dev)
     train = time_train(dev, 256, 4)
@@ -2918,6 +3075,9 @@ def main() -> int:
                       "k3_outputs_differ_from_former": heads_former["k3"],
                       "k4_rel_vs_former": heads_former["k4"],
                       "gemm_probe_outputs_differ_B8": probe,
+                      "gemm_bwd_probe_outputs_differ": probe_bwd,
+                      "bwd_outputs_differ_from_former": bwd_former,
+                      "bwd_stages_ms": bwd_stages,
                       "gemm_B256": {
                           k: {"wgmma_ms": v[0], "gemm_ln_ms": v[1],
                               "wgmma_tflops": v[2], "gemm_ln_tflops": v[3]}

@@ -96,16 +96,53 @@ struct Head {
   float scale;
 };
 
+// LDSM (the stages' last template argument): take the B fragments of the
+// row-major tiles by ldmatrix (two 8-row tiles of the reduction's partner
+// at once) and by ldmatrix.trans where the reduction runs down the rows
+// (attn_bwd_async.cuh's core), in place of ld32 pairs and col_pair gathers
+// (K5's former core, T5). Each accumulator takes the same mma steps in the
+// same order either way, so both give the same bits.
+
+// The B fragments (b0, b1) of 8-row tiles r0/8 and r0/8 + 1 of a row-major
+// tile t at columns c0 .. c0 + 15: rows are the mma's n, columns its k.
+__device__ __forceinline__ void ldsm_rows(uint32_t (&b)[4], const bf16* t, int ld, int r0,
+                                          int c0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(b, t + (r0 + (lane >> 4) * 8 + (lane & 7)) * ld + c0 + ((lane >> 3) & 1) * 8);
+}
+// The B fragments of rows r0 .. r0 + 15 (the mma's k) at columns c0 .. c0 + 7
+// (b[0], b[1]) and c0 + 8 .. c0 + 15 (b[2], b[3]), the mma's n.
+__device__ __forceinline__ void ldsm_cols(uint32_t (&b)[4], const bf16* t, int ld, int r0,
+                                          int c0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_t(b, t + (r0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + c0 + (lane >> 4) * 8);
+}
+
 // Phase A, the recompute: the scores S = q k^T of query rows q0 .. q0+15
 // against the K rows in T0 (tile j holding keys 8j..8j+7, p[j][0..1] row
 // q0+g, [2..3] row q0+g+8).
-template <int DH, int NKT>
+template <int DH, int NKT, bool LDSM = false>
 __device__ __forceinline__ void bwd_scores(const Head& hd, int q0, const bf16* T0,
                                            float (&p)[NKT][4]) {
   constexpr int LD = Smem<DH, NKT>::LD;
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   uint32_t qa[DH / 16][4];
   load_a<DH>(qa, hd.q, (size_t)3 * hd.D, q0, hd.N, g, t4);
+  if (LDSM) {
+#pragma unroll
+    for (int kk = 0; kk < NKT / 2; ++kk) {
+      p[2 * kk][0] = p[2 * kk][1] = p[2 * kk][2] = p[2 * kk][3] = 0.f;
+      p[2 * kk + 1][0] = p[2 * kk + 1][1] = p[2 * kk + 1][2] = p[2 * kk + 1][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DH / 16; ++ks) {
+        uint32_t kb[4];
+        ldsm_rows(kb, T0, LD, 16 * kk, ks * 16);
+        mma_bf16_16816(p[2 * kk], qa[ks], kb[0], kb[1]);
+        mma_bf16_16816(p[2 * kk + 1], qa[ks], kb[2], kb[3]);
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < NKT; ++j) {
     p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
@@ -169,7 +206,7 @@ __device__ __forceinline__ void bwd_softmax(float (&p)[NKT][4], int N, float sca
 // in T0, V rows in T1): o = bf16(P) V written in fp32, D_i from dP = dO
 // V^T, then dP again key tile by key tile, dS and dq = dS K; the rows'
 // max, sum and D_i to shared memory for phase B.
-template <int DH, int NKT>
+template <int DH, int NKT, bool LDSM = false>
 __device__ __forceinline__ void bwd_query_grads(const Head& hd, int q0, const bf16* T0,
                                                 const bf16* T1, const float (&p)[NKT][4],
                                                 float m0, float m1, float l0, float l1) {
@@ -188,6 +225,16 @@ __device__ __forceinline__ void bwd_query_grads(const Head& hd, int q0, const bf
                               pack_bf16x2(p[2 * kk][2], p[2 * kk][3]),
                               pack_bf16x2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
                               pack_bf16x2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+      if (LDSM) {
+#pragma unroll
+        for (int dp = 0; dp < DH / 16; ++dp) {
+          uint32_t vb[4];
+          ldsm_cols(vb, T1, LD, 16 * kk, dp * 16);
+          mma_bf16_16816(oacc[2 * dp], pa, vb[0], vb[1]);
+          mma_bf16_16816(oacc[2 * dp + 1], pa, vb[2], vb[3]);
+        }
+        continue;
+      }
 #pragma unroll
       for (int c = 0; c < DH / 8; ++c)
         mma_bf16_16816(oacc[c], pa, col_pair(T1, LD, 16 * kk + 2 * t4, 8 * c + g),
@@ -214,13 +261,43 @@ __device__ __forceinline__ void bwd_query_grads(const Head& hd, int q0, const bf
       mma_bf16_16816(t, da[ks], ld32(vp), ld32(vp + 8));
     }
   };
-  float d0 = 0.f, d1 = 0.f;
+  // dP tiles 2kk and 2kk + 1 by ldmatrix, each sum in dp_tile's order
+  auto dp_pair = [&](int kk, float (&t0)[4], float (&t1)[4]) {
+    if (!LDSM) {
+      dp_tile(2 * kk, t0);
+      dp_tile(2 * kk + 1, t1);
+      return;
+    }
+    t0[0] = t0[1] = t0[2] = t0[3] = 0.f;
+    t1[0] = t1[1] = t1[2] = t1[3] = 0.f;
 #pragma unroll
-  for (int j = 0; j < NKT; ++j) {
-    float t[4];
-    dp_tile(j, t);
-    d0 += t[0] * p[j][0] + t[1] * p[j][1];
-    d1 += t[2] * p[j][2] + t[3] * p[j][3];
+    for (int ks = 0; ks < DH / 16; ++ks) {
+      uint32_t vb[4];
+      ldsm_rows(vb, T1, LD, 16 * kk, ks * 16);
+      mma_bf16_16816(t0, da[ks], vb[0], vb[1]);
+      mma_bf16_16816(t1, da[ks], vb[2], vb[3]);
+    }
+  };
+  float d0 = 0.f, d1 = 0.f;
+  if (LDSM) {
+#pragma unroll
+    for (int kk = 0; kk < NKT / 2; ++kk) {
+      float t[2][4];
+      dp_pair(kk, t[0], t[1]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        d0 += t[e][0] * p[2 * kk + e][0] + t[e][1] * p[2 * kk + e][1];
+        d1 += t[e][2] * p[2 * kk + e][2] + t[e][3] * p[2 * kk + e][3];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NKT; ++j) {
+      float t[4];
+      dp_tile(j, t);
+      d0 += t[0] * p[j][0] + t[1] * p[j][1];
+      d1 += t[2] * p[j][2] + t[3] * p[j][3];
+    }
   }
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -234,8 +311,7 @@ __device__ __forceinline__ void bwd_query_grads(const Head& hd, int q0, const bf
 #pragma unroll
   for (int kk = 0; kk < NKT / 2; ++kk) {
     float t0[4], t1[4];
-    dp_tile(2 * kk, t0);
-    dp_tile(2 * kk + 1, t1);
+    dp_pair(kk, t0, t1);
     const float* p0 = p[2 * kk];
     const float* p1 = p[2 * kk + 1];
     const uint32_t sa[4] = {
@@ -243,6 +319,16 @@ __device__ __forceinline__ void bwd_query_grads(const Head& hd, int q0, const bf
         pack_bf16x2(p0[2] * (t0[2] - d1), p0[3] * (t0[3] - d1)),
         pack_bf16x2(p1[0] * (t1[0] - d0), p1[1] * (t1[1] - d0)),
         pack_bf16x2(p1[2] * (t1[2] - d1), p1[3] * (t1[3] - d1))};
+    if (LDSM) {
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t kb[4];
+        ldsm_cols(kb, T0, LD, 16 * kk, dp * 16);
+        mma_bf16_16816(qacc[2 * dp], sa, kb[0], kb[1]);
+        mma_bf16_16816(qacc[2 * dp + 1], sa, kb[2], kb[3]);
+      }
+      continue;
+    }
 #pragma unroll
     for (int c = 0; c < DH / 8; ++c)
       mma_bf16_16816(qacc[c], sa, col_pair(T0, LD, 16 * kk + 2 * t4, 8 * c + g),
@@ -266,7 +352,7 @@ __device__ __forceinline__ void bwd_query_grads(const Head& hd, int q0, const bf
 // Phase B, the gradients of key rows k0 .. k0+15 (Q rows in T0, dO rows
 // in T1): over all queries, S^T = K Q^T, P^T from the stored row
 // statistics, dP^T = V dO^T, dS^T, dv += P^T dO and dk += dS^T Q.
-template <int DH, int NKT>
+template <int DH, int NKT, bool LDSM = false>
 __device__ __forceinline__ void bwd_key_grads(const Head& hd, int k0, const bf16* T0,
                                               const bf16* T1) {
   constexpr int NP = Smem<DH, NKT>::NP, LD = Smem<DH, NKT>::LD;
@@ -285,14 +371,30 @@ __device__ __forceinline__ void bwd_key_grads(const Head& hd, int k0, const bf16
   const bool va0 = k0 + g < N, va1 = k0 + g + 8 < N;  // this thread's key rows
   for (int qc = 0; qc < NP / 16; ++qc) {
     float pt[2][4], st[2][4];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+    float s2[2][4] = {}, dp2[2][4] = {};
+    if (LDSM) {  // S^T and dP^T of both 8-query tiles, each sum over ks in order
 #pragma unroll
       for (int ks = 0; ks < DH / 16; ++ks) {
-        const int off = (16 * qc + 8 * t + g) * LD + ks * 16 + 2 * t4;
-        mma_bf16_16816(s, ka[ks], ld32(T0 + off), ld32(T0 + off + 8));
-        mma_bf16_16816(dp, va[ks], ld32(T1 + off), ld32(T1 + off + 8));
+        uint32_t qb[4], ob[4];
+        ldsm_rows(qb, T0, LD, 16 * qc, ks * 16);
+        ldsm_rows(ob, T1, LD, 16 * qc, ks * 16);
+        mma_bf16_16816(s2[0], ka[ks], qb[0], qb[1]);
+        mma_bf16_16816(dp2[0], va[ks], ob[0], ob[1]);
+        mma_bf16_16816(s2[1], ka[ks], qb[2], qb[3]);
+        mma_bf16_16816(dp2[1], va[ks], ob[2], ob[3]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      float* s = s2[t];
+      float* dp = dp2[t];
+      if (!LDSM) {
+#pragma unroll
+        for (int ks = 0; ks < DH / 16; ++ks) {
+          const int off = (16 * qc + 8 * t + g) * LD + ks * 16 + 2 * t4;
+          mma_bf16_16816(s, ka[ks], ld32(T0 + off), ld32(T0 + off + 8));
+          mma_bf16_16816(dp, va[ks], ld32(T1 + off), ld32(T1 + off + 8));
+        }
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -307,6 +409,19 @@ __device__ __forceinline__ void bwd_key_grads(const Head& hd, int k0, const bf16
                             pack_bf16x2(pt[1][0], pt[1][1]), pack_bf16x2(pt[1][2], pt[1][3])};
     const uint32_t sa[4] = {pack_bf16x2(st[0][0], st[0][1]), pack_bf16x2(st[0][2], st[0][3]),
                             pack_bf16x2(st[1][0], st[1][1]), pack_bf16x2(st[1][2], st[1][3])};
+    if (LDSM) {
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t ob[4], qb[4];
+        ldsm_cols(ob, T1, LD, 16 * qc, dp * 16);
+        ldsm_cols(qb, T0, LD, 16 * qc, dp * 16);
+        mma_bf16_16816(vacc[2 * dp], pa, ob[0], ob[1]);
+        mma_bf16_16816(kacc[2 * dp], sa, qb[0], qb[1]);
+        mma_bf16_16816(vacc[2 * dp + 1], pa, ob[2], ob[3]);
+        mma_bf16_16816(kacc[2 * dp + 1], sa, qb[2], qb[3]);
+      }
+      continue;
+    }
 #pragma unroll
     for (int c = 0; c < DH / 8; ++c) {
       mma_bf16_16816(vacc[c], pa, col_pair(T1, LD, 16 * qc + 2 * t4, 8 * c + g),

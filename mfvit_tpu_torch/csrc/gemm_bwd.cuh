@@ -223,6 +223,20 @@ static __global__ void __launch_bounds__(THREADS)
   if (blockIdx.y == 0 && threadIdx.x < BM) bias_part[(size_t)z * Mo + m0 + threadIdx.x] = rs;
 }
 
+// The GELU backward of one hidden unit (fused_mlp.py:273-282), exact erf:
+// a = h1 . w1 + b1 from its fp32 sum c1, ga = ga_pre * gelu'(a) and
+// gelu_a = gelu(a) in fp32 (the callers round both to bf16). K7's dual
+// kernels (here and gemm_bwd_sm90.cuh) share it, so they compute each
+// value with the same operations.
+__device__ __forceinline__ void gelu_bwd(float c1, float b, float ga_pre, float& ga,
+                                         float& gelu_a) {
+  const float a = c1 + b;
+  const float cdf = 0.5f * (1.0f + erff(a * 0.7071067811865476f));
+  const float pdf = expf(-0.5f * a * a) * 0.3989422804014327f;
+  ga = ga_pre * (cdf + a * pdf);
+  gelu_a = a * cdf;
+}
+
 // K7's first stage: over one (M, Hd) tile, a = h1 . W1^T + b1 (W1 (Hd, D))
 // and ga_pre = g . W2 (W2 (D, Hd)), both fp32 sums over D, then
 // ga = bf16(ga_pre * gelu'(a)) and gelu_a = bf16(gelu(a)), exact erf
@@ -244,13 +258,8 @@ static __global__ void __launch_bounds__(THREADS)
     if (m0 + i >= M) continue;
     float d[8], y[8];
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const float a = C1[i * LDC + jc + u] + b1[n0 + jc + u];
-      const float cdf = 0.5f * (1.0f + erff(a * 0.7071067811865476f));
-      const float pdf = expf(-0.5f * a * a) * 0.3989422804014327f;
-      d[u] = C2[i * LDC + jc + u] * (cdf + a * pdf);
-      y[u] = a * cdf;
-    }
+    for (int u = 0; u < 8; ++u)
+      gelu_bwd(C1[i * LDC + jc + u], b1[n0 + jc + u], C2[i * LDC + jc + u], d[u], y[u]);
     const size_t off = (size_t)(m0 + i) * Hd + n0 + jc;
     *reinterpret_cast<uint4*>(ga + off) = float_to_bf16x8(d);
     *reinterpret_cast<uint4*>(gelu_a + off) = float_to_bf16x8(y);

@@ -4,8 +4,10 @@
 // accumulators in registers. K1 (fused_attn.cu) runs its qkv and proj
 // GEMMs on gemm_kernel below, K15 (fused_block.cu) its qkv GEMM, K2 and K3
 // (fused_mlp.cu) their fc1 and fc2 at D > 512; block_tail.cuh builds K15's,
-// K2's and K3's block tail from the same pieces. The plain C entry mfv_gemm_sm90
-// (gemm_sm90.cu) runs gemm_kernel alone for the card's checks.
+// K2's and K3's block tail from the same pieces. K5 and K7 (the backward
+// halves, gemm_bwd_sm90.cuh) run their GEMMs on gemm_mn_kernel, the same
+// core with MN-major operands. The plain C entries of gemm_sm90.cu
+// (mfv_gemm_sm90, mfv_gemm_mn) run the kernels alone for the card's checks.
 //
 //   C[M, N] = epilogue(A[M, K] . W[N, K]^T + bias), A and W bf16, W in the
 //   torch Linear layout (out, in): both operands K-major, so neither wgmma
@@ -262,6 +264,44 @@ struct Consumer {
   }
 };
 
+// The descriptor of an MN-major 128-byte-swizzled operand at p, as TMA
+// writes a box of 64 K rows of 64 M (or N) values: each K row is 128 bytes,
+// 8-row groups lie 1024 bytes apart (stride byte offset 1024 >> 4), and the
+// next 64-wide M or N block is the next box, 8192 bytes on (leading byte
+// offset 8192 >> 4); the k16 step kk starts 16 rows, 2048 bytes, further
+// (start address + 128 * kk). The wgmma then runs with its transpose bit
+// set for this operand: the bit says which dimension is contiguous.
+__device__ __forceinline__ uint64_t desc_mn(const void* p) {
+  return (uint64_t)((saddr(p) & 0x3FFFF) >> 4) | (512ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// D[64 x 128] += A[64 x 16] . B[16 x 128]; TA / TB: A / B MN-major (the
+// transpose bits), else K-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128t(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 // ---- the GEMM ----
 
 // Tiles of 128 x 128 outputs; a stage is the A and W boxes of one 64-wide K
@@ -442,6 +482,238 @@ static int gemm(const void* a, const void* w, const void* bias, const void* resi
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
   if (e != cudaSuccess) return (int)e;
   kern<<<tiles < sms ? tiles : sms, GEMM_THREADS, GEMM_SMEM, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// ---- the backward GEMMs: MN-major operands ----
+//
+// The weight-gradient and NN products of K5 and K7 (gemm_bwd.cuh's gemm_tn
+// and gemm_nn, which the former chains keep) on the same core: TMA boxes in
+// the 128-byte swizzle into the ring, one producer thread, with the operand
+// whose M or N index is contiguous in memory read through MN-major
+// descriptors (desc_mn) and the wgmma transpose bits. The NN tiles (short K
+// loops, many tiles) ping-pong between the two consumer warpgroups, which
+// take the ring in turns, as gemm_kernel's; a TN tile (a K loop of up to a
+// hundred stages, two or three tiles a block) is taken by both at once, 64
+// of its rows each.
+//
+//   MN_NN  out (M, N) = a (M, K) . b (K, N), bf16 or fp32: a K-major (one
+//          box of 128 rows), b the torch weight (out, in) read as (K, N):
+//          MN-major (two boxes of 64 K rows x 64 columns a stage)
+//   MN_TN  part[z] (M, N) = a[kz, :]^T . b[kz, :] over the z-th slice of kc
+//          rows, a (K, M) and b (K, N) both MN-major (two boxes each a
+//          stage), fp32; the tiles at n0 = 0 also write bias_part[z] (M),
+//          the slice's column sums of a
+//
+// Sum order: every output is one fp32 accumulator over k in ascending k16
+// steps, gemm_bwd.cuh's order, so with a wgmma k16 step rounding as
+// mma.sync's each output has gemm_nn's or gemm_tn's bits; a TN tile skips
+// the k16 steps past its slice's end (the rows there belong to the next
+// slice: TMA fills zeros only past the tensor's edge). The column sums run
+// over the slice's rows in ascending order, one thread a column, as
+// gemm_tn's do.
+enum MnForm { MN_NN = 0, MN_TN = 1 };
+
+struct MnParams {
+  CUtensorMap a, b;
+  float* bias_part;  // MN_TN: (S, M)
+  void* out;         // MN_NN: (M, N); MN_TN: (S, M, N) fp32
+  int M, N, K, kc;   // MN_NN: kc = K
+};
+
+// Tile t: its output slice z, rows m0 and columns n0 of the output, and
+// the k rows [kb, ke) it sums. Within a slice the tiles run row-major,
+// their columns rotated by z, so that the tiles at n0 = 0 (the ones that
+// also take the column sums) fall on other blocks in each slice.
+template <int FORM>
+__device__ __forceinline__ void mn_tile(const MnParams& p, int t, int per_z, int nt, int& z,
+                                        int& m0, int& n0, int& kb, int& ke) {
+  z = FORM == MN_TN ? t / per_z : 0;
+  const int l = t - z * per_z;
+  m0 = l / nt * GEMM_BM;
+  n0 = (l % nt + z) % nt * GEMM_BN;
+  kb = z * p.kc;
+  ke = min(p.K, kb + p.kc);
+}
+
+template <int FORM, bool F32>
+__global__ void __launch_bounds__(GEMM_THREADS, 1) gemm_mn_kernel(const __grid_constant__ MnParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + GEMM_STAGES * GEMM_STAGE);
+  uint64_t* empty = full + GEMM_STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int nt = p.N / GEMM_BN, per_z = (p.M + GEMM_BM - 1) / GEMM_BM * nt;
+  const int tiles = per_z * (FORM == MN_TN ? (p.K + p.kc - 1) / p.kc : 1);
+  if (tid == 0) {
+    for (int s = 0; s < GEMM_STAGES; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, FORM == MN_TN ? 8 : 4);  // one arrival a warp that takes the stage
+    }
+    bar_init_done();
+  }
+  __syncthreads();
+  if (wg == 2) {  // the producer
+    reg_dealloc<PRODUCER_REGS>();
+    if (tid == 256) {
+      Ring r;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int z, m0, n0, kb, ke;
+        mn_tile<FORM>(p, t, per_z, nt, z, m0, n0, kb, ke);
+        for (int k0 = kb; k0 < ke; k0 += 64) {
+          bar_wait(empty + r.s, r.ph ^ 1);
+          unsigned char* st = sm + r.s * GEMM_STAGE;
+          bar_expect(full + r.s, GEMM_STAGE);
+          if (FORM == MN_TN) {
+            tma_load(st, &p.a, full + r.s, m0, k0);
+            tma_load(st + TILE64, &p.a, full + r.s, m0 + 64, k0);
+          } else {
+            tma_load(st, &p.a, full + r.s, k0, m0);
+          }
+          tma_load(st + 2 * TILE64, &p.b, full + r.s, n0, k0);
+          tma_load(st + 3 * TILE64, &p.b, full + r.s, n0 + 64, k0);
+          r.next(GEMM_STAGES);
+        }
+      }
+    }
+  } else if (FORM == MN_TN) {  // both consumer warpgroups on every tile: rows 64 wg ..
+    reg_alloc<CONSUMER_REGS>();
+    const int t128 = tid & 127;
+    Consumer c;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int z, m0, n0, kb, ke;
+      mn_tile<FORM>(p, t, per_z, nt, z, m0, n0, kb, ke);
+      m0 += 64 * wg;
+      const bool sums = n0 == 0 && t128 < 64;  // column m0 + t128 of a
+      float rs = 0.f;
+      float acc[64];
+      zero(acc);
+      for (int k0 = kb; k0 < ke; k0 += 64) {
+        const unsigned char* st = sm + c.acquire(full) * GEMM_STAGE;
+        const int rows = min(64, ke - k0), steps = (rows + 15) / 16;
+        const uint64_t da = desc_mn(st + wg * TILE64), db = desc_mn(st + 2 * TILE64);
+        pin(acc);
+        if (steps == 4) {  // a whole stage
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wgmma_n128t<1, 1>(acc, da + 128 * kk, db + 128 * kk);
+        } else {  // the slice ends inside it
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            if (kk < steps) wgmma_n128t<1, 1>(acc, da + 128 * kk, db + 128 * kk);
+        }
+        if (sums) {  // its rows in order, 16 loads at a time
+          const unsigned char* col = st + wg * TILE64 + (t128 & 7) * 2;
+          const int g16 = t128 >> 3;
+          for (int k = 0; k < steps; ++k) {  // past K: TMA's zeros, as gemm_tn's
+            float v[16];
+#pragma unroll
+            for (int r = 0; r < 16; ++r)
+              v[r] = __bfloat162float(*reinterpret_cast<const bf16*>(
+                  col + (16 * k + r) * 128 + ((g16 ^ (r & 7)) << 4)));
+#pragma unroll
+            for (int r = 0; r < 16; ++r) rs += v[r];
+          }
+        }
+        c.issued(empty, GEMM_STAGES);
+        pin(acc);
+      }
+      c.drain(empty);
+      pin(acc);
+      float* of = static_cast<float*>(p.out) + (size_t)z * p.M * p.N;
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + frag_row(t128, h), col = n0 + frag_col(t128, q);
+          *reinterpret_cast<float2*>(of + (size_t)row * p.N + col) =
+              make_float2(acc[4 * q + 2 * h], acc[4 * q + 2 * h + 1]);
+        }
+      if (sums) p.bias_part[(size_t)z * p.M + m0 + t128] = rs;
+    }
+  } else {  // MN_NN, consumer warpgroup wg: the block's tiles wg, wg + 2, ...
+    reg_alloc<CONSUMER_REGS>();
+    const int t128 = tid & 127;
+    Consumer c;
+    int i = wg;
+    for (int t = blockIdx.x + wg * gridDim.x; t < tiles; t += 2 * gridDim.x, i += 2) {
+      int z, m0, n0, kb, ke;
+      mn_tile<FORM>(p, t, per_z, nt, z, m0, n0, kb, ke);
+      const int KT = p.K / 64;
+      c.r.s = i * KT % GEMM_STAGES;
+      c.r.ph = i * KT / GEMM_STAGES & 1;
+      float acc[2][64];
+      zero(acc[0]);
+      zero(acc[1]);
+      if (i > 0) pp_wait(PP_BAR + wg);  // the ring in turns, as gemm_kernel
+      for (int kt = 0; kt < KT; ++kt) {
+        const unsigned char* st = sm + c.acquire(full) * GEMM_STAGE;
+        const uint64_t da0 = desc(st), da1 = desc(st + TILE64), db = desc_mn(st + 2 * TILE64);
+        pin(acc[0]);
+        pin(acc[1]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_n128t<0, 1>(acc[0], da0 + 2 * kk, db + 128 * kk);
+          wgmma_n128t<0, 1>(acc[1], da1 + 2 * kk, db + 128 * kk);
+        }
+        c.issued(empty, GEMM_STAGES);
+        pin(acc[0]);
+        pin(acc[1]);
+      }
+      if (t + gridDim.x < tiles) pp_pass(PP_BAR + (wg ^ 1));
+      c.drain(empty);
+#pragma unroll
+      for (int hm = 0; hm < 2; ++hm) {
+        pin(acc[hm]);
+#pragma unroll
+        for (int q = 0; q < 16; ++q)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = m0 + hm * 64 + frag_row(t128, h), col = n0 + frag_col(t128, q);
+            const float v0 = acc[hm][4 * q + 2 * h], v1 = acc[hm][4 * q + 2 * h + 1];
+            if (row >= p.M) continue;
+            const size_t off = (size_t)row * p.N + col;
+            if (F32)
+              *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) = make_float2(v0, v1);
+            else
+              *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.out) + off) =
+                  __floats2bfloat162_rn(v0, v1);
+          }
+      }
+    }
+  }
+}
+
+// MN_NN: out (M, N) = a (M, K) . b (K, N), bf16 or fp32 (F32); N % 128 ==
+// 0, K % 64 == 0. MN_TN: part[z] (M, N) = a[kz]^T . b[kz] over S = ceil(K /
+// kc) slices of kc rows, a (K, M), b (K, N), and bias_part[z] (M) the
+// slices' column sums of a; M % 128 == 0, N % 128 == 0, kc % 16 == 0.
+template <int FORM, bool F32>
+static int gemm_mn(const void* a, const void* b, void* out, float* bias_part, int M, int N, int K,
+                   int kc, cudaStream_t s) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % GEMM_BN ||
+      (FORM == MN_NN ? K % 64 != 0 : (M % GEMM_BM || kc <= 0 || kc % 16 || bias_part == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  MnParams p;
+  if (FORM == MN_TN) {
+    if (int e = tensor_map(&p.a, a, K, M, 64)) return e;
+  } else {
+    if (int e = tensor_map(&p.a, a, M, K, GEMM_BM)) return e;
+  }
+  if (int e = tensor_map(&p.b, b, K, N, 64)) return e;
+  p.bias_part = bias_part;
+  p.out = out;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.kc = FORM == MN_TN ? kc : K;
+  const long long tiles = (long long)(M + GEMM_BM - 1) / GEMM_BM * (N / GEMM_BN) *
+                          (FORM == MN_TN ? (K + kc - 1) / kc : 1);
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  auto kern = gemm_mn_kernel<FORM, F32>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<tiles < sms ? (int)tiles : sms, GEMM_THREADS, GEMM_SMEM, s>>>(p);
   return (int)cudaGetLastError();
 }
 

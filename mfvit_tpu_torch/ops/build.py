@@ -44,7 +44,10 @@ SIGNATURES = {
                                 _P, _P, _P, _P, _P],
     "mfv_fused_attention_block_bwd": [_P] * 22 + [_I] * 4 + [_F] + [_I] * 6
                                      + [_P],
+    "mfv_fused_attention_block_bwd_wmma": [_P] * 22 + [_I] * 4 + [_F]
+                                          + [_I] * 6 + [_P],
     "mfv_fused_mlp_block_bwd": [_P] * 20 + [_I] * 7 + [_P],
+    "mfv_fused_mlp_block_bwd_wmma": [_P] * 20 + [_I] * 7 + [_P],
     "mfv_fused_attention_block_i8": [_P] * 14 + [_I] * 4 + [_F, _P],
     "mfv_fused_mlp_block_i8": [_P] * 14 + [_I] * 3 + [_P],
     "mfv_mhsa_packed": [_P, _P] + [_I] * 6 + [_F, _P],
@@ -59,6 +62,8 @@ SIGNATURES = {
     "mfv_staged_bwd": [_P] * 22 + [_I] * 4 + [_F] + [_I] * 7 + [_P],
     "mfv_gemm_sm90": [_P] * 5 + [_I] * 4 + [_P],
     "mfv_gemm_ln": [_P] * 5 + [_I] * 4 + [_P],
+    "mfv_gemm_mn": [_P] * 5 + [_I] * 6 + [_P],
+    "mfv_gemm_bwd": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 _lib = None

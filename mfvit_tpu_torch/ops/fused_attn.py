@@ -19,8 +19,14 @@ and its backward.
   both give the same bits.
 - K5, the backward of K1, replaces ``_fused_attn_bwd_impl`` (Pallas
   ``_bwd_kernel`` :385) and, at D > 512, ``_fused_attn_bwd_bigdim`` (K6,
-  :661): csrc/fused_attn_bwd.cu over csrc/attn_bwd.cuh and
-  csrc/gemm_bwd.cuh.
+  :661): csrc/fused_attn_bwd.cu, its GEMMs on the wgmma core (the qkv
+  recompute on csrc/gemm_sm90.cuh, dO, dWqkv and dh on its MN-major forms
+  in csrc/gemm_bwd_sm90.cuh), the fp32 dWproj on the CUDA cores and the
+  attention-backward core of csrc/attn_bwd_async.cuh (a producer warp
+  staging each (image, head)'s rows, ldmatrix fragments).
+  ``fused_attention_block_bwd_wmma`` runs the chain K5 ran before (WMMA
+  GEMMs of csrc/gemm_bwd.cuh, csrc/attn_bwd.cuh's core) for the card's
+  checks only: no op calls it, and both give the same bits.
 - K9, ``fused_attention_block_large``, the same forward for any N,
   replaces ``fused_attention_block_large`` (Pallas ``_kernel_qblocked``
   :244, ``pallas_call`` :343): csrc/fused_attn_large.cu, the WMMA GEMMs
@@ -51,6 +57,8 @@ gradients and a dx in x's dtype, as the JAX ``_bwd`` (:734-751) and
 which is also the reference the kernels are held to on the card.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -150,6 +158,45 @@ def _check(B: int, N: int, D: int, heads: int, what: str,
                          f"heads={heads}, N={N}")
 
 
+# csrc/attn_bwd_async.cuh's constants (K5's attention-backward core): the
+# shared memory a block can take, the consumer warps a block by head_dim,
+# and the key rows staged, the smallest of these that holds N
+BWD_SMEM_MAX = 232448
+BWD_WARPS = {32: 15, 64: 15, 128: 7}
+BWD_KEYS = (64, 128, 208, 256)
+
+
+class BwdPlan(NamedTuple):
+    """A launch of K5's attention-backward core: ``keys`` rows staged of
+    each part (zeros past N), ``slots`` ring slots (each one stage: a
+    pair's K and V rows, or its Q and dO rows) and as many statistics
+    buffers, ``warps`` consumer warps beside the producer warp, ``smem``
+    bytes of shared memory a block."""
+    keys: int
+    slots: int
+    warps: int
+    smem: int
+
+
+def _bwd_slot_bytes(keys: int, dh: int) -> int:
+    """AsyncBwd::PER_SLOT: two parts of ``keys`` rows of pitch dh + 8 in
+    bf16, the row max, sum and D_i in fp32, three mbarriers."""
+    return 2 * keys * (dh + 8) * 2 + 3 * keys * 4 + 3 * 8
+
+
+def _bwd_plan(N: int, dh: int) -> BwdPlan:
+    """The core's plan at N tokens and head_dim dh: as many slots (at most
+    4) as a block's shared memory holds. The C side computes the same
+    from its template arguments; this copy checks what it takes."""
+    if dh not in BWD_WARPS or not 0 < N <= BWD_KEYS[-1]:
+        raise ValueError(f"the K5 kernels take head_dim 32/64/128 and N <= "
+                         f"{BWD_KEYS[-1]}; got head_dim {dh}, N={N}")
+    keys = next(k for k in BWD_KEYS if N <= k)
+    per = _bwd_slot_bytes(keys, dh)
+    slots = max(s for s in range(1, 5) if s * per <= BWD_SMEM_MAX)
+    return BwdPlan(keys, slots, BWD_WARPS[dh], slots * per)
+
+
 # the widths K1's LayerNorm pass takes (csrc/block_tail.cuh's ln1_takes)
 K1_WIDTHS = (128, 256, 384, 512, 768)
 
@@ -209,14 +256,15 @@ def fused_attention_block_wmma(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
 
 
 def bwd_cuda(g, x, ln_s, ln_b, wqkv, bqkv, wproj, heads: int, scale: float,
-             cb: int = 0):
+             cb: int = 0, entry: str = "mfv_fused_attention_block_bwd"):
     """K5's launch chain on CUDA tensors, with T5's staged core over ``cb``
-    images a block where cb > 0: the outputs of
-    ``fused_attention_block_bwd_plain`` (bf16 g and x; the weights are cast
-    to bf16 here). Anything the kernels do not take raises. Counts no
+    images a block where cb > 0 (or the chain ``entry`` names): the outputs
+    of ``fused_attention_block_bwd_plain`` (bf16 g and x; the weights are
+    cast to bf16 here). Anything the kernels do not take raises. Counts no
     launch: its callers do."""
     B, N, D = x.shape
     _check(B, N, D, heads, "K5")
+    _bwd_plan(N, D // heads)
     bf16, f32 = torch.bfloat16, torch.float32
     launch.require(x, bf16, "x")
     launch.require(g, bf16, "g", (B, N, D))
@@ -237,7 +285,7 @@ def bwd_cuda(g, x, ln_s, ln_b, wqkv, bqkv, wproj, heads: int, scale: float,
     dx = torch.empty_like(x)
     dln_s, dln_b, dbproj = empty(D), empty(D), empty(D)
     dwqkv, dbqkv, dwproj = empty(3 * D, D), empty(3 * D), empty(D, D)
-    entry = "mfv_staged_bwd" if cb else "mfv_fused_attention_block_bwd"
+    entry = "mfv_staged_bwd" if cb else entry
     launch.call(entry, dev, g, x,
                 launch.vec(ln_s, D, "ln_s"), launch.vec(ln_b, D, "ln_b"),
                 wqkv, launch.vec(bqkv, 3 * D, "bqkv"), wproj,
@@ -258,6 +306,17 @@ def fused_attention_block_bwd(g, x, ln_s, ln_b, wqkv, bqkv, wproj,
     out = bwd_cuda(g, x, ln_s, ln_b, wqkv, bqkv, wproj, heads, scale)
     LAUNCHES["fused_attention_block_bwd"] += 1
     return out
+
+
+def fused_attention_block_bwd_wmma(g, x, ln_s, ln_b, wqkv, bqkv, wproj,
+                                   heads: int, scale: float):
+    """The chain K5 ran before its redesign (csrc/fused_attn_bwd.cu's
+    ``mfv_fused_attention_block_bwd_wmma``: ``gemm_ln``'s qkv GEMM,
+    gemm_bwd.cuh's WMMA NN and TN GEMMs and 4 x 4 fp32 dWproj, attn_bwd.cuh's
+    core), on CUDA tensors: the comparator the card's checks hold K5
+    against bit for bit. No op calls it, and it counts no launch."""
+    return bwd_cuda(g, x, ln_s, ln_b, wqkv, bqkv, wproj, heads, scale,
+                    entry="mfv_fused_attention_block_bwd_wmma")
 
 
 def fused_attention_block_bwd_f32(g, x, ln_s, ln_b, wqkv, bqkv, wproj,

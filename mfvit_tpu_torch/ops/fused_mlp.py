@@ -32,7 +32,13 @@ statistics, LN + fc1 + GELU into a bf16 hidden, fc2 + bias with the bf16
 residual or, for K3, with the fp32 residual written out in fp32, then a
 row LayerNorm kernel), for the card's checks only (no op calls them);
 every route rounds where the chains do and sums in their order, so each
-gives their bits. K7 is csrc/fused_mlp_bwd.cu over csrc/gemm_bwd.cuh.
+gives their bits. K7 is csrc/fused_mlp_bwd.cu on the wgmma core
+(csrc/gemm_bwd_sm90.cuh: the recompute of fc1 and g . W2 as two
+accumulators of one tile with the GELU backward in its epilogue, then the
+weight-gradient and dh1 GEMMs with MN-major operands);
+``fused_mlp_block_bwd_wmma`` runs the chain K7 ran before (csrc/
+gemm_bwd.cuh's WMMA kernels) for the card's checks only, with the same
+bits.
 
 Both entry points are ``torch.autograd.Function``s on both devices: they
 take the fp32 master weights, cast them inside, and return fp32 weight
@@ -64,6 +70,12 @@ FINAL_ROWS = 32
 CONSUMER_REGS, PRODUCER_REGS, THREADS = 232, 40, 384
 GEMM_SMEM = 7 * 32768 + 2 * 7 * 8 + 1024
 SMEM_MAX = 232448
+# csrc/gemm_bwd_sm90.cuh's K7 dual kernel: rows a tile, ring stages, bytes
+# of a stage (64-wide D slices of h1 and g, 128 rows each, W1's 128 rows and
+# W2's two 64 x 64 boxes) and a block's shared memory
+DUAL_BM, DUAL_STAGES = 128, 3
+DUAL_STAGE = 8 * TILE64
+DUAL_SMEM = DUAL_STAGES * DUAL_STAGE + 2 * DUAL_STAGES * 8 + 1024
 # the widths the tail takes (its fp32 output tile lives in registers), and
 # the wider ones K2 runs in three launches
 TAIL_WIDTHS, WIDE_WIDTHS = (128, 256, 384, 512), (768,)
@@ -256,6 +268,22 @@ def fused_mlp_block_bwd(g, x, ln_s, ln_b, w1, b1, w2):
     """K7 on CUDA tensors: the outputs of ``fused_mlp_block_bwd_plain``
     from the kernels (bf16 g and x; the weights are cast to bf16 here).
     Anything the kernels do not take raises."""
+    out = _mlp_bwd_chain("mfv_fused_mlp_block_bwd", g, x, ln_s, ln_b, w1, b1,
+                         w2)
+    LAUNCHES["fused_mlp_block_bwd"] += 1
+    return out
+
+
+def fused_mlp_block_bwd_wmma(g, x, ln_s, ln_b, w1, b1, w2):
+    """The chain K7 ran before its redesign (csrc/fused_mlp_bwd.cu's
+    ``mfv_fused_mlp_block_bwd_wmma``: gemm_bwd.cuh's WMMA dual, TN and NN
+    kernels), on CUDA tensors: the comparator the card's checks hold K7
+    against bit for bit. No op calls it, and it counts no launch."""
+    return _mlp_bwd_chain("mfv_fused_mlp_block_bwd_wmma", g, x, ln_s, ln_b,
+                          w1, b1, w2)
+
+
+def _mlp_bwd_chain(entry, g, x, ln_s, ln_b, w1, b1, w2):
     B, N, D = x.shape
     Hd = w1.shape[0]
     if D % 128 or Hd % 128:
@@ -280,13 +308,12 @@ def fused_mlp_block_bwd(g, x, ln_s, ln_b, w1, b1, w2):
     dx = torch.empty_like(x)
     dln_s, dln_b, db2 = empty(D), empty(D), empty(D)
     dw1, db1, dw2 = empty(Hd, D), empty(Hd), empty(D, Hd)
-    launch.call("mfv_fused_mlp_block_bwd", dev, g, x,
+    launch.call(entry, dev, g, x,
                 launch.vec(ln_s, D, "ln_s"), launch.vec(ln_b, D, "ln_b"), w1,
                 launch.vec(b1, Hd, "b1"), w2, empty(M, 2),
                 empty(M, D, dtype=bf16), empty(M, Hd, dtype=bf16),
                 empty(M, Hd, dtype=bf16), empty(M, D), part, dx, dln_s,
                 dln_b, dw1, db1, dw2, db2, M, D, Hd, s_w, k_w, s_ln, k_ln)
-    LAUNCHES["fused_mlp_block_bwd"] += 1
     return dx, dln_s, dln_b, dw1, db1, dw2, db2
 
 

@@ -12,6 +12,14 @@ the port calls them. CPU tensors take the plain version.
 
 ``epi``: "bias" (bf16(acc + b)), "gelu" (bf16(GELU_erf(acc + b))) or
 "resid" (bf16(r + bf16(acc + b)), with ``resid`` (M, N) bf16).
+
+``gemm_mn`` and ``gemm_bwd`` do the same for the backward products of K5
+and K7: the MN-major forms of the wgmma core (csrc/gemm_bwd_sm90.cuh) and
+the WMMA GEMMs of csrc/gemm_bwd.cuh that K5's and K7's former chains run.
+``form``: "nn" (a (M, K) . b (K, N), bf16 out), "nn_f32" (the same in
+fp32) or "tn" (a (K, M)^T . b (K, N) in fp32 and the column sums of a,
+through S slices of kc rows, each summed alone and the partials reduced in
+slice order, as ``launch.k_split`` gives them).
 """
 from __future__ import annotations
 
@@ -19,8 +27,9 @@ import torch
 
 from mfvit_tpu_torch.ops import launch
 
-LAUNCHES = {"gemm_sm90": 0, "gemm_ln": 0}
+LAUNCHES = {"gemm_sm90": 0, "gemm_ln": 0, "gemm_mn": 0, "gemm_bwd": 0}
 EPI = {"bias": 0, "gelu": 1, "resid": 2}
+FORMS = {"nn": 0, "nn_f32": 1, "tn": 2}
 
 
 def gemm_plain(a, w, bias, epi: str = "bias", resid=None) -> torch.Tensor:
@@ -63,3 +72,58 @@ def gemm_ln(a, w, bias, epi: str = "bias", resid=None) -> torch.Tensor:
     """The WMMA core of K3 and K4 (N % 128 == 0, K % 64 == 0 on the
     card)."""
     return _gemm("gemm_ln", a, w, bias, epi, resid)
+
+
+def gemm_bwd_plain(a, b, form: str = "nn"):
+    """The plain version of ``gemm_mn`` and ``gemm_bwd``: "nn" a . b in a's
+    dtype, "nn_f32" the same in fp32, "tn" (a^T . b, a.sum(0)) in fp32;
+    fp32 sums inside."""
+    if form == "tn":
+        return a.float().T @ b.float(), a.float().sum(0)
+    out = a.float() @ b.float()
+    return out if form == "nn_f32" else out.to(a.dtype)
+
+
+def _bwd_gemm(entry: str, a, b, form: str, S: int, kc: int):
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {sorted(FORMS)}, got {form!r}")
+    if not a.is_cuda:
+        return gemm_bwd_plain(a, b, form)
+    f32, dev = torch.float32, a.device
+    launch.require(a, torch.bfloat16, "a")
+    launch.require(b, torch.bfloat16, "b")
+    if form == "tn":
+        (K, M), N = a.shape, b.shape[1]
+        if b.shape[0] != K or M % 128 or N % 128 or kc % 32 or not (
+                0 <= (S - 1) * kc < K <= S * kc):
+            raise ValueError(f"{entry} (tn) takes a (K, M), b (K, N), M and N "
+                             f"% 128 == 0 and S slices of kc % 32 == 0 rows "
+                             f"covering K; got a {tuple(a.shape)}, b "
+                             f"{tuple(b.shape)}, S={S}, kc={kc}")
+        out, bias = torch.empty(M, N, dtype=f32, device=dev), \
+            torch.empty(M, dtype=f32, device=dev)
+        part = torch.empty(S * (M * N + M), dtype=f32, device=dev)
+    else:
+        (M, K), N = a.shape, b.shape[1]
+        if b.shape[0] != K or N % 128 or K % 64:
+            raise ValueError(f"{entry} ({form}) takes a (M, K), b (K, N), N % "
+                             f"128 == 0 and K % 64 == 0; got a "
+                             f"{tuple(a.shape)}, b {tuple(b.shape)}")
+        S, kc, bias, part = 1, K, None, None
+        out = torch.empty(M, N, dtype=f32 if form == "nn_f32" else a.dtype,
+                          device=dev)
+    launch.call(f"mfv_{entry}", dev, a, b, out, bias, part, M, N, K, S, kc,
+                FORMS[form])
+    LAUNCHES[entry] += 1
+    return (out, bias) if form == "tn" else out
+
+
+def gemm_mn(a, b, form: str = "nn", S: int = 1, kc: int = 0):
+    """The MN-major forms of the wgmma core (K5's and K7's backward
+    products)."""
+    return _bwd_gemm("gemm_mn", a, b, form, S, kc)
+
+
+def gemm_bwd(a, b, form: str = "nn", S: int = 1, kc: int = 0):
+    """gemm_bwd.cuh's WMMA GEMMs, which K5's and K7's former chains run."""
+    return _bwd_gemm("gemm_bwd", a, b, form, S, kc)

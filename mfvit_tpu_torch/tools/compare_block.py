@@ -1,5 +1,5 @@
-"""Time K15, K1, K2, K3 and K4 of two checkouts of the repository on one
-card, in turns, and the end-to-end figures beside them:
+"""Time K15, K1, K2, K3, K4, K5 and K7 of two checkouts of the repository
+on one card, in turns, and the end-to-end figures beside them:
 
     python -m mfvit_tpu_torch.tools.compare_block --other DIR [--out FILE]
 
@@ -10,7 +10,10 @@ other, this, this, other), that builds that checkout's kernels and runs:
 its own ``chip_smoke.time_block`` (K15, the K1 -> K2 pair, K15's plain
 version and the library block at vit_small B=256), ``half_times`` below
 (K1, K2, K3 and K4 alone at B=256), ``stage_times`` below (the launches of
-K15, K1, K2, K3 and K4 one by one under ``torch.profiler``),
+K15, K1, K2, K3, K4, K5 and K7 one by one under ``torch.profiler``; K5 and
+K7 also at vit_base, B=64, as K6 and K8), its own ``chip_smoke.time_bwd``
+(K5 and K7 against their plain backward at vit_small B=256 and vit_base
+B=64),
 ``bench_block``'s 12-block
 chains at B=512, the GEMM cores alone at B=256 where the checkout has
 ``ops.gemm`` (``chip_smoke.time_gemm``), then the serving pairs/s at B=256
@@ -31,18 +34,23 @@ from pathlib import Path
 from mfvit_tpu_torch.tools import turns
 
 
-def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5) -> dict:
+def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
+                D: int = 384) -> dict:
     """The device ms of each kernel that one call of ``op`` launches at
-    vit_small batch B (``chip_smoke.block_inputs``, seed 16), under
-    ``torch.profiler`` over ``iters`` calls: "k15" K15, "k1" K1, "k2" K2
-    and "k3" K3 (on the block's x), "k4" K4 (the fusion head, 3 heads of
-    128, on ``chip_smoke.fusion_inputs``, seed 16); "k1_wmma", "k2_wmma",
-    "k3_wmma" and "k4_kv" the former designs, where the checkout has them.
-    Kernel name (namespace and parameters dropped,
-    template arguments kept, so that two instances of one template stay
-    apart) -> the mean over its launches, in launch order; the profiler
-    may miss the window's first launches, so a kernel that one call
-    launches twice would be averaged."""
+    batch B and width D (12 heads, hidden 4D; vit_small at D=384, vit_base
+    at 768; ``chip_smoke.block_inputs``, seed 16), under ``torch.profiler``
+    over ``iters`` calls: "k15" K15, "k1" K1, "k2" K2 and "k3" K3 (on the
+    block's x), "k4" K4 (the fusion head, 3 heads of 128, on
+    ``chip_smoke.fusion_inputs``, seed 16), "k5" K5 and "k7" K7 (the
+    backward halves, for a cotangent drawn with seed 17; K6 and K8 at
+    D=768); "k1_wmma", "k2_wmma", "k3_wmma", "k4_kv", "k5_wmma" and
+    "k7_wmma" the former designs, where the checkout has them. Kernel name
+    (namespace and parameters dropped, template arguments kept, so that
+    two instances of one template stay apart; the n-th launch of a name
+    within one call as "name #n") -> its mean device ms, in launch order.
+    Where the profiler saw every launch of every call, each launch is
+    averaged over the calls; else each name over its launches (the
+    profiler may miss the window's first launches)."""
     import re
 
     import torch
@@ -54,22 +62,31 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5) -> dict:
     from mfvit_tpu_torch.ops import fused_block as fb
     from mfvit_tpu_torch.ops import fused_fusion as ff
     from mfvit_tpu_torch.ops import fused_mlp as fm
-    t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B, 384, dev)
+    t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B, D, dev)
     a = [t[k] for k in chip_smoke.K15_KEYS]
     fin = (t["fs"], t["fb"])
-    tok = chip_smoke.fusion_inputs(torch.Generator().manual_seed(16), B, 384,
+    scale = (D // 12) ** -0.5
+    g = torch.randn(B, 197, D, generator=torch.Generator().manual_seed(17))
+    g = g.to(dev).bfloat16()
+    tok = chip_smoke.fusion_inputs(torch.Generator().manual_seed(16), B, D,
                                    dev)
-    call = {"k15": lambda: fb.fused_transformer_block(*a, 12, 32 ** -0.5),
-            "k1": lambda: fa.fused_attention_block(*a[:7], 12, 32 ** -0.5),
+    call = {"k15": lambda: fb.fused_transformer_block(*a, 12, scale),
+            "k1": lambda: fa.fused_attention_block(*a[:7], 12, scale),
             "k2": lambda: fm.fused_mlp_block(a[0], *a[7:]),
             "k3": lambda: fm.fused_mlp_block_final_ln(a[0], *a[7:], *fin),
             "k4": lambda: ff.fused_fusion_cls(*tok, 3),
+            "k5": lambda: fa.fused_attention_block_bwd(g, *a[:6], 12, scale),
+            "k7": lambda: fm.fused_mlp_block_bwd(g, a[0], *a[7:12]),
             "k1_wmma": lambda: fa.fused_attention_block_wmma(*a[:7], 12,
-                                                             32 ** -0.5),
+                                                             scale),
             "k2_wmma": lambda: fm.fused_mlp_block_wmma(a[0], *a[7:]),
             "k3_wmma": lambda: fm.fused_mlp_block_final_ln_wmma(
                 a[0], *a[7:], *fin),
-            "k4_kv": lambda: ff.fused_fusion_cls_kv(*tok, 3)}[op]
+            "k4_kv": lambda: ff.fused_fusion_cls_kv(*tok, 3),
+            "k5_wmma": lambda: fa.fused_attention_block_bwd_wmma(
+                g, *a[:6], 12, scale),
+            "k7_wmma": lambda: fm.fused_mlp_block_bwd_wmma(g, a[0],
+                                                           *a[7:12])}[op]
     with torch.inference_mode():
         call()
         torch.cuda.synchronize()
@@ -77,17 +94,26 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5) -> dict:
             for _ in range(iters):
                 call()
             torch.cuda.synchronize()
-    runs, order = {}, []
-    for e in sorted((e for e in prof.events()
+    events = sorted((e for e in prof.events()
                      if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start):
-        name = re.sub(r"^void |\(anonymous namespace\)::|\w+::", "", e.name)
-        name = name.split("(")[0]
-        runs.setdefault(name, []).append(e.time_range.elapsed_us() / 1e3)
-        order.append(name)
-    # in the order of the last call's launches
-    out = {n: sum(runs[n]) / len(runs[n]) for n in order[-len(runs):]}
-    print(f"{op.upper()}'s launches at B={B} (device ms per call, "
+                    key=lambda e: e.time_range.start)
+    names = [re.sub(r"^void |\(anonymous namespace\)::|\w+::", "",
+                    e.name).split("(")[0] for e in events]
+    ms = [e.time_range.elapsed_us() / 1e3 for e in events]
+    L = len(events) // iters
+    if L and len(events) == L * iters and all(
+            names[i] == names[i % L] for i in range(len(names))):
+        seen, keys = {}, []
+        for n in names[:L]:  # one call's launches, repeats numbered
+            seen[n] = seen.get(n, 0) + 1
+            keys.append(n if seen[n] == 1 else f"{n} #{seen[n]}")
+        out = {k: sum(ms[i::L]) / iters for i, k in enumerate(keys)}
+    else:  # the profiler missed launches: one mean a name, in first launch order
+        runs = {}
+        for n, v in zip(names, ms):
+            runs.setdefault(n, []).append(v)
+        out = {n: sum(v) / len(v) for n, v in runs.items()}
+    print(f"{op.upper()}'s launches at B={B}, D={D} (device ms per call, "
           "torch.profiler): " + ", ".join(f"{k} {v:.4f}"
                                           for k, v in out.items())
           + f"; sum {sum(out.values()):.4f}")
@@ -135,7 +161,13 @@ dev = torch.device("cuda")
 %s
 out = {"block": chip_smoke.time_block(dev), "halves": half_times(dev),
        "stages": {op: stage_times(dev, op)
-                  for op in ("k15", "k1", "k2", "k3", "k4")},
+                  for op in ("k15", "k1", "k2", "k3", "k4", "k5", "k7")},
+       "stages_base": {op: stage_times(dev, op, B=64, D=768)
+                       for op in ("k5", "k7")},
+       "bwd": {"vit_small B=256": chip_smoke.time_bwd(dev, "vit_small", 256,
+                                                      384),
+               "vit_base B=64": chip_smoke.time_bwd(dev, "vit_base", 64,
+                                                    768)},
        "bench_block": {k: v[0] for k, v in bench_block.run(dev).items()}}
 if hasattr(chip_smoke, "time_gemm"):
     out["gemm"] = chip_smoke.time_gemm(dev)
@@ -173,6 +205,12 @@ def main(argv=None) -> int:
         print(f"{name.upper()} at vit_small B=256: this " + "/".join(
             f"{v:.4f}" for t in ms["this"] for v in t) + " ms, other "
             + "/".join(f"{v:.4f}" for t in ms["other"] for v in t) + " ms")
+    for shape in runs[0][1]["bwd"]:
+        for name in runs[0][1]["bwd"][shape]:
+            ms = turns.by_checkout(runs, lambda r: r["bwd"][shape][name][0])
+            print(f"{name} at {shape}: this " + "/".join(
+                f"{v:.4f}" for v in ms["this"]) + " ms, other " + "/".join(
+                f"{v:.4f}" for v in ms["other"]) + " ms")
     for name in runs[0][1]["bench_block"]:
         ms = turns.by_checkout(runs, lambda r: r["bench_block"][name])
         print(f"bench_block {name}, 12 blocks at B=512: this " + "/".join(
@@ -182,7 +220,9 @@ def main(argv=None) -> int:
         print(f"{who}: " + "; ".join(
             f"{op.upper()}'s stages " + ", ".join(
                 f"{k} {v:.4f}" for k, v in st.items()) + " ms"
-            for op, st in r["stages"].items())
+            for op, st in (*r["stages"].items(),
+                           *((f"{op} vit_base B=64", st)
+                             for op, st in r["stages_base"].items())))
             + "".join(f"; GEMM {k} wgmma {v[0]:.4f} ms ({v[2]:.1f} TFLOP/s), "
                       f"gemm_ln {v[1]:.4f} ms ({v[3]:.1f} TFLOP/s)"
                       for k, v in r.get("gemm", {}).items()))

@@ -89,7 +89,8 @@ def test_kernels_match_plain(dev, B, N, D, H):
         "mhsa_packed": 0, "mhsa": 0, "mhsa_packed_t": 0,
         "fused_transformer_block": 0, "mlp3d": 0, "mlp3d_staged": 0,
         "mlp_pipe": 0, "attn_staged": 0, "attn_pairs": 0, "attn_rolling": 0,
-        "staged_bwd": 0, "gemm_sm90": 0, "gemm_ln": 0}
+        "staged_bwd": 0, "gemm_sm90": 0, "gemm_ln": 0, "gemm_mn": 0,
+        "gemm_bwd": 0}
 
 
 @pytest.mark.parametrize("B,heads", [(8, 3), (5, 3), (3, 6)])
@@ -848,3 +849,76 @@ def test_the_attention_variants_refuse_on_the_card_too(dev):
     with pytest.raises(RuntimeError, match="forward only"):
         attn_variants.attn_pairs(a[0], a[1].clone().requires_grad_(), *a[2:],
                                  12, 32 ** -0.5, cb=2)
+
+
+@pytest.mark.parametrize("B,N,D,H", [(8, 197, 384, 12), (2, 197, 768, 12),
+                                     (4, 50, 384, 6), (4, 50, 384, 3),
+                                     (3, 208, 384, 3), (2, 256, 384, 3),
+                                     (3, 100, 256, 2)])
+def test_k5_k7_equal_their_former_chains_and_hold_their_plain_versions(
+        dev, B, N, D, H):
+    """K5 and K7 on the wgmma core and K5's asynchronous attention core
+    against the chains they ran before (``*_bwd_wmma``) on the same bf16
+    inputs: all seven outputs equal bit for bit (every stage keeps its
+    former one's rounding points, sum order and K slices), and within rel
+    2e-2 of the plain fp32 backward; one launch each, the former chains
+    none. Head_dim 128 at N=208 and N=256 runs the core's two- and
+    one-slot rings."""
+    t = _block(dev, B, N, D)
+    g = _rnd(torch.Generator().manual_seed(4), B, N, D).bfloat16().to(dev)
+    scale = (D // H) ** -0.5
+    a = [g] + [t[k] for k in ATTN[:-1]]
+    m = [g] + [t[k] for k in MLP[:-1]]
+    ops.reset_launch_counts()
+    got = (fused_attn.fused_attention_block_bwd(*a, H, scale),
+           fused_mlp.fused_mlp_block_bwd(*m))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "fused_attention_block_bwd": 1, "fused_mlp_block_bwd": 1}
+    former = (fused_attn.fused_attention_block_bwd_wmma(*a, H, scale),
+              fused_mlp.fused_mlp_block_bwd_wmma(*m))
+    plain = (fused_attn.fused_attention_block_bwd_plain(
+        *[v.float() for v in a], H, scale),
+        fused_mlp.fused_mlp_block_bwd_plain(*[v.float() for v in m]))
+    for new, old, ref in zip(got, former, plain):
+        assert all(torch.equal(x, y) for x, y in zip(new, old))
+        assert all(_rel(x, y) < REL for x, y in zip(new, ref))
+
+
+# the backward GEMMs: label -> (form, a's shape, b's shape, tiles for the
+# K split); at B=256 (50,432 rows) every block walks two tiles or more, each
+# of more K stages than the ring holds
+BWD_GEMMS = {
+    "dWqkv B=8": ("tn", (1576, 1152), (1576, 384), 27),
+    "dW1 B=8": ("tn", (1576, 1536), (1576, 384), 36),
+    "dW2 B=3 N=50": ("tn", (150, 384), (150, 1536), 36),
+    "dWqkv B=256": ("tn", (50432, 1152), (50432, 384), 27),
+    "dO B=8": ("nn", (1576, 384), (384, 384), 0),
+    "dh B=8": ("nn_f32", (1576, 1152), (1152, 384), 0),
+    "dh1 B=256": ("nn_f32", (50432, 1536), (1536, 384), 0),
+}
+
+
+@pytest.mark.parametrize("label", sorted(BWD_GEMMS))
+def test_gemm_mn_equals_gemm_bwd_and_holds_its_plain_version(dev, label):
+    """The MN-major forms of the wgmma core (K5's and K7's products)
+    against gemm_bwd.cuh's WMMA GEMMs on the same bf16 inputs: equal bit
+    for bit (column sums included), within rel 2e-2 of the plain fp32
+    version; one launch each."""
+    form, sa, sb, tiles = BWD_GEMMS[label]
+    g = torch.Generator().manual_seed(6)
+    a = _rnd(g, *sa).bfloat16().to(dev)
+    b = _rnd(g, *sb, std=sb[0] ** -0.5).bfloat16().to(dev)
+    S, kc = (fused_attn.launch.k_split(sa[0], tiles, 32) if form == "tn"
+             else (1, 0))
+    ops.reset_launch_counts()
+    got = gemm.gemm_mn(a, b, form, S, kc)
+    ref = gemm.gemm_bwd(a, b, form, S, kc)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "gemm_mn": 1, "gemm_bwd": 1}
+    plain = gemm.gemm_bwd_plain(a, b, form)
+    if form != "tn":
+        got, ref, plain = (got,), (ref,), (plain,)
+    assert all(torch.equal(x, y) for x, y in zip(got, ref))
+    assert all(_rel(x, y) < REL for x, y in zip(got, plain))

@@ -298,6 +298,8 @@ def test_cpu_tensors_never_count_a_launch(blk, fusion_case):
     attn_variants.staged_bwd(x, *a[:6], 4, 32 ** -0.5, cb=2)
     gemm.gemm_sm90(x[0], torch.randn(128, 128), torch.zeros(128))
     gemm.gemm_ln(x[0], torch.randn(128, 128), torch.zeros(128))
+    gemm.gemm_mn(x[0], torch.randn(128, 128), "nn")
+    gemm.gemm_bwd(x[0], torch.randn(N, 128), "tn", 1, 32)
     assert ops.launch_counts() == {
         "fused_attention_block": 0, "fused_attention_block_large": 0,
         "fused_mlp_block": 0,
@@ -307,4 +309,5 @@ def test_cpu_tensors_never_count_a_launch(blk, fusion_case):
         "mhsa_packed": 0, "mhsa": 0, "mhsa_packed_t": 0,
         "fused_transformer_block": 0, "mlp3d": 0, "mlp3d_staged": 0,
         "mlp_pipe": 0, "attn_staged": 0, "attn_pairs": 0, "attn_rolling": 0,
-        "staged_bwd": 0, "gemm_sm90": 0, "gemm_ln": 0}
+        "staged_bwd": 0, "gemm_sm90": 0, "gemm_ln": 0, "gemm_mn": 0,
+        "gemm_bwd": 0}
