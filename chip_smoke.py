@@ -186,6 +186,18 @@ Phases, in order; any failure raises and exits non-zero:
    and N=257, the first length past K1; K10 past 256 tokens
    (vit_small_ori@384: B=2, N=577, 6 heads) against its plain fp32
    version and on its branch bar, which the ``i8_controls`` must fail;
+   then K9 and K11 against the chains they ran before their redesign (the
+   check-only ``fused_attention_block_large_wmma``: gemm_ln's WMMA GEMMs
+   and attn_long.cuh's core; ``fused_mlp_block_i8_mma``: gemm_i8.cuh's
+   mma.sync GEMMs): K9 at vit_small@384 (B=2 and 64), vit_small_ori@512,
+   vit_base@384, head_dim 128 at N=300 and 577, N=257 and N=1025 at
+   head_dim 32; K11 at the shapes of phase 5, vit_small@384 (B=8), B=256
+   and vit_base at B=64 (D=768, its four launches), and at vit_small B=8
+   with fc1's weights scaled by 0.05 and by 1e-4 with b1 = 2 (the rows
+   whose GELU max the tail's first pass takes on every value, and near
+   ties): the outputs that
+   differ must be 0, each within rel 2e-2 of its plain fp32 version, one
+   launch of its own kernel a call;
 20. the serving slice at 384 px: 32 synthetic pairs, the checkpoint of
    phase 4 (saved at 224 px), ``infer.main`` with ``--img-size 384 --crop
    384`` at B=16; launch counts per forward K9 24, K2 22, K3 2, K4 1,
@@ -201,8 +213,13 @@ Phases, in order; any failure raises and exits non-zero:
    PyTorch) plus one forward per eval batch, the backbone changed; then
    three-step train parity with the plain path (B=8);
 23. times at 384 px: K9 and its plain version at vit_small@384 (B=64) and
-   vit_small_ori@512 (B=16), the serving pairs/s at B=64 (kernel path
-   against plain path), the FT step's images/s at B=32 and K9's backward
+   vit_small_ori@512 (B=16), K10 past 256 tokens (vit_small_ori@384), K2
+   and K11 at vit_small@384 (B=64) against their plain versions, the
+   launches of K9, K10 and K11 and of K9's and K11's former chains one by
+   one (``stage_times``: K9 at both its shapes, K11 at vit_small B=256 and
+   vit_base B=64, K10 at B=256 and at 577 tokens), the serving pairs/s at
+   B=64 (kernel path against plain path, int8 against bf16 and the
+   XLA-level W8A8 path), the FT step's images/s at B=32 and K9's backward
    (the fp32 recompute) at B=32.
 
 The last three lines are the end-to-end numbers, the kernel report (one
@@ -663,6 +680,108 @@ def check_long_kernels(dev) -> dict:
     if bad:
         raise AssertionError("; ".join(bad))
     return errs
+
+
+# K9 against its former chain: label, B, N, D, heads
+LONG_FORMER_SHAPES = (("vit_small@384", 2, 577, 384, 12),
+                      ("vit_small@384", 64, 577, 384, 12),
+                      ("vit_small_ori@512", 2, 1025, 384, 6),
+                      ("vit_base@384", 2, 577, 768, 12),
+                      ("head_dim 128", 2, 300, 384, 3),
+                      ("head_dim 128", 2, 577, 384, 3),
+                      ("N=257", 2, 257, 384, 12),
+                      ("N=1025, head_dim 32", 2, 1025, 384, 12))
+# K11 against its former chain: ``check_i8_kernels``' shapes, vit_small@384
+# and B=256 (the op's one-launch tail from I8T_TAIL_ROWS rows on, its four
+# launches below; both routes are also forced at every D = 384 shape),
+# vit_base (D=768: the four launches on the int8 wgmma core) at B=2 and
+# B=64; then two inputs for the tail's first
+# pass, which takes the GELU only of the values that can set a row's max
+# (gemm_i8_sm90.cuh): fc1's weights scaled by 0.05 (a row's max below 0.5:
+# every value taken) and by 1e-4 with b1 = 2 (near ties: many values within
+# 1e-4 of the max). label, B, N, D, W1's scale, b1's value (None: as drawn)
+I8_FORMER_SHAPES = (("vit_small", 8, 197, 384, 1.0, None),
+                    ("vit_small", 32, 197, 384, 1.0, None),
+                    ("vit_base", 2, 197, 768, 1.0, None),
+                    ("N=50", 8, 50, 384, 1.0, None),
+                    ("vit_small@384", 8, 577, 384, 1.0, None),
+                    ("vit_small", 256, 197, 384, 1.0, None),
+                    ("vit_base", 64, 197, 768, 1.0, None),
+                    ("small fc1", 8, 197, 384, 0.05, None),
+                    ("near ties", 8, 197, 384, 1e-4, 2.0))
+
+
+def check_long_former(dev) -> dict:
+    """K9 at LONG_FORMER_SHAPES and K11 at I8_FORMER_SHAPES against the
+    chains they ran before (the check-only ``fused_attention_block_large_
+    wmma`` and ``fused_mlp_block_i8_mma``): every rounding point and sum
+    order kept, so the count of outputs that differ must be 0; each within
+    REL_BAR of its plain fp32 version; one call launches its own kernel
+    once and no other. K11 also on each route forced (the check-only
+    ``fused_mlp_block_i8_route``, which counts no launch) at the tail's
+    widths. Every reading is printed before a failure raises.
+    Returns "K9 <label> B=<B> N=<N>" / "K11 ..." -> outputs that
+    differ."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.ops import fused_attn as fa
+    from mfvit_tpu_torch.ops import fused_int8 as fi8
+    cases = []
+    for label, B, N, D, heads in LONG_FORMER_SHAPES:
+        t = block_inputs(torch.Generator().manual_seed(18), B, D, dev, N=N)
+        a = [t[k] for k in ATTN]
+        scale = (D // heads) ** -0.5
+        cases.append((f"K9 {label} B={B} N={N}", "fused_attention_block_large",
+                      (B, N, D, heads),
+                      lambda a=a, h=heads, s=scale:
+                          fa.fused_attention_block_large(*a, h, s),
+                      lambda a=a, h=heads, s=scale:
+                          fa.fused_attention_block_large_wmma(*a, h, s),
+                      lambda a=a, h=heads, s=scale:
+                          fa.fused_attention_block_plain(
+                              *[v.float() for v in a], h, s)))
+    for label, B, N, D, w1_scale, b1 in I8_FORMER_SHAPES:
+        t = block_inputs(torch.Generator().manual_seed(19), B, D, dev, N=N)
+        t["w1"] = t["w1"] * w1_scale
+        if b1 is not None:
+            t["b1"] = torch.full_like(t["b1"], b1)
+        m = i8_args(t, 12)["fused_mlp_block_i8"]
+        x = t["x"]
+        former = lambda x=x, m=m: fi8.fused_mlp_block_i8_mma(x, *m)
+        plain32 = lambda x=x, m=m: fi8.fused_mlp_block_i8(
+            x.float(), *m, plain=True)
+        cases.append((f"K11 {label} B={B} N={N}", "fused_mlp_block_i8",
+                      (B, N, D, 12),
+                      lambda x=x, m=m: fi8.fused_mlp_block_i8(x, *m),
+                      former, plain32))
+        # both routes forced where the tail takes the width, whichever the
+        # op takes at this M
+        for tail in ((True, False) if D in fi8.I8T_WIDTHS else ()):
+            cases.append((f"K11 {label} B={B} N={N}, "
+                          f"{'tail' if tail else 'four launches'} forced",
+                          None, (B, N, D, 12),
+                          lambda x=x, m=m, tl=tail:
+                              fi8.fused_mlp_block_i8_route(x, *m, tl),
+                          former, plain32))
+    out, bad = {}, []
+    for where, name, (B, N, D, heads), kern, former, plain32 in cases:
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            got = kern()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            n_diff = (got != former()).sum().item()
+            r = rel(got, plain32())
+        print(f"{where} (N={N}, D={D}, {heads} heads): {n_diff} of "
+              f"{got.numel()} outputs differ from its former chain; rel vs "
+              f"plain fp32 {r:.3e} (bar {REL_BAR}); launches {counts}")
+        if n_diff or not (math.isfinite(r) and r < REL_BAR) \
+                or counts != ({name: 1} if name else {}):
+            bad.append(f"{where}: {n_diff} outputs differ, rel {r}, "
+                       f"launches {counts}")
+        out[where] = n_diff
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
 
 
 def hold_i8_path(models, batch, dev) -> None:
@@ -1240,33 +1359,66 @@ def time_kernels(dev) -> dict:
 # K9's timed shapes: vit_small@384 at B=64, vit_small_ori@512 at B=16
 K9_TIMED = (("vit_small@384", 64, 577, 384, 12),
             ("vit_small_ori@512", 16, 1025, 384, 6))
+# the other halves timed at 384 px: K10 past 256 tokens where it runs
+# (vit_small_ori@384, 6 heads), K2 and K11 at vit_small@384; all B=64
+LONG_TIMED = (("fused_attention_block_i8", "vit_small_ori@384", 64, 577, 384,
+               6),
+              ("fused_mlp_block", "vit_small@384", 64, 577, 384, 12),
+              ("fused_mlp_block_i8", "vit_small@384", 64, 577, 384, 12))
+
+
+# the launches timed one by one (``compare_block.stage_times``): K9 and its
+# former chain at K9_TIMED, K11 and its former chain at vit_small B=256 and
+# vit_base B=64 (its four launches on the wgmma core), K10 at both its
+# sequence lengths; op, label, B, N, D, heads
+STAGE_TIMED = tuple(
+    [(op, label, B, N, D, h) for op in ("k9", "k9_wmma")
+     for label, B, N, D, h in K9_TIMED]
+    + [(op, label, B, 197, D, 12) for op in ("k11", "k11_mma")
+       for label, B, D in (("vit_small", 256, 384), ("vit_base", 64, 768))]
+    + [("k10", "vit_small", 256, 197, 384, 12),
+       ("k10", "vit_small_ori@384", 64, 577, 384, 6)])
 
 
 def time_long_kernels(dev) -> dict:
-    """K9 and its plain version (bf16) at ``K9_TIMED``, kernel, plain,
-    plain, kernel; K9 first held against its plain fp32 version on the
-    timed inputs. label -> (kernel ms, plain ms)."""
+    """K9 and its plain version (bf16) at ``K9_TIMED``, then K10, K2 and
+    K11 at ``LONG_TIMED``, kernel, plain, plain, kernel; each kernel first
+    held against its plain fp32 version on the timed inputs. "<name> at
+    <label>" -> (kernel ms, plain ms)."""
     from mfvit_tpu_torch.ops import fused_attn as fa
+    from mfvit_tpu_torch.ops import fused_mlp as fm
     times = {}
-    for label, B, N, D, heads in K9_TIMED:
+    shapes = [("fused_attention_block_large", *k) for k in K9_TIMED]
+    for name, label, B, N, D, heads in shapes + list(LONG_TIMED):
         t = block_inputs(torch.Generator().manual_seed(13), B, D, dev, N=N)
-        a = [t[k] for k in ATTN]
-        scale = (D // heads) ** -0.5
+        x, scale = t["x"], (D // heads) ** -0.5
+        if name.endswith("_i8"):
+            op, a = i8_ops()[name], i8_args(t, heads)[name]
+            kern = functools.partial(op, x, *a)
+            plain = functools.partial(op, x, *a, plain=True)
+            plain32 = functools.partial(op, x.float(), *a, plain=True)
+        else:
+            a = [t[k] for k in (ATTN if name == "fused_attention_block_large"
+                                else MLP)]
+            op, ref = {"fused_attention_block_large": (
+                           fa.fused_attention_block_large,
+                           fa.fused_attention_block_plain),
+                       "fused_mlp_block": (fm.fused_mlp_block,
+                                           fm.fused_mlp_block_plain)}[name]
+            extra = (heads, scale) if name == "fused_attention_block_large" \
+                else ()
+            kern = functools.partial(op, *a, *extra)
+            plain = functools.partial(ref, *a, *extra)
+            plain32 = functools.partial(ref, *[v.float() for v in a], *extra)
         with torch.inference_mode():
-            r = rel(fa.fused_attention_block_large(*a, heads, scale),
-                    fa.fused_attention_block_plain(*[v.float() for v in a],
-                                                   heads, scale))
+            r = rel(kern(), plain32())
             if not (math.isfinite(r) and r < REL_BAR):
-                raise AssertionError(f"K9 at {label} B={B}: rel {r}")
+                raise AssertionError(f"{name} at {label} B={B}: rel {r}")
             k1, p1, p2, k2 = (cuda_ms(f, n) for f, n in (
-                (lambda: fa.fused_attention_block_large(*a, heads, scale), 10),
-                (lambda: fa.fused_attention_block_plain(*a, heads, scale), 3),
-                (lambda: fa.fused_attention_block_plain(*a, heads, scale), 3),
-                (lambda: fa.fused_attention_block_large(*a, heads, scale), 10)))
-        times[label] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"fused_attention_block_large at {label} B={B}: rel vs plain "
-              f"fp32 {r:.3e}; kernel {k1:.3f}/{k2:.3f} ms, plain "
-              f"{p1:.3f}/{p2:.3f} ms (bf16)")
+                (kern, 10), (plain, 3), (plain, 3), (kern, 10)))
+        times[f"{name} at {label}"] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"{name} at {label} B={B}: rel vs plain fp32 {r:.3e}; kernel "
+              f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms (bf16)")
     return times
 
 
@@ -3003,6 +3155,9 @@ def main() -> int:
 
     phase("long-sequence kernels K9 and K10 against their plain versions")
     errs.update(check_long_kernels(dev))
+    phase("K9 and K11 against the chains they ran before (K9 at N=257-1025, "
+          "head_dim 32/64/128; K11 at B=2-256, D=384 and 768, 224 and 384 px)")
+    long_former = check_long_former(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         phase("the serving slice at 384 px through mfvit_tpu_torch.cli.infer "
@@ -3020,19 +3175,29 @@ def main() -> int:
     phase("train-step parity at 384 px, kernel path against plain path (B=8)")
     train_parity(dev, B=8, img=384)
 
-    phase("times at 384 px (K9 at B=64 and B=16, serving B=64, FT B=32)")
+    phase("times at 384 px (K9 at B=64 and B=16, K10, K2 and K11 at B=64, "
+          "the launches of K9, K10 and K11 and of their former chains, "
+          "serving B=64, FT B=32)")
     long_times = time_long_kernels(dev)
-    times["fused_attention_block_large"] = long_times["vit_small@384"]
-    e2e_384 = time_e2e(dev, B=64, img=384, int8=False)
+    times["fused_attention_block_large"] = long_times[
+        "fused_attention_block_large at vit_small@384"]
+    long_stages = {f"{op} {label} B={B}": stage_times(dev, op, B=B, D=D, N=N,
+                                                      heads=h)
+                   for op, label, B, N, D, h in STAGE_TIMED}
+    e2e_384 = time_e2e(dev, B=64, img=384)
     train_384 = time_train(dev, 32, 4, img=384)
     k9_bwd_384 = time_k9_backward(dev, 32)
     phase("done")
 
     bounds = kernel_bounds(256, 197, 384, 12, 1536, 3)
     base_bounds = kernel_bounds(64, 197, 768, 12, 3072, 3)
-    long_bounds = {label: kernel_bounds(B, N, D, heads, 4 * D, 3)[
-        "fused_attention_block_large"] for label, B, N, D, heads in K9_TIMED}
-    bounds["fused_attention_block_large"] = long_bounds["vit_small@384"]
+    long_bounds = {f"{name} at {label}": kernel_bounds(B, N, D, heads, 4 * D,
+                                                       3)[name]
+                   for name, label, B, N, D, heads in (
+                       [("fused_attention_block_large", *k) for k in K9_TIMED]
+                       + list(LONG_TIMED))}
+    bounds["fused_attention_block_large"] = long_bounds[
+        "fused_attention_block_large at vit_small@384"]
     bounds.update({k: mhsa_bound(256, 197, 384, 12) for k in MHSA})
     bounds.update({name: bounds[base] for name, _, _, base in VARIANTS})
     bound_577 = mhsa_bound(64, 577, 384, 12)
@@ -3092,12 +3257,13 @@ def main() -> int:
                           for tool, res in variant_lines.items()},
                       "fusion_step_pairs_per_sec_B32": fusion_cli,
                       "fusion_step_pairs_per_sec_B256": fusion_256,
-                      "k9": {f"{label} B={B}": {
-                          "ms": long_times[label][0],
-                          "plain_ms": long_times[label][1],
-                          "bound_ms": long_bounds[label][0],
-                          "bound_by": long_bounds[label][1]}
-                          for label, B, *_ in K9_TIMED},
+                      "long_B64_B16": {k: {
+                          "ms": v[0], "plain_ms": v[1],
+                          "bound_ms": long_bounds[k][0],
+                          "bound_by": long_bounds[k][1]}
+                          for k, v in long_times.items()},
+                      "k9_k10_k11_stages_ms": long_stages,
+                      "k9_k11_outputs_differ_from_former": long_former,
                       "card": smi}))
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

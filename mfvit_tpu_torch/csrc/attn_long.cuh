@@ -1,8 +1,10 @@
-// attn_long: the multi-head self-attention core for any sequence length,
-// between the qkv GEMM and the proj GEMM of K9
-// (mfvit_tpu/ops/fused_attn.py::fused_attention_block_large, Pallas
-// _kernel_qblocked :244; see fused_attn_large.cu) and of K10 past NMAX
-// keys (fused_int8.cu).
+// attn_long: the multi-head self-attention core for any sequence length
+// that K9 (mfvit_tpu/ops/fused_attn.py::fused_attention_block_large,
+// Pallas _kernel_qblocked :244) ran before its redesign
+// (attn_long_async.cu, which gives the same bits), between the qkv GEMM
+// and the proj GEMM. It stays as K10's core past NMAX keys (fused_int8.cu)
+// and in the chain fused_attn_large.cu keeps for the card's checks
+// (mfv_fused_attention_block_large_wmma).
 //
 // qkv (B, N, 3D) bf16 with columns [q | k | v] x head x dh -> o (B, N, D)
 // in OT: bf16 for K9, fp32 for K10, which quantizes the fp32 output per

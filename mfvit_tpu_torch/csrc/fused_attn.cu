@@ -21,8 +21,9 @@
 // Every rounding point and every fp32 sum order is those of the chain K1
 // ran before (LN statistics, gemm_ln.cuh's WMMA GEMMs and attn_core.cuh's
 // core), which mfv_fused_attention_block_wmma keeps for the card's checks
-// only: the two give the same bits. K9 and the schedule variants T1, T2 and
-// T4 still run that chain's attn_block.
+// only: the two give the same bits. K9's former chain
+// (fused_attn_large.cu) and the schedule variants T1, T2 and T4 still run
+// that chain's attn_block.
 #include "attn_async.cuh"
 #include "attn_core.cuh"
 #include "block_tail.cuh"

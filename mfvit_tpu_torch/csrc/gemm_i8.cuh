@@ -19,13 +19,14 @@
 // int8 code.
 //
 // What bounds it on an H100: at ViT-S/16 B=256 (M = 50,432) the int8 GEMMs
-// are bound by operations (1,979 TOP/s dense int8 against 3.35 TB/s). This
-// first version stages 128 x 128 tiles through registers and shared memory
-// with mma.sync (no wgmma/TMA), and the fp32 intermediates of each half
-// (K10's fp32 attention output, K11's fp32 GELU(fc1) output) make one
-// round trip through device memory before their row quantization, because
-// the row absmax spans many column tiles. Keeping them on chip is later
-// work.
+// are bound by operations (1,979 TOP/s dense int8 against 3.35 TB/s).
+// gemm_i8 stages 128 x 128 tiles through registers and shared memory with
+// mma.sync (no wgmma/TMA), and K10's fp32 attention output makes one round
+// trip through device memory before its row quantization, because the row
+// absmax spans many column tiles. K10 runs these pieces; K11 runs
+// gemm_i8_sm90.cuh's int8 wgmma core with quant_row and the epilogue
+// functions below, and its former chain (these GEMMs, an fp32 h1 in device
+// memory) stays for the card's checks.
 #pragma once
 
 #include "common.cuh"
@@ -60,25 +61,37 @@ __device__ __forceinline__ uint32_t pack_s8x4(const int* c) {
 
 constexpr int QROWS = 8;  // rows (warps) per block
 
-// q (M, K) int8 and scale (M) fp32 from the rows of `in` (M, K): with LN,
-// h = (x - mean) * rstd * g + b in fp32 (mfvit_tpu/ops/fused_int8.py:104-106),
-// else h = the row. The row is read again for each pass (it stays in L1).
-template <bool LN, typename T>
-__global__ void __launch_bounds__(QROWS * 32)
-    quant_rows_kernel(const T* __restrict__ in, const float* __restrict__ g,
-                      const float* __restrict__ bta, int8_t* __restrict__ q,
-                      float* __restrict__ scale, int M, int K) {
+// The absmax scale of a row's codes (amax / 127 as an IEEE division; 1 for
+// an all-zero row) and a value's code with it (IEEE division, rounded half
+// to even, clamped to +-127): _quant_rows :90.
+__device__ __forceinline__ float amax_scale(float amax) {
+  const float sc = __fdiv_rn(amax, 127.0f);
+  return sc == 0.f ? 1.f : sc;
+}
+__device__ __forceinline__ int quant_code(float h, float sc) {
+  return min(127, max(-127, __float2int_rn(__fdiv_rn(h, sc))));
+}
+
+// One row of K values quantized by one warp, lane l taking the 16-byte
+// vectors at l * V::N + 32 * V::N * i, each read by load(k, f) (V::N
+// values from column k) once a pass: with LN, h = (x - mean) * rstd * g +
+// b in fp32 (mfvit_tpu/ops/fused_int8.py:104-106; the statistics summed
+// lane by lane in ascending order, then warp_sum), else h = the row. Each
+// lane's codes go to put(k, codes) a vector at a time; returns the row's
+// scale. quant_rows_kernel reads the row from device memory (it stays in
+// L1), K11's tail (gemm_i8_sm90.cuh) from its x tile in shared memory:
+// the same function, so the same codes.
+template <bool LN, typename T, typename Load, typename Put>
+__device__ __forceinline__ float quant_row(Load load, const float* __restrict__ g,
+                                           const float* __restrict__ bta, int K, int lane,
+                                           Put put) {
   using V = RowVec<T>;
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * QROWS + (threadIdx.x >> 5);
-  if (r >= M) return;
-  const T* row = in + (size_t)r * K;
   float mean = 0.f, rstd = 1.f;
   if (LN) {
     float s = 0.f;
     for (int k = lane * V::N; k < K; k += 32 * V::N) {
       float f[V::N];
-      V::load(row + k, f);
+      load(k, f);
 #pragma unroll
       for (int j = 0; j < V::N; ++j) s += f[j];
     }
@@ -86,7 +99,7 @@ __global__ void __launch_bounds__(QROWS * 32)
     float v = 0.f;
     for (int k = lane * V::N; k < K; k += 32 * V::N) {
       float f[V::N];
-      V::load(row + k, f);
+      load(k, f);
 #pragma unroll
       for (int j = 0; j < V::N; ++j) {
         const float d = f[j] - mean;
@@ -101,26 +114,41 @@ __global__ void __launch_bounds__(QROWS * 32)
   float amax = 0.f;
   for (int k = lane * V::N; k < K; k += 32 * V::N) {
     float f[V::N];
-    V::load(row + k, f);
+    load(k, f);
 #pragma unroll
     for (int j = 0; j < V::N; ++j) amax = fmaxf(amax, fabsf(h(f[j], k + j)));
   }
-  amax = warp_max(amax);
-  float sc = __fdiv_rn(amax, 127.0f);
-  if (sc == 0.f) sc = 1.f;
+  const float sc = amax_scale(warp_max(amax));
   for (int k = lane * V::N; k < K; k += 32 * V::N) {
     float f[V::N];
-    V::load(row + k, f);
+    load(k, f);
     int c[V::N];
 #pragma unroll
-    for (int j = 0; j < V::N; ++j)
-      c[j] = min(127, max(-127, __float2int_rn(__fdiv_rn(h(f[j], k + j), sc))));
+    for (int j = 0; j < V::N; ++j) c[j] = quant_code(h(f[j], k + j), sc);
+    put(k, static_cast<const int*>(c));
+  }
+  return sc;
+}
+
+// q (M, K) int8 and scale (M) fp32 from the rows of `in` (M, K), one warp a
+// row (quant_row).
+template <bool LN, typename T>
+__global__ void __launch_bounds__(QROWS * 32)
+    quant_rows_kernel(const T* __restrict__ in, const float* __restrict__ g,
+                      const float* __restrict__ bta, int8_t* __restrict__ q,
+                      float* __restrict__ scale, int M, int K) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * QROWS + (threadIdx.x >> 5);
+  if (r >= M) return;
+  const T* row = in + (size_t)r * K;
+  const float sc = quant_row<LN, T>([&](int k, float* f) { RowVec<T>::load(row + k, f); }, g, bta,
+                                    K, lane, [&](int k, const int* c) {
     int8_t* dst = q + (size_t)r * K + k;
-    if constexpr (V::N == 8)
+    if constexpr (RowVec<T>::N == 8)
       *reinterpret_cast<uint2*>(dst) = make_uint2(pack_s8x4(c), pack_s8x4(c + 4));
     else
       *reinterpret_cast<uint32_t*>(dst) = pack_s8x4(c);
-  }
+  });
   if (lane == 0) scale[r] = sc;
 }
 
@@ -177,18 +205,25 @@ __device__ __forceinline__ float gelu_i8(float h) {
                    __fadd_rn(1.0f, erff(__fmul_rn(h, 0.7071067811865476f))));
 }
 
+// One output from its int32 sum s, the row's scale rs and the column's
+// weight scale ws and bias, in the TPU kernel's order; I8_RESID's value
+// before the residual, which resid_i8 adds (x + bf16(v)). K11's tail and
+// the int8 wgmma core (gemm_i8_sm90.cuh) run these functions too.
+template <int EPI>
+__device__ __forceinline__ float epi_value(int s, float rs, float ws, float bias) {
+  float v = __int2float_rn(s);
+  v = EPI == I8_QKV ? __fmul_rn(__fmul_rn(v, ws), rs) : __fmul_rn(__fmul_rn(v, rs), ws);
+  v = __fadd_rn(v, bias);
+  return EPI == I8_GELU_F32 ? gelu_i8(v) : v;
+}
+__device__ __forceinline__ float resid_i8(float x, float v) { return __fadd_rn(x, round_bf16(v)); }
+
 // Two adjacent outputs (r, c) and (r, c + 1) from their int32 sums.
 template <int EPI>
 __device__ __forceinline__ void epi_i8(const GemmI8Args& p, int r, int c, int s0, int s1) {
   const float rs = p.a_s[r];
-  float v[2] = {__int2float_rn(s0), __int2float_rn(s1)};
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    const float ws = p.w_s[c + t];
-    v[t] = EPI == I8_QKV ? __fmul_rn(__fmul_rn(v[t], ws), rs) : __fmul_rn(__fmul_rn(v[t], rs), ws);
-    v[t] = __fadd_rn(v[t], p.bias[c + t]);
-    if (EPI == I8_GELU_F32) v[t] = gelu_i8(v[t]);
-  }
+  const float v[2] = {epi_value<EPI>(s0, rs, p.w_s[c], p.bias[c]),
+                      epi_value<EPI>(s1, rs, p.w_s[c + 1], p.bias[c + 1])};
   const size_t off = (size_t)r * p.N + c;
   if (EPI == I8_GELU_F32) {
     *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) = make_float2(v[0], v[1]);
@@ -197,7 +232,7 @@ __device__ __forceinline__ void epi_i8(const GemmI8Args& p, int r, int c, int s0
   } else {
     const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.resid + off));
     *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.out) + off) =
-        pack_bf16x2(__fadd_rn(x.x, round_bf16(v[0])), __fadd_rn(x.y, round_bf16(v[1])));
+        pack_bf16x2(resid_i8(x.x, v[0]), resid_i8(x.y, v[1]));
   }
 }
 

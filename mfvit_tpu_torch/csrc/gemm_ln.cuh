@@ -1,6 +1,7 @@
 // gemm_ln: bf16 GEMM with fp32 accumulation on the tensor cores (WMMA
 // 16x16x16), an optional LayerNorm prologue on the A rows and fused
-// epilogues. It carries the GEMMs of K9 (fused_attn_large.cu) and of the
+// epilogues. It carries the GEMMs of the chain K9 ran before (kept for the
+// card's checks in fused_attn_large.cu) and of the
 // schedule variants T1, T2 and T4 (attn_block below: LN+qkv,
 // proj+residual), T6 and T7 (mlp_tail.cuh), and those of the chains K1, K2,
 // K3 and K4 ran before their redesign, which fused_attn.cu, fused_mlp.cu

@@ -32,7 +32,9 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 SIGNATURES = {
     "mfv_fused_attention_block": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
     "mfv_fused_attention_block_wmma": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
-    "mfv_fused_attention_block_large": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
+    "mfv_fused_attention_block_large": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+    "mfv_fused_attention_block_large_wmma": [_P] * 11 + [_I, _I, _I, _I, _F,
+                                                         _P],
     "mfv_fused_mlp_block": [_P] * 10 + [_I] * 4 + [_P],
     "mfv_fused_mlp_block_final_ln": [_P] * 13 + [_I] * 4 + [_P],
     "mfv_fused_mlp_block_final_ln_wmma": [_P] * 13 + [_I, _I, _I, _P],
@@ -50,6 +52,8 @@ SIGNATURES = {
     "mfv_fused_mlp_block_bwd_wmma": [_P] * 20 + [_I] * 7 + [_P],
     "mfv_fused_attention_block_i8": [_P] * 14 + [_I] * 4 + [_F, _P],
     "mfv_fused_mlp_block_i8": [_P] * 14 + [_I] * 3 + [_P],
+    "mfv_fused_mlp_block_i8_route": [_P] * 14 + [_I] * 4 + [_P],
+    "mfv_fused_mlp_block_i8_mma": [_P] * 14 + [_I] * 3 + [_P],
     "mfv_mhsa_packed": [_P, _P] + [_I] * 6 + [_F, _P],
     "mfv_mhsa": [_P] * 4 + [_I] * 6 + [_F, _P],
     "mfv_mhsa_packed_t": [_P, _P] + [_I] * 6 + [_F, _P],

@@ -29,11 +29,19 @@ and its backward.
   checks only: no op calls it, and both give the same bits.
 - K9, ``fused_attention_block_large``, the same forward for any N,
   replaces ``fused_attention_block_large`` (Pallas ``_kernel_qblocked``
-  :244, ``pallas_call`` :343): csrc/fused_attn_large.cu, the WMMA GEMMs
-  of K1's former chain (``attn_block`` in csrc/gemm_ln.cuh) around the
-  long-sequence attention core csrc/attn_long.cuh, which streams the
-  keys through shared memory in tiles and takes the softmax in two passes.
-  Its backward is the JAX package's for K9, ``_bwd_xla_reference`` (:754),
+  :244, ``pallas_call`` :343): csrc/fused_attn_large.cu, K1's route (its
+  LN pass, and its qkv and proj GEMMs on the wgmma core) around the
+  long-sequence attention core csrc/attn_long_async.cu: persistent blocks,
+  a producer warp streaming each unit's q rows and key tiles (K for the
+  first pass over the keys, K and V for the second) into an mbarrier ring
+  by ``cp.async``, consumer warps that each hold a 16-row query tile of
+  the unit's head, ldmatrix fragments; ``_long_plan`` copies its sizes.
+  It takes D of 128, 256, 384, 512 or 768 and any N.
+  ``fused_attention_block_large_wmma`` runs the chain K9 ran before (the
+  LayerNorm row statistics, ``gemm_ln``'s WMMA GEMMs and csrc/
+  attn_long.cuh's core, which streams the keys through shared memory in
+  tiles staged by every warp) for the card's checks only: no op calls
+  it, and both give the same bits. Its backward is the JAX package's for K9, ``_bwd_xla_reference`` (:754),
   a full-fp32 recompute with no bf16 rounding and no Pallas kernel: here
   ``fused_attention_block_bwd_plain`` on fp32 copies of its inputs, plain
   PyTorch on both devices (its large products are ``torch.matmul``).
@@ -200,19 +208,56 @@ def _bwd_plan(N: int, dh: int) -> BwdPlan:
 # the widths K1's LayerNorm pass takes (csrc/block_tail.cuh's ln1_takes)
 K1_WIDTHS = (128, 256, 384, 512, 768)
 
+# csrc/attn_long_async.cuh's constants (K9's long-sequence core): keys (and
+# query rows) a ring stage, consumer warps a block, ring stages; the blocks
+# an SM by head_dim (attn_long_async.cu's LongAsync::BLOCKS)
+LONG_KEYS, LONG_W, LONG_STAGES = 64, 8, 8
+LONG_BLOCKS = {32: 2, 64: 2, 128: 1}
+
+
+class LongPlan(NamedTuple):
+    """A launch of K9's long-sequence core at N tokens: ``stages`` ring
+    stages of ``stage_bytes`` each (LONG_KEYS rows of pitch dh + 8 in
+    bf16: a unit's q rows, a K tile or a V tile), ``warps`` consumer warps
+    beside the producer warp (one 16-row query tile each), ``blocks``
+    blocks an SM, ``smem`` bytes of shared memory a block (the ring and
+    its full and empty mbarriers), ``units`` units of ``warps`` query
+    tiles for each (image, head), ``key_tiles`` key tiles of LONG_KEYS."""
+    stages: int
+    stage_bytes: int
+    warps: int
+    blocks: int
+    smem: int
+    units: int
+    key_tiles: int
+
+
+def _long_plan(N: int, dh: int) -> LongPlan:
+    """The long core's plan at N tokens and head_dim dh; the C side
+    computes the same from its constants and the launch's N."""
+    if dh not in LONG_BLOCKS or N < 1:
+        raise ValueError(f"the K9 kernels take head_dim 32/64/128 and N >= "
+                         f"1; got head_dim {dh}, N={N}")
+    stage = LONG_KEYS * (dh + 8) * 2
+    return LongPlan(LONG_STAGES, stage, LONG_W, LONG_BLOCKS[dh],
+                    LONG_STAGES * stage + 2 * LONG_STAGES * 8,
+                    -(-N // (16 * LONG_W)), -(-N // LONG_KEYS))
+
 
 def _forward_cuda(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads, scale,
                   large):
     """K1 (K9 if ``large``) on bf16 x; the weights are cast to bf16 here."""
     B, N, D = x.shape
-    _check(B, N, D, heads, "K9" if large else "K1",
-           None if large else 256)
-    if not large and D not in K1_WIDTHS:
-        raise ValueError(f"the K1 kernels take D of 128, 256, 384, 512 or "
-                         f"768; got D={D}")
+    what = "K9" if large else "K1"
+    _check(B, N, D, heads, what, None if large else 256)
+    if D not in K1_WIDTHS:
+        raise ValueError(f"the {what} kernels take D of 128, 256, 384, 512 "
+                         f"or 768; got D={D}")
+    if large:
+        _long_plan(N, D // heads)
     name = "fused_attention_block_large" if large else "fused_attention_block"
     out = _attn_chain(f"mfv_{name}", x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
-                      heads, scale, stats=large)
+                      heads, scale, stats=False)
     LAUNCHES[name] += 1
     return out
 
@@ -253,6 +298,20 @@ def fused_attention_block_wmma(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
     _check(B, N, D, heads, "K1")
     return _attn_chain("mfv_fused_attention_block_wmma", x, ln_s, ln_b, wqkv,
                        bqkv, wproj, bproj, heads, scale, stats=True)
+
+
+def fused_attention_block_large_wmma(x, ln_s, ln_b, wqkv, bqkv, wproj,
+                                     bproj, heads: int,
+                                     scale: float) -> torch.Tensor:
+    """The chain K9 ran before its redesign (csrc/fused_attn_large.cu's
+    ``mfv_fused_attention_block_large_wmma``: LN statistics, ``gemm_ln``'s
+    GEMMs, attn_long.cuh's core), forward only, on CUDA tensors: the
+    comparator the card's checks hold K9 against bit for bit. No op calls
+    it, and it counts no launch."""
+    B, N, D = x.shape
+    _check(B, N, D, heads, "K9", None)
+    return _attn_chain("mfv_fused_attention_block_large_wmma", x, ln_s, ln_b,
+                       wqkv, bqkv, wproj, bproj, heads, scale, stats=True)
 
 
 def bwd_cuda(g, x, ln_s, ln_b, wqkv, bqkv, wproj, heads: int, scale: float,

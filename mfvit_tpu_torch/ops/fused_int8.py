@@ -13,13 +13,29 @@ quantized per row (per token) with a dynamic absmax scale
 (``quant_rows``) inside the op. The attention math (scores, softmax, PV)
 stays bf16/fp32, the LayerNorms fp32 and the residual stream in x's dtype.
 
-On a CUDA tensor each op launches its kernels (csrc/fused_int8.cu over
-csrc/gemm_i8.cuh, and csrc/attn_core.cuh or, past 256 tokens,
-csrc/attn_long.cuh) on bf16 x or raises; on a CPU tensor (or with
-``plain=True``) it runs the plain version below, which rounds where the TPU
-kernels do and is the reference the kernels are held to on the card. The
-ops have no backward, as in JAX: an x that requires a gradient under grad
-mode raises.
+On a CUDA tensor each op launches its kernels (csrc/fused_int8.cu) on
+bf16 x or raises; on a CPU tensor (or with ``plain=True``) it runs the
+plain version below, which rounds where the TPU kernels do and is the
+reference the kernels are held to on the card. The ops have no backward,
+as in JAX: an x that requires a gradient under grad mode raises.
+
+- K10 runs five launches over csrc/gemm_i8.cuh (``mma.sync`` int8 GEMMs)
+  and csrc/attn_core.cuh or, past 256 tokens, csrc/attn_long.cuh.
+- K11 runs, at D of 128-384 and from ``I8T_TAIL_ROWS`` rows on, one
+  launch of csrc/gemm_i8_sm90.cuh's tail:
+  per 64-row tile, LN and the row quantization of x on chip, fc1 on the
+  int8 wgmma core twice (first each row's absmax of GELU(fc1), then its
+  int8 codes, a chunk of 128 hidden columns at a time), fc2 from those
+  codes in shared memory, the residual; no scratch in device memory.
+  ``_plan`` copies its ring's size. At wider D, and at fewer rows (a
+  wave of the tail takes a tile's latency), it runs four launches (LN +
+  quantize, fc1 + GELU into fp32 h1, quantize h1, fc2 + residual) with
+  both GEMMs on the int8 wgmma core. ``fused_mlp_block_i8_route`` forces
+  either route, for the card's checks and timings only;
+  ``fused_mlp_block_i8_mma`` runs the
+  chain K11 ran before (the same four launches on gemm_i8.cuh's
+  ``mma.sync`` GEMMs) for the card's checks only: no op calls it, and
+  both give the same bits.
 
 Which attention half an int8 block runs decides its result, so the port
 takes the JAX package's route (``w8a8_attention``): K10 where it holds,
@@ -27,6 +43,8 @@ else ``fused_attention_block_dequant``, K9 on the dequantized weights
 (W8A16), as ``mfvit_tpu/nn/vit.py:351-382`` does on the chip.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -36,6 +54,59 @@ from mfvit_tpu_torch.ops.fused_attn import (_check, attn_core_plain,
                                             fused_attention_block_large)
 
 LAUNCHES = {"fused_attention_block_i8": 0, "fused_mlp_block_i8": 0}
+
+# csrc/gemm_i8_sm90.cuh's tail constants: rows a tile, hidden columns a
+# chunk, bytes of a ring stage (128 weight rows of a 128-byte K slice) and
+# of a 64-row swizzled K slice; the ring's depth where pass B needs fewer
+# (I8Tail<D>::STAGES); the rows from which K11 takes the tail; the widths
+# the tail takes (fc2's accumulators, D / 4 a thread, live in registers);
+# and the shared memory a block can take on an H100
+I8T_ROWS, I8T_HC, I8T_STAGE, TILE64 = 64, 128, 16384, 8192
+I8T_STAGES_PREF = 6
+I8T_TAIL_ROWS = 16896
+I8T_WIDTHS = (128, 256, 384)
+SMEM_MAX = 232448
+
+
+class Plan(NamedTuple):
+    """A launch of K11: ``route`` "tail" (one launch, ``stages`` weight
+    stages in its ring, ``smem`` bytes of shared memory a block) or "gemm"
+    (four launches on the int8 wgmma core: no ring of its own, so 0 and
+    0)."""
+    route: str
+    stages: int
+    smem: int
+
+
+def _smem(D: int, stages: int) -> int:
+    """gemm_i8_sm90.cuh's I8Tail<D>::SMEM: the ring, two A tiles of int8
+    codes of LN(x) (each D / 128 K slices of 64 rows), one hidden chunk's
+    codes (one slice), the A tiles' row scales and two warpgroups' h1 row
+    absmax (4 x 64 fp32), the barriers (two a stage, two an A tile), and
+    1024 bytes to align the swizzled tiles."""
+    return (stages * I8T_STAGE + 2 * (D // 128) * TILE64 + TILE64
+            + 4 * I8T_ROWS * 4 + (2 * stages + 4) * 8 + 1024)
+
+
+def _stages_min(D: int) -> int:
+    """I8Tail<D>::STAGES_MIN: pass B holds a chunk's fc1 stages (D / 128)
+    and the last chunk's fc2 stages (D / 128) at once."""
+    return 2 * (D // 128)
+
+
+def _plan(D: int, Hd: int, M: int) -> Plan:
+    """K11's plan at width D, hidden Hd (both % 128 == 0) and M token rows,
+    the route csrc/fused_int8.cu takes: at a tail width from I8T_TAIL_ROWS
+    rows on, the tail with I8Tail<D>::STAGES ring stages (I8T_STAGES_PREF,
+    or the ``_stages_min`` pass B needs if that is more); else the four
+    launches."""
+    if D <= 0 or Hd <= 0 or D % 128 or Hd % I8T_HC:
+        raise ValueError(f"the K11 kernels take D % 128 == 0 and hidden % "
+                         f"{I8T_HC} == 0; got D={D}, hidden={Hd}")
+    stages = max(I8T_STAGES_PREF, _stages_min(D))
+    if D in I8T_WIDTHS and M >= I8T_TAIL_ROWS:
+        return Plan("tail", stages, _smem(D, stages))
+    return Plan("gemm", 0, 0)
 
 
 def w8a8_attention(N: int, D: int, heads: int) -> bool:
@@ -159,28 +230,63 @@ def _attn_cuda(x, ln_s, ln_b, wqkvq, wqkvs, bqkv, wprojq, wprojs, bproj,
     return out
 
 
-def _mlp_cuda(x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2):
+def _mlp_chain(entry, tail, x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2,
+               *flag):
+    """K11 through its C entry ``entry`` (``flag``: the route entry's),
+    with the four launches' scratch unless ``tail(M, D, Hd)`` says the
+    entry takes the tail, which needs none."""
     B, N, D = x.shape
     Hd = w1q.shape[0]
-    if D % 128 or Hd % 128:
-        raise ValueError(f"the K11 kernels take D % 128 == 0 and hidden % "
-                         f"128 == 0; got D={D}, hidden={Hd}")
     launch.require(x, torch.bfloat16, "x")
     launch.require(w1q, torch.int8, "w1q", (Hd, D))
     launch.require(w2q, torch.int8, "w2q", (D, Hd))
     M, dev = B * N, x.device
+    scratch = ([None] * 4 if tail(M, D, Hd) else [
+        torch.empty(M, D, dtype=torch.int8, device=dev),
+        torch.empty(M, Hd, dtype=torch.float32, device=dev),
+        torch.empty(M, Hd, dtype=torch.int8, device=dev),
+        torch.empty(M, dtype=torch.float32, device=dev)])
     out = torch.empty_like(x)
-    launch.call("mfv_fused_mlp_block_i8", dev, x,
+    launch.call(entry, dev, x,
                 launch.vec(ln_s, D, "ln_s"), launch.vec(ln_b, D, "ln_b"),
                 w1q, launch.vec(w1s, Hd, "w1s"), launch.vec(b1, Hd, "b1"),
                 w2q, launch.vec(w2s, D, "w2s"), launch.vec(b2, D, "b2"),
-                torch.empty(M, D, dtype=torch.int8, device=dev),
-                torch.empty(M, Hd, dtype=torch.float32, device=dev),
-                torch.empty(M, Hd, dtype=torch.int8, device=dev),
-                torch.empty(M, dtype=torch.float32, device=dev),
-                out, M, D, Hd)
+                *scratch, out, M, D, Hd, *flag)
+    return out
+
+
+def _mlp_cuda(x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2):
+    out = _mlp_chain("mfv_fused_mlp_block_i8",
+                     lambda M, D, Hd: _plan(D, Hd, M).route == "tail",
+                     x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2)
     LAUNCHES["fused_mlp_block_i8"] += 1
     return out
+
+
+def fused_mlp_block_i8_route(x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2,
+                             tail: bool):
+    """K11 on the route ``tail`` names (the tail, D of 128-384, or the four
+    launches on the int8 wgmma core) at any M, on CUDA tensors
+    (csrc/fused_int8.cu's ``mfv_fused_mlp_block_i8_route``): for the card's
+    checks of both routes and the timing that sets I8T_TAIL_ROWS. No op
+    calls it, and it counts no launch."""
+    D, Hd = x.shape[-1], w1q.shape[0]
+    _plan(D, Hd, 0)
+    if tail and D not in I8T_WIDTHS:
+        raise ValueError(f"K11's tail takes D in {I8T_WIDTHS}; got D={D}")
+    return _mlp_chain("mfv_fused_mlp_block_i8_route", lambda *_: tail, x,
+                      ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2, int(tail))
+
+
+def fused_mlp_block_i8_mma(x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2):
+    """The chain K11 ran before its redesign (csrc/fused_int8.cu's
+    ``mfv_fused_mlp_block_i8_mma``: LN + quantize, gemm_i8.cuh's
+    ``mma.sync`` fc1 + GELU into fp32 h1, quantize h1, fc2 + residual), on
+    CUDA tensors: the comparator the card's checks hold K11 against bit
+    for bit. No op calls it, and it counts no launch."""
+    _plan(x.shape[-1], w1q.shape[0], 0)
+    return _mlp_chain("mfv_fused_mlp_block_i8_mma", lambda *_: False, x,
+                      ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2)
 
 
 def fused_attention_block_i8(x, ln_s, ln_b, wqkvq, wqkvs, bqkv, wprojq,

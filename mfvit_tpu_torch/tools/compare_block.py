@@ -1,4 +1,4 @@
-"""Time K15, K1, K2, K3, K4, K5 and K7 of two checkouts of the repository
+"""Time K15, K1-K5, K7, K9, K10 and K11 of two checkouts of the repository
 on one card, in turns, and the end-to-end figures beside them:
 
     python -m mfvit_tpu_torch.tools.compare_block --other DIR [--out FILE]
@@ -14,11 +14,14 @@ K15, K1, K2, K3, K4, K5 and K7 one by one under ``torch.profiler``; K5 and
 K7 also at vit_base, B=64, as K6 and K8), its own ``chip_smoke.time_bwd``
 (K5 and K7 against their plain backward at vit_small B=256 and vit_base
 B=64),
-``bench_block``'s 12-block
+``long_times`` below (K9 at vit_small@384 B=64 and vit_small_ori@512 B=16,
+K11 at vit_small B=256, vit_base B=64 and vit_small@384 B=64, K2 there,
+K10 at vit_small B=256 and vit_small_ori@384 B=64) and the launches of
+each under ``stage_times``, ``bench_block``'s 12-block
 chains at B=512, the GEMM cores alone at B=256 where the checkout has
 ``ops.gemm`` (``chip_smoke.time_gemm``), then the serving pairs/s at B=256
-(``time_e2e``: bf16, int8 and the XLA-level W8A8 path) and at 384 px, B=64
-(bf16), the FT step's images/s at B=256 and B=16 (``time_train``) and the
+and at 384 px, B=64 (``time_e2e``: bf16, int8 and the XLA-level W8A8
+path), the FT step's images/s at B=256 and B=16 (``time_train``) and the
 fusion step's pairs/s at B=256 (``time_fusion``, LP and
 ``--semi-supervised``). Prints the card's name and power limit, one line a
 reading, and writes every reading to FILE as JSON. Needs a CUDA card.
@@ -35,16 +38,18 @@ from mfvit_tpu_torch.tools import turns
 
 
 def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
-                D: int = 384) -> dict:
+                D: int = 384, N: int = 197, heads: int = 12) -> dict:
     """The device ms of each kernel that one call of ``op`` launches at
-    batch B and width D (12 heads, hidden 4D; vit_small at D=384, vit_base
-    at 768; ``chip_smoke.block_inputs``, seed 16), under ``torch.profiler``
-    over ``iters`` calls: "k15" K15, "k1" K1, "k2" K2 and "k3" K3 (on the
-    block's x), "k4" K4 (the fusion head, 3 heads of 128, on
-    ``chip_smoke.fusion_inputs``, seed 16), "k5" K5 and "k7" K7 (the
-    backward halves, for a cotangent drawn with seed 17; K6 and K8 at
-    D=768); "k1_wmma", "k2_wmma", "k3_wmma", "k4_kv", "k5_wmma" and
-    "k7_wmma" the former designs, where the checkout has them. Kernel name
+    batch B, N tokens, width D and ``heads`` heads (hidden 4D; vit_small at
+    D=384, vit_base at 768; ``chip_smoke.block_inputs``, seed 16), under
+    ``torch.profiler`` over ``iters`` calls: "k15" K15, "k1" K1, "k2" K2,
+    "k3" K3 and "k9" K9 (on the block's x), "k10" K10 and "k11" K11 (on
+    the block's weights quantized per output channel), "k4" K4 (the fusion
+    head, 3 heads of 128, on ``chip_smoke.fusion_inputs``, seed 16), "k5"
+    K5 and "k7" K7 (the backward halves, for a cotangent drawn with seed
+    17; K6 and K8 at D=768); "k1_wmma", "k2_wmma", "k3_wmma", "k4_kv",
+    "k5_wmma", "k7_wmma", "k9_wmma" and "k11_mma" the former designs, where
+    the checkout has them. Kernel name
     (namespace and parameters dropped, template arguments kept, so that
     two instances of one template stay apart; the n-th launch of a name
     within one call as "name #n") -> its mean device ms, in launch order.
@@ -61,30 +66,45 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
     from mfvit_tpu_torch.ops import fused_attn as fa
     from mfvit_tpu_torch.ops import fused_block as fb
     from mfvit_tpu_torch.ops import fused_fusion as ff
+    from mfvit_tpu_torch.ops import fused_int8 as fi8
     from mfvit_tpu_torch.ops import fused_mlp as fm
-    t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B, D, dev)
+    t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B, D, dev,
+                                N=N)
     a = [t[k] for k in chip_smoke.K15_KEYS]
     fin = (t["fs"], t["fb"])
-    scale = (D // 12) ** -0.5
-    g = torch.randn(B, 197, D, generator=torch.Generator().manual_seed(17))
+    scale = (D // heads) ** -0.5
+    g = torch.randn(B, N, D, generator=torch.Generator().manual_seed(17))
     g = g.to(dev).bfloat16()
     tok = chip_smoke.fusion_inputs(torch.Generator().manual_seed(16), B, D,
                                    dev)
-    call = {"k15": lambda: fb.fused_transformer_block(*a, 12, scale),
-            "k1": lambda: fa.fused_attention_block(*a[:7], 12, scale),
+    i8 = chip_smoke.i8_args(t, heads) if op in ("k10", "k11",
+                                                "k11_mma") else {}
+    call = {"k15": lambda: fb.fused_transformer_block(*a, heads, scale),
+            "k1": lambda: fa.fused_attention_block(*a[:7], heads, scale),
+            "k9": lambda: fa.fused_attention_block_large(*a[:7], heads,
+                                                         scale),
+            "k9_wmma": lambda: fa.fused_attention_block_large_wmma(
+                *a[:7], heads, scale),
+            "k10": lambda: fi8.fused_attention_block_i8(
+                a[0], *i8["fused_attention_block_i8"]),
+            "k11": lambda: fi8.fused_mlp_block_i8(
+                a[0], *i8["fused_mlp_block_i8"]),
+            "k11_mma": lambda: fi8.fused_mlp_block_i8_mma(
+                a[0], *i8["fused_mlp_block_i8"]),
             "k2": lambda: fm.fused_mlp_block(a[0], *a[7:]),
             "k3": lambda: fm.fused_mlp_block_final_ln(a[0], *a[7:], *fin),
             "k4": lambda: ff.fused_fusion_cls(*tok, 3),
-            "k5": lambda: fa.fused_attention_block_bwd(g, *a[:6], 12, scale),
+            "k5": lambda: fa.fused_attention_block_bwd(g, *a[:6], heads,
+                                                       scale),
             "k7": lambda: fm.fused_mlp_block_bwd(g, a[0], *a[7:12]),
-            "k1_wmma": lambda: fa.fused_attention_block_wmma(*a[:7], 12,
+            "k1_wmma": lambda: fa.fused_attention_block_wmma(*a[:7], heads,
                                                              scale),
             "k2_wmma": lambda: fm.fused_mlp_block_wmma(a[0], *a[7:]),
             "k3_wmma": lambda: fm.fused_mlp_block_final_ln_wmma(
                 a[0], *a[7:], *fin),
             "k4_kv": lambda: ff.fused_fusion_cls_kv(*tok, 3),
             "k5_wmma": lambda: fa.fused_attention_block_bwd_wmma(
-                g, *a[:6], 12, scale),
+                g, *a[:6], heads, scale),
             "k7_wmma": lambda: fm.fused_mlp_block_bwd_wmma(g, a[0],
                                                            *a[7:12])}[op]
     with torch.inference_mode():
@@ -113,7 +133,8 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
         for n, v in zip(names, ms):
             runs.setdefault(n, []).append(v)
         out = {n: sum(v) / len(v) for n, v in runs.items()}
-    print(f"{op.upper()}'s launches at B={B}, D={D} (device ms per call, "
+    print(f"{op.upper()}'s launches at B={B}, N={N}, D={D} (device ms per "
+          "call, "
           "torch.profiler): " + ", ".join(f"{k} {v:.4f}"
                                           for k, v in out.items())
           + f"; sum {sum(out.values()):.4f}")
@@ -149,6 +170,53 @@ def half_times(dev, B: int = 256, iters: int = 20) -> dict:
     return out
 
 
+# the long-sequence and int8 halves ``long_times`` and ``stage_times``
+# take: op, label, B, N, D, heads
+LONG_SHAPES = (("k9", "vit_small@384", 64, 577, 384, 12),
+               ("k9", "vit_small_ori@512", 16, 1025, 384, 6),
+               ("k11", "vit_small", 256, 197, 384, 12),
+               ("k11", "vit_base", 64, 197, 768, 12),
+               ("k11", "vit_small@384", 64, 577, 384, 12),
+               ("k2", "vit_small@384", 64, 577, 384, 12),
+               ("k10", "vit_small", 256, 197, 384, 12),
+               ("k10", "vit_small_ori@384", 64, 577, 384, 6))
+
+
+def long_times(dev, iters: int = 20) -> dict:
+    """K9, K11, K2 and K10 at LONG_SHAPES (``chip_smoke.block_inputs``,
+    seed 16; K10 and K11 on the block's weights quantized per output
+    channel), each timed twice with CUDA events in turns (the shapes in
+    order, then in reverse): "<op> <label> B=<B>" -> [ms, ms]."""
+    import torch
+
+    import chip_smoke
+    from mfvit_tpu_torch.ops import fused_attn as fa
+    from mfvit_tpu_torch.ops import fused_int8 as fi8
+    from mfvit_tpu_torch.ops import fused_mlp as fm
+    calls = {}
+    for op, label, B, N, D, heads in LONG_SHAPES:
+        t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B, D,
+                                    dev, N=N)
+        a = [t[k] for k in chip_smoke.K15_KEYS]
+        i8 = chip_smoke.i8_args(t, heads)
+        scale = (D // heads) ** -0.5
+        calls[f"{op} {label} B={B}"] = {
+            "k9": lambda a=a, h=heads, s=scale:
+                fa.fused_attention_block_large(*a[:7], h, s),
+            "k11": lambda a=a, i8=i8: fi8.fused_mlp_block_i8(
+                a[0], *i8["fused_mlp_block_i8"]),
+            "k2": lambda a=a: fm.fused_mlp_block(a[0], *a[7:]),
+            "k10": lambda a=a, i8=i8: fi8.fused_attention_block_i8(
+                a[0], *i8["fused_attention_block_i8"])}[op]
+    out = {name: [] for name in calls}
+    with torch.inference_mode():
+        for name in (*calls, *reversed(calls)):
+            out[name].append(chip_smoke.cuda_ms(calls[name], iters))
+    print("K9, K11, K2 and K10: " + ", ".join(
+        f"{k} {'/'.join(f'{v:.4f}' for v in ms)} ms" for k, ms in out.items()))
+    return out
+
+
 CHILD = """
 import json, sys, torch
 sys.path.insert(0, ".")
@@ -164,6 +232,10 @@ out = {"block": chip_smoke.time_block(dev), "halves": half_times(dev),
                   for op in ("k15", "k1", "k2", "k3", "k4", "k5", "k7")},
        "stages_base": {op: stage_times(dev, op, B=64, D=768)
                        for op in ("k5", "k7")},
+       "stages_long": {f"{op} {label} B={B}": stage_times(
+           dev, op, B=B, N=N, D=D, heads=h)
+           for op, label, B, N, D, h in LONG_SHAPES},
+       "long": long_times(dev),
        "bwd": {"vit_small B=256": chip_smoke.time_bwd(dev, "vit_small", 256,
                                                       384),
                "vit_base B=64": chip_smoke.time_bwd(dev, "vit_base", 64,
@@ -174,14 +246,16 @@ if hasattr(chip_smoke, "time_gemm"):
 fusion = chip_smoke.time_fusion(dev, 256, 3)
 out["e2e"] = {"serving_pairs_per_sec_B256": chip_smoke.time_e2e(dev),
               "serving_pairs_per_sec_384_B64": chip_smoke.time_e2e(
-                  dev, B=64, img=384, int8=False),
+                  dev, B=64, img=384),
               "ft_images_per_sec_B256": chip_smoke.time_train(dev, 256, 4),
               "ft_images_per_sec_B16": chip_smoke.time_train(dev, 16, 32),
               "fusion_pairs_per_sec_B256": {
                   f"{mode} {k}": v for mode, rates in fusion.items()
                   for k, v in rates.items()}}
 print("RESULT " + json.dumps(out))
-""" % (inspect.getsource(stage_times), inspect.getsource(half_times))
+""" % (inspect.getsource(stage_times), inspect.getsource(half_times)
+       + "\nLONG_SHAPES = %r\n" % (LONG_SHAPES,)
+       + inspect.getsource(long_times))
 
 
 def main(argv=None) -> int:
@@ -211,6 +285,11 @@ def main(argv=None) -> int:
             print(f"{name} at {shape}: this " + "/".join(
                 f"{v:.4f}" for v in ms["this"]) + " ms, other " + "/".join(
                 f"{v:.4f}" for v in ms["other"]) + " ms")
+    for name in runs[0][1]["long"]:
+        ms = turns.by_checkout(runs, lambda r: r["long"][name])
+        print(f"{name}: this " + "/".join(
+            f"{v:.4f}" for t in ms["this"] for v in t) + " ms, other "
+            + "/".join(f"{v:.4f}" for t in ms["other"] for v in t) + " ms")
     for name in runs[0][1]["bench_block"]:
         ms = turns.by_checkout(runs, lambda r: r["bench_block"][name])
         print(f"bench_block {name}, 12 blocks at B=512: this " + "/".join(
@@ -222,7 +301,8 @@ def main(argv=None) -> int:
                 f"{k} {v:.4f}" for k, v in st.items()) + " ms"
             for op, st in (*r["stages"].items(),
                            *((f"{op} vit_base B=64", st)
-                             for op, st in r["stages_base"].items())))
+                             for op, st in r["stages_base"].items()),
+                           *r["stages_long"].items()))
             + "".join(f"; GEMM {k} wgmma {v[0]:.4f} ms ({v[2]:.1f} TFLOP/s), "
                       f"gemm_ln {v[1]:.4f} ms ({v[3]:.1f} TFLOP/s)"
                       for k, v in r.get("gemm", {}).items()))

@@ -1,5 +1,6 @@
 """Kernel-against-plain tests for K1-K5, K7, K9-K15, the schedule
-variants T1-T7 and the two GEMM cores (``ops.gemm``) on the card. They need CUDA, nvcc
+variants T1-T7 and the two GEMM cores (``ops.gemm``) on the card, and K9
+and K11 against the chains they ran before (bit for bit). They need CUDA, nvcc
 and an sm_90a GPU, so they carry the ``cuda`` marker and skip elsewhere;
 on the card run ``python -m pytest tests/test_torch_port_cuda.py``
 (``chip_smoke.py`` makes the same comparisons at serving shapes).
@@ -215,6 +216,56 @@ def test_k9_equals_k1_up_to_256_tokens(dev, B, N, D, H):
     a = [t[k] for k in ATTN]
     assert torch.equal(fused_attn.fused_attention_block_large(*a, H, scale),
                        fused_attn.fused_attention_block(*a, H, scale))
+
+
+@pytest.mark.parametrize("B,N,D,H", [(2, 577, 384, 12), (2, 1025, 384, 6),
+                                     (2, 577, 768, 12), (2, 300, 384, 3),
+                                     (2, 577, 384, 3), (2, 257, 384, 12),
+                                     (2, 1025, 384, 12)])
+def test_k9_equals_its_former_chain(dev, B, N, D, H):
+    """K9 (K1's LN pass and wgmma GEMMs around attn_long_async.cu's core)
+    against the chain it ran before (``fused_attention_block_large_wmma``:
+    gemm_ln's WMMA GEMMs around attn_long.cuh's core): every rounding point
+    and sum order kept, so the two agree bit for bit, at head_dim 32, 64
+    and 128 and N from 257 to 1025."""
+    t = _block(dev, B, N, D)
+    scale = (D // H) ** -0.5
+    a = [t[k] for k in ATTN]
+    assert torch.equal(fused_attn.fused_attention_block_large(*a, H, scale),
+                       fused_attn.fused_attention_block_large_wmma(*a, H,
+                                                                   scale))
+
+
+@pytest.mark.parametrize("B,N,D,w1_scale,b1", [
+    (8, 197, 384, 1.0, None), (3, 50, 384, 1.0, None),
+    (2, 577, 384, 1.0, None), (2, 197, 768, 1.0, None),
+    (2, 197, 128, 1.0, None), (2, 197, 512, 1.0, None),
+    (2, 197, 384, 0.05, None), (2, 197, 384, 1e-4, 2.0)])
+def test_k11_equals_its_former_chain(dev, B, N, D, w1_scale, b1):
+    """K11 (the one-launch int8 wgmma tail at D of 128-384 from
+    I8T_TAIL_ROWS rows on, four launches on the int8 wgmma core below them
+    and at 512 and 768) against the chain it ran before (``fused_mlp_block_i8_mma``:
+    gemm_i8.cuh's mma.sync GEMMs): exact int32 sums and the same epilogue
+    functions, so the two agree bit for bit; one launch counted a call.
+    Both routes are also forced (``fused_mlp_block_i8_route``) at the
+    tail's widths. The last two inputs drive the tail's first pass through
+    its other branches: rows whose max of fc1 lies below 0.5 and near ties
+    (b1 = 2, fc1 tiny)."""
+    t = _block(dev, B, N, D)
+    t["w1"] = t["w1"] * w1_scale
+    if b1 is not None:
+        t["b1"] = torch.full_like(t["b1"], b1)
+    _, mlp = _i8_args(t)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = fused_int8.fused_mlp_block_i8(*mlp)
+        former = fused_int8.fused_mlp_block_i8_mma(*mlp)
+        assert torch.equal(got, former)
+        assert ops.launch_counts()["fused_mlp_block_i8"] == 1
+        for tail in ((True, False) if D in fused_int8.I8T_WIDTHS else ()):
+            assert torch.equal(
+                fused_int8.fused_mlp_block_i8_route(*mlp, tail), former)
+    assert ops.launch_counts()["fused_mlp_block_i8"] == 1
 
 
 def test_k9_backward_on_the_card_is_the_fp32_recompute(dev):
