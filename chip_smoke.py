@@ -197,7 +197,14 @@ Phases, in order; any failure raises and exits non-zero:
    whose GELU max the tail's first pass takes on every value, and near
    ties): the outputs that
    differ must be 0, each within rel 2e-2 of its plain fp32 version, one
-   launch of its own kernel a call;
+   launch of its own kernel a call; then K10 against the chain it ran
+   before (the check-only ``fused_attention_block_i8_mma``: gemm_i8.cuh's
+   mma.sync GEMMs, attn_core.cuh's or attn_long.cuh's core) at vit_small
+   B=8, 32 and 256, vit_base B=2 and 64, N=50, 256 and 257,
+   vit_small_ori@384 B=2 and 64 and head_dim 128 (N=300), by the op and on
+   each of its two routes forced (``fused_attention_block_i8_route``): 0
+   outputs differ, rel < 2e-2 against the plain fp32 version, the branch
+   bar of phase 5, one launch of K10 a call of the op and none forced;
 20. the serving slice at 384 px: 32 synthetic pairs, the checkpoint of
    phase 4 (saved at 224 px), ``infer.main`` with ``--img-size 384 --crop
    384`` at B=16; launch counts per forward K9 24, K2 22, K3 2, K4 1,
@@ -214,10 +221,11 @@ Phases, in order; any failure raises and exits non-zero:
    three-step train parity with the plain path (B=8);
 23. times at 384 px: K9 and its plain version at vit_small@384 (B=64) and
    vit_small_ori@512 (B=16), K10 past 256 tokens (vit_small_ori@384), K2
-   and K11 at vit_small@384 (B=64) against their plain versions, the
-   launches of K9, K10 and K11 and of K9's and K11's former chains one by
-   one (``stage_times``: K9 at both its shapes, K11 at vit_small B=256 and
-   vit_base B=64, K10 at B=256 and at 577 tokens), the serving pairs/s at
+   and K11 at vit_small@384 (B=64), K10 and K11 at vit_base (B=64) against
+   their plain versions, the launches of K9, K10 and K11 and of their
+   former chains one by one (``stage_times``: K9 at both its shapes, K11
+   at vit_small B=256 and vit_base B=64, K10 at B=256, at 577 tokens and
+   at vit_base B=64, its former chain at B=256), the serving pairs/s at
    B=64 (kernel path against plain path, int8 against bf16 and the
    XLA-level W8A8 path), the FT step's images/s at B=32 and K9's backward
    (the fp32 recompute) at B=32.
@@ -779,6 +787,76 @@ def check_long_former(dev) -> dict:
             bad.append(f"{where}: {n_diff} outputs differ, rel {r}, "
                        f"launches {counts}")
         out[where] = n_diff
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+# K10 against its former chain: both sides of its route split by M
+# (vit_small B=8 and B=32 below I8Q_FUSED_WORK, B=256 above), vit_base
+# (D=768, head_dim 64; 64-row tiles of the quantizing GEMM), N=50, either
+# side of the asynchronous cores' NMAX (N=256 and 257), vit_small_ori@384
+# (N=577, head_dim 64) and head_dim 128 (N=300). label, B, N, D, heads
+K10_FORMER_SHAPES = (("vit_small", 8, 197, 384, 12),
+                     ("vit_small", 32, 197, 384, 12),
+                     ("vit_small", 256, 197, 384, 12),
+                     ("vit_base", 2, 197, 768, 12),
+                     ("vit_base", 64, 197, 768, 12),
+                     ("N=50", 8, 50, 384, 12),
+                     ("N=256", 8, 256, 384, 12),
+                     ("N=257", 8, 257, 384, 12),
+                     ("vit_small_ori@384", 2, 577, 384, 6),
+                     ("vit_small_ori@384", 64, 577, 384, 6),
+                     ("head_dim 128", 2, 300, 384, 3))
+
+
+def check_k10_former(dev) -> dict:
+    """K10 at K10_FORMER_SHAPES against the chain it ran before (the
+    check-only ``fused_attention_block_i8_mma``: gemm_i8.cuh's mma.sync
+    GEMMs, attn_core.cuh's or attn_long.cuh's core): every rounding point
+    and sum order kept, so the count of outputs that differ must be 0; rel
+    < REL_BAR against its plain fp32 version and the branch held by
+    ``hold_i8_branch``; one call launches K10 once and no other kernel.
+    Each route is also forced (the check-only
+    ``fused_attention_block_i8_route``, which counts no launch) and held
+    the same way. Every reading is printed before a failure raises.
+    Returns "K10 <label> B=<B> N=<N>[, <route> forced]" -> outputs that
+    differ."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.ops import fused_int8 as fi8
+    name = "fused_attention_block_i8"
+    out, bad = {}, []
+    for label, B, N, D, heads in K10_FORMER_SHAPES:
+        t = block_inputs(torch.Generator().manual_seed(20), B, D, dev, N=N)
+        x, a = t["x"], i8_args(t, heads)[name]
+        with torch.inference_mode():
+            former = fi8.fused_attention_block_i8_mma(x, *a)
+            plain32 = fi8.fused_attention_block_i8(x.float(), *a, plain=True)
+        for forced in (None, True, False):
+            where = f"K10 {label} B={B} N={N}" + (
+                "" if forced is None else
+                f", {'three' if forced else 'five'} launches forced")
+            ops.reset_launch_counts()
+            with torch.inference_mode():
+                got = (fi8.fused_attention_block_i8(x, *a) if forced is None
+                       else fi8.fused_attention_block_i8_route(x, *a, forced))
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in ops.launch_counts().items() if v}
+                n_diff = (got != former).sum().item()
+                r = rel(got, plain32)
+                rk, rcs, why = hold_i8_branch(name, x, a, got)
+            print(f"{where} (D={D}, {heads} heads): {n_diff} of "
+                  f"{got.numel()} outputs differ from its former chain; rel "
+                  f"vs plain fp32 {r:.3e} (bar {REL_BAR}); branch rel vs "
+                  f"plain bf16 {rk:.3e} (bar {I8_BRANCH_BAR[name]}; the "
+                  "controls' " + ", ".join(f"{k} {v:.3e}"
+                                             for k, v in rcs.items())
+                  + f"); launches {counts}")
+            if n_diff or not (math.isfinite(r) and r < REL_BAR) or why \
+                    or counts != ({name: 1} if forced is None else {}):
+                bad.append(f"{where}: {n_diff} outputs differ, rel {r}, "
+                           f"{why}, launches {counts}")
+            out[where] = n_diff
     if bad:
         raise AssertionError("; ".join(bad))
     return out
@@ -1359,25 +1437,31 @@ def time_kernels(dev) -> dict:
 # K9's timed shapes: vit_small@384 at B=64, vit_small_ori@512 at B=16
 K9_TIMED = (("vit_small@384", 64, 577, 384, 12),
             ("vit_small_ori@512", 16, 1025, 384, 6))
-# the other halves timed at 384 px: K10 past 256 tokens where it runs
-# (vit_small_ori@384, 6 heads), K2 and K11 at vit_small@384; all B=64
+# the other halves timed at B=64: K10 past 256 tokens where it runs
+# (vit_small_ori@384, 6 heads), K2 and K11 at vit_small@384, K10 and K11 at
+# vit_base (224 px: D=768, K10's five launches, K11's four)
 LONG_TIMED = (("fused_attention_block_i8", "vit_small_ori@384", 64, 577, 384,
                6),
               ("fused_mlp_block", "vit_small@384", 64, 577, 384, 12),
-              ("fused_mlp_block_i8", "vit_small@384", 64, 577, 384, 12))
+              ("fused_mlp_block_i8", "vit_small@384", 64, 577, 384, 12),
+              ("fused_attention_block_i8", "vit_base", 64, 197, 768, 12),
+              ("fused_mlp_block_i8", "vit_base", 64, 197, 768, 12))
 
 
 # the launches timed one by one (``compare_block.stage_times``): K9 and its
 # former chain at K9_TIMED, K11 and its former chain at vit_small B=256 and
 # vit_base B=64 (its four launches on the wgmma core), K10 at both its
-# sequence lengths; op, label, B, N, D, heads
+# sequence lengths and at vit_base B=64, its former chain at vit_small
+# B=256; op, label, B, N, D, heads
 STAGE_TIMED = tuple(
     [(op, label, B, N, D, h) for op in ("k9", "k9_wmma")
      for label, B, N, D, h in K9_TIMED]
     + [(op, label, B, 197, D, 12) for op in ("k11", "k11_mma")
        for label, B, D in (("vit_small", 256, 384), ("vit_base", 64, 768))]
     + [("k10", "vit_small", 256, 197, 384, 12),
-       ("k10", "vit_small_ori@384", 64, 577, 384, 6)])
+       ("k10", "vit_small_ori@384", 64, 577, 384, 6),
+       ("k10", "vit_base", 64, 197, 768, 12),
+       ("k10_mma", "vit_small", 256, 197, 384, 12)])
 
 
 def time_long_kernels(dev) -> dict:
@@ -3158,6 +3242,9 @@ def main() -> int:
     phase("K9 and K11 against the chains they ran before (K9 at N=257-1025, "
           "head_dim 32/64/128; K11 at B=2-256, D=384 and 768, 224 and 384 px)")
     long_former = check_long_former(dev)
+    phase("K10 against the chain it ran before (B=2-256, D=384 and 768, "
+          "N=50-577, head_dim 32/64/128, both routes)")
+    long_former.update(check_k10_former(dev))
 
     with tempfile.TemporaryDirectory() as tmp:
         phase("the serving slice at 384 px through mfvit_tpu_torch.cli.infer "
@@ -3263,7 +3350,7 @@ def main() -> int:
                           "bound_by": long_bounds[k][1]}
                           for k, v in long_times.items()},
                       "k9_k10_k11_stages_ms": long_stages,
-                      "k9_k11_outputs_differ_from_former": long_former,
+                      "k9_k10_k11_outputs_differ_from_former": long_former,
                       "card": smi}))
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

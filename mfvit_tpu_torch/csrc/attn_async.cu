@@ -3,10 +3,12 @@
 // K15, between their qkv GEMM and their proj (fused_attn.cu,
 // fused_block.cu):
 //
-//   qkv (B, N, 3D) bf16, columns [q | k | v] x head x dh -> o (B, N, D) bf16
+//   qkv (B, N, 3D) bf16, columns [q | k | v] x head x dh -> o (B, N, D) in
+//   OT: bf16 for K1 and K15, fp32 for K10 (fused_int8.cu), which quantizes
+//   o per token
 //
-// It computes what attn_core.cuh's core computes (which K10 and the
-// schedule variants keep), with its rounding points and its order of every
+// It computes what attn_core.cuh's core computes (which the former chains
+// and the schedule variants keep), with its rounding points and its order of every
 // sum, so the two give the same bits: q scaled in fp32 and rounded to bf16;
 // each score the fp32 sum over dh in ascending k16 steps (mma.sync
 // m16n8k16); the row max over the valid keys, p = expf(s - max), each
@@ -14,7 +16,8 @@
 // xor-shuffle (attn_softmax's order); P rounded to bf16 from the score
 // accumulators (attn_pack_p's packing), PV summed over the keys in
 // ascending k16 steps, and 1/sum applied to the PV output, which is rounded
-// once. Keys past N get probability zero.
+// once to bf16, or kept in fp32 (oacc * r, as attn_core<float> writes it).
+// Keys past N get probability zero.
 //
 // What bounds it on an H100: at ViT-S/16 (B=256, N=197, 12 heads of 32) it
 // reads qkv once and writes o once (155 MB, 0.046 ms at 3.35 TB/s) for 15.3
@@ -74,9 +77,9 @@ struct AsyncCore {
   static constexpr int THREADS = (W + 1) * 32;
 };
 
-template <int DH, int NKT>
+template <int DH, int NKT, typename OT>
 __global__ void __launch_bounds__(AsyncCore<DH, NKT>::THREADS, 1)
-    attn_async_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o, int B, int N, int heads,
+    attn_async_kernel(const bf16* __restrict__ qkv, OT* __restrict__ o, int B, int N, int heads,
                       float scale) {
   using C = AsyncCore<DH, NKT>;
   constexpr int S = C::STAGES, W = C::W, U = C::U;
@@ -242,9 +245,9 @@ __global__ void __launch_bounds__(AsyncCore<DH, NKT>::THREADS, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[slot]);  // this tile is done with the slot
 
-    // 1/sum on the PV output, rounded once, rows below N
+    // 1/sum on the PV output (rounded once in bf16), rows below N
     const float r0 = 1.0f / l0, r1 = 1.0f / l1;
-    bf16* orow = o + ((size_t)(pair / heads) * N + q0 + g) * D + (pair % heads) * DH + 2 * t4;
+    OT* orow = o + ((size_t)(pair / heads) * N + q0 + g) * D + (pair % heads) * DH + 2 * t4;
 #pragma unroll
     for (int d = 0; d < DH / 8; ++d) {
       if (q0 + g < N) store_pair(orow + 8 * d, oacc[d][0] * r0, oacc[d][1] * r0);
@@ -254,10 +257,10 @@ __global__ void __launch_bounds__(AsyncCore<DH, NKT>::THREADS, 1)
   }
 }
 
-template <int DH, int NKT>
+template <int DH, int NKT, typename OT>
 int launch(const void* qkv, void* o, int B, int N, int heads, float scale, cudaStream_t s) {
   using C = AsyncCore<DH, NKT>;
-  auto kern = attn_async_kernel<DH, NKT>;
+  auto kern = attn_async_kernel<DH, NKT, OT>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0;
@@ -266,30 +269,34 @@ int launch(const void* qkv, void* o, int B, int N, int heads, float scale, cudaS
     return (int)e;
   const int pairs = B * heads;
   kern<<<pairs < sms ? pairs : sms, C::THREADS, C::SMEM, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(o), B, N, heads, scale);
+      static_cast<const bf16*>(qkv), static_cast<OT*>(o), B, N, heads, scale);
   return (int)cudaGetLastError();
 }
 
 // The smallest key-tile count that covers N, as attn_core's: 64, 128, 208
 // or 256 keys.
-template <int DH>
+template <int DH, typename OT>
 int launch_n(const void* qkv, void* o, int B, int N, int heads, float scale, cudaStream_t s) {
-  if (N <= 64) return launch<DH, 8>(qkv, o, B, N, heads, scale, s);
-  if (N <= 128) return launch<DH, 16>(qkv, o, B, N, heads, scale, s);
-  if (N <= 208) return launch<DH, 26>(qkv, o, B, N, heads, scale, s);
-  return launch<DH, 32>(qkv, o, B, N, heads, scale, s);
+  if (N <= 64) return launch<DH, 8, OT>(qkv, o, B, N, heads, scale, s);
+  if (N <= 128) return launch<DH, 16, OT>(qkv, o, B, N, heads, scale, s);
+  if (N <= 208) return launch<DH, 26, OT>(qkv, o, B, N, heads, scale, s);
+  return launch<DH, 32, OT>(qkv, o, B, N, heads, scale, s);
 }
 
 }  // namespace
 
+template <typename OT>
 int attn_async(const void* qkv, void* o, int B, int N, int heads, int dh, float scale,
                cudaStream_t s) {
   if (B <= 0 || N <= 0 || N > NMAX || heads <= 0 || (long long)B * heads > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   switch (dh) {
-    case 32: return launch_n<32>(qkv, o, B, N, heads, scale, s);
-    case 64: return launch_n<64>(qkv, o, B, N, heads, scale, s);
-    case 128: return launch_n<128>(qkv, o, B, N, heads, scale, s);
+    case 32: return launch_n<32, OT>(qkv, o, B, N, heads, scale, s);
+    case 64: return launch_n<64, OT>(qkv, o, B, N, heads, scale, s);
+    case 128: return launch_n<128, OT>(qkv, o, B, N, heads, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
+
+template int attn_async<bf16>(const void*, void*, int, int, int, int, float, cudaStream_t);
+template int attn_async<float>(const void*, void*, int, int, int, int, float, cudaStream_t);

@@ -1,15 +1,17 @@
 // attn_core: the multi-head self-attention core K1
 // (mfvit_tpu/ops/fused_attn.py::fused_attention_block, _kernel :28) ran
 // before its redesign (attn_async.cu, which gives the same bits), between
-// its qkv GEMM and its proj GEMM. It stays as K10's core (fused_int8.cu,
-// fp32 output), in the chain fused_attn.cu keeps for the card's checks
-// (mfv_fused_attention_block_wmma), and as the per-warp stages that the
+// its qkv GEMM and its proj GEMM. It stays in the chains K1 and K10 ran
+// before, which fused_attn.cu and fused_int8.cu keep for the card's checks
+// (mfv_fused_attention_block_wmma; mfv_fused_attention_block_i8_mma, fp32
+// output), and as the per-warp stages that the
 // schedule variants T4 (attn_staged.cu), T1 (attn_pairs.cu) and T2
 // (attn_rolling.cu) and K9's long-sequence core (attn_long.cuh) run.
 //
 // qkv (B, N, 3D) bf16 with columns [q | k | v] x head x dh -> o (B, N, D)
-// in OT: bf16, or fp32 for K10, which quantizes the fp32 output per token
-// (mfvit_tpu/ops/fused_int8.py:198-203). One block of four warps per (head,
+// in OT: bf16, or fp32 for K10's former chain, which quantizes the fp32
+// output per token (mfvit_tpu/ops/fused_int8.py:198-203; attn_async.cu
+// writes the same bits in either type). One block of four warps per (head,
 // image): the head's K and V (V transposed) are loaded once into shared
 // memory, and each warp takes 16 query rows at a time. q is scaled in fp32
 // and rounded to bf16; the scores S = q k^T (mma.sync m16n8k16, fp32), the

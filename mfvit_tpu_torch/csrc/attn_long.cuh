@@ -2,13 +2,15 @@
 // that K9 (mfvit_tpu/ops/fused_attn.py::fused_attention_block_large,
 // Pallas _kernel_qblocked :244) ran before its redesign
 // (attn_long_async.cu, which gives the same bits), between the qkv GEMM
-// and the proj GEMM. It stays as K10's core past NMAX keys (fused_int8.cu)
-// and in the chain fused_attn_large.cu keeps for the card's checks
-// (mfv_fused_attention_block_large_wmma).
+// and the proj GEMM. It stays in the chains K9 and K10 (past NMAX keys) ran
+// before, which fused_attn_large.cu and fused_int8.cu keep for the card's
+// checks (mfv_fused_attention_block_large_wmma,
+// mfv_fused_attention_block_i8_mma).
 //
 // qkv (B, N, 3D) bf16 with columns [q | k | v] x head x dh -> o (B, N, D)
-// in OT: bf16 for K9, fp32 for K10, which quantizes the fp32 output per
-// token. The core of K1 (attn_core.cuh) holds a warp's scores against every
+// in OT: bf16 for K9's former chain, fp32 for K10's, which quantizes the
+// fp32 output per token (attn_long_async.cu writes the same bits in either
+// type). The core of K1 (attn_core.cuh) holds a warp's scores against every
 // key in registers and the head's whole K and V in shared memory; neither
 // stretches past a few hundred keys (577 keys are ~290 registers a thread;
 // K and V of one head at N = 1025, dh = 64 are 262 KB). Here the keys

@@ -2,10 +2,11 @@
 // (mfvit_tpu/ops/fused_attn.py::fused_attention_block_large, Pallas
 // _kernel_qblocked :244; fused_attn_large.cu) for any sequence length:
 //
-//   qkv (B, N, 3D) bf16, columns [q | k | v] x head x dh -> o (B, N, D) bf16
+//   qkv (B, N, 3D) bf16, columns [q | k | v] x head x dh -> o (B, N, D) in
+//   OT: bf16 for K9, fp32 for K10 past NMAX tokens (fused_int8.cu)
 //
-// It computes what attn_long.cuh's core computes (which K10 keeps past 256
-// tokens, and the chain K9 ran before), with its rounding points and the
+// It computes what attn_long.cuh's core computes (which the chains K9 and
+// K10 ran before keep), with its rounding points and the
 // order of every sum, so the two give the same bits: q scaled in fp32 and
 // rounded to bf16; each score the fp32 sum over dh in ascending k16 steps
 // (mma.sync m16n8k16); two passes over the keys, not an online softmax:
@@ -13,7 +14,8 @@
 // rounded to bf16 against the row's final max, where the TPU kernel rounds
 // it; each lane's row sum over the key tiles in ascending order, then the
 // quad's xor-shuffle; PV summed over the keys in ascending k16 steps; 1/sum
-// applied once to the PV output, which is rounded once. Keys past N get
+// applied once to the PV output, which is rounded once to bf16 or kept in
+// fp32 (oacc * r, as attn_long<float> writes it). Keys past N get
 // probability zero; groups of 16 keys wholly past N are skipped (p = 0
 // adds nothing to any sum, as attn_async.cu's do).
 //
@@ -74,9 +76,9 @@ struct Pos {
   }
 };
 
-template <int DH>
+template <int DH, typename OT>
 __global__ void __launch_bounds__(LongAsync<DH>::THREADS, LongAsync<DH>::BLOCKS)
-    attn_long_async_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o, int B, int N,
+    attn_long_async_kernel(const bf16* __restrict__ qkv, OT* __restrict__ o, int B, int N,
                            int heads, float scale) {
   using C = LongAsync<DH>;
   constexpr int S = LONG_STAGES, W = LONG_W;
@@ -280,9 +282,9 @@ __global__ void __launch_bounds__(LongAsync<DH>::THREADS, LongAsync<DH>::BLOCKS)
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
 
-    // 1/sum on the PV output, rounded once, rows below N
+    // 1/sum on the PV output (rounded once in bf16), rows below N
     const float r0 = 1.0f / l0, r1 = 1.0f / l1;
-    bf16* orow = o + ((size_t)(pair / heads) * N + q0 + g) * D + (pair % heads) * DH + 2 * t4;
+    OT* orow = o + ((size_t)(pair / heads) * N + q0 + g) * D + (pair % heads) * DH + 2 * t4;
 #pragma unroll
     for (int d = 0; d < DH / 8; ++d) {
       if (q0 + g < N) store_pair(orow + 8 * d, oacc[d][0] * r0, oacc[d][1] * r0);
@@ -292,10 +294,10 @@ __global__ void __launch_bounds__(LongAsync<DH>::THREADS, LongAsync<DH>::BLOCKS)
   }
 }
 
-template <int DH>
+template <int DH, typename OT>
 int launch(const void* qkv, void* o, int B, int N, int heads, float scale, cudaStream_t s) {
   using C = LongAsync<DH>;
-  auto kern = attn_long_async_kernel<DH>;
+  auto kern = attn_long_async_kernel<DH, OT>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0;
@@ -305,20 +307,24 @@ int launch(const void* qkv, void* o, int B, int N, int heads, float scale, cudaS
   const long long units = (long long)B * heads * ((N + C::QROWS - 1) / C::QROWS);
   const long long grid = (long long)C::BLOCKS * sms;
   kern<<<(int)(units < grid ? units : grid), C::THREADS, C::SMEM, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(o), B, N, heads, scale);
+      static_cast<const bf16*>(qkv), static_cast<OT*>(o), B, N, heads, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+template <typename OT>
 int attn_long_async(const void* qkv, void* o, int B, int N, int heads, int dh, float scale,
                     cudaStream_t s) {
   if (B <= 0 || N <= 0 || heads <= 0 || (long long)B * heads > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   switch (dh) {
-    case 32: return launch<32>(qkv, o, B, N, heads, scale, s);
-    case 64: return launch<64>(qkv, o, B, N, heads, scale, s);
-    case 128: return launch<128>(qkv, o, B, N, heads, scale, s);
+    case 32: return launch<32, OT>(qkv, o, B, N, heads, scale, s);
+    case 64: return launch<64, OT>(qkv, o, B, N, heads, scale, s);
+    case 128: return launch<128, OT>(qkv, o, B, N, heads, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
+
+template int attn_long_async<bf16>(const void*, void*, int, int, int, int, float, cudaStream_t);
+template int attn_long_async<float>(const void*, void*, int, int, int, int, float, cudaStream_t);

@@ -38,7 +38,7 @@ MFV_API int mfv_fused_attention_block(const void* x, const void* ln_s, const voi
   const int M = B * N;
   if (int e = blk::launch_ln1(x, ln_s, ln_b, o, M, D, s)) return e;
   if (int e = sm90::gemm<EPI_BIAS>(o, wqkv, bqkv, nullptr, qkv, M, 3 * D, D, s)) return e;
-  if (int e = attn_async(qkv, o, B, N, heads, D / heads, scale, s)) return e;
+  if (int e = attn_async<bf16>(qkv, o, B, N, heads, D / heads, scale, s)) return e;
   return sm90::gemm<EPI_BIAS_RESID>(o, wproj, bproj, x, out, M, D, D, s);
 }
 

@@ -42,7 +42,7 @@ MFV_API int mfv_fused_transformer_block(const void* x, const void* ln1_s, const 
   const int M = B * N;
   if (int e = blk::launch_ln1(x, ln1_s, ln1_b, o, M, D, s)) return e;
   if (int e = sm90::gemm<EPI_BIAS>(o, wqkv, bqkv, nullptr, qkv, M, 3 * D, D, s)) return e;
-  if (int e = attn_async(qkv, o, B, N, heads, D / heads, scale, s)) return e;
+  if (int e = attn_async<bf16>(qkv, o, B, N, heads, D / heads, scale, s)) return e;
   blk::TailParams t;
   t.x = static_cast<const bf16*>(x);
   t.bproj = static_cast<const float*>(bproj);

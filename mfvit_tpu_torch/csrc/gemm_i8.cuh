@@ -18,15 +18,18 @@
 // cannot contract them into FMAs: a 1-ulp change can flip the next layer's
 // int8 code.
 //
+// Who runs what: quant_row (one row's quantization) and the epilogue
+// functions (epi_value, resid_i8, epi_i8) are shared by every int8 kernel
+// of the port, so all give the same codes and outputs. K10 and K11 run
+// gemm_i8_sm90.cuh's int8 wgmma kernels: K10's quantizing GEMM calls
+// quant_row on chip (an LN warp a row), its five launches' route and K11's
+// four launches call quant_rows_kernel before the int8 wgmma core, and
+// K11's tail calls quant_row on chip. gemm_i8_kernel (mma.sync, 128 x 128
+// tiles staged through registers, no wgmma or TMA) runs only in the chains
+// K10 and K11 ran before, which fused_int8.cu keeps for the card's checks.
+//
 // What bounds it on an H100: at ViT-S/16 B=256 (M = 50,432) the int8 GEMMs
 // are bound by operations (1,979 TOP/s dense int8 against 3.35 TB/s).
-// gemm_i8 stages 128 x 128 tiles through registers and shared memory with
-// mma.sync (no wgmma/TMA), and K10's fp32 attention output makes one round
-// trip through device memory before its row quantization, because the row
-// absmax spans many column tiles. K10 runs these pieces; K11 runs
-// gemm_i8_sm90.cuh's int8 wgmma core with quant_row and the epilogue
-// functions below, and its former chain (these GEMMs, an fp32 h1 in device
-// memory) stays for the card's checks.
 #pragma once
 
 #include "common.cuh"
@@ -218,22 +221,34 @@ __device__ __forceinline__ float epi_value(int s, float rs, float ws, float bias
 }
 __device__ __forceinline__ float resid_i8(float x, float v) { return __fadd_rn(x, round_bf16(v)); }
 
+// Two adjacent outputs v0, v1 stored at flat offset off of p.out: fp32
+// (I8_GELU_F32), bf16 (I8_QKV), or x + bf16(v) (I8_RESID) with x the pair
+// of bf16 residuals `res` (resid_pair: p.resid at off).
+template <int EPI>
+__device__ __forceinline__ uint32_t resid_pair(const GemmI8Args& p, size_t off) {
+  return EPI == I8_RESID ? *reinterpret_cast<const uint32_t*>(p.resid + off) : 0u;
+}
+template <int EPI>
+__device__ __forceinline__ void store_i8(const GemmI8Args& p, size_t off, float v0, float v1,
+                                         uint32_t res) {
+  if (EPI == I8_GELU_F32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) = make_float2(v0, v1);
+  } else if (EPI == I8_QKV) {
+    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.out) + off) = pack_bf16x2(v0, v1);
+  } else {
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&res));
+    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.out) + off) =
+        pack_bf16x2(resid_i8(x.x, v0), resid_i8(x.y, v1));
+  }
+}
+
 // Two adjacent outputs (r, c) and (r, c + 1) from their int32 sums.
 template <int EPI>
 __device__ __forceinline__ void epi_i8(const GemmI8Args& p, int r, int c, int s0, int s1) {
   const float rs = p.a_s[r];
-  const float v[2] = {epi_value<EPI>(s0, rs, p.w_s[c], p.bias[c]),
-                      epi_value<EPI>(s1, rs, p.w_s[c + 1], p.bias[c + 1])};
   const size_t off = (size_t)r * p.N + c;
-  if (EPI == I8_GELU_F32) {
-    *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) = make_float2(v[0], v[1]);
-  } else if (EPI == I8_QKV) {
-    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.out) + off) = pack_bf16x2(v[0], v[1]);
-  } else {
-    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.resid + off));
-    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.out) + off) =
-        pack_bf16x2(resid_i8(x.x, v[0]), resid_i8(x.y, v[1]));
-  }
+  store_i8<EPI>(p, off, epi_value<EPI>(s0, rs, p.w_s[c], p.bias[c]),
+                epi_value<EPI>(s1, rs, p.w_s[c + 1], p.bias[c + 1]), resid_pair<EPI>(p, off));
 }
 
 template <int EPI>

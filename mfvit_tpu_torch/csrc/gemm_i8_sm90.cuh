@@ -1,13 +1,19 @@
 // gemm_i8_sm90: the int8 path of the wgmma core (gemm_sm90.cuh) for K11
-// (mfvit_tpu/ops/fused_int8.py::fused_mlp_block_i8, Pallas _mlp_kernel_i8
-// :100; fused_int8.cu):
+// and K10 (mfvit_tpu/ops/fused_int8.py::fused_mlp_block_i8, Pallas
+// _mlp_kernel_i8 :100, and fused_attention_block_i8, _attn_kernel_i8 :168;
+// fused_int8.cu):
 //
 //   i8_tail_kernel  one launch at D of 128-384: x + fc2(GELU(fc1(LN(x))))
 //                   with int8 fc1 and fc2, the hidden kept on chip as int8
 //                   codes;
 //   gemm_s8_kernel  C[M, N] = epilogue(A[M, K] . W[N, K]^T), A and W int8,
 //                   the core of K11's four launches (fc1 with the
-//                   GELU into fp32 h1, fc2 with the residual).
+//                   GELU into fp32 h1, fc2 with the residual) and of K10's
+//                   five (qkv, proj with the residual);
+//   gemm_qa_kernel  the same product with A's rows quantized on chip (LN
+//                   and quantization of x for K10's qkv, quantization of
+//                   the fp32 attention output for its proj): K10's three
+//                   launches.
 //
 // The products run on wgmma.mma_async m64nNk32 .s32.s8.s8 with both
 // operands K-major, the only form 8-bit wgmma takes, and the layout the
@@ -155,7 +161,7 @@ constexpr int I8T_STAGE = 2 * TILE64;       // 128 weight rows of one 128-byte K
 constexpr int I8T_STAGES_PREF = 6;
 // the rows from which K11 takes the tail: two waves of 64-row tiles on an
 // H100's 132 SMs. With fewer the four launches were as fast or faster, a
-// wave of the tail taking a tile's latency (PERF.md; tools/k11_routes.py
+// wave of the tail taking a tile's latency (PERF.md; tools/i8_routes.py
 // times both routes)
 constexpr int I8T_TAIL_ROWS = 16896;
 // the producer warpgroup: one thread issues the weight stages, warps 1-3 (the
@@ -613,6 +619,324 @@ static int gemm_i8(const GemmI8Args& a, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
   if (e != cudaSuccess) return (int)e;
   kern<<<tiles < sms ? tiles : sms, GEMM_THREADS, GEMM_SMEM, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+
+// ---- the quantizing GEMM (K10's qkv and proj) ----
+
+// C[M, N] = epilogue(quant(A)[M, K] . W[N, K]^T) with A's rows quantized on
+// chip: bf16 x with its LayerNorm (K10's qkv, I8_QKV) or the fp32
+// attention output (K10's proj, I8_RESID), each row by quant_row<LN, T>,
+// as quant_rows_kernel quantizes it, so the codes and scales are its bits
+// and every output is gemm_i8's. No int8 rows and no scales reach device
+// memory.
+//
+// A block of four warpgroups walks items, each one tile of BM = 64 HM rows
+// and a group of `per` consecutive 128-column output tiles; an item's rows
+// are quantized into an A tile in shared memory (K / 128 swizzled K slices
+// of HM 64-row halves) and its row scales, two A tiles handed over by
+// mbarriers. A row's quantization is a chain of IEEE divisions
+// (quant_code) and warp reductions, one warp a row, that takes a warp
+// microseconds on the H100 (PERF.md), more than a tile's share of the GEMM,
+// so every warp but the TMA thread's quantizes: seven LN warps (the
+// producer warpgroup's three and a fourth warpgroup) an item ahead, and the
+// eight consumer warps before their own tiles of an item. They claim an
+// item's rows one at a time from a counter a tile (a claim past the item's
+// rows is the next round's, which the warp keeps for it); the A tile is
+// whole when all its rows and every quantizing warp have arrived. The
+// LayerNorm's vectors, W's scales and the bias are read from shared
+// memory. One thread streams W's 128-row boxes of a 128-byte K slice by TMA
+// into the ring. The two consumer warpgroups ping-pong whole BM x 128
+// output tiles (HM m64n128 int32 accumulators) and take the ring in turns,
+// as gemm_s8_kernel; epi_i8's functions with the row scales from shared
+// memory.
+//
+// The split into groups: at few rows (13 tiles of 128 at vit_small B=8)
+// one item a row tile would leave most SMs idle, so the N tiles are cut
+// into groups (qa_plan) until the items fill the SMs, each group's block
+// quantizing its rows again.
+//
+// What bounds it on an H100: at vit_small B=256 the qkv GEMM's 44.6 GOP
+// take 0.023 ms at 1,979 TOP/s and its bytes (x read, qkv written) 0.046
+// at 3.35 TB/s; the row quantization on the CUDA cores, which every warp
+// of the block shares with the epilogues, sets the pace (PERF.md).
+constexpr int QA_STAGES_MAX = 8;  // ring stages where the shared memory allows more
+constexpr int QA_HM2_MAX_K = 512;  // 128-row tiles up to this depth, else 64
+// four warpgroups: at launch 128 registers a thread; the LN warpgroups give
+// theirs down to QA_LN_REGS, the two consumer warpgroups take them up to
+// QA_CONSUMER_REGS (2 x 128 x 200 + 2 x 128 x 56 = 65,536)
+constexpr int QA_THREADS = 512, QA_CONSUMER_REGS = 200, QA_LN_REGS = 56;
+constexpr int QA_LN_WARPS = 7, QA_QUANT_WARPS = QA_LN_WARPS + 8;
+
+// The launch of one quantizing GEMM (ops/fused_int8.py::_qa_plan copies
+// it), with the LayerNorm (`ln`) or without: hm 64-row halves a tile, ring
+// stages, column-tile groups and the shared memory a block takes (the
+// ring, two A tiles, LN's vectors, W's scales and the bias, the A tiles'
+// row scales, the barriers and row counters, 1024 bytes to align); stages
+// < 2: the shape does not fit.
+struct QaPlan {
+  int hm, stages, groups, per, smem;
+};
+static QaPlan qa_plan(int M, int N, int K, int sms, bool ln) {
+  QaPlan q;
+  q.hm = K <= QA_HM2_MAX_K ? 2 : 1;
+  const int bm = 64 * q.hm;
+  const int fixed = 2 * bm * K + (ln ? 8 * K : 0) + 8 * N + 2 * bm * 4 + 5 * 8 + 1024;
+  q.stages = (232448 - fixed) / (I8T_STAGE + 16);
+  if (q.stages > QA_STAGES_MAX) q.stages = QA_STAGES_MAX;
+  q.smem = fixed + q.stages * (I8T_STAGE + 16);
+  const int mt = (M + bm - 1) / bm, nt = N / 128;
+  int g = (sms + mt - 1) / mt;
+  g = g < 1 ? 1 : g > nt ? nt : g;
+  q.per = nt / g;
+  q.groups = (nt + q.per - 1) / q.per;
+  return q;
+}
+
+template <typename T>
+struct GemmQaParams {
+  CUtensorMap w;             // W's boxes of 128 rows x 128 bytes
+  const T* in;               // (M, K): the rows quantized on chip
+  const float *ln_s, *ln_b;  // the LayerNorm's (LN only)
+  GemmI8Args e;              // w_s, bias, resid, out, M, N, K (its a, a_s unused)
+  int stages, groups, per;
+};
+
+template <int EPI, typename T, bool LN, int HM>
+__global__ void __launch_bounds__(QA_THREADS, 1)
+    gemm_qa_kernel(const __grid_constant__ GemmQaParams<T> p) {
+  constexpr int BM = 64 * HM;
+  using V = RowVec<T>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  const int S = p.stages, M = p.e.M, K = p.e.K, KD = K / 128, A_BYTES = BM * K, Nn = p.e.N;
+  unsigned char* A = ring + S * I8T_STAGE;
+  float* gb = reinterpret_cast<float*>(A + 2 * A_BYTES);  // LN: [2][K]
+  float* wsb = gb + (LN ? 2 * K : 0);  // [2][N]: W's scales, the bias
+  float* hs = wsb + 2 * Nn;            // [2][BM]: the A tiles' row scales
+  uint64_t* full = reinterpret_cast<uint64_t*>(hs + 2 * BM);
+  uint64_t* empty = full + S;
+  uint64_t* a_full = empty + S;    // [2]: an A tile written (a row, a quantizing warp)
+  uint64_t* a_empty = a_full + 2;  // [2]: an A tile read (one arrival a consumer warp)
+  int* claim = reinterpret_cast<int*>(a_empty + 2);  // [2]: rows claimed of each A tile
+  const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
+  const int nt = Nn / 128, items = (M + BM - 1) / BM * p.groups;
+  // item it: rows from (it / groups) BM, column tiles [n0, n1)
+  auto cols = [&](int it, int& n0, int& n1) {
+    n0 = it % p.groups * p.per;
+    n1 = n0 + p.per < nt ? n0 + p.per : nt;
+  };
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, 4);  // one arrival a warp of the tile's warpgroup
+    }
+    for (int b = 0; b < 2; ++b) {
+      bar_init(a_full + b, BM + QA_QUANT_WARPS);
+      bar_init(a_empty + b, 8);
+      claim[b] = 0;
+    }
+    bar_init_done();
+  }
+  for (int c = tid; c < Nn; c += QA_THREADS) {  // the vectors, once
+    wsb[c] = p.e.w_s[c];
+    wsb[Nn + c] = p.e.bias[c];
+  }
+  for (int k = tid; LN && k < K; k += QA_THREADS) {
+    gb[k] = p.ln_s[k];
+    gb[K + k] = p.ln_b[k];
+  }
+  __syncthreads();
+
+  // The rows of item i (the walk's i-th, A tile b = i % 2, its round i / 2)
+  // that this warp claims, each quantized into the A tile and announced on
+  // a_full; `pend`, a claim past the item's rows (the next round's), is
+  // kept for that round. Then the warp's own arrival for the item.
+  auto quantize = [&](int i, int it, int& pend) {
+    const int b = i & 1, m0 = it / p.groups * BM, base = (i >> 1) * BM;
+    unsigned char* Ab = A + b * A_BYTES;
+    for (;;) {
+      int c = pend;
+      if (c < 0) {
+        if (lane == 0) c = atomicAdd(claim + b, 1);
+        c = __shfl_sync(0xffffffffu, c, 0);
+      }
+      pend = -1;
+      const int row = c - base;
+      if (row >= BM) {
+        pend = c;
+        break;
+      }
+      // column k of the row: K slice k / 128, the row's 64-row half
+      auto at = [&](int k) {
+        return Ab + ((k / 128) * HM + row / 64) * TILE64 + swz(row % 64, (k % 128) / 16) + k % 16;
+      };
+      const T* xr = p.in + (size_t)(m0 + row) * K;
+      float sc = 1.f;
+      if (m0 + row < M)
+        sc = quant_row<LN, T>([&](int k, float* f) { V::load(xr + k, f); }, gb, gb + K, K, lane,
+                              [&](int k, const int* cd) {
+          if constexpr (V::N == 8)
+            *reinterpret_cast<uint2*>(at(k)) = make_uint2(pack_s8x4(cd), pack_s8x4(cd + 4));
+          else
+            *reinterpret_cast<uint32_t*>(at(k)) = pack_s8x4(cd);
+        });
+      else  // rows past M: zeros
+        for (int k = lane * 16; k < K; k += 512)
+          *reinterpret_cast<uint4*>(at(k)) = make_uint4(0, 0, 0, 0);
+      if (lane == 0) hs[b * BM + row] = sc;
+      async_fence();  // the codes visible to the consumers' wgmma
+      __syncwarp();
+      if (lane == 0) bar_arrive(a_full + b);
+    }
+    __syncwarp();
+    if (lane == 0) bar_arrive(a_full + b);
+  };
+
+  if (wg >= 2) reg_dealloc<QA_LN_REGS>();  // whole warpgroups at once
+  if (warp > 8) {  // the LN warps: every item's rows, an item ahead of the consumers
+    int pend[2] = {-1, -1}, i = 0;
+    for (int it = blockIdx.x; it < items; it += gridDim.x, ++i) {
+      bar_wait(a_empty + (i & 1), ((i >> 1) & 1) ^ 1);  // item i - 2 done with the tile
+      quantize(i, it, pend[i & 1]);
+    }
+    return;
+  }
+  if (wg == 2) {  // the producer: W's stages in the consumers' order
+    if (tid != 256) return;
+    Ring r;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      int n0, n1;
+      cols(it, n0, n1);
+      for (int n = n0; n < n1; ++n)
+        for (int k = 0; k < KD; ++k) {
+          bar_wait(empty + r.s, r.ph ^ 1);
+          bar_expect(full + r.s, I8T_STAGE);
+          tma_load(ring + r.s * I8T_STAGE, &p.w, full + r.s, k * 128, n * 128);
+          r.next(S);
+        }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: the rows of each item it can still claim, then
+  // the block's output tiles (its steps, item after item) wg, wg + 2, ...
+  reg_alloc<QA_CONSUMER_REGS>();
+  const int t128 = tid & 127;
+  Consumer c;
+  int pend[2] = {-1, -1}, j = 0;  // j: the block's steps before this item
+  int i = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x, ++i) {
+    const int b = i & 1, m0 = it / p.groups * BM;
+    const unsigned char* Ab = A + b * A_BYTES;
+    int n0, n1;
+    cols(it, n0, n1);
+    bar_wait(a_empty + b, ((i >> 1) & 1) ^ 1);  // item i - 2 done with the tile
+    quantize(i, it, pend[b]);
+    bar_wait(a_full + b, (i >> 1) & 1);  // every row of the item
+    float rs[HM][2];
+#pragma unroll
+    for (int hm = 0; hm < HM; ++hm)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rs[hm][h] = hs[b * BM + hm * 64 + frag_row(t128, h)];
+    const bool last_item = it + gridDim.x >= items;
+    for (int n = n0 + ((j + wg) & 1); n < n1; n += 2) {
+      const int js = j + n - n0;  // this step's place in the block's walk
+      c.r.s = js * KD % S;
+      c.r.ph = js * KD / S & 1;
+      int acc[HM][64];
+#pragma unroll
+      for (int hm = 0; hm < HM; ++hm) zero(acc[hm]);
+      if (js > 0) pp_wait(PP_BAR + wg);  // the ring in turns, as gemm_s8_kernel
+      for (int k = 0; k < KD; ++k) {
+        const uint64_t db = desc(ring + c.acquire(full) * I8T_STAGE);
+        uint64_t da[HM];
+#pragma unroll
+        for (int hm = 0; hm < HM; ++hm) {
+          da[hm] = desc(Ab + (k * HM + hm) * TILE64);
+          pin(acc[hm]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int hm = 0; hm < HM; ++hm) wgmma_s8_n128(acc[hm], da[hm] + 2 * kk, db + 2 * kk);
+        c.issued(empty, S);
+#pragma unroll
+        for (int hm = 0; hm < HM; ++hm) pin(acc[hm]);
+      }
+      if (n + 1 < n1 || !last_item) pp_pass(PP_BAR + (wg ^ 1));  // the next step's turn
+      c.drain(empty);
+      // epi_i8's outputs, W's scales and the bias from shared memory, each
+      // 8 columns' residuals loaded before their first store (the stores may
+      // alias them, so they would otherwise wait in turn)
+#pragma unroll
+      for (int hm = 0; hm < HM; ++hm) {
+        pin(acc[hm]);
+#pragma unroll
+        for (int q0 = 0; q0 < 16; q0 += 8) {
+          uint32_t res[8][2];
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = m0 + hm * 64 + frag_row(t128, h);
+              res[q][h] = row < M ? resid_pair<EPI>(p.e, (size_t)row * Nn + n * 128 +
+                                                             frag_col(t128, q0 + q))
+                                  : 0u;
+            }
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const int col = n * 128 + frag_col(t128, q0 + q);
+            const float2 ws = *reinterpret_cast<const float2*>(wsb + col);
+            const float2 bs = *reinterpret_cast<const float2*>(wsb + Nn + col);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = m0 + hm * 64 + frag_row(t128, h), e = 4 * (q0 + q) + 2 * h;
+              if (row < M)
+                store_i8<EPI>(p.e, (size_t)row * Nn + col,
+                              epi_value<EPI>(acc[hm][e], rs[hm][h], ws.x, bs.x),
+                              epi_value<EPI>(acc[hm][e + 1], rs[hm][h], ws.y, bs.y), res[q][h]);
+            }
+          }
+        }
+      }
+    }
+    // this warpgroup's wgmma on the A tile have completed (drained above)
+    __syncwarp();
+    if (lane == 0) bar_arrive(a_empty + b);
+    j += n1 - n0;
+  }
+}
+
+// The quantizing GEMM on stream s: `in` (M, K), T bf16 with LN (ln_s,
+// ln_b) or fp32 without; e.w the int8 weight (N, K), e.w_s, e.bias, e.resid
+// (I8_RESID), e.out; e.a and e.a_s unused. N % 128 == 0, K % 128 == 0, and
+// a K whose A tiles fit (qa_plan's stages >= 2), else cudaErrorInvalidValue.
+template <int EPI, typename T, bool LN>
+static int gemm_qa(const void* in, const void* ln_s, const void* ln_b, const GemmI8Args& e,
+                   cudaStream_t s) {
+  if (e.M <= 0 || e.N <= 0 || e.N % 128 || e.K <= 0 || e.K % 128 ||
+      (EPI == I8_RESID && e.resid == nullptr) || (LN && (ln_s == nullptr || ln_b == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const QaPlan q = qa_plan(e.M, e.N, e.K, sms, LN);
+  if (q.stages < 2) return (int)cudaErrorInvalidValue;
+  GemmQaParams<T> p;
+  if (int r = tensor_map_i8(&p.w, e.w, e.N, e.K, 128)) return r;
+  p.in = static_cast<const T*>(in);
+  p.ln_s = static_cast<const float*>(ln_s);
+  p.ln_b = static_cast<const float*>(ln_b);
+  p.e = e;
+  p.stages = q.stages;
+  p.groups = q.groups;
+  p.per = q.per;
+  auto kern = q.hm == 2 ? gemm_qa_kernel<EPI, T, LN, 2> : gemm_qa_kernel<EPI, T, LN, 1>;
+  cudaError_t r = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, q.smem);
+  if (r != cudaSuccess) return (int)r;
+  const int items = (e.M + 64 * q.hm - 1) / (64 * q.hm) * q.groups;
+  kern<<<items < sms ? items : sms, QA_THREADS, q.smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -51,6 +51,9 @@ SIGNATURES = {
     "mfv_fused_mlp_block_bwd": [_P] * 20 + [_I] * 7 + [_P],
     "mfv_fused_mlp_block_bwd_wmma": [_P] * 20 + [_I] * 7 + [_P],
     "mfv_fused_attention_block_i8": [_P] * 14 + [_I] * 4 + [_F, _P],
+    "mfv_fused_attention_block_i8_route": [_P] * 14 + [_I] * 4 + [_F, _I,
+                                                                 _P],
+    "mfv_fused_attention_block_i8_mma": [_P] * 14 + [_I] * 4 + [_F, _P],
     "mfv_fused_mlp_block_i8": [_P] * 14 + [_I] * 3 + [_P],
     "mfv_fused_mlp_block_i8_route": [_P] * 14 + [_I] * 4 + [_P],
     "mfv_fused_mlp_block_i8_mma": [_P] * 14 + [_I] * 3 + [_P],

@@ -19,8 +19,18 @@ plain version below, which rounds where the TPU kernels do and is the
 reference the kernels are held to on the card. The ops have no backward,
 as in JAX: an x that requires a gradient under grad mode raises.
 
-- K10 runs five launches over csrc/gemm_i8.cuh (``mma.sync`` int8 GEMMs)
-  and csrc/attn_core.cuh or, past 256 tokens, csrc/attn_long.cuh.
+- K10 runs, from ``I8Q_FUSED_WORK`` token rows x width on, three
+  launches: the qkv GEMM on csrc/gemm_i8_sm90.cuh's quantizing int8 GEMM
+  (LN and the row quantization of x on chip), the attention core with an
+  fp32 output (csrc/attn_async.cu; past 256 tokens
+  csrc/attn_long_async.cu), and the proj GEMM on the same quantizing GEMM
+  over that output; no int8 rows or scales in device memory. ``_qa_plan``
+  copies each GEMM's sizes. At fewer rows each quantization is a launch of
+  its own before the plain int8 wgmma core (five launches). ``fused_attention_block_i8_route`` forces
+  either route and ``fused_attention_block_i8_mma`` runs the chain K10 ran
+  before (csrc/gemm_i8.cuh's ``mma.sync`` GEMMs, csrc/attn_core.cuh's or
+  attn_long.cuh's core), for the card's checks and timings only: no op
+  calls them, and all give the same bits.
 - K11 runs, at D of 128-384 and from ``I8T_TAIL_ROWS`` rows on, one
   launch of csrc/gemm_i8_sm90.cuh's tail:
   per 64-row tile, LN and the row quantization of x on chip, fc1 on the
@@ -67,6 +77,15 @@ I8T_TAIL_ROWS = 16896
 I8T_WIDTHS = (128, 256, 384)
 SMEM_MAX = 232448
 
+# csrc/gemm_i8_sm90.cuh's quantizing GEMM (K10's qkv and proj): its ring's
+# deepest, the depth up to which a tile holds 128 rows (else 64), the
+# token rows x width from which K10 takes it (csrc/fused_int8.cu's
+# I8Q_FUSED_WORK), and the SMs of an H100, over which the column tiles are
+# split into groups
+QA_STAGES_MAX, QA_HM2_MAX_K = 8, 512
+I8Q_FUSED_WORK = 1 << 23
+SMS = 132
+
 
 class Plan(NamedTuple):
     """A launch of K11: ``route`` "tail" (one launch, ``stages`` weight
@@ -107,6 +126,56 @@ def _plan(D: int, Hd: int, M: int) -> Plan:
     if D in I8T_WIDTHS and M >= I8T_TAIL_ROWS:
         return Plan("tail", stages, _smem(D, stages))
     return Plan("gemm", 0, 0)
+
+
+class QaPlan(NamedTuple):
+    """A launch of the quantizing int8 GEMM: ``rows`` a tile (128 or 64),
+    ``stages`` ring stages of W, the 128-column output tiles cut into
+    ``groups`` of ``per`` (a block quantizes its rows once a group),
+    ``smem`` bytes of shared memory a block."""
+    rows: int
+    stages: int
+    groups: int
+    per: int
+    smem: int
+
+
+def _qa_plan(M: int, N: int, K: int, sms: int = SMS,
+             ln: bool = True) -> QaPlan:
+    """gemm_i8_sm90.cuh's ``qa_plan`` for M rows (bf16 x with its
+    LayerNorm, ``ln``, for qkv; the fp32 attention output without, for
+    proj), N outputs (% 128) and depth K (% 128) on ``sms`` SMs: 128-row
+    tiles up to K = QA_HM2_MAX_K, else 64; two A tiles of int8 codes (rows
+    x K), LN's two fp32 vectors, W's fp32 scales and the bias (N each), the
+    A tiles' fp32 row scales, the four A-tile barriers and two row
+    counters, 1024 bytes to align, then as many 16 KB W stages (two
+    barriers each) as fit, at most QA_STAGES_MAX (fewer than 2: the shape
+    does not fit); the N tiles cut into groups of nt // g, g the SMs over
+    the row tiles (at most nt), so that the items (a row tile and a group)
+    fill a wave of the SMs where M allows."""
+    rows = 128 if K <= QA_HM2_MAX_K else 64
+    fixed = (2 * rows * K + (8 * K if ln else 0) + 8 * N + 2 * rows * 4
+             + 5 * 8 + 1024)
+    stages = min(QA_STAGES_MAX, (SMEM_MAX - fixed) // (I8T_STAGE + 16))
+    mt, nt = -(-M // rows), N // 128
+    g = min(max(-(-sms // mt), 1), nt)
+    per = nt // g
+    return QaPlan(rows, stages, -(-nt // per), per,
+                  fixed + stages * (I8T_STAGE + 16))
+
+
+def _qa_plans(M: int, D: int, sms: int = SMS) -> tuple:
+    """K10's two quantizing GEMMs at M rows and width D: (qkv's plan, on
+    bf16 x with LN; proj's, on the fp32 attention output)."""
+    return _qa_plan(M, 3 * D, D, sms, True), _qa_plan(M, D, D, sms, False)
+
+
+def _k10_fused(M: int, D: int) -> bool:
+    """Whether K10 at M token rows and width D takes its three launches
+    (the quantizing GEMMs), as csrc/fused_int8.cu chooses: where M x D >=
+    I8Q_FUSED_WORK and both GEMMs' A tiles fit."""
+    return M * D >= I8Q_FUSED_WORK and all(p.stages >= 2
+                                       for p in _qa_plans(1, D, 1))
 
 
 def w8a8_attention(N: int, D: int, heads: int) -> bool:
@@ -207,27 +276,71 @@ def _refuse_grad(x: torch.Tensor, what: str) -> None:
                            "or on an x that does not require a gradient")
 
 
-def _attn_cuda(x, ln_s, ln_b, wqkvq, wqkvs, bqkv, wprojq, wprojs, bproj,
-               heads, scale):
+def _attn_chain(entry, fused, x, ln_s, ln_b, wqkvq, wqkvs, bqkv, wprojq,
+                wprojs, bproj, heads, scale, *flag):
+    """K10 through its C entry ``entry`` (``flag``: the route entry's), with
+    the int8 rows and scales as scratch unless ``fused`` (the three
+    launches need none), and the bf16 qkv and fp32 attention output."""
     B, N, D = x.shape
     _check(B, N, D, heads, "K10", None)
     launch.require(x, torch.bfloat16, "x")
     launch.require(wqkvq, torch.int8, "wqkvq", (3 * D, D))
     launch.require(wprojq, torch.int8, "wprojq", (D, D))
     M, dev = B * N, x.device
+    scratch = ([None] * 2 if fused else [
+        torch.empty(M, D, dtype=torch.int8, device=dev),
+        torch.empty(M, dtype=torch.float32, device=dev)])
     out = torch.empty_like(x)
-    launch.call("mfv_fused_attention_block_i8", dev, x,
+    launch.call(entry, dev, x,
                 launch.vec(ln_s, D, "ln_s"), launch.vec(ln_b, D, "ln_b"),
                 wqkvq, launch.vec(wqkvs, 3 * D, "wqkvs"),
                 launch.vec(bqkv, 3 * D, "bqkv"), wprojq,
                 launch.vec(wprojs, D, "wprojs"), launch.vec(bproj, D, "bproj"),
-                torch.empty(M, D, dtype=torch.int8, device=dev),
-                torch.empty(M, dtype=torch.float32, device=dev),
+                *scratch,
                 torch.empty(M, 3 * D, dtype=torch.bfloat16, device=dev),
                 torch.empty(M, D, dtype=torch.float32, device=dev),
-                out, B, N, D, heads, scale)
+                out, B, N, D, heads, scale, *flag)
+    return out
+
+
+def _attn_cuda(x, ln_s, ln_b, wqkvq, wqkvs, bqkv, wprojq, wprojs, bproj,
+               heads, scale):
+    B, N, D = x.shape
+    out = _attn_chain("mfv_fused_attention_block_i8", _k10_fused(B * N, D),
+                      x, ln_s, ln_b, wqkvq, wqkvs, bqkv, wprojq, wprojs,
+                      bproj, heads, scale)
     LAUNCHES["fused_attention_block_i8"] += 1
     return out
+
+
+def fused_attention_block_i8_route(x, ln_s, ln_b, wqkvq, wqkvs, bqkv, wprojq,
+                                   wprojs, bproj, heads: int, scale: float,
+                                   fused: bool):
+    """K10 on the route ``fused`` names (the three launches on the
+    quantizing GEMMs, or the five with quant_rows before the plain int8
+    wgmma core) at any M, on CUDA tensors (csrc/fused_int8.cu's
+    ``mfv_fused_attention_block_i8_route``): for the card's checks of both
+    routes and the timing that sets I8Q_FUSED_WORK. No op calls it, and it
+    counts no launch."""
+    D = x.shape[-1]
+    if fused and min(p.stages for p in _qa_plans(1, D, 1)) < 2:
+        raise ValueError(f"K10's quantizing GEMM does not fit D={D}")
+    return _attn_chain("mfv_fused_attention_block_i8_route", fused, x, ln_s,
+                       ln_b, wqkvq, wqkvs, bqkv, wprojq, wprojs, bproj, heads,
+                       scale, int(fused))
+
+
+def fused_attention_block_i8_mma(x, ln_s, ln_b, wqkvq, wqkvs, bqkv, wprojq,
+                                 wprojs, bproj, heads: int, scale: float):
+    """The chain K10 ran before its redesign (csrc/fused_int8.cu's
+    ``mfv_fused_attention_block_i8_mma``: LN + quantize, gemm_i8.cuh's
+    ``mma.sync`` qkv GEMM, attn_core.cuh's or attn_long.cuh's core with an
+    fp32 output, quantize o, the proj GEMM + residual), on CUDA tensors:
+    the comparator the card's checks hold K10 against bit for bit. No op
+    calls it, and it counts no launch."""
+    return _attn_chain("mfv_fused_attention_block_i8_mma", False, x, ln_s,
+                       ln_b, wqkvq, wqkvs, bqkv, wprojq, wprojs, bproj, heads,
+                       scale)
 
 
 def _mlp_chain(entry, tail, x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2,

@@ -16,15 +16,17 @@ K7 also at vit_base, B=64, as K6 and K8), its own ``chip_smoke.time_bwd``
 B=64),
 ``long_times`` below (K9 at vit_small@384 B=64 and vit_small_ori@512 B=16,
 K11 at vit_small B=256, vit_base B=64 and vit_small@384 B=64, K2 there,
-K10 at vit_small B=256 and vit_small_ori@384 B=64) and the launches of
-each under ``stage_times``, ``bench_block``'s 12-block
-chains at B=512, the GEMM cores alone at B=256 where the checkout has
+K10 at vit_small B=256, vit_small_ori@384 B=64 and vit_base B=64) and the
+launches of each under ``stage_times``, ``bench_block``'s 12-block chains at
+B=512, the GEMM cores alone at B=256 where the checkout has
 ``ops.gemm`` (``chip_smoke.time_gemm``), then the serving pairs/s at B=256
 and at 384 px, B=64 (``time_e2e``: bf16, int8 and the XLA-level W8A8
-path), the FT step's images/s at B=256 and B=16 (``time_train``) and the
-fusion step's pairs/s at B=256 (``time_fusion``, LP and
-``--semi-supervised``). Prints the card's name and power limit, one line a
-reading, and writes every reading to FILE as JSON. Needs a CUDA card.
+path; at 384 px also on vit_small_ori, whose int8 path runs K10 past 256
+tokens, ``e2e_ori384``), the FT step's images/s at B=256 and B=16
+(``time_train``) and the fusion step's pairs/s at B=256 (``time_fusion``,
+LP and ``--semi-supervised``). Prints the card's name and power limit, one
+line a reading, and writes every reading to FILE as JSON. Needs a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -48,8 +50,9 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
     head, 3 heads of 128, on ``chip_smoke.fusion_inputs``, seed 16), "k5"
     K5 and "k7" K7 (the backward halves, for a cotangent drawn with seed
     17; K6 and K8 at D=768); "k1_wmma", "k2_wmma", "k3_wmma", "k4_kv",
-    "k5_wmma", "k7_wmma", "k9_wmma" and "k11_mma" the former designs, where
-    the checkout has them. Kernel name
+    "k5_wmma", "k7_wmma", "k9_wmma", "k10_mma" and "k11_mma" the former
+    designs, where the checkout has them; "k10_three" and "k10_five" K10's
+    two routes forced. Kernel name
     (namespace and parameters dropped, template arguments kept, so that
     two instances of one template stay apart; the n-th launch of a name
     within one call as "name #n") -> its mean device ms, in launch order.
@@ -77,8 +80,8 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
     g = g.to(dev).bfloat16()
     tok = chip_smoke.fusion_inputs(torch.Generator().manual_seed(16), B, D,
                                    dev)
-    i8 = chip_smoke.i8_args(t, heads) if op in ("k10", "k11",
-                                                "k11_mma") else {}
+    i8 = chip_smoke.i8_args(t, heads) if op.startswith(("k10",
+                                                        "k11")) else {}
     call = {"k15": lambda: fb.fused_transformer_block(*a, heads, scale),
             "k1": lambda: fa.fused_attention_block(*a[:7], heads, scale),
             "k9": lambda: fa.fused_attention_block_large(*a[:7], heads,
@@ -86,6 +89,12 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
             "k9_wmma": lambda: fa.fused_attention_block_large_wmma(
                 *a[:7], heads, scale),
             "k10": lambda: fi8.fused_attention_block_i8(
+                a[0], *i8["fused_attention_block_i8"]),
+            "k10_three": lambda: fi8.fused_attention_block_i8_route(
+                a[0], *i8["fused_attention_block_i8"], True),
+            "k10_five": lambda: fi8.fused_attention_block_i8_route(
+                a[0], *i8["fused_attention_block_i8"], False),
+            "k10_mma": lambda: fi8.fused_attention_block_i8_mma(
                 a[0], *i8["fused_attention_block_i8"]),
             "k11": lambda: fi8.fused_mlp_block_i8(
                 a[0], *i8["fused_mlp_block_i8"]),
@@ -179,7 +188,8 @@ LONG_SHAPES = (("k9", "vit_small@384", 64, 577, 384, 12),
                ("k11", "vit_small@384", 64, 577, 384, 12),
                ("k2", "vit_small@384", 64, 577, 384, 12),
                ("k10", "vit_small", 256, 197, 384, 12),
-               ("k10", "vit_small_ori@384", 64, 577, 384, 6))
+               ("k10", "vit_small_ori@384", 64, 577, 384, 6),
+               ("k10", "vit_base", 64, 197, 768, 12))
 
 
 def long_times(dev, iters: int = 20) -> dict:
@@ -217,6 +227,24 @@ def long_times(dev, iters: int = 20) -> dict:
     return out
 
 
+def e2e_ori384(dev) -> dict:
+    """The serving pairs/s of ``chip_smoke.time_e2e`` at 384 px, B=64, on
+    vit_small_ori (6 heads of 64: its int8 attention half is K10 past 256
+    tokens, where vit_small's is K9 on the dequantized weights): the same
+    call with ``get_config`` giving vit_small_ori for vit_small, so that it
+    runs in a checkout whose ``time_e2e`` takes no model name."""
+    from mfvit_tpu_torch.nn import vit
+
+    import chip_smoke
+    get = vit.get_config
+    vit.get_config = lambda name, img=224: get(
+        "vit_small_ori" if name == "vit_small" else name, img)
+    try:
+        return chip_smoke.time_e2e(dev, B=64, img=384)
+    finally:
+        vit.get_config = get
+
+
 CHILD = """
 import json, sys, torch
 sys.path.insert(0, ".")
@@ -247,6 +275,7 @@ fusion = chip_smoke.time_fusion(dev, 256, 3)
 out["e2e"] = {"serving_pairs_per_sec_B256": chip_smoke.time_e2e(dev),
               "serving_pairs_per_sec_384_B64": chip_smoke.time_e2e(
                   dev, B=64, img=384),
+              "serving_pairs_per_sec_ori384_B64": e2e_ori384(dev),
               "ft_images_per_sec_B256": chip_smoke.time_train(dev, 256, 4),
               "ft_images_per_sec_B16": chip_smoke.time_train(dev, 16, 32),
               "fusion_pairs_per_sec_B256": {
@@ -255,7 +284,7 @@ out["e2e"] = {"serving_pairs_per_sec_B256": chip_smoke.time_e2e(dev),
 print("RESULT " + json.dumps(out))
 """ % (inspect.getsource(stage_times), inspect.getsource(half_times)
        + "\nLONG_SHAPES = %r\n" % (LONG_SHAPES,)
-       + inspect.getsource(long_times))
+       + inspect.getsource(long_times) + inspect.getsource(e2e_ori384))
 
 
 def main(argv=None) -> int:

@@ -268,6 +268,35 @@ def test_k11_equals_its_former_chain(dev, B, N, D, w1_scale, b1):
     assert ops.launch_counts()["fused_mlp_block_i8"] == 1
 
 
+@pytest.mark.parametrize("B,N,D,H", [
+    (8, 197, 384, 12), (128, 197, 384, 12), (2, 197, 768, 12),
+    (3, 50, 384, 12), (2, 256, 384, 12), (2, 257, 384, 12),
+    (2, 577, 384, 6), (2, 300, 384, 3), (2, 197, 256, 2)])
+def test_k10_equals_its_former_chain(dev, B, N, D, H):
+    """K10 (three launches on the quantizing int8 GEMMs from
+    I8Q_FUSED_WORK token rows x width on, five with quant_rows before the
+    plain int8 wgmma core below; the asynchronous cores with an fp32 output)
+    against the chain it ran before (``fused_attention_block_i8_mma``:
+    gemm_i8.cuh's mma.sync GEMMs, attn_core.cuh's or attn_long.cuh's core):
+    the same quantizer, exact int32 sums, the same epilogue functions and
+    the former cores' rounding points and sum orders, so the two agree bit
+    for bit; one launch counted a call. Both routes are also forced
+    (``fused_attention_block_i8_route``) at every shape."""
+    t = _block(dev, B, N, D)
+    attn, _ = _i8_args(t)
+    scale = (D // H) ** -0.5
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = fused_int8.fused_attention_block_i8(*attn, H, scale)
+        former = fused_int8.fused_attention_block_i8_mma(*attn, H, scale)
+        assert torch.equal(got, former)
+        assert ops.launch_counts()["fused_attention_block_i8"] == 1
+        for fused in (True, False):
+            assert torch.equal(fused_int8.fused_attention_block_i8_route(
+                *attn, H, scale, fused), former)
+    assert ops.launch_counts()["fused_attention_block_i8"] == 1
+
+
 def test_k9_backward_on_the_card_is_the_fp32_recompute(dev):
     """K9's Function backward on CUDA against the same fp32 recompute on
     the CPU for the same inputs: fp32 sums in another order, so weight

@@ -67,7 +67,7 @@ def test_long_plan_constants_are_the_c_sources():
     assert "SMEM = LONG_STAGES * STAGE_BYTES + 2 * LONG_STAGES * 8;" in _LONG
     assert "QROWS = LONG_W * 16;" in _LONG
     assert "!blk::ln1_takes(D)" in _LARGE
-    assert "attn_long_async(qkv, o" in _LARGE
+    assert "attn_long_async<bf16>(qkv, o" in _LARGE
 
 
 @pytest.mark.parametrize("hidden", [1, 2, 4])
