@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MF-ViT CA serving path (bf16, int8 W8A8 and
 the XLA-level W8A8 trees of ``quantize_vit_params``), its ViT fine-tuning
-path, its fusion training (``cli/fuse``) and the whole-block kernel K15
+path, its fusion training (``cli/fuse``), its MoCo pretraining
+(``cli/pretrain``) and the whole-block kernel K15
 (through ``tools/bench_block``) and the schedule variants T1-T7 (through
 ``tools/bench_mlp3d``, ``bench_pipelined``, ``bench_attn_pairs``,
 ``bench_rolling`` and ``bench_bwd_staged``) once on
@@ -154,7 +155,27 @@ Phases, in order; any failure raises and exits non-zero:
    card) from the same weights and batch (B=32), three Adam steps, LP and
    ``--semi-supervised``: loss per step within rel 1e-2, the first-step
    gradient of the head and of each branch block within rel 5e-2;
-18. times with CUDA events at B=256: each forward kernel (K10/K11
+18. MoCo pretraining through ``mfvit_tpu_torch.cli.pretrain.main``:
+   64 synthetic images, vit_small at full width from a seed, MoCo's
+   default heads (projector 384 -> 4096 -> 4096 -> 256, predictor) and
+   K=65536 queue, the v2 queue loss with the predictor on the keys, LARS
+   with the warmup-cosine LR and the momentum ramp, B=32, two epochs (four
+   steps), ``--export-torch``: finite losses, launch counts per step (K1
+   24, K2 22, K3 2 over both towers, K5 12, K7 12 in the query tower's
+   backward, every other kernel 0), the queue pointer at 4 x 32 mod K, and
+   the exported ``.pth.tar`` read back through
+   ``load_moco_pretrained_backbone`` equal to the base encoder; then three
+   steps of the kernel path against the plain path (bf16 on the card, B=32)
+   from the same state and batch: the loss per step within rel 1e-2, each
+   query-tower block's gradient within rel 5e-2 with both encoders under
+   the plain step's cotangent on their CLS features (the whole step's
+   gradients, the CLS features and the enqueued keys printed beside,
+   ungated: at random init the heads' BatchNorm-ReLU layers turn bf16
+   rounding differences of the features into far larger ones); then one
+   step each of ``--loss v3_symmetric`` (K1 48, K2 44, K3 4, K5 24, K7 24),
+   vit_conv_small (11 blocks: K1 22, K2 20, K3 2, K5 11, K7 11) and
+   resnet50 (no kernel of the port): finite losses and those counts;
+19. times with CUDA events at B=256: each forward kernel (K10/K11
    included) and K5/K7 against its plain version (K5/K7 first held
    against the plain fp32 backward on the timed inputs), K5/K7 also at a
    vit_base block (B=64, D=768, hidden 3072: the widths of K6 and K8),
@@ -179,8 +200,11 @@ Phases, in order; any failure raises and exits non-zero:
    ``--semi-supervised``, kernel against plain path, at B=32 (the fuse
    CLI's default) and B=256; each schedule variant at each argument its
    tool sweeps against its base kernel (variant, base, base, variant) and
-   K1's, K2's and K5's plain versions, at B=256;
-19. the long-sequence kernels: K9 against its plain fp32 version (rel <
+   K1's, K2's and K5's plain versions, at B=256; the images/s of the
+   MoCo v2-queue step, kernel against plain path, at B=256 and at B=16
+   (the pretrain CLI's default), and a ``torch.profiler`` breakdown of
+   the step at B=256 by operator;
+20. the long-sequence kernels: K9 against its plain fp32 version (rel <
    2e-2) at vit_small@384 (B=2, N=577, D=384, 12 heads), vit_small_ori@512
    (N=1025, 6 heads), vit_base@384 (D=768), head_dim 128 (N=300, 3 heads)
    and N=257, the first length past K1; K10 past 256 tokens
@@ -205,21 +229,21 @@ Phases, in order; any failure raises and exits non-zero:
    each of its two routes forced (``fused_attention_block_i8_route``): 0
    outputs differ, rel < 2e-2 against the plain fp32 version, the branch
    bar of phase 5, one launch of K10 a call of the op and none forced;
-20. the serving slice at 384 px: 32 synthetic pairs, the checkpoint of
+21. the serving slice at 384 px: 32 synthetic pairs, the checkpoint of
    phase 4 (saved at 224 px), ``infer.main`` with ``--img-size 384 --crop
    384`` at B=16; launch counts per forward K9 24, K2 22, K3 2, K4 1,
    every other kernel 0; decision logits within rel 2e-2 of the plain
    path in bf16;
-21. the same with ``--int8``: the attention half of every block is K9 on
+22. the same with ``--int8``: the attention half of every block is K9 on
    the dequantized weights (the JAX package's route at vit_small@384);
    launch counts K9 24, K11 24, K4 1, K10 0; top-1 agreement with the
    plain int8 path on all but one pair;
-22. FT at 384 px through ``finetune.main`` (B=8, one epoch over 32
+23. FT at 384 px through ``finetune.main`` (B=8, one epoch over 32
    images): the loss finite at every step, launch counts per step K9 12,
    K2 11, K3 1, K7 12 and K5 0 (K9's backward is the fp32 recompute, plain
    PyTorch) plus one forward per eval batch, the backbone changed; then
    three-step train parity with the plain path (B=8);
-23. times at 384 px: K9 and its plain version at vit_small@384 (B=64) and
+24. times at 384 px: K9 and its plain version at vit_small@384 (B=64) and
    vit_small_ori@512 (B=16), K10 past 256 tokens (vit_small_ori@384), K2
    and K11 at vit_small@384 (B=64), K10 and K11 at vit_base (B=64) against
    their plain versions, the launches of K9, K10 and K11 and of their
@@ -2949,6 +2973,284 @@ def fusion_parity(dev, B: int = 32) -> None:
                                  "its bar")
 
 
+def moco_counts(per_tower_pass: dict, n_query: int, n_key: int) -> dict:
+    """The launches of one MoCo step: each tower pass runs one ViT forward
+    (``per_tower_pass``), each query pass also its backward (K5 and K7 a
+    block)."""
+    depth = per_tower_pass["fused_attention_block"]
+    want = {k: v * (n_query + n_key) for k, v in per_tower_pass.items()}
+    want.update(fused_attention_block_bwd=depth * n_query,
+                fused_mlp_block_bwd=depth * n_query)
+    return want
+
+
+def run_pretrain(dev, tmp: str) -> dict:
+    """MoCo pretraining through ``cli.pretrain.main`` (vit_small, 224 px,
+    MoCo's default heads and K=65536 queue, v2 loss with the predictor on
+    the keys, LARS with the warmup-cosine LR and the momentum ramp, B=32,
+    two epochs over 64 synthetic images: four steps, ``--export-torch``).
+    Gates: four finite losses, launch counts per step (K1 24, K2 22, K3 2,
+    K5 12, K7 12, every other kernel 0), the queue pointer at 4 x 32 mod K
+    in the last checkpoint, and the exported ``.pth.tar`` read back through
+    ``load_moco_pretrained_backbone`` equal to that checkpoint's base
+    encoder. Returns the launch counts per step."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.cli import pretrain
+    from mfvit_tpu_torch.exp.checkpoint import load_moco_pretrained_backbone
+    from mfvit_tpu_torch.nn.vit import get_config
+
+    man = write_covid_ds(os.path.join(tmp, "ds"), 64, seed=31)
+    root = os.path.join(tmp, "moco")
+    argv = ["-a", "vit_small", "-b", "32", "--epochs", "2", "--draws", "1",
+            "--cos", "--lr", "0.6", "--warmup-epochs", "1", "--moco-m-cos",
+            "--moco-t", "0.2", "--stop-grad-conv1", "--export-torch",
+            "--covid-ds", man, "--storage-root", root, "--seed", "0", "-j",
+            "8", "-p", "1", "--device", dev.type]
+    ops.reset_launch_counts()
+    res = pretrain.main(argv)[0]
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    losses = res.extra["train_losses"]
+    steps = len(losses)
+    per_step = moco_counts(PER_VIT_FORWARD, 1, 1)
+    want = {k: 0 for k in got}
+    want.update({k: v * steps for k, v in per_step.items()})
+    print(f"pretrain (vit_small, B=32): {steps} steps, losses "
+          + ", ".join(f"{v:.4f}" for v in losses) + f"; launch counts {got}")
+    if steps != 4 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"pretrain: losses {losses}")
+    if got != want:
+        raise AssertionError(f"pretrain: launch counts {got} != {want}")
+    sub = os.path.join(next(os.scandir(root)).path, "train_1_0")
+    last = torch.load(os.path.join(sub, "checkpoint_0001"),
+                      weights_only=True)["state"]
+    ptr = int(last["queue_ptr"])
+    if ptr != 4 * 32 % 65536:
+        raise AssertionError(f"pretrain: queue_ptr {ptr} != 128")
+    back = load_moco_pretrained_backbone(
+        os.path.join(sub, "checkpoint_torch.pth.tar"), get_config("vit_small"))
+    enc = {k[len("base.encoder."):]: v for k, v in last.items()
+           if k.startswith("base.encoder.")}
+    differ = [k for k in enc if not torch.equal(back[k], enc[k])]
+    print(f"pretrain: queue_ptr {ptr}; export read back: {len(back)} "
+          f"entries, {len(differ)} differ from the base encoder")
+    if set(back) != set(enc) or differ:
+        raise AssertionError(f"pretrain export: {differ[:4]}, keys "
+                             f"{sorted(set(back) ^ set(enc))[:4]}")
+    return per_step
+
+
+def moco_model(name: str, gen, **kw):
+    """A MoCo state on the CPU: MoCo's ViT defaults (or its ResNet ones)
+    over ``name`` at 224 px."""
+    from mfvit_tpu_torch.nn import resnet
+    from mfvit_tpu_torch.nn.vit import get_config
+    from mfvit_tpu_torch.ssl import moco
+
+    if name.startswith("resnet"):
+        return moco.MoCo(moco.MoCoConfig.resnet(**kw),
+                         resnet.get_config(name), generator=gen)
+    return moco.MoCo(moco.MoCoConfig(**kw), get_config(name), generator=gen)
+
+
+def moco_views(gen, B: int, dev):
+    return tuple(torch.randn(B, 224, 224, 3, generator=gen).to(dev)
+                 .bfloat16() for _ in range(2))
+
+
+def encoder_grads(model, imgs, cotangent, reference: bool) -> list:
+    """The query tower's encoder (``stop_grad_conv1``, batch statistics)
+    forward and backward under ``cotangent`` on its CLS features: the
+    flattened gradient of each block."""
+    model.zero_grad(set_to_none=True)
+    feats = model.base.encoder(imgs, reference=reference,
+                               stop_grad_conv1=True, bn_training=True)
+    feats.backward(cotangent)
+    return [torch.cat([p.grad.flatten() for p in blk.parameters()])
+            for blk in model.base.encoder.blocks]
+
+
+def pretrain_parity(dev, B: int = 32) -> dict:
+    """Three MoCo v2-queue steps (LARS, LR 0.1) of the kernel path and of
+    the plain path (bf16 on the card) from the same vit_small state and
+    batch: the loss per step within PARITY_LOSS_BAR; then each query-tower
+    block's gradient within PARITY_GRAD_BAR, both paths' encoders run
+    forward and backward under one cotangent on their CLS features, the
+    plain step's own. The whole first step's gradients are printed
+    beside, ungated: at random init the MoCo heads' BatchNorm-ReLU layers
+    turn the bf16 rounding differences of the CLS features into much
+    larger gradient differences (ReLUs near zero flip), whatever the
+    kernels; so are the CLS features and the enqueued keys. Returns the
+    readings."""
+    import copy
+
+    from mfvit_tpu_torch.ssl import moco
+    from mfvit_tpu_torch.train import optim
+
+    gen = torch.Generator().manual_seed(32)
+    model0 = moco_model("vit_small", gen)
+    q, k = moco_views(gen, B, dev)
+    runs = {}
+    for ref in (False, True):
+        model = copy.deepcopy(model0).to(dev)
+        opt = optim.build_optimizer("lars", model.trainable(), 0.1,
+                                    weight_decay=1e-6)
+        step = moco.make_pretrain_step(model.cfg, reference=ref)
+        feats = []
+        hook = model.base.encoder.register_forward_hook(
+            lambda mod, args, out: feats.append(out) or out.retain_grad())
+        losses, grads = [], None
+        for i in range(3):
+            losses.append(step(model, opt, q, k, 0.99).item())
+            if i == 0:
+                hook.remove()
+                groups = [*model.base.encoder.blocks, model.base.projector,
+                          model.predictor]
+                grads = [torch.cat([p.grad.flatten() for p in m.parameters()])
+                         for m in groups]
+        runs[ref] = (losses, grads, model.queue[:, :3 * B].clone(),
+                     feats[0].detach(), feats[0].grad)
+    (lk, gk, qk, fk, _), (lp, gp, qp, fp, cot) = runs[False], runs[True]
+    shared = {ref: encoder_grads(copy.deepcopy(model0).to(dev), q, cot, ref)
+              for ref in (False, True)}
+    out = {"loss_rel": [abs(a - b) / abs(b) for a, b in zip(lk, lp)],
+           "block_grad_rel": [rel(a, b) for a, b in zip(shared[False],
+                                                         shared[True])],
+           "step_grad_rel": [rel(a, b) for a, b in zip(gk, gp)],
+           "cls_rel": rel(fk, fp), "keys_rel": rel(qk, qp)}
+    print(f"pretrain-step parity (vit_small, B={B}, 3 LARS steps): losses "
+          "kernel " + ", ".join(f"{v:.5f}" for v in lk) + " plain "
+          + ", ".join(f"{v:.5f}" for v in lp) + "; loss rel "
+          + ", ".join(f"{v:.3e}" for v in out["loss_rel"])
+          + f" (bar {PARITY_LOSS_BAR}); gradient rel per query block under "
+          "the plain step's cotangent "
+          + ", ".join(f"{v:.3e}" for v in out["block_grad_rel"])
+          + f" (bar {PARITY_GRAD_BAR}); ungated: the whole first step's "
+          "gradient rel per block, projector, predictor "
+          + ", ".join(f"{v:.3e}" for v in out["step_grad_rel"])
+          + f", CLS features rel {out['cls_rel']:.3e}, enqueued keys rel "
+          f"{out['keys_rel']:.3e}")
+    if not (max(out["loss_rel"]) < PARITY_LOSS_BAR
+            and max(out["block_grad_rel"]) < PARITY_GRAD_BAR):
+        raise AssertionError("pretrain-step parity out of its bar")
+    return out
+
+
+def pretrain_variants(dev, B: int = 32) -> dict:
+    """One MoCo step each of ``--loss v3_symmetric`` (vit_small),
+    vit_conv_small (the ConvStem, 11 blocks, bias-free qkv) and resnet50:
+    a finite loss and the launch counts (v3: two query and two key passes;
+    resnet50: no kernel of the port). Returns {label: counts}."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.ssl import moco
+    from mfvit_tpu_torch.train import optim
+
+    gen = torch.Generator().manual_seed(33)
+    conv = {k: 11 if k == "fused_attention_block" else
+            10 if k == "fused_mlp_block" else v
+            for k, v in PER_VIT_FORWARD.items()}
+    cases = (("v3_symmetric", "vit_small", dict(loss="v3_symmetric"),
+              moco_counts(PER_VIT_FORWARD, 2, 2)),
+             ("vit_conv_small", "vit_conv_small", {},
+              moco_counts(conv, 1, 1)),
+             ("resnet50", "resnet50", {}, {}))
+    out = {}
+    for label, arch, kw, per_step in cases:
+        model = moco_model(arch, gen, **kw).to(dev)
+        opt = optim.build_optimizer("lars", model.trainable(), 0.1,
+                                    weight_decay=1e-6)
+        step = moco.make_pretrain_step(model.cfg)
+        q, k = moco_views(gen, B, dev)
+        ops.reset_launch_counts()
+        loss = step(model, opt, q, k, 0.99).item()
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        want = {n: 0 for n in got}
+        want.update(per_step)
+        print(f"pretrain step {label} (B={B}): loss {loss:.4f}; launch "
+              f"counts {got}")
+        if not math.isfinite(loss) or got != want:
+            raise AssertionError(f"pretrain {label}: loss {loss}, counts "
+                                 f"{got} != {want}")
+        out[label] = {n: v for n, v in got.items() if v}
+        del model, opt
+    return out
+
+
+def time_pretrain(dev, B: int, iters: int) -> dict:
+    """Images/s of the MoCo v2-queue step (vit_small, 224 px, MoCo's
+    default heads and queue, LARS; the EMA, both towers, the backward, the
+    optimizer and the enqueue, the loss fetched every step) at batch B,
+    kernel path against plain path (kernel, plain, plain, kernel)."""
+    from mfvit_tpu_torch.ssl import moco
+    from mfvit_tpu_torch.train import optim
+
+    gen = torch.Generator().manual_seed(34)
+    model = moco_model("vit_small", gen).to(dev)
+    q, k = moco_views(gen, B, dev)
+    opt = optim.build_optimizer("lars", model.trainable(), 1e-3,
+                                weight_decay=1e-6)
+    fns = {w: moco.make_pretrain_step(model.cfg, reference=w == "plain")
+           for w in ("kernel", "plain")}
+
+    def rate(which: str) -> float:
+        fns[which](model, opt, q, k, 0.99).item()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fns[which](model, opt, q, k, 0.99).item()
+        return B * iters / (time.perf_counter() - t0)
+
+    runs = {"kernel": [], "plain": []}
+    for which in ("kernel", "plain", "plain", "kernel"):
+        runs[which].append(rate(which))
+    print(f"MoCo v2-queue step at B={B}, 224 px (bf16, both towers + "
+          "backward + LARS + enqueue, loss fetched every step): "
+          + ", ".join(f"{w} {' / '.join(f'{r:.1f}' for r in v)} images/s"
+                      for w, v in runs.items()))
+    return {w: sum(v) / len(v) for w, v in runs.items()}
+
+
+def profile_pretrain(dev, B: int = 256) -> dict:
+    """One ``torch.profiler`` window over two MoCo v2-queue steps at batch
+    B (vit_small, 224 px, the state of ``time_pretrain``): the device time
+    per step by the PyTorch operator (or autograd Function) that launched
+    it, the twelve largest with their calls per step, and the device's
+    busy share of the window (the profiler's own cost included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mfvit_tpu_torch.ssl import moco
+    from mfvit_tpu_torch.train import optim
+
+    gen = torch.Generator().manual_seed(34)
+    model = moco_model("vit_small", gen).to(dev)
+    q, k = moco_views(gen, B, dev)
+    opt = optim.build_optimizer("lars", model.trainable(), 1e-3,
+                                weight_decay=1e-6)
+    step = moco.make_pretrain_step(model.cfg)
+    step(model, opt, q, k, 0.99).item()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(model, opt, q, k, 0.99).item()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    busy = sum(e.self_device_time_total / 2e3 for e in avgs
+               if e.device_type == DeviceType.CUDA)
+    by_op = {e.key: (e.self_device_time_total / 2e3, e.count // 2)
+             for e in avgs if e.device_type == DeviceType.CPU
+             and e.self_device_time_total > 0
+             and e.key != "Command Buffer Full"}
+    top = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:12]
+    print(f"MoCo step at B={B}, profiled: {wall_ms / 2:.1f} ms per step on "
+          f"the host clock, device busy {busy:.1f} ms per step "
+          f"({busy / (wall_ms / 2):.1%}); device ms per step by operator: "
+          + "; ".join(f"{k} {v:.2f} ms x{n}" for k, (v, n) in top))
+    return {"wall_ms": wall_ms / 2, "device_ms": busy,
+            "by_op": [[k, v, n] for k, (v, n) in top]}
+
+
 def library_block(t, heads: int):
     """K15's library yardstick: ``nn.TransformerEncoderLayer`` (pre-norm,
     exact GELU, eps 1e-6, packed qkv bias) in bf16 with K15's weights,
@@ -3208,6 +3510,15 @@ def main() -> int:
     phase("fusion train-step parity, kernel path against plain path (B=32)")
     fusion_parity(dev)
 
+    phase("MoCo pretraining through mfvit_tpu_torch.cli.pretrain "
+          "(vit_small, B=32, two epochs, --export-torch); pretrain-step "
+          "parity (B=32); one step of v3_symmetric, vit_conv_small and "
+          "resnet50")
+    with tempfile.TemporaryDirectory() as tmp:
+        moco_per_step = run_pretrain(dev, tmp)
+    moco_parity = pretrain_parity(dev)
+    moco_variants = pretrain_variants(dev)
+
     phase("times (B=256; K12-K14 also at N=577, B=64; K5/K7 also at a "
           "vit_base block, B=64; the fusion step also at B=32; the schedule "
           "variants against K1/K2)")
@@ -3236,6 +3547,9 @@ def main() -> int:
                        None)
     fusion_cli = time_fusion(dev, 32, 8)  # the fuse CLI's default -b
     fusion_256 = time_fusion(dev, 256, 3)
+    moco_256 = time_pretrain(dev, 256, 4)
+    moco_cli = time_pretrain(dev, 16, 32)  # the pretrain CLI's default -b
+    moco_profile = profile_pretrain(dev)
 
     phase("long-sequence kernels K9 and K10 against their plain versions")
     errs.update(check_long_kernels(dev))
@@ -3344,6 +3658,12 @@ def main() -> int:
                           for tool, res in variant_lines.items()},
                       "fusion_step_pairs_per_sec_B32": fusion_cli,
                       "fusion_step_pairs_per_sec_B256": fusion_256,
+                      "moco_step_images_per_sec_B256": moco_256,
+                      "moco_step_images_per_sec_B16": moco_cli,
+                      "moco_launches_per_step": moco_per_step,
+                      "moco_step_launches_other": moco_variants,
+                      "moco_step_parity_B32": moco_parity,
+                      "moco_step_profile_B256": moco_profile,
                       "long_B64_B16": {k: {
                           "ms": v[0], "plain_ms": v[1],
                           "bound_ms": long_bounds[k][0],

@@ -1,7 +1,7 @@
 """CLI plumbing shared by the entry points (the flags ``infer``,
-``finetune`` and ``fuse`` use, from ``mfvit_tpu/cli/common.py``), plus
-``--device``: the streaming training feeds (one flavour, or paired), and
-the eval runner."""
+``finetune``, ``fuse`` and ``pretrain`` use, from
+``mfvit_tpu/cli/common.py``), plus ``--device``: the streaming training
+feeds (one flavour, MoCo's two views, or paired), and the eval runner."""
 from __future__ import annotations
 
 import argparse
@@ -11,13 +11,15 @@ import torch
 
 from mfvit_tpu_torch.data import datasets, device_aug, host_transforms as ht
 from mfvit_tpu_torch.data import pipeline
+from mfvit_tpu_torch.nn import resnet as resnet_mod
 from mfvit_tpu_torch.nn import vit as vit_mod
 from mfvit_tpu_torch.train.evaluator import Evaluator
 
 
 def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-a", "--arch", default="vit_small",
-                   choices=sorted(vit_mod.CONFIGS) + ["vit_test"])
+                   choices=sorted(vit_mod.CONFIGS) + sorted(resnet_mod.CONFIGS)
+                   + ["vit_test"])
     p.add_argument("-j", "--workers", default=8, type=int)
     p.add_argument("-b", "--batch-size", default=16, type=int)
     p.add_argument("--img-size", dest="img_size", type=int, default=224)
@@ -61,16 +63,41 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--remat", action="store_true",
                    help="recompute the transformer blocks in the backward "
                         "(torch.utils.checkpoint)")
+    p.add_argument("--resume", default="", type=str)
+    p.add_argument("--aug-setting", default="chexpert",
+                   choices=["moco_v1", "moco_v2", "chexpert", "aug1", "aug2"])
+    p.add_argument("--crop-min", dest="crop_min", default=0.08, type=float)
+    p.add_argument("--in-chans", dest="in_chans", type=int, default=3,
+                   choices=[3, 4],
+                   help="4 = stacked CXR-gray + Enh input (pretrain only; "
+                        "not ported yet)")
 
 
-def get_vit_arch(args) -> vit_mod.ViTConfig:
-    """The network input size is the post-crop size (the eval transform
-    resizes to --img-size, then center-crops to --crop)."""
+def get_arch(args):
+    """The backbone config of ``-a``: a ``ViTConfig``, or a
+    ``ResNetConfig`` for the ResNet MoCo arms. The network input size is
+    the post-crop size (the eval transform resizes to --img-size, then
+    center-crops to --crop)."""
+    if args.arch.startswith("resnet"):
+        return resnet_mod.get_config(args.arch)
     input_size = args.crop or args.img_size
     if args.arch == "vit_test":  # tiny config for smoke tests
         return vit_mod.ViTConfig("vit_test", img_size=input_size, patch=16,
                                  dim=32, depth=2, heads=2)
     return vit_mod.get_config(args.arch, input_size)
+
+
+def get_vit_arch(args) -> vit_mod.ViTConfig:
+    """ViT-only entry points (``finetune``, ``fuse``, ``infer``), as in
+    JAX: ResNet arms and ``--in-chans 4`` are pretrain-only."""
+    if args.arch.startswith("resnet"):
+        raise SystemExit(f"-a {args.arch}: resnet backbones are "
+                         "pretrain-only (the reference finetune/fusion "
+                         "mains are ViT-only)")
+    if getattr(args, "in_chans", 3) != 3:
+        raise SystemExit("--in-chans 4 is a pretrain-only variant; "
+                         "finetune/fuse/infer are 3-channel")
+    return get_arch(args)
 
 
 def compute_dtype(args) -> torch.dtype:
@@ -107,19 +134,23 @@ def make_paired_loader(args, manifest_path: str, *, training: bool = False,
 
 
 def make_covid_loader(args, manifest_path: str, folder: str, *,
-                      training: bool, seed: int = 0) -> pipeline.BatchLoader:
+                      training: bool, ssl_two_views: bool = False,
+                      seed: int = 0) -> pipeline.BatchLoader:
     """Single-flavour canvases over a COVID manifest (the streaming feed of
     ``mfvit_tpu/cli/common.py::make_covid_loader`` :475-560 with its
     defaults ``--aug-device``, ``--aug-order reference``): training
     canvases come fully augmented from the host in the reference order
     (flip -> rotate -> crop), shuffled per epoch, the last short batch
     dropped; eval canvases are center crops in manifest order, the last
-    batch padded."""
+    batch padded. ``ssl_two_views``: (q, k, label), two independently
+    augmented canvases of each image (:513-523)."""
     tf = ht.CanvasTransform(img_size=args.img_size, crop=args.crop,
                             maintain_ratio=args.maintain_ratio,
                             training=training,
                             rotate_deg=float(args.rotate), seed=seed)
-    ds = datasets.CovidDataset(folder, manifest_path, tf)
+    kind = (datasets.CovidTwoCropsDataset if ssl_two_views
+            else datasets.CovidDataset)
+    ds = kind(folder, manifest_path, tf)
     return pipeline.BatchLoader(ds, args.batch_size, shuffle=training,
                                 seed=seed, drop_last=training,
                                 num_workers=args.workers)
@@ -130,6 +161,15 @@ def stream_train_view(args, canv: torch.Tensor, img_type: str):
     augmented the canvases, so only the normalisation remains."""
     return device_aug.augment_batch(canv, img_type=img_type,
                                     out_dtype=compute_dtype(args))
+
+
+def stream_train_two_views(args, canv_q: torch.Tensor,
+                           canv_k: torch.Tensor, img_type: str):
+    """The two-view twin of ``stream_train_view``
+    (``mfvit_tpu/cli/common.py:325``): both canvases arrive augmented,
+    each is normalised."""
+    return (stream_train_view(args, canv_q, img_type),
+            stream_train_view(args, canv_k, img_type))
 
 
 def make_eval_runner(args, img_types, forward, device) -> Evaluator:

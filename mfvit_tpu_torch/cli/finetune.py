@@ -183,6 +183,10 @@ def train_one_draw_fn(args, cfg, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.resume:
+        raise SystemExit("--resume is not implemented for finetune "
+                         "(the reference's resume path is dead code too); "
+                         "restart the draw or load via --pretrained")
     device = common.resolve_device(args.device)
     cfg = common.get_vit_arch(args)
     exp_type = "finetune" if args.semi_supervised else "linear_probe"

@@ -64,7 +64,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cross-attn-depth", type=int, default=1)
     p.add_argument("--multi-scale-enc-depth", type=int, default=1)
     p.add_argument("--num-classes", type=int, default=3)
-    p.add_argument("--resume", default="", type=str)
     p.set_defaults(epochs=25, lr=1.5e-4, batch_size=32)
     return p
 

@@ -1,0 +1,232 @@
+"""MoCo pretraining entry point, the port of ``mfvit_tpu/cli/pretrain.py``:
+per (ratio, draw) a fresh MoCo state (v3 structure; the v2 queue loss by
+default, ``--loss v3_symmetric`` for the symmetric one) over the unlabeled
+split, LARS/AdamW/Adam/SGD with the per-step cosine LR and its warmup
+(``--cos``), the cosine momentum ramp (``--moco-m-cos``), two augmented
+views per image, the smallest-epoch-loss checkpoint and one every
+``--save-epoch`` epochs (with the optimizer state, for ``--resume``), and
+``--export-torch``'s reference ``.pth.tar``, which ``finetune
+--pretrained`` reads.
+
+    python -m mfvit_tpu_torch.cli.pretrain -a vit_small -b 256 --cos \\
+        --optimizer lars --lr 0.6 --epochs 100 --warmup-epochs 10 \\
+        --stop-grad-conv1 --moco-m-cos --moco-t 0.2 \\
+        --covid-ds create_covid_dataset --export-torch [--device cuda]
+
+On CUDA every block of both towers runs K1 and K2 (K3 on the last)
+forward and the query tower's K5 and K7 backward; a ResNet arm
+(``-a resnet18/34/50``, ``--pretrained-arms``) runs no kernel of the port.
+The training feed streams (the JAX CLI at ``--device-store-mb 0``).
+Not ported yet, and refused with a message (ROADMAP.md section 1): the
+BYOL ``--aug-setting``s, ``--in-chans 4``, ``--pairing enh_cxr`` (item 3c),
+a JAX orbax directory for ``--resume`` (item 4), ``--distributed`` (item
+6), TensorBoard (item 8).
+"""
+from __future__ import annotations
+
+import argparse
+import math
+
+import torch
+
+from mfvit_tpu_torch.cli import common
+from mfvit_tpu_torch.data import manifest as mf
+from mfvit_tpu_torch.exp import checkpoint as ckpt_mod
+from mfvit_tpu_torch.exp import harness, storage
+from mfvit_tpu_torch.ssl import moco
+from mfvit_tpu_torch.train import metrics, optim, profiler
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("mfvit-torch-pretrain")
+    common.add_common_args(p)
+    common.add_train_args(p)
+    p.add_argument("--optimizer", default="lars",
+                   choices=["lars", "adamw", "adam", "sgd"])
+    p.add_argument("--warmup-epochs", default=10, type=int)
+    p.add_argument("--moco-dim", default=256, type=int)
+    p.add_argument("--moco-mlp-dim", default=4096, type=int)
+    p.add_argument("--moco-m", default=0.99, type=float)
+    p.add_argument("--moco-m-cos", action="store_true")
+    p.add_argument("--moco-t", default=1.0, type=float)
+    p.add_argument("--moco-k", default=65536, type=int,
+                   help="queue length (v2 loss)")
+    p.add_argument("--stop-grad-conv1", dest="stop_grad_conv1",
+                   action="store_true")
+    p.add_argument("--loss", default="v2_queue",
+                   choices=["v2_queue", "v3_symmetric"])
+    p.add_argument("--no-predictor-on-keys", dest="predictor_on_keys",
+                   action="store_false",
+                   help="the builder_..._noprediction_q variant")
+    p.add_argument("--folder", default="data")
+    p.add_argument("--pairing", default="same", choices=["same", "enh_cxr"])
+    p.add_argument("--per-enh", dest="per_enh", type=float, default=1.0)
+    p.add_argument("--save-epoch", type=int, default=30)
+    p.add_argument("--pretrained-arms", dest="pretrained_arms", default="",
+                   type=str,
+                   help="local torchvision resnet state dict for BOTH MoCo "
+                        "towers' encoders; resnet archs only")
+    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--export-torch", action="store_true",
+                   help="also write the reference-layout .pth.tar "
+                        "(module.base_encoder.* + projector head) that "
+                        "finetune --pretrained reads (ViT archs)")
+    p.set_defaults(epochs=100, lr=0.6, batch_size=16)
+    return p
+
+
+def moco_config(args) -> moco.MoCoConfig:
+    kw = dict(dim=args.moco_dim, mlp_dim=args.moco_mlp_dim, K=args.moco_k,
+              T=args.moco_t, m=args.moco_m, loss=args.loss,
+              predictor_on_keys=args.predictor_on_keys)
+    if args.arch.startswith("resnet"):
+        return moco.MoCoConfig.resnet(**kw)
+    return moco.MoCoConfig(stop_grad_conv1=args.stop_grad_conv1, **kw)
+
+
+def train_one_draw_fn(args, backbone_cfg, device):
+    dt = common.compute_dtype(args)
+
+    def train_one_draw(ratio, draw, sub_folder):
+        cfg = moco_config(args)
+        # pretraining reads the UNLABELED split at fractional ratios
+        man = (mf.split_manifest_path(args.covid_ds, 1, 0)
+               if float(ratio) == 1.0 else
+               mf.split_manifest_path(args.covid_ds, ratio, draw,
+                                      labeled=False))
+        tl = common.make_covid_loader(args, man, args.folder, training=True,
+                                      ssl_two_views=True, seed=draw)
+        steps_per_epoch = max(len(tl), 1)
+        if cfg.loss == "v2_queue" and cfg.K % args.batch_size != 0:
+            raise ValueError(
+                f"K={cfg.K} must be divisible by batch {args.batch_size}")
+        init_lr = optim.scaled_init_lr(args.lr, args.batch_size,
+                                       cos=args.cos, entry="pretrain")
+        sched = (optim.pretrain_cosine_lr(init_lr, args.epochs,
+                                          args.warmup_epochs,
+                                          steps_per_epoch)
+                 if args.cos else
+                 optim.finetune_lr(init_lr, args.epochs, cos=False,
+                                   schedule=args.schedule,
+                                   steps_per_epoch=steps_per_epoch))
+        seed = args.seed if args.seed is not None else 0
+        model = moco.MoCo(cfg, backbone_cfg, generator=torch.Generator()
+                          .manual_seed(seed * 1000 + draw))
+        if args.pretrained_arms:
+            ckpt_mod.load_resnet_arms(model, args.pretrained_arms)
+            print(f"=> MoCo arms initialized from {args.pretrained_arms}")
+        model.to(device)
+        opt = optim.build_optimizer(args.optimizer, model.trainable(), sched,
+                                    weight_decay=args.weight_decay,
+                                    momentum=args.momentum)
+        step = moco.make_pretrain_step(cfg, compute_dtype=dt,
+                                       remat=args.remat)
+
+        start_epoch = args.start_epoch
+        if args.resume:
+            ck = ckpt_mod.load_pretrain_checkpoint(args.resume)
+            model.load_state_dict(ck["state"])
+            opt.load_state_dict(ck["opt_state"])
+            start_epoch = ck["epoch"] + 1
+            print(f"=> resumed from {args.resume} at epoch {start_epoch}")
+
+        best_loss = math.inf
+        result = harness.DrawResult(ratio, draw)
+        losses = result.extra["train_losses"] = []
+        ep_loss = metrics.AverageMeter("Loss", ":.4e")
+
+        def record(val, n, idx):
+            ep_loss.update(val, n)
+            losses.append(val)
+
+        for epoch in range(start_epoch, args.epochs):
+            tl.set_epoch(epoch)
+            ep_loss = metrics.AverageMeter("Loss", ":.4e")
+            timer = profiler.StepTimer(steps_per_epoch,
+                                       prefix=f"Epoch: [{epoch}]",
+                                       extra_meters=[ep_loss])
+            fetch = metrics.DeferredFetch(record)
+            for i, (canv_q, canv_k, _labels) in enumerate(tl):
+                timer.data_ready()
+                m = (optim.moco_momentum(epoch + i / steps_per_epoch,
+                                         args.moco_m, args.epochs)
+                     if args.moco_m_cos else args.moco_m)
+                q, k = common.stream_train_two_views(
+                    args, torch.from_numpy(canv_q).to(device),
+                    torch.from_numpy(canv_k).to(device), args.folder)
+                loss = step(model, opt, q, k, m)
+                # one-step-lagged fetch: no host sync per step
+                fetch.push(loss, int(q.shape[0]), i, sync=(i == 0))
+                timer.step_done(i, args.print_freq)
+            fetch.flush()
+            print(f"[ratio {ratio} draw {draw}] epoch {epoch}: "
+                  f"loss {ep_loss.avg:.4f}")
+            if ep_loss.avg < best_loss:
+                best_loss = ep_loss.avg
+                ckpt_mod.save_pretrain_checkpoint(
+                    str(sub_folder / "checkpoint_best_loss"), model,
+                    epoch=epoch)
+            if epoch == args.epochs - 1 or (epoch + 1) % args.save_epoch == 0:
+                ckpt_mod.save_pretrain_checkpoint(
+                    str(sub_folder / f"checkpoint_{epoch:04d}"), model,
+                    epoch=epoch, opt=opt)
+        if args.export_torch:
+            if args.arch.startswith("resnet"):
+                print("--export-torch: resnet towers have no vits.py "
+                      "layout; skipping torch export")
+            elif storage.is_primary():
+                ckpt_mod.save_moco_torch_checkpoint(
+                    str(sub_folder / "checkpoint_torch.pth.tar"), model,
+                    epoch=args.epochs - 1, arch=args.arch)
+        result.extra["final_loss"] = ep_loss.avg
+        result.extra["best_loss"] = best_loss
+        return result
+
+    return train_one_draw
+
+
+def check_ported(args) -> None:
+    """Refuse, before any work, what this port does not run yet."""
+    todo = {"--aug-setting " + args.aug_setting:
+            args.aug_setting != "chexpert",
+            "--in-chans 4": args.in_chans != 3,
+            "--pairing enh_cxr": args.pairing != "same"}
+    for flag, asked in todo.items():
+        if asked:
+            raise SystemExit(f"{flag} is not ported yet (ROADMAP.md section "
+                             "1, item 3c)")
+    if args.distributed:
+        raise SystemExit("--distributed is not ported yet (ROADMAP.md "
+                         "section 1, item 6)")
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    check_ported(args)
+    device = common.resolve_device(args.device)
+    backbone_cfg = common.get_arch(args)
+    if args.export_torch and (getattr(backbone_cfg, "conv_stem", False)
+                              or not getattr(backbone_cfg, "qkv_bias", True)):
+        # fail fast, as JAX's main: the export writes the plain vits.py
+        # layout, and finding out after the whole grid would waste it
+        raise SystemExit(
+            f"--export-torch does not support -a {args.arch}: the torch "
+            "export writes the plain 3-channel vits.py layout (no "
+            "conv-stem, biased qkv) the reference finetune surgery loads. "
+            "Drop --export-torch or use a vit_small/vit_base/_ori arch.")
+    if args.pretrained_arms and not args.arch.startswith("resnet"):
+        raise SystemExit("--pretrained-arms is resnet-only; ViT "
+                         "pretraining starts from scratch")
+    folder = storage.get_storage_folder(args.exp_name, "moco",
+                                        root=args.storage_root)
+    harness.snapshot_args(folder, args)
+    iterations = ({mf.ratio_tag(r): args.draws for r in args.semi_ratios}
+                  if args.draws else None)
+    ratios = [mf.ratio_tag(r) for r in args.semi_ratios]
+    return harness.run_draws(folder, ratios,
+                             train_one_draw_fn(args, backbone_cfg, device),
+                             iterations=iterations)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,9 @@
 """COVID datasets, the port of ``mfvit_tpu/data/datasets.py``'s
-``CovidDataset`` (one flavour, ``(image, label)``) and
-``CovidPairedDataset`` (CXR + enhanced pairs by sample index). A seeded
-transform gets the per-sample context (epoch, index), so its draws do not
-depend on the loader's worker count; ``BatchLoader`` calls ``set_epoch``."""
+``CovidDataset`` (one flavour, ``(image, label)``), ``CovidTwoCropsDataset``
+(MoCo's two views of one image) and ``CovidPairedDataset`` (CXR + enhanced
+pairs by sample index). A seeded transform gets the per-sample context
+(epoch, index[, view]), so its draws do not depend on the loader's worker
+count; ``BatchLoader`` calls ``set_epoch``."""
 from __future__ import annotations
 
 from typing import Callable
@@ -41,6 +42,19 @@ class CovidDataset(_EpochMixin):
     def __getitem__(self, idx: int):
         img = decode_bgr(self.manifest.paths[idx])
         return (_apply_tf(self.transform, img, (self._epoch, idx)),
+                self.manifest.labels[idx])
+
+
+class CovidTwoCropsDataset(CovidDataset):
+    """(q, k, label): the same decoded image through the transform twice,
+    with the contexts (epoch, index, 0) and (epoch, index, 1), so the two
+    views draw their flips, angles and crops independently
+    (``mfvit_tpu/data/datasets.py:84``, TwoCropsTransform)."""
+
+    def __getitem__(self, idx: int):
+        img = decode_bgr(self.manifest.paths[idx])
+        return (_apply_tf(self.transform, img, (self._epoch, idx, 0)),
+                _apply_tf(self.transform, img, (self._epoch, idx, 1)),
                 self.manifest.labels[idx])
 
 

@@ -1,17 +1,21 @@
 """The weight bridge from JAX parameter trees, the port's serving
-checkpoint, the training checkpoints (``BestKeeper``) and the reference
-MoCo ``.pth.tar`` surgery.
+checkpoint, the training checkpoints (``BestKeeper``, the pretrain
+checkpoints), the reference MoCo ``.pth.tar`` (its surgery and its
+export) and the torchvision ResNet arms.
 
 ``vit_state_from_jax``, ``vit_int8_state_from_jax``,
-``vit_quant_state_from_jax`` and ``fusion_state_from_jax`` take the JAX
-package's
-parameter trees as nested dicts of numpy arrays (``mfvit_tpu/nn/vit.py::init``
-and ``mfvit_tpu/models/fusion.py::init`` layouts) and return the port's
-state dicts, under the MoCo-v3 ``vits.py`` / reference ``Fus_CrossViT``
-names that ``mfvit_tpu/exp/checkpoint.py::params_to_torch_vit`` (:313) and
-``fusion_params_to_torch`` (:362) emit. Linear weights go from JAX's
-(in, out) to torch's (out, in); the patch projection (P*P*C, D) becomes the
-conv weight (D, C, P, P).
+``vit_quant_state_from_jax``, ``fusion_state_from_jax``,
+``resnet_state_from_jax`` and ``moco_state_from_jax`` take the JAX
+package's parameter trees as nested dicts of numpy arrays
+(``mfvit_tpu/nn/vit.py::init``, ``mfvit_tpu/models/fusion.py::init``,
+``mfvit_tpu/nn/resnet.py::init`` and ``mfvit_tpu/ssl/moco.py::init``
+layouts) and return the port's state dicts, under the MoCo-v3 ``vits.py``
+/ reference ``Fus_CrossViT`` / torchvision names that
+``mfvit_tpu/exp/checkpoint.py::params_to_torch_vit`` (:313),
+``fusion_params_to_torch`` (:362) and ``torch_resnet_to_params`` (:182)
+use. Linear weights go from JAX's (in, out) to torch's (out, in); the patch
+projection (P*P*C, D) becomes the conv weight (D, C, P, P), an HWIO
+convolution torch's OIHW.
 """
 from __future__ import annotations
 
@@ -32,7 +36,9 @@ def vit_state_from_jax(tree, cfg) -> dict:
     projection (``{"wq": ..., "b"}``) becomes ``Int8Linear`` buffers."""
     D, P = cfg.dim, cfg.patch
     sd = {}
-    if "wq" in tree["patch"]:
+    if "stem" in tree["patch"]:
+        _conv_stem_from_jax(sd, tree["patch"])
+    elif "wq" in tree["patch"]:
         _int8_from_jax(sd, "patch_embed.proj.", tree["patch"]["wq"],
                        tree["patch"]["b"])
     else:
@@ -55,10 +61,99 @@ def vit_state_from_jax(tree, cfg) -> dict:
                         ("mlp.fc1", blk["mlp"]["fc1"]),
                         ("mlp.fc2", blk["mlp"]["fc2"])):
             sd[b + name + ".weight"] = _t(np.asarray(p["w"]).T)
-            sd[b + name + ".bias"] = _t(p["b"])
+            if "b" in p:  # a ConvStem arch's qkv has none
+                sd[b + name + ".bias"] = _t(p["b"])
     if "head" in tree:
         sd["head.weight"] = _t(np.asarray(tree["head"]["w"]).T)
         sd["head.bias"] = _t(tree["head"]["b"])
+    return sd
+
+
+def _conv_from_jax(w) -> torch.Tensor:
+    """HWIO -> OIHW."""
+    return _t(np.asarray(w).transpose(3, 2, 0, 1))
+
+
+def _bn_from_jax(sd: dict, prefix: str, bn) -> None:
+    """A BatchNorm's scale, bias and running statistics (an affine-free
+    one has no scale and bias)."""
+    if "scale" in bn:
+        sd[prefix + "weight"] = _t(bn["scale"])
+        sd[prefix + "bias"] = _t(bn["bias"])
+    sd[prefix + "running_mean"] = _t(bn["mean"])
+    sd[prefix + "running_var"] = _t(bn["var"])
+    sd[prefix + "num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+
+def _conv_stem_from_jax(sd: dict, patch) -> None:
+    """A ConvStem (``{"stem": [conv, bn] x 4, "proj"}``) -> ``vits.py``'s
+    ``patch_embed.proj.{0,1,3,4,6,7,9,10,12}``."""
+    pre = "patch_embed.proj."
+    for i, layer in enumerate(patch["stem"]):
+        sd[f"{pre}{3 * i}.weight"] = _conv_from_jax(layer["conv"]["w"])
+        _bn_from_jax(sd, f"{pre}{3 * i + 1}.", layer["bn"])
+    sd[pre + "12.weight"] = _conv_from_jax(patch["proj"]["w"])
+    sd[pre + "12.bias"] = _t(patch["proj"]["b"])
+
+
+def resnet_state_from_jax(tree, cfg) -> dict:
+    """JAX ResNet tree -> ``nn.resnet.ResNet`` state dict (torchvision
+    names), the inverse of ``torch_resnet_to_params`` (:182)."""
+    sd = {"conv1.weight": _conv_from_jax(tree["stem"]["conv"]["w"])}
+    _bn_from_jax(sd, "bn1.", tree["stem"]["bn"])
+    for s, stage in enumerate(tree["stages"]):
+        for b, blk in enumerate(stage):
+            pre = f"layer{s + 1}.{b}."
+            for i in (1, 2, 3):
+                if f"conv{i}" in blk:
+                    sd[f"{pre}conv{i}.weight"] = _conv_from_jax(
+                        blk[f"conv{i}"]["w"])
+                    _bn_from_jax(sd, f"{pre}bn{i}.", blk[f"bn{i}"])
+            if "down_conv" in blk:
+                sd[pre + "downsample.0.weight"] = _conv_from_jax(
+                    blk["down_conv"]["w"])
+                _bn_from_jax(sd, pre + "downsample.1.", blk["down_bn"])
+    if "fc" in tree:
+        sd["fc.weight"] = _t(np.asarray(tree["fc"]["w"]).T)
+        sd["fc.bias"] = _t(tree["fc"]["b"])
+    return sd
+
+
+def _mlp_from_jax(sd: dict, prefix: str, mlp) -> None:
+    """A MoCo MLP stack (``{"layers": [...]}``) -> its ``nn.Sequential``
+    numbering (Linear[, BN, ReLU | ReLU] per hidden layer, Linear[, BN]),
+    as ``_mlp_params_to_torch_seq`` (:393) numbers it."""
+    idx = 0
+    for layer in mlp["layers"]:
+        sd[f"{prefix}{idx}.weight"] = _t(np.asarray(layer["lin"]["w"]).T)
+        if "b" in layer["lin"]:
+            sd[f"{prefix}{idx}.bias"] = _t(layer["lin"]["b"])
+        idx += 1
+        if "bn" in layer:
+            _bn_from_jax(sd, f"{prefix}{idx}.", layer["bn"])
+            idx += 2
+        elif "relu_marker" in layer:
+            idx += 1
+        elif "bn_noaffine" in layer:
+            _bn_from_jax(sd, f"{prefix}{idx}.", layer["bn_noaffine"])
+            idx += 1
+
+
+def moco_state_from_jax(state, mcfg, backbone_cfg) -> dict:
+    """JAX MoCo state (``mfvit_tpu/ssl/moco.py::init``) -> the state dict
+    of ``ssl.moco.MoCo(mcfg, backbone_cfg)``."""
+    from mfvit_tpu_torch.nn.vit import ViTConfig
+    enc = (vit_state_from_jax if isinstance(backbone_cfg, ViTConfig)
+           else resnet_state_from_jax)
+    sd = {}
+    for tower in ("base", "momentum"):
+        for k, v in enc(state[tower]["encoder"], backbone_cfg).items():
+            sd[f"{tower}.encoder.{k}"] = v
+        _mlp_from_jax(sd, f"{tower}.projector.", state[tower]["projector"])
+    _mlp_from_jax(sd, "predictor.", state["predictor"])
+    sd["queue"] = _t(state["queue"])
+    sd["queue_ptr"] = torch.tensor(int(np.asarray(state["queue_ptr"])),
+                                   dtype=torch.long)
     return sd
 
 
@@ -259,3 +354,84 @@ def load_moco_pretrained_backbone(path: str, cfg) -> dict:
         raise ValueError(f"{path}: no MoCo base encoder under "
                          "'module.base_encoder.'")
     return sd
+
+
+# ------------------------------------------------------- MoCo pretraining
+
+MOCO_TOWERS = (("base.encoder.", "module.base_encoder."),
+               ("base.projector.", "module.base_encoder.head."),
+               ("momentum.encoder.", "module.momentum_encoder."),
+               ("momentum.projector.", "module.momentum_encoder.head."),
+               ("predictor.", "module.predictor."))
+
+
+def save_moco_torch_checkpoint(path: str, model, *, epoch: int = 0,
+                               arch: str = "vit_small") -> None:
+    """The reference-layout ``.pth.tar`` of ``mfvit_tpu/exp/checkpoint.py::
+    save_moco_torch_checkpoint`` (:420), key for key: each tower's encoder
+    under ``module.{base,momentum}_encoder.`` with its projector as
+    ``head.*``, the predictor, ``module.queue`` and ``module.queue_ptr``
+    (int64, shape (1,)), in ``{"epoch", "arch", "state_dict"}``. The
+    BatchNorms' ``num_batches_tracked`` counters, which the JAX trees do
+    not have, are left out."""
+    sd = {}
+    for k, v in model.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        v = v.detach().cpu()
+        if k == "queue":
+            sd["module.queue"] = v
+        elif k == "queue_ptr":
+            sd["module.queue_ptr"] = v.reshape(1).to(torch.int64)
+        else:
+            old, new = next(t for t in MOCO_TOWERS if k.startswith(t[0]))
+            sd[new + k[len(old):]] = v
+    torch.save({"epoch": int(epoch), "arch": arch, "state_dict": sd}, path)
+
+
+def save_pretrain_checkpoint(path: str, model, *, epoch: int,
+                             opt=None) -> None:
+    """The pretrain CLI's own checkpoint (``checkpoint_best_loss``,
+    ``checkpoint_{epoch:04d}``): a ``torch.save`` of {"state": the MoCo
+    state dict, "epoch"[, "opt_state": the optimizer's with its step
+    count]}, the contents of JAX's orbax ones in a torch file."""
+    ck = {"state": {k: v.detach().cpu() for k, v in
+                    model.state_dict().items()}, "epoch": int(epoch)}
+    if opt is not None:
+        ck["opt_state"] = opt.state_dict()
+    torch.save(ck, path)
+
+
+def load_pretrain_checkpoint(path: str) -> dict:
+    """Inverse of ``save_pretrain_checkpoint``. A directory (a JAX orbax
+    checkpoint) is refused: reading those is ROADMAP.md section 1, item
+    4."""
+    if os.path.isdir(path):
+        raise SystemExit(f"--resume {path}: a directory, which is a JAX "
+                         "orbax checkpoint; the port resumes from its own "
+                         "checkpoint_{epoch:04d} files (reading orbax is "
+                         "ROADMAP.md section 1, item 4)")
+    ck = torch.load(path, map_location="cpu", weights_only=True)
+    if "opt_state" not in ck:
+        raise ValueError(f"--resume {path}: no optimizer state (resume "
+                         "from a checkpoint_{epoch:04d} file, not "
+                         "checkpoint_best_loss)")
+    return ck
+
+
+def load_resnet_arms(model, path: str) -> None:
+    """Both MoCo towers' ResNet encoders from a local torchvision state
+    dict (``mfvit_tpu/exp/checkpoint.py::resnet_arms_from_torchvision``,
+    :223): every convolution and BatchNorm, the classifier ``fc`` left
+    out; each tower gets its own copy."""
+    sd = {k: v.float() if v.is_floating_point() else v
+          for k, v in load_torch_state_dict(path).items()
+          if not k.startswith("fc.")}
+    for tower in (model.base, model.momentum):
+        missing, unexpected = tower.encoder.load_state_dict(sd, strict=False)
+        missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+        if missing or unexpected:
+            raise ValueError(f"{path}: not a torchvision "
+                             f"{model.backbone_cfg.name} state dict "
+                             f"(missing {missing[:4]}, unexpected "
+                             f"{unexpected[:4]})")

@@ -1,5 +1,6 @@
-"""NN primitives: linear, LayerNorm with fp32 statistics, the exact-erf GELU
-MLP, and the initialisers the modules' ``reset_parameters`` use.
+"""NN primitives: linear, LayerNorm and BatchNorm with fp32 statistics, the
+exact-erf GELU MLP, and the initialisers the modules' ``reset_parameters``
+use.
 
 Parameters live in fp32 ``nn.Module``s; compute runs in the dtype of the
 activations (bf16 on the GPU by default) with LayerNorm statistics and
@@ -29,6 +30,20 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = (xf - mean).square().mean(-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
     return y.to(x.dtype)
+
+
+def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor, *,
+               training: bool, momentum: float = 0.1) -> torch.Tensor:
+    """BatchNorm over every axis but the channels (axis 1) with fp32
+    statistics taken from x cast to fp32, the result cast back to x's
+    dtype (``mfvit_tpu/nn/resnet.py::_bn`` :88). ``training`` normalises
+    with the batch statistics (the biased variance) and moves the running
+    ones by 0.1 (the unbiased variance), torch's rule and JAX's
+    ``momentum=0.9`` (``momentum=0`` leaves them as they are);
+    otherwise the running statistics normalise."""
+    return F.batch_norm(x.float(), bn.running_mean, bn.running_var,
+                        bn.weight, bn.bias, training, momentum,
+                        bn.eps).to(x.dtype)
 
 
 def layernorm(p: nn.LayerNorm, x: torch.Tensor, eps: float = 1e-6):

@@ -3,7 +3,14 @@
 Same contract: NHWC images, the stride-16 patch conv as one GEMM over
 patchified pixels, CLS token, fixed 2-D sin-cos (or learned) position
 embedding, pre-norm blocks, final LayerNorm, optional classifier head, and
-``return_features=True`` returning (tokens, logits) from one pass.
+``return_features=True`` returning (tokens, logits) from one pass. The
+ConvStem archs (``vit_conv_small``, ``vit_conv_base``) replace the patch
+conv by MoCo-v3's stem (``mfvit_tpu/nn/vit.py::_conv_stem``, :209): four
+bias-free 3x3 stride-2 convolutions, each with a BatchNorm and a ReLU, then
+a 1x1 convolution with a bias; their qkv has no bias, and the ops get a
+zero one, as JAX passes K1 (:397-398). ``stop_grad_conv1`` gives the plain
+patch projection a zero gradient, as ``jax.lax.stop_gradient`` does
+(:263): the optimizers then still apply their weight decay to it.
 
 Module and parameter names follow MoCo-v3 ``vits.py`` / timm, the names
 ``mfvit_tpu/exp/checkpoint.py::params_to_torch_vit`` emits, so a converted
@@ -50,8 +57,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from mfvit_tpu_torch.nn import posembed
-from mfvit_tpu_torch.nn.layers import (Mlp, layer_norm, linear_f32,
-                                       trunc_normal_)
+from mfvit_tpu_torch.nn.layers import (Mlp, batch_norm, layer_norm,
+                                       linear_f32, trunc_normal_)
 from mfvit_tpu_torch.ops import fused_attn, fused_int8, fused_mlp, quant
 
 
@@ -174,14 +181,32 @@ def patchify(imgs: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(B, gh * gw, patch * patch * C)
 
 
-def patch_embed(proj: nn.Conv2d, imgs: torch.Tensor, patch: int):
+class _ZeroGrad(torch.autograd.Function):
+    """The identity with a zero gradient: ``jax.lax.stop_gradient`` as an
+    optimizer sees it, a gradient of zeros and not none."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.zeros_like(g)
+
+
+def patch_embed(proj: nn.Conv2d, imgs: torch.Tensor, patch: int,
+                stop_grad: bool = False):
     """The stride-``patch`` conv as one GEMM over patchified NHWC pixels;
     the conv weight (D, C, P, P) is read in (ph, pw, c) order. The fp32
     sums take the fp32 bias and are rounded once to the images' dtype, as
-    ``mfvit_tpu/nn/vit.py::patch_embed`` (:203-205) does."""
-    D = proj.weight.shape[0]
-    w = proj.weight.permute(0, 2, 3, 1).reshape(D, -1)
-    return linear_f32(patchify(imgs, patch), w, proj.bias).to(imgs.dtype)
+    ``mfvit_tpu/nn/vit.py::patch_embed`` (:203-205) does. ``stop_grad``
+    gives the weight and bias zero gradients."""
+    w, b = proj.weight, proj.bias
+    if stop_grad:
+        w, b = _ZeroGrad.apply(w), _ZeroGrad.apply(b)
+    D = w.shape[0]
+    w = w.permute(0, 2, 3, 1).reshape(D, -1)
+    return linear_f32(patchify(imgs, patch), w, b).to(imgs.dtype)
 
 
 class PatchEmbed(nn.Module):
@@ -190,10 +215,59 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(in_chans, dim, patch, patch)
 
 
-class Attention(nn.Module):
-    def __init__(self, dim: int):
+class ConvStem(nn.Module):
+    """MoCo-v3 ``vits.py`` ConvStem under its names: ``proj`` is
+    conv3x3/s2 (no bias), BatchNorm2d, ReLU four times (widths dim/8,
+    dim/4, dim/2, dim), then a 1x1 conv with a bias (index 12)."""
+
+    def __init__(self, in_chans: int, dim: int):
         super().__init__()
-        self.qkv = nn.Linear(dim, 3 * dim)
+        layers, cin, cout = [], in_chans, dim // 8
+        for _ in range(4):
+            layers += [nn.Conv2d(cin, cout, 3, 2, 1, bias=False),
+                       nn.BatchNorm2d(cout), nn.ReLU()]
+            cin, cout = cout, cout * 2
+        layers.append(nn.Conv2d(cin, dim, 1))
+        self.proj = nn.Sequential(*layers)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """He fan-out normal convolutions, unit BatchNorms, a zero bias
+        (``mfvit_tpu/nn/vit.py::init`` :114-140)."""
+        for i in range(4):
+            conv, bn = self.proj[3 * i], self.proj[3 * i + 1]
+            nn.init.normal_(conv.weight, std=(2.0 / (9 * conv.out_channels))
+                            ** 0.5, generator=generator)
+            bn.reset_parameters()
+        last = self.proj[12]
+        nn.init.normal_(last.weight, std=(2.0 / last.out_channels) ** 0.5,
+                        generator=generator)
+        nn.init.zeros_(last.bias)
+
+
+def conv_stem(stem: ConvStem, imgs: torch.Tensor, *,
+              bn_training: bool = False) -> torch.Tensor:
+    """NHWC images -> (B, H/16 * W/16, dim) tokens in the images' dtype,
+    as ``mfvit_tpu/nn/vit.py::_conv_stem``: each convolution's fp32 sums
+    rounded to that dtype, the BatchNorms as ``batch_norm`` (batch
+    statistics under ``bn_training``), the 1x1 conv's bias added in the
+    images' dtype."""
+    dt = imgs.dtype
+    x = imgs.permute(0, 3, 1, 2)
+    seq = stem.proj
+    for i in range(4):
+        conv, bn = seq[3 * i], seq[3 * i + 1]
+        x = F.conv2d(x, conv.weight.to(dt), stride=2, padding=1)
+        x = F.relu(batch_norm(bn, x, training=bn_training))
+    x = F.conv2d(x, seq[12].weight.to(dt)) + seq[12].bias.to(dt)[:, None,
+                                                                  None]
+    return x.flatten(2).transpose(1, 2)
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, qkv_bias: bool = True):
+        super().__init__()
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
 
@@ -202,12 +276,22 @@ class Int8Linear(nn.Module):
     scale per output channel ``s`` and the fp32 ``bias``, as buffers, from
     an fp32 weight (out, in) and bias."""
 
-    def __init__(self, weight: torch.Tensor, bias: torch.Tensor):
+    def __init__(self, weight: torch.Tensor, bias: torch.Tensor | None):
         super().__init__()
         q, s = fused_int8.quantize_weight_cols(weight.detach())
         self.register_buffer("q", q)
         self.register_buffer("s", s)
-        self.register_buffer("bias", bias.detach().float().clone())
+        self.register_buffer("bias", _bias_or_zeros(weight, bias)
+                             .detach().float().clone())
+
+
+def _bias_or_zeros(weight: torch.Tensor, bias):
+    """A linear's bias, or zeros for a bias-free one (the ConvStem archs'
+    qkv), which the block ops take as JAX's kernels do."""
+    if bias is not None:
+        return bias
+    return torch.zeros(weight.shape[0], dtype=torch.float32,
+                       device=weight.device)
 
 
 def _linear_params(lin) -> tuple:
@@ -215,14 +299,14 @@ def _linear_params(lin) -> tuple:
     Linear, (q, s, bias) of an ``Int8Linear``."""
     if isinstance(lin, Int8Linear):
         return lin.q, lin.s, lin.bias
-    return lin.weight, lin.bias
+    return lin.weight, _bias_or_zeros(lin.weight, lin.bias)
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, qkv_bias: bool = True):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim)
+        self.attn = Attention(dim, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, hidden)
 
@@ -235,12 +319,9 @@ class ViT(nn.Module):
     def __init__(self, cfg: ViTConfig, num_classes: int = 0, *, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.conv_stem or not cfg.qkv_bias:
-            raise NotImplementedError(
-                f"{cfg.name}: the ConvStem archs are not ported yet "
-                "(ROADMAP.md, modules to port: nn/vit.py ConvStem)")
         self.cfg = cfg
-        self.patch_embed = PatchEmbed(cfg.patch, 3, cfg.dim)
+        self.patch_embed = (ConvStem(3, cfg.dim) if cfg.conv_stem
+                            else PatchEmbed(cfg.patch, 3, cfg.dim))
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.dim))
         if cfg.learned_pos:
             self.pos_embed = nn.Parameter(torch.zeros(1, cfg.seq_len, cfg.dim))
@@ -249,7 +330,8 @@ class ViT(nn.Module):
             self.register_buffer("pos_embed",
                                  posembed.sincos_2d(cfg.grid, cfg.grid, cfg.dim))
         self.blocks = nn.ModuleList(
-            Block(cfg.dim, cfg.dim * cfg.mlp_ratio) for _ in range(cfg.depth))
+            Block(cfg.dim, cfg.dim * cfg.mlp_ratio, cfg.qkv_bias)
+            for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(cfg.dim, eps=1e-6)
         self.head = nn.Linear(cfg.dim, num_classes) if num_classes > 0 else None
         self.plans = {False: block_plan(cfg),
@@ -263,12 +345,16 @@ class ViT(nn.Module):
         """MoCo-v3 ViT init (``mfvit_tpu/nn/vit.py::init``): patch projection
         and qkv xavier-uniform over the per-matrix fans, CLS N(0, 1e-6),
         learned position embedding and the other linears trunc-normal 0.02,
-        classifier head N(0, 0.01), zero biases, unit LN scales."""
+        classifier head N(0, 0.01), zero biases, unit LN scales; a ConvStem
+        as ``ConvStem.reset_parameters``."""
         cfg = self.cfg
-        w = self.patch_embed.proj.weight
-        lim = (6.0 / (w[0].numel() + cfg.dim)) ** 0.5
-        nn.init.uniform_(w, -lim, lim, generator=generator)
-        nn.init.zeros_(self.patch_embed.proj.bias)
+        if cfg.conv_stem:
+            self.patch_embed.reset_parameters(generator)
+        else:
+            w = self.patch_embed.proj.weight
+            lim = (6.0 / (w[0].numel() + cfg.dim)) ** 0.5
+            nn.init.uniform_(w, -lim, lim, generator=generator)
+            nn.init.zeros_(self.patch_embed.proj.bias)
         nn.init.normal_(self.cls_token, std=1e-6, generator=generator)
         if cfg.learned_pos:
             trunc_normal_(self.pos_embed, 0.02, generator)
@@ -276,7 +362,8 @@ class ViT(nn.Module):
         for blk in self.blocks:
             nn.init.uniform_(blk.attn.qkv.weight, -qkv_lim, qkv_lim,
                              generator=generator)
-            nn.init.zeros_(blk.attn.qkv.bias)
+            if blk.attn.qkv.bias is not None:
+                nn.init.zeros_(blk.attn.qkv.bias)
             trunc_normal_(blk.attn.proj.weight, 0.02, generator)
             nn.init.zeros_(blk.attn.proj.bias)
             blk.mlp.reset_parameters(generator)
@@ -303,7 +390,8 @@ class ViT(nn.Module):
     def forward(self, imgs: torch.Tensor, *,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 return_features: bool = False, reference: bool = False,
-                remat: bool = False):
+                remat: bool = False, stop_grad_conv1: bool = False,
+                bn_training: bool = False):
         """imgs (B, H, W, C) -> logits (B, num_classes) fp32, or the CLS
         embedding without a head; with ``return_features`` also the
         post-norm tokens (B, N+1, dim) in ``compute_dtype``. ``reference``
@@ -311,17 +399,25 @@ class ViT(nn.Module):
         recomputes each block in the backward
         (``torch.utils.checkpoint``, the port of ``jax.checkpoint`` at
         ``mfvit_tpu/nn/vit.py:443-444``); a block's forward kernels then
-        run twice per training step."""
+        run twice per training step. ``stop_grad_conv1`` gives the plain
+        patch projection zero gradients (a ConvStem trains whole, as in
+        JAX); ``bn_training`` runs a ConvStem's BatchNorms on batch
+        statistics and moves their running ones (MoCo's towers), else on
+        the running ones."""
         cfg = self.cfg
         dt = compute_dtype
         B = imgs.shape[0]
         proj = self.patch_embed.proj
-        if isinstance(proj, Int8Linear):  # quantize_vit_params
+        if cfg.conv_stem:
+            x = conv_stem(self.patch_embed, imgs.to(dt),
+                          bn_training=bn_training)
+        elif isinstance(proj, Int8Linear):  # quantize_vit_params
             x = quant.quantized_linear(proj.q, proj.s,
                                        patchify(imgs.to(dt), cfg.patch),
                                        proj.bias)
         else:
-            x = patch_embed(proj, imgs.to(dt), cfg.patch)
+            x = patch_embed(proj, imgs.to(dt), cfg.patch,
+                            stop_grad=stop_grad_conv1)
         cls = self.cls_token.to(dt).expand(B, 1, cfg.dim)
         x = torch.cat([cls, x], 1)
         x = (x.float() + self.pos_embed).to(dt)
@@ -366,15 +462,17 @@ def quantize_vit_params(model: ViT) -> ViT:
     """Turn ``model`` (in place) into the XLA-level W8A8 form, the port of
     ``mfvit_tpu/ops/quant.py::quantize_vit_params`` (:57): the patch
     projection, in the JAX (P*P*C, D) layout's (ph, pw, c) order so that
-    its GEMM runs on ``patchify(imgs)``, and each block's qkv, proj, fc1
-    and fc2 become ``Int8Linear`` buffers; the plan runs
+    its GEMM runs on ``patchify(imgs)`` (a ConvStem stays exact, as in
+    JAX), and each block's qkv, proj, fc1 and fc2 become ``Int8Linear``
+    buffers; the plan runs
     ``ops.quant``'s W8A8 halves around K12 (``block_plan``); LayerNorms,
     CLS, the position table and the fp32 head stay exact. Inference only.
     Returns the model."""
-    proj = model.patch_embed.proj
-    D = proj.weight.shape[0]
-    model.patch_embed.proj = Int8Linear(
-        proj.weight.permute(0, 2, 3, 1).reshape(D, -1), proj.bias)
+    if not model.cfg.conv_stem:
+        proj = model.patch_embed.proj
+        D = proj.weight.shape[0]
+        model.patch_embed.proj = Int8Linear(
+            proj.weight.permute(0, 2, 3, 1).reshape(D, -1), proj.bias)
     _quantize_blocks(model)
     model.plans = {False: block_plan(model.cfg, mode="quant"),
                    True: block_plan(model.cfg, reference=True, mode="quant")}

@@ -5,8 +5,10 @@
   is ``torch.optim.AdamW``'s) and LARS (``Lars`` below: weight decay and
   trust scaling only where ``ndim > 1``, as the reference's
   moco/optimizer.py).
-- The finetune/fusion per-epoch schedule (cosine or milestone decay) and
-  the reference's batch-size LR scaling.
+- The finetune/fusion per-epoch schedule (cosine or milestone decay), the
+  pretrain per-step schedule (warmup, then cosine over fractional
+  epochs), the MoCo momentum ramp and the reference's batch-size LR
+  scaling.
 - Linear-probe freezing: ``head_only_mask`` names the trainable
   parameters; ``build_optimizer`` sets ``requires_grad_(False)`` on the
   others and leaves them out of the optimizer, so they stay bit-identical
@@ -76,6 +78,13 @@ class Scheduled:
         self.opt.step()
         self.count += 1
 
+    def state_dict(self) -> dict:
+        return {"count": self.count, "opt": self.opt.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.opt.load_state_dict(state["opt"])
+
 
 # -------------------------------------------------------------- schedules
 
@@ -87,6 +96,31 @@ def scaled_init_lr(lr: float, batch_size: int, *, cos: bool,
         return lr
     div = 4.0 if entry == "pretrain" else 8.0
     return lr * batch_size / div
+
+
+def pretrain_cosine_lr(init_lr: float, epochs: int, warmup_epochs: int,
+                       steps_per_epoch: int) -> Callable[[int], float]:
+    """Per-step schedule over FRACTIONAL epochs e = step / steps_per_epoch
+    (``mfvit_tpu/train/optim.py:80``): linear warmup ``init_lr * e /
+    warmup_epochs``, then the half-cycle cosine from ``warmup_epochs`` to
+    ``epochs``, each divisor guarded by ``max(..., 1e-8)``."""
+
+    def sched(step: int) -> float:
+        e = step / steps_per_epoch
+        if e < warmup_epochs:
+            return init_lr * e / max(warmup_epochs, 1e-8)
+        return init_lr * 0.5 * (1.0 + math.cos(
+            math.pi * (e - warmup_epochs)
+            / max(epochs - warmup_epochs, 1e-8)))
+
+    return sched
+
+
+def moco_momentum(epoch_frac: float, m0: float, epochs: int) -> float:
+    """The cosine ramp of the EMA momentum from ``m0`` to 1
+    (``mfvit_tpu/train/optim.py:121``)."""
+    return 1.0 - 0.5 * (1.0 + math.cos(math.pi * epoch_frac / epochs)) \
+        * (1.0 - m0)
 
 
 def finetune_lr(init_lr: float, epochs: int, *, cos: bool,

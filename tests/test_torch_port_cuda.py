@@ -1002,3 +1002,54 @@ def test_gemm_mn_equals_gemm_bwd_and_holds_its_plain_version(dev, label):
         got, ref, plain = (got,), (ref,), (plain,)
     assert all(torch.equal(x, y) for x, y in zip(got, ref))
     assert all(_rel(x, y) < REL for x, y in zip(got, plain))
+
+
+def test_moco_step_kernel_path_holds_the_plain_path(dev):
+    """One MoCo v2-queue step (vit_small, 224 px, B=8, MoCo's default heads
+    and K=65536 queue, LARS): the kernel path against the plain path in
+    bf16 from the same state and batch, the loss within rel 1e-2 (the
+    train-step bar of PERF.md section 2); launches K1 24, K2 22, K3 2
+    (both towers), K5 12, K7 12 (the query tower's backward), none on the
+    plain path. Then each query-tower block's gradient within rel 5e-2,
+    both encoders run under the plain step's cotangent on their CLS
+    features (at random init the MoCo heads' BatchNorm-ReLU layers turn
+    the bf16 rounding differences of the features into far larger
+    gradient differences, whatever the kernels)."""
+    import copy
+
+    from mfvit_tpu_torch.ssl import moco
+    from mfvit_tpu_torch.train import optim
+
+    gen = torch.Generator().manual_seed(0)
+    model0 = moco.MoCo(moco.MoCoConfig(), vit.get_config("vit_small"),
+                       generator=gen)
+    q, k = (torch.randn(8, 224, 224, 3, generator=gen).to(dev).bfloat16()
+            for _ in range(2))
+    runs = {}
+    for ref in (False, True):
+        model = copy.deepcopy(model0).to(dev)
+        opt = optim.build_optimizer("lars", model.trainable(), 0.1,
+                                    weight_decay=1e-6)
+        step = moco.make_pretrain_step(model.cfg, reference=ref)
+        feats = []
+        model.base.encoder.register_forward_hook(
+            lambda mod, args, out: feats.append(out) or out.retain_grad())
+        ops.reset_launch_counts()
+        loss = step(model, opt, q, k, 0.99).item()
+        torch.cuda.synchronize()
+        counts = {n: v for n, v in ops.launch_counts().items() if v}
+        runs[ref] = (loss, counts, int(model.queue_ptr), feats[0].grad)
+    (lk, ck, pk, _), (lp, cp, pp, cot) = runs[False], runs[True]
+    assert ck == {"fused_attention_block": 24, "fused_mlp_block": 22,
+                  "fused_mlp_block_final_ln": 2,
+                  "fused_attention_block_bwd": 12, "fused_mlp_block_bwd": 12}
+    assert cp == {} and pk == pp == 8
+    assert abs(lk - lp) / abs(lp) < 1e-2
+    grads = {}
+    for ref in (False, True):
+        model = copy.deepcopy(model0).to(dev)
+        feats = model.base.encoder(q, reference=ref, stop_grad_conv1=True)
+        feats.backward(cot)
+        grads[ref] = [torch.cat([p.grad.flatten() for p in blk.parameters()])
+                      for blk in model.base.encoder.blocks]
+    assert max(_rel(a, b) for a, b in zip(grads[False], grads[True])) < 5e-2

@@ -182,6 +182,45 @@ def test_init_follows_the_jax_distributions():
 
 
 @pytest.mark.parametrize("name", ["vit_conv_small", "vit_conv_base"])
-def test_conv_stem_archs_are_not_ported_yet(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vit.ViT(vit.get_config(name), 3)
+def test_conv_stem_archs_match_jax(name):
+    """The ConvStem archs at their full widths (4 stride-2 convs to D,
+    11 blocks with bias-free qkv), 32 px: the forward with the stem's
+    BatchNorms on running statistics (finetune, infer) and on batch
+    statistics (MoCo's towers), the moved statistics, and the bridge's
+    keys against vits.py's."""
+    jcfg = jvit.get_config(name, 32)
+    jp = jvit.init(jax.random.PRNGKey(7), jcfg, num_classes=3)
+    # running statistics away from (0, 1), so eval and training differ
+    for i, layer in enumerate(jp["patch"]["stem"]):
+        layer["bn"]["mean"] = layer["bn"]["mean"] + 0.1 * (i + 1)
+        layer["bn"]["var"] = layer["bn"]["var"] * (1.5 + i)
+    cfg = vit.get_config(name, 32)
+    model = vit.ViT(cfg, 3)
+    model.load_state_dict(vit_state_from_jax(_np_tree(jp), cfg),
+                          strict=True)
+    stem = {k for k in model.state_dict() if k.startswith("patch_embed.")}
+    bn = ("weight", "bias", "running_mean", "running_var",
+          "num_batches_tracked")
+    assert stem == ({f"patch_embed.proj.{i}.weight" for i in (0, 3, 6, 9, 12)}
+                    | {f"patch_embed.proj.{i}.{n}" for i in (1, 4, 7, 10)
+                       for n in bn} | {"patch_embed.proj.12.bias"})
+    assert "blocks.0.attn.qkv.bias" not in model.state_dict()
+    img = np.random.default_rng(8).standard_normal((2, 32, 32, 3)).astype(
+        np.float32)
+    want = jvit.apply(jp, jnp.asarray(img), jcfg, compute_dtype=jnp.float32,
+                      attn_backend="xla")
+    with torch.no_grad():
+        got = model(torch.from_numpy(img), compute_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    want, new_patch = jvit.apply(jp, jnp.asarray(img), jcfg,
+                                 compute_dtype=jnp.float32,
+                                 attn_backend="xla", bn_training=True)
+    with torch.no_grad():
+        got = model(torch.from_numpy(img), compute_dtype=torch.float32,
+                    bn_training=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    moved = vit_state_from_jax(_np_tree(dict(jp, patch=new_patch)), cfg)
+    for k, v in model.state_dict().items():
+        if k.startswith("patch_embed"):
+            np.testing.assert_allclose(v.numpy(), moved[k].numpy(),
+                                       atol=1e-5, err_msg=k)
