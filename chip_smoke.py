@@ -175,6 +175,19 @@ Phases, in order; any failure raises and exits non-zero:
    step each of ``--loss v3_symmetric`` (K1 48, K2 44, K3 4, K5 24, K7 24),
    vit_conv_small (11 blocks: K1 22, K2 20, K3 2, K5 11, K7 11) and
    resnet50 (no kernel of the port): finite losses and those counts;
+   then ``pretrain.main`` under each of MoCo's other inputs (64 synthetic
+   image pairs, B=32, two epochs): ``--in-chans 4`` (the stacked CXR-gray
+   + Enh canvases), ``--aug-setting moco_v2 --crop-min 0.2`` (the BYOL
+   aug2 stack's host floats) and ``--pairing enh_cxr --per-enh 0.5`` (q
+   the enhanced image or the CXR, k the CXR, host floats): four finite
+   losses, the launch counts per step of the first run exactly, every
+   other kernel 0, the queue pointer at 128, a (384, 4, 16, 16) patch
+   weight under ``--in-chans 4``; the three-step parity above on a
+   4-channel vit_small state, at the same bars; and the e2e twin
+   (``mfvit_tpu_torch.tools.e2e_workflow`` at vit_small, 224 px: pretrain
+   ``--export-torch``, LP ``finetune`` from its ``.pth.tar``, ``fuse``
+   from the LP ``model_best``, ``infer`` on fuse's): infer's metrics
+   present and finite, K1, K3, K4 and K5 launched on the way;
 19. times with CUDA events at B=256: each forward kernel (K10/K11
    included) and K5/K7 against its plain version (K5/K7 first held
    against the plain fp32 backward on the timed inputs), K5/K7 also at a
@@ -202,8 +215,11 @@ Phases, in order; any failure raises and exits non-zero:
    tool sweeps against its base kernel (variant, base, base, variant) and
    K1's, K2's and K5's plain versions, at B=256; the images/s of the
    MoCo v2-queue step, kernel against plain path, at B=256 and at B=16
-   (the pretrain CLI's default), and a ``torch.profiler`` breakdown of
-   the step at B=256 by operator;
+   (the pretrain CLI's default), at B=256 also on 4-channel images, and a
+   ``torch.profiler`` breakdown of the step at B=256 by operator; the
+   images/s of each pretrain feed alone on the host (B=32: the default
+   canvases, the 4-channel canvases, moco_v2's and enh_cxr's host
+   floats; host-bound, the card untouched);
 20. the long-sequence kernels: K9 against its plain fp32 version (rel <
    2e-2) at vit_small@384 (B=2, N=577, D=384, 12 heads), vit_small_ori@512
    (N=1025, 6 heads), vit_base@384 (D=768), head_dim 128 (N=300, 3 heads)
@@ -2984,6 +3000,24 @@ def moco_counts(per_tower_pass: dict, n_query: int, n_key: int) -> dict:
     return want
 
 
+MOCO_INPUTS = (  # label, the pretrain flags of each new input
+    ("in_chans_4", ["--in-chans", "4"]),
+    ("moco_v2", ["--aug-setting", "moco_v2", "--crop-min", "0.2"]),
+    ("enh_cxr", ["--pairing", "enh_cxr", "--per-enh", "0.5"]),
+)
+
+
+def pretrain_argv(man: str, root: str, dev, extra) -> list:
+    """The ``cli.pretrain`` flags of this script's runs (vit_small, 224 px,
+    MoCo's default heads and queue, B=32, two epochs, LARS with the
+    warmup-cosine LR and the momentum ramp), then ``extra``."""
+    return ["-a", "vit_small", "-b", "32", "--epochs", "2", "--draws", "1",
+            "--cos", "--lr", "0.6", "--warmup-epochs", "1", "--moco-m-cos",
+            "--moco-t", "0.2", "--stop-grad-conv1", "--covid-ds", man,
+            "--storage-root", root, "--seed", "0", "-j", "8", "-p", "1",
+            "--device", dev.type] + list(extra)
+
+
 def run_pretrain(dev, tmp: str) -> dict:
     """MoCo pretraining through ``cli.pretrain.main`` (vit_small, 224 px,
     MoCo's default heads and K=65536 queue, v2 loss with the predictor on
@@ -3001,11 +3035,7 @@ def run_pretrain(dev, tmp: str) -> dict:
 
     man = write_covid_ds(os.path.join(tmp, "ds"), 64, seed=31)
     root = os.path.join(tmp, "moco")
-    argv = ["-a", "vit_small", "-b", "32", "--epochs", "2", "--draws", "1",
-            "--cos", "--lr", "0.6", "--warmup-epochs", "1", "--moco-m-cos",
-            "--moco-t", "0.2", "--stop-grad-conv1", "--export-torch",
-            "--covid-ds", man, "--storage-root", root, "--seed", "0", "-j",
-            "8", "-p", "1", "--device", dev.type]
+    argv = pretrain_argv(man, root, dev, ["--export-torch"])
     ops.reset_launch_counts()
     res = pretrain.main(argv)[0]
     torch.cuda.synchronize()
@@ -3040,21 +3070,131 @@ def run_pretrain(dev, tmp: str) -> dict:
     return per_step
 
 
-def moco_model(name: str, gen, **kw):
+def run_pretrain_inputs(dev, tmp: str) -> dict:
+    """``cli.pretrain.main`` under each input of MOCO_INPUTS (vit_small,
+    224 px, B=32, two epochs over 64 synthetic image pairs, each row's
+    'data' and 'Train_Mix' images: four steps), the launch counts set to 0
+    just before each run and read just after. Gates per run: four finite
+    losses, launch counts per step exactly ``moco_counts(PER_VIT_FORWARD,
+    1, 1)`` (K1 24, K2 22, K3 2, K5 12, K7 12) and every other kernel 0,
+    the queue pointer at 128 in the last checkpoint; for ``--in-chans 4``
+    a (384, 4, 16, 16) patch weight. Returns {label: launches per step}."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.cli import pretrain
+
+    man = write_covid_ds(os.path.join(tmp, "ds"), 64, seed=35, paired=True)
+    per_step = moco_counts(PER_VIT_FORWARD, 1, 1)
+    out = {}
+    for label, extra in MOCO_INPUTS:
+        root = os.path.join(tmp, label)
+        argv = pretrain_argv(man, root, dev, extra)
+        ops.reset_launch_counts()
+        res = pretrain.main(argv)[0]
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        losses = res.extra["train_losses"]
+        steps = len(losses)
+        want = {k: 0 for k in got}
+        want.update({k: v * steps for k, v in per_step.items()})
+        sub = os.path.join(next(os.scandir(root)).path, "train_1_0")
+        last = torch.load(os.path.join(sub, "checkpoint_0001"),
+                          weights_only=True)["state"]
+        ptr = int(last["queue_ptr"])
+        patch = tuple(last["base.encoder.patch_embed.proj.weight"].shape)
+        print(f"pretrain {' '.join(extra)} (vit_small, B=32): {steps} "
+              "steps, losses " + ", ".join(f"{v:.4f}" for v in losses)
+              + f"; queue_ptr {ptr}; patch weight {patch}; launch counts "
+              f"{got}")
+        if steps != 4 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"pretrain {label}: losses {losses}")
+        if got != want:
+            raise AssertionError(f"pretrain {label}: launch counts {got} != "
+                                 f"{want}")
+        if ptr != 4 * 32 % 65536:
+            raise AssertionError(f"pretrain {label}: queue_ptr {ptr} != 128")
+        chans = 4 if label == "in_chans_4" else 3
+        if patch != (384, chans, 16, 16):
+            raise AssertionError(f"pretrain {label}: patch weight {patch}")
+        out[label] = {k: v // steps for k, v in got.items() if v}
+    return out
+
+
+def time_pretrain_feeds(dev, tmp: str, epochs: int = 2) -> dict:
+    """Images/s of each training feed ``cli.pretrain`` builds (B=32, -j 8,
+    64 synthetic pairs at 256 x 288, ``epochs`` epochs, the first one's
+    thread start included): the default two-view canvases, the stacked
+    4-channel canvases, the BYOL moco_v2 host floats and the cross-modal
+    host floats. Host work only (decode, PIL transforms, collation), so
+    host-bound by construction; the card is not touched."""
+    from mfvit_tpu_torch.cli import pretrain
+
+    man = write_covid_ds(os.path.join(tmp, "feeds"), 64, seed=36,
+                         paired=True)
+    train = os.path.join(man, "1_labeled_train_0.txt")
+    out = {}
+    for label, extra in (("chexpert", []),) + MOCO_INPUTS:
+        args = pretrain.build_parser().parse_args(
+            pretrain_argv(man, tmp, dev, extra))
+        loader, _ = pretrain.make_loader(args, train, 0)
+        n = 0
+        t0 = time.perf_counter()
+        for epoch in range(epochs):
+            loader.set_epoch(epoch)
+            for q, _, _ in loader:
+                n += q.shape[0]
+        out[label] = n / (time.perf_counter() - t0)
+    print("pretrain feeds alone, host-bound (B=32, -j 8, "
+          f"{os.cpu_count()} host cores): "
+          + ", ".join(f"{k} {v:.1f} images/s" for k, v in out.items()))
+    return out
+
+
+def run_e2e_twin(dev, tmp: str) -> dict:
+    """``mfvit_tpu_torch.tools.e2e_workflow`` at vit_small, 224 px:
+    pretrain --export-torch, LP finetune from its .pth.tar, fuse from the
+    LP model_best, infer on fuse's model_best. Gates: infer's metrics
+    (AUC, top-1, precision, recall, F1) present and finite over the 8
+    test pairs, and kernels launched on the way. Returns the metrics."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.tools import e2e_workflow
+
+    ops.reset_launch_counts()
+    out = e2e_workflow.main(["--root", os.path.join(tmp, "e2e"), "--device",
+                             dev.type, "-a", "vit_small", "--img-size",
+                             "224"])
+    torch.cuda.synchronize()
+    got = {k: v for k, v in ops.launch_counts().items() if v}
+    metrics = out.get("metrics", {})
+    print(f"e2e twin (vit_small, 224 px): infer on {out['n']} pairs, "
+          f"metrics {metrics}; launch counts over the four stages {got}")
+    names = {"auc", "top1", "precision", "recall", "f1"}
+    if (out["n"] != 8 or set(metrics) < names
+            or not all(math.isfinite(metrics[k]) for k in names)):
+        raise AssertionError(f"e2e twin: {out['n']} pairs, {metrics}")
+    for k in ("fused_attention_block", "fused_mlp_block_final_ln",
+              "fused_fusion_cls", "fused_attention_block_bwd"):
+        if not got.get(k):
+            raise AssertionError(f"e2e twin: {k} never launched ({got})")
+    return metrics
+
+
+def moco_model(name: str, gen, in_chans: int = 3, **kw):
     """A MoCo state on the CPU: MoCo's ViT defaults (or its ResNet ones)
-    over ``name`` at 224 px."""
+    over ``name`` at 224 px, ``in_chans`` input channels."""
     from mfvit_tpu_torch.nn import resnet
     from mfvit_tpu_torch.nn.vit import get_config
     from mfvit_tpu_torch.ssl import moco
 
     if name.startswith("resnet"):
         return moco.MoCo(moco.MoCoConfig.resnet(**kw),
-                         resnet.get_config(name), generator=gen)
-    return moco.MoCo(moco.MoCoConfig(**kw), get_config(name), generator=gen)
+                         resnet.get_config(name), in_chans=in_chans,
+                         generator=gen)
+    return moco.MoCo(moco.MoCoConfig(**kw), get_config(name),
+                     in_chans=in_chans, generator=gen)
 
 
-def moco_views(gen, B: int, dev):
-    return tuple(torch.randn(B, 224, 224, 3, generator=gen).to(dev)
+def moco_views(gen, B: int, dev, in_chans: int = 3):
+    return tuple(torch.randn(B, 224, 224, in_chans, generator=gen).to(dev)
                  .bfloat16() for _ in range(2))
 
 
@@ -3070,10 +3210,10 @@ def encoder_grads(model, imgs, cotangent, reference: bool) -> list:
             for blk in model.base.encoder.blocks]
 
 
-def pretrain_parity(dev, B: int = 32) -> dict:
+def pretrain_parity(dev, B: int = 32, in_chans: int = 3) -> dict:
     """Three MoCo v2-queue steps (LARS, LR 0.1) of the kernel path and of
-    the plain path (bf16 on the card) from the same vit_small state and
-    batch: the loss per step within PARITY_LOSS_BAR; then each query-tower
+    the plain path (bf16 on the card) from the same vit_small state (with
+    ``in_chans`` input channels) and batch: the loss per step within PARITY_LOSS_BAR; then each query-tower
     block's gradient within PARITY_GRAD_BAR, both paths' encoders run
     forward and backward under one cotangent on their CLS features, the
     plain step's own. The whole first step's gradients are printed
@@ -3088,8 +3228,8 @@ def pretrain_parity(dev, B: int = 32) -> dict:
     from mfvit_tpu_torch.train import optim
 
     gen = torch.Generator().manual_seed(32)
-    model0 = moco_model("vit_small", gen)
-    q, k = moco_views(gen, B, dev)
+    model0 = moco_model("vit_small", gen, in_chans)
+    q, k = moco_views(gen, B, dev, in_chans)
     runs = {}
     for ref in (False, True):
         model = copy.deepcopy(model0).to(dev)
@@ -3118,7 +3258,8 @@ def pretrain_parity(dev, B: int = 32) -> dict:
                                                          shared[True])],
            "step_grad_rel": [rel(a, b) for a, b in zip(gk, gp)],
            "cls_rel": rel(fk, fp), "keys_rel": rel(qk, qp)}
-    print(f"pretrain-step parity (vit_small, B={B}, 3 LARS steps): losses "
+    print(f"pretrain-step parity (vit_small, {in_chans} channels, B={B}, "
+          "3 LARS steps): losses "
           "kernel " + ", ".join(f"{v:.5f}" for v in lk) + " plain "
           + ", ".join(f"{v:.5f}" for v in lp) + "; loss rel "
           + ", ".join(f"{v:.3e}" for v in out["loss_rel"])
@@ -3132,7 +3273,8 @@ def pretrain_parity(dev, B: int = 32) -> dict:
           f"{out['keys_rel']:.3e}")
     if not (max(out["loss_rel"]) < PARITY_LOSS_BAR
             and max(out["block_grad_rel"]) < PARITY_GRAD_BAR):
-        raise AssertionError("pretrain-step parity out of its bar")
+        raise AssertionError(f"pretrain-step parity ({in_chans} channels) "
+                             "out of its bar")
     return out
 
 
@@ -3177,17 +3319,18 @@ def pretrain_variants(dev, B: int = 32) -> dict:
     return out
 
 
-def time_pretrain(dev, B: int, iters: int) -> dict:
+def time_pretrain(dev, B: int, iters: int, in_chans: int = 3) -> dict:
     """Images/s of the MoCo v2-queue step (vit_small, 224 px, MoCo's
     default heads and queue, LARS; the EMA, both towers, the backward, the
-    optimizer and the enqueue, the loss fetched every step) at batch B,
-    kernel path against plain path (kernel, plain, plain, kernel)."""
+    optimizer and the enqueue, the loss fetched every step) at batch B on
+    ``in_chans``-channel images, kernel path against plain path (kernel,
+    plain, plain, kernel)."""
     from mfvit_tpu_torch.ssl import moco
     from mfvit_tpu_torch.train import optim
 
     gen = torch.Generator().manual_seed(34)
-    model = moco_model("vit_small", gen).to(dev)
-    q, k = moco_views(gen, B, dev)
+    model = moco_model("vit_small", gen, in_chans).to(dev)
+    q, k = moco_views(gen, B, dev, in_chans)
     opt = optim.build_optimizer("lars", model.trainable(), 1e-3,
                                 weight_decay=1e-6)
     fns = {w: moco.make_pretrain_step(model.cfg, reference=w == "plain")
@@ -3203,7 +3346,8 @@ def time_pretrain(dev, B: int, iters: int) -> dict:
     runs = {"kernel": [], "plain": []}
     for which in ("kernel", "plain", "plain", "kernel"):
         runs[which].append(rate(which))
-    print(f"MoCo v2-queue step at B={B}, 224 px (bf16, both towers + "
+    print(f"MoCo v2-queue step at B={B}, 224 px, {in_chans} channels "
+          "(bf16, both towers + "
           "backward + LARS + enqueue, loss fetched every step): "
           + ", ".join(f"{w} {' / '.join(f'{r:.1f}' for r in v)} images/s"
                       for w, v in runs.items()))
@@ -3518,6 +3662,16 @@ def main() -> int:
         moco_per_step = run_pretrain(dev, tmp)
     moco_parity = pretrain_parity(dev)
     moco_variants = pretrain_variants(dev)
+    phase("MoCo's other inputs through mfvit_tpu_torch.cli.pretrain "
+          "(vit_small, B=32, two epochs: --in-chans 4, --aug-setting moco_v2 "
+          "--crop-min 0.2, --pairing enh_cxr --per-enh 0.5); 4-channel "
+          "pretrain-step parity (B=32); the e2e twin "
+          "(mfvit_tpu_torch.tools.e2e_workflow, vit_small, 224 px)")
+    with tempfile.TemporaryDirectory() as tmp:
+        moco_inputs = run_pretrain_inputs(dev, tmp)
+    moco_parity_4ch = pretrain_parity(dev, in_chans=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        e2e_metrics = run_e2e_twin(dev, tmp)
 
     phase("times (B=256; K12-K14 also at N=577, B=64; K5/K7 also at a "
           "vit_base block, B=64; the fusion step also at B=32; the schedule "
@@ -3548,8 +3702,11 @@ def main() -> int:
     fusion_cli = time_fusion(dev, 32, 8)  # the fuse CLI's default -b
     fusion_256 = time_fusion(dev, 256, 3)
     moco_256 = time_pretrain(dev, 256, 4)
+    moco_4ch_256 = time_pretrain(dev, 256, 4, in_chans=4)
     moco_cli = time_pretrain(dev, 16, 32)  # the pretrain CLI's default -b
     moco_profile = profile_pretrain(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        moco_feeds = time_pretrain_feeds(dev, tmp)
 
     phase("long-sequence kernels K9 and K10 against their plain versions")
     errs.update(check_long_kernels(dev))
@@ -3659,6 +3816,11 @@ def main() -> int:
                       "fusion_step_pairs_per_sec_B32": fusion_cli,
                       "fusion_step_pairs_per_sec_B256": fusion_256,
                       "moco_step_images_per_sec_B256": moco_256,
+                      "moco_step_4ch_images_per_sec_B256": moco_4ch_256,
+                      "moco_feeds_images_per_sec_host_bound_B32": moco_feeds,
+                      "moco_inputs_launches_per_step": moco_inputs,
+                      "moco_step_parity_4ch_B32": moco_parity_4ch,
+                      "e2e_twin_metrics": e2e_metrics,
                       "moco_step_images_per_sec_B16": moco_cli,
                       "moco_launches_per_step": moco_per_step,
                       "moco_step_launches_other": moco_variants,

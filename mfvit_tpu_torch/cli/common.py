@@ -1,7 +1,9 @@
 """CLI plumbing shared by the entry points (the flags ``infer``,
 ``finetune``, ``fuse`` and ``pretrain`` use, from
 ``mfvit_tpu/cli/common.py``), plus ``--device``: the streaming training
-feeds (one flavour, MoCo's two views, or paired), and the eval runner."""
+feeds (one flavour, MoCo's two views, paired, or the 4-channel stacked
+input), MoCo's host-transformed feeds (the BYOL stacks, the cross-modal
+pairs), and the eval runner."""
 from __future__ import annotations
 
 import argparse
@@ -69,8 +71,8 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--crop-min", dest="crop_min", default=0.08, type=float)
     p.add_argument("--in-chans", dest="in_chans", type=int, default=3,
                    choices=[3, 4],
-                   help="4 = stacked CXR-gray + Enh input (pretrain only; "
-                        "not ported yet)")
+                   help="4 = stacked CXR-gray + Enh input (pretrain "
+                        "only)")
 
 
 def get_arch(args):
@@ -79,7 +81,8 @@ def get_arch(args):
     the post-crop size (the eval transform resizes to --img-size, then
     center-crops to --crop)."""
     if args.arch.startswith("resnet"):
-        return resnet_mod.get_config(args.arch)
+        return resnet_mod.get_config(args.arch,
+                                     in_chans=getattr(args, "in_chans", 3))
     input_size = args.crop or args.img_size
     if args.arch == "vit_test":  # tiny config for smoke tests
         return vit_mod.ViTConfig("vit_test", img_size=input_size, patch=16,
@@ -135,6 +138,7 @@ def make_paired_loader(args, manifest_path: str, *, training: bool = False,
 
 def make_covid_loader(args, manifest_path: str, folder: str, *,
                       training: bool, ssl_two_views: bool = False,
+                      fourch: bool = False,
                       seed: int = 0) -> pipeline.BatchLoader:
     """Single-flavour canvases over a COVID manifest (the streaming feed of
     ``mfvit_tpu/cli/common.py::make_covid_loader`` :475-560 with its
@@ -143,17 +147,62 @@ def make_covid_loader(args, manifest_path: str, folder: str, *,
     (flip -> rotate -> crop), shuffled per epoch, the last short batch
     dropped; eval canvases are center crops in manifest order, the last
     batch padded. ``ssl_two_views``: (q, k, label), two independently
-    augmented canvases of each image (:513-523)."""
+    augmented canvases of each image (:513-523). ``fourch``: the stacked
+    4-channel canvases of each row's ``folder`` and 'Train_Mix' images
+    (:517-526)."""
     tf = ht.CanvasTransform(img_size=args.img_size, crop=args.crop,
                             maintain_ratio=args.maintain_ratio,
                             training=training,
                             rotate_deg=float(args.rotate), seed=seed)
-    kind = (datasets.CovidTwoCropsDataset if ssl_two_views
-            else datasets.CovidDataset)
-    ds = kind(folder, manifest_path, tf)
+    if fourch:
+        kind = (datasets.Covid4chTwoCropsDataset if ssl_two_views
+                else datasets.Covid4chDataset)
+        ds = kind(manifest_path, tf, folder_cxr=folder)
+    else:
+        kind = (datasets.CovidTwoCropsDataset if ssl_two_views
+                else datasets.CovidDataset)
+        ds = kind(folder, manifest_path, tf)
     return pipeline.BatchLoader(ds, args.batch_size, shuffle=training,
                                 seed=seed, drop_last=training,
                                 num_workers=args.workers)
+
+
+BYOL_VARIANT = {"moco_v1": "aug1", "aug1": "aug1",
+                "moco_v2": "aug2", "aug2": "aug2"}
+
+
+def make_ssl_two_crops_loader(args, manifest_path: str, folder: str, *,
+                              seed: int = 0) -> pipeline.BatchLoader:
+    """MoCo's host-transformed two-view feed for the BYOL
+    ``--aug-setting``s (``mfvit_tpu/cli/common.py:151``): (q, k, label),
+    two independent draws of the aug1 (``moco_v1``) or aug2 (``moco_v2``)
+    stack per image, normalised float32 HWC."""
+    tf = ht.ByolTransform(img_size=args.img_size, crop_min=args.crop_min,
+                          variant=BYOL_VARIANT[args.aug_setting], seed=seed)
+    ds = datasets.CovidTwoCropsDataset(folder, manifest_path, tf)
+    return pipeline.BatchLoader(ds, args.batch_size, shuffle=True, seed=seed,
+                                drop_last=True, num_workers=args.workers)
+
+
+def make_enh_cxr_ssl_loader(args, manifest_path: str, *,
+                            seed: int = 0) -> pipeline.BatchLoader:
+    """MoCo's cross-modal feed (``--pairing enh_cxr``,
+    ``mfvit_tpu/cli/common.py:166``): (q, k, label) with q the enhanced
+    view and k the CXR view, each through its own full host stack and
+    normalisation (seeds ``seed`` for 'data', ``seed + 1`` for
+    'Train_Mix'); ``--per-enh`` < 1 swaps the query for the CXR at that
+    rate. Normalised float32 HWC: the flavour is chosen per sample."""
+    def tf(img_type: str, seed_off: int) -> ht.ChexpertTransform:
+        return ht.ChexpertTransform(
+            img_size=args.img_size, crop=args.crop, img_type=img_type,
+            training=True, maintain_ratio=args.maintain_ratio,
+            rotate_deg=float(args.rotate), seed=seed + seed_off)
+    ds = datasets.CovidEnhCxrDataset(manifest_path, tf("data", 0),
+                                     tf("Train_Mix", 1),
+                                     per_enh=getattr(args, "per_enh", 1.0),
+                                     seed=seed)
+    return pipeline.BatchLoader(ds, args.batch_size, shuffle=True, seed=seed,
+                                drop_last=True, num_workers=args.workers)
 
 
 def stream_train_view(args, canv: torch.Tensor, img_type: str):

@@ -13,14 +13,21 @@ views per image, the smallest-epoch-loss checkpoint and one every
         --stop-grad-conv1 --moco-m-cos --moco-t 0.2 \\
         --covid-ds create_covid_dataset --export-torch [--device cuda]
 
+The inputs: the streamed two-view canvases of ``--folder`` (the default
+``--aug-setting chexpert``), of the stacked CXR-gray + Enh image
+(``--in-chans 4``, normalised as ``4ch``), or the host-transformed float
+views of the BYOL stacks (``--aug-setting moco_v1|moco_v2|aug1|aug2``
+with ``--crop-min``) and of the cross-modal pairs (``--pairing enh_cxr``:
+q the enhanced image, k the CXR, ``--per-enh`` the rate of enhanced
+queries), which go to the device as float32 and are cast there.
+
 On CUDA every block of both towers runs K1 and K2 (K3 on the last)
-forward and the query tower's K5 and K7 backward; a ResNet arm
-(``-a resnet18/34/50``, ``--pretrained-arms``) runs no kernel of the port.
-The training feed streams (the JAX CLI at ``--device-store-mb 0``).
-Not ported yet, and refused with a message (ROADMAP.md section 1): the
-BYOL ``--aug-setting``s, ``--in-chans 4``, ``--pairing enh_cxr`` (item 3c),
-a JAX orbax directory for ``--resume`` (item 4), ``--distributed`` (item
-6), TensorBoard (item 8).
+forward and the query tower's K5 and K7 backward, whatever the input; a
+ResNet arm (``-a resnet18/34/50``, ``--pretrained-arms``) runs no kernel
+of the port. The training feed streams (the JAX CLI at
+``--device-store-mb 0``). Not ported yet, and refused with a message
+(ROADMAP.md section 1): a JAX orbax directory for ``--resume`` (item 4),
+``--distributed`` (item 6), TensorBoard (item 8).
 """
 from __future__ import annotations
 
@@ -59,8 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_false",
                    help="the builder_..._noprediction_q variant")
     p.add_argument("--folder", default="data")
-    p.add_argument("--pairing", default="same", choices=["same", "enh_cxr"])
-    p.add_argument("--per-enh", dest="per_enh", type=float, default=1.0)
+    p.add_argument("--pairing", default="same", choices=["same", "enh_cxr"],
+                   help="enh_cxr: cross-modal q=Enh / k=CXR views")
+    p.add_argument("--per-enh", dest="per_enh", type=float, default=1.0,
+                   help="P(q is the Enh image) for --pairing enh_cxr")
     p.add_argument("--save-epoch", type=int, default=30)
     p.add_argument("--pretrained-arms", dest="pretrained_arms", default="",
                    type=str,
@@ -94,8 +103,8 @@ def train_one_draw_fn(args, backbone_cfg, device):
                if float(ratio) == 1.0 else
                mf.split_manifest_path(args.covid_ds, ratio, draw,
                                       labeled=False))
-        tl = common.make_covid_loader(args, man, args.folder, training=True,
-                                      ssl_two_views=True, seed=draw)
+        tl, host_transformed = make_loader(args, man, draw)
+        img_type = "4ch" if args.in_chans == 4 else args.folder
         steps_per_epoch = max(len(tl), 1)
         if cfg.loss == "v2_queue" and cfg.K % args.batch_size != 0:
             raise ValueError(
@@ -110,7 +119,8 @@ def train_one_draw_fn(args, backbone_cfg, device):
                                    schedule=args.schedule,
                                    steps_per_epoch=steps_per_epoch))
         seed = args.seed if args.seed is not None else 0
-        model = moco.MoCo(cfg, backbone_cfg, generator=torch.Generator()
+        model = moco.MoCo(cfg, backbone_cfg, in_chans=args.in_chans,
+                          generator=torch.Generator()
                           .manual_seed(seed * 1000 + draw))
         if args.pretrained_arms:
             ckpt_mod.load_resnet_arms(model, args.pretrained_arms)
@@ -146,14 +156,18 @@ def train_one_draw_fn(args, backbone_cfg, device):
                                        prefix=f"Epoch: [{epoch}]",
                                        extra_meters=[ep_loss])
             fetch = metrics.DeferredFetch(record)
-            for i, (canv_q, canv_k, _labels) in enumerate(tl):
+            for i, (view_q, view_k, _labels) in enumerate(tl):
                 timer.data_ready()
                 m = (optim.moco_momentum(epoch + i / steps_per_epoch,
                                          args.moco_m, args.epochs)
                      if args.moco_m_cos else args.moco_m)
-                q, k = common.stream_train_two_views(
-                    args, torch.from_numpy(canv_q).to(device),
-                    torch.from_numpy(canv_k).to(device), args.folder)
+                view_q, view_k = (torch.from_numpy(v).to(device)
+                                  for v in (view_q, view_k))
+                if host_transformed:
+                    q, k = view_q.to(dt), view_k.to(dt)
+                else:
+                    q, k = common.stream_train_two_views(args, view_q,
+                                                         view_k, img_type)
                 loss = step(model, opt, q, k, m)
                 # one-step-lagged fetch: no host sync per step
                 fetch.push(loss, int(q.shape[0]), i, sync=(i == 0))
@@ -185,16 +199,30 @@ def train_one_draw_fn(args, backbone_cfg, device):
     return train_one_draw
 
 
+def make_loader(args, man: str, draw: int):
+    """The training feed of one draw and whether its views arrive
+    host-transformed (float) rather than as canvases, by JAX's branches
+    (``mfvit_tpu/cli/pretrain.py:108-131``) and with its errors."""
+    byol = args.aug_setting in common.BYOL_VARIANT
+    fourch = args.in_chans == 4
+    if args.pairing == "enh_cxr":
+        if fourch or byol:
+            raise ValueError("--pairing enh_cxr is a 3-channel "
+                             "chexpert-stack variant")
+        return common.make_enh_cxr_ssl_loader(args, man, seed=draw), True
+    if byol:
+        if fourch:
+            raise ValueError("--in-chans 4 requires --aug-setting "
+                             "chexpert (device-aug canvases)")
+        return common.make_ssl_two_crops_loader(args, man, args.folder,
+                                                seed=draw), True
+    return common.make_covid_loader(args, man, args.folder, training=True,
+                                    ssl_two_views=True, fourch=fourch,
+                                    seed=draw), False
+
+
 def check_ported(args) -> None:
     """Refuse, before any work, what this port does not run yet."""
-    todo = {"--aug-setting " + args.aug_setting:
-            args.aug_setting != "chexpert",
-            "--in-chans 4": args.in_chans != 3,
-            "--pairing enh_cxr": args.pairing != "same"}
-    for flag, asked in todo.items():
-        if asked:
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP.md section "
-                             "1, item 3c)")
     if args.distributed:
         raise SystemExit("--distributed is not ported yet (ROADMAP.md "
                          "section 1, item 6)")
@@ -206,14 +234,16 @@ def main(argv=None):
     device = common.resolve_device(args.device)
     backbone_cfg = common.get_arch(args)
     if args.export_torch and (getattr(backbone_cfg, "conv_stem", False)
-                              or not getattr(backbone_cfg, "qkv_bias", True)):
+                              or not getattr(backbone_cfg, "qkv_bias", True)
+                              or args.in_chans != 3):
         # fail fast, as JAX's main: the export writes the plain vits.py
         # layout, and finding out after the whole grid would waste it
         raise SystemExit(
-            f"--export-torch does not support -a {args.arch}: the torch "
-            "export writes the plain 3-channel vits.py layout (no "
-            "conv-stem, biased qkv) the reference finetune surgery loads. "
-            "Drop --export-torch or use a vit_small/vit_base/_ori arch.")
+            f"--export-torch does not support -a {args.arch} "
+            f"--in-chans {args.in_chans}: the torch export writes the "
+            "plain 3-channel vits.py layout (no conv-stem, biased qkv) "
+            "the reference finetune surgery loads. Drop --export-torch "
+            "or use a vit_small/vit_base/_ori arch with --in-chans 3.")
     if args.pretrained_arms and not args.arch.startswith("resnet"):
         raise SystemExit("--pretrained-arms is resnet-only; ViT "
                          "pretraining starts from scratch")

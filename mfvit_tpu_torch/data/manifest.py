@@ -1,9 +1,12 @@
-"""COVID manifest parsing and writing, and the split-manifest naming of
-the 5-draws harness (the COVID subset of ``mfvit_tpu/data/manifest.py``):
-space-separated lines
-``<idx> <root> <filename> <label> <extra>``; ``path = join(root, folder,
-filename)`` where ``folder`` selects the flavour (``data`` = original CXR,
-``Train_Mix`` = enhanced) and ``label = fields[-2]``."""
+"""Manifest parsing and writing, and the split-manifest naming of the
+5-draws harness (the port of ``mfvit_tpu/data/manifest.py``):
+
+- COVID manifests: space-separated lines
+  ``<idx> <root> <filename> <label> <extra>``; ``path = join(root,
+  folder, filename)`` where ``folder`` selects the flavour (``data`` =
+  original CXR, ``Train_Mix`` = enhanced) and ``label = fields[-2]``.
+- CheXpert CSVs: a header row, the disease column looked up by name, the
+  label remap ``CHEXPERT_LABEL_MAP``; ``path = join(folder, fields[1])``."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +14,8 @@ import os
 from typing import List, Sequence
 
 import numpy as np
+
+CHEXPERT_LABEL_MAP = {"1.0": "1", "": "0", "0.0": "0", "-1.0": "1"}
 
 
 @dataclasses.dataclass
@@ -38,12 +43,31 @@ def parse_covid(img_csv: str, folder: str) -> Manifest:
     return Manifest(paths, np.asarray(labels, np.int32))
 
 
-def parse_covid_paired(img_csv: str) -> Manifest:
-    """One manifest -> both flavours ('data', 'Train_Mix'), jointly
-    indexed."""
-    cxr = parse_covid(img_csv, "data")
-    enh = parse_covid(img_csv, "Train_Mix")
+def parse_covid_paired(img_csv: str, folder_cxr: str = "data",
+                       folder_enh: str = "Train_Mix") -> Manifest:
+    """One manifest -> both flavours, jointly indexed."""
+    cxr = parse_covid(img_csv, folder_cxr)
+    enh = parse_covid(img_csv, folder_enh)
     return Manifest(cxr.paths, cxr.labels, paths_alt=enh.paths)
+
+
+def parse_chexpert(img_csv: str, folder: str, disease_name: str) -> Manifest:
+    """A CheXpert-style CSV: the header names the disease column; CRLF
+    line ends are stripped and short lines skipped."""
+    paths, labels = [], []
+    with open(img_csv) as f:
+        header = f.readline().rstrip("\r\n").split(",")
+        idx = [i for i, h in enumerate(header) if h == disease_name]
+        if not idx:
+            raise ValueError(f"disease {disease_name!r} not in header {header}")
+        col = idx[0]
+        for line in f:
+            fields = line.rstrip("\r\n").split(",")
+            if len(fields) <= max(col, 1):
+                continue
+            paths.append(os.path.join(folder, fields[1]))
+            labels.append(int(CHEXPERT_LABEL_MAP[fields[col]]))
+    return Manifest(paths, np.asarray(labels, np.int32))
 
 
 def split_manifest_path(root: str, ratio: float, draw: int, *,

@@ -15,7 +15,8 @@ layouts) and return the port's state dicts, under the MoCo-v3 ``vits.py``
 ``fusion_params_to_torch`` (:362) and ``torch_resnet_to_params`` (:182)
 use. Linear weights go from JAX's (in, out) to torch's (out, in); the patch
 projection (P*P*C, D) becomes the conv weight (D, C, P, P), an HWIO
-convolution torch's OIHW.
+convolution torch's OIHW. C is read from the tree, so the 4-channel
+trees of ``init(..., in_chans=4)`` convert as the 3-channel ones do.
 """
 from __future__ import annotations
 
@@ -423,13 +424,17 @@ def load_resnet_arms(model, path: str) -> None:
     """Both MoCo towers' ResNet encoders from a local torchvision state
     dict (``mfvit_tpu/exp/checkpoint.py::resnet_arms_from_torchvision``,
     :223): every convolution and BatchNorm, the classifier ``fc`` left
-    out; each tower gets its own copy."""
+    out; each tower gets its own copy. With 4 input channels the towers
+    keep their fresh stem convolution, as builder_4ch replaces ``conv1``
+    after the pretrained load."""
+    keep = {"conv1.weight"} if model.in_chans != 3 else set()
     sd = {k: v.float() if v.is_floating_point() else v
           for k, v in load_torch_state_dict(path).items()
-          if not k.startswith("fc.")}
+          if not k.startswith("fc.") and k not in keep}
     for tower in (model.base, model.momentum):
         missing, unexpected = tower.encoder.load_state_dict(sd, strict=False)
-        missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+        missing = [k for k in missing if not k.endswith("num_batches_tracked")
+                   and k not in keep]
         if missing or unexpected:
             raise ValueError(f"{path}: not a torchvision "
                              f"{model.backbone_cfg.name} state dict "

@@ -30,6 +30,7 @@ class ResNetConfig:
     block: str = "basic"              # basic | bottleneck
     layers: Sequence[int] = (2, 2, 2, 2)
     width: int = 64
+    in_chans: int = 3
 
     @property
     def expansion(self) -> int:
@@ -47,8 +48,11 @@ CONFIGS = {
 }
 
 
-def get_config(name: str) -> ResNetConfig:
-    return CONFIGS[name]
+def get_config(name: str, in_chans: int = 3) -> ResNetConfig:
+    cfg = CONFIGS[name]
+    if in_chans != 3:
+        cfg = dataclasses.replace(cfg, in_chans=in_chans)
+    return cfg
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
@@ -119,7 +123,7 @@ class ResNet(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.cfg = cfg
-        self.conv1 = nn.Conv2d(3, cfg.width, 7, 2, 3, bias=False)
+        self.conv1 = nn.Conv2d(cfg.in_chans, cfg.width, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(cfg.width)
         cin = cfg.width
         for stage, nblocks in enumerate(cfg.layers):

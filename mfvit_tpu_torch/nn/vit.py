@@ -314,14 +314,16 @@ class Block(nn.Module):
 class ViT(nn.Module):
     """Built on the CPU, initialised from ``generator`` (a CPU
     ``torch.Generator``; seed 0 when omitted) and then moved to
-    ``device``."""
+    ``device``. ``in_chans=4`` takes the stacked CXR-gray + enhanced input
+    (``mfvit_tpu/nn/vit.py::init(..., in_chans)``)."""
 
-    def __init__(self, cfg: ViTConfig, num_classes: int = 0, *, device=None,
+    def __init__(self, cfg: ViTConfig, num_classes: int = 0, *,
+                 in_chans: int = 3, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.cfg = cfg
-        self.patch_embed = (ConvStem(3, cfg.dim) if cfg.conv_stem
-                            else PatchEmbed(cfg.patch, 3, cfg.dim))
+        self.patch_embed = (ConvStem(in_chans, cfg.dim) if cfg.conv_stem
+                            else PatchEmbed(cfg.patch, in_chans, cfg.dim))
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.dim))
         if cfg.learned_pos:
             self.pos_embed = nn.Parameter(torch.zeros(1, cfg.seq_len, cfg.dim))

@@ -126,9 +126,13 @@ class Tower(nn.Module):
         self.projector = projector
 
 
-def backbone(cfg, generator: torch.Generator) -> nn.Module:
+def backbone(cfg, generator: torch.Generator, in_chans: int = 3
+             ) -> nn.Module:
+    """A ViT or ResNet encoder taking ``in_chans`` input channels."""
     if isinstance(cfg, vit_mod.ViTConfig):
-        return vit_mod.ViT(cfg, generator=generator)
+        return vit_mod.ViT(cfg, in_chans=in_chans, generator=generator)
+    if cfg.in_chans != in_chans:
+        cfg = dataclasses.replace(cfg, in_chans=in_chans)
     return resnet_mod.ResNet(cfg, generator=generator)
 
 
@@ -141,14 +145,17 @@ class MoCo(nn.Module):
     ``base`` and ``momentum`` towers (the momentum tower a copy of the
     base, frozen to autograd), ``predictor`` (empty without one), and the
     ``queue`` (dim, K), L2-normalised per column, with ``queue_ptr``.
-    Built on the CPU from ``generator`` (seed 0 when omitted)."""
+    Built on the CPU from ``generator`` (seed 0 when omitted).
+    ``in_chans=4`` gives the encoders the stacked CXR-gray + enhanced
+    input (builder_4ch)."""
 
-    def __init__(self, cfg: MoCoConfig, backbone_cfg, *,
+    def __init__(self, cfg: MoCoConfig, backbone_cfg, *, in_chans: int = 3,
                  generator: torch.Generator | None = None):
         super().__init__()
         gen = generator or torch.Generator().manual_seed(0)
         self.cfg, self.backbone_cfg = cfg, backbone_cfg
-        encoder = backbone(backbone_cfg, gen)
+        self.in_chans = in_chans
+        encoder = backbone(backbone_cfg, gen, in_chans)
         projector = mlp_stack(cfg.projector_layers, backbone_dim(backbone_cfg),
                               cfg.mlp_dim, cfg.dim, use_bn=cfg.projector_bn,
                               generator=gen)

@@ -1015,6 +1015,16 @@ def test_moco_step_kernel_path_holds_the_plain_path(dev):
     features (at random init the MoCo heads' BatchNorm-ReLU layers turn
     the bf16 rounding differences of the features into far larger
     gradient differences, whatever the kernels)."""
+    _moco_step_parity(dev, in_chans=3)
+
+
+def test_moco_step_4ch_kernel_path_holds_the_plain_path(dev):
+    """The same step on the stacked CXR-gray + Enh input (``--in-chans
+    4``): a (384, 4, 16, 16) patch weight, the same launches and bars."""
+    _moco_step_parity(dev, in_chans=4)
+
+
+def _moco_step_parity(dev, in_chans: int):
     import copy
 
     from mfvit_tpu_torch.ssl import moco
@@ -1022,9 +1032,11 @@ def test_moco_step_kernel_path_holds_the_plain_path(dev):
 
     gen = torch.Generator().manual_seed(0)
     model0 = moco.MoCo(moco.MoCoConfig(), vit.get_config("vit_small"),
-                       generator=gen)
-    q, k = (torch.randn(8, 224, 224, 3, generator=gen).to(dev).bfloat16()
-            for _ in range(2))
+                       in_chans=in_chans, generator=gen)
+    assert model0.base.encoder.patch_embed.proj.weight.shape == (
+        384, in_chans, 16, 16)
+    q, k = (torch.randn(8, 224, 224, in_chans, generator=gen).to(dev)
+            .bfloat16() for _ in range(2))
     runs = {}
     for ref in (False, True):
         model = copy.deepcopy(model0).to(dev)

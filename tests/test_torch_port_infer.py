@@ -167,6 +167,7 @@ def test_port_never_imports_jax():
         "assert 'mfvit_tpu_torch.train.optim' in mods, mods\n"
         "assert 'mfvit_tpu_torch.cli.pretrain' in mods, mods\n"
         "assert 'mfvit_tpu_torch.ssl.moco' in mods, mods\n"
+        "assert 'mfvit_tpu_torch.tools.e2e_workflow' in mods, mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('mfvit_tpu.') or m == 'mfvit_tpu']\n"
         "assert not bad, bad\n")

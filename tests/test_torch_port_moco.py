@@ -61,22 +61,23 @@ def _cfgs(jcfg):
     return resnet.get_config(jcfg.name)
 
 
-def _port_moco(jstate, jm, jbcfg):
+def _port_moco(jstate, jm, jbcfg, in_chans=3):
     pm = moco.MoCoConfig(**{f: getattr(jm, f) for f in
                             moco.MoCoConfig.__dataclass_fields__})
     pb = _cfgs(jbcfg)
-    model = moco.MoCo(pm, pb)
+    model = moco.MoCo(pm, pb, in_chans=in_chans)
     model.load_state_dict(checkpoint.moco_state_from_jax(_np(jstate), pm, pb),
                           strict=True)
     return model, pm, pb
 
 
 def _trajectory(jm, jbcfg, *, steps=5, B=8, lr=0.01, wd=1e-4, remat=False,
-                seed=0, optimizer="lars"):
+                seed=0, optimizer="lars", in_chans=3):
     """``steps`` MoCo steps of JAX and of the port from the same state and
-    batches; returns (jax state, port model, losses (jax, port))."""
-    state = jmoco.init(jax.random.PRNGKey(seed), jm, jbcfg)
-    model, pm, pb = _port_moco(state, jm, jbcfg)
+    batches of ``in_chans``-channel images; returns (jax state, port
+    model, losses (jax, port))."""
+    state = jmoco.init(jax.random.PRNGKey(seed), jm, jbcfg, in_chans=in_chans)
+    model, pm, pb = _port_moco(state, jm, jbcfg, in_chans)
     model.init_state = {k: v.clone() for k, v in model.state_dict().items()}
     jsched = joptim.pretrain_cosine_lr(lr, 2, 1, 3)
     tx = joptim.build_optimizer(optimizer, jsched, weight_decay=wd,
@@ -94,7 +95,7 @@ def _trajectory(jm, jbcfg, *, steps=5, B=8, lr=0.01, wd=1e-4, remat=False,
     rng = np.random.default_rng(seed + 1)
     losses = []
     for i in range(steps):
-        q, k = (rng.standard_normal((B, 32, 32, 3)).astype(np.float32)
+        q, k = (rng.standard_normal((B, 32, 32, in_chans)).astype(np.float32)
                 for _ in range(2))
         m = optim.moco_momentum(i / 3, 0.99, 2)
         state, opt_state, jloss = jstep(state, opt_state, jnp.asarray(q),
@@ -121,19 +122,24 @@ def _hold(state, model, pm, pb, losses, atol=1e-5):
                                        err_msg=k)
 
 
+# (MoCo config, input channels); "4ch" is the stacked CXR-gray + Enh
+# input of --in-chans 4 under the default v2 queue loss
 LOSS_CASES = {
-    "v2_queue": jmoco.MoCoConfig(**MOCO),
-    "v2_queue_noprediction_q": jmoco.MoCoConfig(predictor_on_keys=False,
-                                                **MOCO),
-    "v3_symmetric": jmoco.MoCoConfig(loss="v3_symmetric", **MOCO),
-    "v2_classic": jmoco.MoCoConfig.v2_classic(dim=8, mlp_dim=16, K=32),
+    "v2_queue": (jmoco.MoCoConfig(**MOCO), 3),
+    "v2_queue_noprediction_q": (jmoco.MoCoConfig(predictor_on_keys=False,
+                                                 **MOCO), 3),
+    "v3_symmetric": (jmoco.MoCoConfig(loss="v3_symmetric", **MOCO), 3),
+    "v2_classic": (jmoco.MoCoConfig.v2_classic(dim=8, mlp_dim=16, K=32), 3),
+    "4ch": (jmoco.MoCoConfig(**MOCO), 4),
 }
 
 
 @pytest.mark.parametrize("case", sorted(LOSS_CASES))
 def test_step_trajectory_matches_jax(case):
     jbcfg = jvit.ViTConfig("vit_test", **TINY)
-    state, model, losses, pm, pb = _trajectory(LOSS_CASES[case], jbcfg)
+    jm, in_chans = LOSS_CASES[case]
+    state, model, losses, pm, pb = _trajectory(jm, jbcfg, in_chans=in_chans)
+    assert model.base.encoder.patch_embed.proj.weight.shape[1] == in_chans
     _hold(state, model, pm, pb, losses)
     if case != "v3_symmetric":
         assert int(model.queue_ptr) == (5 * 8) % 32
@@ -415,10 +421,7 @@ def test_finetune_takes_a_conv_stem_arch(covid_root):
 
 
 def test_pretrain_refuses_what_is_not_ported(covid_root, tmp_path):
-    for extra, msg in ((["--aug-setting", "moco_v2"], "item 3c"),
-                       (["--in-chans", "4"], "item 3c"),
-                       (["--pairing", "enh_cxr"], "item 3c"),
-                       (["--distributed"], "item 6"),
+    for extra, msg in ((["--distributed"], "item 6"),
                        (["--resume", str(tmp_path)], "orbax"),
                        (["-a", "vit_conv_small", "--export-torch"],
                         "export-torch")):
