@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MF-ViT CA serving path (bf16, int8 W8A8 and
 the XLA-level W8A8 trees of ``quantize_vit_params``), its ViT fine-tuning
-path, its fusion training (``cli/fuse``), its MoCo pretraining
+path, its fusion training (``cli/fuse``, with the CA and the GPT head),
+the ViT + CNN cross-attention head, its MoCo pretraining
 (``cli/pretrain``) and the whole-block kernel K15
 (through ``tools/bench_block``) and the schedule variants T1-T7 (through
 ``tools/bench_mlp3d``, ``bench_pipelined``, ``bench_attn_pairs``,
@@ -154,7 +155,14 @@ Phases, in order; any failure raises and exits non-zero:
 17. fusion train-step parity: kernel path and plain path (bf16 on the
    card) from the same weights and batch (B=32), three Adam steps, LP and
    ``--semi-supervised``: loss per step within rel 1e-2, the first-step
-   gradient of the head and of each branch block within rel 5e-2;
+   gradient of the head and of each branch block within rel 5e-2; then
+   phases 16 and 17 again under ``--fusion-arch gpt`` (the joint-sequence
+   GPT head at its defaults: 8 blocks, 4 heads of 96, 394 tokens): per
+   step and per eval batch the same counts with K4 0, ``infer
+   --fusion-arch gpt`` on its ``model_best`` equal to ``eval_step``; and
+   the ViT + CNN cross-attention head (``models.crossvit_cnn.
+   fused_forward``: vit_small, resnet18, B=32): logits within rel 2e-2 of
+   the plain path, K1 12, K2 11, K3 1 launched;
 18. MoCo pretraining through ``mfvit_tpu_torch.cli.pretrain.main``:
    64 synthetic images, vit_small at full width from a seed, MoCo's
    default heads (projector 384 -> 4096 -> 4096 -> 256, predictor) and
@@ -211,7 +219,10 @@ Phases, in order; any failure raises and exits non-zero:
    GEMM cores alone at K1's qkv and K2's fc1 shapes (B=256; ms and
    TFLOP/s, wgmma against gemm_ln); the pairs/s of the fusion train step, LP and
    ``--semi-supervised``, kernel against plain path, at B=32 (the fuse
-   CLI's default) and B=256; each schedule variant at each argument its
+   CLI's default) and B=256, and with the GPT head at B=32; the GPT
+   head's serving pairs/s at B=256 beside the CA head's, and the head
+   alone at B=256 and 32 (forward, forward + backward, a
+   ``torch.profiler`` breakdown by operator); each schedule variant at each argument its
    tool sweeps against its base kernel (variant, base, base, variant) and
    K1's, K2's and K5's plain versions, at B=256; the images/s of the
    MoCo v2-queue step, kernel against plain path, at B=256 and at B=16
@@ -276,6 +287,7 @@ JSON object) and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import functools
+import contextlib
 import json
 import math
 import os
@@ -400,6 +412,16 @@ PER_QUANT_FORWARD = {"mhsa_packed": 24, "fused_fusion_cls": 1}
 PER_FUSION_STEP = {False: PER_FORWARD,
                    True: dict(PER_FORWARD, fused_attention_block_bwd=24,
                               fused_mlp_block_bwd=24)}
+# the same under --fusion-arch gpt: the GPT head is plain PyTorch (XLA in
+# JAX), so K4 never runs; both branches take the per-branch route
+PER_GPT_FORWARD = {k: v for k, v in PER_FORWARD.items()
+                   if k != "fused_fusion_cls"}
+PER_GPT_FUSION_STEP = {semi: {k: v for k, v in c.items()
+                              if k != "fused_fusion_cls"}
+                       for semi, c in PER_FUSION_STEP.items()}
+# the paired forward and the fusion step of each --fusion-arch
+PER_ARCH_FORWARD = {"ca": PER_FORWARD, "gpt": PER_GPT_FORWARD}
+PER_ARCH_STEP = {"ca": PER_FUSION_STEP, "gpt": PER_GPT_FUSION_STEP}
 PER_K15_FWD = {"fused_transformer_block": 1}
 PER_K15_FWD_BWD = {"fused_transformer_block": 1, "fused_attention_block": 1,
                    "fused_mlp_block_bwd": 1, "fused_attention_block_bwd": 1}
@@ -587,8 +609,6 @@ def i8_controls(name: str) -> dict:
     K10 ``o in bf16``, the attention output rounded to bf16 before it is
     quantized (as K1 rounds it); for K11 ``h1 in bf16`` (K2's rounding
     point) and ``tanh GELU``."""
-    import contextlib
-
     import torch.nn.functional as F
 
     from mfvit_tpu_torch.ops import fused_attn as fa
@@ -2819,31 +2839,46 @@ class _Tee:
         self.out.flush()
 
 
-def fusion_models(gen):
-    """Two vit_small branches and the CA head (3 heads) from ``gen``, on
+def fusion_head(arch: str, gen):
+    """The vit_small fusion head of ``fuse``'s defaults for ``arch``: the
+    CA head (3 heads) or the GPT head (8 blocks, 4 heads of 96, a
+    394-token joint sequence), from ``gen``, on the CPU."""
+    import argparse
+
+    from mfvit_tpu_torch.cli.common import fusion_head as head
+    from mfvit_tpu_torch.nn.vit import get_config
+    args = argparse.Namespace(fusion_arch=arch, num_classes=3,
+                              fusion_heads=3, cross_attn_depth=1,
+                              multi_scale_enc_depth=1, gpt_layers=8)
+    return head(args, get_config("vit_small"), gen)
+
+
+def fusion_models(gen, arch: str = "ca"):
+    """Two vit_small branches and the ``arch`` fusion head from ``gen``, on
     the CPU."""
     from torch import nn
 
-    from mfvit_tpu_torch.models.fusion import Fusion
     from mfvit_tpu_torch.nn.vit import ViT, get_config
     cfg = get_config("vit_small")
     return nn.ModuleDict({"cxr": ViT(cfg, 3, generator=gen),
                           "enh": ViT(cfg, 3, generator=gen),
-                          "fus": Fusion(3, cfg.dim, 3, generator=gen)})
+                          "fus": fusion_head(arch, gen)})
 
 
-def run_fusion(dev, tmp: str) -> dict:
-    """The fusion-training slice through ``cli.fuse.main`` (vit_small, 224
-    px, B=32, one epoch over 64 synthetic pairs; the branches from seeded
-    ViT files with non-zero biases, saved as ``finetune`` saves its
-    ``model_best``): LP, then ``--semi-supervised``. Gates: two finite
-    losses, launch counts per step (LP: K1 24, K2 22, K3 2, K4 1, K5 0,
-    K7 0; ``--semi-supervised`` the same plus K5 24, K7 24) plus one paired
-    forward per eval batch, the LP sanity-check line (and only under LP),
-    ``model_best`` equal to the run's last state. Then ``infer.main`` on the
-    last run's ``model_best`` over the 32 val pairs: its decision logits
-    equal those of ``eval_step`` on that state. Returns the launch counts
-    of the ``--semi-supervised`` run."""
+def run_fusion(dev, tmp: str, arch: str = "ca") -> dict:
+    """The fusion-training slice through ``cli.fuse.main --fusion-arch
+    arch`` (vit_small, 224 px, B=32, one epoch over 64 synthetic pairs;
+    the branches from seeded ViT files with non-zero biases, saved as
+    ``finetune`` saves its ``model_best``; the GPT head at its default 8
+    blocks): LP, then ``--semi-supervised``. Gates: two finite losses,
+    launch counts per step (LP: K1 24, K2 22, K3 2, K4 1 (0 for the GPT
+    head), K5 0, K7 0; ``--semi-supervised`` the same plus K5 24, K7 24)
+    plus one paired forward per eval batch, the LP sanity-check line (and
+    only under LP), ``model_best`` equal to the run's last state. Then
+    ``infer.main --fusion-arch arch`` on the last run's ``model_best``
+    over the 32 val pairs: its decision logits equal those of
+    ``eval_step`` on that state. Returns the launch counts of the
+    ``--semi-supervised`` run."""
     from mfvit_tpu_torch import ops
     from mfvit_tpu_torch.cli import common, fuse, infer
     from mfvit_tpu_torch.exp.checkpoint import load_serving
@@ -2856,20 +2891,18 @@ def run_fusion(dev, tmp: str) -> dict:
     for b, seed in (("cxr", 21), ("enh", 22)):
         gen = torch.Generator().manual_seed(seed)
         vit = ViT(cfg, 3, generator=gen)
-        with torch.no_grad():  # a trained checkpoint's biases are not 0
-            for name, p in vit.named_parameters():
-                if name.endswith("bias"):
-                    p.normal_(0.0, 0.02, generator=gen)
+        nonzero_biases(vit, gen)
         path = os.path.join(tmp, f"{b}_model_best")
         torch.save(vit.state_dict(), path)
         branches += [f"--pretrained-{b}", path]
+    head = ["--fusion-arch", arch]
     argv = ["-a", "vit_small", "-b", "32", "--epochs", "1", "--draws", "1",
             "--covid-ds", man, "--lr", "1e-3", "-j", "8", "-p", "1",
-            "--device", dev.type] + branches
+            "--device", dev.type] + head + branches
     counts = {}
     for semi in (False, True):
-        mode = "--semi-supervised" if semi else "LP"
-        root = os.path.join(tmp, "fuse_semi" if semi else "fuse_lp")
+        mode = f"{arch} " + ("--semi-supervised" if semi else "LP")
+        root = os.path.join(tmp, f"fuse_{arch}_" + ("semi" if semi else "lp"))
         ops.reset_launch_counts()
         tee = _Tee(sys.stdout)
         sys.stdout = tee
@@ -2883,8 +2916,9 @@ def run_fusion(dev, tmp: str) -> dict:
         losses = res.extra["train_losses"]
         steps, evals = len(losses), res.extra["eval_batches"]
         want = {k: 0 for k in got}
-        want.update({k: v * steps for k, v in PER_FUSION_STEP[semi].items()})
-        for k, v in PER_FORWARD.items():
+        want.update({k: v * steps
+                     for k, v in PER_ARCH_STEP[arch][semi].items()})
+        for k, v in PER_ARCH_FORWARD[arch].items():
             want[k] += v * evals
         sanity = "=> fusion sanity check passed." in "".join(tee.parts)
         print(f"fuse {mode}: {steps} steps, {evals} eval batches, losses "
@@ -2910,42 +2944,43 @@ def run_fusion(dev, tmp: str) -> dict:
 
     val = os.path.join(man, "val_ds.txt")
     argv = ["-a", "vit_small", "-b", "32", "--device", dev.type, "-j", "8",
-            "--checkpoint", best, "--manifest", val,
-            "--output", os.path.join(tmp, "fuse_predictions.json")]
+            "--checkpoint", best, "--manifest", val, "--output",
+            os.path.join(tmp, f"fuse_{arch}_predictions.json")] + head
     out = infer.main(argv)
     logits = torch.tensor(out["logits"])
     ck = load_serving(os.path.join(sub, "last_checkpoint"), cfg)
-    models = fusion_models(torch.Generator().manual_seed(0))
+    models = fusion_models(torch.Generator().manual_seed(0), arch)
     for k, m in models.items():
         m.load_state_dict(ck[k], strict=True)
     models.to(dev).eval()
-    _, eval_step = make_fusion_steps()
+    _, eval_step = make_fusion_steps(fusion_arch=arch)
     args = infer.build_parser().parse_args(argv)
     loader = common.make_paired_loader(args, val)
     want = torch.cat([eval_step(models, *infer.prepare(b, dev, torch.bfloat16))
                       .float().cpu() for b in loader])[:out["n"]]
     d = (logits - want).abs().max().item()
-    print(f"infer on fuse's model_best: n {out['n']}, decision logits max "
-          f"|diff| {d} against eval_step on the run's last state")
+    print(f"infer --fusion-arch {arch} on fuse's model_best: n {out['n']}, "
+          f"decision logits max |diff| {d} against eval_step on the run's "
+          "last state")
     if out["n"] != 32 or d != 0.0:
-        raise AssertionError(f"infer on fuse's model_best: n {out['n']}, "
-                             f"max |diff| {d}")
+        raise AssertionError(f"infer --fusion-arch {arch} on fuse's "
+                             f"model_best: n {out['n']}, max |diff| {d}")
     return counts[True]
 
 
-def fusion_parity(dev, B: int = 32) -> None:
-    """Three Adam steps of the fusion train step, the kernel path and the
-    plain path (bf16 on the card) from the same weights and batch, LP and
-    ``--semi-supervised``: the loss per step within PARITY_LOSS_BAR, the
-    first-step gradient of the head (and under ``--semi-supervised`` of
-    every branch block) within PARITY_GRAD_BAR."""
+def fusion_parity(dev, B: int = 32, arch: str = "ca") -> None:
+    """Three Adam steps of the fusion train step with the ``arch`` head,
+    the kernel path and the plain path (bf16 on the card) from the same
+    weights and batch, LP and ``--semi-supervised``: the loss per step
+    within PARITY_LOSS_BAR, the first-step gradient of the head (and under
+    ``--semi-supervised`` of every branch block) within PARITY_GRAD_BAR."""
     import copy
 
     from mfvit_tpu_torch.cli.fuse import fusion_trainable_mask
     from mfvit_tpu_torch.train import optim, steps
 
     gen = torch.Generator().manual_seed(23)
-    models0 = fusion_models(gen)
+    models0 = fusion_models(gen, arch)
     xc, xe = (torch.randn(B, 224, 224, 3, generator=gen).to(dev).bfloat16()
               for _ in range(2))
     labels = torch.randint(0, 3, (B,), generator=gen).to(dev)
@@ -2958,7 +2993,8 @@ def fusion_parity(dev, B: int = 32) -> None:
             opt = optim.build_optimizer("adam", models.named_parameters(),
                                         1e-4, trainable_mask=mask)
             step, _ = steps.make_fusion_steps(freeze_backbones=not semi,
-                                              reference=ref)
+                                              reference=ref,
+                                              fusion_arch=arch)
             losses, grads = [], None
             for i in range(3):
                 loss, _ = step(models, opt, xc, xe, labels)
@@ -2974,7 +3010,7 @@ def fusion_parity(dev, B: int = 32) -> None:
         (lk, gk), (lp, gp) = runs[False], runs[True]
         loss_rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
         grad_rel = [rel(a, b) for a, b in zip(gk, gp)]
-        mode = "--semi-supervised" if semi else "LP"
+        mode = f"{arch} " + ("--semi-supervised" if semi else "LP")
         print(f"fusion train-step parity ({mode}, vit_small, B={B}, 3 Adam "
               "steps): losses kernel " + ", ".join(f"{v:.5f}" for v in lk)
               + " plain " + ", ".join(f"{v:.5f}" for v in lp)
@@ -2987,6 +3023,219 @@ def fusion_parity(dev, B: int = 32) -> None:
                 and max(grad_rel) < PARITY_GRAD_BAR):
             raise AssertionError(f"fusion train-step parity ({mode}) out of "
                                  "its bar")
+
+
+def check_crossvit_cnn(dev, B: int = 32, seeds=(25, 28)) -> dict:
+    """The ViT + CNN cross-attention head's forward
+    (``models.crossvit_cnn.fused_forward``: a vit_small branch with
+    non-zero biases, resnet18 and the head at its defaults, 3 heads of 64
+    over the 7 x 7 x 512 map) at B=32, 224 px, bf16, for each seed: the
+    kernel path against the plain path on the same weights and images.
+    The ViT tokens the head reads and the logits each rel < REL_BAR (the
+    serving slice's bar; the head at its init gives small logits, so the
+    tokens are held too); the ViT branch launches K1 12, K2 11, K3 1 on
+    the kernel path and nothing on the plain path. Returns the largest
+    rel of each over the seeds."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.models import crossvit_cnn
+    from mfvit_tpu_torch.nn import resnet
+    from mfvit_tpu_torch.nn.vit import ViT, get_config
+
+    worst = {"tokens": 0.0, "logits": 0.0}
+    for seed in seeds:
+        gen = torch.Generator().manual_seed(seed)
+        vit = ViT(get_config("vit_small"), 3, generator=gen)
+        nonzero_biases(vit, gen)
+        cnn = resnet.ResNet(resnet.get_config("resnet18"), generator=gen)
+        fus = crossvit_cnn.CrossViTCNN(generator=gen)
+        vit, cnn, fus = (m.to(dev).eval() for m in (vit, cnn, fus))
+        img = torch.randn(B, 224, 224, 3, generator=gen).to(dev,
+                                                            torch.bfloat16)
+        out, tok = {}, {}
+        for ref in (False, True):
+            ops.reset_launch_counts()
+            with torch.inference_mode():
+                out[ref] = crossvit_cnn.fused_forward(vit, cnn, fus, img,
+                                                      reference=ref)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            want = {} if ref else PER_VIT_FORWARD
+            if counts != want:
+                raise AssertionError(
+                    f"crossvit_cnn.fused_forward (reference={ref}): launch "
+                    f"counts {counts} != {want}")
+            with torch.inference_mode():
+                tok[ref] = vit(img, return_features=True, reference=ref)[0]
+        r = {"tokens": rel(tok[False], tok[True]),
+             "logits": rel(out[False], out[True])}
+        finite = bool(torch.isfinite(out[False]).all())
+        print(f"crossvit_cnn.fused_forward (vit_small + resnet18, B={B}, "
+              f"bf16, seed {seed}): logits {tuple(out[False].shape)}, finite "
+              f"{finite}; kernel path against plain path: ViT tokens rel "
+              f"{r['tokens']:.3e}, logits rel {r['logits']:.3e} (bar "
+              f"{REL_BAR}); launches {PER_VIT_FORWARD} on the kernel path, "
+              "none on the plain path")
+        if (not finite or out[False].shape != (B, 3)
+                or not max(r.values()) < REL_BAR):
+            raise AssertionError(f"crossvit_cnn.fused_forward: {r}")
+        worst = {k: max(worst[k], r[k]) for k in worst}
+    return worst
+
+
+def nonzero_biases(model, gen) -> None:
+    """Every bias of ``model`` N(0, 0.02), as a trained checkpoint's."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.02, generator=gen)
+
+
+@contextlib.contextmanager
+def upcast_scores():
+    """Within it the GPT head's scores are the fp32 product of the
+    upcast q and k (its CPU route, and its CUDA route before the
+    fp32-output GEMM), as the timings' comparison."""
+    from mfvit_tpu_torch.models import gpt_fusion
+
+    tensor_cores = gpt_fusion.bmm_f32
+    gpt_fusion.bmm_f32 = lambda a, b: a.float() @ b.float()
+    try:
+        yield
+    finally:
+        gpt_fusion.bmm_f32 = tensor_cores
+
+
+def check_score_product(head, tc, te, B: int) -> dict:
+    """The GPT head's scores, ``nn.layers.bmm_f32`` (cuBLAS's fp32-output
+    GEMM of the bf16 q and k), against the fp32 product of the upcast
+    operands at the head's shape (B x 4 heads, 394 x 96): rel < 1e-5, as
+    only the fp32 summation order differs. Then the head's logits on the
+    two products: rel < REL_BAR (P is cast to bf16 after the softmax, so
+    a score a rounding apart can move one P entry by a bf16 step). Also
+    times one layer's score product both ways and returns the ms with
+    its bound (q and k read, the fp32 scores written, at 3.35 TB/s; the
+    products at bf16's 989 TFLOP/s take an eighth of that)."""
+    from mfvit_tpu_torch.models import gpt_fusion
+
+    g = torch.Generator().manual_seed(29)
+    q, k = (torch.randn(B * 4, 394, 96, generator=g).to(tc.device,
+                                                       torch.bfloat16)
+            for _ in range(2))
+    r_scores = rel(gpt_fusion.bmm_f32(q, k.mT), q.float() @ k.float().mT)
+    ms = {"tensor_cores": cuda_ms(lambda: gpt_fusion.bmm_f32(q, k.mT), 10),
+          "upcast": cuda_ms(lambda: q.float() @ k.float().mT, 10),
+          "bound": (2 * q.numel() * 2 + B * 4 * 394 * 394 * 4) / 3.35e9}
+    with torch.inference_mode():
+        out = head(tc, te)
+        with upcast_scores():
+            upcast = head(tc, te)
+    r_logits = rel(out, upcast)
+    print(f"GPT head at B={B}: fp32-output score GEMM against the upcast "
+          f"fp32 product rel {r_scores:.3e} (bar 1e-5); the head's logits "
+          f"on the two rel {r_logits:.3e} (bar {REL_BAR}); one layer's "
+          f"score product {ms['tensor_cores']:.3f} ms (upcast "
+          f"{ms['upcast']:.3f}, bound {ms['bound']:.3f}, bytes)")
+    if not r_scores < 1e-5 or not r_logits < REL_BAR:
+        raise AssertionError(f"GPT score product: rel {r_scores}, logits "
+                             f"{r_logits}")
+    return ms
+
+
+def time_gpt_head(dev, B: int) -> dict:
+    """The GPT fusion head alone (vit_small's: 8 blocks, 4 heads of 96, a
+    394-token joint sequence, bf16 with fp32 score products) on two seeded
+    bf16 token streams at batch B: its forward and its forward + backward
+    (the LP step's head), ms per call, two samples each, beside the same
+    with ``upcast_scores`` (upcast, this, this, upcast); then one
+    ``torch.profiler`` window over two forwards: the device ms per forward
+    of the eight largest operators."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(26)
+    head = fusion_head("gpt", gen).to(dev)
+    tc, te = (torch.randn(B, 197, 384, generator=gen).to(dev, torch.bfloat16)
+              for _ in range(2))
+
+    def fwd():
+        with torch.inference_mode():
+            return head(tc, te)
+
+    def fwd_bwd():
+        head(tc, te).sum().backward()
+
+    score_ms = check_score_product(head, tc, te, B)
+    def upcast(fn):
+        def run():
+            with upcast_scores():
+                return fn()
+        return run
+
+    uf = [cuda_ms(fn, 5) for fn in (upcast(fwd), fwd, fwd, upcast(fwd))]
+    ub = [cuda_ms(fn, 5) for fn in (upcast(fwd_bwd), fwd_bwd, fwd_bwd,
+                                    upcast(fwd_bwd))]
+    f1, f2, b1, b2 = uf[1], uf[2], ub[1], ub[2]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            fwd()
+        torch.cuda.synchronize()
+    by_op = {e.key: e.self_device_time_total / 2e3
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CPU
+             and e.self_device_time_total > 0}
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:8]
+    print(f"GPT fusion head at B={B} (upcast scores, these, these, upcast): "
+          f"forward {'/'.join(f'{t:.3f}' for t in uf)} ms, forward + "
+          f"backward {'/'.join(f'{t:.3f}' for t in ub)} ms; device ms per "
+          "forward by operator: "
+          + "; ".join(f"{k} {v:.2f}" for k, v in top))
+    return {"forward_ms": (f1 + f2) / 2, "forward_backward_ms": (b1 + b2) / 2,
+            "upcast_forward_ms": (uf[0] + uf[3]) / 2,
+            "upcast_forward_backward_ms": (ub[0] + ub[3]) / 2,
+            "profile_ms": dict(top), "score_product_ms": score_ms}
+
+
+def time_gpt_serving(dev, B: int = 256) -> dict:
+    """Serving pairs/s at batch B, 224 px, of ``make_fusion_forward(
+    fusion_arch="gpt")``, the forward ``infer --fusion-arch gpt`` runs,
+    beside the CA forward on the same branches and images: gpt,
+    gpt_upcast, ca, gpt_plain, gpt_plain, ca, gpt_upcast, gpt (gpt_plain:
+    the branches' plain versions; gpt_upcast: under ``upcast_scores``),
+    the decision logits fetched every forward."""
+    from mfvit_tpu_torch.train.steps import make_fusion_forward
+
+    gen = torch.Generator().manual_seed(27)
+    models = fusion_models(gen, "gpt").to(dev).eval()
+    models_ca = dict(models, fus=fusion_head("ca", gen).to(dev).eval())
+    xc, xe = (torch.randn(B, 224, 224, 3, generator=gen).to(dev,
+                                                             torch.bfloat16)
+              for _ in range(2))
+    fwds = {"gpt": (make_fusion_forward(fusion_arch="gpt"), models),
+            "gpt_plain": (make_fusion_forward(fusion_arch="gpt",
+                                              reference=True), models),
+            "ca": (make_fusion_forward(), models_ca)}
+
+    def rate(which: str, iters: int = 5) -> float:
+        fwd, ms = fwds[which.removesuffix("_upcast")]
+        with (upcast_scores() if which.endswith("_upcast")
+              else contextlib.nullcontext()):
+            sum(fwd(ms, xc, xe)).cpu()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                sum(fwd(ms, xc, xe)).cpu()
+            return B * iters / (time.perf_counter() - t0)
+
+    order = ("gpt", "gpt_upcast", "ca", "gpt_plain", "gpt_plain", "ca",
+             "gpt_upcast", "gpt")
+    runs = {k: [] for k in dict.fromkeys(order)}
+    for which in order:
+        runs[which].append(rate(which))
+    print(f"serving --fusion-arch gpt at B={B}, 224 px (logits fetched every "
+          "forward): " + ", ".join(
+              f"{k} {' / '.join(f'{r:.1f}' for r in v)} pairs/s"
+              for k, v in runs.items()))
+    return {k: sum(v) / len(v) for k, v in runs.items()}
 
 
 def moco_counts(per_tower_pass: dict, n_query: int, n_key: int) -> dict:
@@ -3511,18 +3760,18 @@ def time_halves(dev, B: int = 256) -> dict:
     return out
 
 
-def time_fusion(dev, B: int, iters: int) -> dict:
-    """Pairs/s of the fusion train step (forward, backward, Adam, the loss
-    fetched every step) at batch B, 224 px: LP and ``--semi-supervised``,
-    each the kernel path against the plain path (kernel, plain, plain,
-    kernel), on its own copy of the seeded models."""
+def time_fusion(dev, B: int, iters: int, arch: str = "ca") -> dict:
+    """Pairs/s of the fusion train step with the ``arch`` head (forward,
+    backward, Adam, the loss fetched every step) at batch B, 224 px: LP and
+    ``--semi-supervised``, each the kernel path against the plain path
+    (kernel, plain, plain, kernel), on its own copy of the seeded models."""
     import copy
 
     from mfvit_tpu_torch.cli.fuse import fusion_trainable_mask
     from mfvit_tpu_torch.train import optim, steps
 
     gen = torch.Generator().manual_seed(24)
-    models0 = fusion_models(gen)
+    models0 = fusion_models(gen, arch)
     xc, xe = (torch.randn(B, 224, 224, 3, generator=gen).to(dev).bfloat16()
               for _ in range(2))
     labels = torch.randint(0, 3, (B,), generator=gen).to(dev)
@@ -3534,7 +3783,8 @@ def time_fusion(dev, B: int, iters: int) -> dict:
         opt = optim.build_optimizer("adam", models.named_parameters(), 1e-5,
                                     trainable_mask=mask)
         fns = {k: steps.make_fusion_steps(freeze_backbones=not semi,
-                                          reference=k == "plain")[0]
+                                          reference=k == "plain",
+                                          fusion_arch=arch)[0]
                for k in ("kernel", "plain")}
         torch.cuda.reset_peak_memory_stats()
 
@@ -3549,7 +3799,8 @@ def time_fusion(dev, B: int, iters: int) -> dict:
         for which in ("kernel", "plain", "plain", "kernel"):
             runs[which].append(rate(which))
         mode = "semi" if semi else "lp"
-        print(f"fusion train step ({'--semi-supervised' if semi else 'LP'}) "
+        print(f"fusion train step ({arch} "
+              f"{'--semi-supervised' if semi else 'LP'}) "
               f"at B={B} (bf16, forward + backward + Adam, loss fetched "
               "every step): " + ", ".join(
                   f"{k} {' / '.join(f'{r:.1f}' for r in v)} pairs/s"
@@ -3653,6 +3904,15 @@ def main() -> int:
         run_fusion(dev, tmp)
     phase("fusion train-step parity, kernel path against plain path (B=32)")
     fusion_parity(dev)
+    phase("the GPT fusion head through mfvit_tpu_torch.cli.fuse "
+          "--fusion-arch gpt (vit_small, B=32, LP then --semi-supervised), "
+          "then infer --fusion-arch gpt on its model_best; GPT fusion "
+          "train-step parity (B=32); the ViT + CNN cross-attention head "
+          "(B=32)")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_fusion(dev, tmp, arch="gpt")
+    fusion_parity(dev, arch="gpt")
+    crossvit_rel = check_crossvit_cnn(dev)
 
     phase("MoCo pretraining through mfvit_tpu_torch.cli.pretrain "
           "(vit_small, B=32, two epochs, --export-torch); pretrain-step "
@@ -3674,7 +3934,8 @@ def main() -> int:
         e2e_metrics = run_e2e_twin(dev, tmp)
 
     phase("times (B=256; K12-K14 also at N=577, B=64; K5/K7 also at a "
-          "vit_base block, B=64; the fusion step also at B=32; the schedule "
+          "vit_base block, B=64; the fusion step also at B=32, and with the "
+          "GPT head; GPT serving and the GPT head alone; the schedule "
           "variants against K1/K2)")
     times = time_kernels(dev)
     times.update(time_mhsa(dev, "vit_small", 256, 197, 384, 12))
@@ -3701,6 +3962,9 @@ def main() -> int:
                        None)
     fusion_cli = time_fusion(dev, 32, 8)  # the fuse CLI's default -b
     fusion_256 = time_fusion(dev, 256, 3)
+    gpt_fusion_cli = time_fusion(dev, 32, 8, arch="gpt")
+    gpt_serving = time_gpt_serving(dev)
+    gpt_head = {B: time_gpt_head(dev, B) for B in (256, 32)}
     moco_256 = time_pretrain(dev, 256, 4)
     moco_4ch_256 = time_pretrain(dev, 256, 4, in_chans=4)
     moco_cli = time_pretrain(dev, 16, 32)  # the pretrain CLI's default -b
@@ -3815,6 +4079,10 @@ def main() -> int:
                           for tool, res in variant_lines.items()},
                       "fusion_step_pairs_per_sec_B32": fusion_cli,
                       "fusion_step_pairs_per_sec_B256": fusion_256,
+                      "gpt_fusion_step_pairs_per_sec_B32": gpt_fusion_cli,
+                      "gpt_serving_pairs_per_sec_B256": gpt_serving,
+                      "gpt_head_ms": gpt_head,
+                      "crossvit_cnn_rel_B32": crossvit_rel,
                       "moco_step_images_per_sec_B256": moco_256,
                       "moco_step_4ch_images_per_sec_B256": moco_4ch_256,
                       "moco_feeds_images_per_sec_host_bound_B32": moco_feeds,

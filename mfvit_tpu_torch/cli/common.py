@@ -7,12 +7,14 @@ pairs), and the eval runner."""
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
 
 from mfvit_tpu_torch.data import datasets, device_aug, host_transforms as ht
 from mfvit_tpu_torch.data import pipeline
+from mfvit_tpu_torch.models import fusion, gpt_fusion
 from mfvit_tpu_torch.nn import resnet as resnet_mod
 from mfvit_tpu_torch.nn import vit as vit_mod
 from mfvit_tpu_torch.train.evaluator import Evaluator
@@ -101,6 +103,29 @@ def get_vit_arch(args) -> vit_mod.ViTConfig:
         raise SystemExit("--in-chans 4 is a pretrain-only variant; "
                          "finetune/fuse/infer are 3-channel")
     return get_arch(args)
+
+
+def gpt_fusion_cfg(args, cfg) -> gpt_fusion.GPTFusionConfig:
+    """The GPT fusion config matched to the ViT branches
+    (``mfvit_tpu/cli/common.py:275-286``), one construction shared by
+    ``fuse`` and ``infer``: width ``cfg.dim``, ``--gpt-layers`` blocks and
+    anchors on the patch grid, so a ``--fusion-arch gpt`` checkpoint
+    loads into the head it was trained with."""
+    return dataclasses.replace(gpt_fusion.VIT_CONFIG, n_embd=cfg.dim,
+                               n_layer=args.gpt_layers,
+                               vert_anchors=cfg.grid, horz_anchors=cfg.grid)
+
+
+def fusion_head(args, cfg, generator=None) -> torch.nn.Module:
+    """The fusion head of ``--fusion-arch``, as ``fuse`` trains it and
+    ``infer`` serves it: the CA ``Fusion`` or the ``GPTFusion`` of
+    ``gpt_fusion_cfg``."""
+    if args.fusion_arch == "gpt":
+        return gpt_fusion.GPTFusion(gpt_fusion_cfg(args, cfg),
+                                    args.num_classes, generator=generator)
+    return fusion.Fusion(args.num_classes, cfg.dim, args.fusion_heads,
+                         args.cross_attn_depth, args.multi_scale_enc_depth,
+                         generator=generator)
 
 
 def compute_dtype(args) -> torch.dtype:

@@ -1,28 +1,32 @@
-"""MF-ViT CA fusion training, the port of ``mfvit_tpu/cli/fuse.py``: two
+"""MF-ViT fusion training, the port of ``mfvit_tpu/cli/fuse.py``: two
 ViT branches loaded from their fine-tuned checkpoints, the CLS
-cross-attention fusion head, decision logits fused + cxr + enh, the LP
-freeze of both branches (bodies and heads) unless ``--semi-supervised``,
-the per-epoch cosine or milestone LR, val AUC every epoch, the best-val-AUC
-``model_best`` with test AUC/acc on each improvement, a paired CXR +
-enhanced dataset indexed jointly, and the LP frozen-branch check.
+cross-attention fusion head (or, under ``--fusion-arch gpt``, the
+TransFuser-style joint-sequence GPT head of ``--gpt-layers`` blocks),
+decision logits fused + cxr + enh, the LP freeze of both branches
+(bodies and heads) unless ``--semi-supervised``, the per-epoch cosine or
+milestone LR, val AUC every epoch, the best-val-AUC ``model_best`` with
+test AUC/acc on each improvement, a paired CXR + enhanced dataset indexed
+jointly, and the LP frozen-branch check.
 
     python -m mfvit_tpu_torch.cli.fuse -a vit_small -b 32 --lr 1.5e-4 \\
         --cos --epochs 25 --maintain-ratio --covid-ds create_covid_dataset \\
         --pretrained-cxr cxr/model_best --pretrained-enh enh/model_best \\
-        [--semi-supervised] [--device cuda]
+        [--semi-supervised] [--fusion-arch gpt [--gpt-layers 8]]
+        [--device cuda]
 
-On CUDA both branches run K1/K2/K3 forward and the head K4; under LP the
-branches run without autograd, so only K4's plain recompute runs backward;
-``--semi-supervised`` trains everything through K5 and K7 as well. The
-``model_best`` of each draw (``mfvit_ca/train_{ratio}_{draw}``) is the
-flat state dict of the ``nn.ModuleDict({"cxr", "enh", "fus"})``, which
-``cli/infer.py --checkpoint`` serves as it is.
+On CUDA both branches run K1/K2/K3 forward and the CA head K4 (the GPT
+head is plain PyTorch, as it is XLA in JAX); under LP the branches run
+without autograd, so only the head's backward runs (K4's plain
+recompute); ``--semi-supervised`` trains everything through K5 and K7 as
+well. The ``model_best`` of each draw (``mfvit_ca/train_{ratio}_{draw}``,
+both heads) is the flat state dict of the ``nn.ModuleDict({"cxr", "enh",
+"fus"})``, which ``cli/infer.py --checkpoint`` serves as it is (with the
+same ``--fusion-arch`` and ``--gpt-layers``).
 
 Not ported yet (ROADMAP.md): the device canvas store (this behaves as the
-JAX CLI with ``--device-store-mb 0``), ``--fusion-arch gpt`` (the
-alternative-heads slice), orbax ``--pretrained-*`` directories,
-``--attn-backend``, the canvas cache, the distributed flags and
-TensorBoard.
+JAX CLI with ``--device-store-mb 0``), orbax ``--pretrained-*``
+directories, ``--attn-backend``, the canvas cache, the distributed flags
+and TensorBoard.
 """
 from __future__ import annotations
 
@@ -37,7 +41,6 @@ from mfvit_tpu_torch.cli import common
 from mfvit_tpu_torch.data import manifest as mf
 from mfvit_tpu_torch.exp import checkpoint as ckpt_mod
 from mfvit_tpu_torch.exp import harness, storage
-from mfvit_tpu_torch.models.fusion import Fusion
 from mfvit_tpu_torch.nn.vit import ViT
 from mfvit_tpu_torch.train import metrics, optim, profiler, steps
 
@@ -59,7 +62,10 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_true",
                    help="train the branches too (default: only the head)")
     p.add_argument("--fusion-arch", default="ca", choices=["ca", "gpt"],
-                   help="fusion head: 'ca' = MF-ViT CA CLS cross-attention")
+                   help="fusion head: 'ca' = MF-ViT CA CLS cross-attention; "
+                        "'gpt' = TransFuser-style joint-sequence GPT")
+    p.add_argument("--gpt-layers", type=int, default=8,
+                   help="GPT fusion depth (GlobalConfig n_layer)")
     p.add_argument("--fusion-heads", type=int, default=3)
     p.add_argument("--cross-attn-depth", type=int, default=1)
     p.add_argument("--multi-scale-enc-depth", type=int, default=1)
@@ -101,9 +107,7 @@ def build_models(args, cfg, draw: int) -> nn.ModuleDict:
     return nn.ModuleDict({
         "cxr": ViT(cfg, args.num_classes, generator=gen),
         "enh": ViT(cfg, args.num_classes, generator=gen),
-        "fus": Fusion(args.num_classes, cfg.dim, args.fusion_heads,
-                      args.cross_attn_depth, args.multi_scale_enc_depth,
-                      generator=gen)})
+        "fus": common.fusion_head(args, cfg, gen)})
 
 
 def train_one_draw_fn(args, cfg, device):
@@ -144,7 +148,7 @@ def train_one_draw_fn(args, cfg, device):
                                     trainable_mask=mask)
         train_step, eval_step = steps.make_fusion_steps(
             compute_dtype=dt, freeze_backbones=not args.semi_supervised,
-            remat=args.remat)
+            remat=args.remat, fusion_arch=args.fusion_arch)
 
         best = ckpt_mod.BestKeeper(sub_folder)
         result = harness.DrawResult(ratio, draw)
@@ -207,11 +211,6 @@ def main(argv=None):
         raise SystemExit("--resume is not implemented for fuse "
                          "(the reference's resume path is dead code too); "
                          "restart the draw or load via --pretrained")
-    if args.fusion_arch != "ca":
-        raise SystemExit(f"--fusion-arch {args.fusion_arch}: the port has "
-                         "the MF-ViT CA head only; the GPT head comes with "
-                         "the alternative-heads slice (ROADMAP.md section "
-                         "1, item 7)")
     device = common.resolve_device(args.device)
     cfg = common.get_vit_arch(args)
     folder = storage.get_storage_folder(args.exp_name, "mfvit_ca",

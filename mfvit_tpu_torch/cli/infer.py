@@ -1,17 +1,23 @@
-"""Batch inference: the MF-ViT CA forward over a paired manifest, writing
-predictions as JSON (the port of ``mfvit_tpu/cli/infer.py``, CA fusion).
+"""Batch inference: the MF-ViT fusion forward over a paired manifest,
+writing predictions as JSON (the port of ``mfvit_tpu/cli/infer.py``).
 
     python -m mfvit_tpu_torch.cli.infer -a vit_small \\
         --checkpoint serving.pt --manifest paired.txt -b 256 \\
-        [--int8] [--report-throughput] [--device cuda]
+        [--int8 | --fusion-arch gpt [--gpt-layers 8]]
+        [--report-throughput] [--device cuda]
 
 The checkpoint is a ``mfvit_tpu_torch.exp.checkpoint.save_serving`` file
-(fp32) or a ``model_best`` of ``mfvit_tpu_torch.cli.fuse``. The network input is ``--crop`` pixels square (``--img-size`` the
-resize before the center crop): at 224 the blocks run K1, past 256 tokens
-(``--img-size 384 --crop 384``: 577) K9. ``--int8`` quantizes both ViT
-branches after loading (``nn.vit.quantize_vit_for_serving``): their blocks
-then run K11 and, for the attention half, the W8A8 K10 or K9 on the
-dequantized weights, by the JAX package's rule (vit_small at 384: K9). The output JSON holds ``predictions``, ``logits`` and
+(fp32) or a ``model_best`` of ``mfvit_tpu_torch.cli.fuse``. The network
+input is ``--crop`` pixels square (``--img-size`` the resize before the
+center crop): at 224 the blocks run K1, past 256 tokens (``--img-size 384
+--crop 384``: 577) K9. ``--int8`` quantizes both ViT branches after
+loading (``nn.vit.quantize_vit_for_serving``): their blocks then run K11
+and, for the attention half, the W8A8 K10 or K9 on the dequantized
+weights, by the JAX package's rule (vit_small at 384: K9). ``--fusion-arch
+gpt`` serves a ``fuse --fusion-arch gpt`` checkpoint through the GPT head
+(plain PyTorch, as it is XLA in JAX) at the input size it was trained at,
+since its joint position table is learned; ``--int8`` takes the CA head
+only, as in JAX. The output JSON holds ``predictions``, ``logits`` and
 ``n``; when every label of the manifest is >= 0, a ``metrics`` block
 (``auc``, ``top1``, ``precision``, ``recall``, ``f1``); with
 ``--report-throughput`` also ``pairs_per_sec`` (device-resident batch) and
@@ -29,7 +35,6 @@ import torch
 from mfvit_tpu_torch.cli import common
 from mfvit_tpu_torch.data import device_aug
 from mfvit_tpu_torch.exp import checkpoint as ckpt_mod
-from mfvit_tpu_torch.models import fusion as fusion_mod
 from mfvit_tpu_torch.nn import vit as vit_mod
 from mfvit_tpu_torch.train import metrics
 from mfvit_tpu_torch.train import steps as steps_mod
@@ -50,6 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", default="predictions.json")
     p.add_argument("--int8", action="store_true",
                    help="quantize ViT linears to int8 (W8A8 serving mode)")
+    p.add_argument("--fusion-arch", default="ca", choices=["ca", "gpt"],
+                   help="must match the checkpoint's fuse --fusion-arch")
+    p.add_argument("--gpt-layers", type=int, default=8)
     p.add_argument("--fusion-heads", type=int, default=3)
     p.add_argument("--cross-attn-depth", type=int, default=1)
     p.add_argument("--multi-scale-enc-depth", type=int, default=1)
@@ -66,9 +74,7 @@ def load_models(args, cfg, device) -> dict:
     models = {
         "cxr": vit_mod.ViT(cfg, args.num_classes),
         "enh": vit_mod.ViT(cfg, args.num_classes),
-        "fus": fusion_mod.Fusion(
-            args.num_classes, cfg.dim, args.fusion_heads,
-            args.cross_attn_depth, args.multi_scale_enc_depth),
+        "fus": common.fusion_head(args, cfg),
     }
     for k, m in models.items():
         m.load_state_dict(ck[k], strict=True)
@@ -89,11 +95,16 @@ def prepare(batch, device, dtype) -> list:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.int8 and args.fusion_arch == "gpt":
+        raise SystemExit("--int8 serving is wired for the CA fusion path "
+                         "only")
     device = common.resolve_device(args.device)
     cfg = common.get_vit_arch(args)
     dt = common.compute_dtype(args)
     models = load_models(args, cfg, device)
-    fwd3 = steps_mod.make_fusion_forward(compute_dtype=dt)
+    # the forward fuse selected model_best with, so serving cannot drift
+    fwd3 = steps_mod.make_fusion_forward(compute_dtype=dt,
+                                         fusion_arch=args.fusion_arch)
 
     def forward(xc, xe):
         fused, lc, le = fwd3(models, xc, xe)

@@ -5,12 +5,14 @@ export) and the torchvision ResNet arms.
 
 ``vit_state_from_jax``, ``vit_int8_state_from_jax``,
 ``vit_quant_state_from_jax``, ``fusion_state_from_jax``,
+``gpt_fusion_state_from_jax``, ``crossvit_cnn_state_from_jax``,
 ``resnet_state_from_jax`` and ``moco_state_from_jax`` take the JAX
 package's parameter trees as nested dicts of numpy arrays
 (``mfvit_tpu/nn/vit.py::init``, ``mfvit_tpu/models/fusion.py::init``,
+``gpt_fusion.py::init``, ``crossvit_cnn.py::init``,
 ``mfvit_tpu/nn/resnet.py::init`` and ``mfvit_tpu/ssl/moco.py::init``
 layouts) and return the port's state dicts, under the MoCo-v3 ``vits.py``
-/ reference ``Fus_CrossViT`` / torchvision names that
+/ reference ``Fus_CrossViT`` / ``GPT`` / torchvision names that
 ``mfvit_tpu/exp/checkpoint.py::params_to_torch_vit`` (:313),
 ``fusion_params_to_torch`` (:362) and ``torch_resnet_to_params`` (:182)
 use. Linear weights go from JAX's (in, out) to torch's (out, in); the patch
@@ -227,6 +229,51 @@ def fusion_state_from_jax(tree) -> dict:
     return sd
 
 
+def _linear_from_jax(sd: dict, prefix: str, p) -> None:
+    sd[prefix + "weight"] = _t(np.asarray(p["w"]).T)
+    if "b" in p:
+        sd[prefix + "bias"] = _t(p["b"])
+
+
+def _ln_from_jax(sd: dict, prefix: str, p) -> None:
+    sd[prefix + "weight"] = _t(p["scale"])
+    sd[prefix + "bias"] = _t(p["bias"])
+
+
+def gpt_fusion_state_from_jax(tree) -> dict:
+    """JAX GPT fusion tree (``mfvit_tpu/models/gpt_fusion.py::init``) ->
+    ``models.gpt_fusion.GPTFusion`` state dict (the reference ``GPT``
+    names)."""
+    sd = {"pos_emb": _t(tree["pos_emb"])} if "pos_emb" in tree else {}
+    for i, blk in enumerate(tree["blocks"]):
+        b = f"blocks.{i}."
+        _ln_from_jax(sd, b + "ln1.", blk["ln1"])
+        _ln_from_jax(sd, b + "ln2.", blk["ln2"])
+        for name, key in (("attn.query", "q"), ("attn.key", "k"),
+                          ("attn.value", "v"), ("attn.proj", "proj"),
+                          ("mlp.0", "fc1"), ("mlp.2", "fc2")):
+            _linear_from_jax(sd, f"{b}{name}.", blk[key])
+    _ln_from_jax(sd, "ln_f.", tree["ln_f"])
+    _linear_from_jax(sd, "head.", tree["head"])
+    return sd
+
+
+def crossvit_cnn_state_from_jax(tree) -> dict:
+    """JAX ViT + CNN cross-attention tree
+    (``mfvit_tpu/models/crossvit_cnn.py::init``) ->
+    ``models.crossvit_cnn.CrossViTCNN`` state dict (the same names)."""
+    sd = {}
+    for e, enc in enumerate(tree["encoders"]):
+        for l, lay in enumerate(enc["layers"]):
+            b = f"encoders.{e}.layers.{l}."
+            for name in ("f_sl", "g_ls", "to_qkv", "to_out"):
+                _linear_from_jax(sd, f"{b}{name}.", lay[name])
+            _ln_from_jax(sd, b + "norm.", lay["norm"])
+    _ln_from_jax(sd, "head_norm.", tree["head_norm"])
+    _linear_from_jax(sd, "head.", tree["head"])
+    return sd
+
+
 def save_serving(path: str, cxr: dict, enh: dict, fus: dict) -> None:
     """One ``torch.save`` file {"cxr": sd, "enh": sd, "fus": sd} holding the
     two ViT branches and the fusion head (tensors moved to the CPU)."""
@@ -248,7 +295,10 @@ def load_serving(path: str, cfg=None) -> dict:
     size: a fixed sin-cos position table is rebuilt for ``cfg``'s grid (it
     is a function of the input size, which the JAX package never stores),
     so a file saved at 224 px serves at 384; a learned table of another
-    length raises, naming both input sizes."""
+    length raises, naming both input sizes. A GPT fusion head (a ``fus``
+    group with a ``pos_emb``) is taken as it is, but its joint position
+    table must hold both streams' tokens at ``cfg``'s size, or it
+    raises, naming both lengths."""
     ck = torch.load(path, map_location="cpu", weights_only=True)
     if set(ck) != set(SERVING_KEYS):
         groups = {k: {} for k in SERVING_KEYS}
@@ -273,6 +323,12 @@ def load_serving(path: str, cfg=None) -> dict:
                     f"{path}: the {k} branch learned its position table at "
                     f"{side} px ({pos.shape[1]} tokens); it cannot serve "
                     f"{cfg.img_size} px ({cfg.seq_len} tokens)")
+        pos = ck["fus"].get("pos_emb")
+        if pos is not None and pos.shape[1] != 2 * cfg.seq_len:
+            raise ValueError(
+                f"{path}: the GPT fusion head learned its joint position "
+                f"table for {pos.shape[1]} tokens; {cfg.img_size} px gives "
+                f"{2 * cfg.seq_len} (two streams of {cfg.seq_len})")
     return ck
 
 

@@ -53,21 +53,22 @@ def layernorm(p: nn.LayerNorm, x: torch.Tensor, eps: float = 1e-6):
 
 
 class _MmF32(torch.autograd.Function):
-    """a @ b on CUDA with fp32 sums and an fp32 result (cuBLAS's
-    fp32-output GEMM, which autograd does not differentiate); the backward
-    multiplies in the operands' dtype, as ``a @ b``'s does."""
+    """a @ b on CUDA, 2-D or batched 3-D, with fp32 sums and an fp32 result
+    (cuBLAS's fp32-output GEMM, which autograd does not differentiate); the
+    backward multiplies in the operands' dtype, as ``a @ b``'s does."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        return torch.mm(a, b, out_dtype=torch.float32)
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        return mm(a, b, out_dtype=torch.float32)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         g = g.to(a.dtype)
-        return (g @ b.t() if ctx.needs_input_grad[0] else None,
-                a.t() @ g if ctx.needs_input_grad[1] else None)
+        return (g @ b.mT if ctx.needs_input_grad[0] else None,
+                a.mT @ g if ctx.needs_input_grad[1] else None)
 
 
 def linear_f32(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
@@ -90,6 +91,16 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     backward kernels)."""
     if a.is_cuda and a.dtype != torch.float32:
         return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for 3-D operands (batch, M, K) and (batch, K, N) in the
+    working dtype, with fp32 sums and an fp32 result, differentiable: on
+    CUDA the batched fp32-output GEMM on the tensor cores, elsewhere the
+    operands upcast."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return _MmF32.apply(a, b)
     return a.float() @ b.float()
 
 

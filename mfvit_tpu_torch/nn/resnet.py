@@ -152,13 +152,16 @@ class ResNet(nn.Module):
 
     def forward(self, imgs: torch.Tensor, *,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                training: bool = False, remat: bool = False) -> torch.Tensor:
+                training: bool = False, remat: bool = False,
+                return_featmap: bool = False) -> torch.Tensor:
         """NHWC images -> the fp32 pooled features (B, out_dim), or the
-        logits with a head. ``training`` normalises with batch statistics
-        and moves the running ones; ``remat`` recomputes each residual
-        block in the backward, where its BatchNorms leave the running
-        statistics as the forward left them (JAX's ``jax.checkpoint`` is
-        pure)."""
+        logits with a head; with ``return_featmap`` the last feature map
+        (B, H/32, W/32, out_dim) in ``compute_dtype``, NHWC (the
+        ``crossvit.py`` CNN-branch contract). ``training`` normalises with
+        batch statistics and moves the running ones; ``remat`` recomputes
+        each residual block in the backward, where its BatchNorms leave the
+        running statistics as the forward left them (JAX's
+        ``jax.checkpoint`` is pure)."""
         x = imgs.to(compute_dtype).permute(0, 3, 1, 2)
         x = _conv(self.conv1, x, 2)
         x = F.relu(batch_norm(self.bn1, x, training=training))
@@ -170,5 +173,7 @@ class ResNet(nn.Module):
                         _once(blk), x, training, use_reentrant=False)
                 else:
                     x = blk(x, training)
+        if return_featmap:
+            return x.permute(0, 2, 3, 1)
         feat = x.float().mean((2, 3))
         return feat if self.fc is None else self.fc(feat)

@@ -1,10 +1,11 @@
 """Train and eval steps, the port of ``mfvit_tpu/train/steps.py``:
 ``softmax_ce``, the classifier steps of the LP/FT entry point
-(``make_classifier_steps``), the MF-ViT CA forward that serving uses
-(``make_fusion_forward``) and the fusion-training steps
-(``make_fusion_steps``)."""
+(``make_classifier_steps``), the MF-ViT fusion forward that serving uses
+(``make_fusion_forward``, the CA or the GPT head) and the
+fusion-training steps (``make_fusion_steps``)."""
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Tuple
 
 import torch
@@ -46,29 +47,57 @@ def make_classifier_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
     return train_step, eval_step
 
 
-def make_fusion_forward(*, compute_dtype: torch.dtype = torch.bfloat16,
-                        reference: bool = False) -> Callable:
+def _fusion_forward(fusion_arch: str, compute_dtype, reference,
+                    frozen: bool, remat: bool) -> Callable:
     """``forward(models, img_cxr, img_enh) -> (fused, logits_cxr,
-    logits_enh)`` with ``models = {"cxr": ViT, "enh": ViT, "fus": Fusion}``,
-    without autograd. The decision logits are the sum of the three."""
+    logits_enh)``, the port of JAX's :92-133. The CA head unfrozen runs
+    ``fusion.fused_forward`` (K4 on the head); every other case takes the
+    generic per-branch route: each ViT gives its tokens and logits
+    (``return_features``; K1-K3), then the head. ``frozen`` runs the
+    branches with no autograd graph (JAX's ``stop_gradient`` on their
+    tokens and CLS). The GPT head carries its own config (JAX passes
+    ``gpt_cfg`` beside the params)."""
+    if fusion_arch not in ("ca", "gpt"):
+        raise ValueError(f"unknown fusion_arch {fusion_arch!r}")
 
-    @torch.inference_mode()
     def forward(models, img_cxr, img_enh):
-        return fusion_mod.fused_forward(
-            models["cxr"], models["enh"], models["fus"], img_cxr, img_enh,
-            compute_dtype=compute_dtype, reference=reference)
+        if fusion_arch == "ca" and not frozen:
+            return fusion_mod.fused_forward(
+                models["cxr"], models["enh"], models["fus"], img_cxr,
+                img_enh, compute_dtype=compute_dtype, reference=reference,
+                remat=remat)
+        kw = dict(compute_dtype=compute_dtype, return_features=True,
+                  reference=reference, remat=remat)
+        with torch.no_grad() if frozen else contextlib.nullcontext():
+            tok_c, lc = models["cxr"](img_cxr, **kw)
+            tok_e, le = models["enh"](img_enh, **kw)
+        return models["fus"](tok_c, tok_e, reference=reference), lc, le
 
     return forward
 
 
+def make_fusion_forward(*, compute_dtype: torch.dtype = torch.bfloat16,
+                        reference: bool = False,
+                        fusion_arch: str = "ca") -> Callable:
+    """``forward(models, img_cxr, img_enh) -> (fused, logits_cxr,
+    logits_enh)`` with ``models = {"cxr": ViT, "enh": ViT, "fus": head}``
+    (``models.fusion.Fusion`` for ``fusion_arch="ca"``,
+    ``models.gpt_fusion.GPTFusion`` for ``"gpt"``), without autograd: the
+    one forward that serving and the eval step share. The decision logits
+    are the sum of the three."""
+    return torch.inference_mode()(_fusion_forward(
+        fusion_arch, compute_dtype, reference, frozen=False,
+        remat=False))
+
+
 def make_fusion_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
                       freeze_backbones: bool = False, remat: bool = False,
-                      reference: bool = False
+                      reference: bool = False, fusion_arch: str = "ca"
                       ) -> Tuple[Callable, Callable]:
-    """(train_step, eval_step) for MF-ViT CA, the port of
+    """(train_step, eval_step) for MF-ViT fusion, the port of
     ``mfvit_tpu/train/steps.py::make_fusion_steps`` (:136-195), with
-    ``models = {"cxr": ViT, "enh": ViT, "fus": Fusion}`` (an
-    ``nn.ModuleDict``).
+    ``models = {"cxr": ViT, "enh": ViT, "fus": head}`` (an
+    ``nn.ModuleDict``; the head as in ``make_fusion_forward``).
 
     ``train_step(models, opt, img_cxr, img_enh, labels) -> (loss, out)``
     with the decision logits ``out = fused + logits_cxr + logits_enh`` and
@@ -76,26 +105,16 @@ def make_fusion_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
     detached, unsynchronised. ``eval_step(models, img_cxr, img_enh)`` gives
     the decision logits under ``torch.inference_mode()``.
 
-    ``freeze_backbones`` is the LP fusion mode, JAX's frozen generic path
-    (:106-123): both branches run forward with no autograd graph (the
-    ``stop_gradient`` on their tokens and CLS), so only the fusion head's
-    backward runs (K4's plain recompute); the branch heads still give their
+    ``freeze_backbones`` is the LP fusion mode: both branches run forward
+    with no autograd graph, so only the head's backward runs (the CA
+    head's K4 by its plain recompute); the branch heads still give their
     logits. Otherwise the whole forward runs under autograd (K5 and K7 on
-    both branches). ``remat`` recomputes the branches' blocks in the
-    backward; ``reference`` runs the plain versions of the kernels."""
-
-    def forward(models, img_cxr, img_enh):
-        if not freeze_backbones:
-            return fusion_mod.fused_forward(
-                models["cxr"], models["enh"], models["fus"], img_cxr,
-                img_enh, compute_dtype=compute_dtype, reference=reference,
-                remat=remat)
-        kw = dict(compute_dtype=compute_dtype, return_features=True,
-                  reference=reference)
-        with torch.no_grad():
-            tok_c, lc = models["cxr"](img_cxr, **kw)
-            tok_e, le = models["enh"](img_enh, **kw)
-        return models["fus"](tok_c, tok_e, reference=reference), lc, le
+    both branches). ``fusion_arch="gpt"`` takes the GPT head on the
+    generic per-branch route in both modes (K4 never runs). ``remat``
+    recomputes the branches' blocks in the backward; ``reference`` runs
+    the plain versions of the kernels."""
+    forward = _fusion_forward(fusion_arch, compute_dtype, reference,
+                              frozen=freeze_backbones, remat=remat)
 
     def train_step(models, opt, img_cxr, img_enh, labels):
         fused, lc, le = forward(models, img_cxr, img_enh)
@@ -107,7 +126,7 @@ def make_fusion_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
         return loss.detach(), out.detach()
 
     serve = make_fusion_forward(compute_dtype=compute_dtype,
-                                reference=reference)
+                                reference=reference, fusion_arch=fusion_arch)
 
     @torch.inference_mode()
     def eval_step(models, img_cxr, img_enh):

@@ -1,6 +1,8 @@
 """Kernel-against-plain tests for K1-K5, K7, K9-K15, the schedule
-variants T1-T7 and the two GEMM cores (``ops.gemm``) on the card, and K9
-and K11 against the chains they ran before (bit for bit). They need CUDA, nvcc
+variants T1-T7 and the two GEMM cores (``ops.gemm``) on the card, K9
+and K11 against the chains they ran before (bit for bit), and the MoCo
+step, the GPT fusion step and the ViT + CNN head, kernel path against
+plain path. They need CUDA, nvcc
 and an sm_90a GPU, so they carry the ``cuda`` marker and skip elsewhere;
 on the card run ``python -m pytest tests/test_torch_port_cuda.py``
 (``chip_smoke.py`` makes the same comparisons at serving shapes).
@@ -1065,3 +1067,94 @@ def _moco_step_parity(dev, in_chans: int):
         grads[ref] = [torch.cat([p.grad.flatten() for p in blk.parameters()])
                       for blk in model.base.encoder.blocks]
     assert max(_rel(a, b) for a, b in zip(grads[False], grads[True])) < 5e-2
+
+
+def test_gpt_fusion_step_kernel_path_holds_the_plain_path(dev):
+    """One ``--semi-supervised`` step with the GPT fusion head (vit_small,
+    224 px, B=4, the default 8-block head of ``fuse --fusion-arch gpt``,
+    Adam): the kernel path against the plain path in bf16 from the same
+    weights and batch, the loss within rel 1e-2 (PERF.md section 2's
+    train-step bar); launches K1 24, K2 22, K3 2, K5 24, K7 24 and no K4
+    (the head is plain PyTorch), none on the plain path."""
+    import argparse
+    import copy
+
+    from torch import nn
+
+    from mfvit_tpu_torch.cli.common import fusion_head
+    from mfvit_tpu_torch.train import optim, steps
+
+    gen = torch.Generator().manual_seed(0)
+    cfg = vit.get_config("vit_small")
+    args = argparse.Namespace(fusion_arch="gpt", gpt_layers=8, num_classes=3)
+    models0 = nn.ModuleDict({"cxr": vit.ViT(cfg, 3, generator=gen),
+                             "enh": vit.ViT(cfg, 3, generator=gen),
+                             "fus": fusion_head(args, cfg, gen)})
+    xc, xe = (torch.randn(4, 224, 224, 3, generator=gen).to(dev).bfloat16()
+              for _ in range(2))
+    labels = torch.tensor([0, 1, 2, 0], device=dev)
+    runs = {}
+    for ref in (False, True):
+        models = copy.deepcopy(models0).to(dev)
+        opt = optim.build_optimizer("adam", models.named_parameters(), 1e-4)
+        step, _ = steps.make_fusion_steps(reference=ref, fusion_arch="gpt")
+        ops.reset_launch_counts()
+        loss = step(models, opt, xc, xe, labels)[0].item()
+        torch.cuda.synchronize()
+        runs[ref] = (loss, {n: v for n, v in ops.launch_counts().items()
+                            if v})
+    (lk, ck), (lp, cp) = runs[False], runs[True]
+    assert ck == {"fused_attention_block": 24, "fused_mlp_block": 22,
+                  "fused_mlp_block_final_ln": 2,
+                  "fused_attention_block_bwd": 24, "fused_mlp_block_bwd": 24}
+    assert cp == {}
+    assert abs(lk - lp) / abs(lp) < 1e-2
+
+
+def test_crossvit_cnn_kernel_path_holds_the_plain_path(dev):
+    """``models.crossvit_cnn.fused_forward`` (vit_small, resnet18, the
+    head at its defaults) at B=4, 224 px, bf16: the kernel path's logits
+    within REL of the plain path's; the ViT launches K1 12, K2 11, K3 1."""
+    from mfvit_tpu_torch.models import crossvit_cnn
+    from mfvit_tpu_torch.nn import resnet
+
+    gen = torch.Generator().manual_seed(1)
+    model = vit.ViT(vit.get_config("vit_small"), 3, generator=gen)
+    cnn = resnet.ResNet(resnet.get_config("resnet18"), generator=gen)
+    fus = crossvit_cnn.CrossViTCNN(generator=gen)
+    model, cnn, fus = (m.to(dev).eval() for m in (model, cnn, fus))
+    img = torch.randn(4, 224, 224, 3, generator=gen).to(dev).bfloat16()
+    out = {}
+    with torch.inference_mode():
+        for ref in (True, False):
+            ops.reset_launch_counts()
+            out[ref] = crossvit_cnn.fused_forward(model, cnn, fus, img,
+                                                  reference=ref)
+    torch.cuda.synchronize()
+    assert {n: v for n, v in ops.launch_counts().items() if v} == {
+        "fused_attention_block": 12, "fused_mlp_block": 11,
+        "fused_mlp_block_final_ln": 1}
+    assert out[False].shape == (4, 3)
+    assert _rel(out[False], out[True]) < REL
+
+
+def test_bmm_f32_holds_the_upcast_product(dev):
+    """``nn.layers.bmm_f32`` on bf16 CUDA operands, the GPT head's score
+    product at its shape (4 heads of 96 over 394 tokens, B=2): the
+    fp32-output GEMM on the tensor cores against the fp32 product of the
+    upcast operands, within rel 1e-5 (bf16 products are exact in fp32, so
+    only the summation order differs); its gradients, taken in bf16 as
+    ``linear_f32``'s are, within REL of the upcast product's."""
+    from mfvit_tpu_torch.nn.layers import bmm_f32
+
+    g = torch.Generator().manual_seed(3)
+    q, k = (torch.randn(8, 394, 96, generator=g).to(dev).bfloat16()
+            .requires_grad_() for _ in range(2))
+    got = bmm_f32(q, k.mT)
+    want = q.float() @ k.float().mT
+    assert got.dtype == torch.float32
+    assert _rel(got, want) < 1e-5
+    cot = torch.randn(8, 394, 394, generator=g).to(dev)
+    dq, dk = torch.autograd.grad(got, (q, k), cot)
+    wq, wk = torch.autograd.grad(want, (q, k), cot)
+    assert _rel(dq, wq) < REL and _rel(dk, wk) < REL

@@ -168,6 +168,8 @@ def test_port_never_imports_jax():
         "assert 'mfvit_tpu_torch.cli.pretrain' in mods, mods\n"
         "assert 'mfvit_tpu_torch.ssl.moco' in mods, mods\n"
         "assert 'mfvit_tpu_torch.tools.e2e_workflow' in mods, mods\n"
+        "assert 'mfvit_tpu_torch.models.gpt_fusion' in mods, mods\n"
+        "assert 'mfvit_tpu_torch.models.crossvit_cnn' in mods, mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('mfvit_tpu.') or m == 'mfvit_tpu']\n"
         "assert not bad, bad\n")
