@@ -3,7 +3,9 @@
 the XLA-level W8A8 trees of ``quantize_vit_params``), its ViT fine-tuning
 path, its fusion training (``cli/fuse``, with the CA and the GPT head),
 the ViT + CNN cross-attention head, its MoCo pretraining
-(``cli/pretrain``) and the whole-block kernel K15
+(``cli/pretrain``), its data path (the device canvas store and the views
+drawn on the card, which the training CLIs use by default, beside the
+streaming and ``--aug-host`` feeds) and the whole-block kernel K15
 (through ``tools/bench_block``) and the schedule variants T1-T7 (through
 ``tools/bench_mlp3d``, ``bench_pipelined``, ``bench_attn_pairs``,
 ``bench_rolling`` and ``bench_bwd_staged``) once on
@@ -195,8 +197,32 @@ Phases, in order; any failure raises and exits non-zero:
    (``mfvit_tpu_torch.tools.e2e_workflow`` at vit_small, 224 px: pretrain
    ``--export-torch``, LP ``finetune`` from its ``.pth.tar``, ``fuse``
    from the LP ``model_best``, ``infer`` on fuse's): infer's metrics
-   present and finite, K1, K3, K4 and K5 launched on the way;
-19. times with CUDA events at B=256: each forward kernel (K10/K11
+   present and finite, K1, K3, K4 and K5 launched on the way, and its
+   second half through the device canvas store (pretrain and LP finetune
+   at the square resize, each store notice printed); the fuse and
+   pretrain runs above train from the store too, at their default flags
+   (its notice gated: 64 samples, none for the host-float inputs);
+19. the data path: the store's training views on the card
+   (``data/device_aug.py``: flip, rotation about the full canvas, crop,
+   one gather, then the normalisation table) against their CPU versions
+   given the same draws, B=256, 224 -> 224 and 256 -> 224, 3 and 4
+   channels, one view and both views of ``augment_two_views_canvas``:
+   each equal to its seeded replay bit for bit, and to the CPU version
+   but for at most VIEW_TIE_PIXELS pixels within VIEW_TIE of a rounding
+   tie (printed); the card generator's draws (corners over [0, 32] with
+   both ends hit, flips at half, angles over [-10, 10), replayed); then
+   ``finetune --semi-supervised`` at vit_small, B=16, two epochs over 128
+   images, at the default flags (the store), ``--device-store-mb 0`` and
+   ``--aug-host``: the exact launch counts of each, under
+   ``torch.profiler`` no host-to-device copy above H2D_STEP_BYTES inside
+   the store run's steps (the streaming run's, which must carry more, as
+   the control), and the val logits through the eval store equal to the
+   streaming eval's (max |diff| 0.0); then times: the view's ms at B=256,
+   and the CLIs' own images/s (pairs/s) in their second epoch over 1,024
+   synthetic images, ``finetune`` FT at B=16 and B=256, ``fuse`` LP and
+   ``pretrain`` at B=32, each on the store, ``--device-store-mb 0`` and
+   ``--aug-host`` (A B C C B A), and the fill's seconds per 1,000 images;
+20. times with CUDA events at B=256: each forward kernel (K10/K11
    included) and K5/K7 against its plain version (K5/K7 first held
    against the plain fp32 backward on the timed inputs), K5/K7 also at a
    vit_base block (B=64, D=768, hidden 3072: the widths of K6 and K8),
@@ -231,7 +257,7 @@ Phases, in order; any failure raises and exits non-zero:
    images/s of each pretrain feed alone on the host (B=32: the default
    canvases, the 4-channel canvases, moco_v2's and enh_cxr's host
    floats; host-bound, the card untouched);
-20. the long-sequence kernels: K9 against its plain fp32 version (rel <
+21. the long-sequence kernels: K9 against its plain fp32 version (rel <
    2e-2) at vit_small@384 (B=2, N=577, D=384, 12 heads), vit_small_ori@512
    (N=1025, 6 heads), vit_base@384 (D=768), head_dim 128 (N=300, 3 heads)
    and N=257, the first length past K1; K10 past 256 tokens
@@ -256,21 +282,21 @@ Phases, in order; any failure raises and exits non-zero:
    each of its two routes forced (``fused_attention_block_i8_route``): 0
    outputs differ, rel < 2e-2 against the plain fp32 version, the branch
    bar of phase 5, one launch of K10 a call of the op and none forced;
-21. the serving slice at 384 px: 32 synthetic pairs, the checkpoint of
+22. the serving slice at 384 px: 32 synthetic pairs, the checkpoint of
    phase 4 (saved at 224 px), ``infer.main`` with ``--img-size 384 --crop
    384`` at B=16; launch counts per forward K9 24, K2 22, K3 2, K4 1,
    every other kernel 0; decision logits within rel 2e-2 of the plain
    path in bf16;
-22. the same with ``--int8``: the attention half of every block is K9 on
+23. the same with ``--int8``: the attention half of every block is K9 on
    the dequantized weights (the JAX package's route at vit_small@384);
    launch counts K9 24, K11 24, K4 1, K10 0; top-1 agreement with the
    plain int8 path on all but one pair;
-23. FT at 384 px through ``finetune.main`` (B=8, one epoch over 32
+24. FT at 384 px through ``finetune.main`` (B=8, one epoch over 32
    images): the loss finite at every step, launch counts per step K9 12,
    K2 11, K3 1, K7 12 and K5 0 (K9's backward is the fp32 recompute, plain
    PyTorch) plus one forward per eval batch, the backbone changed; then
    three-step train parity with the plain path (B=8);
-24. times at 384 px: K9 and its plain version at vit_small@384 (B=64) and
+25. times at 384 px: K9 and its plain version at vit_small@384 (B=64) and
    vit_small_ori@512 (B=16), K10 past 256 tokens (vit_small_ori@384), K2
    and K11 at vit_small@384 (B=64), K10 and K11 at vit_base (B=64) against
    their plain versions, the launches of K9, K10 and K11 and of their
@@ -1848,11 +1874,13 @@ def bwd_stage_times(dev) -> dict:
             for op in ("k5", "k7", "k5_wmma", "k7_wmma")}
 
 
-def write_covid_ds(root: str, n: int, seed: int, paired: bool = False) -> str:
+def write_covid_ds(root: str, n: int, seed: int, paired: bool = False,
+                   n_eval: int = 0) -> str:
     """n synthetic PNGs in the ``--covid-ds`` layout (with ``paired`` an
     enhanced 'Train_Mix' image beside each 'data' one): every image in the
-    train manifest (1_labeled_train_0.txt), the two halves as val and
-    test. Returns the manifest folder."""
+    train manifest (1_labeled_train_0.txt), the two halves as val and test
+    (with ``n_eval``, the first n_eval and the next n_eval). Returns the
+    manifest folder."""
     import cv2
 
     from mfvit_tpu_torch.data.manifest import write_covid_manifest
@@ -1872,10 +1900,10 @@ def write_covid_ds(root: str, n: int, seed: int, paired: bool = False) -> str:
             img += ((np.sin(xx / (9 + i % 7)) + np.cos(yy / 13)) * 60
                     + 100 + 30 * labels[i]).astype(np.uint8)[..., None]
             cv2.imwrite(os.path.join(images, folder, fn), img)
-    half = n // 2
+    half = n_eval or n // 2
     for fname, sl in (("1_labeled_train_0.txt", slice(0, n)),
                       ("val_ds.txt", slice(0, half)),
-                      ("test_ds.txt", slice(half, n))):
+                      ("test_ds.txt", slice(half, 2 * half))):
         write_covid_manifest(os.path.join(man, fname), images, names[sl],
                              labels[sl])
     return man
@@ -2839,6 +2867,17 @@ class _Tee:
         self.out.flush()
 
 
+def _teed(main, argv) -> tuple:
+    """(the first result of ``main(argv)``, what it printed)."""
+    tee = _Tee(sys.stdout)
+    sys.stdout = tee
+    try:
+        res = main(argv)[0]
+    finally:
+        sys.stdout = tee.out
+    return res, "".join(tee.parts)
+
+
 def fusion_head(arch: str, gen):
     """The vit_small fusion head of ``fuse``'s defaults for ``arch``: the
     CA head (3 heads) or the GPT head (8 blocks, 4 heads of 96, a
@@ -2920,7 +2959,10 @@ def run_fusion(dev, tmp: str, arch: str = "ca") -> dict:
                      for k, v in PER_ARCH_STEP[arch][semi].items()})
         for k, v in PER_ARCH_FORWARD[arch].items():
             want[k] += v * evals
-        sanity = "=> fusion sanity check passed." in "".join(tee.parts)
+        text = "".join(tee.parts)
+        sanity = "=> fusion sanity check passed." in text
+        if STORE_NOTICE + "64 samples" not in text:
+            raise AssertionError(f"fuse {mode}: no paired store notice")
         print(f"fuse {mode}: {steps} steps, {evals} eval batches, losses "
               + ", ".join(f"{v:.4f}" for v in losses)
               + f"; launch counts {got}; sanity-check line: {sanity}; test "
@@ -3286,8 +3328,10 @@ def run_pretrain(dev, tmp: str) -> dict:
     root = os.path.join(tmp, "moco")
     argv = pretrain_argv(man, root, dev, ["--export-torch"])
     ops.reset_launch_counts()
-    res = pretrain.main(argv)[0]
+    res, text = _teed(pretrain.main, argv)
     torch.cuda.synchronize()
+    if STORE_NOTICE + "64 samples" not in text:
+        raise AssertionError("pretrain: no store notice")
     got = ops.launch_counts()
     losses = res.extra["train_losses"]
     steps = len(losses)
@@ -3338,8 +3382,12 @@ def run_pretrain_inputs(dev, tmp: str) -> dict:
         root = os.path.join(tmp, label)
         argv = pretrain_argv(man, root, dev, extra)
         ops.reset_launch_counts()
-        res = pretrain.main(argv)[0]
+        res, text = _teed(pretrain.main, argv)
         torch.cuda.synchronize()
+        # the canvas inputs train from the store, the host floats stream
+        if (STORE_NOTICE + "64 samples" in text) != (label == "in_chans_4"):
+            raise AssertionError(f"pretrain {label}: store notice "
+                                 f"{STORE_NOTICE in text}")
         got = ops.launch_counts()
         losses = res.extra["train_losses"]
         steps = len(losses)
@@ -3426,6 +3474,387 @@ def run_e2e_twin(dev, tmp: str) -> dict:
             raise AssertionError(f"e2e twin: {k} never launched ({got})")
     return metrics
 
+
+# The data path: the store's views on the card, the store's finetune runs
+# and the CLIs' rates on each feed.
+VIEW_TIE = 1e-4  # a differing pixel's exact source coordinate to a tie
+VIEW_TIE_PIXELS = 64  # differing pixels allowed per view of B=256
+H2D_STEP_BYTES = 4096  # the largest host-to-device copy inside a step
+STORE_NOTICE = "=> device canvas store: "
+
+
+def view_ties(got, want, draws, S: int) -> tuple:
+    """(pixels where ``got`` != ``want``, the largest fp64 distance of
+    such a pixel's source coordinate to a .5 tie): where the card's
+    fp32 cos/sin or rounding can move a nearest-neighbour pick. Every
+    difference without a rotation counts as at distance 1."""
+    diff = (got != want).any(-1).nonzero().tolist()
+    if not diff:
+        return 0, 0.0
+    if draws.deg is None:
+        return len(diff), 1.0
+    deg = draws.deg.cpu().double().numpy()
+    tops, lefts = draws.tops.cpu().numpy(), draws.lefts.cpu().numpy()
+    c = (S - 1) / 2.0
+    worst = 0.0
+    for b, y, x in diff:
+        rad = deg[b] * math.pi / 180
+        yy, xx = y + tops[b] - c, x + lefts[b] - c
+        sx = math.cos(rad) * xx - math.sin(rad) * yy + c
+        sy = math.sin(rad) * xx + math.cos(rad) * yy + c
+        worst = max(worst, min(abs(sx - math.floor(sx) - 0.5),
+                               abs(sy - math.floor(sy) - 0.5)))
+    return len(diff), worst
+
+
+def check_views(dev, B: int = 256) -> dict:
+    """The store's training views on the card against their CPU versions
+    given the same draws (bf16 out, rotate 10): ``augment_train_canvas``
+    and both views of ``augment_two_views_canvas`` at 224 -> 224 and
+    256 -> 224, 3 and 4 channels, B=256. Each view must equal its seeded
+    replay from the same generator bit for bit, and the CPU version
+    except at most VIEW_TIE_PIXELS pixels, each within VIEW_TIE of a
+    rounding tie (printed). Then the card generator's draws: the crop
+    corners cover [0, S - crop] with both ends hit, flips at about half,
+    the angles over [-10, 10), one seed the same draws. Returns
+    {case: (pixels differing, worst tie distance)}."""
+    from mfvit_tpu_torch.data import device_aug as aug
+
+    out = {}
+    bf16 = torch.bfloat16
+    for S, crop in ((224, 224), (256, 224)):
+        for C, img_type in ((3, "data"), (4, "4ch")):
+            canv = torch.from_numpy(np.random.default_rng(S + C).integers(
+                0, 256, (B, S, S, C), dtype=np.uint8))
+            cd = canv.to(dev)
+            kw = dict(crop=crop, img_type=img_type, out_dtype=bf16)
+            one = aug.augment_train_canvas(aug.epoch_generator(0, 0, 0, dev),
+                                           cd, rotate_deg=10.0, **kw)
+            two = aug.augment_two_views_canvas(
+                aug.epoch_generator(0, 0, 1, dev), cd, rotate_deg=10.0, **kw)
+            views = [("one", 0, one), ("q", 1, two[0]), ("k", 1, two[1])]
+            gens = {e: aug.epoch_generator(0, 0, e, dev) for e in (0, 1)}
+            for name, e, got in views:
+                d = aug.draw_canvas_view(gens[e], cd.shape, crop=crop,
+                                         rotate_deg=10.0)
+                replay = aug.canvas_view(cd, d, **kw)
+                if not torch.equal(got, replay):
+                    raise AssertionError(f"view {name} {S}->{crop} C={C}: "
+                                         "not its seeded replay")
+                dc = aug.ViewDraws(*(t.cpu() for t in (d.flip, d.deg,
+                                                       d.tops, d.lefts)))
+                want = aug.canvas_view(canv, dc, **kw)
+                n, worst = view_ties(got.cpu(), want, dc, S)
+                label = f"{name} {S}->{crop} C={C}"
+                out[label] = (n, worst)
+                if n > VIEW_TIE_PIXELS or worst >= VIEW_TIE:
+                    raise AssertionError(f"view {label}: {n} pixels differ "
+                                         f"from the CPU, worst {worst}")
+    print(f"store views on the card against the CPU (B={B}, bf16, rotate "
+          "10; pixels differing, worst distance to a tie): "
+          + ", ".join(f"{k} {n} ({w:.2e})" for k, (n, w) in out.items()))
+    d = aug.draw_canvas_view(aug.epoch_generator(3, 0, 0, dev),
+                             (65536, 256, 256, 3), crop=224)
+    again = aug.draw_canvas_view(aug.epoch_generator(3, 0, 0, dev),
+                                 (65536, 256, 256, 3), crop=224)
+    flip = d.flip.float().mean().item()
+    lo, hi = d.deg.min().item(), d.deg.max().item()
+    ends = [(t.min().item(), t.max().item()) for t in (d.tops, d.lefts)]
+    print(f"card draws (65536): tops and lefts {ends}, flip rate {flip:.4f},"
+          f" angles [{lo:.4f}, {hi:.4f}]")
+    if (ends != [(0, 32), (0, 32)] or not 0.49 < flip < 0.51
+            or not (-10 <= lo < -9.99 and 9.99 < hi < 10)
+            or not all(torch.equal(a, b) for a, b in zip(
+                vars(d).values(), vars(again).values()))):
+        raise AssertionError("card draws out of range or not replayed")
+    return out
+
+
+def time_views(dev, B: int = 256) -> dict:
+    """ms of the store's view on the card at B=256 (bf16, rotate 10, 3
+    channels): one view at 224 -> 224 and 256 -> 224, two views at 224,
+    draws included; and the bound, the canvases read once and the view
+    written once at 3.35 TB/s."""
+    from mfvit_tpu_torch.data import device_aug as aug
+
+    out = {}
+    for S, crop, two in ((224, 224, False), (256, 224, False),
+                         (224, 224, True)):
+        cd = torch.from_numpy(np.random.default_rng(S).integers(
+            0, 256, (B, S, S, 3), dtype=np.uint8)).to(dev)
+        gen = aug.epoch_generator(0, 0, 0, dev)
+        fn = aug.augment_two_views_canvas if two else aug.augment_train_canvas
+        ms = cuda_ms(lambda: fn(gen, cd, crop=crop, img_type="data",
+                                out_dtype=torch.bfloat16), 20)
+        views = 2 if two else 1
+        nbytes = B * S * S * 3 + views * B * crop * crop * 3 * 2
+        label = f"{'two views' if two else 'one view'} {S}->{crop}"
+        out[label] = {"ms": ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    print(f"store view at B={B} (bf16): " + ", ".join(
+        f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.4f})"
+        for k, v in out.items()))
+    return out
+
+
+def h2d_in_steps(trace_path: str, steps_per_epoch: int) -> tuple:
+    """From a ``torch.profiler`` chrome trace: the host-to-device copies
+    issued inside each epoch's training steps (from the first step's
+    start to the last step's end, steps marked ``mfv_train_step``), as
+    (copies, their largest bytes, steps seen)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    size = {e["args"]["correlation"]: e["args"].get("bytes", 0)
+            for e in events if e.get("cat") == "gpu_memcpy"
+            and "HtoD" in e.get("name", "")}
+    issued = [(e["ts"], size[e["args"]["correlation"]]) for e in events
+              if e.get("cat") == "cuda_runtime"
+              and e.get("args", {}).get("correlation") in size]
+    marks = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("name") == "mfv_train_step"
+                   and e.get("cat") == "user_annotation")
+    inside = []
+    for i in range(0, len(marks), steps_per_epoch):
+        epoch = marks[i:i + steps_per_epoch]
+        lo, hi = epoch[0][0], epoch[-1][1]
+        inside += [b for t, b in issued if lo <= t <= hi]
+    return len(inside), max(inside, default=0), len(marks)
+
+
+@contextlib.contextmanager
+def marked_train_steps():
+    """``steps.make_classifier_steps``'s train step inside a
+    ``record_function("mfv_train_step")`` while the block runs."""
+    from torch.profiler import record_function
+
+    from mfvit_tpu_torch.train import steps
+
+    orig = steps.make_classifier_steps
+
+    def marked(**kw):
+        train_step, eval_step = orig(**kw)
+
+        def step(*a):
+            with record_function("mfv_train_step"):
+                return train_step(*a)
+        return step, eval_step
+
+    steps.make_classifier_steps = marked
+    try:
+        yield
+    finally:
+        steps.make_classifier_steps = orig
+
+
+STORE_FEEDS = (("store", []), ("stream", ["--device-store-mb", "0"]),
+               ("aug-host", ["--aug-host"]))
+
+
+def run_store_finetune(dev, tmp: str) -> dict:
+    """``finetune --semi-supervised`` at vit_small, 224 px, B=16, two
+    epochs over 128 synthetic images (8 steps an epoch; 64 val, 64 test),
+    three ways: the default flags (the device canvas store and eval
+    stores), ``--device-store-mb 0`` and ``--aug-host``. Gates per run:
+    16 finite losses, the exact launch counts (per step K1 12, K2 11, K3 1,
+    K5 12, K7 12, per eval batch the forward's), the store notices in the
+    store run only. The store and streaming runs under ``torch.profiler``:
+    inside the store run's steps no host-to-device copy above
+    H2D_STEP_BYTES (the streaming run's, printed beside it, carry the
+    batch). Then the store run's last state evaluated on the val split
+    through the eval store and through the streaming eval: logits max
+    |diff| 0.0. Returns the per-run launches and the copies seen."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.cli import common, finetune
+    from mfvit_tpu_torch.nn.vit import ViT, get_config
+    from mfvit_tpu_torch.train import steps as steps_mod
+
+    man = write_covid_ds(os.path.join(tmp, "ft"), 128, seed=41)
+    argv = ["-a", "vit_small", "-b", "16", "--epochs", "2", "--draws", "1",
+            "--covid-ds", man, "--lr", "0.01", "-j", "8", "-p", "1000",
+            "--seed", "0", "--semi-supervised", "--device", dev.type]
+    out = {}
+    for label, extra in STORE_FEEDS:
+        root = os.path.join(tmp, f"ft_{label}")
+        ops.reset_launch_counts()
+        tee = _Tee(sys.stdout)
+        sys.stdout = tee
+        prof = None
+        try:
+            if label == "aug-host":
+                res = finetune.main(argv + extra + ["--storage-root", root])[0]
+            else:
+                with marked_train_steps(), profile(activities=[
+                        ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    res = finetune.main(argv + extra
+                                        + ["--storage-root", root])[0]
+        finally:
+            sys.stdout = tee.out
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        text = "".join(tee.parts)
+        losses = res.extra["train_losses"]
+        n_steps, evals = len(losses), res.extra["eval_batches"]
+        want = {k: 0 for k in got}
+        want.update({k: v * (n_steps + evals)
+                     for k, v in PER_VIT_FORWARD.items()})
+        want.update({k: v * n_steps for k, v in PER_FT_STEP.items()})
+        notices = [ln for ln in text.splitlines() if "canvas store:" in ln]
+        print(f"finetune FT, {label} feed (B=16, 128 images): {n_steps} "
+              f"steps, {evals} eval batches; notices {notices}; launch "
+              f"counts {got}")
+        if n_steps != 16 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"finetune {label}: losses {losses}")
+        if got != want:
+            raise AssertionError(f"finetune {label}: launch counts {got} != "
+                                 f"{want}")
+        if (label == "store") != (len(notices) == 3):
+            raise AssertionError(f"finetune {label}: store notices {notices}")
+        run = {"launches": got}
+        if prof is not None:
+            path = os.path.join(tmp, f"trace_{label}.json")
+            prof.export_chrome_trace(path)
+            n, biggest, marks = h2d_in_steps(path, 8)
+            run["h2d_copies_in_steps"], run["h2d_max_bytes"] = n, biggest
+            print(f"  host-to-device copies inside the steps: {n} over "
+                  f"{marks} steps, the largest {biggest} B")
+            if marks != 16:
+                raise AssertionError(f"profiler marked {marks} steps, not 16")
+            if label == "store" and (n < 14 or biggest > H2D_STEP_BYTES):
+                raise AssertionError(f"store run: {n} copies in its steps, "
+                                     f"the largest {biggest} B")
+            if label == "stream" and biggest <= H2D_STEP_BYTES:
+                raise AssertionError("the streaming control shows no batch "
+                                     f"copy in its steps ({biggest} B): the "
+                                     "trace does not see the copies")
+        out[label] = run
+        if label == "store":
+            exp = next(os.scandir(root)).path
+            last = torch.load(os.path.join(exp, "train_1_0",
+                                           "last_checkpoint"),
+                              weights_only=True)
+
+    args = finetune.build_parser().parse_args(argv)
+    model = ViT(get_config("vit_small"), 3)
+    model.load_state_dict(last)
+    model.to(dev).eval()
+    evaluate = finetune.make_evaluate(
+        steps_mod.make_classifier_steps()[1], args, dev)
+    val = os.path.join(man, "val_ds.txt")
+    store = common.maybe_eval_device_store(args, val, "data", device=dev)
+    loader = common.make_covid_loader(args, val, "data", training=False)
+    got = evaluate(model, store, n_total=len(store.ds))
+    want = evaluate(model, loader, n_total=len(loader.ds))
+    d = float(np.abs(got[3] - want[3]).max())
+    print(f"val through the eval store against the streaming eval: logits "
+          f"max |diff| {d}, auc {got[0]:.4f} / {want[0]:.4f}")
+    if d != 0.0 or got[:2] != want[:2]:
+        raise AssertionError(f"eval store: max |diff| {d}")
+    out["eval_store_logits_max_abs_diff"] = d
+    return out
+
+
+class EpochClock:
+    """Times the CLIs' training epochs from outside: wraps
+    ``common.store_batch_iter`` (each epoch's feed: from its first batch
+    request to its exhaustion, the card synchronised there, so the fill
+    and the eval passes fall outside) and ``common.maybe_device_store``
+    (the fill, in seconds per 1,000 samples)."""
+
+    def __init__(self):
+        from mfvit_tpu_torch.cli import common
+        self.common = common
+        self.epochs, self.fills = [], []
+
+    def __enter__(self):
+        c = self.common
+        self.orig = (c.store_batch_iter, c.maybe_device_store)
+        feed, fill = self.orig
+
+        def timed_feed(*a, **kw):
+            it = feed(*a, **kw)
+
+            def gen():
+                t0, n = time.perf_counter(), 0
+                for batch in it:
+                    yield batch
+                    n += 1
+                torch.cuda.synchronize()
+                self.epochs.append((n, time.perf_counter() - t0))
+            return gen()
+
+        def timed_fill(*a, **kw):
+            t0 = time.perf_counter()
+            store = fill(*a, **kw)
+            torch.cuda.synchronize()
+            if store is not None:
+                self.fills.append(
+                    (time.perf_counter() - t0) * 1000 / store.n)
+            return store
+
+        c.store_batch_iter, c.maybe_device_store = timed_feed, timed_fill
+        return self
+
+    def __exit__(self, *exc):
+        c = self.common
+        c.store_batch_iter, c.maybe_device_store = self.orig
+
+
+def time_feeds(dev, tmp: str, n: int = 1024) -> dict:
+    """The CLIs' own rates on each feed over n synthetic images (pairs for
+    ``fuse``; 32 val, 32 test), two epochs a run, the second timed (the
+    fill and the decode of the first epoch excluded; the decode cache is
+    warm from the first run on): ``finetune`` FT at B=16 and B=256,
+    ``fuse`` LP at B=32 (pairs/s), ``pretrain`` at B=32; each the store
+    against ``--device-store-mb 0`` and ``--aug-host`` (``pretrain``'s
+    host-stack views), in the order store, stream, aug-host, aug-host,
+    stream, store. And the fill's seconds per 1,000 images (the first
+    fill of each table shape: PNG decode from a warm file cache; later
+    ones read the decode cache)."""
+    from mfvit_tpu_torch.cli import finetune, fuse, pretrain
+    from mfvit_tpu_torch.nn.vit import ViT, get_config
+
+    man = write_covid_ds(os.path.join(tmp, "feeds"), n, seed=43,
+                         paired=True, n_eval=32)
+    branches = []
+    for b, seed in (("cxr", 21), ("enh", 22)):
+        path = os.path.join(tmp, f"feed_{b}")
+        torch.save(ViT(get_config("vit_small"), 3, generator=torch.Generator()
+                       .manual_seed(seed)).state_dict(), path)
+        branches += [f"--pretrained-{b}", path]
+    base = ["-a", "vit_small", "--epochs", "2", "--draws", "1", "--covid-ds",
+            man, "-j", "8", "-p", "100000", "--seed", "0", "--device",
+            dev.type]
+    configs = (
+        ("finetune FT B=16", finetune, 16,
+         base + ["-b", "16", "--semi-supervised", "--lr", "0.01"]),
+        ("finetune FT B=256", finetune, 256,
+         base + ["-b", "256", "--semi-supervised", "--lr", "0.01"]),
+        ("fuse LP B=32", fuse, 32, base + ["-b", "32", "--lr", "1e-3"]
+         + branches),
+        ("pretrain B=32", pretrain, 32,
+         pretrain_argv(man, tmp, dev, ["-p", "100000"])),
+    )
+    rates, fills = {}, {}
+    for label, cli, B, argv in configs:
+        runs = {k: [] for k, _ in STORE_FEEDS}
+        order = STORE_FEEDS + STORE_FEEDS[::-1]
+        for i, (feed, extra) in enumerate(order):
+            root = os.path.join(tmp, f"t_{len(rates)}_{i}")
+            with EpochClock() as clock:
+                cli.main(argv + extra + ["--storage-root", root])
+            steps, sec = clock.epochs[-1]
+            runs[feed].append(steps * B / sec)
+            if clock.fills and label not in fills:
+                fills[label] = clock.fills[0]
+        rates[label] = runs
+        print(f"{label}, epoch 2 ({'pairs' if cli is fuse else 'images'}/s, "
+              "A B C C B A): " + ", ".join(
+                  f"{k} {' / '.join(f'{r:.1f}' for r in v)}"
+                  for k, v in runs.items()))
+    print("store fill, s per 1,000 samples (first fill of each table): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in fills.items()))
+    return {"rates": rates, "fill_s_per_1000": fills}
 
 def moco_model(name: str, gen, in_chans: int = 3, **kw):
     """A MoCo state on the CPU: MoCo's ViT defaults (or its ResNet ones)
@@ -3933,6 +4362,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         e2e_metrics = run_e2e_twin(dev, tmp)
 
+    phase("the data path: the store's views on the card against the CPU "
+          "(B=256); finetune FT through the store, --device-store-mb 0 and "
+          "--aug-host (B=16, 128 images; launches, host-to-device copies "
+          "per step, the eval store); the view's ms and the CLIs' rates on "
+          "each feed (1,024 images)")
+    view_ties_b256 = check_views(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        store_ft = run_store_finetune(dev, tmp)
+    view_ms = time_views(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        feeds = time_feeds(dev, tmp)
+
     phase("times (B=256; K12-K14 also at N=577, B=64; K5/K7 also at a "
           "vit_base block, B=64; the fusion step also at B=32, and with the "
           "GPT head; GPT serving and the GPT head alone; the schedule "
@@ -4089,6 +4530,12 @@ def main() -> int:
                       "moco_inputs_launches_per_step": moco_inputs,
                       "moco_step_parity_4ch_B32": moco_parity_4ch,
                       "e2e_twin_metrics": e2e_metrics,
+                      "data_path": {
+                          "view_pixels_differ_worst_tie_B256": view_ties_b256,
+                          "store_finetune_B16": store_ft,
+                          "view_ms_B256": view_ms,
+                          "cli_rates_epoch2": feeds["rates"],
+                          "fill_s_per_1000": feeds["fill_s_per_1000"]},
                       "moco_step_images_per_sec_B16": moco_cli,
                       "moco_launches_per_step": moco_per_step,
                       "moco_step_launches_other": moco_variants,

@@ -1,9 +1,13 @@
 """CLI plumbing shared by the entry points (the flags ``infer``,
 ``finetune``, ``fuse`` and ``pretrain`` use, from
-``mfvit_tpu/cli/common.py``), plus ``--device``: the streaming training
-feeds (one flavour, MoCo's two views, paired, or the 4-channel stacked
-input), MoCo's host-transformed feeds (the BYOL stacks, the cross-modal
-pairs), and the eval runner."""
+``mfvit_tpu/cli/common.py``), plus ``--device``: the device canvas stores
+(``--device-store-mb``, train and eval, under one budget) and the views
+drawn from them, the streaming training feeds (one flavour, MoCo's two
+views, paired, or the 4-channel stacked input; host-augmented in the
+reference order, host-cropped under ``--aug-order crop-first``, or the
+full host stack under ``--aug-host``), MoCo's host-transformed feeds (the
+BYOL stacks, the cross-modal pairs), the decode cache
+(``--canvas-cache-mb``) and the eval runner."""
 from __future__ import annotations
 
 import argparse
@@ -12,7 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from mfvit_tpu_torch.data import datasets, device_aug, host_transforms as ht
+from mfvit_tpu_torch.data import datasets, device_aug, device_store
+from mfvit_tpu_torch.data import host_transforms as ht
 from mfvit_tpu_torch.data import pipeline
 from mfvit_tpu_torch.models import fusion, gpt_fusion
 from mfvit_tpu_torch.nn import resnet as resnet_mod
@@ -34,6 +39,29 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    choices=["bfloat16", "float32"])
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises where CUDA is missing")
+    p.add_argument("--aug-device", action="store_true", default=True,
+                   help="device-fused augmentation (default)")
+    p.add_argument("--aug-host", dest="aug_device", action="store_false",
+                   help="full host-side torchvision-parity augmentation")
+    p.add_argument("--aug-order", default="reference",
+                   choices=["reference", "crop-first"],
+                   help="training aug order for the streaming device feed:"
+                        " 'reference' = flip->rotate->crop on the host;"
+                        " 'crop-first' = a host crop, then flip and rotation"
+                        " of the crop on the device (the ablation)")
+    p.add_argument("--canvas-cache-mb", type=int, default=4096,
+                   help="RAM budget for the decode+resize canvas cache "
+                        "(epoch >= 2 skips PNG decode); 0 disables")
+    p.add_argument("--no-canvas-cache", dest="canvas_cache",
+                   action="store_false", default=True,
+                   help="disable the host decode+resize cache")
+    p.add_argument("--device-store-mb", type=int, default=2048,
+                   help="total device-memory budget shared by all "
+                        "device-resident canvas stores of a run (train + "
+                        "val + test); epochs then run host-free after a "
+                        "one-time fill. 0 disables. Training store: "
+                        "device-aug square-resize (no --maintain-ratio) "
+                        "runs; eval stores: any resize policy")
 
 
 def add_train_args(p: argparse.ArgumentParser) -> None:
@@ -140,22 +168,66 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def device_aug_on(args) -> bool:
+    """False under ``--aug-host`` (namespaces without the flag: True)."""
+    return getattr(args, "aug_device", True)
+
+
+def host_reference_aug(args) -> bool:
+    """True when the streaming training feed augments on the host in the
+    reference order (the default); False under ``--aug-order
+    crop-first``."""
+    return getattr(args, "aug_order", "reference") == "reference"
+
+
+def decode_cache(args, maintain_ratio: bool):
+    """The run's shared decode + resize cache of one resize policy, or None
+    under ``--no-canvas-cache`` or ``--canvas-cache-mb 0``."""
+    mb = getattr(args, "canvas_cache_mb", 0)
+    if getattr(args, "canvas_cache", True) and mb > 0:
+        return ht.shared_decode_cache(args.img_size, maintain_ratio,
+                                      mb << 20)
+    return None
+
+
+def _canvas_tf(args, training: bool, seed: int) -> ht.CanvasTransform:
+    """The streaming feed's canvas transform: in training the reference
+    order on the host, or under ``--aug-order crop-first`` the random crop
+    alone (the device flips and rotates it)."""
+    host_ref = training and host_reference_aug(args)
+    return ht.CanvasTransform(
+        img_size=args.img_size, crop=args.crop, training=training,
+        maintain_ratio=args.maintain_ratio,
+        rotate_deg=float(args.rotate) if host_ref else 0.0, hflip=host_ref,
+        seed=seed)
+
+
+def _host_tf(args, img_type: str, training: bool,
+             seed: int) -> ht.ChexpertTransform:
+    """``--aug-host``'s full host stack: normalised float32 HWC (eval
+    takes no ``--rotate``: ``infer`` has none)."""
+    return ht.ChexpertTransform(
+        img_size=args.img_size, crop=args.crop, img_type=img_type,
+        training=training, maintain_ratio=args.maintain_ratio,
+        rotate_deg=float(args.rotate) if training else 0.0, seed=seed)
+
+
 def make_paired_loader(args, manifest_path: str, *, training: bool = False,
                        seed: int = 0) -> pipeline.BatchLoader:
-    """(CXR ('data'), enhanced ('Train_Mix'), label) canvases over a COVID
-    manifest. Eval (the default): center crops in manifest order, the final
-    batch wrap-padded. ``training``: each branch gets its own host
-    transform, seeded ``seed`` and ``seed + 1`` as in
-    ``mfvit_tpu/cli/common.py::make_covid_loader`` (:507-512, :527-529),
-    fully augmented in the reference order (flip -> rotate -> crop),
-    shuffled per epoch, the last short batch dropped."""
-    def tf(seed_off: int) -> ht.CanvasTransform:
-        aug = (dict(training=True, rotate_deg=float(args.rotate),
-                    seed=seed + seed_off) if training else {})
-        return ht.CanvasTransform(img_size=args.img_size, crop=args.crop,
-                                  maintain_ratio=args.maintain_ratio, **aug)
-    ds = datasets.CovidPairedDataset(manifest_path, tf(0),
-                                     tf(1) if training else None)
+    """(CXR ('data'), enhanced ('Train_Mix'), label) over a COVID manifest
+    (``mfvit_tpu/cli/common.py::make_covid_loader`` with ``paired``). Eval
+    (the default): center crops in manifest order, the final batch
+    wrap-padded. ``training``: each branch gets its own host transform,
+    seeded ``seed`` and ``seed + 1``, shuffled per epoch, the last short
+    batch dropped. uint8 canvases, or under ``--aug-host`` each branch's
+    full host stack, normalised with its flavour."""
+    decode = decode_cache(args, args.maintain_ratio)
+    if device_aug_on(args):
+        tfs = [_canvas_tf(args, training, seed + off) for off in (0, 1)]
+    else:
+        tfs = [_host_tf(args, flavor, training, seed + off)
+               for off, flavor in enumerate(("data", "Train_Mix"))]
+    ds = datasets.CovidPairedDataset(manifest_path, *tfs, decode=decode)
     return pipeline.BatchLoader(ds, args.batch_size, shuffle=training,
                                 seed=seed, drop_last=training,
                                 num_workers=args.workers)
@@ -166,27 +238,36 @@ def make_covid_loader(args, manifest_path: str, folder: str, *,
                       fourch: bool = False,
                       seed: int = 0) -> pipeline.BatchLoader:
     """Single-flavour canvases over a COVID manifest (the streaming feed of
-    ``mfvit_tpu/cli/common.py::make_covid_loader`` :475-560 with its
-    defaults ``--aug-device``, ``--aug-order reference``): training
-    canvases come fully augmented from the host in the reference order
-    (flip -> rotate -> crop), shuffled per epoch, the last short batch
-    dropped; eval canvases are center crops in manifest order, the last
-    batch padded. ``ssl_two_views``: (q, k, label), two independently
-    augmented canvases of each image (:513-523). ``fourch``: the stacked
-    4-channel canvases of each row's ``folder`` and 'Train_Mix' images
-    (:517-526)."""
-    tf = ht.CanvasTransform(img_size=args.img_size, crop=args.crop,
-                            maintain_ratio=args.maintain_ratio,
-                            training=training,
-                            rotate_deg=float(args.rotate), seed=seed)
-    if fourch:
-        kind = (datasets.Covid4chTwoCropsDataset if ssl_two_views
-                else datasets.Covid4chDataset)
-        ds = kind(manifest_path, tf, folder_cxr=folder)
+    ``mfvit_tpu/cli/common.py::make_covid_loader`` :475-560): training
+    canvases come augmented from the host in the reference order (flip ->
+    rotate -> crop; under ``--aug-order crop-first`` only cropped),
+    shuffled per epoch, the last short batch dropped; eval canvases are
+    center crops in manifest order, the last batch padded.
+    ``ssl_two_views``: (q, k, label), two independent draws of each image
+    (:513-523). ``fourch``: the stacked 4-channel canvases of each row's
+    ``folder`` and 'Train_Mix' images (:517-526). ``--aug-host``: the full
+    host stack, normalised float32 (:533-556)."""
+    decode = decode_cache(args, args.maintain_ratio)
+    if device_aug_on(args):
+        tf = _canvas_tf(args, training, seed)
+        if fourch:
+            kind = (datasets.Covid4chTwoCropsDataset if ssl_two_views
+                    else datasets.Covid4chDataset)
+            ds = kind(manifest_path, tf, folder_cxr=folder, decode=decode)
+        else:
+            kind = (datasets.CovidTwoCropsDataset if ssl_two_views
+                    else datasets.CovidDataset)
+            ds = kind(folder, manifest_path, tf, decode=decode)
     else:
+        if fourch:
+            raise ValueError("--in-chans 4 requires the device-aug path "
+                             "(the reference has no host transform stack "
+                             "for the 4ch variant either — no main invokes "
+                             "builder_4ch)")
         kind = (datasets.CovidTwoCropsDataset if ssl_two_views
                 else datasets.CovidDataset)
-        ds = kind(folder, manifest_path, tf)
+        ds = kind(folder, manifest_path, _host_tf(args, folder, training,
+                                                  seed), decode=decode)
     return pipeline.BatchLoader(ds, args.batch_size, shuffle=training,
                                 seed=seed, drop_last=training,
                                 num_workers=args.workers)
@@ -217,47 +298,216 @@ def make_enh_cxr_ssl_loader(args, manifest_path: str, *,
     normalisation (seeds ``seed`` for 'data', ``seed + 1`` for
     'Train_Mix'); ``--per-enh`` < 1 swaps the query for the CXR at that
     rate. Normalised float32 HWC: the flavour is chosen per sample."""
-    def tf(img_type: str, seed_off: int) -> ht.ChexpertTransform:
-        return ht.ChexpertTransform(
-            img_size=args.img_size, crop=args.crop, img_type=img_type,
-            training=True, maintain_ratio=args.maintain_ratio,
-            rotate_deg=float(args.rotate), seed=seed + seed_off)
-    ds = datasets.CovidEnhCxrDataset(manifest_path, tf("data", 0),
-                                     tf("Train_Mix", 1),
-                                     per_enh=getattr(args, "per_enh", 1.0),
-                                     seed=seed)
+    ds = datasets.CovidEnhCxrDataset(
+        manifest_path, _host_tf(args, "data", True, seed),
+        _host_tf(args, "Train_Mix", True, seed + 1),
+        per_enh=getattr(args, "per_enh", 1.0), seed=seed,
+        decode=decode_cache(args, args.maintain_ratio))
     return pipeline.BatchLoader(ds, args.batch_size, shuffle=True, seed=seed,
                                 drop_last=True, num_workers=args.workers)
 
 
-def stream_train_view(args, canv: torch.Tensor, img_type: str):
-    """The device half of one streaming training batch: the host already
-    augmented the canvases, so only the normalisation remains."""
-    return device_aug.augment_batch(canv, img_type=img_type,
-                                    out_dtype=compute_dtype(args))
+class StoreBudget:
+    """One device-memory budget (``--device-store-mb``) for every store
+    resident at once in a run (train, val and test). A draw's train store
+    returns its reservation when the draw ends (``release_store``)."""
+
+    def __init__(self, mb: int):
+        self.left = mb << 20
+
+    def reserve(self, nbytes: int) -> bool:
+        if nbytes > self.left:
+            return False
+        self.left -= nbytes
+        return True
+
+    def release(self, nbytes: int) -> None:
+        self.left += nbytes
+
+
+def _store_nbytes(n: int, side: int, chans: int) -> int:
+    """Device bytes a store of ``n`` samples pins: the uint8 canvases and
+    an int64 label each."""
+    return n * (side * side * chans + 8)
+
+
+def release_store(store) -> None:
+    """Return a draw's store reservation to its budget (no-op on None)."""
+    res = getattr(store, "budget_reservation", None)
+    if res is not None:
+        budget, nbytes = res
+        budget.release(nbytes)
+        store.budget_reservation = None
+
+
+def store_batch_iter(store, loader, device):
+    """A training epoch's feed: the store's index vectors, or the
+    streaming loader's batches moved to ``device`` one step ahead."""
+    if store is not None:
+        return store.iter_index_batches()
+    return pipeline.device_prefetch(iter(loader), device)
+
+
+def lazy_eval_stores(args, val_man: str, test_man: str, folder: str, *,
+                     device, paired: bool = False,
+                     budget: StoreBudget = None):
+    """``get() -> (val store, test store)``, each None where not built:
+    built on first use and kept for the whole (ratio, draw) grid (the eval
+    canvases do not depend on the draw). Callers reserve the draw's train
+    store first, so the hot loop keeps the store when the budget is
+    short."""
+    cache = {}
+
+    def get():
+        if "v" not in cache:
+            cache["v"], cache["s"] = (
+                maybe_eval_device_store(args, man, folder, paired=paired,
+                                        budget=budget, device=device)
+                for man in (val_man, test_man))
+        return cache["v"], cache["s"]
+
+    return get
+
+
+def stream_train_view(args, canv: torch.Tensor, img_type: str,
+                      generator: torch.Generator = None):
+    """The device half of one streaming training batch. Reference order
+    (the default): the host already augmented the canvases, so only the
+    normalisation remains. ``--aug-order crop-first``: flip and rotation
+    of the host crop, drawn from ``generator``."""
+    if host_reference_aug(args):
+        return device_aug.augment_batch(canv, img_type=img_type,
+                                        out_dtype=compute_dtype(args))
+    return device_aug.augment_batch(canv, img_type=img_type, training=True,
+                                    rotate_deg=float(args.rotate),
+                                    out_dtype=compute_dtype(args),
+                                    generator=generator)
 
 
 def stream_train_two_views(args, canv_q: torch.Tensor,
-                           canv_k: torch.Tensor, img_type: str):
+                           canv_k: torch.Tensor, img_type: str,
+                           generator: torch.Generator = None):
     """The two-view twin of ``stream_train_view``
-    (``mfvit_tpu/cli/common.py:325``): both canvases arrive augmented,
-    each is normalised."""
-    return (stream_train_view(args, canv_q, img_type),
-            stream_train_view(args, canv_k, img_type))
+    (``mfvit_tpu/cli/common.py:325``): each canvas arrives augmented (or,
+    crop-first, cropped) on its own, q's view first."""
+    return (stream_train_view(args, canv_q, img_type, generator),
+            stream_train_view(args, canv_k, img_type, generator))
+
+
+def _train_crop(args) -> int:
+    return min(args.crop or args.img_size, args.img_size)
+
+
+def device_train_view(args, generator: torch.Generator,
+                      canv: torch.Tensor, img_type: str):
+    """One reference-order training view (flip -> rotate about the full
+    canvas center -> random crop -> normalise) of store canvases."""
+    return device_aug.augment_train_canvas(
+        generator, canv, crop=_train_crop(args), img_type=img_type,
+        rotate_deg=float(args.rotate), out_dtype=compute_dtype(args))
+
+
+def device_train_two_views(args, generator: torch.Generator,
+                           canv: torch.Tensor, img_type: str):
+    """Two independent reference-order views of each store canvas
+    (TwoCropsTransform on the store paths)."""
+    return device_aug.augment_two_views_canvas(
+        generator, canv, crop=_train_crop(args), img_type=img_type,
+        rotate_deg=float(args.rotate), out_dtype=compute_dtype(args))
+
+
+def maybe_device_store(args, manifest_path: str, folder: str, *, device,
+                       fourch: bool = False, paired: bool = False,
+                       seed: int = 0, budget: StoreBudget = None):
+    """The training store of one draw, or None where it does not apply:
+    ``--aug-host``, ``--maintain-ratio`` (the canvases must be square
+    before the crop), ``--device-store-mb 0``, or a split over the budget
+    (which prints so and streams)."""
+    if (not device_aug_on(args) or args.maintain_ratio
+            or getattr(args, "device_store_mb", 0) <= 0):
+        return None
+    chans = 4 if fourch else (6 if paired else 3)  # paired: 2 flavours
+    fill_tf = ht.CanvasTransform(img_size=args.img_size, training=False,
+                                 maintain_ratio=False, seed=seed)
+    decode = decode_cache(args, False)
+    if fourch:
+        ds = datasets.Covid4chDataset(manifest_path, fill_tf,
+                                      folder_cxr=folder, decode=decode)
+    elif paired:
+        ds = datasets.CovidPairedDataset(manifest_path, fill_tf, fill_tf,
+                                         folder_cxr=folder, decode=decode)
+    else:
+        ds = datasets.CovidDataset(folder, manifest_path, fill_tf,
+                                   decode=decode)
+    if budget is None:
+        budget = StoreBudget(args.device_store_mb)
+    nbytes = _store_nbytes(len(ds), args.img_size, chans)
+    if not budget.reserve(nbytes):
+        print("=> device canvas store: does not fit --device-store-mb "
+              "budget; streaming feed for this draw")
+        return None
+    store = device_store.fill_from_dataset(
+        ds, batch_size=args.batch_size, seed=seed, num_workers=args.workers,
+        device=device)
+    store.budget_reservation = (budget, nbytes)
+    print(f"=> device canvas store: {store.n} samples "
+          f"({store.nbytes >> 20} MB) resident in HBM; "
+          "epochs run host-free")
+    return store
+
+
+def maybe_eval_device_store(args, manifest_path: str, folder: str, *,
+                            device, paired: bool = False, seed: int = 0,
+                            budget: StoreBudget = None):
+    """The eval twin of ``maybe_device_store``: center-cropped canvases in
+    manifest order, the final batch wrap-padded (the evaluator trims it
+    with ``len(store.ds)``); any resize policy."""
+    if not device_aug_on(args) or getattr(args, "device_store_mb", 0) <= 0:
+        return None
+    fill_tf = ht.CanvasTransform(img_size=args.img_size, crop=args.crop,
+                                 training=False,
+                                 maintain_ratio=args.maintain_ratio,
+                                 seed=seed)
+    decode = decode_cache(args, args.maintain_ratio)
+    if paired:
+        ds = datasets.CovidPairedDataset(manifest_path, fill_tf, fill_tf,
+                                         folder_cxr=folder, decode=decode)
+    else:
+        ds = datasets.CovidDataset(folder, manifest_path, fill_tf,
+                                   decode=decode)
+    side = args.crop or args.img_size
+    if budget is None:
+        budget = StoreBudget(args.device_store_mb)
+    if not budget.reserve(_store_nbytes(len(ds), side, 6 if paired else 3)):
+        print("=> eval device canvas store: does not fit "
+              "--device-store-mb budget; streaming eval feed")
+        return None
+    store = device_store.fill_from_dataset(
+        ds, batch_size=args.batch_size, seed=seed, shuffle=False,
+        drop_last=False, num_workers=args.workers, device=device)
+    print(f"=> eval device canvas store: {store.n} samples "
+          f"({store.nbytes >> 20} MB) resident")
+    return store
 
 
 def make_eval_runner(args, img_types, forward, device) -> Evaluator:
-    """The eval loop of the CLIs: each image field of a batch normalised
-    on ``device`` for its flavour, ``forward(*imgs) -> logits``, the
-    padded tail trimmed, AUC and top-1 on the host."""
+    """The eval loop of the CLIs: each image field of a batch on
+    ``device`` -- an eval store's batches are there already -- normalised
+    for its flavour (``--aug-host`` batches are normalised host floats,
+    only cast), ``forward(*imgs) -> logits``, the padded tail trimmed, AUC
+    and top-1 on the host."""
     dt = compute_dtype(args)
 
     def batch_forward(batch):
         *imgs, labels = batch
-        xs = [device_aug.augment_batch(torch.from_numpy(img).to(device),
-                                       img_type=flavor, out_dtype=dt)
-              for img, flavor in zip(imgs, img_types)]
-        return forward(*xs).float().cpu().numpy(), np.asarray(labels)
+        xs = []
+        for img, flavor in zip(imgs, img_types):
+            x = torch.as_tensor(img).to(device)
+            xs.append(device_aug.augment_batch(x, img_type=flavor,
+                                               out_dtype=dt)
+                      if device_aug_on(args) else x.to(dt))
+        return (forward(*xs).float().cpu().numpy(),
+                torch.as_tensor(labels).cpu().numpy())
 
     return Evaluator(batch_forward, metric_names=["auc", "acc"])
 

@@ -13,10 +13,18 @@ checkpoints, and the LP frozen-backbone sanity check.
 On CUDA every block runs K1/K2/K3 forward and, under FT, K5/K7 backward;
 past 256 tokens (``--img-size 384 --crop 384``) K9 replaces K1, and its
 backward is the fp32 recompute of the JAX package, in plain PyTorch.
-Not ported yet (ROADMAP.md): the device canvas store (this behaves as the
-JAX CLI with ``--device-store-mb 0``), ``--aug-order crop-first``,
-``--attn-backend``, the canvas cache, the distributed flags, TensorBoard
-and ``lr.jpg``; ``--pretrained`` takes ``.pth.tar`` files only.
+
+The feed is JAX's. By default (``--device-store-mb 2048``, square
+resize) each draw decodes its split once into the device canvas store and
+a step gathers its batch there, then draws the view on the device (flip,
+rotation about the full canvas, crop) from the (draw, epoch) generator of
+``data/device_aug.py``; val and test run from eval stores. With
+``--maintain-ratio``, ``--device-store-mb 0`` or a split over the budget
+the host streams canvases augmented in the reference order (only cropped
+under ``--aug-order crop-first``, the device then flips and rotates);
+``--aug-host`` streams the full host stack's floats. Not ported yet
+(ROADMAP.md): ``--attn-backend``, the distributed flags, TensorBoard and
+``lr.jpg``; ``--pretrained`` takes ``.pth.tar`` files only.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import argparse
 import torch
 
 from mfvit_tpu_torch.cli import common
+from mfvit_tpu_torch.data import device_aug
 from mfvit_tpu_torch.data import manifest as mf
 from mfvit_tpu_torch.exp import checkpoint as ckpt_mod
 from mfvit_tpu_torch.exp import harness, storage
@@ -80,6 +89,12 @@ def make_evaluate(eval_step, args, device):
 def train_one_draw_fn(args, cfg, device):
     val_man, test_man = mf.eval_manifest_paths(args.covid_ds)
     dt = common.compute_dtype(args)
+    # one device budget for every store of the run; the train store of a
+    # draw reserves first, the eval stores are built once on first use
+    store_budget = common.StoreBudget(args.device_store_mb)
+    get_eval_stores = common.lazy_eval_stores(
+        args, val_man, test_man, args.folder, device=device,
+        budget=store_budget)
 
     def train_one_draw(ratio, draw, sub_folder):
         seed = args.seed if args.seed is not None else 0
@@ -108,6 +123,13 @@ def train_one_draw_fn(args, cfg, device):
                                       training=False)
         sl = common.make_covid_loader(args, test_man, args.folder,
                                       training=False)
+        store = common.maybe_device_store(args, train_man, args.folder,
+                                          seed=draw, budget=store_budget,
+                                          device=device)
+        if store is not None:
+            tl = store
+        ev, es = get_eval_stores()
+        vl, sl = ev or vl, es or sl
         steps_per_epoch = max(len(tl), 1)
         init_lr = optim.scaled_init_lr(args.lr, args.batch_size,
                                        cos=args.cos, entry="finetune")
@@ -140,6 +162,7 @@ def train_one_draw_fn(args, cfg, device):
             losses.append(val)
 
         for epoch in range(args.start_epoch, args.epochs):
+            gen = device_aug.epoch_generator(seed, draw, epoch, device)
             tl.set_epoch(epoch)
             model.train()
             ep_loss = metrics.AverageMeter("Loss", ":.4e")
@@ -147,11 +170,19 @@ def train_one_draw_fn(args, cfg, device):
                                        prefix=f"Epoch: [{epoch}]",
                                        extra_meters=[ep_loss])
             fetch = metrics.DeferredFetch(record)
-            for i, (canv, labels) in enumerate(tl):
+            for i, batch in enumerate(common.store_batch_iter(store, tl,
+                                                              device)):
                 timer.data_ready()
-                x = common.stream_train_view(
-                    args, torch.from_numpy(canv).to(device), args.folder)
-                y = torch.from_numpy(labels).to(device)
+                if store is not None:
+                    canv, y = store.gather(batch)
+                    x = common.device_train_view(args, gen, canv,
+                                                 args.folder)
+                elif common.device_aug_on(args):
+                    canv, y = batch
+                    x = common.stream_train_view(args, canv, args.folder,
+                                                 gen)
+                else:
+                    x, y = batch[0].to(dt), batch[1]
                 loss, _ = train_step(model, opt, x, y)
                 # one-step-lagged fetch: no host sync per step
                 fetch.push(loss, int(y.shape[0]), i, sync=(i == 0))
@@ -176,6 +207,7 @@ def train_one_draw_fn(args, cfg, device):
         if snapshot is not None:
             harness.verify_frozen(model.state_dict(), snapshot)
             print("=> sanity check passed.")
+        common.release_store(store)
         return result
 
     return train_one_draw

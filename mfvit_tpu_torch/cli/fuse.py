@@ -23,10 +23,15 @@ both heads) is the flat state dict of the ``nn.ModuleDict({"cxr", "enh",
 "fus"})``, which ``cli/infer.py --checkpoint`` serves as it is (with the
 same ``--fusion-arch`` and ``--gpt-layers``).
 
-Not ported yet (ROADMAP.md): the device canvas store (this behaves as the
-JAX CLI with ``--device-store-mb 0``), orbax ``--pretrained-*``
-directories, ``--attn-backend``, the canvas cache, the distributed flags
-and TensorBoard.
+The feed is JAX's: by default (square resize) each draw's pairs are
+decoded once into the paired device canvas store, and a step gathers both
+flavours there, then draws the CXR view and then the enhanced view from
+the (draw, epoch) generator of ``data/device_aug.py``; val and test run
+from paired eval stores. ``--maintain-ratio``, ``--device-store-mb 0`` or
+a split over the budget stream host-augmented canvases (host-cropped
+under ``--aug-order crop-first``); ``--aug-host`` streams the full host
+stack's floats. Not ported yet (ROADMAP.md): orbax ``--pretrained-*``
+directories, ``--attn-backend``, the distributed flags and TensorBoard.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ import torch
 from torch import nn
 
 from mfvit_tpu_torch.cli import common
+from mfvit_tpu_torch.data import device_aug
 from mfvit_tpu_torch.data import manifest as mf
 from mfvit_tpu_torch.exp import checkpoint as ckpt_mod
 from mfvit_tpu_torch.exp import harness, storage
@@ -113,6 +119,10 @@ def build_models(args, cfg, draw: int) -> nn.ModuleDict:
 def train_one_draw_fn(args, cfg, device):
     val_man, test_man = mf.eval_manifest_paths(args.covid_ds)
     dt = common.compute_dtype(args)
+    store_budget = common.StoreBudget(args.device_store_mb)
+    get_eval_stores = common.lazy_eval_stores(
+        args, val_man, test_man, "data", paired=True, device=device,
+        budget=store_budget)
 
     def train_one_draw(ratio, draw, sub_folder):
         models = build_models(args, cfg, draw)
@@ -136,6 +146,13 @@ def train_one_draw_fn(args, cfg, device):
                                        seed=draw)
         vl = common.make_paired_loader(args, val_man)
         sl = common.make_paired_loader(args, test_man)
+        store = common.maybe_device_store(args, train_man, "data",
+                                          paired=True, seed=draw,
+                                          budget=store_budget, device=device)
+        if store is not None:
+            tl = store
+        ev, es = get_eval_stores()
+        vl, sl = ev or vl, es or sl
         steps_per_epoch = max(len(tl), 1)
         init_lr = optim.scaled_init_lr(args.lr, args.batch_size,
                                        cos=args.cos, entry="fusion")
@@ -168,7 +185,9 @@ def train_one_draw_fn(args, cfg, device):
             ep_loss.update(val, n)
             losses.append(val)
 
+        seed = args.seed if args.seed is not None else 0
         for epoch in range(args.start_epoch, args.epochs):
+            gen = device_aug.epoch_generator(seed, draw, epoch, device)
             tl.set_epoch(epoch)
             models.train()
             ep_loss = metrics.AverageMeter("Loss", ":.4e")
@@ -176,12 +195,21 @@ def train_one_draw_fn(args, cfg, device):
                                        prefix=f"Epoch: [{epoch}]",
                                        extra_meters=[ep_loss])
             fetch = metrics.DeferredFetch(record)
-            for i, (cxr, enh, labels) in enumerate(tl):
+            for i, batch in enumerate(common.store_batch_iter(store, tl,
+                                                              device)):
                 timer.data_ready()
-                xc, xe = (common.stream_train_view(
-                    args, torch.from_numpy(c).to(device), flavor)
-                    for c, flavor in ((cxr, "data"), (enh, "Train_Mix")))
-                y = torch.from_numpy(labels).to(device)
+                if store is not None:
+                    cxr, enh, y = store.gather(batch)
+                    xc, xe = (common.device_train_view(args, gen, c, flavor)
+                              for c, flavor in ((cxr, "data"),
+                                                (enh, "Train_Mix")))
+                elif common.device_aug_on(args):
+                    cxr, enh, y = batch
+                    xc, xe = (common.stream_train_view(args, c, flavor, gen)
+                              for c, flavor in ((cxr, "data"),
+                                                (enh, "Train_Mix")))
+                else:
+                    xc, xe, y = batch[0].to(dt), batch[1].to(dt), batch[2]
                 loss, _ = train_step(models, opt, xc, xe, y)
                 # one-step-lagged fetch: no host sync per step
                 fetch.push(loss, int(y.shape[0]), i, sync=(i == 0))
@@ -200,6 +228,7 @@ def train_one_draw_fn(args, cfg, device):
         if snapshot is not None:
             harness.verify_frozen(models.state_dict(), snapshot)
             print("=> fusion sanity check passed.")
+        common.release_store(store)
         return result
 
     return train_one_draw

@@ -21,7 +21,9 @@ only, as in JAX. The output JSON holds ``predictions``, ``logits`` and
 ``n``; when every label of the manifest is >= 0, a ``metrics`` block
 (``auc``, ``top1``, ``precision``, ``recall``, ``f1``); with
 ``--report-throughput`` also ``pairs_per_sec`` (device-resident batch) and
-``pairs_per_sec_e2e`` (the whole run, host decode included).
+``pairs_per_sec_e2e`` (the whole run, host decode included). The host
+sends uint8 canvases, normalised on the device; under ``--aug-host`` it
+sends the host stack's normalised floats, which are only cast.
 """
 from __future__ import annotations
 
@@ -85,12 +87,15 @@ def load_models(args, cfg, device) -> dict:
     return models
 
 
-def prepare(batch, device, dtype) -> list:
-    """A loader batch's CXR and enhanced uint8 canvases -> normalised
-    images on ``device``."""
-    return [device_aug.augment_batch(torch.from_numpy(b).to(device),
-                                     img_type=flavor, out_dtype=dtype)
-            for b, flavor in zip(batch[:2], FLAVORS)]
+def prepare(batch, device, dtype, aug_device: bool = True) -> list:
+    """A loader batch's CXR and enhanced images -> normalised images in
+    ``dtype`` on ``device``: uint8 canvases normalised there, or under
+    ``--aug-host`` (``aug_device`` False) host-normalised floats cast."""
+    xs = [torch.from_numpy(b).to(device) for b in batch[:2]]
+    if not aug_device:
+        return [x.to(dtype) for x in xs]
+    return [device_aug.augment_batch(x, img_type=flavor, out_dtype=dtype)
+            for x, flavor in zip(xs, FLAVORS)]
 
 
 def main(argv=None):
@@ -115,7 +120,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     logits, labels = [], []
     for b in loader:
-        logits.append(forward(*prepare(b, device, dt)).cpu().numpy())
+        logits.append(forward(*prepare(b, device, dt, args.aug_device))
+                      .cpu().numpy())
         labels.append(np.asarray(b[2]))
     logits = np.concatenate(logits)[:n_total]
     labels = np.concatenate(labels)[:n_total]
@@ -136,7 +142,7 @@ def main(argv=None):
         out["pairs_per_sec_e2e"] = len(logits) / wall
         # forward throughput on one device-resident batch, the logits
         # fetched to the host every iteration
-        xc0, xe0 = prepare(next(iter(loader)), device, dt)
+        xc0, xe0 = prepare(next(iter(loader)), device, dt, args.aug_device)
         forward(xc0, xe0).cpu()  # warm
         t0 = time.perf_counter()
         for _ in range(THROUGHPUT_ITERS):

@@ -13,19 +13,25 @@ views per image, the smallest-epoch-loss checkpoint and one every
         --stop-grad-conv1 --moco-m-cos --moco-t 0.2 \\
         --covid-ds create_covid_dataset --export-torch [--device cuda]
 
-The inputs: the streamed two-view canvases of ``--folder`` (the default
-``--aug-setting chexpert``), of the stacked CXR-gray + Enh image
-(``--in-chans 4``, normalised as ``4ch``), or the host-transformed float
-views of the BYOL stacks (``--aug-setting moco_v1|moco_v2|aug1|aug2``
-with ``--crop-min``) and of the cross-modal pairs (``--pairing enh_cxr``:
-q the enhanced image, k the CXR, ``--per-enh`` the rate of enhanced
-queries), which go to the device as float32 and are cast there.
+The inputs: the canvases of ``--folder`` (the default ``--aug-setting
+chexpert``) or of the stacked CXR-gray + Enh image (``--in-chans 4``,
+normalised as ``4ch``), or the host-transformed float views of the BYOL
+stacks (``--aug-setting moco_v1|moco_v2|aug1|aug2`` with ``--crop-min``),
+of the cross-modal pairs (``--pairing enh_cxr``: q the enhanced image, k
+the CXR, ``--per-enh`` the rate of enhanced queries) and of ``--aug-host``
+(the full host stack twice), which go to the device as float32 and are
+cast there. The canvases, by default (square resize), are decoded once
+into the device canvas store, and each step gathers its images there and
+draws q's flip, rotation and crop, then k's, from the (draw, epoch)
+generator of ``data/device_aug.py``; ``--maintain-ratio``,
+``--device-store-mb 0`` or a split over the budget stream two
+host-augmented canvases per image (host-cropped under ``--aug-order
+crop-first``).
 
 On CUDA every block of both towers runs K1 and K2 (K3 on the last)
 forward and the query tower's K5 and K7 backward, whatever the input; a
 ResNet arm (``-a resnet18/34/50``, ``--pretrained-arms``) runs no kernel
-of the port. The training feed streams (the JAX CLI at
-``--device-store-mb 0``). Not ported yet, and refused with a message
+of the port. Not ported yet, and refused with a message
 (ROADMAP.md section 1): a JAX orbax directory for ``--resume`` (item 4),
 ``--distributed`` (item 6), TensorBoard (item 8).
 """
@@ -37,6 +43,7 @@ import math
 import torch
 
 from mfvit_tpu_torch.cli import common
+from mfvit_tpu_torch.data import device_aug
 from mfvit_tpu_torch.data import manifest as mf
 from mfvit_tpu_torch.exp import checkpoint as ckpt_mod
 from mfvit_tpu_torch.exp import harness, storage
@@ -95,6 +102,7 @@ def moco_config(args) -> moco.MoCoConfig:
 
 def train_one_draw_fn(args, backbone_cfg, device):
     dt = common.compute_dtype(args)
+    store_budget = common.StoreBudget(args.device_store_mb)
 
     def train_one_draw(ratio, draw, sub_folder):
         cfg = moco_config(args)
@@ -105,6 +113,13 @@ def train_one_draw_fn(args, backbone_cfg, device):
                                       labeled=False))
         tl, host_transformed = make_loader(args, man, draw)
         img_type = "4ch" if args.in_chans == 4 else args.folder
+        store = None
+        if not host_transformed:
+            store = common.maybe_device_store(
+                args, man, args.folder, fourch=args.in_chans == 4,
+                seed=draw, budget=store_budget, device=device)
+        if store is not None:
+            tl = store
         steps_per_epoch = max(len(tl), 1)
         if cfg.loss == "v2_queue" and cfg.K % args.batch_size != 0:
             raise ValueError(
@@ -150,24 +165,28 @@ def train_one_draw_fn(args, backbone_cfg, device):
             losses.append(val)
 
         for epoch in range(start_epoch, args.epochs):
+            gen = device_aug.epoch_generator(seed, draw, epoch, device)
             tl.set_epoch(epoch)
             ep_loss = metrics.AverageMeter("Loss", ":.4e")
             timer = profiler.StepTimer(steps_per_epoch,
                                        prefix=f"Epoch: [{epoch}]",
                                        extra_meters=[ep_loss])
             fetch = metrics.DeferredFetch(record)
-            for i, (view_q, view_k, _labels) in enumerate(tl):
+            for i, batch in enumerate(common.store_batch_iter(store, tl,
+                                                              device)):
                 timer.data_ready()
                 m = (optim.moco_momentum(epoch + i / steps_per_epoch,
                                          args.moco_m, args.epochs)
                      if args.moco_m_cos else args.moco_m)
-                view_q, view_k = (torch.from_numpy(v).to(device)
-                                  for v in (view_q, view_k))
-                if host_transformed:
-                    q, k = view_q.to(dt), view_k.to(dt)
+                if store is not None:
+                    canv, _labels = store.gather(batch)
+                    q, k = common.device_train_two_views(args, gen, canv,
+                                                         img_type)
+                elif host_transformed:
+                    q, k = batch[0].to(dt), batch[1].to(dt)
                 else:
-                    q, k = common.stream_train_two_views(args, view_q,
-                                                         view_k, img_type)
+                    q, k = common.stream_train_two_views(
+                        args, batch[0], batch[1], img_type, gen)
                 loss = step(model, opt, q, k, m)
                 # one-step-lagged fetch: no host sync per step
                 fetch.push(loss, int(q.shape[0]), i, sync=(i == 0))
@@ -194,15 +213,17 @@ def train_one_draw_fn(args, backbone_cfg, device):
                     epoch=args.epochs - 1, arch=args.arch)
         result.extra["final_loss"] = ep_loss.avg
         result.extra["best_loss"] = best_loss
+        common.release_store(store)
         return result
 
     return train_one_draw
 
 
 def make_loader(args, man: str, draw: int):
-    """The training feed of one draw and whether its views arrive
-    host-transformed (float) rather than as canvases, by JAX's branches
-    (``mfvit_tpu/cli/pretrain.py:108-131``) and with its errors."""
+    """The streaming feed of one draw and whether its views arrive
+    host-transformed (float: BYOL, ``enh_cxr``, ``--aug-host``) rather than
+    as canvases, by JAX's branches (``mfvit_tpu/cli/pretrain.py:108-131``)
+    and with its errors."""
     byol = args.aug_setting in common.BYOL_VARIANT
     fourch = args.in_chans == 4
     if args.pairing == "enh_cxr":
@@ -216,9 +237,10 @@ def make_loader(args, man: str, draw: int):
                              "chexpert (device-aug canvases)")
         return common.make_ssl_two_crops_loader(args, man, args.folder,
                                                 seed=draw), True
-    return common.make_covid_loader(args, man, args.folder, training=True,
-                                    ssl_two_views=True, fourch=fourch,
-                                    seed=draw), False
+    return (common.make_covid_loader(args, man, args.folder, training=True,
+                                     ssl_two_views=True, fourch=fourch,
+                                     seed=draw),
+            not common.device_aug_on(args))
 
 
 def check_ported(args) -> None:

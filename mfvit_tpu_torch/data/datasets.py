@@ -8,7 +8,9 @@ index), the 4-channel stacked input (``Covid4chDataset``,
 ``ChexpertMixDataset``). A seeded transform gets the per-sample context
 (epoch, index[, view]), so its draws do not depend on the loader's worker
 count; ``BatchLoader`` calls ``set_epoch``. The mix decisions draw from
-the same context salted with ``_MIX_SALT``."""
+the same context salted with ``_MIX_SALT``. ``decode`` (default
+``decode_bgr``) reads a path; a ``host_transforms.DecodeResizeCache``
+there serves the decoded, resized image from RAM after the first epoch."""
 from __future__ import annotations
 
 import random
@@ -45,15 +47,17 @@ class CovidDataset(_EpochMixin):
     """(image, label) of one flavour folder (``data`` or ``Train_Mix``)."""
 
     def __init__(self, folder: str, img_csv: str,
-                 transform: Callable[[np.ndarray], np.ndarray]):
+                 transform: Callable[[np.ndarray], np.ndarray],
+                 decode: Optional[Callable[[str], np.ndarray]] = None):
         self.manifest = parse_covid(img_csv, folder)
         self.transform = transform
+        self.decode = decode or decode_bgr
 
     def __len__(self):
         return len(self.manifest)
 
     def __getitem__(self, idx: int):
-        img = decode_bgr(self.manifest.paths[idx])
+        img = self.decode(self.manifest.paths[idx])
         return (_apply_tf(self.transform, img, (self._epoch, idx)),
                 self.manifest.labels[idx])
 
@@ -65,26 +69,30 @@ class CovidTwoCropsDataset(CovidDataset):
     (``mfvit_tpu/data/datasets.py:84``, TwoCropsTransform)."""
 
     def __getitem__(self, idx: int):
-        img = decode_bgr(self.manifest.paths[idx])
+        img = self.decode(self.manifest.paths[idx])
         return (_apply_tf(self.transform, img, (self._epoch, idx, 0)),
                 _apply_tf(self.transform, img, (self._epoch, idx, 1)),
                 self.manifest.labels[idx])
 
 
 class CovidPairedDataset(_EpochMixin):
-    """(img_cxr, img_enh, label) per index: the 'data' and 'Train_Mix'
-    images of one manifest row, each decoded and put through its own
-    transform (``transform_enh`` defaults to ``transform``). Training gives
-    each branch its own seeded transform, so the two draw their flips,
-    angles and crops independently, as the JAX package's do."""
+    """(img_cxr, img_enh, label) per index: the ``folder_cxr`` and
+    ``folder_enh`` images of one manifest row, each decoded and put
+    through its own transform (``transform_enh`` defaults to
+    ``transform``). Training gives each branch its own seeded transform,
+    so the two draw their flips, angles and crops independently, as the
+    JAX package's do."""
 
     def __init__(self, img_csv: str,
                  transform: Callable[[np.ndarray], np.ndarray],
                  transform_enh: Callable[[np.ndarray], np.ndarray] | None
-                 = None):
-        self.manifest = parse_covid_paired(img_csv)
+                 = None, folder_cxr: str = "data",
+                 folder_enh: str = "Train_Mix",
+                 decode: Optional[Callable[[str], np.ndarray]] = None):
+        self.manifest = parse_covid_paired(img_csv, folder_cxr, folder_enh)
         self.transform = transform
         self.transform_enh = transform_enh or transform
+        self.decode = decode or decode_bgr
 
     def __len__(self):
         return len(self.manifest)
@@ -92,9 +100,9 @@ class CovidPairedDataset(_EpochMixin):
     def __getitem__(self, idx: int):
         ctx = (self._epoch, idx)
         return (_apply_tf(self.transform,
-                          decode_bgr(self.manifest.paths[idx]), ctx),
+                          self.decode(self.manifest.paths[idx]), ctx),
                 _apply_tf(self.transform_enh,
-                          decode_bgr(self.manifest.paths_alt[idx]), ctx),
+                          self.decode(self.manifest.paths_alt[idx]), ctx),
                 self.manifest.labels[idx])
 
 
@@ -108,16 +116,18 @@ class Covid4chDataset(_EpochMixin):
     channels (the reference's ``Dataset_covid_4ch``)."""
 
     def __init__(self, img_csv: str, transform: Callable, *,
-                 folder_cxr: str = "data", folder_enh: str = "Train_Mix"):
+                 folder_cxr: str = "data", folder_enh: str = "Train_Mix",
+                 decode: Optional[Callable[[str], np.ndarray]] = None):
         self.manifest = parse_covid_paired(img_csv, folder_cxr, folder_enh)
         self.transform = transform
+        self.decode = decode or decode_bgr
 
     def __len__(self):
         return len(self.manifest)
 
     def _stacked(self, idx: int) -> np.ndarray:
-        return _stack_4ch(decode_bgr(self.manifest.paths[idx]),
-                          decode_bgr(self.manifest.paths_alt[idx]))
+        return _stack_4ch(self.decode(self.manifest.paths[idx]),
+                          self.decode(self.manifest.paths_alt[idx]))
 
     def __getitem__(self, idx: int):
         return (_apply_tf(self.transform, self._stacked(idx),
@@ -146,13 +156,15 @@ class CovidEnhCxrDataset(_EpochMixin):
     def __init__(self, img_csv: str, transform_cxr: Callable,
                  transform_enh: Callable, per_enh: float = 1.0,
                  seed: Optional[int] = 0, *, folder_cxr: str = "data",
-                 folder_enh: str = "Train_Mix"):
+                 folder_enh: str = "Train_Mix",
+                 decode: Optional[Callable[[str], np.ndarray]] = None):
         self.manifest = parse_covid_paired(img_csv, folder_cxr, folder_enh)
         self.transform_cxr = transform_cxr
         self.transform_enh = transform_enh
         self.per_enh = per_enh
         self.seed = seed
         self._rng = random.Random(seed)
+        self.decode = decode or decode_bgr
 
     def __len__(self):
         return len(self.manifest)
@@ -160,10 +172,10 @@ class CovidEnhCxrDataset(_EpochMixin):
     def __getitem__(self, idx: int):
         ctx = (self._epoch, idx)
         r = _rng_for(self.seed, self._rng, ctx + (_MIX_SALT,))
-        cxr = decode_bgr(self.manifest.paths[idx])
+        cxr = self.decode(self.manifest.paths[idx])
         if self.per_enh >= 1.0 or r.random() <= self.per_enh:
             q = _apply_tf(self.transform_enh,
-                          decode_bgr(self.manifest.paths_alt[idx]), ctx)
+                          self.decode(self.manifest.paths_alt[idx]), ctx)
         else:
             q = _apply_tf(self.transform_cxr, cxr, ctx)
         k = _apply_tf(self.transform_cxr, cxr, ctx + (1,))

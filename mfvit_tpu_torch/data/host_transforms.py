@@ -1,6 +1,7 @@
 """Host-side decode, resize, crop and training augmentation (the port of
-``mfvit_tpu/data/host_transforms.py`` without its decode cache): cv2
-decode in BGR order, torchvision ``Resize`` semantics through PIL
+``mfvit_tpu/data/host_transforms.py``): cv2 decode in BGR order, the
+decode + resize cache shared by every loader of a run
+(``shared_decode_cache``), torchvision ``Resize`` semantics through PIL
 bilinear, ``CenterCrop`` with zero padding, the canvas producer feeding
 the device normalisation (``CanvasTransform``), and the full host stacks
 that return normalised float32 HWC images: the reference's CheXpert stack
@@ -14,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import random
+import threading
 from typing import Optional
 
 import cv2
@@ -49,6 +51,67 @@ def resize_square(img: np.ndarray, size: int) -> np.ndarray:
         return img
     return np.asarray(Image.fromarray(img).resize((size, size),
                                                   Image.BILINEAR))
+
+
+class DecodeResizeCache:
+    """RAM cache of the deterministic decode + resize prefix of every
+    transform stack: from the second epoch on only the random suffix runs
+    on the host (or nothing, on the device-augmentation paths). The random
+    suffix is not cached, so the per-epoch draws stay as they are.
+
+    Thread-safe (``BatchLoader`` decodes in threads): lookups ride the
+    GIL, inserts take a lock so the byte count cannot race, and cached
+    arrays are read-only. Past ``limit_bytes`` images decode every epoch
+    as before (no eviction: epochs are shuffled, so any fixed subset is
+    as good as LRU)."""
+
+    def __init__(self, img_size: int, maintain_ratio: bool = True,
+                 limit_bytes: int = 4 << 30):
+        self.img_size = img_size
+        self.maintain_ratio = maintain_ratio
+        self.limit_bytes = limit_bytes
+        self._store: dict = {}
+        self._bytes = 0
+        self._lock = threading.Lock()
+
+    def __call__(self, path: str) -> np.ndarray:
+        img = self._store.get(path)
+        if img is not None:
+            return img
+        img = decode_bgr(path)
+        img = (resize_shorter(img, self.img_size) if self.maintain_ratio
+               else resize_square(img, self.img_size))
+        with self._lock:
+            prev = self._store.get(path)
+            if prev is not None:  # another thread decoded it first
+                return prev
+            if self._bytes + img.nbytes <= self.limit_bytes:
+                img = np.ascontiguousarray(img)
+                img.setflags(write=False)
+                self._store[path] = img
+                self._bytes += img.nbytes
+        return img
+
+    @property
+    def nbytes(self) -> int:
+        return self._bytes
+
+
+# one cache per (size, policy, limit) per process, shared by every loader
+# of a run (train, val, test, every draw): per-loader caches would multiply
+# the RAM budget and decode the dataset again each draw
+_shared_decode_caches: dict = {}
+
+
+def shared_decode_cache(img_size: int, maintain_ratio: bool,
+                        limit_bytes: int) -> DecodeResizeCache:
+    key = (int(img_size), bool(maintain_ratio), int(limit_bytes))
+    cache = _shared_decode_caches.get(key)
+    if cache is None:
+        cache = DecodeResizeCache(img_size, maintain_ratio,
+                                  limit_bytes=limit_bytes)
+        _shared_decode_caches[key] = cache
+    return cache
 
 
 def center_crop(img: np.ndarray, ch: int, cw: int) -> np.ndarray:
@@ -120,16 +183,19 @@ def to_float_chw_free(img: np.ndarray, mean, std) -> np.ndarray:
 class CanvasTransform:
     """Canvas: resize (shorter side, or square without ``maintain_ratio``)
     to ``img_size``, then crop to ``crop`` (``img_size`` when 0) -> uint8
-    HWC. Eval takes the center crop. Training runs the reference order
+    HWC. Eval takes the center crop. Training with ``hflip`` or
+    ``rotate_deg`` (the streaming feed) runs the reference order
     horizontal flip -> rotation by up to ``rotate_deg`` about the full
     canvas -> random crop, with the draws (flip, angle, top, left) of the
-    torchvision stack. Normalisation is not done here."""
+    torchvision stack; with neither (the ``--aug-order crop-first``
+    ablation) only the random crop. Normalisation is not done here."""
 
     img_size: int = 224
     crop: int = 0
     maintain_ratio: bool = True
     training: bool = False
     rotate_deg: float = 0.0
+    hflip: bool = False
     seed: Optional[int] = None
 
     def __post_init__(self):
@@ -146,8 +212,8 @@ class CanvasTransform:
         s, c = self.img_size, self.crop
         img = (resize_shorter(img, s) if self.maintain_ratio
                else resize_square(img, s))
-        if self.training:
-            if r.random() < 0.5:
+        if self.training and (self.hflip or self.rotate_deg):
+            if self.hflip and r.random() < 0.5:
                 img = img[:, ::-1]
             deg = float(self.rotate_deg)
             angle = r.uniform(-deg, deg) if deg else 0.0
@@ -161,6 +227,8 @@ class CanvasTransform:
                 img = rotate_crop_window(img, angle, top, left, c, c)
             else:
                 img = img[top:top + c, left:left + c]
+        elif self.training:
+            img = random_crop(img, c, c, r)
         else:
             img = center_crop(img, c, c)
         return np.ascontiguousarray(img)

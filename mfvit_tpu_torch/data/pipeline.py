@@ -3,7 +3,9 @@
 the GIL) and a bounded queue keeps a few batches ready. Training loaders
 shuffle with ``seed + epoch`` and drop the last short batch; eval loaders
 keep the order and pad the last short batch by wrapping (``pad_final``) so
-every batch has the same shape; the caller trims with ``len(loader.ds)``."""
+every batch has the same shape; the caller trims with ``len(loader.ds)``.
+``device_prefetch`` moves the batches to the card one step ahead, from
+pinned memory on a side CUDA stream."""
 from __future__ import annotations
 
 import queue
@@ -12,6 +14,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Sequence
 
 import numpy as np
+import torch
 
 
 def _collate(samples: Sequence) -> tuple:
@@ -107,3 +110,42 @@ class BatchLoader:
                     q.get_nowait()
                 except queue.Empty:
                     t.join(timeout=0.1)
+
+
+def device_prefetch(it: Iterator, device) -> Iterator:
+    """The batches of ``it`` (tuples of numpy arrays) as tuples of tensors
+    on ``device``. On CUDA each batch is pinned and copied on a side stream
+    one step ahead of its use; the consumer's stream waits on the copy's
+    event and the tensors are recorded on it, so the caching allocator
+    does not reuse their memory early. On the CPU the arrays pass through
+    as tensors that share their memory."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        for batch in it:
+            yield tuple(torch.from_numpy(np.asarray(x)) for x in batch)
+        return
+    side = torch.cuda.Stream(device)
+    pending = []
+
+    def put(batch):
+        host = [torch.from_numpy(np.asarray(x)).pin_memory() for x in batch]
+        with torch.cuda.stream(side):
+            out = tuple(h.to(device, non_blocking=True) for h in host)
+            ev = torch.cuda.Event()
+            ev.record(side)
+        return out, ev
+
+    def take():
+        out, ev = pending.pop(0)
+        cur = torch.cuda.current_stream(device)
+        cur.wait_event(ev)
+        for t in out:
+            t.record_stream(cur)
+        return out
+
+    for batch in it:
+        pending.append(put(batch))
+        if len(pending) == 2:
+            yield take()
+    while pending:
+        yield take()

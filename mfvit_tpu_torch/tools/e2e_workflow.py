@@ -2,23 +2,25 @@
 ``tools/e2e_workflow.py``: synthetic class-separable paired images, MoCo
 pretraining with ``--export-torch``, LP ``finetune --pretrained`` on its
 ``checkpoint_torch.pth.tar``, ``fuse`` with both branches from the LP
-``model_best``, then ``infer`` on fuse's ``model_best``. Each stage runs
-through its CLI's ``main(argv)``; the checkpoints pass from stage to stage
-as files.
+``model_best``, then ``infer`` on fuse's ``model_best``; then pretrain and
+LP finetune again through the device canvas store (square resize), each
+checked for its store notice. Each stage runs through its CLI's
+``main(argv)``; the checkpoints pass from stage to stage as files.
 
     python -m mfvit_tpu_torch.tools.e2e_workflow [--root DIR] \\
         [--device cuda] [-a vit_small] [--img-size 224]
 
 On the CPU: ``--device cpu -a vit_test --img-size 32 --compute-dtype
 float32 --fusion-heads 2``. Prints and returns ``infer``'s output
-(``metrics``: AUC, top-1, precision, recall, F1). JAX's second half, the
-same stages through its device canvas store, waits for that store
-(ROADMAP.md section 1, item 5).
+(``metrics``: AUC, top-1, precision, recall, F1) with the store half's
+LP result under ``store_lp_test_auc``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
+import io
 import os
 import tempfile
 
@@ -123,7 +125,42 @@ def main(argv=None) -> dict:
         os.path.join(cds, "test_ds.txt"), "--output",
         os.path.join(root, "preds.json"), "-b", "8"])
     print("E2E OK:", out["metrics"])
+
+    # the same workflow through the device canvas store (square resize,
+    # --device-store-mb at its default): the fill decodes each image once
+    store_common = [a for a in common if a != "--maintain-ratio"]
+    print("=== pretrain, device canvas store (square resize) ===")
+    _with_notice(pretrain.main, store_common + [
+        "--storage-root", os.path.join(root, "pre_store"), "-b", "16",
+        "--epochs", "2", "--warmup-epochs", "0", "--cos", "--lr", "1.5e-4",
+        "--optimizer", "adamw", "--wd", "0.1", "--moco-dim", "64",
+        "--moco-mlp-dim", "256", "--moco-k", "64", "--moco-t", "0.2",
+        "--moco-m-cos", "--stop-grad-conv1"])
+    print("=== LP finetune, device canvas store ===")
+    (res,) = _with_notice(finetune.main, store_common + [
+        "--storage-root", os.path.join(root, "lp_store"), "-b", "16",
+        "--epochs", "2", "--cos", "--lr", "0.3", "--optimizer", "sgd",
+        "--pretrained", moco_ck])
+    print("store-path LP test auc", res.test_auc)
+    print("E2E STORE PATH OK")
+    out["store_lp_test_auc"] = res.test_auc
     return out
+
+
+STORE_NOTICE = "=> device canvas store: "
+
+
+def _with_notice(main, argv):
+    """``main(argv)``, its output passed on; raises unless it printed the
+    training store's fill notice."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = main(argv)
+    text = buf.getvalue()
+    print(text, end="")
+    if STORE_NOTICE + "does not fit" in text or STORE_NOTICE not in text:
+        raise RuntimeError("the device canvas store did not engage")
+    return res
 
 
 if __name__ == "__main__":

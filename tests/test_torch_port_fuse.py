@@ -238,7 +238,7 @@ def test_fuse_cli_matches_jax_step_plan_and_infer_serves_it(covid_root,
         extra = ["--semi-supervised"] if mode == "semi" else []
         (res,) = fuse.main(FLAGS + extra + branches + [
             "--covid-ds", ds, "--storage-root", str(root), "--device",
-            "cpu"])
+            "cpu", "--device-store-mb", "0"])
         out = capsys.readouterr().out
         assert PROGRESS.findall(out) == want
         assert len(res.extra["train_losses"]) == 4

@@ -229,9 +229,8 @@ def _chex_tf(ht, img_type, seed):
 
 
 def _canvas(ht, seed):
-    kw = {} if ht is pht else {"hflip": True}
     return ht.CanvasTransform(img_size=40, crop=32, training=True,
-                              rotate_deg=10.0, seed=seed, **kw)
+                              rotate_deg=10.0, hflip=True, seed=seed)
 
 
 def _datasets(m, ht, root, case):

@@ -172,7 +172,7 @@ def test_finetune_cli_matches_jax_step_plan(covid_root, capsys):
         extra = ["--semi-supervised"] if mode == "ft" else []
         (res,) = finetune.main(FLAGS + extra + [
             "--covid-ds", ds, "--storage-root", str(root), "--device",
-            "cpu"])
+            "cpu", "--device-store-mb", "0"])
         out = capsys.readouterr().out
         assert PROGRESS.findall(out) == want
         assert len(res.extra["train_losses"]) == 4
