@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MF-ViT CA serving path (bf16, int8 W8A8 and
-the XLA-level W8A8 trees of ``quantize_vit_params``), its ViT fine-tuning
+the XLA-level W8A8 trees of ``quantize_vit_params``; the reference
+checkpoint layout and ``--attn-backend xla``), its ViT fine-tuning
 path, its fusion training (``cli/fuse``, with the CA and the GPT head),
 the ViT + CNN cross-attention head, its MoCo pretraining
 (``cli/pretrain``), its data path (the device canvas store and the views
@@ -40,7 +41,19 @@ Phases, in order; any failure raises and exits non-zero:
    forward), top-1 agreement with the plain int8 path in bf16 on the card
    (I8_TOP1_MISSES says why no tighter end-to-end bar); then every K10/K11
    call of one int8 forward (48) held on its own input by the branch bars
-   of phase 5, which every control must fail at every call;
+   of phase 5, which every control must fail at every call; then
+   checkpoint interop and ``--attn-backend`` (``run_interop``, vit_small,
+   B=256): the ``save_serving`` file and the reference layout (``vits.py``
+   branch ``.pth.tar``s, a ``Fus_CrossViT`` head) served alike bit for
+   bit through K1-K4; whether ``tensorstore`` imports (if so a tree
+   written in orbax's layout is read back, else ``infer`` on an orbax
+   directory must exit naming the converter); ``infer
+   --report-throughput`` on the kernel route and ``--attn-backend xla``
+   (kernels, xla, xla, kernels): every kernel 0 on the XLA route, its
+   decision logits within XLA_BAR of the kernels' in bf16 and within
+   XLA_F32_BAR of the plain path in fp32, wrong attentions failing
+   XLA_BAR, both routes' pairs/s and a profile of the XLA route; one
+   ``finetune --attn-backend xla`` step, every kernel 0;
 7. the stand-alone attention kernels K12 (packed qkv), K13 (B, H, N, dh)
    and K14 (transposed packed qkv) against their plain fp32 versions on
    the same bf16 values (rel < 2e-2) and against their plain bf16
@@ -1309,51 +1322,62 @@ def time_mhsa(dev, label: str, B: int, N: int, D: int, heads: int,
     return times
 
 
-def profile_quant(dev, B: int = 256) -> dict:
-    """One ``torch.profiler`` window over two forwards of the quant path at
-    batch B (224 px, the models of ``quant_models``): the device time per
-    forward by the PyTorch operator (or autograd Function) that launched
-    it, the twelve largest with their calls per forward, and that of K12's
-    kernels; the launches per forward that waited for a full queue; and
-    the device's busy share of the window (the profiler's own cost
-    included)."""
+def profile_forward(fwd, models, xc, xe, iters: int = 2) -> dict:
+    """One ``torch.profiler`` window over ``iters`` paired forwards (logits
+    fetched each time) after a warm one: the host's ms per forward, the
+    device's busy ms per forward (the profiler's own cost included), the
+    launches per forward that waited for a full queue, the device ms per
+    forward of each launching PyTorch operator (or autograd Function)
+    with its calls, and each kernel's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    sum(fwd(models, xc, xe)).cpu()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            sum(fwd(models, xc, xe)).cpu()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    avgs = prof.key_averages()
+    kernels = {e.key: e.self_device_time_total / (iters * 1e3) for e in avgs
+               if e.device_type == DeviceType.CUDA}
+    # "Command Buffer Full" marks a launch that waited for room in the
+    # queue (the host ahead of the device); the profiler also hands it the
+    # device time of those kernels, which their operators already count
+    full = {e.key: e.count // iters for e in avgs}.get("Command Buffer Full",
+                                                         0)
+    by_op = {e.key: (e.self_device_time_total / (iters * 1e3),
+                     e.count // iters)
+             for e in avgs if e.device_type == DeviceType.CPU
+             and e.self_device_time_total > 0
+             and e.key != "Command Buffer Full"}
+    return {"wall_ms": wall_ms, "device_ms": sum(kernels.values()),
+            "queue_full_per_forward": full, "kernels": kernels,
+            "by_op": sorted(by_op.items(), key=lambda kv: -kv[1][0])}
+
+
+def profile_quant(dev, B: int = 256) -> dict:
+    """``profile_forward`` over two forwards of the quant path at batch B
+    (224 px, the models of ``quant_models``): the twelve operators with
+    the most device time and the time of K12's kernels."""
     from mfvit_tpu_torch.train.steps import make_fusion_forward
     models = quant_models(dev, 224)
     g = torch.Generator().manual_seed(21)
     xc, xe = (torch.randn(B, 224, 224, 3, generator=g).to(dev, torch.bfloat16)
               for _ in range(2))
-    fwd = make_fusion_forward()
-    sum(fwd(models, xc, xe)).cpu()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(2):
-            sum(fwd(models, xc, xe)).cpu()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    avgs = prof.key_averages()
-    kernels = {e.key: e.self_device_time_total / 2e3 for e in avgs
-               if e.device_type == DeviceType.CUDA}
-    busy = sum(kernels.values())
-    # "Command Buffer Full" marks a launch that waited for room in the
-    # queue (the host ahead of the device); the profiler also hands it the
-    # device time of those kernels, which their operators already count
-    full = {e.key: e.count // 2 for e in avgs}.get("Command Buffer Full", 0)
-    by_op = {e.key: (e.self_device_time_total / 2e3, e.count // 2)
-             for e in avgs if e.device_type == DeviceType.CPU
-             and e.self_device_time_total > 0
-             and e.key != "Command Buffer Full"}
-    k12 = sum(v for k, v in kernels.items() if "mhsa::" in k)
-    top = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:12]
-    print(f"quant path at B={B}, profiled: {wall_ms / 2:.1f} ms per forward "
+    prof = profile_forward(make_fusion_forward(), models, xc, xe)
+    wall, busy, full = (prof[k] for k in ("wall_ms", "device_ms",
+                                          "queue_full_per_forward"))
+    k12 = sum(v for k, v in prof["kernels"].items() if "mhsa::" in k)
+    top = prof["by_op"][:12]
+    print(f"quant path at B={B}, profiled: {wall:.1f} ms per forward "
           f"on the host clock, device busy {busy:.1f} ms per forward "
-          f"({busy / (wall_ms / 2):.1%}); launches that waited for a full "
+          f"({busy / wall:.1%}); launches that waited for a full "
           f"queue {full} per forward; device ms per forward by operator: "
           + "; ".join(f"{k} {v:.2f} ms x{n}" for k, (v, n) in top)
           + f"; K12's kernels {k12:.2f} ms")
-    return {"wall_ms": wall_ms / 2, "device_ms": busy,
+    return {"wall_ms": wall, "device_ms": busy,
             "queue_full_per_forward": full,
             "by_op": [[k, v, n] for k, (v, n) in top], "k12_ms": k12}
 
@@ -2867,15 +2891,21 @@ class _Tee:
         self.out.flush()
 
 
-def _teed(main, argv) -> tuple:
-    """(the first result of ``main(argv)``, what it printed)."""
+def _captured(main, argv) -> tuple:
+    """(``main(argv)``, what it printed)."""
     tee = _Tee(sys.stdout)
     sys.stdout = tee
     try:
-        res = main(argv)[0]
+        res = main(argv)
     finally:
         sys.stdout = tee.out
     return res, "".join(tee.parts)
+
+
+def _teed(main, argv) -> tuple:
+    """(the first result of ``main(argv)``, what it printed)."""
+    res, text = _captured(main, argv)
+    return res[0], text
 
 
 def fusion_head(arch: str, gen):
@@ -4242,6 +4272,310 @@ def time_fusion(dev, B: int, iters: int, arch: str = "ca") -> dict:
     return out
 
 
+# --attn-backend xla, decision logits at vit_small B=256, rel = max|diff| /
+# max|ref|. In fp32 the XLA route computes the kernels' function with fp32
+# sums in other orders (cuBLAS against the plain versions, the regrouped
+# K4 sums against the full-sequence encode), so it is held to the plain
+# fp32 path within XLA_F32_BAR: a few fp32 roundings of 1,536-term sums.
+# In bf16 it rounds at some three times as many points as the kernels
+# (each linear's product and then its bias sum, each of the exact GELU's
+# four steps, P before P.V), so it sits further from the fp32 function than
+# the kernels' rounding does; it is held to the kernel route within XLA_BAR
+# (2.5 REL_BAR), a bar wrong attentions (``xla_controls``) must fail in
+# the same run. On an H100 at 700 W the bf16 route sits 2.86e-2 from the
+# kernels' logits, and the kernels' own bf16 logits 2.04e-2 from the plain
+# fp32 path's; the fp32 gate is the one that holds the route's math.
+XLA_F32_BAR = 1e-4
+XLA_BAR = 2.5 * REL_BAR
+
+
+def xla_controls(xla_route) -> dict:
+    """Wrong versions of the XLA route's attention, which XLA_BAR must
+    tell from the right one: the scores without their scale, and with
+    the scale applied twice."""
+    mhsa = xla_route.mhsa
+    return {"unscaled scores": lambda qkv, heads, scale: mhsa(qkv, heads,
+                                                             1.0),
+            "scale squared": lambda qkv, heads, scale: mhsa(qkv, heads,
+                                                           scale * scale)}
+
+
+def write_orbax_tree(path: str, tree: dict) -> bool:
+    """``tree`` (nested dicts and lists of numpy arrays) in orbax 0.11's
+    layout, as the JAX package's ``save`` writes it: ``_METADATA`` (each
+    leaf's path, ``key_type`` 1 for a list index and 2 for a dict key) and,
+    where ``tensorstore`` is importable, every array as a zstd-compressed
+    zarr array in an OCDBT store at ``path``. Returns whether the arrays
+    were written."""
+    entries, arrays = {}, []
+
+    def walk(node, keys):
+        if isinstance(node, (dict, list)) and node:
+            kind = 2 if isinstance(node, dict) else 1
+            for k, v in (node.items() if kind == 2 else enumerate(node)):
+                walk(v, keys + [(str(k), kind)])
+            return
+        meta = {"key_metadata": [{"key": k, "key_type": t} for k, t in keys]}
+        if isinstance(node, (dict, list)):
+            meta["value_metadata"] = {
+                "value_type": "Dict" if isinstance(node, dict) else "List",
+                "skip_deserialize": True}
+        else:
+            meta["value_metadata"] = {"value_type": "np.ndarray",
+                                      "skip_deserialize": False}
+            arrays.append((".".join(k for k, _ in keys), np.asarray(node)))
+        entries[str(tuple(k for k, _ in keys))] = meta
+
+    walk(tree, [])
+    os.makedirs(path)
+    with open(os.path.join(path, "_METADATA"), "w") as f:
+        json.dump({"tree_metadata": entries, "use_ocdbt": True,
+                   "use_zarr3": False,
+                   "store_array_data_equal_to_fill_value": True,
+                   "custom_metadata": None}, f)
+    try:
+        import tensorstore as ts
+    except ImportError:
+        return False
+    ctx = ts.Context()
+    for name, a in arrays:
+        store = ts.open({"driver": "zarr", "kvstore": {
+            "driver": "ocdbt", "base": f"file://{path}/", "path": name},
+            "metadata": {"compressor": {"id": "zstd", "level": 1},
+                         "shape": list(a.shape), "chunks": list(a.shape),
+                         "dtype": a.dtype.str}},
+            create=True, context=ctx).result()
+        store.write(a).result()
+    return True
+
+
+def _tree_equal(got, want) -> bool:
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and sorted(got) == sorted(want)
+                and all(_tree_equal(got[k], want[k]) for k in want))
+    if isinstance(want, list):
+        return (isinstance(got, list) and len(got) == len(want)
+                and all(_tree_equal(g, w) for g, w in zip(got, want)))
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and got.tobytes() == want.tobytes())
+
+
+def run_interop(dev, tmp: str, B: int = 256) -> dict:
+    """Checkpoint interop and ``--attn-backend`` at vit_small, 224 px:
+
+    - seeded serving weights (non-zero biases) written as a
+      ``save_serving`` file and in the reference layout (each branch a
+      ``.pth.tar`` of ``vits.py`` names, the head a ``Fus_CrossViT``
+      ``.pth.tar``, both as DDP saves them: ``{'state_dict': ...}`` with
+      ``module.``); each loaded as a user would (``infer.load_models``;
+      ``load_vit_state`` and ``load_reference_fusion``) and served on one
+      batch of B pairs through K1-K4 (the counts of one paired forward
+      each): the decision logits equal bit for bit;
+    - whether ``tensorstore`` is importable: if not, ``infer --checkpoint``
+      on an orbax-layout directory must exit naming the converter; if so,
+      a tree written in orbax's layout with tensorstore is read back by
+      ``orbax_io.read_tree`` bit for bit;
+    - ``infer`` with ``--report-throughput`` on B pairs at -b B, the kernel
+      route and ``--attn-backend xla`` (kernel, xla, xla, kernel): launch
+      counts (PER_FORWARD per forward, and every kernel 0 on the XLA
+      route), the route line each prints first, the decision logits
+      within XLA_BAR, and both routes' pairs/s;
+    - one ``finetune --semi-supervised --attn-backend xla`` step (B=32): a
+      finite loss, every kernel 0.
+    Returns the numbers the report keeps."""
+    import importlib.util
+
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.cli import finetune, infer
+    from mfvit_tpu_torch.exp import checkpoint as ckpt
+    from mfvit_tpu_torch.exp import orbax_io
+    from mfvit_tpu_torch.models.fusion import Fusion
+    from mfvit_tpu_torch.nn import xla_route
+    from mfvit_tpu_torch.nn.vit import ViT, get_config
+    from mfvit_tpu_torch.train.steps import make_fusion_forward
+
+    cfg = get_config("vit_small")
+    gens = [torch.Generator().manual_seed(s) for s in (41, 42, 43)]
+    src = {"cxr": ViT(cfg, 3, generator=gens[0]),
+           "enh": ViT(cfg, 3, generator=gens[1]),
+           "fus": Fusion(3, cfg.dim, 3, generator=gens[2])}
+    for k, m in src.items():
+        nonzero_biases(m, gens[0])
+    native = os.path.join(tmp, "serving.pt")
+    ckpt.save_serving(native, *(src[k].state_dict() for k in ("cxr", "enh",
+                                                              "fus")))
+    ref = {}
+    for k, m in src.items():
+        ref[k] = os.path.join(tmp, f"{k}.pth.tar")
+        torch.save({"epoch": 0, "state_dict": {
+            f"module.{n}": v for n, v in m.state_dict().items()}}, ref[k])
+    pairs = os.path.join(tmp, "pairs")
+    os.makedirs(pairs)
+    man = write_pairs(pairs, B, seed=44)
+    argv = ["-a", "vit_small", "-b", str(B), "--device", dev.type,
+            "--checkpoint", native, "--manifest", man, "-j", "8",
+            "--output", os.path.join(tmp, "predictions.json"),
+            "--report-throughput"]
+    args = infer.build_parser().parse_args(argv)
+    models_native = infer.load_models(args, cfg, dev)
+    models_ref = {"cxr": ViT(cfg, 3), "enh": ViT(cfg, 3),
+                  "fus": Fusion(3, cfg.dim, 3)}
+    for k in ("cxr", "enh"):
+        models_ref[k].load_state_dict(ckpt.load_vit_state(ref[k], cfg),
+                                      strict=True)
+    ckpt.load_reference_fusion(ref["fus"], models_ref["fus"])
+    for m in models_ref.values():
+        m.to(dev).eval()
+    from mfvit_tpu_torch.cli import common
+    batch = next(iter(common.make_paired_loader(args, man)))
+    xc, xe = infer.prepare(batch, dev, torch.bfloat16)
+    fwd = make_fusion_forward()
+    logits = {}
+    for name, models in (("native", models_native),
+                         ("reference layout", models_ref)):
+        ops.reset_launch_counts()
+        logits[name] = sum(fwd(models, xc, xe))
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        want = {k: PER_FORWARD.get(k, 0) for k in got}
+        if got != want:
+            raise AssertionError(f"{name} load at B={B}: launch counts {got}"
+                                 f" != {want}")
+    same = torch.equal(logits["native"], logits["reference layout"])
+    print(f"serving at B={B} from the save_serving file and from the "
+          f"reference layout (vits.py branches, Fus_CrossViT head): logits "
+          f"equal bit for bit: {same}; K1-K4 {PER_FORWARD} a forward each")
+    if not same:
+        raise AssertionError("the reference-layout load serves other logits")
+
+    has_ts = importlib.util.find_spec("tensorstore") is not None
+    print(f"tensorstore importable: {has_ts}")
+    tree = {"cxr": {"cls": src["cxr"].cls_token.detach().numpy(),
+                    "blocks": [{"w": blk.attn.qkv.weight.detach().numpy().T,
+                                "b": blk.attn.qkv.bias.detach().numpy()}
+                               for blk in src["cxr"].blocks[:2]]},
+            "epoch": np.asarray(3, np.int32), "empty": {}}
+    tdir = os.path.join(tmp, "orbax_model_best")
+    if write_orbax_tree(tdir, tree) != has_ts:
+        raise AssertionError("tensorstore wrote where it is missing, or not "
+                             "where it is importable")
+    if has_ts:
+        read = orbax_io.read_tree(tdir)
+        if not _tree_equal(read, tree):
+            raise AssertionError("read_tree differs from the tree written")
+        print("read_tree on a tree written in orbax's layout: equal bit for "
+              "bit")
+        refusal = None
+    else:
+        try:
+            infer.main([tdir if a == native else a for a in argv])
+        except SystemExit as e:
+            refusal = str(e)
+        else:
+            raise AssertionError("infer read an orbax directory without "
+                                 "tensorstore")
+        if orbax_io.CONVERTER not in refusal or tdir not in refusal:
+            raise AssertionError(f"the refusal names no converter: "
+                                 f"{refusal}")
+        print(f"infer --checkpoint <orbax dir> without tensorstore: "
+              f"{refusal}")
+
+    rates = {"kernels": [], "xla": []}
+    outs = {}
+    forwards = 1 + 1 + infer.THROUGHPUT_ITERS
+    for route in ("kernels", "xla", "xla", "kernels"):
+        extra = ["--attn-backend", "xla"] if route == "xla" else []
+        ops.reset_launch_counts()
+        out, text = _captured(infer.main, argv + extra)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        want = {k: (0 if route == "xla" else PER_FORWARD.get(k, 0) * forwards)
+                for k in got}
+        if got != want:
+            raise AssertionError(f"infer on the {route} route: launch counts "
+                                 f"{got} != {want}")
+        line = xla_route.describe("xla" if route == "xla" else None)
+        if text.splitlines()[0] != line:
+            raise AssertionError(f"infer's first line {text.splitlines()[0]!r}"
+                                 f" is not {line!r}")
+        rates[route].append(out["pairs_per_sec"])
+        outs[route] = torch.tensor(out["logits"])
+    r = rel(outs["xla"], outs["kernels"])
+    agree = (outs["xla"].argmax(-1) == outs["kernels"].argmax(-1)).float()
+    print(f"infer --attn-backend xla against the kernel route at B={B}: "
+          f"decision logits rel {r:.3e} (bar {XLA_BAR}), top-1 agreement "
+          f"{agree.mean():.4f}; pairs/s kernels "
+          + " / ".join(f"{v:.1f}" for v in rates["kernels"]) + ", xla "
+          + " / ".join(f"{v:.1f}" for v in rates["xla"])
+          + " (bf16, device-resident batch, logits fetched every forward)")
+    if not (math.isfinite(r) and r < XLA_BAR):
+        raise AssertionError(f"--attn-backend xla: rel {r} vs the kernels")
+
+    # the same batch on the card: the XLA route in fp32 against the plain
+    # fp32 path, each bf16 route's distance from it, the control
+    x32 = infer.prepare(batch, dev, torch.float32)
+    plain32 = sum(make_fusion_forward(compute_dtype=torch.float32,
+                                      reference=True)(models_native, *x32))
+    xla32 = sum(make_fusion_forward(compute_dtype=torch.float32,
+                                    attn_backend="xla")(models_native, *x32))
+    xla_fwd = make_fusion_forward(attn_backend="xla")
+    xla16 = sum(xla_fwd(models_native, xc, xe))
+    r32, r16 = rel(xla32, plain32), rel(xla16, logits["native"])
+    controls = {}
+    for name, wrong in xla_controls(xla_route).items():
+        keep = xla_route.mhsa
+        xla_route.mhsa = wrong
+        try:
+            controls[name] = rel(sum(xla_fwd(models_native, xc, xe)),
+                                 logits["native"])
+        finally:
+            xla_route.mhsa = keep
+    print(f"the XLA route at B={B}: fp32 against the plain fp32 path rel "
+          f"{r32:.3e} (bar {XLA_F32_BAR}); bf16 against the kernel route rel "
+          f"{r16:.3e} (bar {XLA_BAR}); against the plain fp32 path the "
+          f"kernels' bf16 logits rel {rel(logits['native'], plain32):.3e}, "
+          f"the XLA route's {rel(xla16, plain32):.3e}; controls "
+          + ", ".join(f"{k} {v:.3e}" for k, v in controls.items()))
+    if not (r32 < XLA_F32_BAR and r16 < XLA_BAR):
+        raise AssertionError(f"the XLA route: fp32 rel {r32}, bf16 rel {r16}")
+    if not all(v >= XLA_BAR for v in controls.values()):
+        raise AssertionError(f"a wrong XLA route passes XLA_BAR: {controls}")
+    prof = profile_forward(xla_fwd, models_native, xc, xe)
+    print(f"the XLA route at B={B}, profiled: {prof['wall_ms']:.1f} ms per "
+          f"forward on the host clock, device busy {prof['device_ms']:.1f} "
+          f"ms ({prof['device_ms'] / prof['wall_ms']:.1%}); launches that "
+          f"waited for a full queue {prof['queue_full_per_forward']} per "
+          "forward; device ms per forward by operator: "
+          + "; ".join(f"{k} {v:.2f} ms x{n}"
+                      for k, (v, n) in prof["by_op"][:12]))
+
+    man_ft = write_covid_ds(os.path.join(tmp, "ds"), 32, seed=45)
+    ops.reset_launch_counts()
+    (res,), text = _captured(finetune.main, [
+        "-a", "vit_small", "-b", "32", "--epochs", "1", "--draws", "1",
+        "--covid-ds", man_ft, "--lr", "0.01", "-j", "8", "-p", "1",
+        "--device", dev.type, "--semi-supervised", "--attn-backend", "xla",
+        "--storage-root", os.path.join(tmp, "ft_xla")])
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    losses = res.extra["train_losses"]
+    print(f"finetune --attn-backend xla: {len(losses)} step, loss "
+          f"{losses}; launch counts {got}")
+    if (len(losses) != 1 or not all(math.isfinite(v) for v in losses)
+            or any(got.values())
+            or text.splitlines()[0] != xla_route.describe("xla")):
+        raise AssertionError("finetune --attn-backend xla: losses "
+                             f"{losses}, launch counts {got}")
+    return {"reference_layout_equal": same, "tensorstore": has_ts,
+            "xla_rel_vs_kernels": r, "xla_top1_agreement":
+                agree.mean().item(), "xla_f32_rel_vs_plain_f32": r32,
+            "xla_controls_rel": controls,
+            "pairs_per_sec_B256": rates,
+            "xla_profile_B256": {k: prof[k] for k in (
+                "wall_ms", "device_ms", "queue_full_per_forward")}
+            | {"by_op": [[k, v, n] for k, (v, n) in prof["by_op"][:12]]}}
+
+
 def main() -> int:
     smi = environment()
     dev = torch.device("cuda")
@@ -4271,6 +4605,12 @@ def main() -> int:
         i8_counts = run_slice(dev, tmp, int8=True)
     counts.update({k: i8_counts[k] for k in PER_I8_FORWARD
                    if k != "fused_fusion_cls"})
+
+    phase("checkpoint interop and --attn-backend: the save_serving file "
+          "against the reference layout, tensorstore, infer on the kernel "
+          "and the XLA route (vit_small, B=256), finetune --attn-backend xla")
+    with tempfile.TemporaryDirectory() as tmp:
+        interop = run_interop(dev, tmp)
 
     phase("stand-alone attention kernels K12/K13/K14 against their plain "
           "versions")
@@ -4548,6 +4888,7 @@ def main() -> int:
                           for k, v in long_times.items()},
                       "k9_k10_k11_stages_ms": long_stages,
                       "k9_k10_k11_outputs_differ_from_former": long_former,
+                      "interop": interop,
                       "card": smi}))
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

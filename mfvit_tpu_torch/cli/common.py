@@ -22,6 +22,7 @@ from mfvit_tpu_torch.data import pipeline
 from mfvit_tpu_torch.models import fusion, gpt_fusion
 from mfvit_tpu_torch.nn import resnet as resnet_mod
 from mfvit_tpu_torch.nn import vit as vit_mod
+from mfvit_tpu_torch.nn import xla_route
 from mfvit_tpu_torch.train.evaluator import Evaluator
 
 
@@ -37,6 +38,16 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    action="store_true")
     p.add_argument("--compute-dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
+    p.add_argument("--attn-backend", default=None,
+                   choices=list(xla_route.ATTN_BACKENDS),
+                   help="attention backend, JAX's choices: unset, auto and "
+                        "pallas run the port's own kernels (JAX's auto "
+                        "picks Pallas only on a TPU; the card is the "
+                        "port's platform, so its auto picks the port's "
+                        "kernels), their plain versions on the CPU; xla "
+                        "runs JAX's XLA route in eager torch ops (unfused "
+                        "blocks, fp32 softmax, the fusion head's "
+                        "full-sequence encode), no kernel")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises where CUDA is missing")
     p.add_argument("--aug-device", action="store_true", default=True,
@@ -158,6 +169,27 @@ def fusion_head(args, cfg, generator=None) -> torch.nn.Module:
 
 def compute_dtype(args) -> torch.dtype:
     return torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+
+
+def add_fusion_args(p: argparse.ArgumentParser) -> None:
+    """The fusion head's flags of ``fuse`` and ``infer`` (and the
+    converter's ``serving`` kind), which a checkpoint's head must match."""
+    p.add_argument("--fusion-arch", default="ca", choices=["ca", "gpt"],
+                   help="fusion head: 'ca' = MF-ViT CA CLS cross-attention; "
+                        "'gpt' = TransFuser-style joint-sequence GPT; a "
+                        "checkpoint's must match")
+    p.add_argument("--gpt-layers", type=int, default=8,
+                   help="GPT fusion depth (GlobalConfig n_layer)")
+    p.add_argument("--fusion-heads", type=int, default=3)
+    p.add_argument("--cross-attn-depth", type=int, default=1)
+    p.add_argument("--multi-scale-enc-depth", type=int, default=1)
+    p.add_argument("--num-classes", type=int, default=3)
+
+
+def print_route(args) -> None:
+    """A run's first line: which attention route ``--attn-backend`` takes
+    (``nn.xla_route.describe``)."""
+    print(xla_route.describe(args.attn_backend), flush=True)
 
 
 def resolve_device(name: str) -> torch.device:

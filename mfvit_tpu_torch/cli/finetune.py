@@ -22,13 +22,18 @@ rotation about the full canvas, crop) from the (draw, epoch) generator of
 ``--maintain-ratio``, ``--device-store-mb 0`` or a split over the budget
 the host streams canvases augmented in the reference order (only cropped
 under ``--aug-order crop-first``, the device then flips and rotates);
-``--aug-host`` streams the full host stack's floats. Not ported yet
-(ROADMAP.md): ``--attn-backend``, the distributed flags, TensorBoard and
-``lr.jpg``; ``--pretrained`` takes ``.pth.tar`` files only.
+``--aug-host`` streams the full host stack's floats. ``--pretrained``
+takes a MoCo ``.pth.tar``, a JAX orbax directory (``exp/orbax_io.py``;
+where ``tensorstore`` is missing, the file ``tools/convert_orbax.py
+--kind pretrain`` writes on the host that wrote it) or the port's own
+pretrain checkpoint. ``--attn-backend xla`` trains on JAX's XLA route
+(``nn/xla_route.py``), no kernel. Not ported yet (ROADMAP.md): the
+distributed flags, TensorBoard and ``lr.jpg``.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
@@ -36,7 +41,7 @@ from mfvit_tpu_torch.cli import common
 from mfvit_tpu_torch.data import device_aug
 from mfvit_tpu_torch.data import manifest as mf
 from mfvit_tpu_torch.exp import checkpoint as ckpt_mod
-from mfvit_tpu_torch.exp import harness, storage
+from mfvit_tpu_torch.exp import harness, orbax_io, storage
 from mfvit_tpu_torch.nn import vit as vit_mod
 from mfvit_tpu_torch.train import metrics, optim, profiler, steps
 
@@ -48,7 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", default="sgd",
                    choices=["sgd", "adam", "adamw", "lars"])
     p.add_argument("--pretrained", default="", type=str,
-                   help="MoCo checkpoint (.pth.tar)")
+                   help="MoCo checkpoint: .pth.tar via the torch surgery, "
+                        "a JAX orbax dir, or the port's pretrain "
+                        "checkpoint file")
     p.add_argument("--semi-supervised", dest="semi_supervised",
                    action="store_true",
                    help="full finetune (train the whole backbone)")
@@ -60,14 +67,31 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_backbone(args, cfg):
-    """The MoCo base encoder's state dict (no head), or None."""
-    if not args.pretrained:
+    """The pretrained backbone's ``nn.vit.ViT`` state dict without a head,
+    or None, as ``mfvit_tpu/cli/finetune.py::load_backbone`` (:54-68)
+    takes it: a ``.pth``/``.pth.tar``/``.pt`` through the MoCo surgery; a
+    JAX orbax directory (``exp/orbax_io.py``), a bare encoder tree or a
+    pretrain checkpoint whose ``state.base.encoder`` is taken; or the
+    port's own file of either kind (``pretrain``'s ``checkpoint_*``, whose
+    ``base.encoder.`` entries are taken, or a ViT state dict). Any head
+    is dropped: the draw gets a fresh one."""
+    path = args.pretrained
+    if not path:
         return None
-    if not args.pretrained.endswith((".pth", ".pth.tar", ".pt")):
-        raise SystemExit(f"--pretrained {args.pretrained}: the port reads "
-                         "MoCo .pth.tar checkpoints only (orbax is not "
-                         "ported)")
-    return ckpt_mod.load_moco_pretrained_backbone(args.pretrained, cfg)
+    if path.endswith((".pth", ".pth.tar", ".pt")):
+        return ckpt_mod.load_moco_pretrained_backbone(path, cfg)
+    if os.path.isdir(path):
+        tree = orbax_io.read_tree(path, "pretrain")
+        if isinstance(tree, dict) and "state" in tree:
+            tree = tree["state"]
+        if isinstance(tree, dict) and "base" in tree:
+            tree = tree["base"]["encoder"]
+        sd = ckpt_mod.vit_state_from_jax(tree, cfg)
+    else:
+        sd = ckpt_mod.load_pretrain_checkpoint(path)
+        if "state" in sd:
+            sd = ckpt_mod.strip_prefix(sd["state"], "base.encoder.")
+    return {k: v for k, v in sd.items() if not k.startswith("head.")}
 
 
 def make_evaluate(eval_step, args, device):
@@ -141,7 +165,8 @@ def train_one_draw_fn(args, cfg, device):
                                     momentum=args.momentum,
                                     trainable_mask=mask)
         train_step, eval_step = steps.make_classifier_steps(
-            compute_dtype=dt, remat=args.remat)
+            compute_dtype=dt, remat=args.remat,
+            attn_backend=args.attn_backend)
 
         best = ckpt_mod.BestKeeper(sub_folder)
         best_acc = ckpt_mod.BestKeeper(storage.get_storage_sub_folder(
@@ -219,6 +244,7 @@ def main(argv=None):
         raise SystemExit("--resume is not implemented for finetune "
                          "(the reference's resume path is dead code too); "
                          "restart the draw or load via --pretrained")
+    common.print_route(args)
     device = common.resolve_device(args.device)
     cfg = common.get_vit_arch(args)
     exp_type = "finetune" if args.semi_supervised else "linear_probe"

@@ -30,8 +30,12 @@ the (draw, epoch) generator of ``data/device_aug.py``; val and test run
 from paired eval stores. ``--maintain-ratio``, ``--device-store-mb 0`` or
 a split over the budget stream host-augmented canvases (host-cropped
 under ``--aug-order crop-first``); ``--aug-host`` streams the full host
-stack's floats. Not ported yet (ROADMAP.md): orbax ``--pretrained-*``
-directories, ``--attn-backend``, the distributed flags and TensorBoard.
+stack's floats. ``--pretrained-*`` also take JAX ``finetune``'s orbax
+``model_best`` directories (``exp/orbax_io.py``; where ``tensorstore`` is
+missing, the file ``tools/convert_orbax.py --kind branch`` writes on the
+host that wrote them). ``--attn-backend xla`` runs JAX's XLA route
+(``nn/xla_route.py``) in the branches and the CA head, no kernel. Not
+ported yet (ROADMAP.md): the distributed flags and TensorBoard.
 """
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ from mfvit_tpu_torch.cli import common
 from mfvit_tpu_torch.data import device_aug
 from mfvit_tpu_torch.data import manifest as mf
 from mfvit_tpu_torch.exp import checkpoint as ckpt_mod
-from mfvit_tpu_torch.exp import harness, storage
+from mfvit_tpu_torch.exp import harness, orbax_io, storage
 from mfvit_tpu_torch.nn.vit import ViT
 from mfvit_tpu_torch.train import metrics, optim, profiler, steps
 
@@ -61,21 +65,14 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["sgd", "adam", "adamw"])
     p.add_argument("--pretrained-cxr", default="", type=str,
                    help="fine-tuned CXR-branch checkpoint (.pth, .pth.tar, "
-                        ".pt or the port's finetune model_best); may "
-                        "contain {ratio}/{draw} placeholders")
+                        ".pt, the port's finetune model_best or JAX's "
+                        "orbax model_best dir); may contain "
+                        "{ratio}/{draw} placeholders")
     p.add_argument("--pretrained-enh", default="", type=str)
     p.add_argument("--semi-supervised", dest="semi_supervised",
                    action="store_true",
                    help="train the branches too (default: only the head)")
-    p.add_argument("--fusion-arch", default="ca", choices=["ca", "gpt"],
-                   help="fusion head: 'ca' = MF-ViT CA CLS cross-attention; "
-                        "'gpt' = TransFuser-style joint-sequence GPT")
-    p.add_argument("--gpt-layers", type=int, default=8,
-                   help="GPT fusion depth (GlobalConfig n_layer)")
-    p.add_argument("--fusion-heads", type=int, default=3)
-    p.add_argument("--cross-attn-depth", type=int, default=1)
-    p.add_argument("--multi-scale-enc-depth", type=int, default=1)
-    p.add_argument("--num-classes", type=int, default=3)
+    common.add_fusion_args(p)
     p.set_defaults(epochs=25, lr=1.5e-4, batch_size=32)
     return p
 
@@ -91,16 +88,17 @@ def fusion_trainable_mask(named_params) -> dict:
 
 def load_branch(path: str, cfg, ratio, draw) -> Optional[dict]:
     """The state dict of one branch's checkpoint (``{ratio}``/``{draw}``
-    placeholders filled), or None without a path. An orbax directory (the
-    JAX package's checkpoints) raises SystemExit."""
+    placeholders filled), or None without a path: a ``.pth``,
+    ``.pth.tar``, ``.pt`` or the port's own ``finetune`` ``model_best``
+    file, or a directory, JAX ``finetune``'s orbax ``model_best`` (the ViT
+    tree with its head; ``mfvit_tpu/cli/fuse.py::load_branch`` :84-96)
+    read by ``exp/orbax_io.py``."""
     if not path:
         return None
     path = path.format(ratio=ratio, draw=draw)
     if os.path.isdir(path):
-        raise SystemExit(
-            f"{path}: an orbax checkpoint directory; the port reads .pth, "
-            ".pth.tar, .pt files and its own finetune model_best (an orbax "
-            "reader is ROADMAP.md section 1, item 4)")
+        return ckpt_mod.vit_state_from_jax(
+            orbax_io.read_tree(path, "branch"), cfg)
     return ckpt_mod.load_vit_state(path, cfg)
 
 
@@ -165,7 +163,8 @@ def train_one_draw_fn(args, cfg, device):
                                     trainable_mask=mask)
         train_step, eval_step = steps.make_fusion_steps(
             compute_dtype=dt, freeze_backbones=not args.semi_supervised,
-            remat=args.remat, fusion_arch=args.fusion_arch)
+            remat=args.remat, fusion_arch=args.fusion_arch,
+            attn_backend=args.attn_backend)
 
         best = ckpt_mod.BestKeeper(sub_folder)
         result = harness.DrawResult(ratio, draw)
@@ -240,6 +239,7 @@ def main(argv=None):
         raise SystemExit("--resume is not implemented for fuse "
                          "(the reference's resume path is dead code too); "
                          "restart the draw or load via --pretrained")
+    common.print_route(args)
     device = common.resolve_device(args.device)
     cfg = common.get_vit_arch(args)
     folder = storage.get_storage_folder(args.exp_name, "mfvit_ca",

@@ -4,10 +4,14 @@ writing predictions as JSON (the port of ``mfvit_tpu/cli/infer.py``).
     python -m mfvit_tpu_torch.cli.infer -a vit_small \\
         --checkpoint serving.pt --manifest paired.txt -b 256 \\
         [--int8 | --fusion-arch gpt [--gpt-layers 8]]
-        [--report-throughput] [--device cuda]
+        [--attn-backend xla] [--report-throughput] [--device cuda]
 
 The checkpoint is a ``mfvit_tpu_torch.exp.checkpoint.save_serving`` file
-(fp32) or a ``model_best`` of ``mfvit_tpu_torch.cli.fuse``. The network
+(fp32), a ``model_best`` of ``mfvit_tpu_torch.cli.fuse``, or JAX
+``fuse``'s orbax ``model_best`` directory, read by ``exp/orbax_io.py``
+where ``tensorstore`` is importable (elsewhere it exits naming ``python
+-m mfvit_tpu_torch.tools.convert_orbax ... --kind serving``, to run on
+the host that wrote it). The network
 input is ``--crop`` pixels square (``--img-size`` the resize before the
 center crop): at 224 the blocks run K1, past 256 tokens (``--img-size 384
 --crop 384``: 577) K9. ``--int8`` quantizes both ViT branches after
@@ -24,6 +28,8 @@ only, as in JAX. The output JSON holds ``predictions``, ``logits`` and
 ``pairs_per_sec_e2e`` (the whole run, host decode included). The host
 sends uint8 canvases, normalised on the device; under ``--aug-host`` it
 sends the host stack's normalised floats, which are only cast.
+``--attn-backend xla`` runs JAX's XLA route (``nn/xla_route.py``) in the
+branches and the head, no kernel; the first line printed names the route.
 """
 from __future__ import annotations
 
@@ -50,20 +56,14 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_common_args(p)
     p.add_argument("--checkpoint", required=True,
                    help="serving checkpoint {'cxr','enh','fus'} "
-                        "(exp.checkpoint.save_serving), or the model_best "
+                        "(exp.checkpoint.save_serving), the model_best "
                         "that cli/fuse.py saves (flat cxr./enh./fus. "
-                        "entries)")
+                        "entries), or JAX fuse's orbax model_best dir")
     p.add_argument("--manifest", required=True, help="paired manifest file")
     p.add_argument("--output", default="predictions.json")
     p.add_argument("--int8", action="store_true",
                    help="quantize ViT linears to int8 (W8A8 serving mode)")
-    p.add_argument("--fusion-arch", default="ca", choices=["ca", "gpt"],
-                   help="must match the checkpoint's fuse --fusion-arch")
-    p.add_argument("--gpt-layers", type=int, default=8)
-    p.add_argument("--fusion-heads", type=int, default=3)
-    p.add_argument("--cross-attn-depth", type=int, default=1)
-    p.add_argument("--multi-scale-enc-depth", type=int, default=1)
-    p.add_argument("--num-classes", type=int, default=3)
+    common.add_fusion_args(p)
     p.add_argument("--report-throughput", action="store_true")
     p.set_defaults(batch_size=256)
     return p
@@ -72,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
 def load_models(args, cfg, device) -> dict:
     """The serving checkpoint's models on ``device`` in eval mode, both ViT
     branches quantized to int8 under ``--int8``."""
-    ck = ckpt_mod.load_serving(args.checkpoint, cfg)
+    ck = ckpt_mod.load_serving(args.checkpoint, cfg, args.fusion_arch)
     models = {
         "cxr": vit_mod.ViT(cfg, args.num_classes),
         "enh": vit_mod.ViT(cfg, args.num_classes),
@@ -103,13 +103,15 @@ def main(argv=None):
     if args.int8 and args.fusion_arch == "gpt":
         raise SystemExit("--int8 serving is wired for the CA fusion path "
                          "only")
+    common.print_route(args)
     device = common.resolve_device(args.device)
     cfg = common.get_vit_arch(args)
     dt = common.compute_dtype(args)
     models = load_models(args, cfg, device)
     # the forward fuse selected model_best with, so serving cannot drift
     fwd3 = steps_mod.make_fusion_forward(compute_dtype=dt,
-                                         fusion_arch=args.fusion_arch)
+                                         fusion_arch=args.fusion_arch,
+                                         attn_backend=args.attn_backend)
 
     def forward(xc, xe):
         fused, lc, le = fwd3(models, xc, xe)

@@ -31,9 +31,13 @@ crop-first``).
 On CUDA every block of both towers runs K1 and K2 (K3 on the last)
 forward and the query tower's K5 and K7 backward, whatever the input; a
 ResNet arm (``-a resnet18/34/50``, ``--pretrained-arms``) runs no kernel
-of the port. Not ported yet, and refused with a message
-(ROADMAP.md section 1): a JAX orbax directory for ``--resume`` (item 4),
-``--distributed`` (item 6), TensorBoard (item 8).
+of the port. ``--resume`` takes the port's own ``checkpoint_{epoch:04d}``
+file or the JAX package's orbax directory of that name (its state,
+optimizer state and epoch; ``exp/orbax_io.py`` reads it where
+``tensorstore`` is importable, else ``tools/convert_orbax.py --kind
+pretrain`` on the host that wrote it gives the file), and starts at the
+next epoch. Not ported yet, and refused with a message (ROADMAP.md
+section 1): ``--distributed`` (item 6), TensorBoard (item 8).
 """
 from __future__ import annotations
 
@@ -58,20 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", default="lars",
                    choices=["lars", "adamw", "adam", "sgd"])
     p.add_argument("--warmup-epochs", default=10, type=int)
-    p.add_argument("--moco-dim", default=256, type=int)
-    p.add_argument("--moco-mlp-dim", default=4096, type=int)
-    p.add_argument("--moco-m", default=0.99, type=float)
     p.add_argument("--moco-m-cos", action="store_true")
-    p.add_argument("--moco-t", default=1.0, type=float)
-    p.add_argument("--moco-k", default=65536, type=int,
-                   help="queue length (v2 loss)")
-    p.add_argument("--stop-grad-conv1", dest="stop_grad_conv1",
-                   action="store_true")
-    p.add_argument("--loss", default="v2_queue",
-                   choices=["v2_queue", "v3_symmetric"])
-    p.add_argument("--no-predictor-on-keys", dest="predictor_on_keys",
-                   action="store_false",
-                   help="the builder_..._noprediction_q variant")
+    add_moco_args(p)
     p.add_argument("--folder", default="data")
     p.add_argument("--pairing", default="same", choices=["same", "enh_cxr"],
                    help="enh_cxr: cross-modal q=Enh / k=CXR views")
@@ -89,6 +81,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "finetune --pretrained reads (ViT archs)")
     p.set_defaults(epochs=100, lr=0.6, batch_size=16)
     return p
+
+
+def add_moco_args(p: argparse.ArgumentParser) -> None:
+    """The MoCo model's flags (``moco_config``), which ``pretrain`` and the
+    converter's ``pretrain`` kind read."""
+    p.add_argument("--moco-dim", default=256, type=int)
+    p.add_argument("--moco-mlp-dim", default=4096, type=int)
+    p.add_argument("--moco-m", default=0.99, type=float)
+    p.add_argument("--moco-t", default=1.0, type=float)
+    p.add_argument("--moco-k", default=65536, type=int,
+                   help="queue length (v2 loss)")
+    p.add_argument("--stop-grad-conv1", dest="stop_grad_conv1",
+                   action="store_true")
+    p.add_argument("--loss", default="v2_queue",
+                   choices=["v2_queue", "v3_symmetric"])
+    p.add_argument("--no-predictor-on-keys", dest="predictor_on_keys",
+                   action="store_false",
+                   help="no predictor on the keys (the reference's "
+                        "noprediction_q variant)")
 
 
 def moco_config(args) -> moco.MoCoConfig:
@@ -145,11 +156,17 @@ def train_one_draw_fn(args, backbone_cfg, device):
                                     weight_decay=args.weight_decay,
                                     momentum=args.momentum)
         step = moco.make_pretrain_step(cfg, compute_dtype=dt,
-                                       remat=args.remat)
+                                       remat=args.remat,
+                                       attn_backend=args.attn_backend)
 
         start_epoch = args.start_epoch
         if args.resume:
-            ck = ckpt_mod.load_pretrain_checkpoint(args.resume)
+            ck = ckpt_mod.load_pretrain_checkpoint(args.resume, model, opt)
+            if "opt_state" not in ck:
+                raise ValueError(f"--resume {args.resume}: no optimizer "
+                                 "state (resume from a "
+                                 "checkpoint_{epoch:04d}, not "
+                                 "checkpoint_best_loss)")
             model.load_state_dict(ck["state"])
             opt.load_state_dict(ck["opt_state"])
             start_epoch = ck["epoch"] + 1
@@ -253,6 +270,7 @@ def check_ported(args) -> None:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     check_ported(args)
+    common.print_route(args)
     device = common.resolve_device(args.device)
     backbone_cfg = common.get_arch(args)
     if args.export_torch and (getattr(backbone_cfg, "conv_stem", False)

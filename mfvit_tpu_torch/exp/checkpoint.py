@@ -1,7 +1,10 @@
 """The weight bridge from JAX parameter trees, the port's serving
 checkpoint, the training checkpoints (``BestKeeper``, the pretrain
-checkpoints), the reference MoCo ``.pth.tar`` (its surgery and its
-export) and the torchvision ResNet arms.
+checkpoints), the JAX package's orbax checkpoints (``load_serving`` and
+``load_pretrain_checkpoint`` take their directories, through
+``orbax_io.read_tree``), the reference MoCo ``.pth.tar`` (its surgery and
+its export), the reference ``Fus_CrossViT`` head's ``.pth.tar``
+(``load_reference_fusion``) and the torchvision ResNet arms.
 
 ``vit_state_from_jax``, ``vit_int8_state_from_jax``,
 ``vit_quant_state_from_jax``, ``fusion_state_from_jax``,
@@ -27,11 +30,14 @@ import os
 import numpy as np
 import torch
 
+from mfvit_tpu_torch.exp import orbax_io
 from mfvit_tpu_torch.nn import posembed
 
 
 def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32))
+    """A leaf as an fp32 tensor of its own (a bf16 one, as ``read_tree``
+    gives it, through ``orbax_io.to_torch``)."""
+    return orbax_io.to_torch(np.array(x)).float()
 
 
 def vit_state_from_jax(tree, cfg) -> dict:
@@ -285,11 +291,34 @@ def save_serving(path: str, cxr: dict, enh: dict, fus: dict) -> None:
 SERVING_KEYS = ("cxr", "enh", "fus")
 
 
-def load_serving(path: str, cfg=None) -> dict:
+def serving_from_jax(tree, cfg, fusion_arch: str = "ca") -> dict:
+    """JAX ``fuse``'s ``model_best`` tree ``{'cxr', 'enh', 'fus'}`` -> the
+    three state dicts of ``save_serving``: the branches through
+    ``vit_state_from_jax``, the head through ``fusion_state_from_jax`` or,
+    for ``fusion_arch="gpt"``, ``gpt_fusion_state_from_jax``, as JAX's
+    ``infer`` builds its template by ``--fusion-arch``
+    (``mfvit_tpu/cli/infer.py:44-77``). A tree of another layout raises."""
+    if not isinstance(tree, dict) or set(tree) != set(SERVING_KEYS):
+        raise ValueError("expected a fuse model_best tree with keys "
+                         f"cxr/enh/fus, got {sorted(tree)}")
+    gpt = "blocks" in tree["fus"]
+    if gpt != (fusion_arch == "gpt"):
+        raise ValueError(f"the fusion head is a {'GPT' if gpt else 'CA'} "
+                         f"head; this run has --fusion-arch {fusion_arch}")
+    fus = (gpt_fusion_state_from_jax if gpt else fusion_state_from_jax)(
+        tree["fus"])
+    return {"cxr": vit_state_from_jax(tree["cxr"], cfg),
+            "enh": vit_state_from_jax(tree["enh"], cfg), "fus": fus}
+
+
+def load_serving(path: str, cfg=None, fusion_arch: str = "ca") -> dict:
     """Inverse of ``save_serving`` (tensors only: ``weights_only=True``).
     It also takes the flat state dict of an ``nn.ModuleDict({"cxr", "enh",
     "fus"})``, the ``model_best`` that ``cli/fuse.py`` saves: the
-    ``cxr.``/``enh.``/``fus.`` entries become the three state dicts.
+    ``cxr.``/``enh.``/``fus.`` entries become the three state dicts. A
+    directory is JAX ``fuse``'s orbax ``model_best``, read by
+    ``orbax_io.read_tree`` (which needs ``cfg``) and bridged by
+    ``serving_from_jax`` for ``fusion_arch``.
 
     With the branches' ``cfg``, the ViT entries are made to fit its input
     size: a fixed sin-cos position table is rebuilt for ``cfg``'s grid (it
@@ -299,7 +328,14 @@ def load_serving(path: str, cfg=None) -> dict:
     group with a ``pos_emb``) is taken as it is, but its joint position
     table must hold both streams' tokens at ``cfg``'s size, or it
     raises, naming both lengths."""
-    ck = torch.load(path, map_location="cpu", weights_only=True)
+    if os.path.isdir(path):
+        if cfg is None:
+            raise ValueError(f"{path}: an orbax directory needs the "
+                             "branches' config")
+        ck = serving_from_jax(orbax_io.read_tree(path, "serving"), cfg,
+                              fusion_arch)
+    else:
+        ck = torch.load(path, map_location="cpu", weights_only=True)
     if set(ck) != set(SERVING_KEYS):
         groups = {k: {} for k in SERVING_KEYS}
         for name, v in ck.items():
@@ -330,6 +366,25 @@ def load_serving(path: str, cfg=None) -> dict:
                 f"table for {pos.shape[1]} tokens; {cfg.img_size} px gives "
                 f"{2 * cfg.seq_len} (two streams of {cfg.seq_len})")
     return ck
+
+
+def load_reference_fusion(path: str, fus) -> None:
+    """The reference ``Fus_CrossViT`` head's ``.pth.tar`` (its
+    ``multi_scale_transformers.*`` and ``mlp_head_*``, a ``module.``
+    prefix stripped) into ``fus``, a ``models.fusion.Fusion`` of the same
+    depths, whose names are the reference's: the counterpart of
+    ``mfvit_tpu/exp/checkpoint.py::torch_fusion_to_params`` (:258-310). A
+    missing or an extra entry raises ValueError naming it."""
+    sd = load_torch_state_dict(path)
+    if any(k.startswith("module.") for k in sd):
+        sd = strip_prefix(sd, "module.")
+    want = set(fus.state_dict())
+    missing, extra = sorted(want - set(sd)), sorted(set(sd) - want)
+    if missing or extra:
+        raise ValueError(f"{path}: not the Fus_CrossViT head of this "
+                         f"fusion config (missing {missing}, unexpected "
+                         f"{extra})")
+    fus.load_state_dict({k: v.float() for k, v in sd.items()}, strict=True)
 
 
 # ------------------------------------------------------ training artifacts
@@ -459,20 +514,42 @@ def save_pretrain_checkpoint(path: str, model, *, epoch: int,
     torch.save(ck, path)
 
 
-def load_pretrain_checkpoint(path: str) -> dict:
-    """Inverse of ``save_pretrain_checkpoint``. A directory (a JAX orbax
-    checkpoint) is refused: reading those is ROADMAP.md section 1, item
-    4."""
-    if os.path.isdir(path):
-        raise SystemExit(f"--resume {path}: a directory, which is a JAX "
-                         "orbax checkpoint; the port resumes from its own "
-                         "checkpoint_{epoch:04d} files (reading orbax is "
-                         "ROADMAP.md section 1, item 4)")
-    ck = torch.load(path, map_location="cpu", weights_only=True)
-    if "opt_state" not in ck:
-        raise ValueError(f"--resume {path}: no optimizer state (resume "
-                         "from a checkpoint_{epoch:04d} file, not "
-                         "checkpoint_best_loss)")
+def moco_moments_from_jax(tree, mcfg, backbone_cfg) -> dict:
+    """An optax moment tree over JAX's MoCo gradient parameters
+    (``{"base": {"encoder", "projector"}, "predictor"}``,
+    ``mfvit_tpu/cli/pretrain.py:175``) -> {``MoCo`` parameter name:
+    tensor}, through ``moco_state_from_jax`` (the momentum tower's and the
+    queue's entries, which no optimizer holds, come out too)."""
+    state = {"base": tree["base"], "momentum": tree["base"],
+             "predictor": tree["predictor"], "queue": np.zeros((1, 1)),
+             "queue_ptr": 0}
+    return moco_state_from_jax(state, mcfg, backbone_cfg)
+
+
+def load_pretrain_checkpoint(path: str, model=None, opt=None) -> dict:
+    """Inverse of ``save_pretrain_checkpoint``: {"state", "epoch"[,
+    "opt_state"]}. A directory is a JAX ``pretrain`` checkpoint read by
+    ``orbax_io.read_tree``: ``checkpoint_{epoch:04d}``'s {'state',
+    'opt_state', 'epoch'} or ``checkpoint_best_loss``'s {'state',
+    'epoch'} (``mfvit_tpu/cli/pretrain.py:203-216``), the state through
+    ``moco_state_from_jax`` for ``model`` (a ``ssl.moco.MoCo`` of the same
+    flags, ViT or ResNet arms) and the optimizer state through
+    ``train.optim.opt_state_from_jax`` for ``opt`` (``build_optimizer``
+    over ``model.trainable()``)."""
+    if not os.path.isdir(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    from mfvit_tpu_torch.train import optim
+    tree = orbax_io.read_tree(path, "pretrain")
+    if not isinstance(tree, dict) or not {"state", "epoch"} <= set(tree):
+        raise ValueError(f"{path}: not a pretrain checkpoint (keys "
+                         f"{sorted(tree)})")
+    mcfg, bcfg = model.cfg, model.backbone_cfg
+    ck = {"state": moco_state_from_jax(tree["state"], mcfg, bcfg),
+          "epoch": int(np.asarray(tree["epoch"]))}
+    if "opt_state" in tree and opt is not None:
+        ck["opt_state"] = optim.opt_state_from_jax(
+            tree["opt_state"], opt.name, opt,
+            lambda t: moco_moments_from_jax(t, mcfg, bcfg))
     return ck
 
 

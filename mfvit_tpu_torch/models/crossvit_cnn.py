@@ -117,11 +117,13 @@ def apply(model: CrossViTCNN, vit_tokens: torch.Tensor,
 def fused_forward(vit: ViT, cnn: ResNet, fus: CrossViTCNN,
                   img: torch.Tensor, *,
                   compute_dtype: torch.dtype = torch.bfloat16,
-                  reference: bool = False) -> torch.Tensor:
+                  reference: bool = False,
+                  attn_backend: str | None = None) -> torch.Tensor:
     """Both backbones and the head on one NHWC image batch: the ViT's
-    post-norm tokens (K1-K3 on CUDA; ``reference`` their plain versions)
-    and the CNN's last feature map (B, H/32, W/32, C) -> logits."""
+    post-norm tokens (K1-K3 on CUDA; ``reference`` their plain versions,
+    ``attn_backend="xla"`` JAX's XLA route) and the CNN's last feature map
+    (B, H/32, W/32, C) -> logits."""
     tokens, _ = vit(img, compute_dtype=compute_dtype, return_features=True,
-                    reference=reference)
+                    reference=reference, attn_backend=attn_backend)
     featmap = cnn(img, compute_dtype=compute_dtype, return_featmap=True)
     return apply(fus, tokens, featmap)

@@ -15,7 +15,8 @@ Module names follow the reference ``Fus_CrossViT`` state dict (the names
 ``mfvit_tpu/exp/checkpoint.py::fusion_params_to_torch`` emits). The
 depth-1 head (one encoder of one layer, the reference default) runs K4
 (``ops.fused_fusion``) at any batch size and head_dim; other depths run
-the general ``encode``, as the JAX package routes them to XLA.
+the general ``encode``, as the JAX package routes them to XLA, and so
+does every depth under ``attn_backend="xla"``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mfvit_tpu_torch.nn import xla_route
 from mfvit_tpu_torch.nn.layers import layernorm, linear, trunc_normal_
 from mfvit_tpu_torch.nn.vit import ViT
 from mfvit_tpu_torch.ops import fused_fusion
@@ -86,11 +88,15 @@ class Fusion(nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 m.reset_parameters()
 
-    def forward(self, cxr_tokens, enh_tokens, *, reference: bool = False):
+    def forward(self, cxr_tokens, enh_tokens, *, reference: bool = False,
+                attn_backend: str | None = None):
         """Tokens (B, N, D) -> summed dual-head logits (B, num_classes) fp32.
-        ``reference`` runs K4's plain version."""
+        ``reference`` runs K4's plain version; ``attn_backend="xla"`` the
+        full-sequence ``encode`` at every depth, as JAX's XLA route
+        (``nn.xla_route``)."""
         encs = self.multi_scale_transformers
-        if len(encs) == 1 and len(encs[0].cross_attn_layers) == 1:
+        if (len(encs) == 1 and len(encs[0].cross_attn_layers) == 1
+                and not xla_route.takes_xla(attn_backend)):
             flat = fused_fusion.flatten_layer(encs[0].cross_attn_layers[0],
                                               cxr_tokens.dtype)
             fn = (fused_fusion.fused_fusion_cls_plain if reference
@@ -141,14 +147,17 @@ def encode(fus: Fusion, cxr_tokens, enh_tokens):
 
 def fused_forward(vit_cxr: ViT, vit_enh: ViT, fus: Fusion, img_cxr, img_enh,
                   *, compute_dtype: torch.dtype = torch.bfloat16,
-                  reference: bool = False, remat: bool = False):
+                  reference: bool = False, remat: bool = False,
+                  attn_backend: str | None = None):
     """The MF-ViT CA forward: one pass per ViT branch giving both tokens
     and branch logits, then the fusion head. Returns (fused, logits_cxr,
     logits_enh); the decision logits are their sum. ``remat`` recomputes
-    the branches' blocks in the backward."""
+    the branches' blocks in the backward; ``attn_backend="xla"`` runs
+    JAX's XLA route in the branches and the head."""
     kw = dict(compute_dtype=compute_dtype, return_features=True,
-              reference=reference, remat=remat)
+              reference=reference, remat=remat, attn_backend=attn_backend)
     cxr_tokens, logits_cxr = vit_cxr(img_cxr, **kw)
     enh_tokens, logits_enh = vit_enh(img_enh, **kw)
-    fused = fus(cxr_tokens, enh_tokens, reference=reference)
+    fused = fus(cxr_tokens, enh_tokens, reference=reference,
+                attn_backend=attn_backend)
     return fused, logits_cxr, logits_enh

@@ -108,10 +108,12 @@ class GPTFusion(nn.Module):
             nn.init.zeros_(self.pos_emb)
 
     def forward(self, cxr_features, enh_features, *,
-                reference: bool = False) -> torch.Tensor:
+                reference: bool = False,
+                attn_backend: str | None = None) -> torch.Tensor:
         """The TransFuser forward -> logits (B, num_classes) fp32. The head
         has no kernel, so ``reference`` (the plain path of the branch
-        kernels) changes nothing here."""
+        kernels) and ``attn_backend`` (JAX's GPT head takes none) change
+        nothing here."""
         return apply(self, cxr_features, enh_features)
 
 

@@ -56,7 +56,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from mfvit_tpu_torch.nn import posembed
+from mfvit_tpu_torch.nn import posembed, xla_route
 from mfvit_tpu_torch.nn.layers import (Mlp, batch_norm, layer_norm,
                                        linear_f32, trunc_normal_)
 from mfvit_tpu_torch.ops import fused_attn, fused_int8, fused_mlp, quant
@@ -130,7 +130,7 @@ PLAN_MODES = ("bf16", "int8", "quant")
 
 
 def block_plan(cfg: ViTConfig, reference: bool = False,
-               mode: str = "bf16") -> tuple:
+               mode: str = "bf16", xla: bool = False) -> tuple:
     """The ops each block of ``cfg`` runs, by ``mode``: ``bf16``, the
     kernel Functions (K1/K5 up to ``K1_MAX_TOKENS`` tokens, else K9 with
     its fp32-recompute backward; K2/K7, K3/K7); ``int8`` (the serving form
@@ -142,10 +142,21 @@ def block_plan(cfg: ViTConfig, reference: bool = False,
     unquantized blocks). In both quantized forms the final LayerNorm runs
     after the blocks, as JAX's ``final_ln_done`` is False for such a tree.
     ``reference=True`` gives the same ops over the plain PyTorch versions,
-    on any device: the reference the kernels are held to."""
+    on any device: the reference the kernels are held to. ``xla=True``
+    gives JAX's XLA route for ``mode`` (``nn.xla_route``: no kernel; the
+    int8 form's weights dequantized, the quant form's W8A8 linears), the
+    final LayerNorm after the blocks."""
     if mode not in PLAN_MODES:
         raise ValueError(f"block_plan: mode {mode!r} is not one of "
                          f"{PLAN_MODES}")
+    if xla:
+        ops = {"bf16": BlockOps(xla_route.attention_block,
+                                xla_route.mlp_block, False),
+               "int8": BlockOps(xla_route.attention_block_dequant,
+                                xla_route.mlp_block_dequant, False),
+               "quant": BlockOps(xla_route.quant_attention_block,
+                                 quant.quant_mlp_block, False)}[mode]
+        return (ops,) * cfg.depth
     if mode == "quant":
         ops = BlockOps(functools.partial(quant.quant_attention_block,
                                          plain=reference),
@@ -168,6 +179,14 @@ def block_plan(cfg: ViTConfig, reference: bool = False,
                              plain=reference)
     return tuple(BlockOps(attn, last, True) if i == cfg.depth - 1
                  else BlockOps(attn, mid, False) for i in range(cfg.depth))
+
+
+def plans(cfg: ViTConfig, mode: str = "bf16") -> dict:
+    """A model's plans by route: False the kernels, True their plain
+    versions, "xla" JAX's XLA route (``block_plan``)."""
+    return {False: block_plan(cfg, mode=mode),
+            True: block_plan(cfg, reference=True, mode=mode),
+            "xla": block_plan(cfg, mode=mode, xla=True)}
 
 
 # ---------------------------------------------------------------- modules
@@ -336,8 +355,7 @@ class ViT(nn.Module):
             for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(cfg.dim, eps=1e-6)
         self.head = nn.Linear(cfg.dim, num_classes) if num_classes > 0 else None
-        self.plans = {False: block_plan(cfg),
-                      True: block_plan(cfg, reference=True)}
+        self.plans = plans(cfg)
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
         if device is not None:
             self.to(device)
@@ -393,7 +411,7 @@ class ViT(nn.Module):
                 compute_dtype: torch.dtype = torch.bfloat16,
                 return_features: bool = False, reference: bool = False,
                 remat: bool = False, stop_grad_conv1: bool = False,
-                bn_training: bool = False):
+                bn_training: bool = False, attn_backend: str | None = None):
         """imgs (B, H, W, C) -> logits (B, num_classes) fp32, or the CLS
         embedding without a head; with ``return_features`` also the
         post-norm tokens (B, N+1, dim) in ``compute_dtype``. ``reference``
@@ -405,7 +423,9 @@ class ViT(nn.Module):
         patch projection zero gradients (a ConvStem trains whole, as in
         JAX); ``bn_training`` runs a ConvStem's BatchNorms on batch
         statistics and moves their running ones (MoCo's towers), else on
-        the running ones."""
+        the running ones. ``attn_backend="xla"`` runs JAX's XLA route
+        (``nn.xla_route``) instead of the kernels or their plain versions;
+        ``None``, ``"auto"`` and ``"pallas"`` change nothing."""
         cfg = self.cfg
         dt = compute_dtype
         B = imgs.shape[0]
@@ -423,7 +443,8 @@ class ViT(nn.Module):
         cls = self.cls_token.to(dt).expand(B, 1, cfg.dim)
         x = torch.cat([cls, x], 1)
         x = (x.float() + self.pos_embed).to(dt)
-        plan = self.plans[reference]
+        plan = self.plans["xla" if xla_route.takes_xla(attn_backend)
+                          else reference]
         for blk, ops in zip(self.blocks, plan):
             if remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(
@@ -447,8 +468,7 @@ def quantize_vit_for_serving(model: ViT) -> ViT:
     dequantized weights (``block_plan``); the patch embedding, LayerNorms,
     CLS, position table and the fp32 head stay exact. Returns the model."""
     _quantize_blocks(model)
-    model.plans = {False: block_plan(model.cfg, mode="int8"),
-                   True: block_plan(model.cfg, reference=True, mode="int8")}
+    model.plans = plans(model.cfg, "int8")
     return model
 
 
@@ -476,6 +496,5 @@ def quantize_vit_params(model: ViT) -> ViT:
         model.patch_embed.proj = Int8Linear(
             proj.weight.permute(0, 2, 3, 1).reshape(D, -1), proj.bias)
     _quantize_blocks(model)
-    model.plans = {False: block_plan(model.cfg, mode="quant"),
-                   True: block_plan(model.cfg, reference=True, mode="quant")}
+    model.plans = plans(model.cfg, "quant")
     return model

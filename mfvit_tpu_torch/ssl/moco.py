@@ -200,14 +200,16 @@ class MoCo(nn.Module):
 
 def encode(tower: Tower, imgs: torch.Tensor, backbone_cfg, *,
            compute_dtype: torch.dtype, stop_grad_conv1: bool = False,
-           remat: bool = False, reference: bool = False) -> torch.Tensor:
+           remat: bool = False, reference: bool = False,
+           attn_backend: str | None = None) -> torch.Tensor:
     """Encoder features in training mode (a ConvStem's and a ResNet's
-    BatchNorms on batch statistics), then the projector (``_encode``)."""
+    BatchNorms on batch statistics), then the projector (``_encode``).
+    ``attn_backend="xla"`` runs a ViT's blocks on JAX's XLA route."""
     if isinstance(backbone_cfg, vit_mod.ViTConfig):
         feats = tower.encoder(imgs, compute_dtype=compute_dtype,
                               reference=reference, remat=remat,
                               stop_grad_conv1=stop_grad_conv1,
-                              bn_training=True)
+                              bn_training=True, attn_backend=attn_backend)
     else:
         feats = tower.encoder(imgs, compute_dtype=compute_dtype,
                               training=True, remat=remat)
@@ -220,7 +222,8 @@ def l2norm(x: torch.Tensor) -> torch.Tensor:
 
 def forward_v2_queue(model: MoCo, im_q, im_k, m: float, *,
                      compute_dtype=torch.bfloat16, remat: bool = False,
-                     reference: bool = False):
+                     reference: bool = False,
+                     attn_backend: str | None = None):
     """The v2 queue loss (``forward_v2_queue``, :261) -> (loss, keys). The
     caller enqueues the keys after the backward, which needs the queue as
     this pass read it."""
@@ -230,7 +233,8 @@ def forward_v2_queue(model: MoCo, im_q, im_k, m: float, *,
         raise ValueError(
             f"queue length K={cfg.K} must be divisible by the global key "
             f"batch ({B}); the ring enqueue assumes K % batch == 0")
-    kw = dict(compute_dtype=compute_dtype, reference=reference)
+    kw = dict(compute_dtype=compute_dtype, reference=reference,
+              attn_backend=attn_backend)
     model.ema_update(m)
     zq = encode(model.base, im_q, bcfg, stop_grad_conv1=cfg.stop_grad_conv1,
                 remat=remat, **kw)
@@ -259,11 +263,13 @@ def contrastive_v3(q: torch.Tensor, k: torch.Tensor, T: float):
 
 def forward_v3_symmetric(model: MoCo, x1, x2, m: float, *,
                          compute_dtype=torch.bfloat16, remat: bool = False,
-                         reference: bool = False):
+                         reference: bool = False,
+                         attn_backend: str | None = None):
     """ctr(q1, k2) + ctr(q2, k1) (``forward_v3_symmetric``, :356) ->
     (loss, None): both views through both towers, the queue unused."""
     cfg, bcfg = model.cfg, model.backbone_cfg
-    kw = dict(compute_dtype=compute_dtype, reference=reference)
+    kw = dict(compute_dtype=compute_dtype, reference=reference,
+              attn_backend=attn_backend)
     model.ema_update(m)
     q1, q2 = (mlp_apply(model.predictor, encode(
         model.base, x, bcfg, stop_grad_conv1=cfg.stop_grad_conv1,
@@ -279,21 +285,22 @@ LOSSES = {"v2_queue": forward_v2_queue, "v3_symmetric": forward_v3_symmetric}
 
 def make_pretrain_step(cfg: MoCoConfig, *,
                        compute_dtype: torch.dtype = torch.bfloat16,
-                       remat: bool = False, reference: bool = False
-                       ) -> Callable:
+                       remat: bool = False, reference: bool = False,
+                       attn_backend: str | None = None) -> Callable:
     """``step(model, opt, im_q, im_k, m) -> loss`` (detached, on the
     device, unsynchronised): the forward of ``cfg.loss``, the backward, one
     step of ``opt`` (a ``train.optim.Scheduled`` over ``model.
     trainable()``), then the enqueue. ``remat`` recomputes the query
     pass's blocks in the backward; ``reference`` runs the plain versions
-    of the kernels."""
+    of the kernels, ``attn_backend="xla"`` JAX's XLA route."""
     if cfg.loss not in LOSSES:
         raise ValueError(f"unknown loss {cfg.loss!r}")
     fwd = LOSSES[cfg.loss]
 
     def step(model: MoCo, opt, im_q, im_k, m: float):
         loss, keys = fwd(model, im_q, im_k, m, compute_dtype=compute_dtype,
-                         remat=remat, reference=reference)
+                         remat=remat, reference=reference,
+                         attn_backend=attn_backend)
         opt.zero_grad()
         loss.backward()
         opt.step()

@@ -22,6 +22,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Iterable, Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -63,10 +64,14 @@ class Lars(torch.optim.Optimizer):
 
 class Scheduled:
     """An optimizer whose learning rate comes from ``lr(count)`` before
-    each step (a float is a constant schedule)."""
+    each step (a float is a constant schedule). ``name`` is the
+    ``build_optimizer`` choice and ``names`` the parameters' names, in the
+    order of the optimizer's state."""
 
-    def __init__(self, opt: torch.optim.Optimizer, lr):
+    def __init__(self, opt: torch.optim.Optimizer, lr, name: str = "",
+                 names: Sequence[str] = ()):
         self.opt, self.lr, self.count = opt, lr, 0
+        self.name, self.names = name, list(names)
 
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
@@ -82,8 +87,16 @@ class Scheduled:
         return {"count": self.count, "opt": self.opt.state_dict()}
 
     def load_state_dict(self, state: dict) -> None:
+        """The step count and the moments of ``state``; the
+        hyperparameters (weight decay, momentum, betas) stay this run's,
+        as optax's state holds none of them."""
         self.count = int(state["count"])
-        self.opt.load_state_dict(state["opt"])
+        saved = dict(state["opt"])
+        saved["param_groups"] = [
+            dict(g, params=s["params"]) for g, s in
+            zip(self.opt.state_dict()["param_groups"],
+                saved["param_groups"])]
+        self.opt.load_state_dict(saved)
 
 
 # -------------------------------------------------------------- schedules
@@ -154,12 +167,13 @@ def build_optimizer(name: str, named_params: Iterable, lr, *,
     named_parameters()``) with the schedule ``lr``. Parameters the mask
     marks False are frozen: ``requires_grad_(False)``, not in the
     optimizer."""
-    params = []
+    params, names = [], []
     for pname, p in named_params:
         if trainable_mask is not None and not trainable_mask[pname]:
             p.requires_grad_(False)
         elif p.requires_grad:
             params.append(p)
+            names.append(pname)
     name = name.lower()
     if name == "sgd":
         opt = torch.optim.SGD(params, lr=0.0, momentum=momentum,
@@ -172,4 +186,88 @@ def build_optimizer(name: str, named_params: Iterable, lr, *,
         opt = Lars(params, weight_decay=weight_decay, momentum=momentum)
     else:
         raise ValueError(f"unknown optimizer {name!r}")
-    return Scheduled(opt, lr)
+    return Scheduled(opt, lr, name, names)
+
+
+# ---------------------------------------------------- JAX optimizer states
+
+# the torch state key of each optax moment tree, by optimizer
+MOMENTS = {"lars": {"mu": "mu"}, "sgd": {"trace": "momentum_buffer"},
+           "adam": {"mu": "exp_avg", "nu": "exp_avg_sq"},
+           "adamw": {"mu": "exp_avg", "nu": "exp_avg_sq"}}
+
+
+def _optax_parts(opt_state, name: str) -> tuple:
+    """({optax moment name: tree}, the torch step count or None, the
+    schedule's count) of an optax state of ``mfvit_tpu/train/optim.py::
+    build_optimizer`` (:133-165) without a mask, as ``read_tree`` gives it
+    (namedtuples as dicts, chains as lists, empty states as None). A state
+    of another structure raises, as JAX's ``restore(like=...)`` does."""
+    def count(st):
+        # ScaleByScheduleState; None where the learning rate is a constant
+        return int(np.asarray(st["count"])) if st is not None else 0
+
+    def chain(st, n):
+        if not isinstance(st, list) or len(st) != n:
+            raise TypeError(f"a chain of {n} expected")
+        return st
+
+    try:
+        if name == "lars":  # {"mu", "count"}
+            if set(opt_state) != {"mu", "count"}:
+                raise KeyError(sorted(opt_state))
+            return {"mu": opt_state["mu"]}, None, count(opt_state)
+        if name in ("adam", "adamw"):
+            # (ScaleByAdamState, [adamw: EmptyState,] schedule)
+            st = chain(opt_state, 2 if name == "adam" else 3)
+            if name == "adamw" and st[1] is not None:
+                raise TypeError("adamw's decay state is empty")
+            adam = st[0]
+            return ({"mu": adam["mu"], "nu": adam["nu"]},
+                    int(np.asarray(adam["count"])), count(st[-1]))
+        if name == "sgd":
+            # (decayed weights | identity, (TraceState, schedule))
+            st = chain(opt_state, 2)
+            trace, sched = chain(st[1], 2)
+            if st[0] is not None:
+                raise TypeError("sgd's decay state is empty")
+            return {"trace": trace["trace"]}, None, count(sched)
+    except (KeyError, IndexError, TypeError) as e:
+        raise ValueError(f"not an optax {name} state of build_optimizer "
+                         f"({type(e).__name__}: {e})") from None
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
+def opt_state_from_jax(opt_state, name: str, opt: Scheduled,
+                       to_torch: Callable[[object], dict]) -> dict:
+    """The optax state of JAX's ``build_optimizer(name, ...)`` -> the state
+    dict ``opt.load_state_dict`` takes: LARS's ``mu`` as ``Lars``'s
+    ``"mu"``, Adam's and AdamW's ``mu``, ``nu`` and ``count`` as
+    ``exp_avg``, ``exp_avg_sq`` and ``step``, SGD's trace as
+    ``momentum_buffer``, and the schedule's step count as
+    ``Scheduled.count``. A moment tree has the parameters' structure, so
+    ``to_torch`` (the weight bridge of the parameters, e.g. ``exp.
+    checkpoint.moco_state_from_jax``) names and transposes it; entries of
+    no parameter of ``opt`` (BatchNorm statistics) are dropped, and a
+    parameter without one raises."""
+    trees, step, count = _optax_parts(opt_state, name)
+    named = {MOMENTS[name][k]: to_torch(t) for k, t in trees.items()}
+    params = [p for g in opt.opt.param_groups for p in g["params"]]
+    state = {}
+    for i, (pname, p) in enumerate(zip(opt.names, params)):
+        entry = {}
+        for key, sd in named.items():
+            if pname not in sd:
+                raise ValueError(f"the {name} state has no {key} for "
+                                 f"{pname}")
+            if sd[pname].shape != p.shape:
+                raise ValueError(f"the {name} {key} of {pname} is "
+                                 f"{tuple(sd[pname].shape)}, the parameter "
+                                 f"{tuple(p.shape)}")
+            entry[key] = sd[pname].clone()
+        if step is not None:
+            entry["step"] = torch.tensor(float(step), dtype=torch.float32)
+        state[i] = entry
+    return {"count": count, "opt": {"state": state,
+                                    "param_groups": opt.opt.state_dict()[
+                                        "param_groups"]}}

@@ -20,7 +20,8 @@ def softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def make_classifier_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
-                          remat: bool = False, reference: bool = False
+                          remat: bool = False, reference: bool = False,
+                          attn_backend: str | None = None
                           ) -> Tuple[Callable, Callable]:
     """(train_step, eval_step) for the single-stream ViT classifier.
 
@@ -29,11 +30,12 @@ def make_classifier_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
     (a ``train.optim.Scheduled``); loss and logits come back detached, on
     the device, unsynchronised. ``eval_step(model, imgs) -> logits`` runs
     under ``torch.inference_mode()``. ``remat`` recomputes the blocks in
-    the backward; ``reference`` runs the plain versions of the kernels."""
+    the backward; ``reference`` runs the plain versions of the kernels,
+    ``attn_backend="xla"`` JAX's XLA route (``nn.xla_route``)."""
 
     def train_step(model, opt, imgs, labels):
         logits = model(imgs, compute_dtype=compute_dtype, remat=remat,
-                       reference=reference)
+                       reference=reference, attn_backend=attn_backend)
         loss = softmax_ce(logits, labels)
         opt.zero_grad()
         loss.backward()
@@ -42,13 +44,15 @@ def make_classifier_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
 
     @torch.inference_mode()
     def eval_step(model, imgs):
-        return model(imgs, compute_dtype=compute_dtype, reference=reference)
+        return model(imgs, compute_dtype=compute_dtype, reference=reference,
+                     attn_backend=attn_backend)
 
     return train_step, eval_step
 
 
 def _fusion_forward(fusion_arch: str, compute_dtype, reference,
-                    frozen: bool, remat: bool) -> Callable:
+                    frozen: bool, remat: bool,
+                    attn_backend: str | None = None) -> Callable:
     """``forward(models, img_cxr, img_enh) -> (fused, logits_cxr,
     logits_enh)``, the port of JAX's :92-133. The CA head unfrozen runs
     ``fusion.fused_forward`` (K4 on the head); every other case takes the
@@ -56,7 +60,8 @@ def _fusion_forward(fusion_arch: str, compute_dtype, reference,
     (``return_features``; K1-K3), then the head. ``frozen`` runs the
     branches with no autograd graph (JAX's ``stop_gradient`` on their
     tokens and CLS). The GPT head carries its own config (JAX passes
-    ``gpt_cfg`` beside the params)."""
+    ``gpt_cfg`` beside the params). ``attn_backend="xla"`` runs JAX's XLA
+    route in the branches and the CA head."""
     if fusion_arch not in ("ca", "gpt"):
         raise ValueError(f"unknown fusion_arch {fusion_arch!r}")
 
@@ -65,20 +70,22 @@ def _fusion_forward(fusion_arch: str, compute_dtype, reference,
             return fusion_mod.fused_forward(
                 models["cxr"], models["enh"], models["fus"], img_cxr,
                 img_enh, compute_dtype=compute_dtype, reference=reference,
-                remat=remat)
+                remat=remat, attn_backend=attn_backend)
         kw = dict(compute_dtype=compute_dtype, return_features=True,
-                  reference=reference, remat=remat)
+                  reference=reference, remat=remat,
+                  attn_backend=attn_backend)
         with torch.no_grad() if frozen else contextlib.nullcontext():
             tok_c, lc = models["cxr"](img_cxr, **kw)
             tok_e, le = models["enh"](img_enh, **kw)
-        return models["fus"](tok_c, tok_e, reference=reference), lc, le
+        return (models["fus"](tok_c, tok_e, reference=reference,
+                              attn_backend=attn_backend), lc, le)
 
     return forward
 
 
 def make_fusion_forward(*, compute_dtype: torch.dtype = torch.bfloat16,
-                        reference: bool = False,
-                        fusion_arch: str = "ca") -> Callable:
+                        reference: bool = False, fusion_arch: str = "ca",
+                        attn_backend: str | None = None) -> Callable:
     """``forward(models, img_cxr, img_enh) -> (fused, logits_cxr,
     logits_enh)`` with ``models = {"cxr": ViT, "enh": ViT, "fus": head}``
     (``models.fusion.Fusion`` for ``fusion_arch="ca"``,
@@ -87,12 +94,13 @@ def make_fusion_forward(*, compute_dtype: torch.dtype = torch.bfloat16,
     are the sum of the three."""
     return torch.inference_mode()(_fusion_forward(
         fusion_arch, compute_dtype, reference, frozen=False,
-        remat=False))
+        remat=False, attn_backend=attn_backend))
 
 
 def make_fusion_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
                       freeze_backbones: bool = False, remat: bool = False,
-                      reference: bool = False, fusion_arch: str = "ca"
+                      reference: bool = False, fusion_arch: str = "ca",
+                      attn_backend: str | None = None
                       ) -> Tuple[Callable, Callable]:
     """(train_step, eval_step) for MF-ViT fusion, the port of
     ``mfvit_tpu/train/steps.py::make_fusion_steps`` (:136-195), with
@@ -112,9 +120,11 @@ def make_fusion_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
     both branches). ``fusion_arch="gpt"`` takes the GPT head on the
     generic per-branch route in both modes (K4 never runs). ``remat``
     recomputes the branches' blocks in the backward; ``reference`` runs
-    the plain versions of the kernels."""
+    the plain versions of the kernels, ``attn_backend="xla"`` JAX's XLA
+    route (``nn.xla_route``)."""
     forward = _fusion_forward(fusion_arch, compute_dtype, reference,
-                              frozen=freeze_backbones, remat=remat)
+                              frozen=freeze_backbones, remat=remat,
+                              attn_backend=attn_backend)
 
     def train_step(models, opt, img_cxr, img_enh, labels):
         fused, lc, le = forward(models, img_cxr, img_enh)
@@ -126,7 +136,8 @@ def make_fusion_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
         return loss.detach(), out.detach()
 
     serve = make_fusion_forward(compute_dtype=compute_dtype,
-                                reference=reference, fusion_arch=fusion_arch)
+                                reference=reference, fusion_arch=fusion_arch,
+                                attn_backend=attn_backend)
 
     @torch.inference_mode()
     def eval_step(models, img_cxr, img_enh):

@@ -170,9 +170,37 @@ def test_port_never_imports_jax():
         "assert 'mfvit_tpu_torch.tools.e2e_workflow' in mods, mods\n"
         "assert 'mfvit_tpu_torch.models.gpt_fusion' in mods, mods\n"
         "assert 'mfvit_tpu_torch.models.crossvit_cnn' in mods, mods\n"
+        "assert 'mfvit_tpu_torch.exp.orbax_io' in mods, mods\n"
+        "assert 'mfvit_tpu_torch.tools.convert_orbax' in mods, mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m.startswith('mfvit_tpu.') or m == 'mfvit_tpu']\n"
+        " or m.startswith('mfvit_tpu.') or m == 'mfvit_tpu'"
+        " or m.split('.')[0] in ('orbax', 'tensorstore')]\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_convert_orbax_runs_without_jax(tmp_path):
+    """``convert_orbax`` on a directory JAX's ``save`` wrote, in a fresh
+    interpreter: it writes the branch file and leaves ``jax``, ``orbax``
+    and the JAX package out of ``sys.modules`` (``tensorstore`` reads)."""
+    cfg = jvit.ViTConfig("vit_test", img_size=32, patch=16, dim=32, depth=2,
+                         heads=2)
+    src, dst = str(tmp_path / "model_best"), str(tmp_path / "branch.pt")
+    jckpt.save(src, jvit.init(jax.random.PRNGKey(2), cfg, num_classes=3))
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = ['convert_orbax', {src!r}, {dst!r}, '--kind', 'branch',"
+        " '-a', 'vit_test', '--img-size', '32', '--crop', '32']\n"
+        "runpy.run_module('mfvit_tpu_torch.tools.convert_orbax',"
+        " run_name='__main__')\n"
+        "assert 'tensorstore' in sys.modules\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'orbax', 'mfvit_tpu')]\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    sd = torch.load(dst, weights_only=True)
+    assert sd["head.weight"].shape == (3, 32)
