@@ -235,6 +235,20 @@ Phases, in order; any failure raises and exits non-zero:
    synthetic images, ``finetune`` FT at B=16 and B=256, ``fuse`` LP and
    ``pretrain`` at B=32, each on the store, ``--device-store-mb 0`` and
    ``--aug-host`` (A B C C B A), and the fill's seconds per 1,000 images;
+   then ``ddp`` (``run_ddp``): ``finetune`` FT and ``pretrain`` (the v2
+   queue) at vit_small, B=256, on the store, plain and under the
+   ``--dist-*`` flags on a one-process NCCL group (plain, group, group,
+   plain): per run the exact launches of the plain run (K1-K3, K5, K7),
+   an all-reduce on the group, the epoch-2 images/s; then two gloo ranks
+   on cuda:0 from ``parallel.dist`` (``gloo_two_ranks``: three FT steps
+   and three MoCo steps with BatchNorm heads, of the v2 queue on the
+   kernel path in bf16 and of the v2 queue and v3 on the plain path in
+   fp32, at B=32,
+   against one process within ``train_parity``'s bars, the BN running
+   statistics and the queue too (MoCo's gradients by their Frobenius
+   error: a flipped ReLU rewrites one unit's row; in bf16 the keys of
+   steps 2-3 printed), the ranks' states
+   equal bit for bit), the phase's seconds;
 20. times with CUDA events at B=256: each forward kernel (K10/K11
    included) and K5/K7 against its plain version (K5/K7 first held
    against the plain fp32 backward on the timed inputs), K5/K7 also at a
@@ -526,13 +540,18 @@ def environment() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
     print(smi[0])
-    # the plain references: fp32 in full fp32, bf16 GEMMs with fp32 sums
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    full_precision_sums()
     print("allow_tf32: matmul False, cudnn False; "
           "allow_bf16_reduced_precision_reduction: False")
     return smi[0]
+
+
+def full_precision_sums() -> None:
+    """The plain references' settings, in this process and in every rank
+    it spawns: fp32 in full fp32, bf16 GEMMs with fp32 sums."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def block_inputs(g, B, D, dev, N=197):
@@ -1887,15 +1906,34 @@ def check_bwd_former(dev) -> dict:
     return out
 
 
-def bwd_stage_times(dev) -> dict:
-    """K5 and K7 (K6, K8 at vit_base) launch by launch under
-    ``torch.profiler`` (``tools/compare_block.stage_times``), beside their
-    former chains: vit_small at B=256, vit_base at B=64. "k5 D=384" ->
-    {kernel: ms}."""
-    from mfvit_tpu_torch.tools.compare_block import stage_times
-    return {f"{op} D={D}": stage_times(dev, op, B=B, D=D)
-            for B, D in ((256, 384), (64, 768))
-            for op in ("k5", "k7", "k5_wmma", "k7_wmma")}
+BWD_STAGES = {f"{op} D={D}": (op, dict(B=B, D=D))
+              for B, D in ((256, 384), (64, 768))
+              for op in ("k5", "k7", "k5_wmma", "k7_wmma")}
+
+
+def fresh_stage_times(specs: dict) -> dict:
+    """``tools/compare_block.stage_times(dev, op, **kw)`` for each name ->
+    (op, kw) of ``specs``, in order, in a fresh process of its own, whose
+    lines print here: a ``torch.profiler`` window opened late in a long
+    process loses launches (by the time phase of this script, some of
+    K5's and all of K15's), one in a fresh process sees them all.
+    name -> {kernel: ms}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stages.json")
+        code = ("import json, sys, torch\n"
+                f"sys.path.insert(0, {here!r})\n"
+                "from mfvit_tpu_torch.tools.compare_block import "
+                "stage_times\n"
+                "dev = torch.device('cuda')\n"
+                f"out = {{k: stage_times(dev, op, **kw) for k, (op, kw) in "
+                f"{specs!r}.items()}}\n"
+                f"json.dump(out, open({path!r}, 'w'))\n")
+        sys.stdout.flush()
+        subprocess.run([sys.executable, "-c", code], check=True, cwd=here,
+                       timeout=900)
+        with open(path) as f:
+            return json.load(f)
 
 
 def write_covid_ds(root: str, n: int, seed: int, paired: bool = False,
@@ -3886,6 +3924,308 @@ def time_feeds(dev, tmp: str, n: int = 1024) -> dict:
           + ", ".join(f"{k} {v:.3f}" for k, v in fills.items()))
     return {"rates": rates, "fill_s_per_1000": fills}
 
+DDP_BATCH = 256
+
+
+def ddp_flags() -> list:
+    """The rendezvous flags of a one-process NCCL group on this host."""
+    from mfvit_tpu_torch.parallel import dist
+    return ["--dist-coordinator", f"127.0.0.1:{dist.free_port()}",
+            "--dist-num-processes", "1", "--dist-process-id", "0"]
+
+
+def run_ddp(dev, tmp: str) -> dict:
+    """The training CLIs through their data-parallel entry point on the
+    card: ``finetune`` FT on the device canvas store and ``pretrain`` (the
+    v2 queue) at vit_small, 224 px, B=256, two epochs over 512 synthetic
+    images (two steps an epoch), each run plain and under the
+    ``--dist-*`` flags (a one-process NCCL group), in the order plain,
+    group, group, plain, the launch counts set to 0 just before each run
+    and read just after. Gates per run: four finite losses and the exact
+    launches per step (and per eval batch) of the plain run, K1-K3, K5 and
+    K7 among them; under the group an NCCL all-reduce that sums. Prints
+    each run's epoch-2 images/s. Then ``gloo_two_ranks``. Returns the
+    rates, the launches and the two-rank parity."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.cli import finetune, pretrain
+    from mfvit_tpu_torch.parallel import dist
+
+    t0 = time.perf_counter()
+    man = write_covid_ds(os.path.join(tmp, "ddp"), 512, seed=45, n_eval=32)
+    base = ["-a", "vit_small", "-b", str(DDP_BATCH), "--epochs", "2",
+            "--draws", "1", "--covid-ds", man, "-j", "8", "-p", "100000",
+            "--seed", "0", "--device", dev.type]
+    ft_step = dict(PER_VIT_FORWARD)
+    ft_step.update(PER_FT_STEP)
+    configs = (
+        ("finetune FT", finetune, base + ["--semi-supervised", "--lr",
+                                          "0.01"], ft_step),
+        ("pretrain v2 queue", pretrain,
+         pretrain_argv(man, os.path.join(tmp, "unused"), dev,
+                       ["-b", str(DDP_BATCH), "-p", "100000"]),
+         moco_counts(PER_VIT_FORWARD, 1, 1)))
+    out = {}
+    for label, cli, argv, per_step in configs:
+        rates, launches = {"plain": [], "group": []}, {}
+        for i, mode in enumerate(("plain", "group", "group", "plain")):
+            root = os.path.join(tmp, f"ddp_{len(out)}_{i}")
+            extra = ddp_flags() if mode == "group" else []
+            ops.reset_launch_counts()
+            try:
+                with EpochClock() as clock:
+                    res, _ = _teed(cli.main, argv + extra
+                                   + ["--storage-root", root])
+                torch.cuda.synchronize()
+                got = ops.launch_counts()
+                if mode == "group":
+                    t = torch.ones(4, device=dev)
+                    torch.distributed.all_reduce(t)
+                    if (torch.distributed.get_backend() != "nccl"
+                            or t.tolist() != [1.0] * 4):
+                        raise AssertionError(f"{label}: the group's "
+                                             "all-reduce")
+            finally:
+                dist.shutdown()
+            losses = res.extra["train_losses"]
+            evals = res.extra.get("eval_batches", 0)
+            want = {k: 0 for k in got}
+            want.update({k: v * len(losses) for k, v in per_step.items()})
+            for k, v in PER_VIT_FORWARD.items():
+                want[k] += v * evals
+            if len(losses) != 4 or not all(math.isfinite(v)
+                                           for v in losses):
+                raise AssertionError(f"{label} {mode}: losses {losses}")
+            if got != want:
+                raise AssertionError(f"{label} {mode}: launch counts {got} "
+                                     f"!= {want}")
+            launches.setdefault(mode, got)
+            if got != launches["plain"]:
+                raise AssertionError(f"{label}: launches under the group "
+                                     f"{got} != the plain run's")
+            steps, sec = clock.epochs[-1]
+            rates[mode].append(steps * DDP_BATCH / sec)
+        out[label] = {"images_per_sec_epoch2": rates,
+                      "launches_per_run": launches["group"],
+                      "steps_per_run": 4}
+        print(f"{label} (vit_small, B={DDP_BATCH}, 4 steps, store): "
+              f"launches plain = group = {launches['group']}; epoch 2 "
+              "images/s (plain, group, group, plain): plain "
+              + " / ".join(f"{r:.1f}" for r in rates["plain"]) + ", group "
+              + " / ".join(f"{r:.1f}" for r in rates["group"]))
+    out["gloo_two_ranks"] = gloo_two_ranks(dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"ddp phase: {out['seconds']:.1f} s")
+    return out
+
+
+# (loss, fp32): the v2 queue on the kernel path, both losses on the plain
+GLOO_MOCO_RUNS = (("v2_queue", False), ("v2_queue", True),
+                  ("v3_symmetric", True))
+
+
+def _gloo_rank(r: int, port: int, n: int, B: int, out_dir: str) -> None:
+    """One rank of ``gloo_two_ranks`` (spawned): three kernel-path FT
+    steps and three steps of each of GLOO_MOCO_RUNS on its rows of the
+    global batches; the readings to ``out_dir``. An error fails the
+    rank, and ``start_processes`` raises it with its traceback."""
+    from mfvit_tpu_torch.parallel import dist
+    full_precision_sums()
+    dev = dist.init_distributed(f"127.0.0.1:{port}", n, r,
+                                device_type="cuda", backend="gloo",
+                                timeout_s=120)
+    try:
+        out = {"ft": _ft_steps(dev, r, n, B)}
+        for loss, fp32 in GLOO_MOCO_RUNS:
+            out[loss, fp32] = _moco_steps(dev, loss, fp32, r, n, B)
+    finally:
+        dist.shutdown()
+    torch.save(out, os.path.join(out_dir, f"rank{r}.pt"))
+
+
+def _ft_steps(dev, r: int = 0, n: int = 1, B: int = 32) -> dict:
+    """Three SGD steps of the kernel path (bf16, vit_small, 224 px) from
+    ``train_parity``'s weights and batch of B images, on rows [r B/n,
+    (r + 1) B/n): losses, first-step gradients per block, end state."""
+    from mfvit_tpu_torch.nn.vit import ViT, get_config
+    from mfvit_tpu_torch.train import optim, steps
+
+    gen = torch.Generator().manual_seed(8)
+    model = ViT(get_config("vit_small"), 3, generator=gen).to(dev)
+    imgs = torch.randn(B, 224, 224, 3, generator=gen)
+    labels = torch.randint(0, 3, (B,), generator=gen)
+    b = B // n
+    x = imgs[r * b:(r + 1) * b].to(dev).bfloat16()
+    y = labels[r * b:(r + 1) * b].to(dev)
+    opt = optim.build_optimizer("sgd", model.named_parameters(), 0.01,
+                                momentum=0.9, weight_decay=1e-6)
+    step, _ = steps.make_classifier_steps()
+    losses, grads = [], None
+    for i in range(3):
+        loss, _ = step(model, opt, x, y)
+        losses.append(loss.item())
+        if i == 0:
+            grads = [torch.cat([p.grad.flatten() for p in blk.parameters()])
+                     .cpu() for blk in model.blocks]
+    return {"losses": losses, "grads": grads,
+            "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
+def _moco_steps(dev, loss: str, fp32: bool, r: int = 0, n: int = 1,
+                B: int = 32) -> dict:
+    """Three MoCo steps (LARS, LR 0.1) on ``pretrain_parity``'s vit_small
+    state with its BatchNorm heads, ``loss`` the v2 queue or v3, on rows
+    [r B/n, (r + 1) B/n) of one global batch: the kernel path in bf16,
+    or (``fp32``) the plain path in fp32. Under a group the keys are
+    all-gathered, the heads' BatchNorm statistics synced and v3's
+    positives offset by the rank. The losses, the first-step gradients
+    of each query block, the projector and the predictor, and the end
+    state (BatchNorm running statistics, queue and its pointer
+    included)."""
+    from mfvit_tpu_torch.ssl import moco
+    from mfvit_tpu_torch.train import optim
+
+    gen = torch.Generator().manual_seed(32)
+    model = moco_model("vit_small", gen, loss=loss).to(dev)
+    q, k = moco_views(gen, B, dev)
+    b = B // n
+    q, k = q[r * b:(r + 1) * b], k[r * b:(r + 1) * b]
+    if fp32:
+        q, k = q.float(), k.float()
+    opt = optim.build_optimizer("lars", model.trainable(), 0.1,
+                                weight_decay=1e-6)
+    step = moco.make_pretrain_step(
+        model.cfg, reference=fp32,
+        compute_dtype=torch.float32 if fp32 else torch.bfloat16)
+    losses, grads = [], None
+    for i in range(3):
+        losses.append(step(model, opt, q, k, 0.99).item())
+        if i == 0:
+            groups = [*model.base.encoder.blocks, model.base.projector,
+                      model.predictor]
+            grads = [torch.cat([p.grad.flatten() for p in m.parameters()])
+                     .cpu() for m in groups]
+    return {"losses": losses, "grads": grads,
+            "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
+def _hold_ranks(name: str, ranks: list, one: dict, B: int, queue: bool,
+                fro: bool = False, later_keys: bool = True) -> dict:
+    """Rank 0 of a two-rank run against one process at ``train_parity``'s
+    bars: the loss per step (PARITY_LOSS_BAR), the first-step gradient
+    of each group and, for MoCo, each BatchNorm running variance and the
+    keys enqueued (PARITY_GRAD_BAR, relative), each running mean's error
+    in its layer's standard deviations (PARITY_GRAD_BAR: a mean behind
+    another BatchNorm is zero up to rounding, so relative to itself it
+    measures noise), the queue pointer exactly; and the ranks' end states
+    bit for bit. ``fro`` (MoCo): the gradients and the keys of all three
+    steps are held by their relative Frobenius error, the first step's
+    keys by the largest. The heads' BatchNorm-ReLU layers turn a last-bit
+    change of a 16-row block's sums into a flipped ReLU now and then, and
+    one flip rewrites one hidden unit's weight-gradient row (255 of the
+    predictor's 2,105,344 entries on the card, in bf16 and in v3's fp32
+    run alike), which the largest-entry measure reads as up to 24 %.
+    Not ``later_keys`` (bf16 MoCo): the keys of steps 2-3 are printed,
+    not held. The shared predictor's update carries that row into them
+    (6.0e-2 Frobenius on the card, as ``pretrain_parity`` prints its
+    own enqueued keys); the fp32 runs hold all three steps' keys.
+    Prints the readings; returns them with the list of failures."""
+    got = ranks[0]
+    err = fro_rel if fro else rel
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                     one["losses"])]
+    grad_rel = [err(a, b) for a, b in zip(got["grads"], one["grads"])]
+    bn_rel = []  # a mean in its layer's standard deviations, a var rel
+    for k, v in got["state"].items():
+        if k.endswith("running_var"):
+            bn_rel.append(rel(v, one["state"][k]))
+        elif k.endswith("running_mean"):
+            sd = one["state"][k[:-4] + "var"].float().max().sqrt()
+            bn_rel.append(((v.float() - one["state"][k].float()).abs()
+                           .max() / sd).item())
+    differ = [k for k, v in got["state"].items()
+              if any(not torch.equal(v, rk["state"][k]) for rk in ranks[1:])]
+    out = {"loss_rel": loss_rel, "grad_rel_max": max(grad_rel),
+           "entries_differ_between_ranks": len(differ)}
+    fails = []
+    if max(loss_rel) >= PARITY_LOSS_BAR:
+        fails.append(f"{name} loss")
+    if max(grad_rel) >= PARITY_GRAD_BAR:
+        fails.append(f"{name} gradients")
+    if differ:
+        fails.append(f"{name} ranks differ ({differ[:3]})")
+    line = (f"{name}: losses " + ", ".join(f"{v:.5f}" for v in
+                                           got["losses"])
+            + " / " + ", ".join(f"{v:.5f}" for v in one["losses"])
+            + "; loss rel " + ", ".join(f"{v:.3e}" for v in loss_rel)
+            + f" (bar {PARITY_LOSS_BAR}); first-step gradient "
+            + ("Frobenius " if fro else "") + "rel per group max "
+            + f"{max(grad_rel):.3e} (bar {PARITY_GRAD_BAR})")
+    if fro:
+        peak = max(rel(a, b) for a, b in zip(got["grads"], one["grads"]))
+        out["grad_largest_entry_rel_max"] = peak
+        line += f", largest-entry rel max {peak:.3e} (printed)"
+    if bn_rel:
+        out["bn_running_max"] = max(bn_rel)
+        line += (f"; BatchNorm running statistics ({len(bn_rel)}) max "
+                 f"{max(bn_rel):.3e} (means in standard deviations)")
+        if max(bn_rel) >= PARITY_GRAD_BAR:
+            fails.append(f"{name} BatchNorm running statistics")
+    if queue:
+        qg, qo = got["state"]["queue"], one["state"]["queue"]
+        first, keys = rel(qg[:, :B], qo[:, :B]), err(qg[:, :3 * B],
+                                                     qo[:, :3 * B])
+        ptr = [int(got["state"]["queue_ptr"]), int(one["state"]["queue_ptr"])]
+        out.update(queue_first_keys_rel=first, queue_keys_rel=keys,
+                   queue_ptr=ptr)
+        line += (f"; enqueued keys rel, first step {first:.3e}, all three "
+                 + ("(Frobenius) " if fro else "") + f"{keys:.3e}"
+                 + ("" if later_keys else " (printed)")
+                 + f", queue_ptr {ptr}")
+        if (first >= PARITY_GRAD_BAR or ptr[0] != ptr[1]
+                or (later_keys and keys >= PARITY_GRAD_BAR)):
+            fails.append(f"{name} queue")
+    print(line + f"; entries that differ between the ranks {len(differ)}")
+    out["failures"] = fails
+    return out
+
+
+def gloo_two_ranks(dev, n: int = 2, B: int = 32) -> dict:
+    """n ranks on this one card (cuda:0) over a gloo group, from
+    ``parallel.dist`` directly (NCCL refuses two ranks on one device):
+    three FT steps of the kernel path, and three MoCo steps of the v2
+    queue on the kernel path in bf16 and of the v2 queue and v3 on the
+    plain path in fp32, on their row blocks of the global batch B, against the same
+    steps in this process on the whole batch (``_hold_ranks``). A rank
+    that fails fails the phase."""
+    import tempfile as _tempfile
+
+    import torch.multiprocessing as mp
+
+    from mfvit_tpu_torch.parallel import dist
+    with _tempfile.TemporaryDirectory() as out_dir:
+        mp.start_processes(_gloo_rank,
+                           args=(dist.free_port(), n, B, out_dir),
+                           nprocs=n, join=True, start_method="spawn")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(n)]
+    print(f"gloo on CUDA tensors, {n} ranks on cuda:0 against one process "
+          f"(vit_small, global B={B}, 3 steps each):")
+    out = {"ft": _hold_ranks("FT (SGD, kernels, bf16)",
+                             [rk["ft"] for rk in ranks],
+                             _ft_steps(dev, B=B), B, queue=False)}
+    for loss, fp32 in GLOO_MOCO_RUNS:
+        how = "plain, fp32" if fp32 else "kernels, bf16"
+        out[f"{loss}_{'fp32' if fp32 else 'bf16'}"] = _hold_ranks(
+            f"MoCo {loss} (LARS, BN heads, {how})",
+            [rk[loss, fp32] for rk in ranks],
+            _moco_steps(dev, loss, fp32, B=B), B,
+            queue=loss == "v2_queue", fro=True, later_keys=fp32)
+    fails = [f for v in out.values() for f in v["failures"]]
+    if fails:
+        raise AssertionError(f"gloo two ranks out of the bars: {fails}")
+    return out
+
+
 def moco_model(name: str, gen, in_chans: int = 3, **kw):
     """A MoCo state on the CPU: MoCo's ViT defaults (or its ResNet ones)
     over ``name`` at 224 px, ``in_chans`` input channels."""
@@ -4714,6 +5054,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         feeds = time_feeds(dev, tmp)
 
+    phase("ddp: finetune FT and pretrain (v2 queue) through the --dist-* "
+          "flags on a one-process NCCL group against the plain runs "
+          f"(vit_small, B={DDP_BATCH}, the store; launches, rates); two "
+          "gloo ranks on cuda:0 against one process (FT and MoCo v2 queue "
+          "and v3, B=32)")
+    with tempfile.TemporaryDirectory() as tmp:
+        ddp = run_ddp(dev, tmp)
+
     phase("times (B=256; K12-K14 also at N=577, B=64; K5/K7 also at a "
           "vit_base block, B=64; the fusion step also at B=32, and with the "
           "GPT head; GPT serving and the GPT head alone; the schedule "
@@ -4723,17 +5071,21 @@ def main() -> int:
     mhsa_577 = time_mhsa(dev, "vit_small@384", 64, 577, 384, 12)
     times.update(time_bwd(dev, "vit_small", 256, 384))
     base = time_bwd(dev, "vit_base", 64, 768)
-    bwd_stages = bwd_stage_times(dev)
+    # every launch-by-launch breakdown of this phase and the 384-px one
+    stages = fresh_stage_times({
+        **BWD_STAGES, "k15": ("k15", {}),
+        **{op: (op, {}) for pair in HALF_OPS.values() for op in pair},
+        **{f"{op} {label} B={B}": (op, dict(B=B, D=D, N=N, heads=h))
+           for op, label, B, N, D, h in STAGE_TIMED}})
+    bwd_stages = {k: stages[k] for k in BWD_STAGES}
     e2e = time_e2e(dev)
     quant_profile = profile_quant(dev)
     train = time_train(dev, 256, 4)
     train_cli = time_train(dev, 16, 32)  # the finetune CLI's default -b
     k15_ms, k15_plain_ms, k15_lib_ms, pair_ms = time_block(dev)
-    from mfvit_tpu_torch.tools.compare_block import stage_times
-    k15_stages = stage_times(dev)
+    k15_stages = stages["k15"]
     halves = time_halves(dev)
-    half_stages = {op: stage_times(dev, op)
-                   for pair in HALF_OPS.values() for op in pair}
+    half_stages = {op: stages[op] for pair in HALF_OPS.values() for op in pair}
     gemm_times = time_gemm(dev)
     times["fused_transformer_block"] = (k15_ms, k15_plain_ms, k15_lib_ms)
     variant_times, base_plain = time_variants(dev)
@@ -4784,8 +5136,7 @@ def main() -> int:
     long_times = time_long_kernels(dev)
     times["fused_attention_block_large"] = long_times[
         "fused_attention_block_large at vit_small@384"]
-    long_stages = {f"{op} {label} B={B}": stage_times(dev, op, B=B, D=D, N=N,
-                                                      heads=h)
+    long_stages = {f"{op} {label} B={B}": stages[f"{op} {label} B={B}"]
                    for op, label, B, N, D, h in STAGE_TIMED}
     e2e_384 = time_e2e(dev, B=64, img=384)
     train_384 = time_train(dev, 32, 4, img=384)
@@ -4889,6 +5240,7 @@ def main() -> int:
                       "k9_k10_k11_stages_ms": long_stages,
                       "k9_k10_k11_outputs_differ_from_former": long_former,
                       "interop": interop,
+                      "ddp": ddp,
                       "card": smi}))
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -7,11 +7,16 @@ views, paired, or the 4-channel stacked input; host-augmented in the
 reference order, host-cropped under ``--aug-order crop-first``, or the
 full host stack under ``--aug-host``), MoCo's host-transformed feeds (the
 BYOL stacks, the cross-modal pairs), the decode cache
-(``--canvas-cache-mb``) and the eval runner."""
+(``--canvas-cache-mb``) and the eval runner; and the multi-process plumbing
+of ``mfvit_tpu/cli/common.py:555-760`` (``add_dist_args``,
+``maybe_init_distributed``, ``setup_mesh``, ``primary_process_prints_only``
+and ``--mesh-devices``) over ``parallel/dist.py``."""
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -23,6 +28,7 @@ from mfvit_tpu_torch.models import fusion, gpt_fusion
 from mfvit_tpu_torch.nn import resnet as resnet_mod
 from mfvit_tpu_torch.nn import vit as vit_mod
 from mfvit_tpu_torch.nn import xla_route
+from mfvit_tpu_torch.parallel import dist
 from mfvit_tpu_torch.train.evaluator import Evaluator
 
 
@@ -72,7 +78,102 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                         "val + test); epochs then run host-free after a "
                         "one-time fill. 0 disables. Training store: "
                         "device-aug square-resize (no --maintain-ratio) "
-                        "runs; eval stores: any resize policy")
+                        "runs, sharded over the ranks when there are several;"
+                        " eval stores: any resize policy")
+    p.add_argument("--mesh-devices", type=int, default=None,
+                   help="#devices of the data axis (default: the most "
+                        "visible cards that divide the batch). In one "
+                        "process N > 1 spawns N ranks on cuda:0..N-1 (gloo "
+                        "ranks under --device cpu) for the training CLIs, "
+                        "and N replicas for infer; under a process group it "
+                        "must be the world size")
+
+
+def add_dist_args(p: argparse.ArgumentParser) -> None:
+    """The rendezvous flags of a multi-process run
+    (``mfvit_tpu/cli/common.py:563-578``): start the same command in every
+    process, each with its own ``--dist-process-id``, or under torchrun
+    with ``--distributed`` alone (``env://``)."""
+    p.add_argument("--dist-coordinator", default=None, type=str,
+                   help="rendezvous address host:port (omit under torchrun, "
+                        "whose environment gives it)")
+    p.add_argument("--dist-num-processes", default=None, type=int)
+    p.add_argument("--dist-process-id", default=None, type=int)
+    p.add_argument("--distributed", action="store_true",
+                   help="join a torch.distributed process group (implied "
+                        "by any other --dist-* flag)")
+
+
+def maybe_init_distributed(args) -> bool:
+    """Join the process group when any rendezvous flag is set
+    (``mfvit_tpu/cli/common.py:581-596``), on NCCL for ``--device cuda`` and
+    gloo for ``--device cpu``, and silence ``print`` on every rank but 0.
+    Returns True when the group came up; a failed rendezvous raises."""
+    if not (args.distributed or args.dist_coordinator is not None
+            or args.dist_num_processes is not None
+            or args.dist_process_id is not None):
+        return False
+    dist.init_distributed(args.dist_coordinator,
+                          num_processes=args.dist_num_processes,
+                          process_id=args.dist_process_id,
+                          device_type=torch.device(args.device).type)
+    primary_process_prints_only()
+    return True
+
+
+def setup_mesh(args) -> int:
+    """The number of devices of the data axis (``mfvit_tpu/cli/common.py::
+    setup_mesh``, :599-636). Under a process group: its world size, which
+    ``--mesh-devices`` must equal. In one process: ``--mesh-devices``, or
+    the largest count of visible cards that divides the batch (1 under
+    ``--device cpu``). Above 1 the global batch must divide evenly."""
+    if dist.world() > 1:
+        n = dist.world()
+        if args.mesh_devices not in (None, n):
+            raise SystemExit(f"--mesh-devices {args.mesh_devices} under {n} "
+                             "processes: the data axis must span all "
+                             f"{n} ranks")
+        dist.assert_divisible(args.batch_size, n)
+        return n
+    if args.mesh_devices is None:
+        avail = (torch.cuda.device_count()
+                 if torch.device(args.device).type == "cuda"
+                 and torch.cuda.is_available() else 1)
+        n = next(d for d in range(max(avail, 1), 0, -1)
+                 if args.batch_size % d == 0)
+    else:
+        n = args.mesh_devices
+    if n > 1:
+        dist.assert_divisible(args.batch_size, n)
+    return n
+
+
+def primary_process_prints_only() -> None:
+    """Silence ``print`` on every rank but 0, as the reference does for its
+    DDP workers (pretrain main :220-223); files are gated on
+    ``exp.storage.is_primary``."""
+    import builtins
+    if dist.world() > 1 and dist.rank() != 0:
+        builtins.print = lambda *a, **k: None
+
+
+def maybe_spawn(args, module: str, argv) -> Optional[list]:
+    """A training CLI's ``--mesh-devices N`` > 1 in one process: ``module``'s
+    ``main`` over ``argv`` on N spawned ranks (``dist.spawn_ranks``).
+    Returns rank 0's result once every rank returned the same, or None
+    where this process runs the training itself (one device, or a rank of
+    a group)."""
+    n = setup_mesh(args)
+    if n == 1 or dist.active():
+        return None
+    outs = dist.spawn_ranks(module, sys.argv[1:] if argv is None else argv,
+                            n, torch.device(args.device).type)
+    for r, out in enumerate(outs[1:], 1):
+        if repr(out) != repr(outs[0]):
+            raise RuntimeError(f"rank {r} returned other results than rank "
+                               f"0: {out!r} against {outs[0]!r}")
+    print(f"=> {n} ranks returned the same results")
+    return outs[0]
 
 
 def add_train_args(p: argparse.ArgumentParser) -> None:
@@ -193,6 +294,9 @@ def print_route(args) -> None:
 
 
 def resolve_device(name: str) -> torch.device:
+    """``--device``; under a process group this rank's device."""
+    if dist.active():
+        return dist.device()
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name}: CUDA is not available here "
@@ -357,10 +461,13 @@ class StoreBudget:
         self.left += nbytes
 
 
-def _store_nbytes(n: int, side: int, chans: int) -> int:
-    """Device bytes a store of ``n`` samples pins: the uint8 canvases and
-    an int64 label each."""
-    return n * (side * side * chans + 8)
+def _store_nbytes(n: int, side: int, chans: int, ranks: int = 1) -> int:
+    """Device bytes a store of ``n`` samples pins on this rank: the uint8
+    canvases and an int64 label each, of the samples padded by wrapping to
+    a multiple of ``ranks`` and split evenly over them
+    (``mfvit_tpu/cli/common.py:214-229``)."""
+    padded = n + (-n % ranks)
+    return padded // ranks * (side * side * chans + 8)
 
 
 def release_store(store) -> None:
@@ -406,14 +513,15 @@ def stream_train_view(args, canv: torch.Tensor, img_type: str,
     """The device half of one streaming training batch. Reference order
     (the default): the host already augmented the canvases, so only the
     normalisation remains. ``--aug-order crop-first``: flip and rotation
-    of the host crop, drawn from ``generator``."""
+    of the host crop, drawn from ``generator`` for the global batch."""
     if host_reference_aug(args):
         return device_aug.augment_batch(canv, img_type=img_type,
                                         out_dtype=compute_dtype(args))
     return device_aug.augment_batch(canv, img_type=img_type, training=True,
                                     rotate_deg=float(args.rotate),
                                     out_dtype=compute_dtype(args),
-                                    generator=generator)
+                                    generator=generator, world=dist.world(),
+                                    rank=dist.rank())
 
 
 def stream_train_two_views(args, canv_q: torch.Tensor,
@@ -433,19 +541,22 @@ def _train_crop(args) -> int:
 def device_train_view(args, generator: torch.Generator,
                       canv: torch.Tensor, img_type: str):
     """One reference-order training view (flip -> rotate about the full
-    canvas center -> random crop -> normalise) of store canvases."""
+    canvas center -> random crop -> normalise) of store canvases, drawn
+    for the global batch."""
     return device_aug.augment_train_canvas(
         generator, canv, crop=_train_crop(args), img_type=img_type,
-        rotate_deg=float(args.rotate), out_dtype=compute_dtype(args))
+        rotate_deg=float(args.rotate), out_dtype=compute_dtype(args),
+        world=dist.world(), rank=dist.rank())
 
 
 def device_train_two_views(args, generator: torch.Generator,
                            canv: torch.Tensor, img_type: str):
     """Two independent reference-order views of each store canvas
-    (TwoCropsTransform on the store paths)."""
+    (TwoCropsTransform on the store paths), drawn for the global batch."""
     return device_aug.augment_two_views_canvas(
         generator, canv, crop=_train_crop(args), img_type=img_type,
-        rotate_deg=float(args.rotate), out_dtype=compute_dtype(args))
+        rotate_deg=float(args.rotate), out_dtype=compute_dtype(args),
+        world=dist.world(), rank=dist.rank())
 
 
 def maybe_device_store(args, manifest_path: str, folder: str, *, device,
@@ -473,7 +584,7 @@ def maybe_device_store(args, manifest_path: str, folder: str, *, device,
                                    decode=decode)
     if budget is None:
         budget = StoreBudget(args.device_store_mb)
-    nbytes = _store_nbytes(len(ds), args.img_size, chans)
+    nbytes = _store_nbytes(len(ds), args.img_size, chans, dist.world())
     if not budget.reserve(nbytes):
         print("=> device canvas store: does not fit --device-store-mb "
               "budget; streaming feed for this draw")
@@ -493,8 +604,15 @@ def maybe_eval_device_store(args, manifest_path: str, folder: str, *,
                             budget: StoreBudget = None):
     """The eval twin of ``maybe_device_store``: center-cropped canvases in
     manifest order, the final batch wrap-padded (the evaluator trims it
-    with ``len(store.ds)``); any resize policy."""
+    with ``len(store.ds)``); any resize policy. Off under more than one
+    rank, as in JAX (:424-447): a store of the whole split on every rank
+    would enter each sample once a rank into the gathered eval batch;
+    the streaming eval feed takes each rank's rows."""
     if not device_aug_on(args) or getattr(args, "device_store_mb", 0) <= 0:
+        return None
+    if dist.world() > 1:
+        print("=> eval device canvas store: disabled on multi-process "
+              "runs; streaming eval feed")
         return None
     fill_tf = ht.CanvasTransform(img_size=args.img_size, crop=args.crop,
                                  training=False,
@@ -516,7 +634,8 @@ def maybe_eval_device_store(args, manifest_path: str, folder: str, *,
         return None
     store = device_store.fill_from_dataset(
         ds, batch_size=args.batch_size, seed=seed, shuffle=False,
-        drop_last=False, num_workers=args.workers, device=device)
+        drop_last=False, num_workers=args.workers, device=device, world=1,
+        rank=0)
     print(f"=> eval device canvas store: {store.n} samples "
           f"({store.nbytes >> 20} MB) resident")
     return store
@@ -527,7 +646,10 @@ def make_eval_runner(args, img_types, forward, device) -> Evaluator:
     ``device`` -- an eval store's batches are there already -- normalised
     for its flavour (``--aug-host`` batches are normalised host floats,
     only cast), ``forward(*imgs) -> logits``, the padded tail trimmed, AUC
-    and top-1 on the host."""
+    and top-1 on the host. Under a process group each rank runs its row
+    block of every batch and the logits and labels are all-gathered
+    (``mfvit_tpu/cli/common.py:671-730``), so every rank computes the same
+    metrics and takes the same best-val decisions."""
     dt = compute_dtype(args)
 
     def batch_forward(batch):
@@ -538,8 +660,11 @@ def make_eval_runner(args, img_types, forward, device) -> Evaluator:
             xs.append(device_aug.augment_batch(x, img_type=flavor,
                                                out_dtype=dt)
                       if device_aug_on(args) else x.to(dt))
-        return (forward(*xs).float().cpu().numpy(),
-                torch.as_tensor(labels).cpu().numpy())
+        logits = dist.all_gather_rows(forward(*xs).float())
+        labels = torch.as_tensor(labels)
+        if dist.world() > 1:
+            labels = dist.all_gather_rows(labels.to(device))
+        return logits.cpu().numpy(), labels.cpu().numpy()
 
     return Evaluator(batch_forward, metric_names=["auc", "acc"])
 

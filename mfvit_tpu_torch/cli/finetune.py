@@ -27,8 +27,17 @@ takes a MoCo ``.pth.tar``, a JAX orbax directory (``exp/orbax_io.py``;
 where ``tensorstore`` is missing, the file ``tools/convert_orbax.py
 --kind pretrain`` writes on the host that wrote it) or the port's own
 pretrain checkpoint. ``--attn-backend xla`` trains on JAX's XLA route
-(``nn/xla_route.py``), no kernel. Not ported yet (ROADMAP.md): the
-distributed flags, TensorBoard and ``lr.jpg``.
+(``nn/xla_route.py``), no kernel.
+
+Data parallel over ranks (``parallel/dist.py``): the same command in each
+process with ``--dist-coordinator host:port --dist-num-processes N
+--dist-process-id i`` (or ``--distributed`` under torchrun), or
+``--mesh-devices N`` in one process, which spawns N ranks on cuda:0..N-1.
+``-b`` stays the global batch; each rank takes its row block of it, the
+gradients are averaged and the eval logits gathered, and rank 0 writes
+the experiment folder. Each draw writes TensorBoard scalars (train/val/test)
+where tensorboardX imports, and the run draws the LR schedule into
+``lr.jpg`` where matplotlib does.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ from mfvit_tpu_torch.data import manifest as mf
 from mfvit_tpu_torch.exp import checkpoint as ckpt_mod
 from mfvit_tpu_torch.exp import harness, orbax_io, storage
 from mfvit_tpu_torch.nn import vit as vit_mod
+from mfvit_tpu_torch.parallel import dist
 from mfvit_tpu_torch.train import metrics, optim, profiler, steps
 
 
@@ -62,6 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--folder", default="data",
                    help="image flavor folder (data | Train_Mix)")
     p.add_argument("--num-classes", type=int, default=3)
+    common.add_dist_args(p)
     p.set_defaults(epochs=90, lr=3.0, batch_size=16)
     return p
 
@@ -120,7 +131,7 @@ def train_one_draw_fn(args, cfg, device):
         args, val_man, test_man, args.folder, device=device,
         budget=store_budget)
 
-    def train_one_draw(ratio, draw, sub_folder):
+    def train_one_draw(ratio, draw, sub_folder, writer):
         seed = args.seed if args.seed is not None else 0
         gen = torch.Generator().manual_seed(seed * 1000 + draw)
         model = vit_mod.ViT(cfg, args.num_classes, generator=gen)
@@ -132,6 +143,7 @@ def train_one_draw_fn(args, cfg, device):
                 raise ValueError(f"MoCo surgery: missing {missing}, "
                                  f"unexpected {unexpected}")
         model.to(device)
+        dist.broadcast_state(model)
         mask, snapshot = None, None
         if not args.semi_supervised:
             mask = optim.head_only_mask(model.named_parameters())
@@ -210,11 +222,18 @@ def train_one_draw_fn(args, cfg, device):
                     x, y = batch[0].to(dt), batch[1]
                 loss, _ = train_step(model, opt, x, y)
                 # one-step-lagged fetch: no host sync per step
-                fetch.push(loss, int(y.shape[0]), i, sync=(i == 0))
+                fetch.push(loss, int(y.shape[0]) * dist.world(), i,
+                           sync=(i == 0))
                 timer.step_done(i, args.print_freq)
             fetch.flush()
             model.eval()
-            val_auc, val_acc, _, _, _ = evaluate(model, vl, n_total=n_val)
+            val_auc, val_acc, val_loss, _, _ = evaluate(model, vl,
+                                                        n_total=n_val)
+            if writer is not None:
+                writer.add_scalar("train/loss", ep_loss.avg, epoch)
+                writer.add_scalar("val/auc", val_auc, epoch)
+                writer.add_scalar("val/acc", val_acc, epoch)
+                writer.add_scalar("val/loss", val_loss, epoch)
             print(f"[ratio {ratio} draw {draw}] epoch {epoch}: "
                   f"train loss {ep_loss.avg:.4f} val auc {val_auc:.4f} "
                   f"acc {val_acc:.4f}")
@@ -224,10 +243,15 @@ def train_one_draw_fn(args, cfg, device):
                 t_auc, t_acc, _, _, _ = evaluate(model, sl, n_total=n_test)
                 result.test_auc = t_auc
                 result.extra["test_acc_at_best_auc"] = t_acc
+                if writer is not None:
+                    writer.add_scalar("test/all_test_auc", t_auc, epoch)
+                    writer.add_scalar("test/auc", t_auc, epoch)
             if best_acc.update(val_acc, state, save_last=False):
                 a_auc, a_acc, _, _, _ = evaluate(model, sl, n_total=n_test)
                 result.test_acc = a_acc
                 result.extra["test_auc_at_best_acc"] = a_auc
+                if writer is not None:
+                    writer.add_scalar("test/all_test_acc", a_acc, epoch)
 
         if snapshot is not None:
             harness.verify_frozen(model.state_dict(), snapshot)
@@ -238,12 +262,38 @@ def train_one_draw_fn(args, cfg, device):
     return train_one_draw
 
 
+def draw_lr(args, folder) -> None:
+    """``lr.jpg``: the per-epoch LR of the schedule
+    (``mfvit_tpu/cli/finetune.py:296-316``), skipped with a message where
+    matplotlib is missing or fails."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        init_lr = optim.scaled_init_lr(args.lr, args.batch_size,
+                                       cos=args.cos, entry="finetune")
+        sched = optim.finetune_lr(init_lr, args.epochs, cos=args.cos,
+                                  schedule=args.schedule, steps_per_epoch=1)
+        plt.figure()
+        plt.plot([float(sched(e)) for e in range(args.epochs)])
+        plt.xlabel("epoch")
+        plt.ylabel("lr")
+        plt.savefig(str(folder / "lr.jpg"))
+        plt.close()
+    except Exception as e:  # plotting is best-effort, as in JAX
+        print(f"lr.jpg skipped: {e}")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    common.maybe_init_distributed(args)
     if args.resume:
         raise SystemExit("--resume is not implemented for finetune "
                          "(the reference's resume path is dead code too); "
                          "restart the draw or load via --pretrained")
+    spawned = common.maybe_spawn(args, "mfvit_tpu_torch.cli.finetune", argv)
+    if spawned is not None:
+        return spawned
     common.print_route(args)
     device = common.resolve_device(args.device)
     cfg = common.get_vit_arch(args)
@@ -257,6 +307,8 @@ def main(argv=None):
     results = harness.run_draws(folder, ratios,
                                 train_one_draw_fn(args, cfg, device),
                                 iterations=iterations)
+    if storage.is_primary():
+        draw_lr(args, folder)
     for r in results:
         print(f"ratio {r.ratio} draw {r.draw}: "
               f"test auc {r.test_auc:.4f} acc {r.test_acc:.4f}")

@@ -34,8 +34,12 @@ stack's floats. ``--pretrained-*`` also take JAX ``finetune``'s orbax
 ``model_best`` directories (``exp/orbax_io.py``; where ``tensorstore`` is
 missing, the file ``tools/convert_orbax.py --kind branch`` writes on the
 host that wrote them). ``--attn-backend xla`` runs JAX's XLA route
-(``nn/xla_route.py``) in the branches and the CA head, no kernel. Not
-ported yet (ROADMAP.md): the distributed flags and TensorBoard.
+(``nn/xla_route.py``) in the branches and the CA head, no kernel.
+
+Data parallel over ranks as ``finetune`` (``--dist-*``, torchrun's
+``--distributed``, or ``--mesh-devices N`` in one process; ``-b`` the
+global batch, rank 0 the writer), with TensorBoard scalars per draw
+where tensorboardX imports.
 """
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ from mfvit_tpu_torch.data import manifest as mf
 from mfvit_tpu_torch.exp import checkpoint as ckpt_mod
 from mfvit_tpu_torch.exp import harness, orbax_io, storage
 from mfvit_tpu_torch.nn.vit import ViT
+from mfvit_tpu_torch.parallel import dist
 from mfvit_tpu_torch.train import metrics, optim, profiler, steps
 
 BRANCHES = ("cxr", "enh")
@@ -73,6 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_true",
                    help="train the branches too (default: only the head)")
     common.add_fusion_args(p)
+    common.add_dist_args(p)
     p.set_defaults(epochs=25, lr=1.5e-4, batch_size=32)
     return p
 
@@ -122,7 +128,7 @@ def train_one_draw_fn(args, cfg, device):
         args, val_man, test_man, "data", paired=True, device=device,
         budget=store_budget)
 
-    def train_one_draw(ratio, draw, sub_folder):
+    def train_one_draw(ratio, draw, sub_folder, writer):
         models = build_models(args, cfg, draw)
         for b, path in zip(BRANCHES, (args.pretrained_cxr,
                                       args.pretrained_enh)):
@@ -130,6 +136,7 @@ def train_one_draw_fn(args, cfg, device):
             if sd is not None:
                 models[b].load_state_dict(sd, strict=True)
         models.to(device)
+        dist.broadcast_state(models)
         mask, snapshot = None, None
         if not args.semi_supervised:
             mask = fusion_trainable_mask(models.named_parameters())
@@ -211,11 +218,16 @@ def train_one_draw_fn(args, cfg, device):
                     xc, xe, y = batch[0].to(dt), batch[1].to(dt), batch[2]
                 loss, _ = train_step(models, opt, xc, xe, y)
                 # one-step-lagged fetch: no host sync per step
-                fetch.push(loss, int(y.shape[0]), i, sync=(i == 0))
+                fetch.push(loss, int(y.shape[0]) * dist.world(), i,
+                           sync=(i == 0))
                 timer.step_done(i, args.print_freq)
             fetch.flush()
             models.eval()
             val_auc, val_acc = evaluate(vl, n_val)
+            if writer is not None:
+                writer.add_scalar("train/loss", ep_loss.avg, epoch)
+                writer.add_scalar("val/auc", val_auc, epoch)
+                writer.add_scalar("val/acc", val_acc, epoch)
             print(f"[ratio {ratio} draw {draw}] epoch {epoch}: "
                   f"loss {ep_loss.avg:.4f} val auc {val_auc:.4f} "
                   f"acc {val_acc:.4f}")
@@ -235,10 +247,14 @@ def train_one_draw_fn(args, cfg, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    common.maybe_init_distributed(args)
     if args.resume:
         raise SystemExit("--resume is not implemented for fuse "
                          "(the reference's resume path is dead code too); "
                          "restart the draw or load via --pretrained")
+    spawned = common.maybe_spawn(args, "mfvit_tpu_torch.cli.fuse", argv)
+    if spawned is not None:
+        return spawned
     common.print_route(args)
     device = common.resolve_device(args.device)
     cfg = common.get_vit_arch(args)

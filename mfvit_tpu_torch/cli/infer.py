@@ -30,6 +30,11 @@ sends uint8 canvases, normalised on the device; under ``--aug-host`` it
 sends the host stack's normalised floats, which are only cast.
 ``--attn-backend xla`` runs JAX's XLA route (``nn/xla_route.py``) in the
 branches and the head, no kernel; the first line printed names the route.
+``--mesh-devices N`` (JAX's data mesh, infer.py:105-110) holds one replica
+of the models on each of cuda:0..N-1 and runs each batch as N row blocks,
+one a replica, the logits concatenated in order (under ``--device cpu``, N
+replicas on the CPU); the default takes the most visible cards that
+divide the batch.
 """
 from __future__ import annotations
 
@@ -98,6 +103,38 @@ def prepare(batch, device, dtype, aug_device: bool = True) -> list:
             for x, flavor in zip(xs, FLAVORS)]
 
 
+def replica_devices(device: torch.device, n: int) -> list:
+    """The devices of ``n`` replicas: ``device`` alone for one, else
+    cuda:0..n-1 (raising past the visible cards), or n times the CPU."""
+    if n == 1:
+        return [device]
+    if device.type == "cpu":
+        return [device] * n
+    have = torch.cuda.device_count()
+    if n > have:
+        raise SystemExit(f"--mesh-devices {n}: {have} CUDA devices are "
+                         "visible here")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def split_forward(forward, replicas: list, devices: list):
+    """``forward(models, xc, xe) -> logits`` over len(devices) replicas:
+    the batch's row blocks, block i on ``devices[i]`` through
+    ``replicas[i]``, the logits concatenated in order on the first
+    device."""
+    if len(devices) == 1:
+        return lambda xc, xe: forward(replicas[0], xc, xe)
+
+    def run(xc, xe):
+        n = len(devices)
+        outs = [forward(m, c.to(d), e.to(d)).to(devices[0])
+                for m, d, c, e in zip(replicas, devices, xc.chunk(n),
+                                      xe.chunk(n))]
+        return torch.cat(outs)
+
+    return run
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.int8 and args.fusion_arch == "gpt":
@@ -107,15 +144,18 @@ def main(argv=None):
     device = common.resolve_device(args.device)
     cfg = common.get_vit_arch(args)
     dt = common.compute_dtype(args)
-    models = load_models(args, cfg, device)
+    devices = replica_devices(device, common.setup_mesh(args))
+    replicas = [load_models(args, cfg, d) for d in devices]
     # the forward fuse selected model_best with, so serving cannot drift
     fwd3 = steps_mod.make_fusion_forward(compute_dtype=dt,
                                          fusion_arch=args.fusion_arch,
                                          attn_backend=args.attn_backend)
 
-    def forward(xc, xe):
+    def decision(models, xc, xe):
         fused, lc, le = fwd3(models, xc, xe)
         return fused + lc + le
+
+    forward = split_forward(decision, replicas, devices)
 
     loader = common.make_paired_loader(args, args.manifest)
     n_total = len(loader.ds)

@@ -36,8 +36,15 @@ file or the JAX package's orbax directory of that name (its state,
 optimizer state and epoch; ``exp/orbax_io.py`` reads it where
 ``tensorstore`` is importable, else ``tools/convert_orbax.py --kind
 pretrain`` on the host that wrote it gives the file), and starts at the
-next epoch. Not ported yet, and refused with a message (ROADMAP.md
-section 1): ``--distributed`` (item 6), TensorBoard (item 8).
+next epoch.
+
+Data parallel over ranks as ``finetune`` (``--dist-*``, torchrun's
+``--distributed``, or ``--mesh-devices N`` in one process; ``-b`` the
+global batch, K a multiple of it): each rank runs its row block through
+both towers, the BatchNorms take the global batch's statistics, the keys
+are all-gathered into the queue, the gradients averaged, and rank 0
+writes the checkpoints. The loss goes to TensorBoard every
+``--print-freq`` steps where tensorboardX imports.
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ from mfvit_tpu_torch.data import device_aug
 from mfvit_tpu_torch.data import manifest as mf
 from mfvit_tpu_torch.exp import checkpoint as ckpt_mod
 from mfvit_tpu_torch.exp import harness, storage
+from mfvit_tpu_torch.parallel import dist
 from mfvit_tpu_torch.ssl import moco
 from mfvit_tpu_torch.train import metrics, optim, profiler
 
@@ -74,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
                    type=str,
                    help="local torchvision resnet state dict for BOTH MoCo "
                         "towers' encoders; resnet archs only")
-    p.add_argument("--distributed", action="store_true")
+    common.add_dist_args(p)
     p.add_argument("--export-torch", action="store_true",
                    help="also write the reference-layout .pth.tar "
                         "(module.base_encoder.* + projector head) that "
@@ -115,7 +123,7 @@ def train_one_draw_fn(args, backbone_cfg, device):
     dt = common.compute_dtype(args)
     store_budget = common.StoreBudget(args.device_store_mb)
 
-    def train_one_draw(ratio, draw, sub_folder):
+    def train_one_draw(ratio, draw, sub_folder, writer):
         cfg = moco_config(args)
         # pretraining reads the UNLABELED split at fractional ratios
         man = (mf.split_manifest_path(args.covid_ds, 1, 0)
@@ -171,6 +179,8 @@ def train_one_draw_fn(args, backbone_cfg, device):
             opt.load_state_dict(ck["opt_state"])
             start_epoch = ck["epoch"] + 1
             print(f"=> resumed from {args.resume} at epoch {start_epoch}")
+        # the same start on every rank, whatever each one built or read
+        dist.broadcast_state(model)
 
         best_loss = math.inf
         result = harness.DrawResult(ratio, draw)
@@ -180,6 +190,9 @@ def train_one_draw_fn(args, backbone_cfg, device):
         def record(val, n, idx):
             ep_loss.update(val, n)
             losses.append(val)
+            if writer is not None and idx % args.print_freq == 0:
+                writer.add_scalar("pretrain/loss", val,
+                                  epoch * steps_per_epoch + idx)
 
         for epoch in range(start_epoch, args.epochs):
             gen = device_aug.epoch_generator(seed, draw, epoch, device)
@@ -206,7 +219,8 @@ def train_one_draw_fn(args, backbone_cfg, device):
                         args, batch[0], batch[1], img_type, gen)
                 loss = step(model, opt, q, k, m)
                 # one-step-lagged fetch: no host sync per step
-                fetch.push(loss, int(q.shape[0]), i, sync=(i == 0))
+                fetch.push(loss, int(q.shape[0]) * dist.world(), i,
+                           sync=(i == 0))
                 timer.step_done(i, args.print_freq)
             fetch.flush()
             print(f"[ratio {ratio} draw {draw}] epoch {epoch}: "
@@ -260,16 +274,9 @@ def make_loader(args, man: str, draw: int):
             not common.device_aug_on(args))
 
 
-def check_ported(args) -> None:
-    """Refuse, before any work, what this port does not run yet."""
-    if args.distributed:
-        raise SystemExit("--distributed is not ported yet (ROADMAP.md "
-                         "section 1, item 6)")
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_ported(args)
+    common.maybe_init_distributed(args)
     common.print_route(args)
     device = common.resolve_device(args.device)
     backbone_cfg = common.get_arch(args)
@@ -287,6 +294,9 @@ def main(argv=None):
     if args.pretrained_arms and not args.arch.startswith("resnet"):
         raise SystemExit("--pretrained-arms is resnet-only; ViT "
                          "pretraining starts from scratch")
+    spawned = common.maybe_spawn(args, "mfvit_tpu_torch.cli.pretrain", argv)
+    if spawned is not None:
+        return spawned
     folder = storage.get_storage_folder(args.exp_name, "moco",
                                         root=args.storage_root)
     harness.snapshot_args(folder, args)
@@ -295,7 +305,7 @@ def main(argv=None):
     ratios = [mf.ratio_tag(r) for r in args.semi_ratios]
     return harness.run_draws(folder, ratios,
                              train_one_draw_fn(args, backbone_cfg, device),
-                             iterations=iterations)
+                             iterations=iterations, tb_prefix="tb_pretrain")
 
 
 if __name__ == "__main__":

@@ -60,6 +60,13 @@ class ViewDraws:
     tops: Optional[torch.Tensor] = None
     lefts: Optional[torch.Tensor] = None
 
+    def rank_rows(self, b: int, rank: int) -> "ViewDraws":
+        """Rank ``rank``'s block of ``b`` rows of the global batch's
+        draws."""
+        lo, hi = rank * b, (rank + 1) * b
+        return ViewDraws(*(None if t is None else t[lo:hi] for t in
+                           (self.flip, self.deg, self.tops, self.lefts)))
+
 
 def _draw_flip_deg(gen: torch.Generator, B: int, rotate_deg: float,
                    hflip: bool) -> ViewDraws:
@@ -261,26 +268,31 @@ def batch_view(canvases: torch.Tensor, draws: ViewDraws, *,
 def augment_train_canvas(gen: torch.Generator, canvases: torch.Tensor, *,
                          crop: int, img_type: str = "data",
                          rotate_deg: float = 10.0, hflip: bool = True,
-                         out_dtype: torch.dtype = torch.float32
-                         ) -> torch.Tensor:
+                         out_dtype: torch.dtype = torch.float32,
+                         world: int = 1, rank: int = 0) -> torch.Tensor:
     """Reference-order training view of full canvases resident on the
     device (the store paths): HFlip -> RandomRotation about the full
-    canvas center -> RandomCrop -> normalise (image_transform.py:58-63)."""
-    draws = draw_canvas_view(gen, canvases.shape, crop=crop,
-                             rotate_deg=rotate_deg, hflip=hflip)
-    return canvas_view(canvases, draws, crop=crop, img_type=img_type,
-                       out_dtype=out_dtype)
+    canvas center -> RandomCrop -> normalise (image_transform.py:58-63).
+    Under ``world`` ranks ``canvases`` are rank ``rank``'s block of the
+    global batch: the draws are made for the global batch, as JAX draws a
+    view over the whole sharded batch, and the block's rows taken."""
+    b = canvases.shape[0]
+    draws = draw_canvas_view(gen, (b * world, *canvases.shape[1:]),
+                             crop=crop, rotate_deg=rotate_deg, hflip=hflip)
+    return canvas_view(canvases, draws.rank_rows(b, rank), crop=crop,
+                       img_type=img_type, out_dtype=out_dtype)
 
 
 def augment_two_views_canvas(gen: torch.Generator, canvases: torch.Tensor,
                              *, crop: int, img_type: str = "data",
                              rotate_deg: float = 10.0, hflip: bool = True,
-                             out_dtype: torch.dtype = torch.float32):
+                             out_dtype: torch.dtype = torch.float32,
+                             world: int = 1, rank: int = 0):
     """Two independent reference-order views (q, k) of one resident
     canvas (TwoCropsTransform over the whole stack): each view draws its
     own flip, rotation and crop, q's first."""
     kw = dict(crop=crop, img_type=img_type, rotate_deg=rotate_deg,
-              hflip=hflip, out_dtype=out_dtype)
+              hflip=hflip, out_dtype=out_dtype, world=world, rank=rank)
     q = augment_train_canvas(gen, canvases, **kw)
     k = augment_train_canvas(gen, canvases, **kw)
     return q, k
@@ -289,18 +301,20 @@ def augment_two_views_canvas(gen: torch.Generator, canvases: torch.Tensor,
 def augment_batch(canvases: torch.Tensor, *, img_type: str = "data",
                   training: bool = False, rotate_deg: float = 10.0,
                   hflip: bool = True, out_dtype: torch.dtype = torch.float32,
-                  generator: Optional[torch.Generator] = None
-                  ) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  world: int = 1, rank: int = 0) -> torch.Tensor:
     """uint8 (B, S, S, C) canvases on any device -> normalised (B, S, S, C)
     in ``out_dtype`` on the same device. Eval (the default): normalise
     only. ``training``: a random flip (p 0.5) and a rotation by
     U(-rotate_deg, rotate_deg) of the whole canvas, drawn from
-    ``generator``, then normalise."""
+    ``generator`` for the global batch of ``world`` blocks (as
+    ``augment_train_canvas``), then normalise."""
     if not training:
         return _normalize(canvases, img_type, out_dtype)
-    draws = draw_batch_view(generator, canvases.shape[0],
-                            rotate_deg=rotate_deg, hflip=hflip)
-    return batch_view(canvases, draws, img_type=img_type,
+    b = canvases.shape[0]
+    draws = draw_batch_view(generator, b * world, rotate_deg=rotate_deg,
+                            hflip=hflip)
+    return batch_view(canvases, draws.rank_rows(b, rank), img_type=img_type,
                       out_dtype=out_dtype)
 
 

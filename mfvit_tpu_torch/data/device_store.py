@@ -1,4 +1,4 @@
-"""The device-resident canvas store, the single-device half of
+"""The device-resident canvas store, the port of
 ``mfvit_tpu/data/device_store.py``: each image of a split is decoded and
 resized once (``fill_from_dataset``) into a uint8 (N, S, S, C) table in
 device memory (a tuple of two for the paired CXR + enhanced feed) beside
@@ -11,8 +11,16 @@ The shuffle is ``np.random.default_rng(seed + epoch)``, as
 ``BatchLoader``'s; a short final batch is filled by wrapping and tiling the
 epoch's order. The fill needs fixed-size canvases: the square resize (no
 ``--maintain-ratio``) for the training store, the center crop for the eval
-stores. The sharded form over several devices waits for DDP (ROADMAP.md
-section 1, item 6)."""
+stores.
+
+Under a process group of W ranks the store is sharded as JAX's is over a
+W-device mesh (``_iter_sharded``, ``_make_sharded_gather``,
+``fill_from_dataset(mesh=)``, :143-240): the rows are padded by wrapping to
+a multiple of W, rank r decodes and holds only its contiguous block of
+them, and each epoch it shuffles that block with
+``np.random.default_rng((seed, epoch, r))`` and gathers its B/W rows a
+step from it, with no communication. Each sample is seen once an epoch;
+a batch holds B/W rows of every block."""
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
@@ -21,8 +29,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-_SHARDED = ("a sharded device canvas store (mesh) is not ported yet "
-            "(ROADMAP.md section 1, item 6)")
+from mfvit_tpu_torch.parallel import dist
 
 
 class _SizedView:
@@ -39,20 +46,30 @@ class DeviceCanvasStore:
     """uint8 canvases and (N,) labels on one device. ``canvases`` is one
     (N, S, S, C) tensor or a tuple of them; iterating yields ``(canv,
     label)`` or ``(canv_a, canv_b, label)`` batches on the device, and
-    ``iter_index_batches`` the index vectors alone."""
+    ``iter_index_batches`` the index vectors alone.
+
+    Sharded (``world`` > 1): the tensors hold rank ``rank``'s block of a
+    table of ``world`` equal blocks, ``batch_size`` is the global batch
+    and a batch is this rank's B/W rows of it; the indices are local to
+    the block."""
 
     def __init__(self, canvases, labels: torch.Tensor, *, batch_size: int,
                  seed: int = 0, drop_last: bool = True, shuffle: bool = True,
-                 num_samples: Optional[int] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(_SHARDED)
+                 num_samples: Optional[int] = None, world: int = 1,
+                 rank: int = 0):
         multi = isinstance(canvases, (tuple, list))
         self._canvs = tuple(canvases) if multi else (canvases,)
         self.canvases = self._canvs if multi else canvases
         self.labels = labels
         self.device = labels.device
-        self.n = int(self._canvs[0].shape[0])
+        self.world, self.rank = world, rank
+        self.m = int(self._canvs[0].shape[0])  # rows held here
+        self.n = self.m * world  # rows of the whole (padded) table
         self.bs = batch_size
+        if world > 1 and batch_size % world:
+            raise ValueError(f"sharded store needs the batch ({batch_size}) "
+                             f"divisible by the ranks ({world})")
+        self.local_bs = batch_size // world
         self.seed = seed
         self.drop_last = drop_last
         self.shuffle = shuffle
@@ -61,8 +78,8 @@ class DeviceCanvasStore:
         self.epoch = 0
 
     def __len__(self) -> int:
-        return (self.n // self.bs if self.drop_last
-                else -(-self.n // self.bs))
+        return (self.m // self.local_bs if self.drop_last
+                else -(-self.m // self.local_bs))
 
     @property
     def nbytes(self) -> int:
@@ -72,20 +89,27 @@ class DeviceCanvasStore:
         self.epoch = epoch
 
     def index_batches(self, epoch: int) -> list:
-        """The host (int32) index vectors of ``epoch``, in order."""
-        idx = np.arange(self.n)
-        if self.shuffle:
-            np.random.default_rng(self.seed + epoch).shuffle(idx)
-        stop = self.n - (self.n % self.bs if self.drop_last else 0)
+        """The host (int32) index vectors of ``epoch``, in order: the
+        global order of ``seed + epoch``, or sharded this rank's order of
+        its block from ``(seed, epoch, rank)``."""
+        m, bs = self.m, self.local_bs
+        if self.world > 1:
+            idx = (np.random.default_rng((self.seed, epoch, self.rank))
+                   .permutation(m) if self.shuffle else np.arange(m))
+        else:
+            idx = np.arange(m)
+            if self.shuffle:
+                np.random.default_rng(self.seed + epoch).shuffle(idx)
+        stop = m - (m % bs if self.drop_last else 0)
         out = []
-        for s in range(0, stop, self.bs):
-            chunk = idx[s:s + self.bs]
-            if len(chunk) < self.bs:
+        for s in range(0, stop, bs):
+            chunk = idx[s:s + bs]
+            if len(chunk) < bs:
                 # wrap-and-tile, as BatchLoader pads (also when the whole
                 # split is smaller than one batch)
-                reps = -(-(self.bs - len(chunk)) // max(self.n, 1))
+                reps = -(-(bs - len(chunk)) // max(m, 1))
                 chunk = np.concatenate(
-                    [chunk, np.tile(idx, reps)[: self.bs - len(chunk)]])
+                    [chunk, np.tile(idx, reps)[: bs - len(chunk)]])
             out.append(chunk.astype(np.int32))
         return out
 
@@ -113,15 +137,24 @@ class DeviceCanvasStore:
 
 def fill_from_dataset(ds, *, batch_size: int, device, seed: int = 0,
                       num_workers: int = 8, drop_last: bool = True,
-                      shuffle: bool = True, mesh=None) -> DeviceCanvasStore:
+                      shuffle: bool = True, world: Optional[int] = None,
+                      rank: Optional[int] = None) -> DeviceCanvasStore:
     """One threaded host pass over ``ds`` into a ``DeviceCanvasStore`` on
     ``device``. ``ds[i]`` must give fixed-size uint8 canvases and a label
     (a deterministic transform, such as an eval ``CanvasTransform``): the
-    per-epoch flips, rotations and crops are drawn on the device."""
-    if mesh is not None:
-        raise NotImplementedError(_SHARDED)
+    per-epoch flips, rotations and crops are drawn on the device.
+
+    ``world`` and ``rank`` default to the process group's. With more than
+    one rank the rows are padded by wrapping to a multiple of ``world``
+    and this rank decodes only its block (``dist.local_row_block``)."""
+    world = dist.world() if world is None else world
+    rank = dist.rank() if rank is None else rank
+    rows = list(range(len(ds)))
+    if world > 1 and len(rows) % world:
+        rows = rows + rows[: world - len(rows) % world]
+    lo, hi = dist.local_row_block(len(rows), world, rank)
     with ThreadPoolExecutor(num_workers) as pool:
-        samples = list(pool.map(ds.__getitem__, range(len(ds))))
+        samples = list(pool.map(ds.__getitem__, rows[lo:hi]))
     n_canv = len(samples[0]) - 1
     canvs = []
     for j in range(n_canv):
@@ -136,4 +169,4 @@ def fill_from_dataset(ds, *, batch_size: int, device, seed: int = 0,
     return DeviceCanvasStore(
         canvs[0] if n_canv == 1 else tuple(canvs), labels,
         batch_size=batch_size, seed=seed, drop_last=drop_last,
-        shuffle=shuffle, num_samples=len(ds))
+        shuffle=shuffle, num_samples=len(ds), world=world, rank=rank)

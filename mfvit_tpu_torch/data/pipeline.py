@@ -1,9 +1,11 @@
-"""Host batch assembly, ``BatchLoader`` (the single-process subset of
-``mfvit_tpu/data/pipeline.py``). Worker threads decode (cv2 and PIL release
+"""Host batch assembly, ``BatchLoader``, the port of
+``mfvit_tpu/data/pipeline.py``. Worker threads decode (cv2 and PIL release
 the GIL) and a bounded queue keeps a few batches ready. Training loaders
 shuffle with ``seed + epoch`` and drop the last short batch; eval loaders
 keep the order and pad the last short batch by wrapping (``pad_final``) so
 every batch has the same shape; the caller trims with ``len(loader.ds)``.
+Under a process group each rank decodes only its row block of every
+global batch (the ``DistributedSampler`` contract).
 ``device_prefetch`` moves the batches to the card one step ahead, from
 pinned memory on a side CUDA stream."""
 from __future__ import annotations
@@ -11,10 +13,12 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+
+from mfvit_tpu_torch.parallel import dist
 
 
 def _collate(samples: Sequence) -> tuple:
@@ -25,13 +29,21 @@ def _collate(samples: Sequence) -> tuple:
 class BatchLoader:
     """Batches of ``dataset``: in index order with the last batch padded
     (the defaults, for eval), or with ``shuffle`` (epoch e shuffles with
-    ``seed + e``) and ``drop_last`` for training."""
+    ``seed + e``) and ``drop_last`` for training.
+
+    ``batch_size`` is the global batch. Of ``process_count`` ranks, rank
+    ``process_index`` yields rows [i B/P, (i + 1) B/P) of each global
+    batch, which every rank computes alike (``mfvit_tpu/data/pipeline.py``
+    :40-80, :122-127): the ranks' blocks in rank order are the
+    one-process batch. Both default to the process group's (one process
+    outside a group)."""
 
     PREFETCH = 3  # batches kept ready ahead of the consumer
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = False,
-                 num_workers: int = 8):
+                 num_workers: int = 8, process_index: Optional[int] = None,
+                 process_count: Optional[int] = None):
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
@@ -39,6 +51,14 @@ class BatchLoader:
         self.drop_last = drop_last
         self.num_workers = num_workers
         self.epoch = 0
+        if process_count is None:
+            process_count = dist.world()
+        if process_index is None:
+            process_index = dist.rank() if process_count > 1 else 0
+        if batch_size % process_count:
+            raise ValueError(f"batch {batch_size} not divisible by "
+                             f"process_count {process_count}")
+        self.process_index, self.process_count = process_index, process_count
 
     def __len__(self) -> int:
         n = len(self.ds)
@@ -68,6 +88,12 @@ class BatchLoader:
                 reps = -(-(self.bs - len(chunk)) // len(idx))
                 chunk = np.concatenate(
                     [chunk, np.tile(idx, reps)[: self.bs - len(chunk)]])
+            if self.process_count > 1:
+                # sliced after the global batching, so the blocks make up
+                # the one-process batch
+                local = self.bs // self.process_count
+                chunk = chunk[self.process_index * local:
+                              (self.process_index + 1) * local]
             out.append(chunk)
         return out
 

@@ -30,7 +30,7 @@ import os
 import numpy as np
 import torch
 
-from mfvit_tpu_torch.exp import orbax_io
+from mfvit_tpu_torch.exp import orbax_io, storage
 from mfvit_tpu_torch.nn import posembed
 
 
@@ -392,7 +392,8 @@ def load_reference_fusion(path: str, fus) -> None:
 class BestKeeper:
     """Track a metric (higher is better) and save best/last checkpoints
     (the reference policy, ``mfvit_tpu/exp/checkpoint.py:77-104``), as
-    ``torch.save`` state dicts under the same names."""
+    ``torch.save`` state dicts under the same names, on rank 0 (every rank
+    tracks the metric, which the eval runner makes the same on all)."""
 
     best_name, last_name = "model_best", "last_checkpoint"
 
@@ -401,8 +402,9 @@ class BestKeeper:
         self.best = None
 
     def _save(self, name: str, state: dict) -> None:
-        torch.save({k: v.detach().cpu() for k, v in state.items()},
-                   os.path.join(self.folder, name))
+        if storage.is_primary():
+            torch.save({k: v.detach().cpu() for k, v in state.items()},
+                       os.path.join(self.folder, name))
 
     def update(self, metric: float, state: dict, *,
                save_last: bool = True) -> bool:
@@ -506,7 +508,10 @@ def save_pretrain_checkpoint(path: str, model, *, epoch: int,
     """The pretrain CLI's own checkpoint (``checkpoint_best_loss``,
     ``checkpoint_{epoch:04d}``): a ``torch.save`` of {"state": the MoCo
     state dict, "epoch"[, "opt_state": the optimizer's with its step
-    count]}, the contents of JAX's orbax ones in a torch file."""
+    count]}, the contents of JAX's orbax ones in a torch file, written by
+    rank 0 (every rank holds the same state)."""
+    if not storage.is_primary():
+        return
     ck = {"state": {k: v.detach().cpu() for k, v in
                     model.state_dict().items()}, "epoch": int(epoch)}
     if opt is not None:

@@ -1,11 +1,13 @@
 """Semi-supervised 5-draws experiment harness, the port of
 ``mfvit_tpu/exp/harness.py``: for each labeled fraction run its draws, each
-with its own split manifest and checkpoint subfolder; collect per-(ratio,
-draw) test AUC/ACC and write them after every draw (pickles and JSON); the
-``commandline_args.txt`` snapshot; and the LP ``verify_frozen`` check."""
+with its own split manifest, checkpoint subfolder and TensorBoard writer;
+collect per-(ratio, draw) test AUC/ACC and write them after every draw
+(pickles and JSON); the ``commandline_args.txt`` snapshot; and the LP
+``verify_frozen`` check. Every file is rank 0's."""
 from __future__ import annotations
 
 import json
+import os
 import pickle
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -49,17 +51,31 @@ class DrawResult:
     extra: Dict[str, Any] = field(default_factory=dict)
 
 
-def run_draws(exp_folder: Path, ratios: Sequence, train_one_draw: Callable,
-              *, iterations: Optional[Dict] = None) -> List[DrawResult]:
-    """Run the ratio x draw grid.
+def summary_writer_cls():
+    """``tensorboardX.SummaryWriter``, or None where it is not installed
+    (then no run writes TensorBoard events, as in JAX)."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter
 
-    ``train_one_draw(ratio, draw, sub_folder) -> DrawResult`` does the
-    actual training and evaluation (the port has no TensorBoard writer
-    yet). Returns all results and pickles the AUC/ACC matrices next to the
-    experiment folder (finetune :641-644), JSON alongside."""
+
+def run_draws(exp_folder: Path, ratios: Sequence, train_one_draw: Callable,
+              *, iterations: Optional[Dict] = None,
+              tb_prefix: str = "tb_train_val_test") -> List[DrawResult]:
+    """Run the ratio x draw grid (``mfvit_tpu/exp/harness.py:65-104``).
+
+    ``train_one_draw(ratio, draw, sub_folder, writer) -> DrawResult`` does
+    the actual training and evaluation; ``writer`` is the draw's
+    ``tensorboardX.SummaryWriter`` under ``{tb_prefix}_{ratio}_{draw}``,
+    on rank 0 where tensorboardX imports, else None. Returns all results
+    and pickles the AUC/ACC matrices next to the experiment folder
+    (finetune :641-644), JSON alongside."""
     results: List[DrawResult] = []
     all_auc, all_acc = [], []
     primary = storage.is_primary()
+    writer_cls = summary_writer_cls() if primary else None
 
     def dump():
         # written after EVERY draw (and in the crash path): a failure in
@@ -83,7 +99,15 @@ def run_draws(exp_folder: Path, ratios: Sequence, train_one_draw: Callable,
             all_acc.append(ratio_acc)
             for it in range(draws_for(s, iterations)):
                 sub = storage.get_storage_sub_folder(exp_folder, s, it)
-                res = train_one_draw(s, it, sub)
+                writer = None
+                if writer_cls is not None:
+                    writer = writer_cls(os.path.join(exp_folder,
+                                                     f"{tb_prefix}_{s}_{it}"))
+                try:
+                    res = train_one_draw(s, it, sub, writer)
+                finally:
+                    if writer is not None:
+                        writer.close()
                 results.append(res)
                 ratio_auc.append(res.test_auc)
                 ratio_acc.append(res.test_acc)

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mfvit_tpu_torch.parallel import dist
+
 
 def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator):
     """Normal truncated at +-2 std (timm ``trunc_normal_``, as
@@ -40,10 +42,46 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor, *,
     with the batch statistics (the biased variance) and moves the running
     ones by 0.1 (the unbiased variance), torch's rule and JAX's
     ``momentum=0.9`` (``momentum=0`` leaves them as they are);
-    otherwise the running statistics normalise."""
+    otherwise the running statistics normalise.
+
+    In training under a process group of more than one rank the
+    statistics are the global batch's, as JAX's ``pmean`` of the mean and
+    of the mean of squares gives them (``mfvit_tpu/nn/layers.py:112-133``,
+    ``mfvit_tpu/nn/resnet.py:88-98``), the running variance unbiased over
+    the global count. The sums are taken about the global mean c that a
+    first all-reduce without a gradient finds: E[x] = c + E[x - c] and
+    Var[x] = E[(x - c)^2] - E[x - c]^2 hold for any constant c, and about
+    the mean they cancel nothing (E[x^2] - E[x]^2 loses the variance where
+    the mean is many standard deviations, as in a ResNet's last stage);
+    one differentiable all-reduce carries both."""
+    if training and dist.world() > 1:
+        return _synced_batch_norm(bn, x, momentum)
     return F.batch_norm(x.float(), bn.running_mean, bn.running_var,
                         bn.weight, bn.bias, training, momentum,
                         bn.eps).to(x.dtype)
+
+
+def _synced_batch_norm(bn, x: torch.Tensor, momentum: float) -> torch.Tensor:
+    xf = x.float()
+    red = [0] + list(range(2, x.dim()))
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    n = dist.world()
+    c = dist.all_mean(xf.detach().mean(red))
+    xc = xf - c.reshape(shape)
+    stats = torch.cat([xc.mean(red), xc.square().mean(red)])
+    exc, exc2 = (dist.all_sum_grad(stats) / n).chunk(2)
+    var = exc2 - exc.square()
+    ex = c + exc
+    if momentum:
+        with torch.no_grad():
+            count = x.numel() // x.shape[1] * n
+            bn.running_mean.mul_(1 - momentum).add_(momentum * ex)
+            bn.running_var.mul_(1 - momentum).add_(
+                momentum * var * (count / max(count - 1, 1)))
+    y = (xc - exc.reshape(shape)) * torch.rsqrt(var + bn.eps).reshape(shape)
+    if bn.weight is not None:
+        y = y * bn.weight.reshape(shape) + bn.bias.reshape(shape)
+    return y.to(x.dtype)
 
 
 def layernorm(p: nn.LayerNorm, x: torch.Tensor, eps: float = 1e-6):

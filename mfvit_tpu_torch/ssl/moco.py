@@ -23,6 +23,16 @@ tower and the predictor, then the ring enqueue of the keys. Each ViT block
 runs K1, K2 or K3 forward in both towers and K5, K7 backward in the query
 tower. ``l_neg``, a (B, dim) x (dim, K) product, is an XLA einsum in JAX and
 ``torch.matmul`` here.
+
+Under a process group of more than one rank the step is JAX's
+``make_pretrain_step(axis_name=)`` in ``make_moco_parallel_step``
+(``mfvit_tpu/parallel/mesh.py:104-138``): each rank runs its row block of
+the global batch, the BatchNorms take the global batch's statistics
+(``nn.layers.batch_norm``), the keys are all-gathered (the v2 queue
+enqueues the global keys in rank order; v3's in-batch negatives are the
+global keys, its positives offset by the rank), the loss is the mean over
+the ranks and the gradients are averaged before the optimizer steps. The
+EMA and the queue stay equal on every rank by construction.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ from torch import nn
 from mfvit_tpu_torch.nn import resnet as resnet_mod
 from mfvit_tpu_torch.nn import vit as vit_mod
 from mfvit_tpu_torch.nn.layers import batch_norm, trunc_normal_
+from mfvit_tpu_torch.parallel import dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,9 +200,10 @@ class MoCo(nn.Module):
 
     @torch.no_grad()
     def enqueue(self, keys: torch.Tensor) -> None:
-        """Write the (B, dim) keys into the ring at ``queue_ptr`` and
-        advance it by B mod K, on the device without a host sync (K % B
-        == 0 keeps the slice inside the queue)."""
+        """Write the (B, dim) keys (the global batch's, all ranks') into
+        the ring at ``queue_ptr`` and advance it by B mod K, on the device
+        without a host sync (K % B == 0 keeps the slice inside the
+        queue)."""
         B = keys.shape[0]
         idx = self.queue_ptr + torch.arange(B, device=keys.device)
         self.queue.index_copy_(1, idx, keys.t().to(self.queue.dtype))
@@ -224,15 +236,16 @@ def forward_v2_queue(model: MoCo, im_q, im_k, m: float, *,
                      compute_dtype=torch.bfloat16, remat: bool = False,
                      reference: bool = False,
                      attn_backend: str | None = None):
-    """The v2 queue loss (``forward_v2_queue``, :261) -> (loss, keys). The
-    caller enqueues the keys after the backward, which needs the queue as
-    this pass read it."""
+    """The v2 queue loss (``forward_v2_queue``, :261) -> (this rank's loss,
+    the global batch's keys). The caller enqueues the keys after the
+    backward, which needs the queue as this pass read it."""
     cfg, bcfg = model.cfg, model.backbone_cfg
     B = im_k.shape[0]
-    if cfg.K % B != 0:
+    if cfg.K % (B * dist.world()) != 0:
         raise ValueError(
             f"queue length K={cfg.K} must be divisible by the global key "
-            f"batch ({B}); the ring enqueue assumes K % batch == 0")
+            f"batch ({B * dist.world()}); the ring enqueue assumes K % "
+            "batch == 0")
     kw = dict(compute_dtype=compute_dtype, reference=reference,
               attn_backend=attn_backend)
     model.ema_update(m)
@@ -249,15 +262,18 @@ def forward_v2_queue(model: MoCo, im_q, im_k, m: float, *,
     l_neg = q @ model.queue
     logits = torch.cat([l_pos, l_neg], 1) / cfg.T
     labels = torch.zeros(B, dtype=torch.long, device=logits.device)
-    return F.cross_entropy(logits, labels), k
+    return F.cross_entropy(logits, labels), dist.all_gather_rows(k)
 
 
 def contrastive_v3(q: torch.Tensor, k: torch.Tensor, T: float):
     """One half of the symmetric loss (``_contrastive_v3``, :337):
-    in-batch negatives, the diagonal positive, scaled by 2T."""
-    q, k = l2norm(q), l2norm(k).detach()
+    in-batch negatives (the global batch's keys), the positive of row i
+    at i + n rank, scaled by 2T."""
+    q = l2norm(q)
+    k = dist.all_gather_rows(l2norm(k).detach())
     logits = q @ k.t() / T
-    labels = torch.arange(q.shape[0], device=q.device)
+    n = q.shape[0]
+    labels = torch.arange(n, device=q.device) + n * dist.rank()
     return F.cross_entropy(logits, labels) * (2.0 * T)
 
 
@@ -288,7 +304,8 @@ def make_pretrain_step(cfg: MoCoConfig, *,
                        remat: bool = False, reference: bool = False,
                        attn_backend: str | None = None) -> Callable:
     """``step(model, opt, im_q, im_k, m) -> loss`` (detached, on the
-    device, unsynchronised): the forward of ``cfg.loss``, the backward, one
+    device, unsynchronised; the mean over the ranks): the forward of
+    ``cfg.loss``, the backward, the gradients averaged over the ranks, one
     step of ``opt`` (a ``train.optim.Scheduled`` over ``model.
     trainable()``), then the enqueue. ``remat`` recomputes the query
     pass's blocks in the backward; ``reference`` runs the plain versions
@@ -303,10 +320,11 @@ def make_pretrain_step(cfg: MoCoConfig, *,
                          attn_backend=attn_backend)
         opt.zero_grad()
         loss.backward()
+        dist.mean_grads(opt.params())
         opt.step()
         if keys is not None:
             model.enqueue(keys)
-        return loss.detach()
+        return dist.all_mean(loss.detach())
 
     return step
 

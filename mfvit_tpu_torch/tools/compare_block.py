@@ -58,7 +58,8 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
     within one call as "name #n") -> its mean device ms, in launch order.
     Where the profiler saw every launch of every call, each launch is
     averaged over the calls; else each name over its launches (the
-    profiler may miss the window's first launches)."""
+    profiler may miss the window's first launches). A window that saw no
+    launch raises."""
     import re
 
     import torch
@@ -126,6 +127,9 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
     events = sorted((e for e in prof.events()
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
+    if not events:
+        raise RuntimeError(f"stage_times {op}: torch.profiler saw no "
+                           "launch on the card")
     names = [re.sub(r"^void |\(anonymous namespace\)::|\w+::", "",
                     e.name).split("(")[0] for e in events]
     ms = [e.time_range.elapsed_us() / 1e3 for e in events]
@@ -146,7 +150,8 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
           "call, "
           "torch.profiler): " + ", ".join(f"{k} {v:.4f}"
                                           for k, v in out.items())
-          + f"; sum {sum(out.values()):.4f}")
+          + f"; sum {sum(out.values()):.4f} ({len(events)} launches in "
+          f"{iters} calls)")
     return out
 
 

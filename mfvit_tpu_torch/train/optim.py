@@ -76,6 +76,10 @@ class Scheduled:
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
 
+    def params(self) -> list:
+        """The parameters it steps, in the order of its groups."""
+        return [p for g in self.opt.param_groups for p in g["params"]]
+
     def step(self) -> None:
         lr = float(self.lr(self.count)) if callable(self.lr) else self.lr
         for group in self.opt.param_groups:

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from mfvit_tpu_torch.models import fusion as fusion_mod
+from mfvit_tpu_torch.parallel import dist
 
 
 def softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -28,7 +29,10 @@ def make_classifier_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
     ``train_step(model, opt, imgs, labels) -> (loss, logits)``: forward,
     CE on the fp32 logits, backward (K5/K7 on CUDA) and one step of ``opt``
     (a ``train.optim.Scheduled``); loss and logits come back detached, on
-    the device, unsynchronised. ``eval_step(model, imgs) -> logits`` runs
+    the device, unsynchronised. Under a process group ``imgs`` is this
+    rank's row block of the global batch: the gradients are averaged over
+    the ranks before the step and the loss is the global batch's mean, as
+    JAX's step over a sharded batch computes them. ``eval_step(model, imgs) -> logits`` runs
     under ``torch.inference_mode()``. ``remat`` recomputes the blocks in
     the backward; ``reference`` runs the plain versions of the kernels,
     ``attn_backend="xla"`` JAX's XLA route (``nn.xla_route``)."""
@@ -39,8 +43,9 @@ def make_classifier_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
         loss = softmax_ce(logits, labels)
         opt.zero_grad()
         loss.backward()
+        dist.mean_grads(opt.params())
         opt.step()
-        return loss.detach(), logits.detach()
+        return dist.all_mean(loss.detach()), logits.detach()
 
     @torch.inference_mode()
     def eval_step(model, imgs):
@@ -110,7 +115,9 @@ def make_fusion_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
     ``train_step(models, opt, img_cxr, img_enh, labels) -> (loss, out)``
     with the decision logits ``out = fused + logits_cxr + logits_enh`` and
     CE on them in fp32, backward and one step of ``opt``; both come back
-    detached, unsynchronised. ``eval_step(models, img_cxr, img_enh)`` gives
+    detached, unsynchronised (under a process group: the gradients
+    averaged over the ranks, the loss the global mean, as in
+    ``make_classifier_steps``). ``eval_step(models, img_cxr, img_enh)`` gives
     the decision logits under ``torch.inference_mode()``.
 
     ``freeze_backbones`` is the LP fusion mode: both branches run forward
@@ -132,8 +139,9 @@ def make_fusion_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
         loss = softmax_ce(out, labels)
         opt.zero_grad()
         loss.backward()
+        dist.mean_grads(opt.params())
         opt.step()
-        return loss.detach(), out.detach()
+        return dist.all_mean(loss.detach()), out.detach()
 
     serve = make_fusion_forward(compute_dtype=compute_dtype,
                                 reference=reference, fusion_arch=fusion_arch,

@@ -296,3 +296,28 @@ def test_epoch_generator_is_a_function_of_seed_draw_and_epoch():
     state = np.random.SeedSequence([0, 1, 2]).generate_state(1)[0]
     assert torch.equal(aug.epoch_generator(0, 1, 2, "cpu").get_state(),
                        torch.Generator().manual_seed(int(state)).get_state())
+
+
+@pytest.mark.parametrize("view", ["train_canvas", "two_views_canvas",
+                                  "batch_training"])
+def test_rank_blocks_are_rows_of_the_global_view(view):
+    """Under ``world`` ranks each view function draws for the global batch
+    and returns its rank's rows: the blocks of two ranks, each from the
+    (draw, epoch) generator, concatenate to the one-rank view of the
+    whole batch bit for bit, as JAX draws one view over a sharded batch."""
+    canv = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (8, 40, 40, 3), dtype=np.uint8))
+
+    def run(x, **kw):
+        gen = aug.epoch_generator(0, 1, 2, "cpu")
+        if view == "train_canvas":
+            return (aug.augment_train_canvas(gen, x, crop=32, **kw),)
+        if view == "two_views_canvas":
+            return aug.augment_two_views_canvas(gen, x, crop=32, **kw)
+        return (aug.augment_batch(x, training=True, generator=gen, **kw),)
+
+    whole = run(canv)
+    blocks = [run(canv[r * 4:(r + 1) * 4], world=2, rank=r)
+              for r in range(2)]
+    for i, want in enumerate(whole):
+        assert torch.equal(torch.cat([b[i] for b in blocks]), want)

@@ -633,3 +633,140 @@ def test_attn_backend_choices_are_jax():
     assert act.choices == jact.choices and act.default == jact.default
     with pytest.raises(ValueError, match="unknown attention backend"):
         xla_route.takes_xla("pallas_interpret")
+
+
+def _jax_processes(worker: str, extra, n: int = 2, timeout: float = 240,
+                   retries: int = 1) -> list:
+    """n JAX processes of ``tests/<worker>`` rendezvousing on a fresh port
+    of 127.0.0.1 (``tests/test_parallel.py::_spawn_dist_workers``): their
+    outputs. A timeout is retried once with a new port, then fails with
+    the outputs; a worker that exits non-zero fails with its output."""
+    import socket
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.path.join(ROOT, "tests")]))
+    env.pop("XLA_FLAGS", None)
+    env.pop("JAX_PLATFORMS", None)
+    seen = []
+    for _ in range(retries + 1):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            addr = f"127.0.0.1:{s.getsockname()[1]}"
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "tests", worker), str(i),
+             str(n), addr] + list(extra), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env) for i in range(n)]
+        try:
+            outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            seen.append([p.communicate()[0] for p in procs])
+            continue
+        for p, out in zip(procs, outs):
+            assert p.returncode == 0, out
+        return outs
+    pytest.fail(f"{worker}: timed out twice:\n{seen}")
+
+
+def _leaves(tree, path=()):
+    """{path: leaf} of nested dicts and sequences."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {path: tree}
+    out = {}
+    for k, v in items:
+        out.update(_leaves(v, path + (str(k),)))
+    return out
+
+
+def test_read_tree_of_a_two_process_jax_save(tmp_path):
+    """Two JAX processes (2 CPU devices each) save one tree through
+    ``mfvit_tpu.exp.checkpoint.save``: ``read_tree`` gives every leaf back
+    equal in dtype and bits to the known values, the rows that process 1
+    wrote (``ocdbt.process_1``) included. JAX's own target-less
+    ``restore`` refuses that directory in one process, so the values are
+    the known ones, not its restore."""
+    import _torch_orbax_save_worker as worker
+
+    path = str(tmp_path / "ckpt")
+    outs = _jax_processes("_torch_orbax_save_worker.py", [path])
+    assert all(f"SAVED {i}" in out for i, out in enumerate(outs))
+    assert os.path.isdir(os.path.join(path, "ocdbt.process_1"))
+    want = _leaves(_np(worker.known_tree()))
+    got = _leaves(orbax_io.read_tree(path))
+    assert set(got) == set(want)
+    assert int(got[("step",)]) == want[("step",)] == 7
+    del got[("step",)], want[("step",)]
+    for k, w in want.items():
+        g = np.asarray(got[k])
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        assert g.tobytes() == w.tobytes(), k
+    np.testing.assert_array_equal(got[("rows",)][2:],
+                                  np.arange(12, 24).reshape(2, 6) * 0.5)
+
+
+# The bf16 XLA route against JAX's, on ROADMAP.md section 3's setup (the
+# MF-ViT CA forward, vit_small at 224 px, B=4, seeded weights plus 0.02
+# noise): the decision logits' rel (max |diff| / max |ref|) to JAX's fp32
+# XLA route may be at most XLA_BF16_MULTIPLE times JAX's own bf16 rel;
+# the re-anchor measured 1.440e-2 against 1.437e-2.
+XLA_BF16_MULTIPLE = 1.25
+
+
+def test_xla_route_bf16_within_jax_own_bf16_distance():
+    """The port's bf16 ``--attn-backend xla`` logits are as far from JAX's
+    fp32 XLA route as JAX's own bf16 ones (within XLA_BF16_MULTIPLE), and
+    both wrong attentions of ``chip_smoke.xla_controls`` (the scores
+    unscaled; the scale squared) fail that bar."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    jcfg = jvit.get_config("vit_small", 224)
+    pcfg = vit.get_config("vit_small", 224)
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(21), 3)
+    rng = np.random.default_rng(21)
+    tree = jax.tree.map(
+        lambda x: np.asarray(x) + 0.02 * rng.standard_normal(
+            np.shape(x)).astype(np.float32),
+        {"cxr": jvit.init(k1, jcfg, num_classes=3),
+         "enh": jvit.init(k2, jcfg, num_classes=3),
+         "fus": jfusion.init(k3, num_classes=3, dim=384, heads=3)})
+    xc, xe = (rng.standard_normal((4, 224, 224, 3)).astype(np.float32)
+              for _ in range(2))
+
+    def jax_logits(dt):
+        fwd = jsteps.make_fusion_forward(jcfg, heads=3, compute_dtype=dt,
+                                         attn_backend="xla")
+        return np.asarray(sum(jax.jit(fwd)(tree, jnp.asarray(xc),
+                                           jnp.asarray(xe))), np.float32)
+
+    ref, jbf16 = jax_logits(jnp.float32), jax_logits(jnp.bfloat16)
+    models = {"cxr": vit.ViT(pcfg, 3), "enh": vit.ViT(pcfg, 3),
+              "fus": fusion.Fusion(3, 384, 3)}
+    for b in ("cxr", "enh"):
+        models[b].load_state_dict(checkpoint.vit_state_from_jax(tree[b], pcfg))
+    models["fus"].load_state_dict(checkpoint.fusion_state_from_jax(
+        tree["fus"]))
+    fwd = steps.make_fusion_forward(compute_dtype=torch.bfloat16,
+                                    attn_backend="xla")
+
+    def rel(out):
+        return float(np.abs(out - ref).max() / np.abs(ref).max())
+
+    def port():
+        return sum(fwd(models, torch.from_numpy(xc),
+                       torch.from_numpy(xe))).float().numpy()
+
+    own = rel(jbf16)
+    got = rel(port())
+    assert got <= XLA_BF16_MULTIPLE * own, (got, own)
+    for name, wrong in chip_smoke.xla_controls(xla_route).items():
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(xla_route, "mhsa", wrong)
+            bad = rel(port())
+        assert bad > XLA_BF16_MULTIPLE * own, (name, bad, own)

@@ -421,12 +421,16 @@ def test_finetune_takes_a_conv_stem_arch(covid_root):
 
 
 def test_pretrain_refuses_what_is_not_ported(covid_root, tmp_path):
-    for extra, msg in ((["--distributed"], "item 6"),
-                       (["--resume", str(tmp_path)], "orbax"),
+    for extra, msg in ((["--resume", str(tmp_path)], "orbax"),
                        (["-a", "vit_conv_small", "--export-torch"],
                         "export-torch")):
         with pytest.raises(SystemExit, match=msg):
             _run(covid_root, "refused", ["--epochs", "1"] + extra)
+    # --distributed joins a process group since multi-process training is
+    # ported: outside torchrun's environment the rendezvous raises, and
+    # nothing falls back to one process
+    with pytest.raises(ValueError, match="env:// rendezvous"):
+        _run(covid_root, "refused", ["--epochs", "1", "--distributed"])
 
 
 def test_pretrain_cuda_request_without_cuda_raises(covid_root):

@@ -168,10 +168,19 @@ def test_index_batches_match_jax(n, bs, drop_last, shuffle):
     js.set_epoch(1)
     ps.set_epoch(1)
     _equal_batches(list(js), list(ps))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        device_store.DeviceCanvasStore(torch.from_numpy(table),
-                                       torch.from_numpy(labels),
-                                       batch_size=bs, mesh=object())
+    # sharded over two ranks: the rows padded by wrapping to an even
+    # count, each rank holding its contiguous block
+    rows = list(range(n)) + list(range(n % 2))
+    shards = [device_store.fill_from_dataset(
+        list(zip(table, labels)), batch_size=bs, device="cpu", world=2,
+        rank=r, num_workers=1, **{k: kw[k] for k in ("seed", "drop_last",
+                                                     "shuffle")})
+        for r in range(2)]
+    np.testing.assert_array_equal(
+        torch.cat([s.canvases for s in shards]).numpy(), table[rows])
+    np.testing.assert_array_equal(
+        torch.cat([s.labels for s in shards]).numpy(), labels[rows])
+    assert all(len(s.ds) == n for s in shards)
 
 
 @pytest.mark.parametrize("paired,maintain_ratio", [(False, False),
