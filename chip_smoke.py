@@ -141,9 +141,10 @@ Phases, in order; any failure raises and exits non-zero:
    limit), at every schedule argument their tools sweep (and ``mlp_pipe``
    at splits=1, its no-overlap control), non-zero biases (b2 included),
    T5 on a bf16 cotangent: equal to K2 (T4, T1, T2: K1; T5: K5 on all
-   seven outputs) bit for bit and within rel 2e-2 of the plain fp32
-   version (each output); one call launches the variant once and no other
-   kernel; every shape and argument the ops refuse (cb not dividing B, an
+   seven outputs) bit for bit, T6 and T7 (on K2's tail) also to their
+   former designs (``mlp3d_wmma``, ``mlp3d_staged_wmma``), and within rel
+   2e-2 of the plain fp32 version (each output); one call launches the
+   variant once and no other kernel; every shape and argument the ops refuse (cb not dividing B, an
    odd cb for T1, tm and splits past the register tile, D=768, head_dim
    128 past 208 tokens, a weight that requires grad) raises;
 15. their entry points, ``mfvit_tpu_torch.tools.bench_mlp3d``,
@@ -157,7 +158,8 @@ Phases, in order; any failure raises and exits non-zero:
    12; then one block (T5: one backward, B=256) on the tools' inputs
    (B=512; the MLP variants on K1's output) at every argument the tools
    sweep: each variant equal to K2 (T4, T1, T2: K1; T5: K5) bit for bit
-   and within rel 2e-2 of its plain fp32 version (the kernel report's
+   (T6 and T7 also to their former designs) and within rel 2e-2 of its
+   plain fp32 version (the kernel report's
    error for the variants is from this run);
 16. the fusion-training slice through ``mfvit_tpu_torch.cli.fuse.main``:
    64 synthetic pairs, both vit_small branches from seeded files with
@@ -420,9 +422,9 @@ KERNELS = [  # name, CUDA source, the Pallas kernel body it replaces
 # the schedule variants of the JAX harness's tools: name, CUDA source, the
 # Pallas kernel body it replaces, the kernel whose function it computes
 VARIANTS = [
-    ("mlp3d", "mfvit_tpu_torch/csrc/mlp_variants.cu",
+    ("mlp3d", "mfvit_tpu_torch/csrc/mlp3d.cu",
      "tools/bench_mlp3d.py:39", "fused_mlp_block"),
-    ("mlp3d_staged", "mfvit_tpu_torch/csrc/mlp_variants.cu",
+    ("mlp3d_staged", "mfvit_tpu_torch/csrc/mlp3d.cu",
      "tools/bench_mlp3d.py:138", "fused_mlp_block"),
     ("mlp_pipe", "mfvit_tpu_torch/csrc/mlp_variants.cu",
      "tools/bench_pipelined.py:43", "fused_mlp_block"),
@@ -436,6 +438,9 @@ VARIANTS = [
      "tools/bench_bwd_staged.py:37", "fused_attention_block_bwd"),
 ]
 ATTN_VARIANTS = ("attn_staged", "attn_pairs", "attn_rolling")
+# the variants redesigned on K2's tail, and their first designs (check-only
+# ops of ops/mlp_variants.py that count no launch)
+FORMER_VARIANTS = {"mlp3d": "mlp3d_wmma", "mlp3d_staged": "mlp3d_staged_wmma"}
 KERNELS += [v[:3] for v in VARIANTS]
 MHSA = ("mhsa_packed", "mhsa", "mhsa_packed_t")  # K12, K13, K14
 PER_FORWARD = {"fused_attention_block": 24, "fused_mlp_block": 22,
@@ -2615,8 +2620,9 @@ def variant_settings(name: str, B: int, D: int) -> list:
 
 
 def variant_call(name: str, t, heads: int, kw: dict):
-    """The variant ``name`` on one block's inputs (T5: and the cotangent
-    t["g"]) at schedule ``kw``."""
+    """The variant ``name`` (or a former design named in FORMER_VARIANTS)
+    on one block's inputs (T5: and the cotangent t["g"]) at schedule
+    ``kw``."""
     from mfvit_tpu_torch.ops import attn_variants as av
     from mfvit_tpu_torch.ops import mlp_variants as mv
     a = [t[k] for k in ATTN]
@@ -2657,10 +2663,11 @@ def check_variant_kernels(dev) -> dict:
     """T6, T7, T3, T4, T1, T2 and T5 at VARIANT_SHAPES, bf16 inputs (and
     T5's cotangent) from a seed with non-zero biases (b2 included), at
     every schedule argument their tools sweep: equal to K2 (T4, T1, T2: K1;
-    T5: K5 on all seven outputs) bit for bit, within REL_BAR of the plain
-    fp32 version (each output); one call launches the variant once and no
-    other kernel. Then every shape and argument the ops refuse must
-    raise."""
+    T5: K5 on all seven outputs) bit for bit, T6 and T7 also to their
+    former designs (FORMER_VARIANTS), within REL_BAR of the plain fp32
+    version (each output); one call launches the variant once and no
+    other kernel (the former designs count none). Then every shape and
+    argument the ops refuse must raise."""
     from mfvit_tpu_torch import ops
     from mfvit_tpu_torch.ops import attn_variants as av
     from mfvit_tpu_torch.ops import mlp_variants as mv
@@ -2676,21 +2683,30 @@ def check_variant_kernels(dev) -> dict:
                 for kw in variant_settings(name, B, D):
                     ops.reset_launch_counts()
                     got = as_tuple(variant_call(name, t, heads, kw)())
+                    was = (as_tuple(variant_call(FORMER_VARIANTS[name], t,
+                                                 heads, kw)())
+                           if name in FORMER_VARIANTS else got)
                     torch.cuda.synchronize()
                     counts = {k: v for k, v in ops.launch_counts().items()
                               if v}
                     r = max(rel(a, b) for a, b in zip(got, ref))
                     n_diff = sum((a != b).sum().item()
                                  for a, b in zip(got, same))
+                    n_former = sum((a != b).sum().item()
+                                   for a, b in zip(got, was))
                     numel = sum(a.numel() for a in got)
                     print(f"{name} {kw} at {label} (B={B}, N={N}, D={D}, "
                           f"{heads} heads): rel vs plain fp32 {r:.3e}; "
                           f"{n_diff} of {numel} outputs differ from "
-                          f"{base_name}; launches {counts}")
-                    if n_diff or counts != {name: 1}:
+                          f"{base_name}" + (
+                              f", {n_former} from its former design"
+                              if name in FORMER_VARIANTS else "")
+                          + f"; launches {counts}")
+                    if n_diff or n_former or counts != {name: 1}:
                         raise AssertionError(
                             f"{name} {kw} at {label}: {n_diff} outputs off "
-                            f"{base_name}, launches {counts}")
+                            f"{base_name}, {n_former} off its former "
+                            f"design, launches {counts}")
                     if not (math.isfinite(r) and r < REL_BAR):
                         raise AssertionError(f"{name} {kw} at {label}: rel "
                                              f"{r}")
@@ -2826,7 +2842,8 @@ def hold_variants_at_tool_size(dev, batch: int) -> dict:
     as in the first block of a chain; T5 one backward on
     ``bench_bwd_staged``'s B=256 inputs and g0) at every schedule argument
     its tool sweeps (``variant_settings``): equal to K2 (T4, T1, T2: K1;
-    T5: K5, every output) on the same input bit for bit, and within
+    T5: K5, every output) on the same input bit for bit (T6 and T7 also to
+    their former designs), and within
     REL_BAR of its plain fp32 version (the op with ``plain=True`` on the
     upcast inputs; each output). The chains' checksums alone cannot tell a
     handful of wrong outputs among 38.7M. Returns the largest abs error
@@ -2867,6 +2884,9 @@ def hold_variants_at_tool_size(dev, batch: int) -> dict:
                 r = max(rel(u, v) for u, v in zip(got, ref))
                 n_diff = sum((u != v).sum().item()
                              for u, v in zip(got, base[base_name]))
+                if name in FORMER_VARIANTS:
+                    was = getattr(mv, FORMER_VARIANTS[name])(inp, *args, **kw)
+                    n_diff += (got[0] != was).sum().item()
                 errs[name] = max(errs.get(name, 0.0), max(
                     (u.float() - v).abs().max().item()
                     for u, v in zip(got, ref)))
@@ -2874,7 +2894,9 @@ def hold_variants_at_tool_size(dev, batch: int) -> dict:
                 print(f"the tools' inputs, one block (B={B}): {name} "
                       f"{kw}: rel vs plain fp32 {r:.3e} (bar {REL_BAR}); "
                       f"{n_diff} of {sum(u.numel() for u in got)} outputs "
-                      f"differ from {base_name}")
+                      f"differ from {base_name}" + (
+                          " or its former design" if name in FORMER_VARIANTS
+                          else ""))
                 if n_diff or not (math.isfinite(r) and r < REL_BAR):
                     raise AssertionError(
                         f"{name} {kw} on the tools' inputs at B={B}: rel "

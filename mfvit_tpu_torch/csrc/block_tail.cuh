@@ -56,6 +56,28 @@
 // runs three launches there, fused_mlp.cu). ops/fused_mlp.py::_plan sizes
 // the ring (stages) from the shared memory the tiles leave; the C side only
 // checks it.
+//
+// The schedule variants T6 and T7 (mlp3d.cu) run K2's tail with two
+// template switches; K2, K3 and K15 take neither, so their code is the
+// same:
+// - RUNS: the row walk restarts at every run of p.run rows (T6 flat: cb
+//   images; T6 per image and T7: one image). Tile t starts at row
+//   (t / per_run) * run + (t % per_run) * 64 and stores min(64, run -
+//   (t % per_run) * 64) rows; the rows past a run's end are loaded (the
+//   next image's, or zeros past M by TMA) and computed but never stored.
+//   The grid stays persistent over the p.tiles tiles.
+// - OVERLAP (T7): fc1 of hidden chunk c + 1 is issued with
+//   wgmma.mma_async one K slice at a time, and the GELU of chunk c runs in
+//   GELU_PIECES pieces between the slices, each while the slice just
+//   issued is in flight (mlp_overlap). Two fc1 accumulators (64
+//   registers; D/4 + 64 a thread with fc2's) and two hidden-chunk buffers,
+//   so that the GELU of chunk c + 1 never overwrites what fc2 of chunk c
+//   reads; one barrier a chunk where K2 takes two. fc1 still sums over k in
+//   ascending k16 steps and fc2 over the chunks in ascending order, so T7
+//   keeps K2's bits. ops/mlp_variants.py::_plan sizes its ring beside the
+//   second buffer. On the card it does not beat K2's loop (PERF.md): the
+//   weight stream sets the tail's pace, and past D = 256 the second fc1
+//   accumulator's registers spill.
 #pragma once
 
 #include "gemm_sm90.cuh"
@@ -148,6 +170,10 @@ static int launch_ln1(const void* x, const void* g, const void* b, void* y, int 
 constexpr int TAIL_ROWS = 64, TAIL_THREADS = 384, TAIL_HC = 128;  // HC: hidden chunk
 constexpr int STAGE = 2 * TILE64;  // 64 weight rows of one K slice for each warpgroup
 constexpr int FINAL_ROWS = 32;     // fp32 rows the x2 tile holds in K3's epilogue
+// T7: the pieces a chunk's GELU is cut into, each after one fc1 K slice
+// (on an H100 80GB at 700 W, 2 pieces beat 1, 4 and D / 64 at D of
+// 256-512: compare_block's overlap_probe, PERF.md)
+constexpr int GELU_PIECES = 2;
 
 struct TailParams {
   CUtensorMap a, wproj, w1, w2;  // boxes of 64 rows (a) and 128 rows (weights)
@@ -156,12 +182,13 @@ struct TailParams {
   const float *final_s, *final_b;  // K3's final LayerNorm
   bf16* out;
   int M, Hd, stages;
+  int run, per_run, tiles;  // RUNS: rows of a run, its 64-row tiles, all tiles
 };
 
 // Shared memory after the ring (stages x STAGE): the A tile (the o or x
 // rows, then LN2(x2); D / 64 swizzled K slices), the hidden chunk (two
-// slices), x2 (pitch D + 8), then the barriers; 1024 bytes for the
-// alignment.
+// slices; hb buffers of it, two under OVERLAP), x2 (pitch D + 8), then the
+// barriers; 1024 bytes for the alignment.
 template <int D>
 struct Tail {
   static constexpr int J = D / 128;  // a warpgroup's 64-column subtiles (every other one)
@@ -170,8 +197,8 @@ struct Tail {
   static constexpr int A_BYTES = KD * TILE64, H_BYTES = 2 * TILE64;
   static constexpr int X_BYTES = TAIL_ROWS * LDX * 2;
   static_assert(FINAL_ROWS * LDX * 4 == X_BYTES, "K3's fp32 rows fill the x2 tile");
-  static int smem(int stages) {
-    return stages * STAGE + A_BYTES + H_BYTES + X_BYTES + (2 * stages + 2) * 8 + 1024;
+  static int smem(int stages, int hb = 1) {
+    return stages * STAGE + A_BYTES + hb * H_BYTES + X_BYTES + (2 * stages + 2) * 8 + 1024;
   }
 };
 
@@ -257,22 +284,126 @@ __device__ __forceinline__ void final_ln(float (&acc)[D / 128][32], bf16* X2, co
   }
 }
 
-template <int D, bool PROJ, bool FINAL>
+// The pieces of the GELU of a hidden chunk that T7 runs between fc1's K
+// slices: piece g of P takes the accumulator pairs i (= 2q + h) with
+// i * P / 16 == g, h = bf16(GELU(a + b1)) into this warpgroup's 64
+// columns Hw of a hidden-chunk buffer, as K2's chunk loop writes them.
+template <int P>
+__device__ __forceinline__ void gelu_piece(const float (&a)[32], unsigned char* Hw,
+                                           const float* b1, int g, int t128) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    if (i * P / 16 != g) continue;
+    const int q = i >> 1, h = i & 1;
+    const int row = frag_row(t128, h), col = frag_col(t128, q);
+    const float2 b = *reinterpret_cast<const float2*>(b1 + col);
+    const float v0 = gelu_erf(a[4 * q + 2 * h] + b.x);
+    const float v1 = gelu_erf(a[4 * q + 2 * h + 1] + b.y);
+    *reinterpret_cast<__nv_bfloat162*>(Hw + swz(row, q) + (col % 8) * 2) =
+        __floats2bfloat162_rn(v0, v1);
+  }
+}
+
+// T7's MLP over one tile: fc2's accumulators acc span the chunks, as in
+// K2's loop. Chunk c: fc1 of chunk c + 1 goes out one K slice at a time
+// into the other fc1 accumulator, and the GELU of chunk c runs in P
+// pieces, piece g after slice g * KD / P, into hidden buffer c % 2, while
+// that slice is in flight; then one barrier (both warpgroups' halves of
+// the buffer whole) and fc2 of chunk c; then a full wait. That wait lets one
+// barrier a chunk do: a warpgroup reaches the barrier of chunk c + 1 only
+// after fc2 of chunk c, which read the buffer chunk c + 2 takes, has
+// completed. It also keeps ptxas from serializing every wgmma (C7514): each
+// accumulator the GELU reads was retired by a wait_group 0, which it can
+// see; with only the wait_group 1 of the slice before, it cannot. The last
+// chunk has no next fc1; `a_empty` is signalled once fc1 of the last chunk
+// has completed, as in K2.
+template <int D>
+__device__ __forceinline__ void mlp_overlap(float (&acc)[D / 128][32], const TailParams& p,
+                                            unsigned char* A, unsigned char* H,
+                                            const unsigned char* my_half, uint64_t* full,
+                                            uint64_t* empty, uint64_t* a_empty, Consumer& c,
+                                            int S, int t128, int wg, int lane) {
+  using T = Tail<D>;
+  constexpr int P = GELU_PIECES < T::KD ? GELU_PIECES : T::KD;  // the GELU's pieces
+  const int chunks = p.Hd / TAIL_HC;
+  float f0[32], f1[32];
+  auto fc1_slice = [&](float (&f)[32], int k) {
+    const int s = c.acquire(full);
+    mma_slice(f, A + k * TILE64, my_half + s * STAGE);
+    c.issued(empty, S);
+    pin(f);
+  };
+  // chunk ch, its fc1 in cur (completed), the next chunk's going into nxt
+  auto chunk = [&](float (&cur)[32], float (&nxt)[32], int ch) {
+    unsigned char* Hw = H + (ch & 1) * T::H_BYTES + wg * TILE64;
+    const float* b1 = p.b1 + ch * TAIL_HC + wg * 64;
+    if (ch + 1 < chunks) {
+      zero(nxt);
+#pragma unroll
+      for (int k = 0; k < T::KD; ++k) {
+        fc1_slice(nxt, k);
+#pragma unroll
+        for (int g = 0; g < P; ++g)  // piece g after slice g * KD / P
+          if (g * T::KD / P == k) gelu_piece<P>(cur, Hw, b1, g, t128);
+      }
+    } else {
+      if (lane == 0) bar_arrive(a_empty);  // the next A tile may come
+#pragma unroll
+      for (int g = 0; g < P; ++g) gelu_piece<P>(cur, Hw, b1, g, t128);
+    }
+    async_fence();
+    consumers_sync();  // the chunk's h whole
+    const unsigned char* Hb = H + (ch & 1) * T::H_BYTES;
+    for (int k = 0; k < TAIL_HC / 64; ++k)
+#pragma unroll
+      for (int j = 0; j < T::J; ++j) {
+        const int s = c.acquire(full);
+        mma_slice(acc[j], Hb + k * TILE64, my_half + s * STAGE);
+        c.issued(empty, S);
+        pin(acc[j]);
+      }
+    c.drain(empty);
+    pin(nxt);
+  };
+#pragma unroll
+  for (int j = 0; j < T::J; ++j) zero(acc[j]);
+  zero(f0);
+#pragma unroll
+  for (int k = 0; k < T::KD; ++k) fc1_slice(f0, k);
+  c.drain(empty);
+  pin(f0);
+  for (int ch = 0; ch < chunks; ch += 2) {
+    chunk(f0, f1, ch);
+    if (ch + 1 < chunks) chunk(f1, f0, ch + 1);
+  }
+}
+
+template <int D, bool PROJ, bool FINAL, bool RUNS = false, bool OVERLAP = false>
 __global__ void __launch_bounds__(TAIL_THREADS, 1) tail_kernel(const __grid_constant__ TailParams p) {
   static_assert(!(PROJ && FINAL), "K3 has no proj stage");
+  static_assert(!((RUNS || OVERLAP) && (PROJ || FINAL)), "T6 and T7 are K2's tail");
   using T = Tail<D>;
+  constexpr int HB = OVERLAP ? 2 : 1;  // hidden-chunk buffers
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align1024(smem_raw);
   const int S = p.stages;
   unsigned char* A = ring + S * STAGE;
   unsigned char* H = A + T::A_BYTES;
-  bf16* X2 = reinterpret_cast<bf16*>(H + T::H_BYTES);
-  uint64_t* full = reinterpret_cast<uint64_t*>(H + T::H_BYTES + T::X_BYTES);
+  bf16* X2 = reinterpret_cast<bf16*>(H + HB * T::H_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(H + HB * T::H_BYTES + T::X_BYTES);
   uint64_t* empty = full + S;
   uint64_t* a_full = empty + S;
   uint64_t* a_empty = a_full + 1;
   const int tid = threadIdx.x, wg = tid >> 7;
-  const int tiles = (p.M + TAIL_ROWS - 1) / TAIL_ROWS, chunks = p.Hd / TAIL_HC;
+  const int tiles = RUNS ? p.tiles : (p.M + TAIL_ROWS - 1) / TAIL_ROWS;
+  const int chunks = p.Hd / TAIL_HC;
+  // RUNS: the first row of tile t, and the rows it stores
+  auto first_row = [&](int t) {
+    return RUNS ? (t / p.per_run) * p.run + (t % p.per_run) * TAIL_ROWS : t * TAIL_ROWS;
+  };
+  auto stored_rows = [&](int t) {
+    return RUNS ? min(TAIL_ROWS, p.run - (t % p.per_run) * TAIL_ROWS) : TAIL_ROWS;
+  };
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       bar_init(full + s, 1);
@@ -300,15 +431,29 @@ __global__ void __launch_bounds__(TAIL_THREADS, 1) tail_kernel(const __grid_cons
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       bar_wait(a_empty, a_ph ^ 1);
       bar_expect(a_full, T::A_BYTES);
-      for (int k = 0; k < T::KD; ++k) tma_load(A + k * TILE64, &p.a, a_full, k * 64, t * TAIL_ROWS);
+      for (int k = 0; k < T::KD; ++k) tma_load(A + k * TILE64, &p.a, a_full, k * 64, first_row(t));
       a_ph ^= 1;
       if (PROJ)
         for (int k = 0; k < T::KD; ++k)
           for (int j = 0; j < T::J; ++j) put(&p.wproj, j * 128, k * 64);
-      for (int c = 0; c < chunks; ++c) {
+      auto fc1 = [&](int c) {
         for (int k = 0; k < T::KD; ++k) put(&p.w1, c * TAIL_HC, k * 64);
+      };
+      auto fc2 = [&](int c) {
         for (int k = 0; k < TAIL_HC / 64; ++k)
           for (int j = 0; j < T::J; ++j) put(&p.w2, j * 128, c * TAIL_HC + k * 64);
+      };
+      if (OVERLAP) {  // T7's order: fc1 of chunk c + 1 before fc2 of chunk c
+        fc1(0);
+        for (int c = 0; c < chunks; ++c) {
+          if (c + 1 < chunks) fc1(c + 1);
+          fc2(c);
+        }
+      } else {
+        for (int c = 0; c < chunks; ++c) {
+          fc1(c);
+          fc2(c);
+        }
       }
     }
     return;
@@ -322,7 +467,7 @@ __global__ void __launch_bounds__(TAIL_THREADS, 1) tail_kernel(const __grid_cons
   Consumer c;
   int a_ph = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int m0 = t * TAIL_ROWS;
+    const int m0 = first_row(t), rows = stored_rows(t);
     float acc[T::J][32];
 
     if constexpr (PROJ) {
@@ -423,45 +568,49 @@ __global__ void __launch_bounds__(TAIL_THREADS, 1) tail_kernel(const __grid_cons
     async_fence();
     consumers_sync();
 
-    // the MLP, a hidden chunk at a time; fc2's accumulators span the chunks
+    if constexpr (OVERLAP) {
+      mlp_overlap<D>(acc, p, A, H, my_half, full, empty, a_empty, c, S, t128, wg, lane);
+    } else {
+      // the MLP, a hidden chunk at a time; fc2's accumulators span the chunks
 #pragma unroll
-    for (int j = 0; j < T::J; ++j) zero(acc[j]);
-    for (int ch = 0; ch < chunks; ++ch) {
-      float acc1[32];
-      zero(acc1);
-      for (int k = 0; k < T::KD; ++k) {
-        const int s = c.acquire(full);
-        mma_slice(acc1, A + k * TILE64, my_half + s * STAGE);
-        c.issued(empty, S);
+      for (int j = 0; j < T::J; ++j) zero(acc[j]);
+      for (int ch = 0; ch < chunks; ++ch) {
+        float acc1[32];
+        zero(acc1);
+        for (int k = 0; k < T::KD; ++k) {
+          const int s = c.acquire(full);
+          mma_slice(acc1, A + k * TILE64, my_half + s * STAGE);
+          c.issued(empty, S);
+          pin(acc1);
+        }
+        c.drain(empty);
         pin(acc1);
+        if (ch == chunks - 1 && lane == 0) bar_arrive(a_empty);  // the next A tile may come
+        consumers_sync();  // both warpgroups are done with the last chunk's h
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // h = bf16(GELU(acc1 + b1))
+            const int row = frag_row(t128, h), col = frag_col(t128, q);
+            const int hc = ch * TAIL_HC + wg * 64 + col;
+            const float v0 = gelu_erf(acc1[4 * q + 2 * h] + p.b1[hc]);
+            const float v1 = gelu_erf(acc1[4 * q + 2 * h + 1] + p.b1[hc + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(H + wg * TILE64 + swz(row, q) + (col % 8) * 2) =
+                __floats2bfloat162_rn(v0, v1);
+          }
+        async_fence();
+        consumers_sync();  // the chunk's h whole
+        for (int k = 0; k < TAIL_HC / 64; ++k)
+#pragma unroll
+          for (int j = 0; j < T::J; ++j) {
+            const int s = c.acquire(full);
+            mma_slice(acc[j], H + k * TILE64, my_half + s * STAGE);
+            c.issued(empty, S);
+            pin(acc[j]);
+          }
       }
       c.drain(empty);
-      pin(acc1);
-      if (ch == chunks - 1 && lane == 0) bar_arrive(a_empty);  // the next A tile may come
-      consumers_sync();  // both warpgroups are done with the last chunk's h
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {  // h = bf16(GELU(acc1 + b1))
-          const int row = frag_row(t128, h), col = frag_col(t128, q);
-          const int hc = ch * TAIL_HC + wg * 64 + col;
-          const float v0 = gelu_erf(acc1[4 * q + 2 * h] + p.b1[hc]);
-          const float v1 = gelu_erf(acc1[4 * q + 2 * h + 1] + p.b1[hc + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(H + wg * TILE64 + swz(row, q) + (col % 8) * 2) =
-              __floats2bfloat162_rn(v0, v1);
-        }
-      async_fence();
-      consumers_sync();  // the chunk's h whole
-      for (int k = 0; k < TAIL_HC / 64; ++k)
-#pragma unroll
-        for (int j = 0; j < T::J; ++j) {
-          const int s = c.acquire(full);
-          mma_slice(acc[j], H + k * TILE64, my_half + s * STAGE);
-          c.issued(empty, S);
-          pin(acc[j]);
-        }
     }
-    c.drain(empty);
 
     if constexpr (FINAL) {
       final_ln<D>(acc, X2, p, m0, t128, warp, lane);
@@ -476,7 +625,7 @@ __global__ void __launch_bounds__(TAIL_THREADS, 1) tail_kernel(const __grid_cons
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = frag_row(t128, h), col = c0 + j * 128 + frag_col(t128, q);
-          if (m0 + row >= p.M) continue;
+          if (RUNS ? row >= rows : m0 + row >= p.M) continue;
           const float2 x2 =
               __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(X2 + row * T::LDX + col));
           const float v0 = x2.x + round_bf16(acc[j][4 * q + 2 * h] + p.b2[col]);
@@ -489,23 +638,29 @@ __global__ void __launch_bounds__(TAIL_THREADS, 1) tail_kernel(const __grid_cons
 }
 
 // The tail on stream s; `a` holds the A rows (K15's o, K2's x), `wproj` is
-// read only with PROJ.
-template <int D, bool PROJ, bool FINAL>
+// read only with PROJ. RUNS: p.run and p.tiles as the caller's walk gives
+// them (ops/mlp_variants.py::row_walk), checked here.
+template <int D, bool PROJ, bool FINAL, bool RUNS = false, bool OVERLAP = false>
 int launch_tail(TailParams& p, const void* a, const void* wproj, const void* w1, const void* w2,
                 cudaStream_t s) {
-  const int smem = Tail<D>::smem(p.stages);
+  const int smem = Tail<D>::smem(p.stages, OVERLAP ? 2 : 1);
   if (p.M <= 0 || p.Hd <= 0 || p.Hd % TAIL_HC || p.stages < 2 || smem > 232448 ||
       (FINAL && (p.final_s == nullptr || p.final_b == nullptr)))
     return (int)cudaErrorInvalidValue;
+  if (RUNS) {
+    if (p.run <= 0 || p.M % p.run) return (int)cudaErrorInvalidValue;
+    p.per_run = (p.run + TAIL_ROWS - 1) / TAIL_ROWS;
+    if (p.tiles != p.M / p.run * p.per_run) return (int)cudaErrorInvalidValue;
+  }
   if (int e = tensor_map(&p.a, a, p.M, D, 64)) return e;
   if (PROJ)
     if (int e = tensor_map(&p.wproj, wproj, D, D, 128)) return e;
   if (int e = tensor_map(&p.w1, w1, p.Hd, D, 128)) return e;
   if (int e = tensor_map(&p.w2, w2, D, p.Hd, 128)) return e;
-  auto kern = tail_kernel<D, PROJ, FINAL>;
+  auto kern = tail_kernel<D, PROJ, FINAL, RUNS, OVERLAP>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int tiles = (p.M + TAIL_ROWS - 1) / TAIL_ROWS, sms = sm_count();
+  const int tiles = RUNS ? p.tiles : (p.M + TAIL_ROWS - 1) / TAIL_ROWS, sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
   kern<<<tiles < sms ? tiles : sms, TAIL_THREADS, smem, s>>>(p);
   return (int)cudaGetLastError();
@@ -521,6 +676,19 @@ int launch_tail_d(TailParams& p, int D, const void* a, const void* wproj, const 
     case 256: return launch_tail<256, PROJ, FINAL>(p, a, wproj, w1, w2, s);
     case 384: return launch_tail<384, PROJ, FINAL>(p, a, wproj, w1, w2, s);
     case 512: return launch_tail<512, PROJ, FINAL>(p, a, wproj, w1, w2, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// T6 (OVERLAP false) and T7 (true): K2's tail over the run walk.
+template <bool OVERLAP>
+int launch_runs_d(TailParams& p, int D, const void* x, const void* w1, const void* w2,
+                  cudaStream_t s) {
+  switch (D) {
+    case 128: return launch_tail<128, false, false, true, OVERLAP>(p, x, nullptr, w1, w2, s);
+    case 256: return launch_tail<256, false, false, true, OVERLAP>(p, x, nullptr, w1, w2, s);
+    case 384: return launch_tail<384, false, false, true, OVERLAP>(p, x, nullptr, w1, w2, s);
+    case 512: return launch_tail<512, false, false, true, OVERLAP>(p, x, nullptr, w1, w2, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,8 @@
-// The MLP schedule variants of the JAX harness's timing tools. Each
-// computes K2's function (mfvit_tpu/ops/fused_mlp.py::fused_mlp_block),
+// The MLP schedule variants of the JAX harness's timing tools: T3, and the
+// first designs of T6 and T7, which now run on K2's tail (mlp3d.cu) and
+// stay here as check-only entries (mfv_mlp3d_wmma, mfv_mlp3d_staged_wmma)
+// that the card's checks hold the new ones against. Each computes K2's
+// function (mfvit_tpu/ops/fused_mlp.py::fused_mlp_block),
 //
 //   out = x + bf16(bf16(GELU_erf(LN(x) . W1^T + b1)) . W2^T + b2),
 //
@@ -11,14 +14,14 @@
 // ln_stats_kernel sums them, so each equals the K2 kernel (fused_mlp.cu)
 // bit for bit. They differ only in their schedule:
 //
-// - T6 mlp3d (tools/bench_mlp3d.py::mlp3d, _mlp3d_kernel :39): the MLP
+// - T6 mlp3d, first design (tools/bench_mlp3d.py::mlp3d, _mlp3d_kernel :39): the MLP
 //   stage of mlp_tail.cuh (WMMA). A block of eight warps owns `cb`
 //   images' rows, as a TPU grid step owns a (cb, N, D) block, and walks
 //   them in BM-row tiles (64, or 32 at D = 512): with `flat` the cb * N
 //   rows as one run, so a tile may straddle two images (the in-kernel
 //   flatten); without it image by image, so no tile crosses an image and
 //   the last tile of each is ragged (N = 197 = 3 * 64 + 5).
-// - T7 mlp3d_staged (_mlp3d_staged_kernel :138): T6's per-image tiles, with
+// - T7 mlp3d_staged, first design (_mlp3d_staged_kernel :138): T6's per-image tiles, with
 //   fc1 of the next tile issued before the GELU and fc2 of this one. On
 //   Hopper that is ping-pong between two warpgroups: each owns every
 //   other tile (32 rows, 16 at D = 512) and alternates a tensor-core
@@ -47,8 +50,8 @@
 // written once, 0.06 ms at 3.35 TB/s). Against K2 they drop the hidden's
 // round trip through device memory (310 MB at B=256, about 0.09 ms) and
 // K2's LN statistics pass. These first versions use WMMA (T6, T7) or
-// mma.sync (T3) with one block an SM, far from the tensor-core peak;
-// wgmma/TMA come in the redesign PRs. Each block reads every weight once
+// mma.sync (T3) with one block an SM, far from the tensor-core peak (T6
+// and T7 moved to wgmma and TMA on K2's tail, mlp3d.cu). Each block reads every weight once
 // from L2 per tile (T6, T7) or per row tile (T3). D must be 128, 256, 384
 // or 512: the fp32 output tile lives in registers.
 #include "mlp_tail.cuh"
@@ -392,9 +395,10 @@ MlpArgs mlp_args(const void* x, const void* ln_s, const void* ln_b, const void* 
 
 }  // namespace
 
-MFV_API int mfv_mlp3d(const void* x, const void* ln_s, const void* ln_b, const void* w1,
-                      const void* b1, const void* w2, const void* b2, void* out, int B, int N,
-                      int D, int Hd, int cb, int flat, void* stream) {
+// T6's first design, for the card's checks.
+MFV_API int mfv_mlp3d_wmma(const void* x, const void* ln_s, const void* ln_b, const void* w1,
+                           const void* b1, const void* w2, const void* b2, void* out, int B,
+                           int N, int D, int Hd, int cb, int flat, void* stream) {
   if (B <= 0 || N <= 0 || cb <= 0 || B % cb != 0 || Hd <= 0 || Hd % HC != 0)
     return (int)cudaErrorInvalidValue;
   const MlpArgs p = mlp_args(x, ln_s, ln_b, w1, b1, w2, b2, out, N, Hd);
@@ -408,9 +412,10 @@ MFV_API int mfv_mlp3d(const void* x, const void* ln_s, const void* ln_b, const v
   return (int)cudaErrorInvalidValue;
 }
 
-MFV_API int mfv_mlp3d_staged(const void* x, const void* ln_s, const void* ln_b, const void* w1,
-                             const void* b1, const void* w2, const void* b2, void* out, int B,
-                             int N, int D, int Hd, int cb, void* stream) {
+// T7's first design, for the card's checks.
+MFV_API int mfv_mlp3d_staged_wmma(const void* x, const void* ln_s, const void* ln_b,
+                                  const void* w1, const void* b1, const void* w2, const void* b2,
+                                  void* out, int B, int N, int D, int Hd, int cb, void* stream) {
   if (B <= 0 || N <= 0 || cb <= 0 || B % cb != 0 || Hd <= 0 || Hd % HC != 0)
     return (int)cudaErrorInvalidValue;
   const MlpArgs p = mlp_args(x, ln_s, ln_b, w1, b1, w2, b2, out, N, Hd);

@@ -61,7 +61,9 @@ SIGNATURES = {
     "mfv_mhsa": [_P] * 4 + [_I] * 6 + [_F, _P],
     "mfv_mhsa_packed_t": [_P, _P] + [_I] * 6 + [_F, _P],
     "mfv_mlp3d": [_P] * 8 + [_I] * 6 + [_P],
-    "mfv_mlp3d_staged": [_P] * 8 + [_I] * 5 + [_P],
+    "mfv_mlp3d_staged": [_P] * 8 + [_I] * 6 + [_P],
+    "mfv_mlp3d_wmma": [_P] * 8 + [_I] * 6 + [_P],
+    "mfv_mlp3d_staged_wmma": [_P] * 8 + [_I] * 5 + [_P],
     "mfv_mlp_pipe": [_P] * 8 + [_I] * 5 + [_P],
     "mfv_attn_staged": [_P] * 11 + [_I] * 5 + [_F, _P],
     "mfv_attn_pairs": [_P] * 11 + [_I] * 5 + [_F, _P],

@@ -1,7 +1,9 @@
-"""Time K15, K1-K5, K7, K9, K10 and K11 of two checkouts of the repository
-on one card, in turns, and the end-to-end figures beside them:
+"""Time K15, K1-K5, K7, K9, K10, K11 and the MLP schedule variants T6 and
+T7 of two checkouts of the repository on one card, in turns, and the
+end-to-end figures beside them:
 
-    python -m mfvit_tpu_torch.tools.compare_block --other DIR [--out FILE]
+    python -m mfvit_tpu_torch.tools.compare_block --other DIR [--out FILE] \
+        [--only variants]
 
 DIR holds another checkout (for example a ``git archive`` of the parent
 commit unpacked into a directory that ``.gitignore`` lists). Each turn is a
@@ -24,9 +26,18 @@ and at 384 px, B=64 (``time_e2e``: bf16, int8 and the XLA-level W8A8
 path; at 384 px also on vit_small_ori, whose int8 path runs K10 past 256
 tokens, ``e2e_ori384``), the FT step's images/s at B=256 and B=16
 (``time_train``) and the fusion step's pairs/s at B=256 (``time_fusion``,
-LP and ``--semi-supervised``). Prints the card's name and power limit, one
-line a reading, and writes every reading to FILE as JSON. Needs a CUDA
-card.
+LP and ``--semi-supervised``). Every turn also runs ``variant_times``
+below (T6 flat and per image and T7 at cb 2, 4 and 8 beside K2, and
+their former designs where the checkout has them, at vit_small B=256),
+the "t6" and "t7" breakdowns of ``stage_times``, ``overlap_probe`` (T6
+per image on K2's and on T7's ring depth against T7, at D of 128-512),
+and ``output_digests`` (a hash of the output bits of K2, K3, K15, T6 and
+T7 on fixed inputs, which must be the same in both checkouts where their
+functions are).
+``--only variants`` runs only K15's ``time_block``, ``half_times``, those
+three and the variants' breakdowns. Prints the card's name and power
+limit, one line a reading, and writes every reading to FILE as JSON.
+Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -52,7 +63,9 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
     17; K6 and K8 at D=768); "k1_wmma", "k2_wmma", "k3_wmma", "k4_kv",
     "k5_wmma", "k7_wmma", "k9_wmma", "k10_mma" and "k11_mma" the former
     designs, where the checkout has them; "k10_three" and "k10_five" K10's
-    two routes forced. Kernel name
+    two routes forced; "t6" T6 (``mlp3d`` flat, cb=4) and "t7" T7
+    (``mlp3d_staged``, cb=4) on K2's inputs, "t6_wmma" and "t7_wmma" their
+    former designs where the checkout has them. Kernel name
     (namespace and parameters dropped, template arguments kept, so that
     two instances of one template stay apart; the n-th launch of a name
     within one call as "name #n") -> its mean device ms, in launch order.
@@ -72,6 +85,7 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
     from mfvit_tpu_torch.ops import fused_fusion as ff
     from mfvit_tpu_torch.ops import fused_int8 as fi8
     from mfvit_tpu_torch.ops import fused_mlp as fm
+    from mfvit_tpu_torch.ops import mlp_variants as mv
     t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B, D, dev,
                                 N=N)
     a = [t[k] for k in chip_smoke.K15_KEYS]
@@ -116,7 +130,11 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
             "k5_wmma": lambda: fa.fused_attention_block_bwd_wmma(
                 g, *a[:6], heads, scale),
             "k7_wmma": lambda: fm.fused_mlp_block_bwd_wmma(g, a[0],
-                                                           *a[7:12])}[op]
+                                                           *a[7:12]),
+            "t6": lambda: mv.mlp3d(a[0], *a[7:], cb=4, flat=True),
+            "t7": lambda: mv.mlp3d_staged(a[0], *a[7:], cb=4),
+            "t6_wmma": lambda: mv.mlp3d_wmma(a[0], *a[7:], cb=4, flat=True),
+            "t7_wmma": lambda: mv.mlp3d_staged_wmma(a[0], *a[7:], cb=4)}[op]
     with torch.inference_mode():
         call()
         torch.cuda.synchronize()
@@ -232,6 +250,121 @@ def long_times(dev, iters: int = 20) -> dict:
     return out
 
 
+def variant_calls(t) -> dict:
+    """T6 flat and per image ("loop") and T7 at cb 2, 4 and 8 on one
+    block's MLP inputs ``t`` (``chip_smoke.block_inputs``), K2 beside them,
+    and the former designs of T6 and T7 where the checkout has them
+    (``mlp3d_wmma``, ``mlp3d_staged_wmma``): name -> call."""
+    from mfvit_tpu_torch.ops import fused_mlp as fm
+    from mfvit_tpu_torch.ops import mlp_variants as mv
+    a = [t[k] for k in ("x", "ln_s", "ln_b", "w1", "b1", "w2", "b2")]
+    calls = {"k2": lambda: fm.fused_mlp_block(*a)}
+    ops = {"t6 flat": (mv.mlp3d, dict(flat=True)),
+           "t6 loop": (mv.mlp3d, dict(flat=False)),
+           "t7": (mv.mlp3d_staged, {})}
+    if hasattr(mv, "mlp3d_wmma"):
+        ops.update({"t6_wmma flat": (mv.mlp3d_wmma, dict(flat=True)),
+                    "t6_wmma loop": (mv.mlp3d_wmma, dict(flat=False)),
+                    "t7_wmma": (mv.mlp3d_staged_wmma, {})})
+    for name, (op, kw) in ops.items():
+        for cb in (2, 4, 8):
+            calls[f"{name} cb={cb}"] = (
+                lambda op=op, kw=kw, cb=cb: op(*a, cb=cb, **kw))
+    return calls
+
+
+def variant_times(dev, B: int = 256, iters: int = 20) -> dict:
+    """Every call of ``variant_calls`` at vit_small batch B
+    (``chip_smoke.block_inputs``, seed 16), each first held equal to K2 on
+    those inputs, then timed twice with CUDA events in turns (the calls in
+    order, then in reverse): name -> [ms, ms]."""
+    import torch
+
+    import chip_smoke
+    t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B, 384,
+                                dev)
+    calls = variant_calls(t)
+    out = {name: [] for name in calls}
+    with torch.inference_mode():
+        k2 = calls["k2"]()
+        for name, call in calls.items():
+            if not torch.equal(call(), k2):
+                raise AssertionError(f"{name} differs from K2 at B={B}")
+        for name in (*calls, *reversed(calls)):
+            out[name].append(chip_smoke.cuda_ms(calls[name], iters))
+    print(f"T6, T7 and K2 at vit_small B={B}: " + ", ".join(
+        f"{k} {'/'.join(f'{v:.4f}' for v in ms)} ms" for k, ms in out.items()))
+    return out
+
+
+def overlap_probe(dev, B: int = 256, iters: int = 20) -> dict:
+    """Whether T7's in-flight fc1 hides the GELU, on the same tiles: at
+    each width D of 128-512 (hidden 4D, ``chip_smoke.block_inputs``, seed
+    16), T6 per image (cb=4) on K2's ring, T6 per image on T7's ring depth
+    (``mlp_variants._plan``, one stage fewer where the second hidden
+    buffer costs one) and T7, each held equal to K2, then timed twice with
+    CUDA events in turns: "<name> D=<D>" -> [ms, ms]. Empty in a checkout
+    without T7 on K2's tail (no ``mlp_variants.row_walk``)."""
+    import torch
+
+    import chip_smoke
+    from mfvit_tpu_torch.ops import fused_mlp as fm
+    from mfvit_tpu_torch.ops import mlp_variants as mv
+    if not hasattr(mv, "row_walk"):
+        return {}
+    calls = {}
+    with torch.inference_mode():
+        for D in (128, 256, 384, 512):
+            t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B,
+                                        D, dev)
+            a = [t[k] for k in ("x", "ln_s", "ln_b", "w1", "b1", "w2", "b2")]
+            walk = mv.row_walk(B, 197, 4, False)
+            rings = (fm._plan(D, 4 * D).stages, mv._plan(D, 4 * D).stages)
+            named = {f"t6 loop D={D} ({rings[0]} stages)":
+                     lambda a=a: mv.mlp3d(*a, cb=4, flat=False),
+                     f"t6 loop D={D} ({rings[1]} stages)":
+                     lambda a=a, w=walk, s=rings[1]: mv._runs(
+                         "mfv_mlp3d", *a, w, s),
+                     f"t7 D={D} ({rings[1]} stages)":
+                     lambda a=a: mv.mlp3d_staged(*a, cb=4)}
+            k2 = fm.fused_mlp_block(*a)
+            for name, call in named.items():
+                if not torch.equal(call(), k2):
+                    raise AssertionError(f"{name} differs from K2")
+            calls.update(named)
+        out = {name: [] for name in calls}
+        for name in (*calls, *reversed(calls)):
+            out[name].append(chip_smoke.cuda_ms(calls[name], iters))
+    print(f"T6 per image against T7 at B={B}: " + ", ".join(
+        f"{k} {'/'.join(f'{v:.4f}' for v in ms)} ms" for k, ms in out.items()))
+    return out
+
+
+def output_digests(dev, B: int = 256) -> dict:
+    """A SHA-256 of the output bits of K2, K3, K15 and of T6 and T7 at
+    every argument of ``variant_calls``, on the inputs of ``half_times``
+    (vit_small B, seed 16): name -> hex digest. Two checkouts whose
+    kernels compute the same function bit for bit give the same digest."""
+    import hashlib
+
+    import torch
+
+    import chip_smoke
+    from mfvit_tpu_torch.ops import fused_block as fb
+    from mfvit_tpu_torch.ops import fused_mlp as fm
+    t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B, 384,
+                                dev)
+    a = [t[k] for k in chip_smoke.K15_KEYS]
+    calls = {"k3": lambda: fm.fused_mlp_block_final_ln(a[0], *a[7:],
+                                                       t["fs"], t["fb"]),
+             "k15": lambda: fb.fused_transformer_block(*a, 12, 32 ** -0.5),
+             **variant_calls(t)}
+    with torch.inference_mode():
+        return {name: hashlib.sha256(
+            call().view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+            for name, call in calls.items()}
+
+
 def e2e_ori384(dev) -> dict:
     """The serving pairs/s of ``chip_smoke.time_e2e`` at 384 px, B=64, on
     vit_small_ori (6 heads of 64: its int8 attention half is K10 past 256
@@ -250,19 +383,41 @@ def e2e_ori384(dev) -> dict:
         vit.get_config = get
 
 
-CHILD = """
+HEAD = """
 import json, sys, torch
 sys.path.insert(0, ".")
 import chip_smoke
 from mfvit_tpu_torch.ops import build
+from mfvit_tpu_torch.ops import mlp_variants
 from mfvit_tpu_torch.tools import bench_block
 build.lib()
 dev = torch.device("cuda")
 %s
 %s
+T_OPS = ("t6", "t7") + (("t6_wmma", "t7_wmma")
+                        if hasattr(mlp_variants, "mlp3d_wmma") else ())
+""" % (inspect.getsource(stage_times), inspect.getsource(half_times)
+       + "\nLONG_SHAPES = %r\n" % (LONG_SHAPES,)
+       + inspect.getsource(long_times) + inspect.getsource(e2e_ori384)
+       + inspect.getsource(variant_calls) + inspect.getsource(variant_times)
+       + inspect.getsource(overlap_probe) + inspect.getsource(output_digests))
+
+# --only variants: K15, K1-K4 alone, T6 and T7 with their breakdowns
+CHILD_VARIANTS = HEAD + """
 out = {"block": chip_smoke.time_block(dev), "halves": half_times(dev),
+       "variants": variant_times(dev), "overlap": overlap_probe(dev),
+       "digests": output_digests(dev),
+       "stages": {op: stage_times(dev, op) for op in ("k2",) + T_OPS}}
+print("RESULT " + json.dumps(out))
+"""
+
+CHILD = HEAD + """
+out = {"block": chip_smoke.time_block(dev), "halves": half_times(dev),
+       "variants": variant_times(dev), "overlap": overlap_probe(dev),
+       "digests": output_digests(dev),
        "stages": {op: stage_times(dev, op)
-                  for op in ("k15", "k1", "k2", "k3", "k4", "k5", "k7")},
+                  for op in ("k15", "k1", "k2", "k3", "k4", "k5", "k7")
+                  + T_OPS},
        "stages_base": {op: stage_times(dev, op, B=64, D=768)
                        for op in ("k5", "k7")},
        "stages_long": {f"{op} {label} B={B}": stage_times(
@@ -287,56 +442,88 @@ out["e2e"] = {"serving_pairs_per_sec_B256": chip_smoke.time_e2e(dev),
                   f"{mode} {k}": v for mode, rates in fusion.items()
                   for k, v in rates.items()}}
 print("RESULT " + json.dumps(out))
-""" % (inspect.getsource(stage_times), inspect.getsource(half_times)
-       + "\nLONG_SHAPES = %r\n" % (LONG_SHAPES,)
-       + inspect.getsource(long_times) + inspect.getsource(e2e_ori384))
+"""
+
+
+def _turns(label: str, ms: dict, fmt: str = ".4f") -> str:
+    """'<label>: this a/b ms, other c/d ms' from by_checkout's lists (each
+    reading a number or a list of numbers)."""
+    def flat(v):
+        return [x for r in v for x in (r if isinstance(r, list) else [r])]
+    return (f"{label}: this " + "/".join(f"{v:{fmt}}" for v in flat(
+        ms["this"])) + " ms, other " + "/".join(
+        f"{v:{fmt}}" for v in flat(ms["other"])) + " ms")
+
+
+def print_variants(runs: list) -> None:
+    """T6, T7 and K2 of both checkouts, and whether their output bits,
+    K3's and K15's are the same in both (names both checkouts have)."""
+    names = [n for n in runs[0][1]["variants"]
+             if all(n in r["variants"] for _, r in runs)]
+    for name in names:
+        print(_turns(f"{name} at vit_small B=256",
+                     turns.by_checkout(runs, lambda r: r["variants"][name])))
+    only = {n for _, r in runs for n in r["variants"]} - set(names)
+    for name in sorted(only):
+        who = [w for w, r in runs if name in r["variants"]][0]
+        ms = [v for w, r in runs if w == who for v in r["variants"][name]]
+        print(f"{name} at vit_small B=256 ({who} only): " + "/".join(
+            f"{v:.4f}" for v in ms) + " ms")
+    for name in runs[0][1]["overlap"] or runs[1][1]["overlap"]:
+        ms = [v for _, r in runs for v in r["overlap"].get(name, [])]
+        print(f"{name} at vit_small widths, B=256 (turns of the checkout "
+              "that has it): " + "/".join(f"{v:.4f}" for v in ms) + " ms")
+    digests = turns.by_checkout(runs, lambda r: r["digests"])
+    common = set(digests["this"][0]) & set(digests["other"][0])
+    same = {n: len({d[n] for d in digests["this"] + digests["other"]}) == 1
+            for n in sorted(common)}
+    print("output bits the same in both checkouts: " + ", ".join(
+        f"{n} {'yes' if v else 'NO'}" for n, v in same.items()))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--only", choices=("variants",),
+                    help="run only K15, K1-K4 alone, T6 and T7 (and the "
+                    "breakdowns of K2, T6 and T7)")
     args = ap.parse_args(argv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"card: {card}")
-    runs = turns.run(args.other, CHILD)
-    turns.print_e2e(runs)
+    runs = turns.run(args.other, CHILD_VARIANTS if args.only else CHILD)
+    full = not args.only
+    if full:
+        turns.print_e2e(runs)
     for i, what in enumerate(("K15", "plain", "library block", "K1 -> K2")):
-        ms = turns.by_checkout(runs, lambda r: r["block"][i])
-        print(f"{what} at vit_small B=256: this " + "/".join(
-            f"{v:.4f}" for v in ms["this"]) + " ms, other " + "/".join(
-            f"{v:.4f}" for v in ms["other"]) + " ms")
+        print(_turns(f"{what} at vit_small B=256",
+                     turns.by_checkout(runs, lambda r: r["block"][i])))
     for name in ("k1", "k2", "k3", "k4"):
-        ms = turns.by_checkout(runs, lambda r: r["halves"][name])
-        print(f"{name.upper()} at vit_small B=256: this " + "/".join(
-            f"{v:.4f}" for t in ms["this"] for v in t) + " ms, other "
-            + "/".join(f"{v:.4f}" for t in ms["other"] for v in t) + " ms")
-    for shape in runs[0][1]["bwd"]:
-        for name in runs[0][1]["bwd"][shape]:
-            ms = turns.by_checkout(runs, lambda r: r["bwd"][shape][name][0])
-            print(f"{name} at {shape}: this " + "/".join(
-                f"{v:.4f}" for v in ms["this"]) + " ms, other " + "/".join(
-                f"{v:.4f}" for v in ms["other"]) + " ms")
-    for name in runs[0][1]["long"]:
-        ms = turns.by_checkout(runs, lambda r: r["long"][name])
-        print(f"{name}: this " + "/".join(
-            f"{v:.4f}" for t in ms["this"] for v in t) + " ms, other "
-            + "/".join(f"{v:.4f}" for t in ms["other"] for v in t) + " ms")
-    for name in runs[0][1]["bench_block"]:
-        ms = turns.by_checkout(runs, lambda r: r["bench_block"][name])
-        print(f"bench_block {name}, 12 blocks at B=512: this " + "/".join(
-            f"{v:.2f}" for v in ms["this"]) + " ms, other " + "/".join(
-            f"{v:.2f}" for v in ms["other"]) + " ms")
+        print(_turns(f"{name.upper()} at vit_small B=256",
+                     turns.by_checkout(runs, lambda r: r["halves"][name])))
+    print_variants(runs)
+    if full:
+        for shape in runs[0][1]["bwd"]:
+            for name in runs[0][1]["bwd"][shape]:
+                print(_turns(f"{name} at {shape}", turns.by_checkout(
+                    runs, lambda r: r["bwd"][shape][name][0])))
+        for name in runs[0][1]["long"]:
+            print(_turns(name, turns.by_checkout(
+                runs, lambda r: r["long"][name])))
+        for name in runs[0][1]["bench_block"]:
+            print(_turns(f"bench_block {name}, 12 blocks at B=512",
+                         turns.by_checkout(
+                             runs, lambda r: r["bench_block"][name]), ".2f"))
     for who, r in runs:
         print(f"{who}: " + "; ".join(
             f"{op.upper()}'s stages " + ", ".join(
                 f"{k} {v:.4f}" for k, v in st.items()) + " ms"
             for op, st in (*r["stages"].items(),
                            *((f"{op} vit_base B=64", st)
-                             for op, st in r["stages_base"].items()),
-                           *r["stages_long"].items()))
+                             for op, st in r.get("stages_base", {}).items()),
+                           *r.get("stages_long", {}).items()))
             + "".join(f"; GEMM {k} wgmma {v[0]:.4f} ms ({v[2]:.1f} TFLOP/s), "
                       f"gemm_ln {v[1]:.4f} ms ({v[3]:.1f} TFLOP/s)"
                       for k, v in r.get("gemm", {}).items()))

@@ -809,6 +809,47 @@ def test_mlp_variants_equal_k2_and_hold_its_plain_version(dev, name, B, N,
     assert _rel(got, fused_mlp.fused_mlp_block_plain(*_f32(t, MLP))) < REL
 
 
+# T6 and T7 against their first designs: the smoke's MLP shapes
+# (chip_smoke.VARIANT_SHAPES) and two narrower widths
+T6_T7 = {"mlp3d flat": (lambda a, cb: mlp_variants.mlp3d(*a, cb=cb, flat=True),
+                        lambda a, cb: mlp_variants.mlp3d_wmma(*a, cb=cb,
+                                                              flat=True)),
+         "mlp3d loop": (lambda a, cb: mlp_variants.mlp3d(*a, cb=cb,
+                                                         flat=False),
+                        lambda a, cb: mlp_variants.mlp3d_wmma(*a, cb=cb,
+                                                              flat=False)),
+         "mlp3d_staged": (lambda a, cb: mlp_variants.mlp3d_staged(*a, cb=cb),
+                          lambda a, cb: mlp_variants.mlp3d_staged_wmma(
+                              *a, cb=cb))}
+
+
+@pytest.mark.parametrize("B,N,D", [(8, 197, 384), (8, 50, 384),
+                                   (3, 197, 384), (6, 197, 384),
+                                   (4, 197, 512), (2, 100, 256),
+                                   (2, 100, 128)])
+@pytest.mark.parametrize("name", sorted(T6_T7))
+def test_t6_t7_equal_their_former_designs_and_k2(dev, name, B, N, D):
+    """T6 (flat and per image) and T7 on K2's tail against their first
+    designs (``mlp3d_wmma``, ``mlp3d_staged_wmma``) and the K2 kernel on the
+    same bf16 inputs, bit for bit, at every cb of the tool's sweep that
+    divides B (else cb=1); one call launches the variant once and nothing
+    else, and the former designs count no launch."""
+    new, former = T6_T7[name]
+    counter = name.split()[0]
+    t = _block(dev, B, N, D)
+    a = [t[k] for k in MLP]
+    with torch.no_grad():
+        k2 = fused_mlp.fused_mlp_block(*a)
+        for cb in [cb for cb in (2, 4, 8) if B % cb == 0] or [1]:
+            ops.reset_launch_counts()
+            got, was = new(a, cb), former(a, cb)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert counts.pop(counter) == 1 and not any(counts.values())
+            assert torch.equal(got, k2), cb
+            assert torch.equal(got, was), cb
+
+
 @pytest.mark.parametrize("B,N,D,H", [(4, 197, 384, 12), (4, 197, 384, 6),
                                      (4, 50, 384, 12), (2, 197, 384, 3),
                                      (3, 100, 256, 2)])
