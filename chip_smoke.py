@@ -141,8 +141,10 @@ Phases, in order; any failure raises and exits non-zero:
    limit), at every schedule argument their tools sweep (and ``mlp_pipe``
    at splits=1, its no-overlap control), non-zero biases (b2 included),
    T5 on a bf16 cotangent: equal to K2 (T4, T1, T2: K1; T5: K5 on all
-   seven outputs) bit for bit, T6 and T7 (on K2's tail) also to their
-   former designs (``mlp3d_wmma``, ``mlp3d_staged_wmma``), and within rel
+   seven outputs) bit for bit, T6 and T7 (on K2's tail), T2 and T5 (on K1's
+   and K5's asynchronous cores) also to their former designs
+   (``mlp3d_wmma``, ``mlp3d_staged_wmma``, ``attn_rolling_wmma``,
+   ``staged_bwd_former``), and within rel
    2e-2 of the plain fp32 version (each output); one call launches the
    variant once and no other kernel; every shape and argument the ops refuse (cb not dividing B, an
    odd cb for T1, tm and splits past the register tile, D=768, head_dim
@@ -158,8 +160,8 @@ Phases, in order; any failure raises and exits non-zero:
    12; then one block (T5: one backward, B=256) on the tools' inputs
    (B=512; the MLP variants on K1's output) at every argument the tools
    sweep: each variant equal to K2 (T4, T1, T2: K1; T5: K5) bit for bit
-   (T6 and T7 also to their former designs) and within rel 2e-2 of its
-   plain fp32 version (the kernel report's
+   (T6, T7, T2 and T5 also to their former designs) and within rel 2e-2
+   of its plain fp32 version (the kernel report's
    error for the variants is from this run);
 16. the fusion-training slice through ``mfvit_tpu_torch.cli.fuse.main``:
    64 synthetic pairs, both vit_small branches from seeded files with
@@ -438,9 +440,12 @@ VARIANTS = [
      "tools/bench_bwd_staged.py:37", "fused_attention_block_bwd"),
 ]
 ATTN_VARIANTS = ("attn_staged", "attn_pairs", "attn_rolling")
-# the variants redesigned on K2's tail, and their first designs (check-only
-# ops of ops/mlp_variants.py that count no launch)
-FORMER_VARIANTS = {"mlp3d": "mlp3d_wmma", "mlp3d_staged": "mlp3d_staged_wmma"}
+# the variants redesigned on K2's tail (T6, T7) and on K1's and K5's
+# asynchronous cores (T2, T5), and their former designs (check-only ops of
+# ops/mlp_variants.py and ops/attn_variants.py that count no launch)
+FORMER_VARIANTS = {"mlp3d": "mlp3d_wmma", "mlp3d_staged": "mlp3d_staged_wmma",
+                   "attn_rolling": "attn_rolling_wmma",
+                   "staged_bwd": "staged_bwd_former"}
 KERNELS += [v[:3] for v in VARIANTS]
 MHSA = ("mhsa_packed", "mhsa", "mhsa_packed_t")  # K12, K13, K14
 PER_FORWARD = {"fused_attention_block": 24, "fused_mlp_block": 22,
@@ -2627,9 +2632,10 @@ def variant_call(name: str, t, heads: int, kw: dict):
     from mfvit_tpu_torch.ops import mlp_variants as mv
     a = [t[k] for k in ATTN]
     scale = (t["x"].shape[-1] // heads) ** -0.5
-    if name == "staged_bwd":
-        return lambda: av.staged_bwd(t["g"], *a[:6], heads, scale, **kw)
-    if name in ATTN_VARIANTS:
+    if name.startswith("staged_bwd"):
+        op = getattr(av, name)
+        return lambda: op(t["g"], *a[:6], heads, scale, **kw)
+    if name.startswith(ATTN_VARIANTS):
         op = getattr(av, name)
         return lambda: op(*a, heads, scale, **kw)
     op, m = getattr(mv, name), [t[k] for k in MLP]
@@ -2663,8 +2669,8 @@ def check_variant_kernels(dev) -> dict:
     """T6, T7, T3, T4, T1, T2 and T5 at VARIANT_SHAPES, bf16 inputs (and
     T5's cotangent) from a seed with non-zero biases (b2 included), at
     every schedule argument their tools sweep: equal to K2 (T4, T1, T2: K1;
-    T5: K5 on all seven outputs) bit for bit, T6 and T7 also to their
-    former designs (FORMER_VARIANTS), within REL_BAR of the plain fp32
+    T5: K5 on all seven outputs) bit for bit, T6, T7, T2 and T5 also to
+    their former designs (FORMER_VARIANTS), within REL_BAR of the plain fp32
     version (each output); one call launches the variant once and no
     other kernel (the former designs count none). Then every shape and
     argument the ops refuse must raise."""
@@ -2885,8 +2891,14 @@ def hold_variants_at_tool_size(dev, batch: int) -> dict:
                 n_diff = sum((u != v).sum().item()
                              for u, v in zip(got, base[base_name]))
                 if name in FORMER_VARIANTS:
-                    was = getattr(mv, FORMER_VARIANTS[name])(inp, *args, **kw)
-                    n_diff += (got[0] != was).sum().item()
+                    former = FORMER_VARIANTS[name]
+                    fop = (getattr(mv, former) if hasattr(mv, former)
+                           else functools.partial(getattr(av, former),
+                                                  heads=bb.HEADS,
+                                                  scale=bb.SCALE))
+                    was = as_tuple(fop(inp, *args, **kw))
+                    n_diff += sum((u != v).sum().item()
+                                  for u, v in zip(got, was))
                 errs[name] = max(errs.get(name, 0.0), max(
                     (u.float() - v).abs().max().item()
                     for u, v in zip(got, ref)))

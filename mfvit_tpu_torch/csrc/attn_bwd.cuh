@@ -81,11 +81,11 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[DH / 16][4], const bf16* sr
     }
 }
 
-// The per-warp stages of the core for one (image, head), shared with T5's
-// staged core (attn_bwd_staged.cuh). A Head points at the head's columns of
-// the image's first token: q in qkv (k at +D, v at +2D, pitch 3D), dO, dq
-// in dqkv (dk at +D, dv at +2D) and o; its row statistics live in shared
-// memory.
+// The per-warp stages of the core for one (image, head), shared with K5's
+// asynchronous core and T5's staged cores (attn_bwd_staged{,_former}.cuh).
+// A Head points at the head's columns of the image's first token: q in qkv
+// (k at +D, v at +2D, pitch 3D), dO, dq in dqkv (dk at +D, dv at +2D) and
+// o; its row statistics live in shared memory.
 struct Head {
   const bf16* q;
   const bf16* dout;

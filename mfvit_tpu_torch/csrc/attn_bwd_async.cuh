@@ -1,6 +1,7 @@
 // attn_bwd_async: K5's attention-backward core (mfvit_tpu/ops/fused_attn.py::
 // _fused_attn_bwd_impl, _bwd_kernel :385-481) on asynchronous staging, in
-// place of attn_bwd.cuh's kernel (which K5's former chain and T5 keep):
+// place of attn_bwd.cuh's kernel (which K5's former chain and T5's former
+// core keep; T5 runs this core with its staged order, attn_bwd_staged.cuh):
 //
 //   qkv (B, N, 3D) bf16, dO (B, N, D) bf16 -> o (B, N, D) fp32, dqkv (B, N, 3D) bf16
 //

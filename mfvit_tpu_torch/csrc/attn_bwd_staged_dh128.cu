@@ -1,9 +1,15 @@
-// T5's staged core (attn_bwd_staged.cuh) at head_dim 128, in a
-// translation unit of its own so that the builds of the head_dims run in
-// parallel.
+// T5's staged core (attn_bwd_staged.cuh) and its former design
+// (attn_bwd_staged_former.cuh) at head_dim 128, in a translation unit of its
+// own so that the builds of the head_dims run in parallel.
 #include "attn_bwd_staged.cuh"
+#include "attn_bwd_staged_former.cuh"
 
 int attn_bwd::staged_dh128(const void* qkv, const void* dout, void* o, void* dqkv, int B,
-                          int N, int heads, float scale, int cb, cudaStream_t s) {
+                             int N, int heads, float scale, int cb, cudaStream_t s) {
   return staged::launch_n<128>(qkv, dout, o, dqkv, B, N, heads, scale, cb, s);
+}
+
+int attn_bwd::staged_former_dh128(const void* qkv, const void* dout, void* o, void* dqkv, int B,
+                                    int N, int heads, float scale, int cb, cudaStream_t s) {
+  return staged_former::launch_n<128>(qkv, dout, o, dqkv, B, N, heads, scale, cb, s);
 }

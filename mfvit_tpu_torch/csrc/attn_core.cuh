@@ -5,8 +5,9 @@
 // before, which fused_attn.cu and fused_int8.cu keep for the card's checks
 // (mfv_fused_attention_block_wmma; mfv_fused_attention_block_i8_mma, fp32
 // output), and as the per-warp stages that the
-// schedule variants T4 (attn_staged.cu), T1 (attn_pairs.cu) and T2
-// (attn_rolling.cu) and K9's long-sequence core (attn_long.cuh) run.
+// schedule variants T4 (attn_staged.cu) and T1 (attn_pairs.cu), T2's former
+// design (attn_rolling_wmma.cu) and K9's long-sequence core
+// (attn_long.cuh) run.
 //
 // qkv (B, N, 3D) bf16 with columns [q | k | v] x head x dh -> o (B, N, D)
 // in OT: bf16, or fp32 for K10's former chain, which quantizes the fp32
@@ -53,8 +54,8 @@ struct AttnSmem {
 };
 
 // The stages of the core for one (image, head), shared with the schedule
-// variants T4 (attn_staged.cu), T1 (attn_pairs.cu) and T2
-// (attn_rolling.cu). `base` points at the head's q columns of the image's
+// variants T4 (attn_staged.cu), T1 (attn_pairs.cu) and T2's former design
+// (attn_rolling_wmma.cu). `base` points at the head's q columns of the image's
 // first token in qkv; the o rows of the image start at `o`. Each staging
 // function runs on `threads` threads, tid the thread's index among them.
 

@@ -5,134 +5,344 @@
 // only two images' score buffers are live at once, which lets a grid step
 // take cb = 8 or 16 images.
 //
-// Four launches on one stream, as K1's former chain (fused_attn.cu's
-// mfv_fused_attention_block_wmma, which gives K1's bits): the LN row
-// statistics and the LN + qkv GEMM (gemm_ln.cuh), the rolling core below,
-// the proj GEMM with its bias and the bf16 residual (gemm_ln.cuh).
+// K1's four launches on one stream (fused_attn.cu), through the caller's
+// (M, 3D) bf16 qkv and (M, D) bf16 o scratch: block_tail.cuh's LN pass,
+// the qkv GEMM with its bias on gemm_sm90.cuh's wgmma core, the rolling
+// core below, and the proj GEMM with its bias and the bf16 residual on the
+// same core.
 //
-// The rolling core: a block of four warps owns one head of cb images on a
-// grid of (heads, B / cb) and walks the images in order, 64 query rows (16
-// per warp) a unit. Shared memory holds two images' K and Vt, image b in
-// one buffer and b+1 in the other. Each warp issues the scores and softmax
-// of its next unit before the PV of its last one, so at an image boundary
-// image b+1's scores and softmax come before image b's last PV; the last
-// unit's P waits in registers as packed bf16 A fragments. Image b+1's K
-// rows are loaded by cp.async a whole image ahead, into the buffer whose
-// image b-1 has no score left to compute; its Vt (a transpose, which
-// cp.async cannot do) is staged at the boundary, after image b-1's last PV.
+// The rolling core is a sibling of K1's (attn_async.cu), in a unit of its
+// own so that the two build in parallel and K1's stays as it is:
+// - Persistent blocks, one an SM, walk units of one head of cb images (a
+//   block's i-th image: unit bid + (i / cb) * grid, image i % cb of that
+//   unit's group; adjacent blocks take adjacent heads of one group, so the
+//   rows of qkv they read meet in L2), the images of each unit in order.
+// - A producer warp stages each image's rows (zeros past N) by 16-byte
+//   cp.async into a ring of two slots handed over by mbarriers, so image
+//   b+1 arrives under image b's products: the two slots are the schedule's
+//   two live images. A slot holds q, K and V where two such slots fit the
+//   shared memory; else (head_dim 128, N up to 208: 2 x 169,728 bytes)
+//   only K and V (2 x 113,152), and q's A fragments come from device
+//   memory (16 rows a tile, read once; no third part to wait on).
+// - Consumer warps take the flattened 16-row query tiles of the block's
+//   images (warp w: tiles w, w + Wt, ...), and each issues the scores and
+//   softmax of its next tile before the P V of its last one, whose P waits
+//   in registers as packed bf16 A fragments (NKT / 2 x 4 registers, 52 at
+//   N = 197). So at an image boundary image b+1's scores and softmax come
+//   before image b's last P V. A slot is handed back when all its image's
+//   tiles have run their P V (one arrival a tile).
+// - The parity rule of K1's core, with the deferral: a warp that waits for
+//   image i still holds its deferred tile's slot, and image i is staged
+//   only after image i - 2 was handed back, so that tile must lie in image
+//   i - 1 or i: at most T warps take tiles (Wt = min(W, T), T the tiles
+//   of an image). The same bound keeps every wait one round from the last,
+//   as parity alone tells rounds apart.
+// - Fragments by ldmatrix from the row-major slots (V's by
+//   ldmatrix.trans): no Vt copy and no block-wide barrier anywhere.
 //
-// Each warp runs attn_core.cuh's stages on its 16 query rows unchanged
-// (q scaled in fp32 and rounded, fp32 scores and softmax, p rounded to
-// bf16 for PV, 1/sum applied to the fp32 PV output), and the GEMMs are
-// K1's, so T2 equals the K1 kernel bit for bit.
+// Every score, maximum, exp, sum and P V runs in the order and with the
+// rounding points of K1's core (attn_async.cu: the scores summed again for
+// the exps, the same sums, or held between the two at head_dim 128), so
+// T2 equals the K1 kernel bit for bit.
 //
-// What bounds it on an H100: K1's work, 75 GFLOP at ViT-S B=256 (0.076 ms
-// at the bf16 peak). Two images' K and Vt take 2 x 30 KiB at head_dim 32
-// and N = 197, and 2 x 109 KiB at head_dim 128, so head_dim 128 takes
-// N <= 208.
+// What bounds it on an H100: K1's work, 74.8 GFLOP at ViT-S B=256 (0.076 ms
+// at the bf16 peak); the core is bound as K1's is, by its CUDA-core work
+// and the latency of each warp's chain, with fewer warps than K1's (T at
+// most) and its image granularity: units = B / cb x heads over 132 SMs
+// (192 at cb = 16 leave 60 SMs a second unit).
 #include "attn_core.cuh"
-#include "gemm_ln.cuh"
+#include "block_tail.cuh"
 
 namespace {
 
-constexpr int QB = 64;  // query rows of a unit: 16 per warp
-constexpr int ROLL_THREADS = 128;
+constexpr int SMEM_MAX = 232448;
+
+template <int DH, int NKT>  // NKT: key tiles of 8 held (even), NKT * 8 >= N
+struct RollCore {
+  static constexpr int NK = NKT * 8;  // rows staged of each part
+  static constexpr int LD = DH + 8;   // bf16 pitch of a staged row
+  static constexpr int PART = NK * LD;
+  // q beside K and V where two such slots fit
+  static constexpr bool QS = 2 * 3 * PART * 2 + 4 * 8 <= SMEM_MAX;
+  static constexpr int PARTS = QS ? 3 : 2;
+  static constexpr int SLOT = PARTS * PART;  // bf16 of a slot
+  static constexpr int SLOT_BYTES = SLOT * 2;
+  static constexpr int SMEM = 2 * SLOT_BYTES + 4 * 8;
+  // consumer warps and passes over the keys, as measured best on the card
+  // (PERF.md): a thread holds the deferred P and the next tile's, NKT / 2
+  // x 4 registers each; at head_dim 32 and 64 two passes (K1's: the scores
+  // computed again, no row of them held) at 11 warps, 168 registers a
+  // thread, beat 15 at 128 (spilling) and one pass at 7 and 11; at head_dim
+  // 128, whose fragments and accumulators need 255 registers at 7 warps,
+  // one pass (a row of fp32 scores held between the max and the exps)
+  // beats two
+  static constexpr int W = DH == 128 ? 7 : 11;
+  static constexpr int PASSES = DH == 128 ? 1 : 2;
+  static constexpr int THREADS = (W + 1) * 32;
+};
 
 template <int DH, int NKT>
-__global__ void __launch_bounds__(ROLL_THREADS)
-    attn_rolling_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o, int N, int heads,
-                        float scale, int cb) {
-  using S = AttnSmem<DH, NKT>;
+__global__ void __launch_bounds__(RollCore<DH, NKT>::THREADS, 1)
+    attn_rolling_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o, int B, int N,
+                        int heads, float scale, int cb) {
+  using C = RollCore<DH, NKT>;
+  constexpr int W = C::W, KG = NKT / 2;
   extern __shared__ __align__(16) unsigned char smem[];
-  auto Ks = [&](int i) { return reinterpret_cast<bf16*>(smem + (i & 1) * S::BYTES); };
-  auto Vt = [&](int i) { return Ks(i) + S::NK * S::LDK; };
-  const int warp = threadIdx.x >> 5, tid = threadIdx.x;
-  const int h = blockIdx.x, D = heads * DH;
-  const int qblocks = (N + QB - 1) / QB, units = cb * qblocks;
-  auto image = [&](int i) { return (size_t)blockIdx.y * cb + i; };
-  auto base = [&](int i) { return qkv + image(i) * N * 3 * D + h * DH; };
-  auto rows = [&](int u) { return (u % qblocks) * QB + warp * 16; };
-
-  attn_stage_kv<DH, NKT>(base(0), D, N, Ks(0), Vt(0), tid, ROLL_THREADS);
-  if (cb > 1) attn_stage_k<DH, NKT, true>(base(1), D, N, Ks(1), tid, ROLL_THREADS);
-  cp_async_commit();
-  __syncthreads();
-
-  float s[NKT][4], l0 = 0.f, l1 = 0.f;
-  uint32_t pa[NKT / 2][4];  // the last unit's P, packed
-  float pl0 = 0.f, pl1 = 0.f;
-  for (int u = 0; u <= units; ++u) {
-    const int i = u / qblocks;
-    if (u > 0 && u < units && u % qblocks == 0) {
-      // image i's Vt over image i-2's (whose PVs all ran by unit u-1), and
-      // its K rows, in flight since image i-1 began, have landed
-      __syncthreads();
-      attn_stage_vt<DH, NKT>(base(i), D, N, Vt(i), tid, ROLL_THREADS);
-      cp_async_wait<0>();
-      __syncthreads();
-      // image i+1's K rows over image i-1's, whose scores are all done
-      if (i + 1 < cb) attn_stage_k<DH, NKT, true>(base(i + 1), D, N, Ks(i + 1), tid, ROLL_THREADS);
-      cp_async_commit();
-    }
-    const int q0 = rows(u);
-    const bool has = u < units && q0 < N;
-    if (has) {
-      attn_scores<DH, NKT>(base(i), D, N, q0, scale, Ks(i), s);
-      attn_softmax<NKT>(s, N, l0, l1);
-    }
-    if (u > 0 && rows(u - 1) < N) {
-      const int j = (u - 1) / qblocks;
-      attn_pv_packed<DH, NKT>(pa, pl0, pl1, Vt(j), o + image(j) * N * D + h * DH, D, N,
-                              rows(u - 1));
-    }
-    if (has) {
-      attn_pack_p<NKT>(s, pa);
-      pl0 = l0;
-      pl1 = l1;
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * C::SLOT_BYTES);  // [slot]
+  uint64_t* empty = full + 2;                                             // [slot]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int D = heads * DH;
+  const size_t P3 = (size_t)3 * D;
+  const int T = (N + 15) / 16;  // query tiles of an image
+  const int units = B / cb * heads, bid = blockIdx.x, grid = gridDim.x;
+  const int mine = units > bid ? ((units - 1 - bid) / grid + 1) * cb : 0;  // this block's images
+  // the block's i-th image and its head
+  auto image_of = [&](int i) {
+    return (size_t)((bid + i / cb * grid) / heads * cb + i % cb);
+  };
+  auto head_of = [&](int i) { return (bid + i / cb * grid) % heads * DH; };
+  // their q columns in qkv (K at +D, V at +2D)
+  auto q_of = [&](int i) { return qkv + image_of(i) * N * P3 + head_of(i); };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 32);  // one cp.async arrival a producer lane
+      mbar_init(&empty[s], T);  // one arrival a query tile, after its P V
     }
   }
+  __syncthreads();
+
+  if (warp == W) {  // the producer
+    constexpr int CPR = DH / 8, RPI = 32 / CPR;  // 16-byte chunks a row, rows an iteration
+    const int c = lane % CPR * 8;
+    for (int i = 0; i < mine; ++i) {
+      const int slot = i & 1;
+      if (i >= 2) mbar_wait(&empty[slot], (i / 2 + 1) & 1);
+      const bf16* src = q_of(i) + c + (C::QS ? 0 : D);
+      bf16* dst = ring + slot * C::SLOT + c;
+#pragma unroll
+      for (int part = 0; part < C::PARTS; ++part)  // [q,] K, V
+        for (int n = lane / CPR; n < C::NK; n += RPI)
+          cp_async16_zfill(dst + part * C::PART + n * C::LD,
+                           n < N ? src + (size_t)n * P3 + part * D : src, n < N);
+      cp_async_arrive(&full[slot]);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  const int Wt = W < T ? W : T;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int groups = (N + 15) / 16;  // groups of 16 keys below N; the last may pass N
+  // the deferred tile: its P, packed, its row sums and where it lies
+  uint32_t pd[KG][4];
+  float dl0 = 0.f, dl1 = 0.f;
+  int dk = -1;  // its index in the walk, -1 for none
+  // P V of the deferred tile, 1/sum on the output (rounded once to bf16),
+  // and its slot handed back
+  auto finish = [&]() {
+    const int i = dk / T, q0 = (dk - i * T) * 16, slot = i & 1;
+    const bf16* Vs = ring + slot * C::SLOT + (C::PARTS - 1) * C::PART;
+    float oacc[DH / 8][4];
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) oacc[d][0] = oacc[d][1] = oacc[d][2] = oacc[d][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KG; ++kk) {
+      if (kk >= groups) break;  // past N: p = 0, no term of any sum
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, Vs + (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * C::LD + dp * 16 +
+                          (lane >> 4) * 8);
+        mma_bf16_16816(oacc[2 * dp], pd[kk], vb[0], vb[1]);
+        mma_bf16_16816(oacc[2 * dp + 1], pd[kk], vb[2], vb[3]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);  // this tile is done with the slot
+    const float r0 = 1.0f / dl0, r1 = 1.0f / dl1;
+    bf16* orow = o + (image_of(i) * N + q0 + g) * D + head_of(i) + 2 * t4;
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+      if (q0 + g < N) store_pair(orow + 8 * d, oacc[d][0] * r0, oacc[d][1] * r0);
+      if (q0 + g + 8 < N)
+        store_pair(orow + (size_t)8 * D + 8 * d, oacc[d][2] * r1, oacc[d][3] * r1);
+    }
+    dk = -1;
+  };
+
+  for (int k = warp; warp < Wt && k < mine * T; k += Wt) {
+    const int i = k / T, q0 = (k - i * T) * 16, slot = i & 1;
+    mbar_wait(&full[slot], (i / 2) & 1);
+    const bf16* Ks = ring + slot * C::SLOT + (C::QS ? C::PART : 0);
+
+    // q's A fragments, rows q0 .. q0 + 15, scaled in fp32 and rounded
+    uint32_t qa[DH / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks) {
+      if constexpr (C::QS) {
+        ldsm_x4(qa[ks], ring + slot * C::SLOT + (q0 + (lane & 15)) * C::LD + ks * 16 +
+                            (lane >> 4) * 8);
+      } else {  // the fragment layout ldmatrix gives, from device memory (zeros past N)
+        const bf16* qg = q_of(i);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = q0 + g + (r & 1) * 8, col = ks * 16 + 2 * t4 + (r >> 1) * 8;
+          qa[ks][r] = row < N ? *reinterpret_cast<const uint32_t*>(qg + (size_t)row * P3 + col)
+                              : 0u;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qa[ks][r]));
+        qa[ks][r] = pack_bf16x2(f.x * scale, f.y * scale);
+      }
+    }
+    // the scores of 16-key group kk: sc[e] holds 8-key tile 2 kk + e, each
+    // sum over dh in ascending k16 steps
+    auto scores = [&](int kk, float (&sc)[2][4]) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) sc[e][0] = sc[e][1] = sc[e][2] = sc[e][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DH / 16; ++ks) {
+        uint32_t kb[4];
+        ldsm_x4(kb, Ks + (16 * kk + (lane >> 4) * 8 + (lane & 7)) * C::LD + ks * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma_bf16_16816(sc[0], qa[ks], kb[0], kb[1]);
+        mma_bf16_16816(sc[1], qa[ks], kb[2], kb[3]);
+      }
+    };
+    // the row max of rows g (m0) and g + 8 (m1) over the valid keys
+    float held[C::PASSES == 1 ? KG : 1][2][4];
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int kk = 0; kk < KG; ++kk) {
+      if (kk >= groups) break;
+      float(&sc)[2][4] = held[C::PASSES == 1 ? kk : 0];
+      scores(kk, sc);
+      if (kk < groups - 1 || 16 * groups == N) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          m0 = fmaxf(m0, fmaxf(sc[e][0], sc[e][1]));
+          m1 = fmaxf(m1, fmaxf(sc[e][2], sc[e][3]));
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (16 * kk + 8 * e + 2 * t4 + c < N) {
+              m0 = fmaxf(m0, sc[e][c]);
+              m1 = fmaxf(m1, sc[e][2 + c]);
+            }
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    // p = exp(s - max) (0 past N), the lane's row sums over the key tiles in
+    // ascending order, P rounded as attn_pack_p packs it
+    uint32_t pn[KG][4];
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KG; ++kk) {
+      if (kk >= groups) break;
+      float(&sc)[2][4] = held[C::PASSES == 1 ? kk : 0];
+      if (C::PASSES == 2) scores(kk, sc);
+      if (kk < groups - 1 || 16 * groups == N) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            sc[e][c] = expf(sc[e][c] - m0);
+            sc[e][2 + c] = expf(sc[e][2 + c] - m1);
+            l0 += sc[e][c];
+            l1 += sc[e][2 + c];
+          }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const bool valid = 16 * kk + 8 * e + 2 * t4 + c < N;
+            sc[e][c] = valid ? expf(sc[e][c] - m0) : 0.f;
+            sc[e][2 + c] = valid ? expf(sc[e][2 + c] - m1) : 0.f;
+            l0 += sc[e][c];
+            l1 += sc[e][2 + c];
+          }
+      }
+      pn[kk][0] = pack_bf16x2(sc[0][0], sc[0][1]);
+      pn[kk][1] = pack_bf16x2(sc[0][2], sc[0][3]);
+      pn[kk][2] = pack_bf16x2(sc[1][0], sc[1][1]);
+      pn[kk][3] = pack_bf16x2(sc[1][2], sc[1][3]);
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    // then the last tile's P V, and this tile waits in its place
+    if (dk >= 0) finish();
+#pragma unroll
+    for (int kk = 0; kk < KG; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pd[kk][r] = pn[kk][r];
+    dl0 = l0;
+    dl1 = l1;
+    dk = k;
+  }
+  if (dk >= 0) finish();
 }
 
 template <int DH, int NKT>
-int launch_rolling(const void* qkv, void* o, int B, int N, int heads, float scale, int cb,
-                   cudaStream_t stream) {
-  const int smem = 2 * (int)AttnSmem<DH, NKT>::BYTES;
+int launch(const void* qkv, void* o, int B, int N, int heads, float scale, int cb,
+           cudaStream_t s) {
+  using C = RollCore<DH, NKT>;
   auto kern = attn_rolling_kernel<DH, NKT>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(heads, B / cb), ROLL_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(o), N, heads, scale, cb);
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  const int units = B / cb * heads;
+  kern<<<units < sms ? units : sms, C::THREADS, C::SMEM, s>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(o), B, N, heads, scale, cb);
   return (int)cudaGetLastError();
 }
 
-// The smallest key-tile count that covers N, as attn_core's.
+// The smallest key-tile count that covers N, as K1's core: 64, 128, 208 or
+// 256 keys; two slots of K and V pass the shared memory at head_dim 128
+// past 208.
 template <int DH>
-int launch_rolling_n(const void* qkv, void* o, int B, int N, int heads, float scale, int cb,
-                     cudaStream_t s) {
-  if (N <= 64) return launch_rolling<DH, 8>(qkv, o, B, N, heads, scale, cb, s);
-  if (N <= 128) return launch_rolling<DH, 16>(qkv, o, B, N, heads, scale, cb, s);
-  if (N <= 208) return launch_rolling<DH, 26>(qkv, o, B, N, heads, scale, cb, s);
-  if constexpr (DH < 128) return launch_rolling<DH, 32>(qkv, o, B, N, heads, scale, cb, s);
-  return (int)cudaErrorInvalidValue;  // two images' K and Vt pass the shared memory
+int launch_n(const void* qkv, void* o, int B, int N, int heads, float scale, int cb,
+             cudaStream_t s) {
+  if (N <= 64) return launch<DH, 8>(qkv, o, B, N, heads, scale, cb, s);
+  if (N <= 128) return launch<DH, 16>(qkv, o, B, N, heads, scale, cb, s);
+  if (N <= 208) return launch<DH, 26>(qkv, o, B, N, heads, scale, cb, s);
+  if constexpr (DH < 128) return launch<DH, 32>(qkv, o, B, N, heads, scale, cb, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 MFV_API int mfv_attn_rolling(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
-                             const void* bqkv, const void* wproj, const void* bproj, void* stats,
-                             void* qkv, void* o, void* out, int B, int N, int D, int heads,
-                             int cb, float scale, void* stream) {
+                             const void* bqkv, const void* wproj, const void* bproj, void* qkv,
+                             void* o, void* out, int B, int N, int D, int heads, int cb,
+                             float scale, void* stream) {
   if (B <= 0 || N <= 0 || N > NMAX || heads <= 0 || D % heads != 0 || cb <= 0 || B % cb != 0 ||
-      B / cb > 65535)
+      (long long)B / cb * heads > 0x7fffffffLL || !blk::ln1_takes(D))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N, dh = D / heads;
-  return attn_block(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, stats, qkv, o, out, M, D, s, [&] {
-    switch (dh) {
-      case 32: return launch_rolling_n<32>(qkv, o, B, N, heads, scale, cb, s);
-      case 64: return launch_rolling_n<64>(qkv, o, B, N, heads, scale, cb, s);
-      case 128: return launch_rolling_n<128>(qkv, o, B, N, heads, scale, cb, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  });
+  if (dh != 32 && dh != 64 && dh != 128) return (int)cudaErrorInvalidValue;
+  if (int e = blk::launch_ln1(x, ln_s, ln_b, o, M, D, s)) return e;
+  if (int e = sm90::gemm<EPI_BIAS>(o, wqkv, bqkv, nullptr, qkv, M, 3 * D, D, s)) return e;
+  int e = dh == 32   ? launch_n<32>(qkv, o, B, N, heads, scale, cb, s)
+          : dh == 64 ? launch_n<64>(qkv, o, B, N, heads, scale, cb, s)
+                     : launch_n<128>(qkv, o, B, N, heads, scale, cb, s);
+  if (e) return e;
+  return sm90::gemm<EPI_BIAS_RESID>(o, wproj, bproj, x, out, M, D, D, s);
 }

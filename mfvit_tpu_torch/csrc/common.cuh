@@ -85,7 +85,7 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// 16 bytes from device to shared memory by cp.async (T2's K rows, T3's
+// 16 bytes from device to shared memory by cp.async (T2's former K rows, T3's
 // weight chunks); the caller commits the group and waits for it.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);

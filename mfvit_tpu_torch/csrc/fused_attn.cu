@@ -22,8 +22,9 @@
 // ran before (LN statistics, gemm_ln.cuh's WMMA GEMMs and attn_core.cuh's
 // core), which mfv_fused_attention_block_wmma keeps for the card's checks
 // only: the two give the same bits. K9's former chain
-// (fused_attn_large.cu) and the schedule variants T1, T2 and T4 still run
-// that chain's attn_block.
+// (fused_attn_large.cu), the schedule variants T1 and T4 and T2's former
+// design (attn_rolling_wmma.cu) still run that chain's attn_block; T2
+// runs the four launches above with its rolling core (attn_rolling.cu).
 #include "attn_async.cuh"
 #include "attn_core.cuh"
 #include "block_tail.cuh"

@@ -15,7 +15,9 @@
 //   7. dh = dqkv . Wqkv (fp32)                           NN, MN-major Wqkv
 //   8. dx = bf16(g + LN backward(dh)), dln_s, dln_b      row + column kernels
 // with steps 3, 5 and 7 on gemm_bwd_sm90.cuh. T5 (mfv_staged_bwd) runs the
-// same chain with its staged core in step 4. The chain K5 ran before
+// same chain with its staged core in step 4 (attn_bwd_staged.cuh; its
+// former core, attn_bwd_staged_former.cuh, in mfv_staged_bwd_former for
+// the card's checks only). The chain K5 ran before
 // (gemm_ln.cuh's qkv GEMM, gemm_bwd.cuh's WMMA NN and TN GEMMs and its
 // 4 x 4 dWproj, attn_bwd.cuh's core) stays as the check-only entry
 // mfv_fused_attention_block_bwd_wmma: every step of the chain above sums
@@ -30,18 +32,20 @@
 // 0.5 GB) cost about 0.15 ms at 3.35 TB/s.
 #include "attn_bwd_async.cuh"
 #include "attn_bwd_staged.cuh"
+#include "attn_bwd_staged_former.cuh"
 #include "gemm_bwd_sm90.cuh"
 
 namespace {
 
 // The chain above, or the former one (wmma); step 4 is the chain's core, or
-// T5's staged core (cb images a block, attn_bwd_staged.cuh) where cb > 0.
+// where cb > 0 T5's staged core (units of cb images, attn_bwd_staged.cuh),
+// or its former one (former).
 int bwd_chain(const void* g, const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
               const void* bqkv, const void* wproj, void* stats, void* h, void* qkv, void* dout,
               void* o, void* dqkv, void* dh, void* part, void* dx, void* dln_s, void* dln_b,
               void* dwqkv, void* dbqkv, void* dwproj, void* dbproj, int B, int N, int D, int heads,
               float scale, int s_qkv, int k_qkv, int s_proj, int k_proj, int s_ln, int k_ln, int cb,
-              bool wmma, cudaStream_t s) {
+              bool wmma, cudaStream_t s, bool former = false) {
   if (B <= 0 || N <= 0 || heads <= 0 || D % heads != 0 || D % 128) return (int)cudaErrorInvalidValue;
   const int M = B * N, dh_ = D / heads;
   float* pt = static_cast<float*>(part);
@@ -58,7 +62,9 @@ int bwd_chain(const void* g, const void* x, const void* ln_s, const void* ln_b, 
   if (int e = wmma ? bwd::gemm_nn<false>(g, wproj, dout, M, D, D, s)
                    : bwd90::gemm_nn<false>(g, wproj, dout, M, D, D, s))
     return e;
-  if (int e = cb     ? attn_bwd::staged_core(qkv, dout, o, dqkv, B, N, heads, dh_, scale, cb, s)
+  if (int e = cb && former
+                  ? attn_bwd::staged_former_core(qkv, dout, o, dqkv, B, N, heads, dh_, scale, cb, s)
+              : cb   ? attn_bwd::staged_core(qkv, dout, o, dqkv, B, N, heads, dh_, scale, cb, s)
               : wmma ? attn_bwd::attn_bwd_core(qkv, dout, o, dqkv, B, N, heads, dh_, scale, s)
                      : attn_bwd::attn_bwd_async_core(qkv, dout, o, dqkv, B, N, heads, dh_, scale, s))
     return e;
@@ -111,4 +117,21 @@ MFV_API int mfv_staged_bwd(const void* g, const void* x, const void* ln_s, const
   return bwd_chain(g, x, ln_s, ln_b, wqkv, bqkv, wproj, stats, h, qkv, dout, o, dqkv, dh, part, dx,
                    dln_s, dln_b, dwqkv, dbqkv, dwproj, dbproj, B, N, D, heads, scale, s_qkv, k_qkv,
                    s_proj, k_proj, s_ln, k_ln, cb, false, static_cast<cudaStream_t>(stream));
+}
+
+// T5's former design (its staged core before the redesign), for the card's
+// checks only (no tool calls it): mfv_staged_bwd's arguments.
+MFV_API int mfv_staged_bwd_former(const void* g, const void* x, const void* ln_s,
+                                  const void* ln_b, const void* wqkv, const void* bqkv,
+                                  const void* wproj, void* stats, void* h, void* qkv, void* dout,
+                                  void* o, void* dqkv, void* dh, void* part, void* dx,
+                                  void* dln_s, void* dln_b, void* dwqkv, void* dbqkv,
+                                  void* dwproj, void* dbproj, int B, int N, int D, int heads,
+                                  float scale, int s_qkv, int k_qkv, int s_proj, int k_proj,
+                                  int s_ln, int k_ln, int cb, void* stream) {
+  if (cb <= 0 || B % cb != 0) return (int)cudaErrorInvalidValue;
+  return bwd_chain(g, x, ln_s, ln_b, wqkv, bqkv, wproj, stats, h, qkv, dout, o, dqkv, dh, part, dx,
+                   dln_s, dln_b, dwqkv, dbqkv, dwproj, dbproj, B, N, D, heads, scale, s_qkv, k_qkv,
+                   s_proj, k_proj, s_ln, k_ln, cb, false, static_cast<cudaStream_t>(stream),
+                   true);
 }

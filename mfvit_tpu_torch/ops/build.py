@@ -67,8 +67,10 @@ SIGNATURES = {
     "mfv_mlp_pipe": [_P] * 8 + [_I] * 5 + [_P],
     "mfv_attn_staged": [_P] * 11 + [_I] * 5 + [_F, _P],
     "mfv_attn_pairs": [_P] * 11 + [_I] * 5 + [_F, _P],
-    "mfv_attn_rolling": [_P] * 11 + [_I] * 5 + [_F, _P],
+    "mfv_attn_rolling": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "mfv_attn_rolling_wmma": [_P] * 11 + [_I] * 5 + [_F, _P],
     "mfv_staged_bwd": [_P] * 22 + [_I] * 4 + [_F] + [_I] * 7 + [_P],
+    "mfv_staged_bwd_former": [_P] * 22 + [_I] * 4 + [_F] + [_I] * 7 + [_P],
     "mfv_gemm_sm90": [_P] * 5 + [_I] * 4 + [_P],
     "mfv_gemm_ln": [_P] * 5 + [_I] * 4 + [_P],
     "mfv_gemm_mn": [_P] * 5 + [_I] * 6 + [_P],

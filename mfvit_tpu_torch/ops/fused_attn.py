@@ -315,9 +315,9 @@ def fused_attention_block_large_wmma(x, ln_s, ln_b, wqkv, bqkv, wproj,
 
 
 def bwd_cuda(g, x, ln_s, ln_b, wqkv, bqkv, wproj, heads: int, scale: float,
-             cb: int = 0, entry: str = "mfv_fused_attention_block_bwd"):
-    """K5's launch chain on CUDA tensors, with T5's staged core over ``cb``
-    images a block where cb > 0 (or the chain ``entry`` names): the outputs
+             cb: int = 0, entry: str | None = None):
+    """K5's launch chain on CUDA tensors, with T5's staged core over units
+    of ``cb`` images where cb > 0 (or the chain ``entry`` names): the outputs
     of ``fused_attention_block_bwd_plain`` (bf16 g and x; the weights are
     cast to bf16 here). Anything the kernels do not take raises. Counts no
     launch: its callers do."""
@@ -344,7 +344,8 @@ def bwd_cuda(g, x, ln_s, ln_b, wqkv, bqkv, wproj, heads: int, scale: float,
     dx = torch.empty_like(x)
     dln_s, dln_b, dbproj = empty(D), empty(D), empty(D)
     dwqkv, dbqkv, dwproj = empty(3 * D, D), empty(3 * D), empty(D, D)
-    entry = "mfv_staged_bwd" if cb else entry
+    entry = entry or ("mfv_staged_bwd" if cb
+                      else "mfv_fused_attention_block_bwd")
     launch.call(entry, dev, g, x,
                 launch.vec(ln_s, D, "ln_s"), launch.vec(ln_b, D, "ln_b"),
                 wqkv, launch.vec(bqkv, 3 * D, "bqkv"), wproj,

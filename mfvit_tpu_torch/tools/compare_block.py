@@ -27,16 +27,18 @@ path; at 384 px also on vit_small_ori, whose int8 path runs K10 past 256
 tokens, ``e2e_ori384``), the FT step's images/s at B=256 and B=16
 (``time_train``) and the fusion step's pairs/s at B=256 (``time_fusion``,
 LP and ``--semi-supervised``). Every turn also runs ``variant_times``
-below (T6 flat and per image and T7 at cb 2, 4 and 8 beside K2, and
-their former designs where the checkout has them, at vit_small B=256),
-the "t6" and "t7" breakdowns of ``stage_times``, ``overlap_probe`` (T6
+below (T6 flat and per image and T7 at cb 2, 4 and 8 beside K2, T2 at cb
+4, 8 and 16 beside K1, T5 at cb 2 and 4 beside K5, and their former
+designs where the checkout has them, at vit_small B=256), the "t6",
+"t7", "t2" and "t5" breakdowns of ``stage_times``, ``overlap_probe`` (T6
 per image on K2's and on T7's ring depth against T7, at D of 128-512),
-and ``output_digests`` (a hash of the output bits of K2, K3, K15, T6 and
-T7 on fixed inputs, which must be the same in both checkouts where their
-functions are).
+and ``output_digests`` (a hash of the output bits of K1, K2, K3, K5, K9,
+K10, K15 and of T6, T7, T2 and T5 on fixed inputs, which must be the
+same in both checkouts where their functions are).
 ``--only variants`` runs only K15's ``time_block``, ``half_times``, those
-three and the variants' breakdowns. Prints the card's name and power
-limit, one line a reading, and writes every reading to FILE as JSON.
+three and the breakdowns of K1, K2, K5 and the variants. Prints the
+card's name and power limit, one line a reading, and writes every
+reading to FILE as JSON.
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -67,12 +69,17 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
     (``mlp3d_staged``, cb=4) on K2's inputs, "t6_wmma" and "t7_wmma" their
     former designs where the checkout has them. Kernel name
     (namespace and parameters dropped, template arguments kept, so that
-    two instances of one template stay apart; the n-th launch of a name
+    two instances of one template stay apart; "t2" T2 (``attn_rolling``,
+    cb=8) and "t5" T5 (``staged_bwd``, cb=2) on K1's and K5's inputs,
+    "t2_wmma" and "t5_former" their former designs where the checkout has
+    them; the n-th launch of a name
     within one call as "name #n") -> its mean device ms, in launch order.
     Where the profiler saw every launch of every call, each launch is
     averaged over the calls; else each name over its launches (the
     profiler may miss the window's first launches). A window that saw no
-    launch raises."""
+    launch is taken again once (the profiler has returned an empty
+    window among the many of one process), and a second such window
+    raises."""
     import re
 
     import torch
@@ -80,6 +87,7 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
+    from mfvit_tpu_torch.ops import attn_variants as av
     from mfvit_tpu_torch.ops import fused_attn as fa
     from mfvit_tpu_torch.ops import fused_block as fb
     from mfvit_tpu_torch.ops import fused_fusion as ff
@@ -134,20 +142,29 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
             "t6": lambda: mv.mlp3d(a[0], *a[7:], cb=4, flat=True),
             "t7": lambda: mv.mlp3d_staged(a[0], *a[7:], cb=4),
             "t6_wmma": lambda: mv.mlp3d_wmma(a[0], *a[7:], cb=4, flat=True),
-            "t7_wmma": lambda: mv.mlp3d_staged_wmma(a[0], *a[7:], cb=4)}[op]
+            "t7_wmma": lambda: mv.mlp3d_staged_wmma(a[0], *a[7:], cb=4),
+            "t2": lambda: av.attn_rolling(*a[:7], heads, scale, cb=8),
+            "t2_wmma": lambda: av.attn_rolling_wmma(*a[:7], heads, scale,
+                                                    cb=8),
+            "t5": lambda: av.staged_bwd(g, *a[:6], heads, scale, cb=2),
+            "t5_former": lambda: av.staged_bwd_former(g, *a[:6], heads,
+                                                      scale, cb=2)}[op]
     with torch.inference_mode():
         call()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                call()
-            torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
+        for _ in range(2):  # a second window where the first saw nothing
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    call()
+                torch.cuda.synchronize()
+            events = sorted((e for e in prof.events()
+                             if e.device_type == DeviceType.CUDA),
+                            key=lambda e: e.time_range.start)
+            if events:
+                break
     if not events:
         raise RuntimeError(f"stage_times {op}: torch.profiler saw no "
-                           "launch on the card")
+                           "launch on the card in two windows")
     names = [re.sub(r"^void |\(anonymous namespace\)::|\w+::", "",
                     e.name).split("(")[0] for e in events]
     ms = [e.time_range.elapsed_us() / 1e3 for e in events]
@@ -252,13 +269,28 @@ def long_times(dev, iters: int = 20) -> dict:
 
 def variant_calls(t) -> dict:
     """T6 flat and per image ("loop") and T7 at cb 2, 4 and 8 on one
-    block's MLP inputs ``t`` (``chip_smoke.block_inputs``), K2 beside them,
-    and the former designs of T6 and T7 where the checkout has them
-    (``mlp3d_wmma``, ``mlp3d_staged_wmma``): name -> call."""
+    block's MLP inputs ``t`` (``chip_smoke.block_inputs``) beside K2, T2 at
+    cb 4, 8 and 16 on its attention inputs beside K1, T5 at cb 2 and 4 on
+    them and a cotangent drawn with seed 17 beside K5, and the former
+    designs where the checkout has them (``mlp3d_wmma``,
+    ``mlp3d_staged_wmma``, ``attn_rolling_wmma``, ``staged_bwd_former``):
+    name -> call (T5 and K5 return their seven outputs)."""
+    import torch
+
+    from mfvit_tpu_torch.ops import attn_variants as av
+    from mfvit_tpu_torch.ops import fused_attn as fa
     from mfvit_tpu_torch.ops import fused_mlp as fm
     from mfvit_tpu_torch.ops import mlp_variants as mv
     a = [t[k] for k in ("x", "ln_s", "ln_b", "w1", "b1", "w2", "b2")]
-    calls = {"k2": lambda: fm.fused_mlp_block(*a)}
+    x = [t[k] for k in ("x", "ln_s", "ln_b", "wqkv", "bqkv", "wproj",
+                        "bproj")]
+    g = torch.randn(*t["x"].shape, generator=torch.Generator().manual_seed(
+        17)).to(t["x"].device).bfloat16()
+    heads, scale = 12, 32 ** -0.5
+    calls = {"k2": lambda: fm.fused_mlp_block(*a),
+             "k1": lambda: fa.fused_attention_block(*x, heads, scale),
+             "k5": lambda: fa.fused_attention_block_bwd(g, *x[:6], heads,
+                                                        scale)}
     ops = {"t6 flat": (mv.mlp3d, dict(flat=True)),
            "t6 loop": (mv.mlp3d, dict(flat=False)),
            "t7": (mv.mlp3d_staged, {})}
@@ -270,14 +302,29 @@ def variant_calls(t) -> dict:
         for cb in (2, 4, 8):
             calls[f"{name} cb={cb}"] = (
                 lambda op=op, kw=kw, cb=cb: op(*a, cb=cb, **kw))
+    attn = {"t2": av.attn_rolling}
+    bwd = {"t5": av.staged_bwd}
+    if hasattr(av, "attn_rolling_wmma"):
+        attn["t2_wmma"] = av.attn_rolling_wmma
+    if hasattr(av, "staged_bwd_former"):
+        bwd["t5_former"] = av.staged_bwd_former
+    for name, op in attn.items():
+        for cb in (4, 8, 16):
+            calls[f"{name} cb={cb}"] = (
+                lambda op=op, cb=cb: op(*x, heads, scale, cb=cb))
+    for name, op in bwd.items():
+        for cb in (2, 4):
+            calls[f"{name} cb={cb}"] = (
+                lambda op=op, cb=cb: op(g, *x[:6], heads, scale, cb=cb))
     return calls
 
 
 def variant_times(dev, B: int = 256, iters: int = 20) -> dict:
     """Every call of ``variant_calls`` at vit_small batch B
-    (``chip_smoke.block_inputs``, seed 16), each first held equal to K2 on
-    those inputs, then timed twice with CUDA events in turns (the calls in
-    order, then in reverse): name -> [ms, ms]."""
+    (``chip_smoke.block_inputs``, seed 16), each first held equal to its
+    base kernel on those inputs (K2; T2: K1; T5: K5, every output), then
+    timed twice with CUDA events in turns (the calls in order, then in
+    reverse): name -> [ms, ms]."""
     import torch
 
     import chip_smoke
@@ -286,13 +333,18 @@ def variant_times(dev, B: int = 256, iters: int = 20) -> dict:
     calls = variant_calls(t)
     out = {name: [] for name in calls}
     with torch.inference_mode():
-        k2 = calls["k2"]()
+        base = {k: chip_smoke.as_tuple(calls[k]()) for k in ("k1", "k2",
+                                                              "k5")}
         for name, call in calls.items():
-            if not torch.equal(call(), k2):
-                raise AssertionError(f"{name} differs from K2 at B={B}")
+            want = base[{"t2": "k1", "t5": "k5", "k1": "k1",
+                         "k5": "k5"}.get(name[:2], "k2")]
+            if not all(torch.equal(u, v) for u, v in zip(
+                    chip_smoke.as_tuple(call()), want)):
+                raise AssertionError(f"{name} differs from its base kernel "
+                                     f"at B={B}")
         for name in (*calls, *reversed(calls)):
             out[name].append(chip_smoke.cuda_ms(calls[name], iters))
-    print(f"T6, T7 and K2 at vit_small B={B}: " + ", ".join(
+    print(f"T6, T7, T2, T5, K1, K2 and K5 at vit_small B={B}: " + ", ".join(
         f"{k} {'/'.join(f'{v:.4f}' for v in ms)} ms" for k, ms in out.items()))
     return out
 
@@ -341,28 +393,41 @@ def overlap_probe(dev, B: int = 256, iters: int = 20) -> dict:
 
 
 def output_digests(dev, B: int = 256) -> dict:
-    """A SHA-256 of the output bits of K2, K3, K15 and of T6 and T7 at
-    every argument of ``variant_calls``, on the inputs of ``half_times``
-    (vit_small B, seed 16): name -> hex digest. Two checkouts whose
+    """A SHA-256 of the output bits of K1, K2, K3, K5, K10, K15 and of T6,
+    T7, T2 and T5 at every argument of ``variant_calls``, on the inputs of
+    ``half_times`` (vit_small B, seed 16), and of K9 at vit_small@384
+    (577 tokens, B=16, seed 16): name -> hex digest. Two checkouts whose
     kernels compute the same function bit for bit give the same digest."""
     import hashlib
 
     import torch
 
     import chip_smoke
+    from mfvit_tpu_torch.ops import fused_attn as fa
     from mfvit_tpu_torch.ops import fused_block as fb
+    from mfvit_tpu_torch.ops import fused_int8 as fi8
     from mfvit_tpu_torch.ops import fused_mlp as fm
     t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B, 384,
                                 dev)
     a = [t[k] for k in chip_smoke.K15_KEYS]
+    i8 = chip_smoke.i8_args(t, 12)["fused_attention_block_i8"]
+    long = chip_smoke.block_inputs(torch.Generator().manual_seed(16), 16,
+                                   384, dev, N=577)
+    la = [long[k] for k in chip_smoke.K15_KEYS[:7]]
     calls = {"k3": lambda: fm.fused_mlp_block_final_ln(a[0], *a[7:],
                                                        t["fs"], t["fb"]),
              "k15": lambda: fb.fused_transformer_block(*a, 12, 32 ** -0.5),
+             "k10": lambda: fi8.fused_attention_block_i8(a[0], *i8),
+             "k9": lambda: fa.fused_attention_block_large(*la, 12,
+                                                          32 ** -0.5),
              **variant_calls(t)}
+
+    def bits(v) -> bytes:
+        return b"".join(u.contiguous().flatten().view(torch.uint8).cpu()
+                        .numpy().tobytes() for u in chip_smoke.as_tuple(v))
     with torch.inference_mode():
-        return {name: hashlib.sha256(
-            call().view(torch.int16).cpu().numpy().tobytes()).hexdigest()
-            for name, call in calls.items()}
+        return {name: hashlib.sha256(bits(call())).hexdigest()
+                for name, call in calls.items()}
 
 
 def e2e_ori384(dev) -> dict:
@@ -394,20 +459,25 @@ build.lib()
 dev = torch.device("cuda")
 %s
 %s
-T_OPS = ("t6", "t7") + (("t6_wmma", "t7_wmma")
-                        if hasattr(mlp_variants, "mlp3d_wmma") else ())
+from mfvit_tpu_torch.ops import attn_variants
+T_OPS = ("t6", "t7", "t2", "t5")
+if hasattr(mlp_variants, "mlp3d_wmma"):
+    T_OPS += ("t6_wmma", "t7_wmma")
+if hasattr(attn_variants, "staged_bwd_former"):
+    T_OPS += ("t2_wmma", "t5_former")
 """ % (inspect.getsource(stage_times), inspect.getsource(half_times)
        + "\nLONG_SHAPES = %r\n" % (LONG_SHAPES,)
        + inspect.getsource(long_times) + inspect.getsource(e2e_ori384)
        + inspect.getsource(variant_calls) + inspect.getsource(variant_times)
        + inspect.getsource(overlap_probe) + inspect.getsource(output_digests))
 
-# --only variants: K15, K1-K4 alone, T6 and T7 with their breakdowns
+# --only variants: K15, K1-K4 alone, T6, T7, T2 and T5 with their breakdowns
 CHILD_VARIANTS = HEAD + """
 out = {"block": chip_smoke.time_block(dev), "halves": half_times(dev),
        "variants": variant_times(dev), "overlap": overlap_probe(dev),
        "digests": output_digests(dev),
-       "stages": {op: stage_times(dev, op) for op in ("k2",) + T_OPS}}
+       "stages": {op: stage_times(dev, op)
+                  for op in ("k1", "k2", "k5") + T_OPS}}
 print("RESULT " + json.dumps(out))
 """
 
@@ -456,8 +526,9 @@ def _turns(label: str, ms: dict, fmt: str = ".4f") -> str:
 
 
 def print_variants(runs: list) -> None:
-    """T6, T7 and K2 of both checkouts, and whether their output bits,
-    K3's and K15's are the same in both (names both checkouts have)."""
+    """T6, T7, T2, T5, K1, K2 and K5 of both checkouts, and whether the
+    output bits of ``output_digests`` are the same in both (names both
+    checkouts have)."""
     names = [n for n in runs[0][1]["variants"]
              if all(n in r["variants"] for _, r in runs)]
     for name in names:
@@ -486,8 +557,8 @@ def main(argv=None) -> int:
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--only", choices=("variants",),
-                    help="run only K15, K1-K4 alone, T6 and T7 (and the "
-                    "breakdowns of K2, T6 and T7)")
+                    help="run only K15, K1-K4 alone, T6, T7, T2 and T5 (and "
+                    "the breakdowns of K1, K2, K5 and the variants)")
     args = ap.parse_args(argv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

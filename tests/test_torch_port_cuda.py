@@ -955,6 +955,47 @@ def test_staged_bwd_equals_k5_and_holds_its_plain_version(dev, cb, B, N, D,
     assert all(_rel(x, y) < REL for x, y in zip(got, ref))
 
 
+@pytest.mark.parametrize("B,N,D,H", [(8, 197, 384, 12), (8, 50, 384, 12),
+                                     (3, 197, 384, 12), (4, 197, 512, 8),
+                                     (8, 197, 384, 6), (8, 208, 384, 3),
+                                     (4, 100, 256, 2)])
+def test_t2_t5_equal_their_former_designs_and_k1_k5(dev, B, N, D, H):
+    """T2 (K1's chain with a rolling sibling of K1's asynchronous core) and
+    T5 (K5's chain with K5's asynchronous core, staged) against their
+    former designs (``attn_rolling_wmma``, ``staged_bwd_former``) and the
+    K1 / K5 kernels on the same bf16 inputs, bit for bit (T5 on all seven
+    outputs), at every cb of their tools' sweeps that divides B (else
+    cb=1); one call launches the variant once and nothing else, and the
+    former designs count no launch."""
+    t = _block(dev, B, N, D)
+    a = [t[k] for k in ATTN]
+    g = _rnd(torch.Generator().manual_seed(3), B, N, D).bfloat16().to(dev)
+    scale = (D // H) ** -0.5
+    with torch.no_grad():
+        k1 = fused_attn.fused_attention_block(*a, H, scale)
+        k5 = fused_attn.fused_attention_block_bwd(g, *a[:6], H, scale)
+        for name, cbs in (("attn_rolling", (4, 8, 16)),
+                          ("staged_bwd", (2, 4))):
+            for cb in [cb for cb in cbs if B % cb == 0] or [1]:
+                ops.reset_launch_counts()
+                if name == "attn_rolling":
+                    got = (attn_variants.attn_rolling(*a, H, scale, cb=cb),)
+                    was = (attn_variants.attn_rolling_wmma(*a, H, scale,
+                                                           cb=cb),)
+                    base = (k1,)
+                else:
+                    got = attn_variants.staged_bwd(g, *a[:6], H, scale,
+                                                   cb=cb)
+                    was = attn_variants.staged_bwd_former(g, *a[:6], H,
+                                                          scale, cb=cb)
+                    base = k5
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+                assert counts.pop(name) == 1 and not any(counts.values())
+                assert all(torch.equal(x, y) for x, y in zip(got, base)), cb
+                assert all(torch.equal(x, y) for x, y in zip(got, was)), cb
+
+
 def test_the_attention_variants_refuse_on_the_card_too(dev):
     t = _block(dev, 4, 209, 384)
     a = [t[k] for k in ATTN]
