@@ -138,16 +138,17 @@ Phases, in order; any failure raises and exits non-zero:
    vit_small (B=8), N=50, B=3 (a ragged last row tile; T1, whose cb is
    even, skips it), B=6 (T1 at cb=2) and D=512, the attention variants
    also at vit_small_ori, head_dim 128 and head_dim 128 at N=208 (their
-   limit), at every schedule argument their tools sweep (and ``mlp_pipe``
-   at splits=1, its no-overlap control), non-zero biases (b2 included),
-   T5 on a bf16 cotangent: equal to K2 (T4, T1, T2: K1; T5: K5 on all
-   seven outputs) bit for bit, T6 and T7 (on K2's tail), T2 and T5 (on K1's
-   and K5's asynchronous cores) also to their former designs
-   (``mlp3d_wmma``, ``mlp3d_staged_wmma``, ``attn_rolling_wmma``,
+   limit), at every schedule argument their tools sweep (``mlp_pipe``'s
+   with its controls, splits=1 at tm=128 and tm=64), non-zero biases (b2
+   included), T5 on a bf16 cotangent: equal to K2 (T4, T1, T2: K1; T5: K5
+   on all seven outputs) bit for bit, T6, T7 and T3 (on K2's tail), T2, T4
+   and T5 (on K1's and K5's asynchronous cores) also to their former
+   designs (``mlp3d_wmma``, ``mlp3d_staged_wmma``, ``mlp_pipe_mma`` at its
+   own default, ``attn_staged_wmma``, ``attn_rolling_wmma``,
    ``staged_bwd_former``), and within rel
    2e-2 of the plain fp32 version (each output); one call launches the
    variant once and no other kernel; every shape and argument the ops refuse (cb not dividing B, an
-   odd cb for T1, tm and splits past the register tile, D=768, head_dim
+   odd cb for T1, (tm, splits) outside T3's set or tm=128 at D=512, D=768, head_dim
    128 past 208 tokens, a weight that requires grad) raises;
 15. their entry points, ``mfvit_tpu_torch.tools.bench_mlp3d``,
    ``bench_pipelined``, ``bench_attn_pairs`` and ``bench_rolling`` (B=512,
@@ -160,7 +161,7 @@ Phases, in order; any failure raises and exits non-zero:
    12; then one block (T5: one backward, B=256) on the tools' inputs
    (B=512; the MLP variants on K1's output) at every argument the tools
    sweep: each variant equal to K2 (T4, T1, T2: K1; T5: K5) bit for bit
-   (T6, T7, T2 and T5 also to their former designs) and within rel 2e-2
+   (all but T1 also to their former designs) and within rel 2e-2
    of its plain fp32 version (the kernel report's
    error for the variants is from this run);
 16. the fusion-training slice through ``mfvit_tpu_torch.cli.fuse.main``:
@@ -428,7 +429,7 @@ VARIANTS = [
      "tools/bench_mlp3d.py:39", "fused_mlp_block"),
     ("mlp3d_staged", "mfvit_tpu_torch/csrc/mlp3d.cu",
      "tools/bench_mlp3d.py:138", "fused_mlp_block"),
-    ("mlp_pipe", "mfvit_tpu_torch/csrc/mlp_variants.cu",
+    ("mlp_pipe", "mfvit_tpu_torch/csrc/mlp_pipe.cu",
      "tools/bench_pipelined.py:43", "fused_mlp_block"),
     ("attn_staged", "mfvit_tpu_torch/csrc/attn_staged.cu",
      "tools/bench_pipelined.py:118", "fused_attention_block"),
@@ -440,12 +441,24 @@ VARIANTS = [
      "tools/bench_bwd_staged.py:37", "fused_attention_block_bwd"),
 ]
 ATTN_VARIANTS = ("attn_staged", "attn_pairs", "attn_rolling")
-# the variants redesigned on K2's tail (T6, T7) and on K1's and K5's
-# asynchronous cores (T2, T5), and their former designs (check-only ops of
-# ops/mlp_variants.py and ops/attn_variants.py that count no launch)
+# the variants redesigned on K2's tail (T6, T7, T3) and on K1's and K5's
+# asynchronous cores (T2, T4, T5), and their former designs (check-only ops
+# of ops/mlp_variants.py and ops/attn_variants.py that count no launch)
 FORMER_VARIANTS = {"mlp3d": "mlp3d_wmma", "mlp3d_staged": "mlp3d_staged_wmma",
+                   "mlp_pipe": "mlp_pipe_mma",
+                   "attn_staged": "attn_staged_wmma",
                    "attn_rolling": "attn_rolling_wmma",
                    "staged_bwd": "staged_bwd_former"}
+
+
+def former_kw(name: str, kw: dict, D: int) -> dict:
+    """The schedule arguments a former design takes for ``kw``: T3's
+    former design runs at its own default (tm=32 at D=512, where its
+    (64, D) fp32 tile passes the registers; every argument of both gives
+    K2's bits), the others at ``kw``."""
+    if name != "mlp_pipe":
+        return kw
+    return {} if D <= 384 else dict(splits=2, tm=32)
 KERNELS += [v[:3] for v in VARIANTS]
 MHSA = ("mhsa_packed", "mhsa", "mhsa_packed_t")  # K12, K13, K14
 PER_FORWARD = {"fused_attention_block": 24, "fused_mlp_block": 22,
@@ -2582,7 +2595,7 @@ def run_bench_block(dev) -> tuple:
 
 # The schedule variants' shapes: label, B, N, D, heads. The MLP variants
 # run at the 12-head shapes (their heads do not matter); B=3 leaves
-# mlp_pipe's last row tile ragged (591 rows), and every N=197 image ends in
+# mlp_pipe's last row tile ragged (591 rows: 79 of 128), and every N=197 image ends in
 # a ragged tile of T6's and T7's per-image walks. T1 takes an even cb, so
 # it skips B=3 and runs B=6 at cb=2; N=208 is the attention variants'
 # limit at head_dim 128.
@@ -2594,7 +2607,7 @@ VARIANT_SHAPES = (("vit_small", 8, 197, 384, 12), ("N=50", 8, 50, 384, 12),
                   ("head_dim 128, N=208", 8, 208, 384, 3))
 # the schedule argument each op takes by default: the kernel report's time
 VARIANT_DEFAULT = {"mlp3d": dict(cb=4, flat=True), "mlp3d_staged": dict(cb=4),
-                   "mlp_pipe": dict(splits=2, tm=64), "attn_staged": dict(cb=2),
+                   "mlp_pipe": dict(splits=2, tm=128), "attn_staged": dict(cb=2),
                    "attn_pairs": dict(cb=4), "attn_rolling": dict(cb=8),
                    "staged_bwd": dict(cb=2)}
 
@@ -2602,8 +2615,9 @@ VARIANT_DEFAULT = {"mlp3d": dict(cb=4, flat=True), "mlp3d_staged": dict(cb=4),
 def variant_settings(name: str, B: int, D: int) -> list:
     """The schedule arguments of ``name`` that its tool sweeps and the
     kernel takes at batch B and width D (cb=1 where no swept cb divides
-    B, cb=2 for T1, none for T1 at an odd B); for mlp_pipe also splits=1, the same kernel with no sub-tile to
-    overlap, the control its pipelining is timed against."""
+    B, cb=2 for T1, none for T1 at an odd B); mlp_pipe's sweep holds its
+    two controls (splits=1 at tm=128: no ping-pong; tm=64: K2's tile), and
+    tm=128 only where D takes it."""
     from mfvit_tpu_torch.ops import mlp_variants as mv
     from mfvit_tpu_torch.tools import bench_attn_pairs as bap
     from mfvit_tpu_torch.tools import bench_bwd_staged as bbs
@@ -2611,8 +2625,8 @@ def variant_settings(name: str, B: int, D: int) -> list:
     from mfvit_tpu_torch.tools import bench_pipelined as bp
     from mfvit_tpu_torch.tools import bench_rolling as br
     if name == "mlp_pipe":
-        return [dict(splits=s, tm=tm) for s, tm in (*bp.PIPE_SWEEP, (1, 64))
-                if tm * D <= mv.REG_TILE]
+        return [dict(splits=s, tm=tm) for s, tm in bp.PIPE_SWEEP
+                if tm != mv.PIPE_ROWS or D in mv.PIPE_WIDTHS]
     if name == "attn_pairs" and B % 2:
         return []  # its cb is even
     sweep = {"attn_staged": bp.CBS, "attn_pairs": bap.CBS,
@@ -2669,8 +2683,8 @@ def check_variant_kernels(dev) -> dict:
     """T6, T7, T3, T4, T1, T2 and T5 at VARIANT_SHAPES, bf16 inputs (and
     T5's cotangent) from a seed with non-zero biases (b2 included), at
     every schedule argument their tools sweep: equal to K2 (T4, T1, T2: K1;
-    T5: K5 on all seven outputs) bit for bit, T6, T7, T2 and T5 also to
-    their former designs (FORMER_VARIANTS), within REL_BAR of the plain fp32
+    T5: K5 on all seven outputs) bit for bit, all but T1 also to their
+    former designs (FORMER_VARIANTS), within REL_BAR of the plain fp32
     version (each output); one call launches the variant once and no
     other kernel (the former designs count none). Then every shape and
     argument the ops refuse must raise."""
@@ -2689,8 +2703,9 @@ def check_variant_kernels(dev) -> dict:
                 for kw in variant_settings(name, B, D):
                     ops.reset_launch_counts()
                     got = as_tuple(variant_call(name, t, heads, kw)())
-                    was = (as_tuple(variant_call(FORMER_VARIANTS[name], t,
-                                                 heads, kw)())
+                    was = (as_tuple(variant_call(
+                        FORMER_VARIANTS[name], t, heads,
+                        former_kw(name, kw, D))())
                            if name in FORMER_VARIANTS else got)
                     torch.cuda.synchronize()
                     counts = {k: v for k, v in ops.launch_counts().items()
@@ -2744,9 +2759,10 @@ def check_variant_kernels(dev) -> dict:
                                                            tm=64),
             "mlp_pipe splits=4 tm=32": lambda: mv.mlp_pipe(*m, splits=4,
                                                            tm=32),
-            "mlp_pipe tm=128": lambda: mv.mlp_pipe(*m, splits=2, tm=128),
-            "mlp_pipe tm=64 at D=512": lambda: mv.mlp_pipe(
-                *[d512[k] for k in MLP], splits=2, tm=64),
+            "mlp_pipe splits=2 tm=64": lambda: mv.mlp_pipe(*m, splits=2,
+                                                           tm=64),
+            "mlp_pipe tm=128 at D=512": lambda: mv.mlp_pipe(
+                *[d512[k] for k in MLP], splits=2, tm=128),
             "mlp3d at D=768": lambda: mv.mlp3d(*[wide[k] for k in MLP],
                                                cb=1),
             "attn_staged at head_dim 128, N=209": lambda: av.attn_staged(
@@ -2848,8 +2864,8 @@ def hold_variants_at_tool_size(dev, batch: int) -> dict:
     as in the first block of a chain; T5 one backward on
     ``bench_bwd_staged``'s B=256 inputs and g0) at every schedule argument
     its tool sweeps (``variant_settings``): equal to K2 (T4, T1, T2: K1;
-    T5: K5, every output) on the same input bit for bit (T6 and T7 also to
-    their former designs), and within
+    T5: K5, every output) on the same input bit for bit (all but T1 also
+    to their former designs), and within
     REL_BAR of its plain fp32 version (the op with ``plain=True`` on the
     upcast inputs; each output). The chains' checksums alone cannot tell a
     handful of wrong outputs among 38.7M. Returns the largest abs error
@@ -2896,7 +2912,8 @@ def hold_variants_at_tool_size(dev, batch: int) -> dict:
                            else functools.partial(getattr(av, former),
                                                   heads=bb.HEADS,
                                                   scale=bb.SCALE))
-                    was = as_tuple(fop(inp, *args, **kw))
+                    was = as_tuple(fop(inp, *args,
+                                       **former_kw(name, kw, bb.D)))
                     n_diff += sum((u != v).sum().item()
                                   for u, v in zip(got, was))
                 errs[name] = max(errs.get(name, 0.0), max(

@@ -78,6 +78,31 @@
 //   second buffer. On the card it does not beat K2's loop (PERF.md): the
 //   weight stream sets the tail's pace, and past D = 256 the second fc1
 //   accumulator's registers spill.
+//
+// The schedule variant T3 (mlp_pipe.cu) takes a third switch, PIPE; the
+// others take PIPE = 0 and keep their code. PIPE 1 and 2 are the taller
+// tile that the weight stream asks for: a block owns 128 rows, and each
+// consumer warpgroup one 64-row sub-tile of them (one wgmma m64) with all D
+// of fc2's output columns (m64n128 accumulators, D / 2 registers a
+// thread). Every weight stage is read by both warpgroups, so the weight
+// bytes a row halve. The hidden goes in chunks of PIPE_HC = 64 columns:
+// fc1 of a chunk takes D / 128 stages of two 64-row boxes of W1 (two K
+// slices each), in two 32-column halves on the same stages (16 registers
+// each: a 64-column fc1 beside fc2's 192 accumulators spilled at D = 384),
+// fc2 D / 128 stages of 128 W2 rows of the chunk's one K slice; each
+// warpgroup writes its own (64, 64) hidden tile.
+// There is no room for K2's x2 copy beside two A tiles: LN2 runs in place
+// on the A tile (a warp holds its row in registers) and the epilogue reads
+// the residual x from device memory, the same bf16 values. PIPE 1 runs the
+// two warpgroups in lockstep; PIPE 2 ping-pongs them over two named
+// barriers (the TPU kernel's "fc1 of sub-tile j + 1 before the GELU of
+// sub-tile j"): a warpgroup waits on its own before each wgmma turn (fc2
+// of the last chunk and the first half of fc1 of the next; then its second
+// half) and arrives on the other's after it, then runs the GELU of the
+// half while the other's wgmma runs. A turn's stages must all fit the ring
+// (stages >= D / 64), as the other warpgroup reads them only after it. fc1 sums over k in ascending k16 steps and fc2 over
+// the hidden in ascending k16 steps, so T3 keeps K2's bits.
+// ops/mlp_variants.py::pipe_plan sizes the ring; the C side checks it.
 #pragma once
 
 #include "gemm_sm90.cuh"
@@ -378,10 +403,342 @@ __device__ __forceinline__ void mlp_overlap(float (&acc)[D / 128][32], const Tai
   }
 }
 
-template <int D, bool PROJ, bool FINAL, bool RUNS = false, bool OVERLAP = false>
+// ---- T3 (PIPE 1, 2): 128-row tiles, one 64-row sub-tile a warpgroup ----
+
+constexpr int PIPE_ROWS = 128, PIPE_HC = 64;
+// setmaxnreg under PIPE: a consumer thread holds fc2's D / 2 accumulators
+// and fc1's 16 (208 at D = 384); 2 x 128 x 240 + 128 x 24 <= 65,536
+constexpr int PIPE_CONSUMER_REGS = 240, PIPE_PRODUCER_REGS = 24;
+
+template <int D>
+struct Pipe {
+  static constexpr int KD = D / 64;            // 64-wide K slices over D
+  static constexpr int NB = D / 128;           // fc2's m64n128 accumulators; fc1's stages a chunk
+  static constexpr int A_BYTES = KD * TILE64;  // a sub-tile's A rows
+  static_assert(D % 128 == 0 && D <= 384, "fc2's D / 2 accumulators a thread");
+  // the ring, two A sub-tiles, two hidden tiles, the barriers, the alignment
+  static int smem(int stages) {
+    return stages * STAGE + 2 * A_BYTES + 2 * TILE64 + (2 * stages + 2) * 8 + 1024;
+  }
+};
+
+// the barrier over one consumer warpgroup (5 for warpgroup 0, 6 for 1)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(5 + wg) : "memory");
+}
+
+// Four k16 steps of one stage into an m64n128 accumulator.
+__device__ __forceinline__ void mma_slice128(float (&d)[64], const void* a, const void* b) {
+  const uint64_t da = desc(a), db = desc(b);
+  pin(d);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_n128(d, da + 2 * kk, db + 2 * kk);
+}
+
+// LN2 over a warpgroup's 64-row sub-tile in place, each of its 4 warps a
+// row at a time; a lane holds its columns (l * 8 + 256 i ..) in registers
+// and sums them in the order of K2's pass, so the bf16 values are K2's.
+template <int D>
+__device__ __forceinline__ void ln_in_place(unsigned char* Aw, const TailParams& p, int wq,
+                                            int lane) {
+  constexpr int NC = (D + 255) / 256;
+  for (int row = wq; row < TAIL_ROWS; row += 4) {
+    uint4 v[NC];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int k = lane * 8 + 256 * i;
+      if (k < D)
+        v[i] = *reinterpret_cast<const uint4*>(Aw + (k / 64) * TILE64 + swz(row, (k % 64) / 8));
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      if (lane * 8 + 256 * i >= D) continue;
+      float f[8];
+      bf16x8_to_float(v[i], f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s += f[j];
+    }
+    const float mean = warp_sum(s) / D;
+    float var = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      if (lane * 8 + 256 * i >= D) continue;
+      float f[8];
+      bf16x8_to_float(v[i], f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float d = f[j] - mean;
+        var += d * d;
+      }
+    }
+    var = warp_sum(var) / D;
+    const float rstd = 1.0f / sqrtf(var + 1e-6f);
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int k = lane * 8 + 256 * i;
+      if (k >= D) continue;
+      float f[8];
+      bf16x8_to_float(v[i], f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) f[j] = (f[j] - mean) * rstd * p.ln2_s[k + j] + p.ln2_b[k + j];
+      *reinterpret_cast<uint4*>(Aw + (k / 64) * TILE64 + swz(row, (k % 64) / 8)) =
+          float_to_bf16x8(f);
+    }
+  }
+}
+
+// T3's producer thread: each tile's two A sub-tiles, then the weight stages
+// in the order both warpgroups take them: fc1 of chunk 0, then for each
+// chunk c fc2 of chunk c - 1 and fc1 of chunk c, then fc2 of the last.
+template <int D>
+__device__ __forceinline__ void pipe_producer(const TailParams& p, unsigned char* ring,
+                                              unsigned char* A, uint64_t* full, uint64_t* empty,
+                                              uint64_t* a_full, uint64_t* a_empty, int tiles) {
+  using P = Pipe<D>;
+  const int S = p.stages, chunks = p.Hd / PIPE_HC;
+  Ring r;
+  int a_ph = 0;
+  auto open = [&]() {  // the next stage, once both warpgroups are done with it
+    bar_wait(empty + r.s, r.ph ^ 1);
+    bar_expect(full + r.s, STAGE);
+    return ring + r.s * STAGE;
+  };
+  auto fc1 = [&](int c) {  // two K slices of the chunk's 64 W1 rows a stage
+    for (int e = 0; e < P::KD / 2; ++e) {
+      unsigned char* st = open();
+      tma_load(st, &p.w1, full + r.s, 2 * e * 64, c * PIPE_HC);
+      tma_load(st + TILE64, &p.w1, full + r.s, (2 * e + 1) * 64, c * PIPE_HC);
+      r.next(S);
+    }
+  };
+  auto fc2 = [&](int c) {  // 128 W2 rows of the chunk's K slice a stage
+    for (int n = 0; n < P::NB; ++n) {
+      unsigned char* st = open();
+      tma_load(st, &p.w2, full + r.s, c * PIPE_HC, n * 128);
+      r.next(S);
+    }
+  };
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    bar_wait(a_empty, a_ph ^ 1);
+    bar_expect(a_full, 2 * P::A_BYTES);
+    for (int h = 0; h < 2; ++h)
+      for (int k = 0; k < P::KD; ++k)
+        tma_load(A + h * P::A_BYTES + k * TILE64, &p.a, a_full, k * 64,
+                 t * PIPE_ROWS + h * TAIL_ROWS);
+    a_ph ^= 1;
+    fc1(0);
+    for (int c = 1; c < chunks; ++c) {
+      fc2(c - 1);
+      fc1(c);
+    }
+    fc2(chunks - 1);
+  }
+}
+
+// D[64 x 32] += A[64 x 16] . B[32 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Four k16 steps of one K slice into an m64n32 accumulator: fc1's half
+// chunk, B rows 0-31 or 32-63 of a 64-row box (the half at 32 x 128 bytes
+// on keeps the swizzle's phase).
+__device__ __forceinline__ void mma_slice32(float (&d)[16], const void* a, const void* b) {
+  const uint64_t da = desc(a), db = desc(b);
+  pin(d);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_n32(d, da + 2 * kk, db + 2 * kk);
+}
+
+// h = bf16(GELU(acc1 + b1)) of half `half` (32 columns) of hidden chunk ch
+// into a warpgroup's (64, 64) hidden tile, as K2's chunk loop writes it.
+// (Unrolled: ptxas interleaves the exact-erf evaluations and spills a few
+// of their constants at D = 384; one pair an iteration of a loop that was
+// not unrolled spilled less and ran 28 % slower, PERF.md.)
+__device__ __forceinline__ void pipe_gelu(const float (&a)[16], unsigned char* Hw,
+                                          const float* b1, int ch, int half, int t128) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = frag_row(t128, h), col = frag_col(t128, q);
+      const int hc = ch * PIPE_HC + half * 32 + col;
+      const float v0 = gelu_erf(a[4 * q + 2 * h] + b1[hc]);
+      const float v1 = gelu_erf(a[4 * q + 2 * h + 1] + b1[hc + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(Hw + swz(row, half * 4 + q) + (col % 8) * 2) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+}
+
+// T3's consumer warpgroup wg: rows 64 wg .. of each 128-row tile. fc1 of a
+// chunk runs in two 32-column halves on the same W1 stages (16 registers
+// each, so that fc2's D / 2 accumulators and fc1's fit setmaxnreg's 240
+// at D = 384), each half's GELU after it. Turn A of chunk ch: fc2 of chunk
+// ch - 1, then the first half of fc1 of chunk ch; turn B: its second half,
+// after which its W1 stages go back. Under PP each turn is taken from the
+// other warpgroup and handed back, and the GELUs run beside its wgmma.
+template <int D, bool PP>
+__device__ __forceinline__ void pipe_consumer(const TailParams& p, unsigned char* ring,
+                                              unsigned char* A, unsigned char* H, uint64_t* full,
+                                              uint64_t* empty, uint64_t* a_full, uint64_t* a_empty,
+                                              int tiles, int wg, int t128) {
+  using P = Pipe<D>;
+  constexpr int HALF = 32 * 128;  // bytes of 32 rows of a swizzled box
+  const int S = p.stages, chunks = p.Hd / PIPE_HC;
+  const int lane = t128 & 31;
+  unsigned char* Aw = A + wg * P::A_BYTES;
+  unsigned char* Hw = H + wg * TILE64;
+  Consumer c;
+  int a_ph = 0;
+  if (PP && wg == 1) pp_pass(PP_BAR);  // warpgroup 0 takes the tensor cores first
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = t * PIPE_ROWS + wg * TAIL_ROWS;
+    const bool last_tile = t + gridDim.x >= tiles;
+    bar_wait(a_full, a_ph);
+    a_ph ^= 1;
+    ln_in_place<D>(Aw, p, t128 >> 5, lane);
+    async_fence();
+    wg_sync(wg);  // LN2(x) whole in the sub-tile
+
+    float acc[P::NB][64];
+#pragma unroll
+    for (int n = 0; n < P::NB; ++n) zero(acc[n]);
+    int w1[P::KD / 2];  // the ring stages of this chunk's W1, held for both halves
+    for (int ch = 0; ch <= chunks; ++ch) {
+      float acc1[16];
+      if (PP) pp_wait(PP_BAR + wg);  // turn A
+      if (ch > 0)
+#pragma unroll
+        for (int n = 0; n < P::NB; ++n) {
+          const int s = c.acquire(full);
+          mma_slice128(acc[n], Hw, ring + s * STAGE);
+          c.issued(empty, S);
+          pin(acc[n]);
+        }
+      if (ch < chunks) {
+        zero(acc1);
+#pragma unroll
+        for (int e = 0; e < P::KD / 2; ++e) {
+          w1[e] = c.acquire(full);
+          const unsigned char* st = ring + w1[e] * STAGE;
+          mma_slice32(acc1, Aw + 2 * e * TILE64, st);
+          mma_slice32(acc1, Aw + (2 * e + 1) * TILE64, st + TILE64);
+          c.r.next(S);
+        }
+        wg_commit();
+      }
+      // the other warpgroup's turn; warpgroup 1's last turn hands it to no one
+      if (PP && !(wg == 1 && ch == chunks && last_tile)) pp_pass(PP_BAR + (wg ^ 1));
+      c.drain(empty);  // fc2's stages go back; W1's stay for the second half
+      if (ch == chunks) break;
+      pin(acc1);
+      pipe_gelu(acc1, Hw, p.b1, ch, 0, t128);  // fc2 of the last chunk is done with Hw
+
+      if (PP) pp_wait(PP_BAR + wg);  // turn B
+      zero(acc1);
+      wg_fence();
+#pragma unroll
+      for (int e = 0; e < P::KD / 2; ++e) {
+        const unsigned char* st = ring + w1[e] * STAGE + HALF;
+        mma_slice32(acc1, Aw + 2 * e * TILE64, st);
+        mma_slice32(acc1, Aw + (2 * e + 1) * TILE64, st + TILE64);
+      }
+      wg_commit();
+      if (PP) pp_pass(PP_BAR + (wg ^ 1));
+      wg_wait<0>();
+      if (lane == 0) {
+#pragma unroll
+        for (int e = 0; e < P::KD / 2; ++e) bar_arrive(empty + w1[e]);  // both halves done
+        if (ch == chunks - 1) bar_arrive(a_empty);  // the next A tile may come
+      }
+      pin(acc1);
+      pipe_gelu(acc1, Hw, p.b1, ch, 1, t128);
+      async_fence();
+      wg_sync(wg);  // the chunk's h whole
+    }
+
+    // out = x + bf16(acc + b2), x from device memory (8 pairs of columns at
+    // a time, all loaded before the first store), rows below M
+#pragma unroll
+    for (int n = 0; n < P::NB; ++n) {
+      pin(acc[n]);
+#pragma unroll
+      for (int q0 = 0; q0 < 16; q0 += 8) {
+        uint32_t xres[8][2];
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = m0 + frag_row(t128, h), col = n * 128 + frag_col(t128, q0 + q);
+            xres[q][h] = row < p.M
+                             ? *reinterpret_cast<const uint32_t*>(p.x + (size_t)row * D + col)
+                             : 0u;
+          }
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = m0 + frag_row(t128, h), col = n * 128 + frag_col(t128, q0 + q);
+            if (row >= p.M) continue;
+            const float2 x =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xres[q][h]));
+            const float v0 = x.x + round_bf16(acc[n][4 * (q0 + q) + 2 * h] + p.b2[col]);
+            const float v1 = x.y + round_bf16(acc[n][4 * (q0 + q) + 2 * h + 1] + p.b2[col + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(p.out + (size_t)row * D + col) =
+                __floats2bfloat162_rn(v0, v1);
+          }
+      }
+    }
+  }
+}
+
+template <int D, bool PROJ, bool FINAL, bool RUNS = false, bool OVERLAP = false, int PIPE = 0>
 __global__ void __launch_bounds__(TAIL_THREADS, 1) tail_kernel(const __grid_constant__ TailParams p) {
   static_assert(!(PROJ && FINAL), "K3 has no proj stage");
   static_assert(!((RUNS || OVERLAP) && (PROJ || FINAL)), "T6 and T7 are K2's tail");
+  static_assert(!(PIPE && (PROJ || FINAL || RUNS || OVERLAP)), "T3 is K2's tail");
+  if constexpr (PIPE) {
+    using P = Pipe<D>;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* ring = align1024(smem_raw);
+    const int S = p.stages;
+    unsigned char* A = ring + S * STAGE;
+    unsigned char* H = A + 2 * P::A_BYTES;
+    uint64_t* full = reinterpret_cast<uint64_t*>(H + 2 * TILE64);
+    uint64_t* empty = full + S;
+    uint64_t* a_full = empty + S;
+    uint64_t* a_empty = a_full + 1;
+    const int tid = threadIdx.x, wg = tid >> 7;
+    const int tiles = (p.M + PIPE_ROWS - 1) / PIPE_ROWS;
+    if (tid == 0) {
+      for (int s = 0; s < S; ++s) {
+        bar_init(full + s, 1);
+        bar_init(empty + s, 8);  // one arrival a consumer warp: both warpgroups read a stage
+      }
+      bar_init(a_full, 1);
+      bar_init(a_empty, 8);
+      bar_init_done();
+    }
+    __syncthreads();
+    if (wg == 2) {
+      reg_dealloc<PIPE_PRODUCER_REGS>();
+      if (tid == 256) pipe_producer<D>(p, ring, A, full, empty, a_full, a_empty, tiles);
+    } else {
+      reg_alloc<PIPE_CONSUMER_REGS>();
+      pipe_consumer<D, PIPE == 2>(p, ring, A, H, full, empty, a_full, a_empty, tiles, wg,
+                                  tid & 127);
+    }
+    return;
+  }
   using T = Tail<D>;
   constexpr int HB = OVERLAP ? 2 : 1;  // hidden-chunk buffers
   extern __shared__ unsigned char smem_raw[];
@@ -640,11 +997,21 @@ __global__ void __launch_bounds__(TAIL_THREADS, 1) tail_kernel(const __grid_cons
 // The tail on stream s; `a` holds the A rows (K15's o, K2's x), `wproj` is
 // read only with PROJ. RUNS: p.run and p.tiles as the caller's walk gives
 // them (ops/mlp_variants.py::row_walk), checked here.
-template <int D, bool PROJ, bool FINAL, bool RUNS = false, bool OVERLAP = false>
+template <int D, bool PROJ, bool FINAL, bool RUNS = false, bool OVERLAP = false, int PIPE = 0>
 int launch_tail(TailParams& p, const void* a, const void* wproj, const void* w1, const void* w2,
                 cudaStream_t s) {
-  const int smem = Tail<D>::smem(p.stages, OVERLAP ? 2 : 1);
-  if (p.M <= 0 || p.Hd <= 0 || p.Hd % TAIL_HC || p.stages < 2 || smem > 232448 ||
+  int smem;
+  if constexpr (PIPE) {
+    // PIPE 2: a warpgroup's phase (D / 128 stages of fc2, D / 128 of fc1)
+    // must fit the ring before the other warpgroup reads its stages
+    smem = Pipe<D>::smem(p.stages);
+    if (p.Hd % PIPE_HC || (PIPE == 2 && p.stages < D / 64) || p.x == nullptr)
+      return (int)cudaErrorInvalidValue;
+  } else {
+    smem = Tail<D>::smem(p.stages, OVERLAP ? 2 : 1);
+    if (p.Hd % TAIL_HC) return (int)cudaErrorInvalidValue;
+  }
+  if (p.M <= 0 || p.Hd <= 0 || p.stages < 2 || smem > 232448 ||
       (FINAL && (p.final_s == nullptr || p.final_b == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (RUNS) {
@@ -655,12 +1022,14 @@ int launch_tail(TailParams& p, const void* a, const void* wproj, const void* w1,
   if (int e = tensor_map(&p.a, a, p.M, D, 64)) return e;
   if (PROJ)
     if (int e = tensor_map(&p.wproj, wproj, D, D, 128)) return e;
-  if (int e = tensor_map(&p.w1, w1, p.Hd, D, 128)) return e;
+  // PIPE: W1 in boxes of 64 rows (one hidden chunk), two a stage
+  if (int e = tensor_map(&p.w1, w1, p.Hd, D, PIPE ? 64 : 128)) return e;
   if (int e = tensor_map(&p.w2, w2, D, p.Hd, 128)) return e;
-  auto kern = tail_kernel<D, PROJ, FINAL, RUNS, OVERLAP>;
+  auto kern = tail_kernel<D, PROJ, FINAL, RUNS, OVERLAP, PIPE>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int tiles = RUNS ? p.tiles : (p.M + TAIL_ROWS - 1) / TAIL_ROWS, sms = sm_count();
+  const int rows = PIPE ? PIPE_ROWS : TAIL_ROWS, sms = sm_count();
+  const int tiles = RUNS ? p.tiles : (p.M + rows - 1) / rows;
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
   kern<<<tiles < sms ? tiles : sms, TAIL_THREADS, smem, s>>>(p);
   return (int)cudaGetLastError();
@@ -689,6 +1058,19 @@ int launch_runs_d(TailParams& p, int D, const void* x, const void* w1, const voi
     case 256: return launch_tail<256, false, false, true, OVERLAP>(p, x, nullptr, w1, w2, s);
     case 384: return launch_tail<384, false, false, true, OVERLAP>(p, x, nullptr, w1, w2, s);
     case 512: return launch_tail<512, false, false, true, OVERLAP>(p, x, nullptr, w1, w2, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// T3 over 128-row tiles: PIPE 1 (lockstep) or 2 (ping-pong) at a width it
+// takes (128, 256 or 384), else cudaErrorInvalidValue.
+template <int PIPE>
+int launch_pipe_d(TailParams& p, int D, const void* x, const void* w1, const void* w2,
+                  cudaStream_t s) {
+  switch (D) {
+    case 128: return launch_tail<128, false, false, false, false, PIPE>(p, x, nullptr, w1, w2, s);
+    case 256: return launch_tail<256, false, false, false, false, PIPE>(p, x, nullptr, w1, w2, s);
+    case 384: return launch_tail<384, false, false, false, false, PIPE>(p, x, nullptr, w1, w2, s);
   }
   return (int)cudaErrorInvalidValue;
 }

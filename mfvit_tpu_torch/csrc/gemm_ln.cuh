@@ -2,9 +2,9 @@
 // 16x16x16), an optional LayerNorm prologue on the A rows and fused
 // epilogues. It carries the GEMMs of the chain K9 ran before (kept for the
 // card's checks in fused_attn_large.cu) and of the
-// schedule variants T1 and T4 (attn_block below: LN+qkv, proj+residual),
-// of T2's, T6's and T7's former designs (attn_rolling_wmma.cu,
-// mlp_tail.cuh), and those of the chains K1, K2,
+// schedule variant T1 (attn_block below: LN+qkv, proj+residual), of the
+// former designs of T2, T4, T6 and T7 (attn_rolling_wmma.cu,
+// attn_staged_wmma.cu, mlp_tail.cuh), and those of the chains K1, K2,
 // K3 and K4 ran before their redesign, which fused_attn.cu, fused_mlp.cu
 // and fused_fusion.cu keep as check-only entries
 // (mfv_fused_attention_block_wmma, mfv_fused_mlp_block_wmma,
@@ -325,8 +325,8 @@ static inline GemmArgs gemm_args(const void* a, int M, int N, int K, const void*
 }
 
 // The launch chain K1 ran before its redesign, around an attention core,
-// shared by K1's check-only former chain, K9's, the schedule variants T4
-// and T1 and T2's former design: the LN row statistics and the LN + qkv
+// shared by K1's check-only former chain, K9's, the schedule variant T1
+// and T2's and T4's former designs: the LN row statistics and the LN + qkv
 // GEMM with its bias (bf16 qkv), then `core()` (qkv -> o), then the proj
 // GEMM with its bias and the bf16 residual, all on stream s through the
 // caller's scratch (stats M x 2 fp32, qkv, o).

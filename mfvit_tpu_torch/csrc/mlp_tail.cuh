@@ -1,5 +1,7 @@
-// mlp_tail: the on-chip MLP stage of the MLP schedule variants T6 and T7
-// (mlp_variants.cu), on the WMMA core of gemm_ln.cuh:
+// mlp_tail: the on-chip MLP stage of the former designs of the MLP schedule
+// variants T6 and T7, and the helpers of T3's (mlp_variants.cu, check-only
+// entries since all three run on block_tail.cuh), on the WMMA core of
+// gemm_ln.cuh:
 //
 //   out rows = x + bf16(GELU_erf(LN(x) . W1^T + b1) . W2^T + b2)
 //

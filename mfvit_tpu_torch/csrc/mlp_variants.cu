@@ -1,7 +1,9 @@
-// The MLP schedule variants of the JAX harness's timing tools: T3, and the
-// first designs of T6 and T7, which now run on K2's tail (mlp3d.cu) and
-// stay here as check-only entries (mfv_mlp3d_wmma, mfv_mlp3d_staged_wmma)
-// that the card's checks hold the new ones against. Each computes K2's
+// The first designs of the MLP schedule variants of the JAX harness's
+// timing tools, T6, T7 and T3, which now run on K2's tail (mlp3d.cu,
+// mlp_pipe.cu) and stay here as check-only entries (mfv_mlp3d_wmma,
+// mfv_mlp3d_staged_wmma, mfv_mlp_pipe_mma) that the card's checks hold the
+// new ones against; only they run mlp_tail.cuh's WMMA stage and the
+// mma.sync loop below. Each computes K2's
 // function (mfvit_tpu/ops/fused_mlp.py::fused_mlp_block),
 //
 //   out = x + bf16(bf16(GELU_erf(LN(x) . W1^T + b1)) . W2^T + b2),
@@ -31,7 +33,7 @@
 //   over: a warpgroup waits (bar.sync) on its own before its tensor-core
 //   phase and arrives (bar.arrive) on the other's after it, so one
 //   warpgroup's erff runs while the other's MMAs do.
-// - T3 mlp_pipe (tools/bench_pipelined.py::mlp_pipe, _mlp_kernel_pipe :43):
+// - T3 mlp_pipe, first design (tools/bench_pipelined.py::mlp_pipe, _mlp_kernel_pipe :43):
 //   flat row tiles of `tm` rows (32 or 64), each in `splits` sub-tiles (1,
 //   2 or 4, of 16 to 64 rows), with fc1 of sub-tile j+1 issued before the
 //   GELU and fc2 of sub-tile j (splits=1, as the TPU kernel allows, is the
@@ -50,8 +52,8 @@
 // written once, 0.06 ms at 3.35 TB/s). Against K2 they drop the hidden's
 // round trip through device memory (310 MB at B=256, about 0.09 ms) and
 // K2's LN statistics pass. These first versions use WMMA (T6, T7) or
-// mma.sync (T3) with one block an SM, far from the tensor-core peak (T6
-// and T7 moved to wgmma and TMA on K2's tail, mlp3d.cu). Each block reads every weight once
+// mma.sync (T3) with one block an SM, far from the tensor-core peak (all
+// three moved to wgmma and TMA on K2's tail). Each block reads every weight once
 // from L2 per tile (T6, T7) or per row tile (T3). D must be 128, 256, 384
 // or 512: the fp32 output tile lives in registers.
 #include "mlp_tail.cuh"
@@ -429,9 +431,10 @@ MFV_API int mfv_mlp3d_staged_wmma(const void* x, const void* ln_s, const void* l
   return (int)cudaErrorInvalidValue;
 }
 
-MFV_API int mfv_mlp_pipe(const void* x, const void* ln_s, const void* ln_b, const void* w1,
-                         const void* b1, const void* w2, const void* b2, void* out, int M, int D,
-                         int Hd, int tm, int splits, void* stream) {
+// T3's first design, for the card's checks.
+MFV_API int mfv_mlp_pipe_mma(const void* x, const void* ln_s, const void* ln_b, const void* w1,
+                             const void* b1, const void* w2, const void* b2, void* out, int M,
+                             int D, int Hd, int tm, int splits, void* stream) {
   if (M <= 0 || Hd <= 0 || Hd % PC != 0) return (int)cudaErrorInvalidValue;
   const MlpArgs p = mlp_args(x, ln_s, ln_b, w1, b1, w2, b2, out, 0, Hd);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -3,7 +3,11 @@ function the port already has a kernel for, with another issue order:
 
 - T4 ``attn_staged``, K1's forward with the staged softmax, replaces
   ``tools/bench_pipelined.py::attn_staged`` (Pallas
-  ``_attn_kernel_staged`` :118, ``pallas_call`` :179): csrc/attn_staged.cu.
+  ``_attn_kernel_staged`` :118, ``pallas_call`` :179): K1's four launches
+  with the staged core of csrc/attn_staged.cu, a sibling of K1's
+  asynchronous core whose blocks walk ``unit_walk``'s units through a
+  two-slot ring, its consumer warps in two groups that ping-pong (one
+  group's P V and q k^T beside the other's softmax; ``staged_fwd_plan``).
 - T1 ``attn_pairs``, K1's forward with the score and PV products batched
   over image pairs, replaces ``tools/bench_attn_pairs.py::attn_pairs``
   (Pallas ``_attn_pairs_kernel`` :37, ``pallas_call`` :104):
@@ -23,10 +27,11 @@ function the port already has a kernel for, with another issue order:
   tile's recompute; ``staged_plan``), built per head_dim in
   csrc/attn_bwd_staged_dh{32,64,128}.cu.
 
-``attn_rolling_wmma`` and ``staged_bwd_former`` run T2's and T5's former
-designs (T2 on K1's former WMMA chain, csrc/attn_rolling_wmma.cu; T5's
-ping-pong core, csrc/attn_bwd_staged_former.cuh), for the card's checks
-only: no tool calls them and they count no launch.
+``attn_staged_wmma``, ``attn_rolling_wmma`` and ``staged_bwd_former`` run
+T4's, T2's and T5's former designs (T4 and T2 on K1's former WMMA chain,
+csrc/attn_staged_wmma.cu and csrc/attn_rolling_wmma.cu; T5's ping-pong
+core, csrc/attn_bwd_staged_former.cuh), for the card's checks only: no
+tool calls them and they count no launch.
 
 On a CUDA tensor each runs its kernels (whose notes say how they order the
 work) or raises; none falls back to the plain version. Each kernel equals
@@ -56,7 +61,7 @@ from mfvit_tpu_torch.ops.mlp_variants import check_forward_only
 LAUNCHES = {"attn_staged": 0, "attn_pairs": 0, "attn_rolling": 0,
             "staged_bwd": 0}
 
-N_MAX_DH128 = 208  # T2: two slots of K and V a block; T5: two of K5's
+N_MAX_DH128 = 208  # T2, T4: two slots of K and V a block; T5: two of K5's
 
 # csrc/attn_rolling.cu's constants (T2's rolling core): the shared memory a
 # block can take, the consumer warps a block (at most T of them take tiles)
@@ -67,6 +72,10 @@ ROLL_PASSES = {32: 2, 64: 2, 128: 1}
 KEYS = fused_attn.BWD_KEYS  # 64, 128, 208 or 256, as K1's and K5's cores
 # csrc/attn_bwd_staged.cuh's consumer warps (T5's staged core)
 STAGED_WARPS = 7
+# csrc/attn_staged.cu's warps a group (two groups) and passes over the keys
+# by head_dim (T4's staged core)
+STAGED_FWD_GROUP = {32: 7, 64: 7, 128: 7}
+STAGED_FWD_PASSES = {32: 2, 64: 2, 128: 2}
 
 
 class RollPlan(NamedTuple):
@@ -85,22 +94,56 @@ class RollPlan(NamedTuple):
     takers: int
 
 
-def rolling_plan(N: int, dh: int) -> RollPlan:
-    """RollCore's layout: two slots of q, K and V where they fit, else of
-    K and V; the smallest ``keys`` that holds N. The C side computes the
-    same from its template arguments; this copy checks what it takes."""
+def _two_slots(name: str, N: int, dh: int) -> tuple:
+    """T2's and T4's ring: (keys, q_staged, slot bytes), two slots of q,
+    K and V where they fit, else of K and V; the smallest ``keys`` that
+    holds N."""
     if dh not in ROLL_WARPS or not 0 < N <= KEYS[-1]:
-        raise ValueError(f"attn_rolling: the kernel takes head_dim 32/64/128 "
+        raise ValueError(f"{name}: the kernel takes head_dim 32/64/128 "
                          f"and N <= {KEYS[-1]}; got head_dim {dh}, N={N}")
     keys = next(k for k in KEYS if N <= k)
     part = keys * (dh + 8) * 2
     q_staged = 2 * 3 * part + 4 * 8 <= SMEM_MAX
     slot = (3 if q_staged else 2) * part
     if 2 * slot + 4 * 8 > SMEM_MAX:
-        raise ValueError(f"attn_rolling: two slots of K and V pass a block's "
+        raise ValueError(f"{name}: two slots of K and V pass a block's "
                          f"shared memory at head_dim {dh}, N={N}")
+    return keys, q_staged, slot
+
+
+def rolling_plan(N: int, dh: int) -> RollPlan:
+    """RollCore's layout: two slots of q, K and V where they fit, else of
+    K and V; the smallest ``keys`` that holds N. The C side computes the
+    same from its template arguments; this copy checks what it takes."""
+    keys, q_staged, slot = _two_slots("attn_rolling", N, dh)
     return RollPlan(keys, q_staged, slot, 2 * slot + 4 * 8, ROLL_WARPS[dh],
                     min(ROLL_WARPS[dh], -(-N // 16)))
+
+
+class StagedFwdPlan(NamedTuple):
+    """A launch of T4's staged core at N tokens and head_dim dh: T2's
+    two-slot ring (``keys``, ``q_staged``, ``slot_bytes``, ``smem``),
+    ``group`` warps in each of the two groups, ``takers`` of them in each
+    that take tiles (at most (T + 1) // 2, T = ceil(N / 16) the tiles of an
+    image: the P V an image's fill waits on lies at most 2 takers - 1 tiles
+    before the waiting tile), ``passes`` over the keys."""
+    keys: int
+    q_staged: bool
+    slot_bytes: int
+    smem: int
+    group: int
+    takers: int
+    passes: int
+
+
+def staged_fwd_plan(N: int, dh: int) -> StagedFwdPlan:
+    """StagedCore's layout (T2's ring) and its groups; refuses what T2's
+    ring refuses (head_dim 128 past N = 208)."""
+    keys, q_staged, slot = _two_slots("attn_staged", N, dh)
+    g = STAGED_FWD_GROUP[dh]
+    return StagedFwdPlan(keys, q_staged, slot, 2 * slot + 4 * 8, g,
+                         min(g, (-(-N // 16) + 1) // 2),
+                         STAGED_FWD_PASSES[dh])
 
 
 class StagedPlan(NamedTuple):
@@ -189,14 +232,16 @@ def _forward(name, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads, scale,
     if plain or not x.is_cuda:
         return fused_attn.fused_attention_block_plain(
             x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads, scale)
-    if name == "attn_rolling":  # K1's LN pass and GEMMs, its own core
+    k1_chain = name in ("attn_rolling", "attn_staged")
+    if k1_chain:  # K1's LN pass and GEMMs, its own core
         B, N, D = x.shape
         if D not in fused_attn.K1_WIDTHS:
             raise ValueError(f"{name}: K1's chain takes D of 128, 256, 384, "
                              f"512 or 768; got D={D}")
-        rolling_plan(N, D // heads)
+        (rolling_plan if name == "attn_rolling" else staged_fwd_plan)(
+            N, D // heads)
     out = _launch(f"mfv_{name}", x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
-                  heads, scale, cb, stats=name != "attn_rolling")
+                  heads, scale, cb, stats=not k1_chain)
     LAUNCHES[name] += 1
     return out
 
@@ -206,6 +251,17 @@ def attn_staged(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads: int,
     """T4 forward: K1's function, the block's ``cb`` images staged."""
     return _forward("attn_staged", x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
                     heads, scale, cb, plain)
+
+
+def attn_staged_wmma(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads: int,
+                     scale: float, cb: int = 2):
+    """T4's former design (K1's former WMMA chain around two warpgroups in
+    ping-pong over 64-row query units, csrc/attn_staged_wmma.cu), forward
+    only, on CUDA tensors: the comparator the card's checks hold T4 against
+    bit for bit. No tool calls it, and it counts no launch."""
+    _check("attn_staged_wmma", x, heads, cb)
+    return _launch("mfv_attn_staged_wmma", x, ln_s, ln_b, wqkv, bqkv, wproj,
+                   bproj, heads, scale, cb)
 
 
 def attn_pairs(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads: int,

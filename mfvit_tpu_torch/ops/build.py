@@ -64,8 +64,10 @@ SIGNATURES = {
     "mfv_mlp3d_staged": [_P] * 8 + [_I] * 6 + [_P],
     "mfv_mlp3d_wmma": [_P] * 8 + [_I] * 6 + [_P],
     "mfv_mlp3d_staged_wmma": [_P] * 8 + [_I] * 5 + [_P],
-    "mfv_mlp_pipe": [_P] * 8 + [_I] * 5 + [_P],
-    "mfv_attn_staged": [_P] * 11 + [_I] * 5 + [_F, _P],
+    "mfv_mlp_pipe": [_P] * 8 + [_I] * 6 + [_P],
+    "mfv_mlp_pipe_mma": [_P] * 8 + [_I] * 5 + [_P],
+    "mfv_attn_staged": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "mfv_attn_staged_wmma": [_P] * 11 + [_I] * 5 + [_F, _P],
     "mfv_attn_pairs": [_P] * 11 + [_I] * 5 + [_F, _P],
     "mfv_attn_rolling": [_P] * 10 + [_I] * 5 + [_F, _P],
     "mfv_attn_rolling_wmma": [_P] * 11 + [_I] * 5 + [_F, _P],

@@ -11,19 +11,24 @@ tools, each K2's function x + fc2(GELU(fc1(LN(x)))) in another schedule.
 - T3 ``mlp_pipe`` replaces ``tools/bench_pipelined.py::mlp_pipe``
   (``_mlp_kernel_pipe`` :43, ``pallas_call`` :96): flat row tiles of
   ``tm`` rows in ``splits`` sub-tiles, fc1 of sub-tile j+1 before the GELU
-  and fc2 of sub-tile j, by software pipelining inside each warp.
+  and fc2 of sub-tile j.
 
 On a CUDA tensor each runs its kernel or raises; it never falls back to
-the plain version. T6 and T7 run csrc/mlp3d.cu, K2's persistent wgmma
-tail (csrc/block_tail.cuh) over ``row_walk``'s (run, 64-row tile) units,
-T7 with the tail's overlapped chunk loop and the ring ``_plan`` sizes
-beside its second hidden buffer; T3 runs csrc/mlp_variants.cu. Those
+the plain version. All three run on K2's persistent wgmma tail
+(csrc/block_tail.cuh). T6 and T7 run csrc/mlp3d.cu over ``row_walk``'s
+(run, 64-row tile) units, T7 with the tail's overlapped chunk loop and the
+ring ``_plan`` sizes beside its second hidden buffer. T3 runs
+csrc/mlp_pipe.cu: at ``tm=128`` the tail's PIPE switch, a 128-row tile
+whose two 64-row sub-tiles (one per consumer warpgroup) read one weight
+stream, in lockstep (``splits=1``) or in ping-pong (``splits=2``), the
+ring ``pipe_plan`` sizes; at ``tm=64, splits=1`` K2's own tail. Those
 notes say how each carries its schedule and what bounds it. The kernels
-equal the port's K2 kernel bit for bit. ``mlp3d_wmma`` and
-``mlp3d_staged_wmma`` run the first designs of T6 and T7 (a block per
-``cb`` images on csrc/mlp_tail.cuh's WMMA stage, csrc/mlp_variants.cu),
-for the card's checks only: no tool calls them and they count no launch.
-The plain version of all three is K2's,
+equal the port's K2 kernel bit for bit. ``mlp3d_wmma``,
+``mlp3d_staged_wmma`` and ``mlp_pipe_mma`` run the first designs of T6,
+T7 and T3 (csrc/mlp_variants.cu: a block per ``cb`` images on
+csrc/mlp_tail.cuh's WMMA stage; T3's a block per row tile of ``mma.sync``
+warps), for the card's checks only: no tool calls them and they count no
+launch. The plain version of all of them is K2's,
 ``fused_mlp_block_plain``, run after the same argument checks, which hold
 on both devices:
 
@@ -31,10 +36,12 @@ on both devices:
   output unwritten);
 - ``tm % splits == 0``; the tools' ``tm`` of 512 and 1024 are TPU VMEM
   sizes, so here ``tm`` is the rows a block owns and ``splits`` the
-  sub-tiles it pipelines over: tm 32 or 64, splits 1, 2 or 4, sub-tiles
-  of 16 rows or more;
-- D is 128, 256, 384 or 512 and tm * D <= 64 * 384 (the fp32 output tile
-  lives in registers), the hidden width a multiple of 128.
+  sub-tiles it pipelines over, each 64 rows (one wgmma m64): (tm, splits)
+  in ``PIPE_SET``, (64, 1), (128, 1) or (128, 2); tm=128 at D <= 384 only
+  (fc2's D/2 fp32 accumulators a thread live in registers). The first
+  design takes tm 32 or 64, splits 1, 2 or 4, sub-tiles of 16 rows or
+  more, tm * D <= 64 * 384;
+- D is 128, 256, 384 or 512, the hidden width a multiple of 128.
 
 Forward only, as the tools use them (JAX defines no VJP): a tensor that
 requires grad, with grad enabled, raises. Matrices are in the torch Linear
@@ -55,10 +62,24 @@ from mfvit_tpu_torch.ops.fused_mlp import fused_mlp_block_plain
 LAUNCHES = {"mlp3d": 0, "mlp3d_staged": 0, "mlp_pipe": 0}
 
 WIDTHS = (128, 256, 384, 512)     # the D the kernels are built for
-TILE_ROWS = (32, 64)              # mlp_pipe's tm
-SPLITS = (1, 2, 4)                # mlp_pipe's splits
-MIN_SUB_ROWS = 16                 # one MMA row tile
-REG_TILE = 64 * 384               # tm * D, the fp32 output tile in registers
+# mlp_pipe's (tm, splits): K2's tail over 64-row tiles; 128-row tiles of two
+# 64-row sub-tiles in lockstep; the same in ping-pong (the default)
+PIPE_SET = ((64, 1), (128, 1), (128, 2))
+# csrc/block_tail.cuh's PIPE constants: rows a tile, hidden columns a
+# chunk (fc1 in two halves of 32, 16 accumulators each), the widths it is
+# built for, and setmaxnreg's registers a consumer thread (its accumulators
+# may take all but 32 of them: fc2's D/2 and a fc1 half's 16 are 208 at
+# D=384; a whole 64-column fc1 chunk beside them spilled, PERF.md)
+PIPE_ROWS, PIPE_HC, PIPE_WIDTHS = 128, 64, (128, 256, 384)
+PIPE_FC1_REGS = 16
+PIPE_CONSUMER_REGS, PIPE_PRODUCER_REGS = 240, 24
+PIPE_ACC_BUDGET = PIPE_CONSUMER_REGS - 32
+# the first design's (mlp_pipe_mma) tm, splits, smallest sub-tile (one MMA
+# row tile) and tm * D (its fp32 output tile in registers)
+TILE_ROWS = (32, 64)
+SPLITS = (1, 2, 4)
+MIN_SUB_ROWS = 16
+REG_TILE = 64 * 384
 # T7's fp32 accumulators a consumer thread may hold at once: setmaxnreg's
 # CONSUMER_REGS less 40 for the addresses, the ring's phases and the GELU's
 # temporaries (a limit, not a promise: ptxas still spills a few registers
@@ -138,13 +159,60 @@ def check_pipe(D: int, tm: int, splits: int) -> None:
     if splits < 1 or tm % splits:
         raise ValueError(f"mlp_pipe: tm={tm} must be a multiple of "
                          f"splits={splits}")
-    if (tm not in TILE_ROWS or splits not in SPLITS
-            or tm // splits < MIN_SUB_ROWS or tm * D > REG_TILE):
+    if (tm, splits) not in PIPE_SET:
         raise ValueError(
-            f"mlp_pipe: the kernel takes tm in {TILE_ROWS} rows a block, "
-            f"splits in {SPLITS} sub-tiles of >= {MIN_SUB_ROWS} rows, and "
-            f"tm * D <= {REG_TILE} (its fp32 output tile lives in "
-            f"registers); got tm={tm}, splits={splits}, D={D}")
+            f"mlp_pipe: the kernel takes (tm, splits) in {PIPE_SET}: tm "
+            f"rows a block in sub-tiles of 64 rows, one wgmma m64 of one "
+            f"warpgroup, whose fp32 output rows live in its registers; got "
+            f"tm={tm}, splits={splits}")
+    if tm == PIPE_ROWS and D not in PIPE_WIDTHS:
+        raise ValueError(
+            f"mlp_pipe: tm={tm} takes D in {PIPE_WIDTHS} (a thread holds "
+            f"fc2's D/2 fp32 accumulators in registers, at most "
+            f"{PIPE_ACC_BUDGET - PIPE_FC1_REGS}); got D={D}")
+
+
+def check_pipe_mma(D: int, tm: int, splits: int) -> None:
+    """The first design's tile arguments (``mlp_pipe_mma``)."""
+    if (splits < 1 or tm % splits or tm not in TILE_ROWS
+            or splits not in SPLITS or tm // splits < MIN_SUB_ROWS
+            or tm * D > REG_TILE):
+        raise ValueError(
+            f"mlp_pipe_mma: the kernel takes tm in {TILE_ROWS} rows a "
+            f"block, splits in {SPLITS} sub-tiles of >= {MIN_SUB_ROWS} "
+            f"rows, and tm * D <= {REG_TILE} (its fp32 output tile lives "
+            f"in registers); got tm={tm}, splits={splits}, D={D}")
+
+
+def _pipe_smem(D: int, stages: int) -> int:
+    """block_tail.cuh's Pipe<D>::smem: the ring, two 64-row A sub-tiles
+    (D / 64 K slices each), two (64, 64) hidden tiles, the barriers, and
+    1024 bytes to align the swizzled tiles; no x2 tile (LN2 runs in place,
+    the epilogue reads x from device memory)."""
+    return (stages * fm.STAGE + 2 * (D // 64) * fm.TILE64 + 2 * fm.TILE64
+            + (2 * stages + 2) * 8 + 1024)
+
+
+def pipe_plan(D: int, Hd: int, tm: int = PIPE_ROWS,
+              splits: int = 2) -> fm.Plan:
+    """T3's launch at width D and hidden Hd: at tm=128 as many ring
+    stages as the shared memory beside the two sub-tiles holds (at most
+    STAGES_MAX); its consumer threads hold fc2's D/2 accumulators and one
+    32-column half of a fc1 chunk's, 16; under the ping-pong (splits=2) a
+    warpgroup's turn, D / 64 stages, must fit the ring. At tm=64 K2's
+    plan. The C side only checks it."""
+    check_pipe(D, tm, splits)
+    if tm != PIPE_ROWS:
+        return fm._plan(D, Hd)
+    if Hd <= 0 or Hd % PIPE_HC:
+        raise ValueError(f"mlp_pipe: hidden % {PIPE_HC} == 0; got {Hd}")
+    stages = max(s for s in range(1, fm.STAGES_MAX + 1)
+                 if _pipe_smem(D, s) <= fm.SMEM_MAX)
+    if splits == 2 and stages < D // 64:
+        raise ValueError(f"mlp_pipe: a ping-pong turn of {D // 64} stages "
+                         f"passes the ring of {stages} at D={D}")
+    return fm.Plan("pipe", stages, _pipe_smem(D, stages),
+                   D // 2 + PIPE_FC1_REGS)
 
 
 def _args(x, ln_s, ln_b, w1, b1, w2, b2):
@@ -230,10 +298,10 @@ def mlp3d_staged_wmma(x, ln_s, ln_b, w1, b1, w2, b2,
     return a[-1]
 
 
-def mlp_pipe(x, ln_s, ln_b, w1, b1, w2, b2, splits: int = 2, tm: int = 64,
-             plain: bool = False) -> torch.Tensor:
+def mlp_pipe(x, ln_s, ln_b, w1, b1, w2, b2, splits: int = 2,
+             tm: int = PIPE_ROWS, plain: bool = False) -> torch.Tensor:
     """T3: K2's function over flat row tiles of ``tm`` rows, pipelined over
-    ``splits`` sub-tiles."""
+    ``splits`` sub-tiles of 64 rows."""
     check_forward_only("mlp_pipe", x, ln_s, ln_b, w1, b1, w2, b2)
     _check_mlp("mlp_pipe", x, w1)
     check_pipe(x.shape[-1], tm, splits)
@@ -242,6 +310,21 @@ def mlp_pipe(x, ln_s, ln_b, w1, b1, w2, b2, splits: int = 2, tm: int = 64,
     B, N, D = x.shape
     a = _args(x, ln_s, ln_b, w1, b1, w2, b2)
     launch.call("mfv_mlp_pipe", x.device, *a, B * N, D, w1.shape[0], tm,
-                splits)
+                splits, pipe_plan(D, w1.shape[0], tm, splits).stages)
     LAUNCHES["mlp_pipe"] += 1
+    return a[-1]
+
+
+def mlp_pipe_mma(x, ln_s, ln_b, w1, b1, w2, b2, splits: int = 2,
+                 tm: int = 64) -> torch.Tensor:
+    """T3's first design (``mma.sync`` warps, a block per row tile of
+    ``tm`` rows in ``splits`` sub-tiles, csrc/mlp_variants.cu), forward
+    only, on CUDA tensors: the comparator the card's checks hold T3 against
+    bit for bit. No tool calls it, and it counts no launch."""
+    _check_mlp("mlp_pipe_mma", x, w1)
+    check_pipe_mma(x.shape[-1], tm, splits)
+    B, N, D = x.shape
+    a = _args(x, ln_s, ln_b, w1, b1, w2, b2)
+    launch.call("mfv_mlp_pipe_mma", x.device, *a, B * N, D, w1.shape[0], tm,
+                splits)
     return a[-1]

@@ -8,10 +8,11 @@
 On ``tools/bench_block``'s inputs (the JAX tools' recipe), in the JAX
 tool's order (:224-245): the baseline (K1 -> K2); K1 then ``mlp_pipe`` over
 its (splits, tm) sweep, in the sizes the kernel takes (the JAX tool's tm of
-512 and 1024 are TPU VMEM tiles; here tm is the rows a block owns);
-``attn_staged`` at cb 2 and 4 then K2; ``attn_staged`` cb=2 then
-``mlp_pipe`` s=2; then the baseline again. Lines, timing and ``--device
-cpu`` as in ``bench_mlp3d``.
+512 and 1024 are TPU VMEM tiles; here tm is the rows a block owns, in
+sub-tiles of 64 rows: the ping-pong default, then its lockstep and K2-tile
+controls); ``attn_staged`` at cb 2 and 4 then K2; ``attn_staged`` cb=2
+then ``mlp_pipe`` at its default; then the baseline again. Lines, timing
+and ``--device cpu`` as in ``bench_mlp3d``.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from mfvit_tpu_torch.tools.bench_mlp3d import build_parser, run_chains
 
 __all__ = ["mlp_pipe", "attn_staged", "run", "main"]
 
-PIPE_SWEEP = ((2, 32), (2, 64), (4, 64))  # (splits, tm)
+PIPE_SWEEP = ((2, 128), (1, 128), (1, 64))  # (splits, tm)
 CBS = (2, 4)
 
 
@@ -55,7 +56,7 @@ def chains() -> list:
     out += [(f"attn_staged cb={cb} + mlp", cb,
              chain_of(_staged, fused_mlp.fused_mlp_block, cb)) for cb in CBS]
     out.append(("attn_staged cb=2 + mlp_pipe s=2", 2, chain_of(
-        _staged, lambda *w: mlp_pipe(*w, splits=2, tm=64), 2)))
+        _staged, lambda *w: mlp_pipe(*w, splits=2, tm=128), 2)))
     return out + out[:1]
 
 

@@ -1,5 +1,5 @@
-"""Time K15, K1-K5, K7, K9, K10, K11 and the MLP schedule variants T6 and
-T7 of two checkouts of the repository on one card, in turns, and the
+"""Time K15, K1-K5, K7, K9, K10, K11 and the schedule variants T2-T7 of
+two checkouts of the repository on one card, in turns, and the
 end-to-end figures beside them:
 
     python -m mfvit_tpu_torch.tools.compare_block --other DIR [--out FILE] \
@@ -27,16 +27,19 @@ path; at 384 px also on vit_small_ori, whose int8 path runs K10 past 256
 tokens, ``e2e_ori384``), the FT step's images/s at B=256 and B=16
 (``time_train``) and the fusion step's pairs/s at B=256 (``time_fusion``,
 LP and ``--semi-supervised``). Every turn also runs ``variant_times``
-below (T6 flat and per image and T7 at cb 2, 4 and 8 beside K2, T2 at cb
-4, 8 and 16 beside K1, T5 at cb 2 and 4 beside K5, and their former
-designs where the checkout has them, at vit_small B=256), the "t6",
-"t7", "t2" and "t5" breakdowns of ``stage_times``, ``overlap_probe`` (T6
-per image on K2's and on T7's ring depth against T7, at D of 128-512),
-and ``output_digests`` (a hash of the output bits of K1, K2, K3, K5, K9,
-K10, K15 and of T6, T7, T2 and T5 on fixed inputs, which must be the
-same in both checkouts where their functions are).
+below (T6 flat and per image and T7 at cb 2, 4 and 8 and T3 at its three
+(splits, tm) beside K2, T2 at cb 4, 8 and 16 and T4 at cb 2 and 4 beside
+K1, T5 at cb 2 and 4 beside K5, and their former designs where the
+checkout has them, at vit_small B=256), the "t6", "t7", "t3", "t2", "t4"
+and "t5" breakdowns of ``stage_times`` (and the former designs'),
+``overlap_probe`` (T6 per image on K2's and on T7's ring depth against
+T7, at D of 128-512), ``pipe_probe`` (T3's 128-row tile against K2 at D
+of 128-384), and ``output_digests`` (a hash of the output bits
+of K1, K2, K3, K5, K9, K10, K15 and of T6, T7, T3, T2, T4 and T5 on fixed
+inputs, which must be the same in both checkouts where their functions
+are).
 ``--only variants`` runs only K15's ``time_block``, ``half_times``, those
-three and the breakdowns of K1, K2, K5 and the variants. Prints the
+four and the breakdowns of K1, K2, K5 and the variants. Prints the
 card's name and power limit, one line a reading, and writes every
 reading to FILE as JSON.
 Needs a CUDA card.
@@ -67,7 +70,11 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
     designs, where the checkout has them; "k10_three" and "k10_five" K10's
     two routes forced; "t6" T6 (``mlp3d`` flat, cb=4) and "t7" T7
     (``mlp3d_staged``, cb=4) on K2's inputs, "t6_wmma" and "t7_wmma" their
-    former designs where the checkout has them. Kernel name
+    former designs where the checkout has them; "t3" T3 (``mlp_pipe`` at
+    splits=2, tm=128) on K2's inputs and "t4" T4 (``attn_staged``, cb=2)
+    on K1's, "t3_former" and "t4_wmma" their former designs (the
+    checkout's ``mlp_pipe_mma`` at its default and ``attn_staged_wmma``,
+    or ``mlp_pipe`` and ``attn_staged`` where they are still those). Kernel name
     (namespace and parameters dropped, template arguments kept, so that
     two instances of one template stay apart; "t2" T2 (``attn_rolling``,
     cb=8) and "t5" T5 (``staged_bwd``, cb=2) on K1's and K5's inputs,
@@ -148,7 +155,14 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
                                                     cb=8),
             "t5": lambda: av.staged_bwd(g, *a[:6], heads, scale, cb=2),
             "t5_former": lambda: av.staged_bwd_former(g, *a[:6], heads,
-                                                      scale, cb=2)}[op]
+                                                      scale, cb=2),
+            "t3": lambda: mv.mlp_pipe(a[0], *a[7:], splits=2, tm=128),
+            "t4": lambda: av.attn_staged(*a[:7], heads, scale, cb=2),
+            "t3_former": lambda: getattr(mv, "mlp_pipe_mma", mv.mlp_pipe)(
+                a[0], *a[7:]),
+            "t4_wmma": lambda: getattr(av, "attn_staged_wmma",
+                                       av.attn_staged)(*a[:7], heads, scale,
+                                                       cb=2)}[op]
     with torch.inference_mode():
         call()
         torch.cuda.synchronize()
@@ -269,12 +283,16 @@ def long_times(dev, iters: int = 20) -> dict:
 
 def variant_calls(t) -> dict:
     """T6 flat and per image ("loop") and T7 at cb 2, 4 and 8 on one
-    block's MLP inputs ``t`` (``chip_smoke.block_inputs``) beside K2, T2 at
-    cb 4, 8 and 16 on its attention inputs beside K1, T5 at cb 2 and 4 on
-    them and a cotangent drawn with seed 17 beside K5, and the former
-    designs where the checkout has them (``mlp3d_wmma``,
-    ``mlp3d_staged_wmma``, ``attn_rolling_wmma``, ``staged_bwd_former``):
-    name -> call (T5 and K5 return their seven outputs)."""
+    block's MLP inputs ``t`` (``chip_smoke.block_inputs``) beside K2, T3 at
+    (splits, tm) (2, 128), (1, 128) and (1, 64) beside K2, T2 at cb 4, 8
+    and 16 and T4 at cb 2 and 4 on its attention inputs beside K1, T5 at cb
+    2 and 4 on them and a cotangent drawn with seed 17 beside K5, and the
+    former designs where the checkout has them (``mlp3d_wmma``,
+    ``mlp3d_staged_wmma``, ``attn_rolling_wmma``, ``staged_bwd_former``;
+    "t3_former", T3's first design at its default, and "t4_wmma" at cb 2
+    and 4: ``mlp_pipe_mma`` and ``attn_staged_wmma``, or ``mlp_pipe`` and
+    ``attn_staged`` in a checkout where those are still the first
+    designs): name -> call (T5 and K5 return their seven outputs)."""
     import torch
 
     from mfvit_tpu_torch.ops import attn_variants as av
@@ -302,6 +320,18 @@ def variant_calls(t) -> dict:
         for cb in (2, 4, 8):
             calls[f"{name} cb={cb}"] = (
                 lambda op=op, kw=kw, cb=cb: op(*a, cb=cb, **kw))
+    if hasattr(mv, "mlp_pipe_mma"):
+        for sp, tm in ((2, 128), (1, 128), (1, 64)):
+            calls[f"t3 s={sp} tm={tm}"] = (
+                lambda sp=sp, tm=tm: mv.mlp_pipe(*a, splits=sp, tm=tm))
+    calls["t3_former"] = lambda: getattr(mv, "mlp_pipe_mma", mv.mlp_pipe)(*a)
+    staged = {"t4_wmma": getattr(av, "attn_staged_wmma", av.attn_staged)}
+    if hasattr(av, "attn_staged_wmma"):
+        staged["t4"] = av.attn_staged
+    for name, op in staged.items():
+        for cb in (2, 4):
+            calls[f"{name} cb={cb}"] = (
+                lambda op=op, cb=cb: op(*x, heads, scale, cb=cb))
     attn = {"t2": av.attn_rolling}
     bwd = {"t5": av.staged_bwd}
     if hasattr(av, "attn_rolling_wmma"):
@@ -336,7 +366,7 @@ def variant_times(dev, B: int = 256, iters: int = 20) -> dict:
         base = {k: chip_smoke.as_tuple(calls[k]()) for k in ("k1", "k2",
                                                               "k5")}
         for name, call in calls.items():
-            want = base[{"t2": "k1", "t5": "k5", "k1": "k1",
+            want = base[{"t2": "k1", "t4": "k1", "t5": "k5", "k1": "k1",
                          "k5": "k5"}.get(name[:2], "k2")]
             if not all(torch.equal(u, v) for u, v in zip(
                     chip_smoke.as_tuple(call()), want)):
@@ -344,8 +374,9 @@ def variant_times(dev, B: int = 256, iters: int = 20) -> dict:
                                      f"at B={B}")
         for name in (*calls, *reversed(calls)):
             out[name].append(chip_smoke.cuda_ms(calls[name], iters))
-    print(f"T6, T7, T2, T5, K1, K2 and K5 at vit_small B={B}: " + ", ".join(
-        f"{k} {'/'.join(f'{v:.4f}' for v in ms)} ms" for k, ms in out.items()))
+    print(f"T6, T7, T3, T2, T4, T5, K1, K2 and K5 at vit_small B={B}: "
+          + ", ".join(f"{k} {'/'.join(f'{v:.4f}' for v in ms)} ms"
+                      for k, ms in out.items()))
     return out
 
 
@@ -392,9 +423,47 @@ def overlap_probe(dev, B: int = 256, iters: int = 20) -> dict:
     return out
 
 
+def pipe_probe(dev, B: int = 256, iters: int = 20) -> dict:
+    """Whether T3's 128-row tile pays where the registers do not bind: at
+    each width D of 128, 256 and 384 (hidden 4D, ``chip_smoke.block_inputs``,
+    seed 16) K2 against T3 at tm=128 in ping-pong (s=2) and in lockstep
+    (s=1), each held equal to K2, then timed twice with CUDA events in
+    turns: "<name> D=<D>" -> [ms, ms]. Empty in a checkout without T3 on
+    K2's tail (no ``mlp_variants.pipe_plan``)."""
+    import torch
+
+    import chip_smoke
+    from mfvit_tpu_torch.ops import fused_mlp as fm
+    from mfvit_tpu_torch.ops import mlp_variants as mv
+    if not hasattr(mv, "pipe_plan"):
+        return {}
+    calls = {}
+    with torch.inference_mode():
+        for D in (128, 256, 384):
+            t = chip_smoke.block_inputs(torch.Generator().manual_seed(16), B,
+                                        D, dev)
+            a = [t[k] for k in ("x", "ln_s", "ln_b", "w1", "b1", "w2", "b2")]
+            named = {f"k2 D={D}": lambda a=a: fm.fused_mlp_block(*a),
+                     f"t3 s=2 tm=128 D={D}":
+                     lambda a=a: mv.mlp_pipe(*a, splits=2, tm=128),
+                     f"t3 s=1 tm=128 D={D}":
+                     lambda a=a: mv.mlp_pipe(*a, splits=1, tm=128)}
+            k2 = fm.fused_mlp_block(*a)
+            for name, call in named.items():
+                if not torch.equal(call(), k2):
+                    raise AssertionError(f"{name} differs from K2")
+            calls.update(named)
+        out = {name: [] for name in calls}
+        for name in (*calls, *reversed(calls)):
+            out[name].append(chip_smoke.cuda_ms(calls[name], iters))
+    print(f"T3 at tm=128 against K2 at B={B}: " + ", ".join(
+        f"{k} {'/'.join(f'{v:.4f}' for v in ms)} ms" for k, ms in out.items()))
+    return out
+
+
 def output_digests(dev, B: int = 256) -> dict:
     """A SHA-256 of the output bits of K1, K2, K3, K5, K10, K15 and of T6,
-    T7, T2 and T5 at every argument of ``variant_calls``, on the inputs of
+    T7, T3, T2, T4 and T5 at every argument of ``variant_calls``, on the inputs of
     ``half_times`` (vit_small B, seed 16), and of K9 at vit_small@384
     (577 tokens, B=16, seed 16): name -> hex digest. Two checkouts whose
     kernels compute the same function bit for bit give the same digest."""
@@ -460,7 +529,9 @@ dev = torch.device("cuda")
 %s
 %s
 from mfvit_tpu_torch.ops import attn_variants
-T_OPS = ("t6", "t7", "t2", "t5")
+T_OPS = ("t6", "t7", "t2", "t5", "t3_former", "t4_wmma")
+if hasattr(mlp_variants, "mlp_pipe_mma"):
+    T_OPS += ("t3", "t4")
 if hasattr(mlp_variants, "mlp3d_wmma"):
     T_OPS += ("t6_wmma", "t7_wmma")
 if hasattr(attn_variants, "staged_bwd_former"):
@@ -469,13 +540,14 @@ if hasattr(attn_variants, "staged_bwd_former"):
        + "\nLONG_SHAPES = %r\n" % (LONG_SHAPES,)
        + inspect.getsource(long_times) + inspect.getsource(e2e_ori384)
        + inspect.getsource(variant_calls) + inspect.getsource(variant_times)
-       + inspect.getsource(overlap_probe) + inspect.getsource(output_digests))
+       + inspect.getsource(overlap_probe) + inspect.getsource(pipe_probe)
+       + inspect.getsource(output_digests))
 
 # --only variants: K15, K1-K4 alone, T6, T7, T2 and T5 with their breakdowns
 CHILD_VARIANTS = HEAD + """
 out = {"block": chip_smoke.time_block(dev), "halves": half_times(dev),
        "variants": variant_times(dev), "overlap": overlap_probe(dev),
-       "digests": output_digests(dev),
+       "pipe": pipe_probe(dev), "digests": output_digests(dev),
        "stages": {op: stage_times(dev, op)
                   for op in ("k1", "k2", "k5") + T_OPS}}
 print("RESULT " + json.dumps(out))
@@ -484,7 +556,7 @@ print("RESULT " + json.dumps(out))
 CHILD = HEAD + """
 out = {"block": chip_smoke.time_block(dev), "halves": half_times(dev),
        "variants": variant_times(dev), "overlap": overlap_probe(dev),
-       "digests": output_digests(dev),
+       "pipe": pipe_probe(dev), "digests": output_digests(dev),
        "stages": {op: stage_times(dev, op)
                   for op in ("k15", "k1", "k2", "k3", "k4", "k5", "k7")
                   + T_OPS},
@@ -540,10 +612,12 @@ def print_variants(runs: list) -> None:
         ms = [v for w, r in runs if w == who for v in r["variants"][name]]
         print(f"{name} at vit_small B=256 ({who} only): " + "/".join(
             f"{v:.4f}" for v in ms) + " ms")
-    for name in runs[0][1]["overlap"] or runs[1][1]["overlap"]:
-        ms = [v for _, r in runs for v in r["overlap"].get(name, [])]
-        print(f"{name} at vit_small widths, B=256 (turns of the checkout "
-              "that has it): " + "/".join(f"{v:.4f}" for v in ms) + " ms")
+    for key in ("overlap", "pipe"):
+        for name in runs[0][1][key] or runs[1][1][key]:
+            ms = [v for _, r in runs for v in r[key].get(name, [])]
+            print(f"{name} at vit_small widths, B=256 (turns of the "
+                  "checkout that has it): " + "/".join(
+                      f"{v:.4f}" for v in ms) + " ms")
     digests = turns.by_checkout(runs, lambda r: r["digests"])
     common = set(digests["this"][0]) & set(digests["other"][0])
     same = {n: len({d[n] for d in digests["this"] + digests["other"]}) == 1
@@ -557,8 +631,8 @@ def main(argv=None) -> int:
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--only", choices=("variants",),
-                    help="run only K15, K1-K4 alone, T6, T7, T2 and T5 (and "
-                    "the breakdowns of K1, K2, K5 and the variants)")
+                    help="run only K15, K1-K4 alone, T2-T7 (and the "
+                    "breakdowns of K1, K2, K5 and the variants)")
     args = ap.parse_args(argv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -775,8 +775,8 @@ MLP_VARIANTS = {
     **{f"mlp3d_staged cb={cb}": (lambda a, cb=cb: mlp_variants.mlp3d_staged(
         *a, cb=cb), "mlp3d_staged") for cb in (1, 2, 4)},
     **{f"mlp_pipe s={s} tm={tm}": (lambda a, s=s, tm=tm: mlp_variants.mlp_pipe(
-        *a, splits=s, tm=tm), "mlp_pipe") for s, tm in ((2, 32), (2, 64),
-                                                        (4, 64), (1, 64))},
+        *a, splits=s, tm=tm), "mlp_pipe") for s, tm in ((2, 128), (1, 128),
+                                                        (1, 64))},
 }
 
 
@@ -790,8 +790,8 @@ def test_mlp_variants_equal_k2_and_hold_its_plain_version(dev, name, B, N,
     against the plain fp32 version (rel < 2e-2); one call launches its
     kernel once and nothing else. B=3 leaves a ragged last tile."""
     call, counter = MLP_VARIANTS[name]
-    if counter == "mlp_pipe" and "tm=64" in name and D > 384:
-        pytest.skip("tm=64 at D=512 passes the register tile")
+    if counter == "mlp_pipe" and "tm=128" in name and D > 384:
+        pytest.skip("tm=128 at D=512 passes the registers")
     cb = int(name.split("cb=")[1]) if "cb=" in name else 1
     if B % cb:
         pytest.skip("cb must divide B")
@@ -874,6 +874,48 @@ def test_attn_staged_equals_k1_and_holds_its_plain_version(dev, cb, B, N, D,
     assert torch.equal(got, k1)
     ref = fused_attn.fused_attention_block_plain(*_f32(t, ATTN), H, scale)
     assert _rel(got, ref) < REL
+
+
+@pytest.mark.parametrize("B,N,D,H", [(8, 197, 384, 12), (8, 50, 384, 12),
+                                     (3, 197, 384, 12), (4, 197, 512, 8),
+                                     (8, 197, 384, 6), (8, 208, 384, 3),
+                                     (4, 100, 256, 2), (2, 100, 128, 4)])
+def test_t3_t4_equal_their_former_designs_and_k1_k2(dev, B, N, D, H):
+    """T3 (K2's tail over 128-row tiles of two 64-row sub-tiles, in
+    ping-pong and in lockstep, and K2's own tile) and T4 (K1's chain with a
+    staged sibling of K1's asynchronous core) against their former designs
+    (``mlp_pipe_mma`` at its own default, ``attn_staged_wmma``) and the K2 /
+    K1 kernels on the same bf16 inputs, bit for bit, at every argument of
+    their tools' sweeps that the shape takes (T4: every cb of 2, 4 that
+    divides B, else cb=1); one call launches the variant once and nothing
+    else, and the former designs count no launch."""
+    t = _block(dev, B, N, D)
+    m, a = [t[k] for k in MLP], [t[k] for k in ATTN]
+    scale = (D // H) ** -0.5
+    with torch.no_grad():
+        k2 = fused_mlp.fused_mlp_block(*m)
+        k1 = fused_attn.fused_attention_block(*a, H, scale)
+        was = mlp_variants.mlp_pipe_mma(*m, **({} if D <= 384 else
+                                               dict(splits=2, tm=32)))
+        assert torch.equal(was, k2)
+        for s, tm in ((2, 128), (1, 128), (1, 64)):
+            if tm == 128 and D > 384:
+                continue
+            ops.reset_launch_counts()
+            got = mlp_variants.mlp_pipe(*m, splits=s, tm=tm)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert counts.pop("mlp_pipe") == 1 and not any(counts.values())
+            assert torch.equal(got, k2), (s, tm)
+        for cb in [cb for cb in (2, 4) if B % cb == 0] or [1]:
+            ops.reset_launch_counts()
+            got = attn_variants.attn_staged(*a, H, scale, cb=cb)
+            was = attn_variants.attn_staged_wmma(*a, H, scale, cb=cb)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert counts.pop("attn_staged") == 1 and not any(counts.values())
+            assert torch.equal(got, k1), cb
+            assert torch.equal(got, was), cb
 
 
 def test_the_variants_refuse_on_the_card_too(dev):

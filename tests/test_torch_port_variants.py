@@ -130,9 +130,9 @@ MLP_CASES = {
                    lambda a: mlp_variants.mlp3d(*a, cb=2, flat=False)),
     "mlp3d_staged": (lambda t, a: t["mlp3d_staged"](*a, 2),
                      lambda a: mlp_variants.mlp3d_staged(*a, cb=2)),
-    # M = 200 and 788 rows: JAX pads to a multiple of 64, the port masks
-    "mlp_pipe": (lambda t, a: t["mlp_pipe"](*a, 2, 64),
-                 lambda a: mlp_variants.mlp_pipe(*a, splits=2, tm=64)),
+    # M = 200 and 788 rows: JAX pads to a multiple of 128, the port masks
+    "mlp_pipe": (lambda t, a: t["mlp_pipe"](*a, 2, 128),
+                 lambda a: mlp_variants.mlp_pipe(*a, splits=2, tm=128)),
 }
 
 
@@ -210,7 +210,7 @@ def test_bf16_plain_variants_are_the_plain_k1_and_k2(n):
     for got in (mlp_variants.mlp3d(*m, cb=2, flat=True),
                 mlp_variants.mlp3d(*m, cb=4, flat=False),
                 mlp_variants.mlp3d_staged(*m, cb=1),
-                mlp_variants.mlp_pipe(*m, splits=4, tm=64)):
+                mlp_variants.mlp_pipe(*m, splits=1, tm=128)):
         assert torch.equal(got, k2)
     a = _port_args(p, ATTN_KEYS, jnp.bfloat16)
     assert torch.equal(attn_variants.attn_staged(*a, H, SCALE, cb=4),
@@ -227,7 +227,7 @@ def test_the_variants_refuse_what_their_kernels_do_not_take():
             call()
     with pytest.raises(ValueError, match="multiple of splits"):
         mlp_variants.mlp_pipe(*m, splits=3, tm=64)
-    for splits, tm in ((4, 32), (2, 128), (8, 64)):
+    for splits, tm in ((4, 32), (2, 64), (8, 64)):
         with pytest.raises(ValueError, match="registers"):
             mlp_variants.mlp_pipe(*m, splits=splits, tm=tm)
 
@@ -241,7 +241,7 @@ def test_the_variants_refuse_what_their_kernels_do_not_take():
         mlp_variants.mlp3d(x, *zeros(768, 3072), cb=2)
     x = torch.zeros(2, 50, 512, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="registers"):
-        mlp_variants.mlp_pipe(x, *zeros(512, 2048), splits=2, tm=64)
+        mlp_variants.mlp_pipe(x, *zeros(512, 2048), splits=2, tm=128)
     for n, heads, limit in ((257, 12, "N <= 256"), (209, 3, "N <= 208")):
         x = torch.zeros(2, n, 384, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match=limit):
