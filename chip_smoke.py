@@ -141,11 +141,12 @@ Phases, in order; any failure raises and exits non-zero:
    limit), at every schedule argument their tools sweep (``mlp_pipe``'s
    with its controls, splits=1 at tm=128 and tm=64), non-zero biases (b2
    included), T5 on a bf16 cotangent: equal to K2 (T4, T1, T2: K1; T5: K5
-   on all seven outputs) bit for bit, T6, T7 and T3 (on K2's tail), T2, T4
-   and T5 (on K1's and K5's asynchronous cores) also to their former
-   designs (``mlp3d_wmma``, ``mlp3d_staged_wmma``, ``mlp_pipe_mma`` at its
-   own default, ``attn_staged_wmma``, ``attn_rolling_wmma``,
-   ``staged_bwd_former``), and within rel
+   on all seven outputs) bit for bit, T6, T7 and T3 (on K2's tail), T2, T4,
+   T1 and T5 (on K1's and K5's asynchronous cores and their siblings) also
+   to their former designs (``mlp3d_wmma``, ``mlp3d_staged_wmma``,
+   ``mlp_pipe_mma`` at its own default, ``attn_staged_wmma``,
+   ``attn_pairs_wmma``, ``attn_rolling_wmma``, ``staged_bwd_former``), and
+   within rel
    2e-2 of the plain fp32 version (each output); one call launches the
    variant once and no other kernel; every shape and argument the ops refuse (cb not dividing B, an
    odd cb for T1, (tm, splits) outside T3's set or tm=128 at D=512, D=768, head_dim
@@ -161,7 +162,7 @@ Phases, in order; any failure raises and exits non-zero:
    12; then one block (T5: one backward, B=256) on the tools' inputs
    (B=512; the MLP variants on K1's output) at every argument the tools
    sweep: each variant equal to K2 (T4, T1, T2: K1; T5: K5) bit for bit
-   (all but T1 also to their former designs) and within rel 2e-2
+   (and to its former design) and within rel 2e-2
    of its plain fp32 version (the kernel report's
    error for the variants is from this run);
 16. the fusion-training slice through ``mfvit_tpu_torch.cli.fuse.main``:
@@ -442,11 +443,13 @@ VARIANTS = [
 ]
 ATTN_VARIANTS = ("attn_staged", "attn_pairs", "attn_rolling")
 # the variants redesigned on K2's tail (T6, T7, T3) and on K1's and K5's
-# asynchronous cores (T2, T4, T5), and their former designs (check-only ops
-# of ops/mlp_variants.py and ops/attn_variants.py that count no launch)
+# asynchronous cores and their siblings (T2, T4, T1, T5), and their former
+# designs (check-only ops of ops/mlp_variants.py and ops/attn_variants.py
+# that count no launch)
 FORMER_VARIANTS = {"mlp3d": "mlp3d_wmma", "mlp3d_staged": "mlp3d_staged_wmma",
                    "mlp_pipe": "mlp_pipe_mma",
                    "attn_staged": "attn_staged_wmma",
+                   "attn_pairs": "attn_pairs_wmma",
                    "attn_rolling": "attn_rolling_wmma",
                    "staged_bwd": "staged_bwd_former"}
 
@@ -2683,8 +2686,8 @@ def check_variant_kernels(dev) -> dict:
     """T6, T7, T3, T4, T1, T2 and T5 at VARIANT_SHAPES, bf16 inputs (and
     T5's cotangent) from a seed with non-zero biases (b2 included), at
     every schedule argument their tools sweep: equal to K2 (T4, T1, T2: K1;
-    T5: K5 on all seven outputs) bit for bit, all but T1 also to their
-    former designs (FORMER_VARIANTS), within REL_BAR of the plain fp32
+    T5: K5 on all seven outputs) bit for bit, and to their former designs
+    (FORMER_VARIANTS), within REL_BAR of the plain fp32
     version (each output); one call launches the variant once and no
     other kernel (the former designs count none). Then every shape and
     argument the ops refuse must raise."""
@@ -2747,6 +2750,10 @@ def check_variant_kernels(dev) -> dict:
                 a[0], *a[:6], 12, 32 ** -0.5, cb=3),
             "attn_pairs at head_dim 128, N=209": lambda: av.attn_pairs(
                 *la, 3, 128 ** -0.5, cb=2),
+            "attn_pairs_wmma cb=1 (odd)": lambda: av.attn_pairs_wmma(
+                *a, 12, 32 ** -0.5, cb=1),
+            "attn_pairs_wmma at head_dim 128, N=209": lambda:
+                av.attn_pairs_wmma(*la, 3, 128 ** -0.5, cb=2),
             "attn_rolling at head_dim 128, N=209": lambda: av.attn_rolling(
                 *la, 3, 128 ** -0.5, cb=2),
             "staged_bwd at head_dim 128, N=209": lambda: av.staged_bwd(
@@ -2864,8 +2871,8 @@ def hold_variants_at_tool_size(dev, batch: int) -> dict:
     as in the first block of a chain; T5 one backward on
     ``bench_bwd_staged``'s B=256 inputs and g0) at every schedule argument
     its tool sweeps (``variant_settings``): equal to K2 (T4, T1, T2: K1;
-    T5: K5, every output) on the same input bit for bit (all but T1 also
-    to their former designs), and within
+    T5: K5, every output) on the same input bit for bit (and to their
+    former designs), and within
     REL_BAR of its plain fp32 version (the op with ``plain=True`` on the
     upcast inputs; each output). The chains' checksums alone cannot tell a
     handful of wrong outputs among 38.7M. Returns the largest abs error

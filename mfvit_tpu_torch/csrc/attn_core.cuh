@@ -4,10 +4,9 @@
 // its qkv GEMM and its proj GEMM. It stays in the chains K1 and K10 ran
 // before, which fused_attn.cu and fused_int8.cu keep for the card's checks
 // (mfv_fused_attention_block_wmma; mfv_fused_attention_block_i8_mma, fp32
-// output), and as the per-warp stages that the
-// schedule variant T1 (attn_pairs.cu), the former designs of T2 and T4
-// (attn_rolling_wmma.cu, attn_staged_wmma.cu) and K9's long-sequence core
-// (attn_long.cuh) run.
+// output), and as the per-warp stages that the former designs of T1, T2
+// and T4 (attn_pairs_wmma.cu, attn_rolling_wmma.cu, attn_staged_wmma.cu)
+// and K9's long-sequence core (attn_long.cuh) run.
 //
 // qkv (B, N, 3D) bf16 with columns [q | k | v] x head x dh -> o (B, N, D)
 // in OT: bf16, or fp32 for K10's former chain, which quantizes the fp32
@@ -53,9 +52,9 @@ struct AttnSmem {
   static constexpr size_t BYTES = (size_t)(NK * LDK + DH * LDV) * sizeof(bf16);
 };
 
-// The stages of the core for one (image, head), shared with the schedule
-// variant T1 (attn_pairs.cu) and T2's and T4's former designs
-// (attn_rolling_wmma.cu, attn_staged_wmma.cu). `base` points at the head's q columns of the image's
+// The stages of the core for one (image, head), shared with the former
+// designs of T1, T2 and T4 (attn_pairs_wmma.cu, attn_rolling_wmma.cu,
+// attn_staged_wmma.cu). `base` points at the head's q columns of the image's
 // first token in qkv; the o rows of the image start at `o`. Each staging
 // function runs on `threads` threads, tid the thread's index among them.
 

@@ -38,7 +38,10 @@
 //   of an image). The same bound keeps every wait one round from the last,
 //   as parity alone tells rounds apart.
 // - Fragments by ldmatrix from the row-major slots (V's by
-//   ldmatrix.trans): no Vt copy and no block-wide barrier anywhere.
+//   ldmatrix.trans): no Vt copy and no block-wide barrier anywhere. The
+//   per-tile pieces (the producer's copy of an image, q's fragments, the
+//   scores, the masked max, exps and packing, the P V and its store) are
+//   attn_tile.cuh's, which T1's pair core shares.
 //
 // Every score, maximum, exp, sum and P V runs in the order and with the
 // rounding points of K1's core (attn_async.cu: the scores summed again for
@@ -50,7 +53,7 @@
 // and the latency of each warp's chain, with fewer warps than K1's (T at
 // most) and its image granularity: units = B / cb x heads over 132 SMs
 // (192 at cb = 16 leave 60 SMs a second unit).
-#include "attn_core.cuh"
+#include "attn_tile.cuh"
 #include "block_tail.cuh"
 
 namespace {
@@ -86,7 +89,7 @@ __global__ void __launch_bounds__(RollCore<DH, NKT>::THREADS, 1)
     attn_rolling_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o, int B, int N,
                         int heads, float scale, int cb) {
   using C = RollCore<DH, NKT>;
-  constexpr int W = C::W, KG = NKT / 2;
+  constexpr int W = C::W;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * C::SLOT_BYTES);  // [slot]
@@ -113,184 +116,61 @@ __global__ void __launch_bounds__(RollCore<DH, NKT>::THREADS, 1)
   __syncthreads();
 
   if (warp == W) {  // the producer
-    constexpr int CPR = DH / 8, RPI = 32 / CPR;  // 16-byte chunks a row, rows an iteration
-    const int c = lane % CPR * 8;
     for (int i = 0; i < mine; ++i) {
       const int slot = i & 1;
       if (i >= 2) mbar_wait(&empty[slot], (i / 2 + 1) & 1);
-      const bf16* src = q_of(i) + c + (C::QS ? 0 : D);
-      bf16* dst = ring + slot * C::SLOT + c;
-#pragma unroll
-      for (int part = 0; part < C::PARTS; ++part)  // [q,] K, V
-        for (int n = lane / CPR; n < C::NK; n += RPI)
-          cp_async16_zfill(dst + part * C::PART + n * C::LD,
-                           n < N ? src + (size_t)n * P3 + part * D : src, n < N);
+      tile::stage_image<DH, NKT, C::PARTS>(ring + slot * C::SLOT, q_of(i) + (C::QS ? 0 : D), N,
+                                           P3, D, lane);
       cp_async_arrive(&full[slot]);
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     return;
   }
 
+  using TL = tile::Tile<DH, NKT, 1, C::PASSES>;
   const int Wt = W < T ? W : T;
   const int g = lane >> 2, t4 = lane & 3;
-  const int groups = (N + 15) / 16;  // groups of 16 keys below N; the last may pass N
   // the deferred tile: its P, packed, its row sums and where it lies
-  uint32_t pd[KG][4];
-  float dl0 = 0.f, dl1 = 0.f;
+  typename TL::P pd;
+  float dl0[1], dl1[1];
   int dk = -1;  // its index in the walk, -1 for none
   // P V of the deferred tile, 1/sum on the output (rounded once to bf16),
   // and its slot handed back
   auto finish = [&]() {
     const int i = dk / T, q0 = (dk - i * T) * 16, slot = i & 1;
-    const bf16* Vs = ring + slot * C::SLOT + (C::PARTS - 1) * C::PART;
-    float oacc[DH / 8][4];
-#pragma unroll
-    for (int d = 0; d < DH / 8; ++d) oacc[d][0] = oacc[d][1] = oacc[d][2] = oacc[d][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KG; ++kk) {
-      if (kk >= groups) break;  // past N: p = 0, no term of any sum
-#pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        uint32_t vb[4];
-        ldsm_x4_t(vb, Vs + (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * C::LD + dp * 16 +
-                          (lane >> 4) * 8);
-        mma_bf16_16816(oacc[2 * dp], pd[kk], vb[0], vb[1]);
-        mma_bf16_16816(oacc[2 * dp + 1], pd[kk], vb[2], vb[3]);
-      }
-    }
+    const bf16* Vs[1] = {ring + slot * C::SLOT + (C::PARTS - 1) * C::PART};
+    typename TL::O oacc;
+    TL::pv(oacc, pd, Vs, N, lane);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[slot]);  // this tile is done with the slot
-    const float r0 = 1.0f / dl0, r1 = 1.0f / dl1;
-    bf16* orow = o + (image_of(i) * N + q0 + g) * D + head_of(i) + 2 * t4;
-#pragma unroll
-    for (int d = 0; d < DH / 8; ++d) {
-      if (q0 + g < N) store_pair(orow + 8 * d, oacc[d][0] * r0, oacc[d][1] * r0);
-      if (q0 + g + 8 < N)
-        store_pair(orow + (size_t)8 * D + 8 * d, oacc[d][2] * r1, oacc[d][3] * r1);
-    }
+    TL::store(oacc[0], dl0[0], dl1[0], o + (image_of(i) * N + q0 + g) * D + head_of(i) + 2 * t4,
+              q0, N, D, lane);
     dk = -1;
   };
 
   for (int k = warp; warp < Wt && k < mine * T; k += Wt) {
     const int i = k / T, q0 = (k - i * T) * 16, slot = i & 1;
     mbar_wait(&full[slot], (i / 2) & 1);
-    const bf16* Ks = ring + slot * C::SLOT + (C::QS ? C::PART : 0);
-
-    // q's A fragments, rows q0 .. q0 + 15, scaled in fp32 and rounded
-    uint32_t qa[DH / 16][4];
-#pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks) {
-      if constexpr (C::QS) {
-        ldsm_x4(qa[ks], ring + slot * C::SLOT + (q0 + (lane & 15)) * C::LD + ks * 16 +
-                            (lane >> 4) * 8);
-      } else {  // the fragment layout ldmatrix gives, from device memory (zeros past N)
-        const bf16* qg = q_of(i);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = q0 + g + (r & 1) * 8, col = ks * 16 + 2 * t4 + (r >> 1) * 8;
-          qa[ks][r] = row < N ? *reinterpret_cast<const uint32_t*>(qg + (size_t)row * P3 + col)
-                              : 0u;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qa[ks][r]));
-        qa[ks][r] = pack_bf16x2(f.x * scale, f.y * scale);
-      }
-    }
-    // the scores of 16-key group kk: sc[e] holds 8-key tile 2 kk + e, each
-    // sum over dh in ascending k16 steps
-    auto scores = [&](int kk, float (&sc)[2][4]) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) sc[e][0] = sc[e][1] = sc[e][2] = sc[e][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < DH / 16; ++ks) {
-        uint32_t kb[4];
-        ldsm_x4(kb, Ks + (16 * kk + (lane >> 4) * 8 + (lane & 7)) * C::LD + ks * 16 +
-                        ((lane >> 3) & 1) * 8);
-        mma_bf16_16816(sc[0], qa[ks], kb[0], kb[1]);
-        mma_bf16_16816(sc[1], qa[ks], kb[2], kb[3]);
-      }
-    };
-    // the row max of rows g (m0) and g + 8 (m1) over the valid keys
-    float held[C::PASSES == 1 ? KG : 1][2][4];
-    float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-    for (int kk = 0; kk < KG; ++kk) {
-      if (kk >= groups) break;
-      float(&sc)[2][4] = held[C::PASSES == 1 ? kk : 0];
-      scores(kk, sc);
-      if (kk < groups - 1 || 16 * groups == N) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          m0 = fmaxf(m0, fmaxf(sc[e][0], sc[e][1]));
-          m1 = fmaxf(m1, fmaxf(sc[e][2], sc[e][3]));
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            if (16 * kk + 8 * e + 2 * t4 + c < N) {
-              m0 = fmaxf(m0, sc[e][c]);
-              m1 = fmaxf(m1, sc[e][2 + c]);
-            }
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-    }
-    // p = exp(s - max) (0 past N), the lane's row sums over the key tiles in
-    // ascending order, P rounded as attn_pack_p packs it
-    uint32_t pn[KG][4];
-    float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KG; ++kk) {
-      if (kk >= groups) break;
-      float(&sc)[2][4] = held[C::PASSES == 1 ? kk : 0];
-      if (C::PASSES == 2) scores(kk, sc);
-      if (kk < groups - 1 || 16 * groups == N) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            sc[e][c] = expf(sc[e][c] - m0);
-            sc[e][2 + c] = expf(sc[e][2 + c] - m1);
-            l0 += sc[e][c];
-            l1 += sc[e][2 + c];
-          }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const bool valid = 16 * kk + 8 * e + 2 * t4 + c < N;
-            sc[e][c] = valid ? expf(sc[e][c] - m0) : 0.f;
-            sc[e][2 + c] = valid ? expf(sc[e][2 + c] - m1) : 0.f;
-            l0 += sc[e][c];
-            l1 += sc[e][2 + c];
-          }
-      }
-      pn[kk][0] = pack_bf16x2(sc[0][0], sc[0][1]);
-      pn[kk][1] = pack_bf16x2(sc[0][2], sc[0][3]);
-      pn[kk][2] = pack_bf16x2(sc[1][0], sc[1][1]);
-      pn[kk][3] = pack_bf16x2(sc[1][2], sc[1][3]);
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
+    const bf16* Ks[1] = {ring + slot * C::SLOT + (C::QS ? C::PART : 0)};
+    // q's A fragments, rows q0 .. q0 + 15, scaled in fp32 and rounded; the
+    // row max, then p = exp(s - max), the row sums and P packed
+    typename TL::Q qa;
+    tile::load_q<DH, C::QS>(qa[0], ring + slot * C::SLOT, q_of(i), q0, N, P3, scale, lane);
+    typename TL::S held;
+    typename TL::P pn;
+    float m0[1], m1[1], l0[1], l1[1];
+    TL::row_max(held, m0, m1, qa, Ks, N, lane);
+    TL::quad_max(m0, m1);
+    TL::exps(pn, l0, l1, held, m0, m1, qa, Ks, N, lane);
+    TL::quad_sum(l0, l1);
     // then the last tile's P V, and this tile waits in its place
     if (dk >= 0) finish();
 #pragma unroll
-    for (int kk = 0; kk < KG; ++kk)
+    for (int kk = 0; kk < TL::KG; ++kk)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) pd[kk][r] = pn[kk][r];
-    dl0 = l0;
-    dl1 = l1;
+      for (int r = 0; r < 4; ++r) pd[0][kk][r] = pn[0][kk][r];
+    dl0[0] = l0[0];
+    dl1[0] = l1[0];
     dk = k;
   }
   if (dk >= 0) finish();

@@ -10,8 +10,14 @@ function the port already has a kernel for, with another issue order:
   group's P V and q k^T beside the other's softmax; ``staged_fwd_plan``).
 - T1 ``attn_pairs``, K1's forward with the score and PV products batched
   over image pairs, replaces ``tools/bench_attn_pairs.py::attn_pairs``
-  (Pallas ``_attn_pairs_kernel`` :37, ``pallas_call`` :104):
-  csrc/attn_pairs.cu.
+  (Pallas ``_attn_pairs_kernel`` :37, ``pallas_call`` :104): K1's four
+  launches with the pair core of csrc/attn_pairs.cu, a sibling of K1's
+  asynchronous core whose blocks walk ``unit_walk``'s units a pair of
+  images at a time, a producer warp staging one head of both images of a
+  pair into one ring slot, each consumer warp running its next tile's
+  scores and softmax before its last tile's P V (``pairs_plan``; tiles of
+  one image, or, as a trial setting, of both images of a pair with their
+  MMA chains interleaved).
 - T2 ``attn_rolling``, K1's forward with two images' scores live,
   replaces ``tools/bench_rolling.py::attn_rolling`` (Pallas
   ``_attn_kernel_rolling`` :35, ``pallas_call`` :94): K1's four launches
@@ -27,11 +33,13 @@ function the port already has a kernel for, with another issue order:
   tile's recompute; ``staged_plan``), built per head_dim in
   csrc/attn_bwd_staged_dh{32,64,128}.cu.
 
-``attn_staged_wmma``, ``attn_rolling_wmma`` and ``staged_bwd_former`` run
-T4's, T2's and T5's former designs (T4 and T2 on K1's former WMMA chain,
-csrc/attn_staged_wmma.cu and csrc/attn_rolling_wmma.cu; T5's ping-pong
+``attn_staged_wmma``, ``attn_pairs_wmma``, ``attn_rolling_wmma`` and
+``staged_bwd_former`` run T4's, T1's, T2's and T5's former designs (T4, T1
+and T2 on K1's former WMMA chain, csrc/attn_staged_wmma.cu,
+csrc/attn_pairs_wmma.cu and csrc/attn_rolling_wmma.cu; T5's ping-pong
 core, csrc/attn_bwd_staged_former.cuh), for the card's checks only: no
-tool calls them and they count no launch.
+tool calls them and they count no launch. T1's and T2's cores share
+csrc/attn_tile.cuh's per-tile pieces.
 
 On a CUDA tensor each runs its kernels (whose notes say how they order the
 work) or raises; none falls back to the plain version. Each kernel equals
@@ -61,7 +69,8 @@ from mfvit_tpu_torch.ops.mlp_variants import check_forward_only
 LAUNCHES = {"attn_staged": 0, "attn_pairs": 0, "attn_rolling": 0,
             "staged_bwd": 0}
 
-N_MAX_DH128 = 208  # T2, T4: two slots of K and V a block; T5: two of K5's
+N_MAX_DH128 = 208  # T2, T4: two slots of K and V a block; T1: one pair
+# slot of K and V; T5: two of K5's
 
 # csrc/attn_rolling.cu's constants (T2's rolling core): the shared memory a
 # block can take, the consumer warps a block (at most T of them take tiles)
@@ -76,6 +85,17 @@ STAGED_WARPS = 7
 # by head_dim (T4's staged core)
 STAGED_FWD_GROUP = {32: 7, 64: 7, 128: 7}
 STAGED_FWD_PASSES = {32: 2, 64: 2, 128: 2}
+# csrc/attn_pairs.cu's constants (T1's pair core) by head_dim: the consumer
+# warps, the passes over the keys, the images a tile (2: pair tiles, both
+# images' MMA chains interleaved; 1: one image's tile), and whether a
+# tile's P V waits past the warp's next tile's softmax
+PAIRS_WARPS = {32: 11, 64: 11, 128: 7}
+PAIRS_PASSES = {32: 2, 64: 2, 128: 2}
+PAIRS_IMAGES = {32: 1, 64: 1, 128: 1}
+PAIRS_DEFER = True
+# T1's pair slots in the order the C side tries them: (slots, parts an
+# image: q, K and V, or K and V with q's fragments from device memory)
+PAIRS_RINGS = ((2, 3), (2, 2), (1, 3), (1, 2))
 
 
 class RollPlan(NamedTuple):
@@ -144,6 +164,73 @@ def staged_fwd_plan(N: int, dh: int) -> StagedFwdPlan:
     return StagedFwdPlan(keys, q_staged, slot, 2 * slot + 4 * 8, g,
                          min(g, (-(-N // 16) + 1) // 2),
                          STAGED_FWD_PASSES[dh])
+
+
+class PairsPlan(NamedTuple):
+    """A launch of T1's pair core at N tokens and head_dim dh: ``keys``
+    rows staged of each part (zeros past N), ``slots`` pair slots in the
+    ring, each holding one head of both images of a pair, ``q_staged``
+    whether a slot holds q beside K and V (else q's fragments come from
+    device memory), ``part_bytes`` of one image's q, K or V, ``slot_bytes``
+    of a pair slot, ``smem`` bytes a block (the ring and its full and empty
+    barriers), ``warps`` consumer warps, ``images`` a tile (2: pair tiles),
+    ``takers`` of the warps that take tiles (at most the tiles of a pair,
+    2T / images, T = ceil(N / 16): a deferred tile holds its slot while the
+    warp waits for the next pair), ``passes`` over the keys and ``defer``
+    whether a tile's P V waits past the next tile's softmax."""
+    keys: int
+    slots: int
+    q_staged: bool
+    part_bytes: int
+    slot_bytes: int
+    smem: int
+    warps: int
+    images: int
+    takers: int
+    passes: int
+    defer: bool
+
+
+def pair_ring_bytes(part: int, slots: int, parts: int) -> int:
+    """A ring of ``slots`` pair slots of ``parts`` parts an image, each
+    ``part`` bytes, and its full and empty barriers (csrc/attn_pairs.cu's
+    ``pair_ring`` in bytes)."""
+    return slots * 2 * parts * part + 2 * slots * 8
+
+
+def pairs_plan(N: int, dh: int) -> PairsPlan:
+    """PairCore's layout: the first of ``PAIRS_RINGS`` that fits a block's
+    shared memory; the smallest ``keys`` that holds N. The C side computes
+    the same from its template arguments; this copy checks what it
+    takes."""
+    if dh not in PAIRS_WARPS or not 0 < N <= KEYS[-1]:
+        raise ValueError(f"attn_pairs: the kernel takes head_dim 32/64/128 "
+                         f"and N <= {KEYS[-1]}; got head_dim {dh}, N={N}")
+    keys = next(k for k in KEYS if N <= k)
+    part = keys * (dh + 8) * 2
+    fits = [(s, p) for s, p in PAIRS_RINGS
+            if pair_ring_bytes(part, s, p) <= SMEM_MAX]
+    if not fits:
+        raise ValueError(f"attn_pairs: one pair slot of K and V passes a "
+                         f"block's shared memory at head_dim {dh}, N={N}")
+    slots, parts = fits[0]
+    images = PAIRS_IMAGES[dh]
+    return PairsPlan(keys, slots, parts == 3, part, 2 * parts * part,
+                     pair_ring_bytes(part, slots, parts), PAIRS_WARPS[dh],
+                     images, min(PAIRS_WARPS[dh], 2 * -(-N // 16) // images),
+                     PAIRS_PASSES[dh], PAIRS_DEFER)
+
+
+def pair_walk(B: int, heads: int, cb: int, grid: int) -> list:
+    """The image pairs each of ``grid`` persistent blocks takes in order
+    in T1's pair core: ``unit_walk``'s images of each block, two at a time
+    ((image a, image b, head); cb is even, so a pair never straddles two
+    units)."""
+    if cb % 2:
+        raise ValueError(f"attn_pairs: cb={cb} must be even")
+    return [[(blk[i][0], blk[i + 1][0], blk[i][1])
+             for i in range(0, len(blk), 2)]
+            for blk in unit_walk(B, heads, cb, grid)]
 
 
 class StagedPlan(NamedTuple):
@@ -232,14 +319,15 @@ def _forward(name, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads, scale,
     if plain or not x.is_cuda:
         return fused_attn.fused_attention_block_plain(
             x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads, scale)
-    k1_chain = name in ("attn_rolling", "attn_staged")
+    plans = {"attn_rolling": rolling_plan, "attn_staged": staged_fwd_plan,
+             "attn_pairs": pairs_plan}
+    k1_chain = name in plans
     if k1_chain:  # K1's LN pass and GEMMs, its own core
         B, N, D = x.shape
         if D not in fused_attn.K1_WIDTHS:
             raise ValueError(f"{name}: K1's chain takes D of 128, 256, 384, "
                              f"512 or 768; got D={D}")
-        (rolling_plan if name == "attn_rolling" else staged_fwd_plan)(
-            N, D // heads)
+        plans[name](N, D // heads)
     out = _launch(f"mfv_{name}", x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
                   heads, scale, cb, stats=not k1_chain)
     LAUNCHES[name] += 1
@@ -269,6 +357,18 @@ def attn_pairs(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads: int,
     """T1 forward: K1's function, a block's ``cb`` images taken in pairs."""
     return _forward("attn_pairs", x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
                     heads, scale, cb, plain, pairs=True)
+
+
+def attn_pairs_wmma(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads: int,
+                    scale: float, cb: int = 4):
+    """T1's former design (K1's former WMMA chain around a core of eight
+    warps that holds both images' K and a transposed V, csrc/
+    attn_pairs_wmma.cu), forward only, on CUDA tensors: the comparator the
+    card's checks hold T1 against bit for bit. No tool calls it, and it
+    counts no launch."""
+    _check("attn_pairs_wmma", x, heads, cb, pairs=True)
+    return _launch("mfv_attn_pairs_wmma", x, ln_s, ln_b, wqkv, bqkv, wproj,
+                   bproj, heads, scale, cb)
 
 
 def attn_rolling(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads: int,

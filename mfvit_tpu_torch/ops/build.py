@@ -68,7 +68,8 @@ SIGNATURES = {
     "mfv_mlp_pipe_mma": [_P] * 8 + [_I] * 5 + [_P],
     "mfv_attn_staged": [_P] * 10 + [_I] * 5 + [_F, _P],
     "mfv_attn_staged_wmma": [_P] * 11 + [_I] * 5 + [_F, _P],
-    "mfv_attn_pairs": [_P] * 11 + [_I] * 5 + [_F, _P],
+    "mfv_attn_pairs": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "mfv_attn_pairs_wmma": [_P] * 11 + [_I] * 5 + [_F, _P],
     "mfv_attn_rolling": [_P] * 10 + [_I] * 5 + [_F, _P],
     "mfv_attn_rolling_wmma": [_P] * 11 + [_I] * 5 + [_F, _P],
     "mfv_staged_bwd": [_P] * 22 + [_I] * 4 + [_F] + [_I] * 7 + [_P],

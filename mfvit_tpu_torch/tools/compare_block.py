@@ -1,4 +1,4 @@
-"""Time K15, K1-K5, K7, K9, K10, K11 and the schedule variants T2-T7 of
+"""Time K15, K1-K5, K7, K9, K10, K11 and the schedule variants T1-T7 of
 two checkouts of the repository on one card, in turns, and the
 end-to-end figures beside them:
 
@@ -28,16 +28,17 @@ tokens, ``e2e_ori384``), the FT step's images/s at B=256 and B=16
 (``time_train``) and the fusion step's pairs/s at B=256 (``time_fusion``,
 LP and ``--semi-supervised``). Every turn also runs ``variant_times``
 below (T6 flat and per image and T7 at cb 2, 4 and 8 and T3 at its three
-(splits, tm) beside K2, T2 at cb 4, 8 and 16 and T4 at cb 2 and 4 beside
-K1, T5 at cb 2 and 4 beside K5, and their former designs where the
-checkout has them, at vit_small B=256), the "t6", "t7", "t3", "t2", "t4"
-and "t5" breakdowns of ``stage_times`` (and the former designs'),
+(splits, tm) beside K2, T2 at cb 4, 8 and 16, T4 at cb 2 and 4 and T1 at
+cb 4 and 8 beside K1, T5 at cb 2 and 4 beside K5, and their former designs
+where the checkout has them, at vit_small B=256), the "t6", "t7", "t3",
+"t2", "t4", "t1" and "t5" breakdowns of ``stage_times`` (and the former
+designs'),
 ``overlap_probe`` (T6 per image on K2's and on T7's ring depth against
 T7, at D of 128-512), ``pipe_probe`` (T3's 128-row tile against K2 at D
 of 128-384), and ``output_digests`` (a hash of the output bits
-of K1, K2, K3, K5, K9, K10, K15 and of T6, T7, T3, T2, T4 and T5 on fixed
-inputs, which must be the same in both checkouts where their functions
-are).
+of K1, K2, K3, K5, K9, K10, K15 and of T6, T7, T3, T2, T4, T1 and T5 on
+fixed inputs, which must be the same in both checkouts where their
+functions are).
 ``--only variants`` runs only K15's ``time_block``, ``half_times``, those
 four and the breakdowns of K1, K2, K5 and the variants. Prints the
 card's name and power limit, one line a reading, and writes every
@@ -74,7 +75,10 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
     splits=2, tm=128) on K2's inputs and "t4" T4 (``attn_staged``, cb=2)
     on K1's, "t3_former" and "t4_wmma" their former designs (the
     checkout's ``mlp_pipe_mma`` at its default and ``attn_staged_wmma``,
-    or ``mlp_pipe`` and ``attn_staged`` where they are still those). Kernel name
+    or ``mlp_pipe`` and ``attn_staged`` where they are still those); "t1"
+    T1 (``attn_pairs``, cb=4) on K1's inputs and "t1_wmma" its former
+    design (``attn_pairs_wmma``, or ``attn_pairs`` in a checkout where it
+    is still the first design). Kernel name
     (namespace and parameters dropped, template arguments kept, so that
     two instances of one template stay apart; "t2" T2 (``attn_rolling``,
     cb=8) and "t5" T5 (``staged_bwd``, cb=2) on K1's and K5's inputs,
@@ -162,7 +166,11 @@ def stage_times(dev, op: str = "k15", B: int = 256, iters: int = 5,
                 a[0], *a[7:]),
             "t4_wmma": lambda: getattr(av, "attn_staged_wmma",
                                        av.attn_staged)(*a[:7], heads, scale,
-                                                       cb=2)}[op]
+                                                       cb=2),
+            "t1": lambda: av.attn_pairs(*a[:7], heads, scale, cb=4),
+            "t1_wmma": lambda: getattr(av, "attn_pairs_wmma",
+                                       av.attn_pairs)(*a[:7], heads, scale,
+                                                      cb=4)}[op]
     with torch.inference_mode():
         call()
         torch.cuda.synchronize()
@@ -285,14 +293,16 @@ def variant_calls(t) -> dict:
     """T6 flat and per image ("loop") and T7 at cb 2, 4 and 8 on one
     block's MLP inputs ``t`` (``chip_smoke.block_inputs``) beside K2, T3 at
     (splits, tm) (2, 128), (1, 128) and (1, 64) beside K2, T2 at cb 4, 8
-    and 16 and T4 at cb 2 and 4 on its attention inputs beside K1, T5 at cb
-    2 and 4 on them and a cotangent drawn with seed 17 beside K5, and the
-    former designs where the checkout has them (``mlp3d_wmma``,
-    ``mlp3d_staged_wmma``, ``attn_rolling_wmma``, ``staged_bwd_former``;
-    "t3_former", T3's first design at its default, and "t4_wmma" at cb 2
-    and 4: ``mlp_pipe_mma`` and ``attn_staged_wmma``, or ``mlp_pipe`` and
-    ``attn_staged`` in a checkout where those are still the first
-    designs): name -> call (T5 and K5 return their seven outputs)."""
+    and 16, T4 at cb 2 and 4 and T1 at cb 4 and 8 on its attention inputs
+    beside K1, T5 at cb 2 and 4 on them and a cotangent drawn with seed 17
+    beside K5, and the former designs where the checkout has them
+    (``mlp3d_wmma``, ``mlp3d_staged_wmma``, ``attn_rolling_wmma``,
+    ``staged_bwd_former``; "t3_former", T3's first design at its default,
+    "t4_wmma" at cb 2 and 4 and "t1_wmma" at cb 4 and 8: ``mlp_pipe_mma``,
+    ``attn_staged_wmma`` and ``attn_pairs_wmma``, or ``mlp_pipe``,
+    ``attn_staged`` and ``attn_pairs`` in a checkout where those are still
+    the first designs): name -> call (T5 and K5 return their seven
+    outputs)."""
     import torch
 
     from mfvit_tpu_torch.ops import attn_variants as av
@@ -332,6 +342,13 @@ def variant_calls(t) -> dict:
         for cb in (2, 4):
             calls[f"{name} cb={cb}"] = (
                 lambda op=op, cb=cb: op(*x, heads, scale, cb=cb))
+    pairs = {"t1_wmma": getattr(av, "attn_pairs_wmma", av.attn_pairs)}
+    if hasattr(av, "attn_pairs_wmma"):
+        pairs["t1"] = av.attn_pairs
+    for name, op in pairs.items():
+        for cb in (4, 8):
+            calls[f"{name} cb={cb}"] = (
+                lambda op=op, cb=cb: op(*x, heads, scale, cb=cb))
     attn = {"t2": av.attn_rolling}
     bwd = {"t5": av.staged_bwd}
     if hasattr(av, "attn_rolling_wmma"):
@@ -352,7 +369,7 @@ def variant_calls(t) -> dict:
 def variant_times(dev, B: int = 256, iters: int = 20) -> dict:
     """Every call of ``variant_calls`` at vit_small batch B
     (``chip_smoke.block_inputs``, seed 16), each first held equal to its
-    base kernel on those inputs (K2; T2: K1; T5: K5, every output), then
+    base kernel on those inputs (K2; T2, T4, T1: K1; T5: K5, every output), then
     timed twice with CUDA events in turns (the calls in order, then in
     reverse): name -> [ms, ms]."""
     import torch
@@ -366,15 +383,15 @@ def variant_times(dev, B: int = 256, iters: int = 20) -> dict:
         base = {k: chip_smoke.as_tuple(calls[k]()) for k in ("k1", "k2",
                                                               "k5")}
         for name, call in calls.items():
-            want = base[{"t2": "k1", "t4": "k1", "t5": "k5", "k1": "k1",
-                         "k5": "k5"}.get(name[:2], "k2")]
+            want = base[{"t2": "k1", "t4": "k1", "t1": "k1", "t5": "k5",
+                         "k1": "k1", "k5": "k5"}.get(name[:2], "k2")]
             if not all(torch.equal(u, v) for u, v in zip(
                     chip_smoke.as_tuple(call()), want)):
                 raise AssertionError(f"{name} differs from its base kernel "
                                      f"at B={B}")
         for name in (*calls, *reversed(calls)):
             out[name].append(chip_smoke.cuda_ms(calls[name], iters))
-    print(f"T6, T7, T3, T2, T4, T5, K1, K2 and K5 at vit_small B={B}: "
+    print(f"T6, T7, T3, T2, T4, T1, T5, K1, K2 and K5 at vit_small B={B}: "
           + ", ".join(f"{k} {'/'.join(f'{v:.4f}' for v in ms)} ms"
                       for k, ms in out.items()))
     return out
@@ -463,7 +480,7 @@ def pipe_probe(dev, B: int = 256, iters: int = 20) -> dict:
 
 def output_digests(dev, B: int = 256) -> dict:
     """A SHA-256 of the output bits of K1, K2, K3, K5, K10, K15 and of T6,
-    T7, T3, T2, T4 and T5 at every argument of ``variant_calls``, on the inputs of
+    T7, T3, T2, T4, T1 and T5 at every argument of ``variant_calls``, on the inputs of
     ``half_times`` (vit_small B, seed 16), and of K9 at vit_small@384
     (577 tokens, B=16, seed 16): name -> hex digest. Two checkouts whose
     kernels compute the same function bit for bit give the same digest."""
@@ -529,7 +546,9 @@ dev = torch.device("cuda")
 %s
 %s
 from mfvit_tpu_torch.ops import attn_variants
-T_OPS = ("t6", "t7", "t2", "t5", "t3_former", "t4_wmma")
+T_OPS = ("t6", "t7", "t2", "t5", "t3_former", "t4_wmma", "t1_wmma")
+if hasattr(attn_variants, "attn_pairs_wmma"):
+    T_OPS += ("t1",)
 if hasattr(mlp_variants, "mlp_pipe_mma"):
     T_OPS += ("t3", "t4")
 if hasattr(mlp_variants, "mlp3d_wmma"):
@@ -543,7 +562,7 @@ if hasattr(attn_variants, "staged_bwd_former"):
        + inspect.getsource(overlap_probe) + inspect.getsource(pipe_probe)
        + inspect.getsource(output_digests))
 
-# --only variants: K15, K1-K4 alone, T6, T7, T2 and T5 with their breakdowns
+# --only variants: K15, K1-K4 alone, T1-T7 with their breakdowns
 CHILD_VARIANTS = HEAD + """
 out = {"block": chip_smoke.time_block(dev), "halves": half_times(dev),
        "variants": variant_times(dev), "overlap": overlap_probe(dev),
@@ -598,7 +617,7 @@ def _turns(label: str, ms: dict, fmt: str = ".4f") -> str:
 
 
 def print_variants(runs: list) -> None:
-    """T6, T7, T2, T5, K1, K2 and K5 of both checkouts, and whether the
+    """T1-T7, K1, K2 and K5 of both checkouts, and whether the
     output bits of ``output_digests`` are the same in both (names both
     checkouts have)."""
     names = [n for n in runs[0][1]["variants"]
@@ -631,7 +650,7 @@ def main(argv=None) -> int:
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--only", choices=("variants",),
-                    help="run only K15, K1-K4 alone, T2-T7 (and the "
+                    help="run only K15, K1-K4 alone, T1-T7 (and the "
                     "breakdowns of K1, K2, K5 and the variants)")
     args = ap.parse_args(argv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1038,12 +1038,44 @@ def test_t2_t5_equal_their_former_designs_and_k1_k5(dev, B, N, D, H):
                 assert all(torch.equal(x, y) for x, y in zip(got, was)), cb
 
 
+@pytest.mark.parametrize("B,N,D,H", [(8, 197, 384, 12), (8, 197, 384, 6),
+                                     (8, 197, 384, 3), (8, 50, 384, 12),
+                                     (8, 208, 384, 3), (8, 256, 384, 12),
+                                     (8, 256, 384, 6), (8, 128, 256, 2),
+                                     (8, 100, 512, 4)])
+@pytest.mark.parametrize("cb", [2, 4, 8])
+def test_t1_equals_k1_and_its_former_design(dev, cb, B, N, D, H):
+    """T1 (K1's chain with the pair core) against the K1 kernel and its
+    former design (``attn_pairs_wmma``) on the same bf16 inputs, bit for
+    bit, at head_dim 32, 64 and 128 and every ring ``pairs_plan`` picks
+    (two slots of q, K and V; two of K and V at 256 keys; one of q, K and V
+    at head_dim 64 past 128 keys and 128 at 128; one of K and V at head_dim
+    128, 208 keys); one call launches T1 once and nothing else, and the
+    former design counts no launch."""
+    t = _block(dev, B, N, D)
+    a = [t[k] for k in ATTN]
+    scale = (D // H) ** -0.5
+    with torch.no_grad():
+        k1 = fused_attn.fused_attention_block(*a, H, scale)
+        ops.reset_launch_counts()
+        got = attn_variants.attn_pairs(*a, H, scale, cb=cb)
+        was = attn_variants.attn_pairs_wmma(*a, H, scale, cb=cb)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts.pop("attn_pairs") == 1 and not any(counts.values())
+    assert torch.equal(got, k1)
+    assert torch.equal(got, was)
+
+
 def test_the_attention_variants_refuse_on_the_card_too(dev):
     t = _block(dev, 4, 209, 384)
     a = [t[k] for k in ATTN]
     with torch.no_grad():
-        with pytest.raises(ValueError, match="must be even"):
-            attn_variants.attn_pairs(*a, 12, 32 ** -0.5, cb=1)
+        for op in (attn_variants.attn_pairs, attn_variants.attn_pairs_wmma):
+            with pytest.raises(ValueError, match="must be even"):
+                op(*a, 12, 32 ** -0.5, cb=1)
+            with pytest.raises(ValueError, match="N <= 208"):
+                op(*a, 3, 128 ** -0.5, cb=2)
         for op in ATTN_VARIANTS.values():
             with pytest.raises(ValueError, match="N <= 208"):
                 op(*a, 3, 128 ** -0.5, cb=2)
