@@ -9,7 +9,10 @@ drawn on the card, which the training CLIs use by default, beside the
 streaming and ``--aug-host`` feeds) and the whole-block kernel K15
 (through ``tools/bench_block``) and the schedule variants T1-T7 (through
 ``tools/bench_mlp3d``, ``bench_pipelined``, ``bench_attn_pairs``,
-``bench_rolling`` and ``bench_bwd_staged``) once on
+``bench_rolling`` and ``bench_bwd_staged``), and the measurement tools
+(``tools/bench_latency``, ``profile_fwd``, ``bench_train_steps``,
+``profile_moco``, ``bench_vitbase_int8``, ``bench_remat``,
+``bench_train_loop``, ``aug_order_study``) once on
 an NVIDIA GPU, at 224 px and at 384 px (577 tokens: the long-sequence
 path).
 
@@ -238,7 +241,8 @@ Phases, in order; any failure raises and exits non-zero:
    the control), and the val logits through the eval store equal to the
    streaming eval's (max |diff| 0.0); then times: the view's ms at B=256,
    and the CLIs' own images/s (pairs/s) in their second epoch over 1,024
-   synthetic images, ``finetune`` FT at B=16 and B=256, ``fuse`` LP and
+   synthetic images, ``finetune`` FT at B=16 (at B=256 the tools phase's
+   ``bench_train_loop`` times the same step on each feed), ``fuse`` LP and
    ``pretrain`` at B=32, each on the store, ``--device-store-mb 0`` and
    ``--aug-host`` (A B C C B A), and the fill's seconds per 1,000 images;
    then ``ddp`` (``run_ddp``): ``finetune`` FT and ``pretrain`` (the v2
@@ -254,7 +258,21 @@ Phases, in order; any failure raises and exits non-zero:
    statistics and the queue too (MoCo's gradients by their Frobenius
    error: a flipped ReLU rewrites one unit's row; in bf16 the keys of
    steps 2-3 printed), the ranks' states
-   equal bit for bit), the phase's seconds;
+   equal bit for bit), the phase's seconds; then the tools
+   (``run_tools``): the eight measurement tools of
+   ``mfvit_tpu_torch/tools`` through their ``run`` functions at full
+   width and the JAX tools' batch sizes (``bench_latency`` vit_small at B
+   1-512, ``profile_fwd``'s five variants at B=512, ``bench_train_steps``'
+   five setups, ``profile_moco`` at B=256, ``bench_vitbase_int8`` at
+   B=256, ``bench_remat`` vit_base B=256, ``bench_train_loop``'s five
+   feeds over 512 PNGs at B=256, ``aug_order_study`` at one seed and two
+   epochs): the exact launches of every measured call (``TOOL_CALLS``),
+   finite readings, ``profile_fwd``'s ``full`` equal to ``fused_forward``
+   bit for bit, ``bench_remat``'s second-step losses with and without
+   remat within PARITY_LOSS_BAR, the int8 forward's top-1 against the
+   plain int8 path on all but ``I8_TOP1_MISSES`` images in 32 (the int8
+   slice's reasoning), and the study's AUC finite in both modes, no
+   kernel launched (``--attn-backend xla``), the phase's seconds;
 20. times with CUDA events at B=256: each forward kernel (K10/K11
    included) and K5/K7 against its plain version (K5/K7 first held
    against the plain fp32 backward on the timed inputs), K5/K7 also at a
@@ -345,8 +363,9 @@ JSON object) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
-import functools
 import contextlib
+import copy
+import functools
 import json
 import math
 import os
@@ -501,6 +520,34 @@ PER_GPT_FUSION_STEP = {semi: {k: v for k, v in c.items()
 # the paired forward and the fusion step of each --fusion-arch
 PER_ARCH_FORWARD = {"ca": PER_FORWARD, "gpt": PER_GPT_FORWARD}
 PER_ARCH_STEP = {"ca": PER_FUSION_STEP, "gpt": PER_GPT_FUSION_STEP}
+# the launches of each measured call of the timing tools (run_tools)
+PER_BRANCHES = {k: v for k, v in PER_FORWARD.items()
+                if k != "fused_fusion_cls"}
+PER_FT_FULL_STEP = dict(PER_VIT_FORWARD, **PER_FT_STEP)
+# two ViT forwards and one backward: a MoCo step (both towers, the query
+# tower's backward), and an FT step under remat (each block's forward
+# again in the backward)
+PER_TWO_FORWARDS_STEP = dict({k: 2 * v for k, v in PER_VIT_FORWARD.items()},
+                             **PER_FT_STEP)
+TOOL_CALLS = {
+    "profile_fwd": {
+        "full": PER_FORWARD, "branches": PER_BRANCHES,
+        "one_branch": PER_VIT_FORWARD, "stem_only": {},
+        "nofinal": {"fused_attention_block": 24, "fused_mlp_block": 24}},
+    "bench_train_steps": {
+        "vit_small": PER_FT_FULL_STEP, "fusion": PER_FUSION_STEP[True],
+        "fusion_lp": PER_FUSION_STEP[False],
+        "moco": PER_TWO_FORWARDS_STEP,
+        "vit_base": PER_FT_FULL_STEP},
+    "profile_moco": {
+        "full": PER_TWO_FORWARDS_STEP, "fwd_q": PER_VIT_FORWARD,
+        "fwd_k": PER_VIT_FORWARD, "fwd_bwd": PER_FT_FULL_STEP, "ema": {},
+        "einsum": {}, "enqueue": {}, "adamw": {}},
+    "bench_vitbase_int8": {
+        "bf16": PER_VIT_FORWARD,
+        "int8": {"fused_attention_block_i8": 12, "fused_mlp_block_i8": 12}},
+    "bench_remat": {False: PER_FT_FULL_STEP, True: PER_TWO_FORWARDS_STEP},
+}
 PER_K15_FWD = {"fused_transformer_block": 1}
 PER_K15_FWD_BWD = {"fused_transformer_block": 1, "fused_attention_block": 1,
                    "fused_mlp_block_bwd": 1, "fused_attention_block_bwd": 1}
@@ -3930,8 +3977,9 @@ def time_feeds(dev, tmp: str, n: int = 1024) -> dict:
     """The CLIs' own rates on each feed over n synthetic images (pairs for
     ``fuse``; 32 val, 32 test), two epochs a run, the second timed (the
     fill and the decode of the first epoch excluded; the decode cache is
-    warm from the first run on): ``finetune`` FT at B=16 and B=256,
-    ``fuse`` LP at B=32 (pairs/s), ``pretrain`` at B=32; each the store
+    warm from the first run on): ``finetune`` FT at B=16 (at B=256
+    ``run_tools``' ``bench_train_loop`` times the same step on each
+    feed), ``fuse`` LP at B=32 (pairs/s), ``pretrain`` at B=32; each the store
     against ``--device-store-mb 0`` and ``--aug-host`` (``pretrain``'s
     host-stack views), in the order store, stream, aug-host, aug-host,
     stream, store. And the fill's seconds per 1,000 images (the first
@@ -3954,8 +4002,6 @@ def time_feeds(dev, tmp: str, n: int = 1024) -> dict:
     configs = (
         ("finetune FT B=16", finetune, 16,
          base + ["-b", "16", "--semi-supervised", "--lr", "0.01"]),
-        ("finetune FT B=256", finetune, 256,
-         base + ["-b", "256", "--semi-supervised", "--lr", "0.01"]),
         ("fuse LP B=32", fuse, 32, base + ["-b", "32", "--lr", "1e-3"]
          + branches),
         ("pretrain B=32", pretrain, 32,
@@ -4974,6 +5020,242 @@ def run_interop(dev, tmp: str, B: int = 256) -> dict:
             | {"by_op": [[k, v, n] for k, (v, n) in prof["by_op"][:12]]}}
 
 
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    """``obj.name`` replaced by ``value`` inside the block."""
+    real = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield real
+    finally:
+        setattr(obj, name, real)
+
+
+class CallLog:
+    """The launches of each call of wrapped functions: the counters'
+    change across the call, under a tag (a string, or a function of the
+    call's arguments)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def wrap(self, fn, tag):
+        from mfvit_tpu_torch import ops
+
+        def call(*a, **k):
+            before = ops.launch_counts()
+            out = fn(*a, **k)
+            after = ops.launch_counts()
+            self.calls.append((tag(*a) if callable(tag) else tag,
+                               {n: after[n] - v for n, v in before.items()
+                                if after[n] != v}))
+            return out
+        return call
+
+    def hold(self, tool: str, want: dict, n: dict) -> dict:
+        """Every call tagged t launched exactly ``want[t]`` and there were
+        ``n[t]`` of them; returns {t: its launches a call}."""
+        bad, seen = [], {}
+        for tag, got in self.calls:
+            seen[tag] = seen.get(tag, 0) + 1
+            if got != want[tag]:
+                bad.append(f"{tag}: {got} != {want[tag]}")
+        if seen != n:
+            bad.append(f"calls {seen} != {n}")
+        print(f"{tool}: launches a call " + "; ".join(
+            f"{t} x{seen.get(t, 0)} {want[t]}" for t in want))
+        if bad:
+            raise AssertionError(f"{tool}: " + "; ".join(bad[:8]))
+        self.calls = []
+        return {str(t): want[t] for t in want}
+
+
+def finite(tool: str, values) -> None:
+    values = list(values)
+    if not values or not all(isinstance(v, (int, float)) and math.isfinite(v)
+                             and v >= 0 for v in values):
+        raise AssertionError(f"{tool}: readings not finite {values}")
+
+
+def run_tools(dev, tmp: str) -> dict:
+    """The eight timing tools of ``mfvit_tpu_torch/tools`` through their
+    ``run`` functions at full width and the JAX tools' sizes, each
+    measured call's launches exact (``TOOL_CALLS``, ``CallLog``; tools'
+    warm-ups included), their readings finite, and the gates of the
+    docstring's phase 19. Returns {tool: readings, "launches": per call}."""
+    from mfvit_tpu_torch import ops
+    from mfvit_tpu_torch.models import fusion
+    from mfvit_tpu_torch.nn import vit
+    from mfvit_tpu_torch.tools import aug_order_study as aos
+    from mfvit_tpu_torch.tools import bench_latency as bl
+    from mfvit_tpu_torch.tools import bench_remat as br
+    from mfvit_tpu_torch.tools import bench_train_loop as btl
+    from mfvit_tpu_torch.tools import bench_train_steps as bts
+    from mfvit_tpu_torch.tools import bench_vitbase_int8 as bv
+    from mfvit_tpu_torch.tools import profile_fwd as pf
+    from mfvit_tpu_torch.tools import profile_moco as pm
+    out, launches, log = {}, {}, CallLog()
+    small = vit.get_config("vit_small")
+
+    t0 = time.perf_counter()
+    real_serve = bl.serve_fn
+    with patched(bl, "serve_fn", lambda dt=torch.bfloat16: log.wrap(
+            real_serve(dt), "request")):
+        rows = bl.run(dev)
+    n = len(bl.BATCHES) * (bl.WARMUP + bl.REQUESTS)
+    launches["bench_latency"] = log.hold("bench_latency",
+                                         {"request": PER_FORWARD},
+                                         {"request": n})
+    finite("bench_latency", [r[k] for r in rows
+                             for k in ("median_ms", "p99_ms")])
+    out["bench_latency"] = rows
+    print(f"bench_latency: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    models = bl.make_models(small, dev)
+    res = {}
+    real_variants = pf.variants
+    for name in pf.NAMES:
+        with patched(pf, "variants", lambda *a, **k: {
+                v: log.wrap(f, v) for v, f in real_variants(*a, **k).items()}):
+            res.update(pf.run(dev, 512, models=models, names=(name,)))
+    calls = {v: pf.ITERS + pf.WARMUP for v in pf.NAMES}
+    launches["profile_fwd"] = log.hold("profile_fwd", TOOL_CALLS[
+        "profile_fwd"], calls)
+    finite("profile_fwd", res.values())
+    img = bl.images(512, small, dev)
+    full = pf.variants(models, small, dev)["full"](img, img)
+    with torch.inference_mode():
+        f, lc, le = fusion.fused_forward(models["cxr"], models["enh"],
+                                         models["fus"], img, img)
+    if not torch.equal(full, f + lc + le):
+        raise AssertionError("profile_fwd: full differs from fused_forward")
+    print("profile_fwd: full equal to fused_forward's decision logits bit "
+          f"for bit (B=512); {time.perf_counter() - t0:.1f} s")
+    out["profile_fwd"] = {k: v * 1e3 for k, v in res.items()}
+    del models, img, full, f, lc, le
+
+    t0 = time.perf_counter()
+    with patched(bts.Setup, "run", log.wrap(bts.Setup.run,
+                                            lambda s: s.name)):
+        res = bts.run(dev)
+    launches["bench_train_steps"] = log.hold(
+        "bench_train_steps", TOOL_CALLS["bench_train_steps"],
+        {k: bts.ITERS + bts.WARMUP for k in TOOL_CALLS["bench_train_steps"]})
+    finite("bench_train_steps", [v for r in res.values() for v in r.values()])
+    out["bench_train_steps"] = res
+    print(f"bench_train_steps: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    pieces = pm.Pieces(dev, 256)
+    saved = {k: getattr(pm.Pieces, k) for k in pm.LAGGED + pm.CHAINED}
+    try:
+        for k, fn in saved.items():
+            setattr(pm.Pieces, k, log.wrap(fn, k))
+        res = pm.run(dev, 256, pieces=pieces)
+    finally:
+        for k, fn in saved.items():
+            setattr(pm.Pieces, k, fn)
+    calls = {k: pm.ITERS + pm.WARMUP for k in pm.LAGGED}
+    calls.update({k: 1 + 3 * (1 + (pm.R_SHORT if k in ("ema", "adamw")
+                                   else pm.R)) for k in pm.CHAINED})
+    launches["profile_moco"] = log.hold("profile_moco",
+                                        TOOL_CALLS["profile_moco"], calls)
+    finite("profile_moco", res.values())
+    out["profile_moco"] = res
+    del pieces
+    print(f"profile_moco: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    model = bv.make_model(dev)
+    forms = iter(("bf16", "int8"))
+    real_fwd = bv.forward_fn
+    with patched(bv, "forward_fn", lambda m, dt=torch.bfloat16: log.wrap(
+            real_fwd(m, dt), next(forms))):
+        res = bv.run(dev, model=model)
+    launches["bench_vitbase_int8"] = log.hold(
+        "bench_vitbase_int8", TOOL_CALLS["bench_vitbase_int8"],
+        {k: bv.ITERS + bv.WARMUP for k in ("bf16", "int8")})
+    img = bl.images(bv.B, model.cfg, dev)
+    with torch.inference_mode():
+        plain = model(img, reference=True).float().cpu()
+    misses = int((plain.argmax(-1) != res["logits_int8"].argmax(-1)).sum())
+    allowed = I8_TOP1_MISSES * -(-bv.B // 32)
+    print(f"bench_vitbase_int8: int8 kernels' top-1 against the plain int8 "
+          f"path {bv.B - misses}/{bv.B} (at most {allowed} misses, "
+          f"I8_TOP1_MISSES a 32); int8 against bf16 "
+          f"{res['top1_agreement']:.4f}, drift {res['max_logit_drift']:.4f}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if misses > allowed:
+        raise AssertionError(f"bench_vitbase_int8: {misses} top-1 misses")
+    res = {k: v for k, v in res.items() if not k.startswith("logits")}
+    finite("bench_vitbase_int8", res.values())
+    out["bench_vitbase_int8"] = dict(res, plain_int8_top1_misses=misses)
+    del model, plain, img
+
+    t0 = time.perf_counter()
+    real_step = br.make_step
+    with patched(br, "make_step", lambda m, remat, dt=torch.bfloat16:
+                 log.wrap(real_step(m, remat, dt), remat)):
+        rows = br.run(dev)
+    launches["bench_remat"] = log.hold(
+        "bench_remat", TOOL_CALLS["bench_remat"],
+        {r: br.ITERS + br.WARMUP for r in (False, True)})
+    finite("bench_remat", [r[k] for r in rows
+                           for k in ("img_s", "ms_per_step", "step_peak_mib")])
+    base = vit.ViT(vit.get_config("vit_base"), 3,
+                   generator=torch.Generator().manual_seed(0))
+    imgs, labels = br.inputs(base.cfg, 64, dev)
+    second = {}
+    for remat in (False, True):
+        call = br.make_step(copy.deepcopy(base).to(dev), remat)
+        second[remat] = [call(imgs, labels).item() for _ in range(2)][1]
+    r = abs(second[True] - second[False]) / abs(second[False])
+    print(f"bench_remat: second-step loss (vit_base B=64) with and without "
+          f"remat {second[True]:.6f} / {second[False]:.6f}, rel {r:.2e} "
+          f"(bar {PARITY_LOSS_BAR}); {time.perf_counter() - t0:.1f} s")
+    if not r < PARITY_LOSS_BAR:
+        raise AssertionError(f"bench_remat: losses {second}")
+    out["bench_remat"] = dict(rows=rows, second_step_loss_rel=r)
+    del base, imgs, labels
+
+    t0 = time.perf_counter()
+    with patched(btl.Loop, "run", log.wrap(btl.Loop.run,
+                                           lambda self, feed, src: feed)):
+        res = btl.run(dev)
+    per_feed = {f: {k: v * btl.STEPS for k, v in PER_FT_FULL_STEP.items()}
+                for f in btl.FEEDS}
+    launches["bench_train_loop"] = log.hold("bench_train_loop", per_feed,
+                                            {f: 1 for f in btl.FEEDS})
+    finite("bench_train_loop", res.values())
+    out["bench_train_loop"] = res
+    print(f"bench_train_loop: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    seeds = os.environ.get("AUG_STUDY_SEEDS")
+    os.environ["AUG_STUDY_SEEDS"] = "1"
+    try:
+        with patched(aos, "EPOCHS", 2):
+            res = aos.run(str(dev), os.path.join(tmp, "augstudy"))
+    finally:
+        if seeds is None:
+            os.environ.pop("AUG_STUDY_SEEDS")
+        else:
+            os.environ["AUG_STUDY_SEEDS"] = seeds
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    aucs = {m: r["auc_mean"] for m, r in res.items()}
+    print(f"aug_order_study (one seed, two epochs): AUC {aucs}, launches "
+          f"{counts}; {time.perf_counter() - t0:.1f} s")
+    if counts or not all(math.isfinite(v) for v in aucs.values()):
+        raise AssertionError(f"aug_order_study: AUC {aucs}, launches "
+                             f"{counts}")
+    out["aug_order_study"] = {m: {k: r[k] for k in ("auc_mean", "acc_mean")}
+                              for m, r in res.items()}
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     smi = environment()
     dev = torch.device("cuda")
@@ -5119,6 +5401,17 @@ def main() -> int:
           "and v3, B=32)")
     with tempfile.TemporaryDirectory() as tmp:
         ddp = run_ddp(dev, tmp)
+
+    phase("the tools: bench_latency (vit_small, B 1-512), profile_fwd "
+          "(B=512), bench_train_steps (ft, fusion, fusion_lp, moco, "
+          "vit_base), profile_moco (B=256), bench_vitbase_int8 (B=256), "
+          "bench_remat (vit_base, B=256), bench_train_loop (five feeds, "
+          "B=256), aug_order_study (one seed, two epochs)")
+    t_tools = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tools = run_tools(dev, tmp)
+    tools["seconds"] = time.perf_counter() - t_tools
+    print(f"tools phase: {tools['seconds']:.1f} s")
 
     phase("times (B=256; K12-K14 also at N=577, B=64; K5/K7 also at a "
           "vit_base block, B=64; the fusion step also at B=32, and with the "
@@ -5299,6 +5592,7 @@ def main() -> int:
                       "k9_k10_k11_outputs_differ_from_former": long_former,
                       "interop": interop,
                       "ddp": ddp,
+                      "tools": tools,
                       "card": smi}))
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ from __future__ import annotations
 from mfvit_tpu_torch.cli import common
 from mfvit_tpu_torch.ops import fused_mlp
 from mfvit_tpu_torch.ops.attn_variants import attn_pairs
+from mfvit_tpu_torch.tools import card
 from mfvit_tpu_torch.tools.bench_block import D, HEADS, N, SCALE
 from mfvit_tpu_torch.tools.bench_mlp3d import build_parser, run_chains
 from mfvit_tpu_torch.tools.bench_pipelined import chain_of, k1
@@ -44,6 +45,7 @@ def run(device, batch: int = 512, depth: int = 12) -> dict:
 def main(argv=None) -> dict:
     args = build_parser("mfvit-torch-bench-attn-pairs").parse_args(argv)
     device = common.resolve_device(args.device)
+    card.describe(device)
     print(f"B={args.batch}, N={N}, D={D}, heads={HEADS}, depth={args.depth} "
           f"on {device}")
     return run(device, args.batch, args.depth)

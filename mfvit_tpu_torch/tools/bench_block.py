@@ -27,6 +27,7 @@ import torch
 
 from mfvit_tpu_torch.cli import common
 from mfvit_tpu_torch.ops import fused_attn, fused_block, fused_mlp
+from mfvit_tpu_torch.tools import card
 
 N, D, HEADS = 197, 384, 12
 SCALE = (D // HEADS) ** -0.5
@@ -121,6 +122,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     device = common.resolve_device(args.device)
+    card.describe(device)
     print(f"B={args.batch}, N={N}, D={D}, heads={HEADS}, depth={args.depth} "
           f"on {device}")
     return run(device, args.batch, args.depth)

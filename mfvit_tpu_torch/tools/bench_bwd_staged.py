@@ -27,6 +27,7 @@ import torch
 from mfvit_tpu_torch.cli import common
 from mfvit_tpu_torch.ops import fused_attn
 from mfvit_tpu_torch.ops.attn_variants import staged_bwd
+from mfvit_tpu_torch.tools import card
 from mfvit_tpu_torch.tools.bench_block import (ATTN, D, HEADS, N, SCALE,
                                                make_inputs, time_chain)
 from mfvit_tpu_torch.tools.bench_mlp3d import build_parser
@@ -117,6 +118,7 @@ def main(argv=None) -> tuple:
     args = build_parser("mfvit-torch-bench-bwd-staged", BATCH).parse_args(
         argv)
     device = common.resolve_device(args.device)
+    card.describe(device)
     print(f"B={args.batch}, N={N}, D={D}, heads={HEADS}, depth={args.depth} "
           f"on {device}")
     return run(device, args.batch, args.depth)

@@ -26,6 +26,7 @@ import torch
 from mfvit_tpu_torch.cli import common
 from mfvit_tpu_torch.ops import fused_attn, fused_mlp
 from mfvit_tpu_torch.ops.mlp_variants import mlp3d, mlp3d_staged
+from mfvit_tpu_torch.tools import card
 from mfvit_tpu_torch.tools.bench_block import (ATTN, D, HEADS, MLP, N, SCALE,
                                                make_inputs, time_chain)
 
@@ -91,6 +92,7 @@ def build_parser(prog: str = "mfvit-torch-bench-mlp3d", batch: int = 512):
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     device = common.resolve_device(args.device)
+    card.describe(device)
     print(f"B={args.batch}, N={N}, D={D}, heads={HEADS}, depth={args.depth} "
           f"on {device}")
     return run(device, args.batch, args.depth)

@@ -20,6 +20,7 @@ from mfvit_tpu_torch.cli import common
 from mfvit_tpu_torch.ops import fused_attn, fused_mlp
 from mfvit_tpu_torch.ops.attn_variants import attn_staged
 from mfvit_tpu_torch.ops.mlp_variants import mlp_pipe
+from mfvit_tpu_torch.tools import card
 from mfvit_tpu_torch.tools.bench_block import ATTN, D, HEADS, MLP, N, SCALE
 from mfvit_tpu_torch.tools.bench_mlp3d import build_parser, run_chains
 
@@ -67,6 +68,7 @@ def run(device, batch: int = 512, depth: int = 12) -> dict:
 def main(argv=None) -> dict:
     args = build_parser("mfvit-torch-bench-pipelined").parse_args(argv)
     device = common.resolve_device(args.device)
+    card.describe(device)
     print(f"B={args.batch}, N={N}, D={D}, heads={HEADS}, depth={args.depth} "
           f"on {device}")
     return run(device, args.batch, args.depth)

@@ -64,8 +64,9 @@ def _fusion_forward(fusion_arch: str, compute_dtype, reference,
     generic per-branch route: each ViT gives its tokens and logits
     (``return_features``; K1-K3), then the head. ``frozen`` runs the
     branches with no autograd graph (JAX's ``stop_gradient`` on their
-    tokens and CLS). The GPT head carries its own config (JAX passes
-    ``gpt_cfg`` beside the params). ``attn_backend="xla"`` runs JAX's XLA
+    tokens and CLS), then their heads on the CLS rows under autograd. The
+    GPT head carries its own config (JAX passes ``gpt_cfg`` beside the
+    params). ``attn_backend="xla"`` runs JAX's XLA
     route in the branches and the CA head."""
     if fusion_arch not in ("ca", "gpt"):
         raise ValueError(f"unknown fusion_arch {fusion_arch!r}")
@@ -82,6 +83,12 @@ def _fusion_forward(fusion_arch: str, compute_dtype, reference,
         with torch.no_grad() if frozen else contextlib.nullcontext():
             tok_c, lc = models["cxr"](img_cxr, **kw)
             tok_e, le = models["enh"](img_enh, **kw)
+        if frozen:
+            # the gradient stops at the tokens and the CLS, not at the
+            # branch heads, which train where the optimizer holds them
+            lc, le = (F.linear(t[:, 0].float(), m.head.weight, m.head.bias)
+                      for t, m in ((tok_c, models["cxr"]),
+                                   (tok_e, models["enh"])))
         return (models["fus"](tok_c, tok_e, reference=reference,
                               attn_backend=attn_backend), lc, le)
 
