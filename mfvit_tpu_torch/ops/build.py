@@ -7,7 +7,11 @@ the library's file name carries a hash of the ``csrc`` sources, so an
 edited source rebuilds and an unchanged one loads the library already
 built. Output goes to ``build/mfvit_tpu_torch/`` beside the package, with
 the compiler's ``-Xptxas -v`` report (registers, shared memory, spills per
-kernel) in ``build.log`` next to the library.
+kernel) in ``build.log`` next to the library. ``BUILD`` records what the
+first ``lib()`` call of the process cost: ``built`` is 1 where it ran
+``nvcc``, ``build_s`` the seconds ``build()`` took (hashing the sources,
+and compiling where it did), ``load_s`` the seconds loading the library
+and binding its entry points took.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -81,6 +86,7 @@ SIGNATURES = {
 }
 
 _lib = None
+BUILD = {"built": 0, "build_s": 0.0, "load_s": 0.0}
 
 
 def sources() -> list[Path]:
@@ -137,6 +143,7 @@ def build() -> Path:
         raise RuntimeError(f"nvcc failed ({rc}): {' '.join(c)}\n{text}")
     os.replace(work / "lib.so", out)
     shutil.rmtree(work, ignore_errors=True)
+    BUILD["built"] = 1
     return out
 
 
@@ -144,7 +151,10 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        cdll = ctypes.CDLL(str(build()))
+        t0 = time.perf_counter()
+        path = build()
+        t1 = time.perf_counter()
+        cdll = ctypes.CDLL(str(path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(cdll, name)
             fn.argtypes = argtypes
@@ -152,6 +162,7 @@ def lib() -> ctypes.CDLL:
         cdll.mfv_error_string.argtypes = [ctypes.c_int]
         cdll.mfv_error_string.restype = ctypes.c_char_p
         _lib = cdll
+        BUILD.update(build_s=t1 - t0, load_s=time.perf_counter() - t1)
     return _lib
 
 

@@ -2,7 +2,12 @@
 ``softmax_ce``, the classifier steps of the LP/FT entry point
 (``make_classifier_steps``), the MF-ViT fusion forward that serving uses
 (``make_fusion_forward``, the CA or the GPT head) and the
-fusion-training steps (``make_fusion_steps``)."""
+fusion-training steps (``make_fusion_steps``).
+
+The steps and the serving forward mark their parts with ``ops.span``
+(free while no profiler records): ``mfv.step`` around a training step,
+with ``mfv.forward``, ``mfv.loss``, ``mfv.backward`` and ``mfv.optim`` in
+turn inside it, and ``mfv.serve`` around a served forward."""
 from __future__ import annotations
 
 import contextlib
@@ -12,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from mfvit_tpu_torch.models import fusion as fusion_mod
+from mfvit_tpu_torch.ops import span
 from mfvit_tpu_torch.parallel import dist
 
 
@@ -38,14 +44,15 @@ def make_classifier_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
     ``attn_backend="xla"`` JAX's XLA route (``nn.xla_route``)."""
 
     def train_step(model, opt, imgs, labels):
-        logits = model(imgs, compute_dtype=compute_dtype, remat=remat,
-                       reference=reference, attn_backend=attn_backend)
-        loss = softmax_ce(logits, labels)
-        opt.zero_grad()
-        loss.backward()
-        dist.mean_grads(opt.params())
-        opt.step()
-        return dist.all_mean(loss.detach()), logits.detach()
+        with span("mfv.step"):
+            with span("mfv.forward"):
+                logits = model(imgs, compute_dtype=compute_dtype,
+                               remat=remat, reference=reference,
+                               attn_backend=attn_backend)
+            with span("mfv.loss"):
+                loss = softmax_ce(logits, labels)
+            _backward_and_step(opt, loss)
+            return dist.all_mean(loss.detach()), logits.detach()
 
     @torch.inference_mode()
     def eval_step(model, imgs):
@@ -53,6 +60,18 @@ def make_classifier_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
                      attn_backend=attn_backend)
 
     return train_step, eval_step
+
+
+def _backward_and_step(opt, loss: torch.Tensor) -> None:
+    """The training steps' backward (``mfv.backward``, with the gradients
+    cleared just before it) and the optimizer's step (``mfv.optim``: the
+    gradients averaged over the ranks, then ``opt.step()``)."""
+    with span("mfv.backward"):
+        opt.zero_grad()
+        loss.backward()
+    with span("mfv.optim"):
+        dist.mean_grads(opt.params())
+        opt.step()
 
 
 def _fusion_forward(fusion_arch: str, compute_dtype, reference,
@@ -104,9 +123,16 @@ def make_fusion_forward(*, compute_dtype: torch.dtype = torch.bfloat16,
     ``models.gpt_fusion.GPTFusion`` for ``"gpt"``), without autograd: the
     one forward that serving and the eval step share. The decision logits
     are the sum of the three."""
-    return torch.inference_mode()(_fusion_forward(
-        fusion_arch, compute_dtype, reference, frozen=False,
-        remat=False, attn_backend=attn_backend))
+    forward = _fusion_forward(fusion_arch, compute_dtype, reference,
+                              frozen=False, remat=False,
+                              attn_backend=attn_backend)
+
+    @torch.inference_mode()
+    def serve(models, img_cxr, img_enh):
+        with span("mfv.serve"):
+            return forward(models, img_cxr, img_enh)
+
+    return serve
 
 
 def make_fusion_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
@@ -141,14 +167,14 @@ def make_fusion_steps(*, compute_dtype: torch.dtype = torch.bfloat16,
                               attn_backend=attn_backend)
 
     def train_step(models, opt, img_cxr, img_enh, labels):
-        fused, lc, le = forward(models, img_cxr, img_enh)
-        out = fused + lc + le
-        loss = softmax_ce(out, labels)
-        opt.zero_grad()
-        loss.backward()
-        dist.mean_grads(opt.params())
-        opt.step()
-        return dist.all_mean(loss.detach()), out.detach()
+        with span("mfv.step"):
+            with span("mfv.forward"):
+                fused, lc, le = forward(models, img_cxr, img_enh)
+            with span("mfv.loss"):
+                out = fused + lc + le
+                loss = softmax_ce(out, labels)
+            _backward_and_step(opt, loss)
+            return dist.all_mean(loss.detach()), out.detach()
 
     serve = make_fusion_forward(compute_dtype=compute_dtype,
                                 reference=reference, fusion_arch=fusion_arch,
